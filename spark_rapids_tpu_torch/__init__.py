@@ -1,0 +1,17 @@
+"""spark_rapids_tpu_torch: the PyTorch/CUDA port of spark_rapids_tpu.
+
+A columnar SQL engine that runs on an NVIDIA H100 through PyTorch, with
+hand-written CUDA kernels (``csrc/``) where the JAX package had Pallas
+TPU kernels.  It mirrors ``spark_rapids_tpu``'s layout and names, and
+imports neither JAX nor that package.  Entry point: ``TorchSession``.
+"""
+
+from spark_rapids_tpu_torch.session import (  # noqa: F401
+    DataFrame,
+    TorchSession,
+    avg,
+    col,
+    count_star,
+    lit,
+    sum_,
+)

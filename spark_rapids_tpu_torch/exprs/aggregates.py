@@ -1,0 +1,125 @@
+"""Declarative aggregate functions.
+
+Counterpart of ``spark_rapids_tpu/exprs/aggregates.py``: each SQL
+aggregate decomposes into *update* ops (per input batch), *merge* ops
+(over partial results, e.g. after a shuffle) and a *finalize*
+expression over the partial columns.  The slice ports Sum, CountStar
+and Average; the ops they name run in ``ops/groupby.py``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.exprs.base import Expression, Literal
+from spark_rapids_tpu_torch.ops.groupby import AggSpec, agg_output_dtype
+
+
+@dataclasses.dataclass(repr=False)
+class AggregateFunction:
+    child: Optional[Expression]
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__.lower()
+
+    def bind(self, schema: T.Schema) -> "AggregateFunction":
+        if self.child is None:
+            return self
+        from spark_rapids_tpu_torch.exprs.base import bind_references
+
+        return type(self)(bind_references(self.child, schema))
+
+    def inputs(self) -> list[Expression]:
+        return [self.child] if self.child is not None else []
+
+    def update_ops(self) -> list[str]:
+        raise NotImplementedError
+
+    def merge_ops(self) -> list[str]:
+        raise NotImplementedError
+
+    def partial_dtypes(self) -> list[T.DataType]:
+        in_dt = self.child.dtype if self.child is not None else None
+        return [agg_output_dtype(AggSpec(op, 0), in_dt)
+                for op in self.update_ops()]
+
+    def finalize_expr(self, partial_refs: list[Expression]) -> Expression:
+        return partial_refs[0]
+
+    @property
+    def dtype(self) -> T.DataType:
+        return self.partial_dtypes()[0]
+
+    @property
+    def nullable(self) -> bool:
+        return True
+
+
+class Sum(AggregateFunction):
+    def update_ops(self):
+        return ["sum"]
+
+    def merge_ops(self):
+        return ["sum"]
+
+
+class CountStar(AggregateFunction):
+    def __init__(self):
+        super().__init__(None)
+
+    def update_ops(self):
+        return ["count_star"]
+
+    def merge_ops(self):
+        return ["sum"]
+
+    def partial_dtypes(self):
+        return [T.LONG]
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def finalize_expr(self, partial_refs):
+        from spark_rapids_tpu_torch.exprs.predicates import Coalesce
+
+        # the merge SUMs counts: NULL only for an empty grand aggregate,
+        # where SQL count(*) must be 0
+        return Coalesce(partial_refs[0], Literal.of(0))
+
+
+class Average(AggregateFunction):
+    """avg = sum / count: partials [sum, count], merge [sum, sum],
+    finalize sum / count (NULL when the count is 0)."""
+
+    def update_ops(self):
+        return ["sum", "count"]
+
+    def merge_ops(self):
+        return ["sum", "sum"]
+
+    def partial_dtypes(self):
+        return [T.DOUBLE, T.LONG]
+
+    @property
+    def dtype(self) -> T.DataType:
+        return T.DOUBLE
+
+    def finalize_expr(self, partial_refs):
+        from spark_rapids_tpu_torch.exprs.arithmetic import Divide
+
+        return Divide(partial_refs[0], partial_refs[1])
+
+
+@dataclasses.dataclass
+class NamedAgg:
+    """An aggregate function with its output column name."""
+
+    fn: AggregateFunction
+    out_name: str
+
+    def output_field(self) -> T.Field:
+        return T.Field(self.out_name, self.fn.dtype, self.fn.nullable)

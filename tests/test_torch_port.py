@@ -1,0 +1,287 @@
+"""The PyTorch port on its own: package isolation, the device rule,
+Arrow conversion, expression semantics, the aggregate exec, and (on a
+card only) K1 against its plain version.
+
+This file imports no JAX, so it also runs where JAX is absent:
+
+    python -m pytest --noconftest tests/test_torch_port.py -m cuda
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+import torch
+
+from spark_rapids_tpu_torch import TorchSession, avg, col, count_star, lit
+from spark_rapids_tpu_torch import sum_
+from spark_rapids_tpu_torch.columnar.arrow import from_arrow, to_arrow
+from spark_rapids_tpu_torch.exprs.base import EvalContext, bind_references
+from spark_rapids_tpu_torch.ops import kernels
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_DIR = REPO / "spark_rapids_tpu_torch"
+
+
+def _port_modules():
+    for p in sorted(PORT_DIR.rglob("*.py")):
+        rel = p.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        yield ".".join(parts)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = list(_port_modules())
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'bench'\n"
+        "             or m == 'spark_rapids_tpu'\n"
+        "             or m.startswith('spark_rapids_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(mods) >= 20
+
+
+def test_port_sources_name_no_jax_import():
+    files = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for n in names:
+                root = n.split(".")[0]
+                assert root not in ("jax", "jaxlib", "bench",
+                                    "spark_rapids_tpu"), (f, n)
+
+
+def test_session_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default session is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchSession()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchSession(device="cuda")
+    assert TorchSession(device="cpu").device.type == "cpu"
+
+
+def test_unlowerable_plan_raises():
+    from spark_rapids_tpu_torch.plan.logical import LogicalPlan
+    from spark_rapids_tpu_torch.plan.planner import Planner
+
+    class Sort(LogicalPlan):
+        children = []
+
+    s = TorchSession(device="cpu")
+    with pytest.raises(NotImplementedError):
+        Planner(s.conf, s.device, s.shuffle_manager).plan(Sort())
+
+
+def test_unknown_conf_key_raises():
+    with pytest.raises(KeyError):
+        TorchSession({"spark.rapids.tpu.sql.nope": 1}, device="cpu")
+
+
+def _table():
+    return pa.table({
+        "i": pa.array([1, None, -3, 4, 5], pa.int32()),
+        "l": pa.array([10, 20, None, -(1 << 40), 7], pa.int64()),
+        "d": pa.array([0.5, float("nan"), None, -0.0, 1e300], pa.float64()),
+        "b": pa.array([True, False, None, True, False], pa.bool_()),
+        "dt": pa.array([0, 19000, None, 3, 4], pa.int32()).cast(pa.date32()),
+        "s": pa.array(["", "ab", None, "ünïcode", "x" * 33], pa.string()),
+    })
+
+
+def test_arrow_round_trip_keeps_values_and_nulls():
+    t = _table()
+    b = from_arrow(t, torch.device("cpu"))
+    assert b.schema.names == t.schema.names
+    assert b.columns[5].chars.shape == (5, 33)
+    back = to_arrow(b)
+    assert back.schema.types == t.schema.types
+    # 64-bit types never narrow
+    assert b.columns[1].data.dtype == torch.int64
+    assert b.columns[2].data.dtype == torch.float64
+    for name in t.schema.names:
+        want = t[name].to_pylist()
+        got = back[name].to_pylist()
+        if name == "d":
+            assert np.isnan(got[1]) and got[:1] + got[2:] == \
+                want[:1] + want[2:]
+        else:
+            assert got == want, name
+
+
+def test_dictionary_strings_carry_codes(tmp_path):
+    t = pa.table({"s": pa.array(["b", "a", None, "b", "ccc"])})
+    pq.write_table(t, tmp_path / "f.parquet")
+    rb = pq.ParquetFile(tmp_path / "f.parquet",
+                        read_dictionary=["s"]).read()
+    b = from_arrow(rb, torch.device("cpu"))
+    c = b.columns[0]
+    assert c.codes is not None and c.dict_chars.shape[0] == 3
+    assert to_arrow(b)["s"].to_pylist() == t["s"].to_pylist()
+    # bytes past each row's length are zero, as the JAX layout
+    assert c.chars[1, 1:].tolist() == [0, 0]
+
+
+def _eval(expr, table):
+    b = from_arrow(table, torch.device("cpu"))
+    out = bind_references(expr, b.schema).eval(EvalContext.for_batch(b))
+    return [bool(v) if ok else None
+            for v, ok in zip(out.data.tolist(), out.validity.tolist())]
+
+
+def test_kleene_logic_and_null_comparisons():
+    t = pa.table({"a": pa.array([1, 1, None, None, 5], pa.int64()),
+                  "b": pa.array([2, None, 2, None, 1], pa.int64())})
+    assert _eval(col("a") < col("b"), t) == [True, None, None, None, False]
+    lt = col("a") < lit(3)  # T T N N F
+    gt = col("b") > lit(1)  # T N T N F
+    assert _eval(lt & gt, t) == [True, None, None, None, False]
+    assert _eval(lt | gt, t) == [True, True, True, None, False]
+    assert _eval(~lt, t) == [False, False, None, None, True]
+
+
+def test_nan_is_greatest_and_equal_to_itself():
+    t = pa.table({"x": pa.array([float("nan"), 1.0, float("inf")])})
+    assert _eval(col("x").eq(lit(float("nan"))), t) == [True, False, False]
+    assert _eval(col("x") > lit(1e308), t) == [True, False, True]
+
+
+def test_int_column_compares_with_long_literal():
+    t = pa.table({"x": pa.array([1, 2, 3], pa.int32())})
+    assert _eval(col("x") <= lit(2), t) == [True, True, False]
+
+
+def test_divide_by_zero_is_null():
+    from spark_rapids_tpu_torch.exprs.arithmetic import Divide
+
+    t = pa.table({"a": pa.array([1.0, 2.0]), "b": pa.array([0.0, 4.0])})
+    b = from_arrow(t, torch.device("cpu"))
+    out = bind_references(Divide(col("a"), col("b")), b.schema).eval(
+        EvalContext.for_batch(b))
+    assert out.validity.tolist() == [False, True]
+    assert out.data[1].item() == 0.5
+
+
+def _write(tmp_path, tables):
+    paths = []
+    for i, t in enumerate(tables):
+        p = str(tmp_path / f"f{i}.parquet")
+        pq.write_table(t, p)
+        paths.append(p)
+    return paths
+
+
+def test_grand_aggregate_of_filtered_out_input(tmp_path):
+    paths = _write(tmp_path, [pa.table({"x": pa.array([1.0, 2.0])})] * 2)
+    s = TorchSession({"spark.rapids.tpu.sql.scan.taskTargetBytes": 1},
+                     device="cpu")
+    df = s.read_parquet(*paths).where(col("x") > lit(5.0))
+    out = df.agg((sum_(col("x")), "s"), (count_star(), "n"),
+                 (avg(col("x")), "a")).collect()
+    assert out.to_pylist() == [{"s": None, "n": 0, "a": None}]
+    grouped = df.group_by(col("x")).agg((count_star(), "n")).collect()
+    assert grouped.num_rows == 0 and grouped.schema.names == ["x", "n"]
+
+
+def test_count_star_only_and_select(tmp_path):
+    t = pa.table({"k": pa.array(["a", "b", "a", None]),
+                  "v": pa.array([1, 2, 3, 4], pa.int64())})
+    paths = _write(tmp_path, [t, t, t])
+    s = TorchSession({"spark.rapids.tpu.sql.scan.taskTargetBytes": 1,
+                      "spark.rapids.tpu.sql.shuffle.partitions": 3},
+                     device="cpu")
+    assert s.read_parquet(*paths).agg(
+        (count_star(), "n")).collect().to_pylist() == [{"n": 12}]
+    out = (s.read_parquet(*paths)
+           .select(col("k"), (col("v") * lit(2)).alias("w"))
+           .group_by(col("k"))
+           .agg((sum_(col("w")), "sw"), (count_star(), "n"))
+           .collect())
+    rows = sorted(out.to_pylist(),
+                  key=lambda r: (r["k"] is None, r["k"] or ""))
+    assert rows == [{"k": "a", "sw": 24, "n": 6}, {"k": "b", "sw": 12, "n": 3},
+                    {"k": None, "sw": 24, "n": 3}]
+    assert out.schema.field("sw").type == pa.int64()
+
+
+# --------------------------------------------------------------------- #
+# On the card only
+# --------------------------------------------------------------------- #
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 3, 4, 5, 33, 200])
+def test_k1_kernel_matches_plain_version(cuda, width):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(width)
+    n = 4099
+    chars = torch.randint(0, 256, (n, width), generator=g, device=cuda,
+                          dtype=torch.int32).to(torch.uint8)
+    lengths = torch.randint(0, width + 1, (n,), generator=g, device=cuda,
+                            dtype=torch.int32)
+    chars *= torch.arange(width, device=cuda)[None, :] < lengths[:, None]
+    seeds = torch.randint(-(1 << 31), 1 << 31, (n,), generator=g,
+                          device=cuda, dtype=torch.int64).to(torch.int32)
+    before = kernels.hash_string.launches
+    got = kernels.hash_string(chars, lengths, seeds)
+    torch.cuda.synchronize()
+    assert kernels.hash_string.launches == before + 1
+    assert torch.equal(got, kernels.hash_string_bytes_reference(
+        chars, lengths, seeds))
+
+
+@pytest.mark.cuda
+def test_q1_on_the_card_launches_k1(cuda, tmp_path):
+    from spark_rapids_tpu_torch import tpch
+
+    paths = tpch.make_lineitem(str(tmp_path), n_files=3, with_q1_cols=True,
+                               rows_per_file=4096)
+    ttb = {"spark.rapids.tpu.sql.scan.taskTargetBytes": 1}
+    kernels.hash_string.launches = 0
+    gpu = tpch.q1_dataframe(TorchSession(ttb), paths).collect()
+    assert kernels.hash_string.launches == 6
+    cpu = tpch.q1_dataframe(TorchSession(ttb, device="cpu"),
+                            paths).collect()
+    key = lambda r: (r["l_returnflag"], r["l_linestatus"])  # noqa: E731
+    for g, c in zip(sorted(gpu.to_pylist(), key=key),
+                    sorted(cpu.to_pylist(), key=key)):
+        assert key(g) == key(c) and g["count_order"] == c["count_order"]
+        for k in ("sum_qty", "sum_charge", "avg_disc"):
+            assert g[k] == pytest.approx(c[k], rel=1e-12)
+
+
+def test_build_paths_live_in_the_package():
+    assert kernels.BUILD_DIR == PORT_DIR / "_build"
+    assert kernels.library_path("hash_string").parent == kernels.BUILD_DIR
+    assert (PORT_DIR / "csrc" / "hash_string.cu").exists()
+    assert os.path.basename(kernels.library_path("hash_string")).startswith(
+        "hash_string-")
