@@ -7,14 +7,25 @@ NVIDIA card.
 Phases, one JSON line each:
   device   card name, and its name and power limit from nvidia-smi;
   build    nvcc build of every kernel from csrc/, with its time;
-  kernels  each kernel against its plain PyTorch version (exact match
-           over a grid of shapes) and timed at large shapes;
+  kernels  both entry points of K1 (hash_string: one string column;
+           hash_columns: a key tuple -> hash or partition id) against
+           their plain PyTorch versions, bit for bit, over a grid of
+           widths (the direct-load width included), row counts,
+           partition counts, type mixes and a row slice whose data_ptr()
+           is not aligned; then timed at N = 6 x 2^20 rows (the
+           device's own time per launch, from torch.profiler);
   q6, q1   TPC-H q6 and q1 over 6 x 2^20 generated lineitem rows (about
            SF1) through TorchSession(device="cuda"), six scan tasks
            (scan.taskTargetBytes = 8 MiB): one warm-up, then the median
            of 3 wall times; each result held against a pyarrow.compute
            reference on the same files.  Kernel launch counts are reset
-           just before each query's runs and read just after.
+           just before each query's runs and read just after; q1 must
+           launch hash_columns once per map batch and hash_string never;
+  main     hash_columns at the calls q1 made, and hash_string on one of
+           their key columns, against their plain versions, with the
+           device's own time per launch (torch.profiler kernel time over
+           a loop) and the host-inclusive time per call (host clock over
+           the same loop) reported apart.
 Then the per-kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises before that line and
 exits non-zero.  Without CUDA, or outside a checkout of the repository,
@@ -38,10 +49,33 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 
-EXACT_WIDTHS = (1, 2, 3, 4, 5, 7, 8, 16, 33, 128, 200)
+#: direct loads up to 56, staged from 57 (kernels.NARROW_WIDTH)
+EXACT_WIDTHS = (1, 2, 3, 4, 5, 7, 8, 16, 33, 56, 57, 64, 128, 200)
+#: staged through shared memory, and read straight from global memory
+WIDE_WIDTH, DIRECT_WIDTH = 256, 8000
 EXACT_ROWS = (1, 1023, 1025, 65537)
+EXACT_PARTITIONS = (0, 1, 8, 200)
+#: rows cut off the front of a matrix so its data_ptr() is unaligned
+SLICE_ROWS = 3
 TIMED_ROWS = 6 * (1 << 20)
-TIMED_WIDTHS = (1, 16, 64)
+TIMED_WIDTHS = (1, 16, 64, 256)
+#: hash_columns' timed tuple: (STRING W=16, LONG, DOUBLE), 20 % NULLs
+TIMED_TUPLE = (("string", 16), ("long",), ("double",))
+TIMED_PARTITIONS = 8
+NULL_SHARE = 0.2
+#: type mixes of the exact check (17 columns: two launches, chained)
+MIXES = {
+    "timed": TIMED_TUPLE,
+    "all_types": (("bool",), ("int",), ("date",), ("long",), ("double",),
+                  ("string", 3), ("string", 64)),
+    "strings": (("string", WIDE_WIDTH), ("string", 2), ("string", 128)),
+    "direct": (("string", DIRECT_WIDTH), ("string", 5), ("int",)),
+    "chained_17": (("string", 1), ("int",), ("long",), ("double",),
+                   ("string", 7), ("bool",), ("date",), ("string", 33),
+                   ("long",), ("string", 4), ("double",), ("int",),
+                   ("string", 1), ("bool",), ("string", 200), ("date",),
+                   ("string", 16)),
+}
 TASK_TARGET_BYTES = 8 << 20
 REL_TOL = 1e-9
 
@@ -83,35 +117,60 @@ def string_inputs(torch, n: int, width: int, gen):
     return (chars * pad).contiguous(), lengths
 
 
+def random_seeds(torch, n: int, gen):
+    return torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
+                         device=gen.device, dtype=torch.int64).to(
+                             torch.int32)
+
+
 def k1_bound_ms(torch, lengths, width: int) -> tuple[float, str]:
-    """Least time for K1 on these inputs: bytes (N*W chars + 4N lengths
-    + 4N seeds read, 4N hashes written) over HBM bandwidth, or the
-    integer operations these lengths need over the 32-bit ALU rate
-    (~15 per 4-byte block, ~11 per tail byte, ~12 for fmix and the
+    """Least time for hash_string on these inputs: bytes (N*W chars +
+    4N lengths + 4N seeds read, 4N hashes written) over HBM bandwidth,
+    or the integer operations these lengths need over the 32-bit ALU
+    rate (~15 per 4-byte block, ~11 per tail byte, ~12 for fmix and the
     loads of length and seed), whichever is larger."""
     n = int(lengths.shape[0])
     lens = lengths.clamp(0, width).long()
     blocks = int((lens // 4).sum())
     tails = int((lens % 4).sum())
     ops = 15 * blocks + 11 * tails + 12 * n
-    t_bytes = (n * width + 12 * n) / HBM_BYTES_PER_S
+    return bound(n * width + 12 * n, ops)
+
+
+def bound(n_bytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = ops / ALU_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
+def tile_of(geo) -> dict:
+    return {"threads": geo.threads, "pitches": geo.pitches,
+            "smem_words": geo.smem_words}
+
+
 def check_k1(torch, kernels, dev) -> dict:
-    """K1 against its plain version, bit for bit, chained seeds."""
+    """hash_string against its plain version, bit for bit, with chained
+    seeds, over every width and row count, and over row slices whose
+    data_ptr() is not 4-byte aligned."""
+    def staged(width):
+        return kernels.tile_geometry([(kernels.STRING_TAG, width)],
+                                     max(EXACT_ROWS)).pitches[0] > 0
+
+    if (staged(DIRECT_WIDTH) or not staged(WIDE_WIDTH) or staged(56)
+            or not staged(57)):
+        raise AssertionError("the widths no longer take the branches "
+                             "they are meant to check")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     checked = 0
-    for width in EXACT_WIDTHS:
+    widths = EXACT_WIDTHS + (WIDE_WIDTH, DIRECT_WIDTH)
+    for width in widths:
         for n in EXACT_ROWS:
             c1, l1 = string_inputs(torch, n, width, gen)
-            c2, l2 = string_inputs(torch, n, width, gen)
-            seeds = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
-                                  device=dev, dtype=torch.int64).to(
-                                      torch.int32)
+            c2, l2 = string_inputs(torch, n + SLICE_ROWS, width, gen)
+            c2, l2 = c2[SLICE_ROWS:], l2[SLICE_ROWS:]
+            seeds = random_seeds(torch, n, gen)
             k = kernels.hash_string(c1, l1, seeds)
             r = kernels.hash_string_bytes_reference(c1, l1, seeds)
             k2 = kernels.hash_string(c2, l2, k)  # chained: hash seeds next
@@ -121,32 +180,248 @@ def check_k1(torch, kernels, dev) -> dict:
                 if not torch.equal(got, want):
                     bad = int((got != want).sum())
                     raise AssertionError(
-                        f"K1 disagrees with its plain version at N={n} "
-                        f"W={width}: {bad} rows differ")
+                        f"hash_string disagrees with its plain version at "
+                        f"N={n} W={width}: {bad} rows differ")
             checked += 2
-    return {"cases": checked, "widths": list(EXACT_WIDTHS),
-            "rows": list(EXACT_ROWS), "max_abs_err": 0}
+    return {"cases": checked, "widths": list(widths),
+            "rows": list(EXACT_ROWS), "sliced_rows": SLICE_ROWS,
+            "max_abs_err": 0}
+
+
+def make_column(torch, spec: tuple, n: int, gen, offset: int = 0):
+    """One random column of ``spec`` with NULL_SHARE NULLs; doubles hold
+    -0.0, 0.0 and NaNs with several payloads.  ``offset`` > 0 cuts that
+    many rows off the front of every tensor (unaligned data_ptr())."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import Column, StringColumn
+
+    dev = gen.device
+    m = n + offset
+    valid = (torch.rand(m, generator=gen, device=dev) >= NULL_SHARE)[offset:]
+    kind = spec[0]
+    if kind == "string":
+        chars, lengths = string_inputs(torch, m, spec[1], gen)
+        return StringColumn(chars[offset:], lengths[offset:], valid)
+    if kind == "double":
+        x = torch.randn(m, generator=gen, device=dev,
+                        dtype=torch.float64) * 1e6
+        x[::7] = -0.0
+        x[1::11] = 0.0
+        x[2::13] = float("nan")
+        bits = x.view(torch.int64)
+        bits[3::13] = 0x7FF0000000000001      # signalling NaN payload
+        bits[4::17] = -0x0008000000000000     # 0xFFF8...: negative NaN
+        return Column(x[offset:], valid, T.DOUBLE)
+    if kind == "bool":
+        data = torch.randint(0, 2, (m,), generator=gen, device=dev).bool()
+        return Column(data[offset:], valid, T.BOOLEAN)
+    if kind == "long":
+        data = torch.randint(-(1 << 62), 1 << 62, (m,), generator=gen,
+                             device=dev, dtype=torch.int64)
+        return Column(data[offset:], valid, T.LONG)
+    data = random_seeds(torch, m, gen)
+    return Column(data[offset:], valid, T.DATE if kind == "date" else T.INT)
+
+
+def check_hash_columns(torch, kernels, dev) -> dict:
+    """hash_columns against its plain version, bit for bit: every type
+    mix x row count x partition count (0 = hashes), each mix once more
+    on row slices with unaligned data_ptr(), and once from a seed other
+    than 42."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    checked = 0
+    for name, mix in MIXES.items():
+        cases = [(n, 0, parts, 42) for n in EXACT_ROWS
+                 for parts in EXACT_PARTITIONS]
+        cases += [(1025, SLICE_ROWS, 8, 42), (1023, 0, 0, 7)]
+        for n, offset, parts, seed in cases:
+            cols = [make_column(torch, spec, n, gen, offset) for spec in mix]
+            seeds = torch.full((n,), seed, dtype=torch.int32, device=dev)
+            got = kernels.hash_columns(cols, n, dev, seed, parts)
+            want = kernels.hash_columns_reference(cols, seeds, parts)
+            torch.cuda.synchronize()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(
+                    f"hash_columns disagrees with its plain version on "
+                    f"{name} N={n} offset={offset} partitions={parts} "
+                    f"seed={seed}: {bad} rows differ")
+            checked += 1
+    return {"cases": checked, "mixes": {k: [list(s) for s in v]
+                                        for k, v in MIXES.items()},
+            "rows": list(EXACT_ROWS), "partitions": list(EXACT_PARTITIONS),
+            "max_abs_err": 0}
 
 
 def time_k1(torch, kernels, dev, n: int, width: int, gen,
             plain_iters: int) -> dict:
     chars, lengths = string_inputs(torch, n, width, gen)
-    seeds = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
-                          device=dev, dtype=torch.int64).to(torch.int32)
+    seeds = random_seeds(torch, n, gen)
     got = kernels.hash_string(chars, lengths, seeds)
     want = kernels.hash_string_bytes_reference(chars, lengths, seeds)
     max_abs_err = int((got.long() - want.long()).abs().max()) if n else 0
     if max_abs_err:
-        raise AssertionError(f"K1 disagrees at N={n} W={width}")
-    ms = cuda_ms(torch, lambda: kernels.hash_string(chars, lengths, seeds),
-                 iters=20)
+        raise AssertionError(f"hash_string disagrees at N={n} W={width}")
+    t = device_and_host_ms(
+        torch, lambda: kernels.hash_string(chars, lengths, seeds), iters=20)
     plain_ms = cuda_ms(
         torch, lambda: kernels.hash_string_bytes_reference(
             chars, lengths, seeds), iters=plain_iters)
     bound_ms, bound_by = k1_bound_ms(torch, lengths, width)
-    return {"n": n, "w": width, "ms": ms, "plain_ms": plain_ms,
+    return {"n": n, "w": width, "ms": t["device_ms"],
+            "host_ms": t["host_ms"], "event_ms": t["event_ms"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / t["device_ms"],
+            "max_abs_err": max_abs_err,
+            "tile": tile_of(kernels.tile_geometry(
+                [(kernels.STRING_TAG, width)], n))}
+
+
+def tuple_bound_ms(torch, cols, n: int, num_partitions: int):
+    """Least time for hash_columns: every column read once (values or
+    chars + lengths, and validity), the output written once, over HBM
+    bandwidth; or the integer operations the values need (~15 per
+    4-byte block, ~11 per string tail byte, ~12 per fmix, ~10 for a
+    double's normalisation and ~10 for pmod) over the 32-bit rate."""
+    from spark_rapids_tpu_torch.columnar.column import StringColumn
+
+    n_bytes = (8 if num_partitions else 4) * n
+    ops = (10 * n if num_partitions else 0)
+    for c in cols:
+        n_bytes += c.validity.numel()
+        if isinstance(c, StringColumn):
+            n_bytes += c.chars.numel() + 4 * n
+            lens = c.lengths.clamp(0, c.width).long()
+            ops += 15 * int((lens // 4).sum()) + 11 * int((lens % 4).sum())
+            ops += 12 * n
+        else:
+            size = c.data.element_size()
+            n_bytes += size * n
+            ops += (15 * max(1, size // 4) + 12) * n
+            if c.data.dtype == torch.float64:
+                ops += 10 * n
+    return bound(n_bytes, ops)
+
+
+def time_hash_columns(torch, kernels, dev, n: int, gen) -> dict:
+    cols = [make_column(torch, spec, n, gen) for spec in TIMED_TUPLE]
+    seeds = torch.full((n,), 42, dtype=torch.int32, device=dev)
+    got = kernels.hash_columns(cols, n, dev, num_partitions=TIMED_PARTITIONS)
+    want = kernels.hash_columns_reference(cols, seeds, TIMED_PARTITIONS)
+    max_abs_err = int((got - want).abs().max())
+    if max_abs_err:
+        raise AssertionError(f"hash_columns disagrees at N={n}")
+    t = device_and_host_ms(torch, lambda: kernels.hash_columns(
+        cols, n, dev, num_partitions=TIMED_PARTITIONS), iters=20)
+    plain_ms = cuda_ms(torch, lambda: kernels.hash_columns_reference(
+        cols, seeds, TIMED_PARTITIONS), iters=3)
+    bound_ms, bound_by = tuple_bound_ms(torch, cols, n, TIMED_PARTITIONS)
+    return {"n": n, "tuple": [list(s) for s in TIMED_TUPLE],
+            "null_share": NULL_SHARE, "partitions": TIMED_PARTITIONS,
+            "ms": t["device_ms"], "host_ms": t["host_ms"],
+            "event_ms": t["event_ms"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": max_abs_err}
+            "share_of_bound": bound_ms / t["device_ms"],
+            "max_abs_err": max_abs_err,
+            "tile": tile_of(kernels.tile_geometry(
+                [(kernels.STRING_TAG, 16), (kernels.INT64_TAG, 0),
+                 (kernels.FLOAT64_TAG, 0)], n))}
+
+
+def device_and_host_ms(torch, fn, iters: int) -> dict:
+    """The device's own time per call (the CUDA kernel time that
+    torch.profiler records over ``iters`` calls, over ``iters``), the
+    host-inclusive time per call (host clock over ``iters`` calls ending
+    in a synchronize, profiler off) and the CUDA-event time of the same
+    loop, reported apart: where the host enqueues a call more slowly than
+    the device runs it, the event time is the host's, not the device's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    event_ms = cuda_ms(torch, fn, iters)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kern)
+    return {"device_ms": device_us / 1e3 / iters, "host_ms": host_ms,
+            "event_ms": event_ms,
+            "device_kernels_per_call": sum(e.count for e in kern) / iters}
+
+
+def at_main_path(torch, kernels, calls: list) -> dict:
+    """hash_columns at each distinct call q1 made: held against its
+    plain version on the same inputs, then timed both ways."""
+    seen, rows = set(), []
+    for cols, n, seed, parts in calls:
+        key = (n, tuple(getattr(c, "width", 0) for c in cols), seed, parts)
+        if key in seen:
+            continue
+        seen.add(key)
+        dev = cols[0].validity.device if cols else torch.device("cuda")
+        seeds = torch.full((n,), seed, dtype=torch.int32, device=dev)
+        got = kernels.hash_columns(cols, n, dev, seed, parts)
+        want = kernels.hash_columns_reference(cols, seeds, parts)
+        err = int((got.long() - want.long()).abs().max()) if n else 0
+        if err:
+            raise AssertionError(f"hash_columns disagrees at q1's {key}")
+        kt = device_and_host_ms(
+            torch, lambda: kernels.hash_columns(cols, n, dev, seed, parts),
+            iters=50)
+        pt = device_and_host_ms(
+            torch, lambda: kernels.hash_columns_reference(cols, seeds,
+                                                          parts), iters=50)
+        bound_ms, bound_by = tuple_bound_ms(torch, cols, n, parts)
+        rows.append({"n": n, "widths": list(key[1]), "partitions": parts,
+                     "max_abs_err": err, "ms": kt["device_ms"],
+                     "host_ms": kt["host_ms"],
+                     "plain_ms": pt["host_ms"],
+                     "plain_device_ms": pt["device_ms"],
+                     "plain_device_kernels": pt["device_kernels_per_call"],
+                     "kernels_per_call": kt["device_kernels_per_call"],
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+    return max(rows, key=lambda r: r["ms"]), rows
+
+
+def k1_at_main_path(torch, kernels, calls: list) -> dict:
+    """hash_string on the first string key column of q1's first call
+    (the shape a per-column hash of q1's keys takes), against its plain
+    version, timed both ways."""
+    from spark_rapids_tpu_torch.columnar.column import StringColumn
+
+    cols, n, seed, _ = calls[0]
+    c = next(c for c in cols if isinstance(c, StringColumn))
+    seeds = torch.full((n,), seed, dtype=torch.int32, device=c.chars.device)
+    got = kernels.hash_string(c.chars, c.lengths, seeds)
+    want = kernels.hash_string_bytes_reference(c.chars, c.lengths, seeds)
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError(f"hash_string disagrees at q1's ({n}, "
+                             f"{c.width})")
+    kt = device_and_host_ms(
+        torch, lambda: kernels.hash_string(c.chars, c.lengths, seeds),
+        iters=50)
+    pt = device_and_host_ms(
+        torch, lambda: kernels.hash_string_bytes_reference(
+            c.chars, c.lengths, seeds), iters=50)
+    bound_ms, bound_by = k1_bound_ms(torch, c.lengths, c.width)
+    return {"n": n, "w": c.width, "max_abs_err": err,
+            "ms": kt["device_ms"], "host_ms": kt["host_ms"],
+            "event_ms": kt["event_ms"], "plain_ms": pt["host_ms"],
+            "plain_device_ms": pt["device_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def reference_q1(pa, pc, tables) -> dict:
@@ -214,16 +489,18 @@ def compare(got_table, want: dict, n_keys: int) -> float:
 
 
 def run_query(torch, qfn, session, paths, kernels, ref, n_keys: int,
-              shapes: list) -> dict:
-    """The main path: counts reset just before, read just after."""
-    original = kernels.hash_string
+              calls: list) -> dict:
+    """The main path: counts reset just before, read just after; every
+    hash_columns call is recorded with its inputs."""
+    original = kernels.hash_columns
 
-    def recording(chars, lengths, seeds):
-        shapes.append(tuple(chars.shape))
-        return original(chars, lengths, seeds)
+    def recording(cols, num_rows, device, seed=42, num_partitions=0):
+        calls.append((list(cols), num_rows, seed, num_partitions))
+        return original(cols, num_rows, device, seed, num_partitions)
 
-    kernels.hash_string = recording
+    kernels.hash_columns = recording
     original.launches = 0
+    kernels.hash_string.launches = 0
     try:
         t0 = time.perf_counter()
         qfn(session, paths).collect()
@@ -237,20 +514,21 @@ def run_query(torch, qfn, session, paths, kernels, ref, n_keys: int,
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
     finally:
-        kernels.hash_string = original
-    launches = original.launches
+        kernels.hash_columns = original
+    launches = {"hash_columns": original.launches,
+                "hash_string": kernels.hash_string.launches}
     worst = compare(result, ref, n_keys)
     return {"rows": result.num_rows, "warmup_s": warm_s,
             "wall_s": walls, "median_s": statistics.median(walls),
-            "k1_launches": launches, "max_rel_err": worst,
+            "runs": 4, "launches": launches, "max_rel_err": worst,
             **breakdown(torch, qfn, session, paths)}
 
 
 def breakdown(torch, qfn, session, paths) -> dict:
     """Where one run's time goes: the scan alone (Parquet decode and
     upload of every task, drained with nothing above it), and the
-    device's busy time over a profiled run, whose complement over the
-    run's wall time is the device's idle share."""
+    device's busy time and kernel count over a profiled run, whose busy
+    time over the run's wall time gives the device's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -274,6 +552,7 @@ def breakdown(torch, qfn, session, paths) -> dict:
     return {"scan_only_s": scan_s, "profiled_wall_s": wall,
             "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_kernel_count": sum(e.count for e in kern),
             "device_kernels": [[e.key[:60], e.count,
                                 e.self_device_time_total / 1e3]
                                for e in top]}
@@ -309,14 +588,17 @@ def main() -> int:
         built.with_suffix(".log").exists() else ""
     emit("build", seconds=build_s, library=os.path.relpath(built, ROOT),
          ptxas=[ln for ln in ptxas.splitlines() if "registers" in ln
-                or "spill" in ln])
+                or "spill" in ln or "smem" in ln])
 
     exact = check_k1(torch, kernels, dev)
+    exact_cols = check_hash_columns(torch, kernels, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
     large = [time_k1(torch, kernels, dev, TIMED_ROWS, w, gen, plain_iters=3)
              for w in TIMED_WIDTHS]
-    emit("kernels", name="hash_string", exact=exact, timed=large)
+    large_cols = time_hash_columns(torch, kernels, dev, TIMED_ROWS, gen)
+    emit("kernels", hash_string={"exact": exact, "timed": large},
+         hash_columns={"exact": exact_cols, "timed": large_cols})
 
     work = os.path.join(ROOT, "spark_rapids_tpu_torch", "_build")
     os.makedirs(work, exist_ok=True)
@@ -332,36 +614,54 @@ def main() -> int:
         if scans[0].num_partitions != len(paths):
             raise AssertionError(f"{scans[0].num_partitions} scan tasks, "
                                  f"expected {len(paths)}")
-        q6_shapes: list = []
+        q6_calls: list = []
         q6 = run_query(torch, tpch.q6_dataframe, session, paths, kernels,
-                       reference_q6(pa, pc, tables), 0, q6_shapes)
+                       reference_q6(pa, pc, tables), 0, q6_calls)
         emit("q6", rows_in=tables.num_rows, datagen_s=gen_s, **q6)
-        q1_shapes: list = []
+        q1_calls: list = []
         q1 = run_query(torch, tpch.q1_dataframe, session, paths, kernels,
-                       reference_q1(pa, pc, tables), 2, q1_shapes)
-        emit("q1", rows_in=tables.num_rows, k1_shapes=sorted(set(q1_shapes)),
-             **q1)
-    if q1["k1_launches"] <= 0:
-        raise AssertionError("q1 ran without launching K1")
+                       reference_q1(pa, pc, tables), 2, q1_calls)
+        emit("q1", rows_in=tables.num_rows, hash_columns_calls=sorted(
+            {(n, tuple(getattr(c, "width", 0) for c in cols), parts)
+             for cols, n, _, parts in q1_calls}), **q1)
+    want = {"hash_columns": q1["runs"] * len(paths), "hash_string": 0}
+    if q1["launches"] != want:
+        raise AssertionError(f"q1 launched {q1['launches']}, expected "
+                             f"{want} (one hash_columns per map batch)")
+    if q6["launches"] != {"hash_columns": 0, "hash_string": 0}:
+        raise AssertionError(f"q6 launched {q6['launches']}")
 
-    # K1 at the shapes q1 gave it (launch-latency bound at these sizes)
-    main_shapes = sorted(set(q1_shapes))
-    at_main = [time_k1(torch, kernels, dev, n, w, gen, plain_iters=20)
-               for n, w in main_shapes]
-    worst = max(at_main, key=lambda r: r["ms"])
-    summary = {
-        "name": "hash_string", "route": "cuda",
+    worst, at_main = at_main_path(torch, kernels, q1_calls)
+    k1_main = k1_at_main_path(torch, kernels, q1_calls)
+    emit("main", hash_columns=at_main, hash_string=k1_main)
+    w64 = next(r for r in large if r["w"] == 64)
+    summary = [{
+        "name": "hash_columns", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
-        "launches": q1["k1_launches"] + q6["k1_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in at_main + large),
+        "launches": q1["launches"]["hash_columns"]
+        + q6["launches"]["hash_columns"],
+        "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
         "library_ms": None,
-        "shape": [worst["n"], worst["w"]],
-        "main_path_shapes": at_main, "large_shapes": large,
-    }
-    print(json.dumps({"kernels": [summary]}), flush=True)
+        "shape": "q1's calls; ms is the device's own time per launch",
+        "host_ms": worst["host_ms"], "main_path_shapes": at_main,
+        "large_shape": large_cols,
+    }, {
+        "name": "hash_string", "route": "cuda",
+        "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
+        "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
+        "launches": q1["launches"]["hash_string"]
+        + q6["launches"]["hash_string"],
+        "max_abs_err": max(r["max_abs_err"] for r in large),
+        "ms": w64["ms"], "plain_ms": w64["plain_ms"],
+        "bound_ms": w64["bound_ms"], "bound_by": w64["bound_by"],
+        "library_ms": None,
+        "shape": [w64["n"], w64["w"]], "large_shapes": large,
+        "q1_shape": k1_main,
+    }]
+    print(json.dumps({"kernels": summary}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

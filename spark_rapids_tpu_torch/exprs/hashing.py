@@ -14,9 +14,11 @@ uint32 arithmetic: torch has no general uint32 arithmetic, so the
 fixed-width hashes here run in **int64 holding values in [0, 2^32)**,
 masked with ``& 0xFFFFFFFF`` after every step.  Products are split into
 16-bit halves of the constant so no intermediate exceeds 2^48 and no
-int64 overflow happens.  The string hash is the hand-written K1 kernel
-(``ops/kernels.py``) on a CUDA tensor, whose 32-bit hash values travel
-as int32 bit patterns.
+int64 overflow happens.  These are the arithmetic of the plain
+versions in ``ops/kernels.py``.  On a CUDA batch a key tuple is hashed
+by the hand-written K1 kernel, one launch per batch
+(``kernels.hash_columns``), whose 32-bit hash values travel as int32 bit
+patterns.
 """
 
 from __future__ import annotations
@@ -26,11 +28,7 @@ from typing import Sequence
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.column import (
-    AnyColumn,
-    Column,
-    StringColumn,
-)
+from spark_rapids_tpu_torch.columnar.column import AnyColumn, Column
 from spark_rapids_tpu_torch.exprs.base import EvalContext, Expression
 from spark_rapids_tpu_torch.ops import kernels
 
@@ -115,29 +113,11 @@ def hash_string_bytes(chars: torch.Tensor, lengths: torch.Tensor,
     return from_int32_bits(out)
 
 
-def hash_column(col: AnyColumn, seed: torch.Tensor) -> torch.Tensor:
-    """Hash one column into the running seed; NULL rows keep the seed."""
-    if isinstance(col, StringColumn):
-        h = hash_string_bytes(col.chars, col.lengths, seed)
-    elif isinstance(col.dtype, (T.BooleanType, T.IntegerType, T.DateType)):
-        h = hash_int32_block(col.data.to(torch.int32), seed)
-    elif isinstance(col.dtype, T.LongType):
-        h = hash_int64_blocks(col.data, seed)
-    elif isinstance(col.dtype, T.DoubleType):
-        h = hash_int64_blocks(_double_to_bits(col.data), seed)
-    else:
-        raise TypeError(f"murmur3 unsupported for {col.dtype}")
-    return torch.where(col.validity, h, seed)
-
-
 def hash_columns(cols: Sequence[AnyColumn], num_rows: int,
                  device: torch.device,
                  seed: int = DEFAULT_SEED) -> torch.Tensor:
     """Chained multi-column Spark hash -> int32 (Spark ``hash(...)``)."""
-    h = torch.full((num_rows,), seed, dtype=torch.int64, device=device)
-    for c in cols:
-        h = hash_column(c, h)
-    return to_int32_bits(h)
+    return kernels.hash_columns(cols, num_rows, device, seed)
 
 
 class Murmur3Hash(Expression):
@@ -172,5 +152,5 @@ class Murmur3Hash(Expression):
 def partition_ids(cols: Sequence[AnyColumn], num_rows: int,
                   device: torch.device, num_partitions: int) -> torch.Tensor:
     """Spark hash partitioning: pmod(hash(keys), n) -> int64 in [0, n)."""
-    h = hash_columns(cols, num_rows, device).long()
-    return torch.remainder(h, num_partitions)
+    return kernels.hash_columns(cols, num_rows, device,
+                                num_partitions=num_partitions)

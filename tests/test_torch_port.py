@@ -259,6 +259,67 @@ def test_k1_kernel_matches_plain_version(cuda, width):
         chars, lengths, seeds))
 
 
+def _random_column(kind, n, g, offset=0):
+    """A random column with 20 % NULLs; doubles hold -0.0, 0.0 and NaNs
+    with several payloads.  ``offset`` rows are cut off the front of
+    every tensor, so its data_ptr() is not aligned."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import Column, StringColumn
+
+    dev, m = g.device, n + offset
+    valid = (torch.rand(m, generator=g, device=dev) >= 0.2)[offset:]
+    if kind.startswith("s"):
+        width = int(kind[1:])
+        chars = torch.randint(0, 256, (m, width), generator=g, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+        lengths = torch.randint(0, width + 1, (m,), generator=g, device=dev,
+                                dtype=torch.int32)
+        chars *= torch.arange(width, device=dev)[None, :] < lengths[:, None]
+        return StringColumn(chars[offset:], lengths[offset:], valid)
+    if kind == "d":
+        x = torch.randn(m, generator=g, device=dev, dtype=torch.float64)
+        x[::7] = -0.0
+        x[1::11] = 0.0
+        x[2::13] = float("nan")
+        bits = x.view(torch.int64)
+        bits[3::13] = 0x7FF0000000000001
+        bits[4::17] = -0x0008000000000000
+        return Column(x[offset:], valid, T.DOUBLE)
+    if kind == "b":
+        data = torch.randint(0, 2, (m,), generator=g, device=dev).bool()
+        return Column(data[offset:], valid, T.BOOLEAN)
+    if kind == "l":
+        data = torch.randint(-(1 << 62), 1 << 62, (m,), generator=g,
+                             device=dev, dtype=torch.int64)
+        return Column(data[offset:], valid, T.LONG)
+    data = torch.randint(-(1 << 31), 1 << 31, (m,), generator=g,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    return Column(data[offset:], valid, T.DATE if kind == "t" else T.INT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinds,offset", [
+    (["i", "l", "d", "t", "b", "s3", "s64"], 0),
+    (["s16", "l", "d", "s57"], 3),   # row slices: unaligned data_ptr()
+    (["s256", "s2", "s128", "s8000"], 1),  # staged, narrow and direct
+    (["s1", "i", "l", "d", "s7", "b", "t", "s33", "l", "s4", "d", "i",
+      "s1", "b", "s200", "t", "s16"], 0),  # 17 columns: two launches
+])
+def test_hash_columns_kernel_matches_plain_version(cuda, kinds, offset):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(len(kinds) + offset)
+    n = 4099
+    cols = [_random_column(k, n, g, offset) for k in kinds]
+    for parts, seed in ((0, 42), (8, 42), (200, 7)):
+        before = kernels.hash_columns.launches
+        got = kernels.hash_columns(cols, n, cuda, seed, parts)
+        torch.cuda.synchronize()
+        assert kernels.hash_columns.launches == before + -(-len(kinds) // 16)
+        seeds = torch.full((n,), seed, dtype=torch.int32, device=cuda)
+        want = kernels.hash_columns_reference(cols, seeds, parts)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_q1_on_the_card_launches_k1(cuda, tmp_path):
     from spark_rapids_tpu_torch import tpch
@@ -266,9 +327,12 @@ def test_q1_on_the_card_launches_k1(cuda, tmp_path):
     paths = tpch.make_lineitem(str(tmp_path), n_files=3, with_q1_cols=True,
                                rows_per_file=4096)
     ttb = {"spark.rapids.tpu.sql.scan.taskTargetBytes": 1}
+    kernels.hash_columns.launches = 0
     kernels.hash_string.launches = 0
     gpu = tpch.q1_dataframe(TorchSession(ttb), paths).collect()
-    assert kernels.hash_string.launches == 6
+    # one launch per map batch hashes its whole key tuple
+    assert kernels.hash_columns.launches == 3
+    assert kernels.hash_string.launches == 0
     cpu = tpch.q1_dataframe(TorchSession(ttb, device="cpu"),
                             paths).collect()
     key = lambda r: (r["l_returnflag"], r["l_linestatus"])  # noqa: E731

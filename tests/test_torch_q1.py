@@ -122,19 +122,20 @@ def test_q1_plans_a_hash_exchange_and_hashes_strings(paths, jax_session,
     assert plan.children[0] is exchanges[0]
     assert exchanges[0].children[0].mode == "partial"
 
-    shapes = []
-    real = kernels.hash_string
+    calls = []
+    real = kernels.hash_columns
 
-    def spy(chars, lengths, seeds):
-        shapes.append(tuple(chars.shape))
-        return real(chars, lengths, seeds)
+    def spy(cols, num_rows, device, seed=42, num_partitions=0):
+        calls.append(([c.chars.shape[1] for c in cols], num_rows,
+                      num_partitions))
+        return real(cols, num_rows, device, seed, num_partitions)
 
-    monkeypatch.setattr(kernels, "hash_string", spy)
+    monkeypatch.setattr(kernels, "hash_columns", spy)
     df.collect()
-    # one hash per string key column per map task; one byte wide, at
-    # most 6 (returnflag, linestatus) groups per partial
-    assert len(shapes) == 2 * len(paths)
-    assert all(w == 1 and 0 < n <= 6 for n, w in shapes)
+    # one hash of the whole key tuple per map task: two one-byte string
+    # keys, at most 6 (returnflag, linestatus) groups per partial
+    assert len(calls) == len(paths)
+    assert all(w == [1, 1] and 0 < n <= 6 and p > 1 for w, n, p in calls)
 
 
 def test_single_file_q1_aggregates_completely(paths, port_session):
