@@ -21,11 +21,21 @@ Phases, one JSON line each:
            reference on the same files.  Kernel launch counts are reset
            just before each query's runs and read just after; q1 must
            launch hash_columns once per map batch and hash_string never;
-  main     hash_columns at the calls q1 made, and hash_string on one of
-           their key columns, against their plain versions, with the
-           device's own time per launch (torch.profiler kernel time over
-           a loop) and the host-inclusive time per call (host clock over
-           the same loop) reported apart.
+  q3       TPC-H q3 (lineitem JOIN orders, revenue per order, ORDER BY
+           revenue DESC LIMIT 10) over 6 x 2^20 lineitem rows with order
+           keys and 2^20 orders, the same way: the top 10 held against
+           a pyarrow join / group_by / sort of the same files (keys
+           exact, revenue within REL_TOL; rows tied on revenue at the
+           10th place by revenue only); hash_columns must launch once
+           per non-empty map batch of its three exchanges (counted by
+           draining each exchange's child before the runs) and
+           hash_string never;
+  main     hash_columns at the calls q1 and q3 made (the largest call of
+           each key signature), and hash_string on one of q1's key
+           columns, against their plain versions, with the device's own
+           time per launch (torch.profiler kernel time over a loop) and
+           the host-inclusive time per call (host clock over the same
+           loop) reported apart.
 Then the per-kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises before that line and
 exits non-zero.  Without CUDA, or outside a checkout of the repository,
@@ -361,22 +371,31 @@ def device_and_host_ms(torch, fn, iters: int) -> dict:
             "device_kernels_per_call": sum(e.count for e in kern) / iters}
 
 
+def signature(cols) -> tuple:
+    """A key tuple's column types, strings with their width."""
+    return tuple(f"{c.dtype.name}{getattr(c, 'width', '')}" for c in cols)
+
+
 def at_main_path(torch, kernels, calls: list) -> dict:
-    """hash_columns at each distinct call q1 made: held against its
-    plain version on the same inputs, then timed both ways."""
-    seen, rows = set(), []
-    for cols, n, seed, parts in calls:
-        key = (n, tuple(getattr(c, "width", 0) for c in cols), seed, parts)
-        if key in seen:
-            continue
-        seen.add(key)
+    """hash_columns at the largest call of each key signature the main
+    path made: held against its plain version on the same inputs, then
+    timed both ways."""
+    largest: dict = {}
+    for call in calls:
+        cols, n, seed, parts = call
+        key = (signature(cols), seed, parts)
+        if key not in largest or n > largest[key][1]:
+            largest[key] = call
+    rows = []
+    for (sig, _, _), (cols, n, seed, parts) in largest.items():
+        key = (n, sig, seed, parts)
         dev = cols[0].validity.device if cols else torch.device("cuda")
         seeds = torch.full((n,), seed, dtype=torch.int32, device=dev)
         got = kernels.hash_columns(cols, n, dev, seed, parts)
         want = kernels.hash_columns_reference(cols, seeds, parts)
         err = int((got.long() - want.long()).abs().max()) if n else 0
         if err:
-            raise AssertionError(f"hash_columns disagrees at q1's {key}")
+            raise AssertionError(f"hash_columns disagrees at {key}")
         kt = device_and_host_ms(
             torch, lambda: kernels.hash_columns(cols, n, dev, seed, parts),
             iters=50)
@@ -384,14 +403,15 @@ def at_main_path(torch, kernels, calls: list) -> dict:
             torch, lambda: kernels.hash_columns_reference(cols, seeds,
                                                           parts), iters=50)
         bound_ms, bound_by = tuple_bound_ms(torch, cols, n, parts)
-        rows.append({"n": n, "widths": list(key[1]), "partitions": parts,
+        rows.append({"n": n, "columns": list(sig), "partitions": parts,
                      "max_abs_err": err, "ms": kt["device_ms"],
                      "host_ms": kt["host_ms"],
                      "plain_ms": pt["host_ms"],
                      "plain_device_ms": pt["device_ms"],
                      "plain_device_kernels": pt["device_kernels_per_call"],
                      "kernels_per_call": kt["device_kernels_per_call"],
-                     "bound_ms": bound_ms, "bound_by": bound_by})
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "share_of_bound": bound_ms / kt["device_ms"]})
     return max(rows, key=lambda r: r["ms"]), rows
 
 
@@ -461,6 +481,66 @@ def reference_q6(pa, pc, tables) -> dict:
     return {(): {"revenue": rev.as_py()}}
 
 
+def reference_q3(pa, pc, lineitem, orders):
+    """q3 by pyarrow: every (order, date, priority) group with its
+    revenue, largest revenue first."""
+    li = lineitem.filter(pc.greater(lineitem["l_shipdate"], 9500))
+    od = orders.filter(pc.less(orders["o_orderdate"], 9500))
+    j = li.join(od, keys="l_orderkey", right_keys="o_orderkey",
+                join_type="inner")
+    j = j.append_column("rev", pc.multiply(
+        j["l_extendedprice"], pc.subtract(1.0, j["l_discount"])))
+    g = j.group_by(["l_orderkey", "o_orderdate", "o_shippriority"]) \
+        .aggregate([("rev", "sum")])
+    return g.sort_by([("rev_sum", "descending")])
+
+
+def compare_top(got_table, ref, n: int) -> float:
+    """The top n of a revenue ranking against the reference's, row by
+    row: revenue within REL_TOL at every place, and the keys of every
+    row above the n-th revenue exact; rows tied with the n-th revenue
+    may be any of the reference's tied rows.  Returns the largest
+    relative revenue error."""
+    def key(r):
+        return (r["l_orderkey"], r["o_orderdate"], r["o_shippriority"])
+
+    got = got_table.to_pylist()
+    want = ref.slice(0, n).to_pylist()
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} rows, reference has {len(want)}")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel = abs(g["revenue"] - w["rev_sum"]) / abs(w["rev_sum"])
+        worst = max(worst, rel)
+        if rel > REL_TOL:
+            raise AssertionError(f"place {i}: revenue {g['revenue']} vs "
+                                 f"{w['rev_sum']} (rel {rel:.3e})")
+    last = want[-1]["rev_sum"]
+    tied = {key(r) for r in ref.slice(0, 4 * n + 100).to_pylist()
+            if abs(r["rev_sum"] - last) <= REL_TOL * abs(last)}
+    above_got = {key(r) for r in got if key(r) not in tied}
+    above_want = {key(r) for r in want if key(r) not in tied}
+    if above_got != above_want:
+        raise AssertionError(f"top rows {sorted(above_got)} != reference "
+                             f"{sorted(above_want)}")
+    return worst
+
+
+def map_batches(plan) -> int:
+    """Non-empty batches the plan's exchanges hash: each exchange's
+    child drained on its own (its own hashes launch here too)."""
+    n = 0
+    for ex in plan.walk():
+        if type(ex).__name__ == "TpuShuffleExchangeExec":
+            child = ex.children[0]
+            n += sum(1 for p in range(child.num_partitions)
+                     for b in child.execute_partition(p) if b.num_rows)
+    for node in plan.walk():
+        if hasattr(node, "close"):
+            node.close()
+    return n
+
+
 def compare(got_table, want: dict, n_keys: int) -> float:
     """Keys and integer columns exact, floats within REL_TOL; returns
     the largest relative float error."""
@@ -488,10 +568,11 @@ def compare(got_table, want: dict, n_keys: int) -> float:
     return worst
 
 
-def run_query(torch, qfn, session, paths, kernels, ref, n_keys: int,
-              calls: list) -> dict:
-    """The main path: counts reset just before, read just after; every
-    hash_columns call is recorded with its inputs."""
+def run_query(torch, make_df, kernels, check, calls: list) -> dict:
+    """The main path: ``make_df()`` is the query's DataFrame, ``check``
+    holds a result against its reference and returns the largest
+    relative float error.  Counts reset just before, read just after;
+    every hash_columns call is recorded with its inputs."""
     original = kernels.hash_columns
 
     def recording(cols, num_rows, device, seed=42, num_partitions=0):
@@ -503,52 +584,54 @@ def run_query(torch, qfn, session, paths, kernels, ref, n_keys: int,
     kernels.hash_string.launches = 0
     try:
         t0 = time.perf_counter()
-        qfn(session, paths).collect()
+        make_df().collect()
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         walls = []
         result = None
         for _ in range(3):
             t0 = time.perf_counter()
-            result = qfn(session, paths).collect()
+            result = make_df().collect()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
     finally:
         kernels.hash_columns = original
     launches = {"hash_columns": original.launches,
                 "hash_string": kernels.hash_string.launches}
-    worst = compare(result, ref, n_keys)
+    worst = check(result)
     return {"rows": result.num_rows, "warmup_s": warm_s,
             "wall_s": walls, "median_s": statistics.median(walls),
             "runs": 4, "launches": launches, "max_rel_err": worst,
-            **breakdown(torch, qfn, session, paths)}
+            **breakdown(torch, make_df)}
 
 
-def breakdown(torch, qfn, session, paths) -> dict:
-    """Where one run's time goes: the scan alone (Parquet decode and
-    upload of every task, drained with nothing above it), and the
-    device's busy time and kernel count over a profiled run, whose busy
-    time over the run's wall time gives the device's idle share."""
+def breakdown(torch, make_df) -> dict:
+    """Where one run's time goes: the scans alone (Parquet decode and
+    upload of every task of every scan, drained with nothing above
+    them), and the device's busy time and kernel count over a profiled
+    run, whose busy time over the run's wall time gives the device's
+    idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    plan = qfn(session, paths).physical_plan()
-    scan = [n for n in plan.walk() if not n.children][0]
+    plan = make_df().physical_plan()
+    scans = [n for n in plan.walk() if not n.children]
     t0 = time.perf_counter()
-    for _ in scan.execute():
-        pass
+    for scan in scans:
+        for _ in scan.execute():
+            pass
     torch.cuda.synchronize()
     scan_s = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        qfn(session, paths).collect()
+        make_df().collect()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     return {"scan_only_s": scan_s, "profiled_wall_s": wall,
             "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
@@ -615,23 +698,58 @@ def main() -> int:
             raise AssertionError(f"{scans[0].num_partitions} scan tasks, "
                                  f"expected {len(paths)}")
         q6_calls: list = []
-        q6 = run_query(torch, tpch.q6_dataframe, session, paths, kernels,
-                       reference_q6(pa, pc, tables), 0, q6_calls)
+        ref6 = reference_q6(pa, pc, tables)
+        q6 = run_query(torch, lambda: tpch.q6_dataframe(session, paths),
+                       kernels, lambda t: compare(t, ref6, 0), q6_calls)
         emit("q6", rows_in=tables.num_rows, datagen_s=gen_s, **q6)
         q1_calls: list = []
-        q1 = run_query(torch, tpch.q1_dataframe, session, paths, kernels,
-                       reference_q1(pa, pc, tables), 2, q1_calls)
+        ref1 = reference_q1(pa, pc, tables)
+        q1 = run_query(torch, lambda: tpch.q1_dataframe(session, paths),
+                       kernels, lambda t: compare(t, ref1, 2), q1_calls)
         emit("q1", rows_in=tables.num_rows, hash_columns_calls=sorted(
-            {(n, tuple(getattr(c, "width", 0) for c in cols), parts)
+            {(n, signature(cols), parts)
              for cols, n, _, parts in q1_calls}), **q1)
+        del tables
+
+        q3_dir = os.path.join(data_dir, "q3")
+        os.makedirs(q3_dir)
+        t0 = time.perf_counter()
+        li_paths = tpch.make_lineitem(q3_dir, with_orderkey=True)
+        orders_path = tpch.make_orders(q3_dir)
+        gen3_s = time.perf_counter() - t0
+        lineitem = pa.concat_tables([pq.read_table(p) for p in li_paths])
+        orders = pq.read_table(orders_path)
+        ref3 = reference_q3(pa, pc, lineitem, orders)
+
+        def q3_df():
+            return tpch.q3_dataframe(session, li_paths, orders_path)
+
+        tasks = [n.num_partitions for n in q3_df().physical_plan().walk()
+                 if not n.children]
+        if tasks != [len(li_paths), 1]:
+            raise AssertionError(f"q3 scan tasks {tasks}, expected "
+                                 f"{[len(li_paths), 1]}")
+        planned = map_batches(q3_df().physical_plan())
+        q3_calls: list = []
+        q3 = run_query(torch, q3_df, kernels,
+                       lambda t: compare_top(t, ref3, 10), q3_calls)
+        emit("q3", rows_in=lineitem.num_rows, orders_in=orders.num_rows,
+             groups=ref3.num_rows, datagen_s=gen3_s,
+             planned_map_batches=planned, hash_columns_calls=sorted(
+                 {(n, signature(cols), parts)
+                  for cols, n, _, parts in q3_calls}), **q3)
     want = {"hash_columns": q1["runs"] * len(paths), "hash_string": 0}
     if q1["launches"] != want:
         raise AssertionError(f"q1 launched {q1['launches']}, expected "
                              f"{want} (one hash_columns per map batch)")
     if q6["launches"] != {"hash_columns": 0, "hash_string": 0}:
         raise AssertionError(f"q6 launched {q6['launches']}")
+    want = {"hash_columns": q3["runs"] * planned, "hash_string": 0}
+    if q3["launches"] != want:
+        raise AssertionError(f"q3 launched {q3['launches']}, expected "
+                             f"{want} (one hash_columns per map batch)")
 
-    worst, at_main = at_main_path(torch, kernels, q1_calls)
+    worst, at_main = at_main_path(torch, kernels, q1_calls + q3_calls)
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
@@ -640,12 +758,13 @@ def main() -> int:
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
         "launches": q1["launches"]["hash_columns"]
-        + q6["launches"]["hash_columns"],
+        + q6["launches"]["hash_columns"] + q3["launches"]["hash_columns"],
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
         "library_ms": None,
-        "shape": "q1's calls; ms is the device's own time per launch",
+        "shape": "the largest of q1's and q3's calls; ms is the "
+                 "device's own time per launch",
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,
     }, {
@@ -653,7 +772,7 @@ def main() -> int:
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
         "launches": q1["launches"]["hash_string"]
-        + q6["launches"]["hash_string"],
+        + q6["launches"]["hash_string"] + q3["launches"]["hash_string"],
         "max_abs_err": max(r["max_abs_err"] for r in large),
         "ms": w64["ms"], "plain_ms": w64["plain_ms"],
         "bound_ms": w64["bound_ms"], "bound_by": w64["bound_by"],

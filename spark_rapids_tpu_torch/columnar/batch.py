@@ -44,24 +44,38 @@ class ColumnarBatch:
         return self.gather(torch.nonzero(keep).squeeze(1))
 
     def slice(self, start: int, stop: int) -> "ColumnarBatch":
-        idx = torch.arange(start, stop, device=self.device)
-        return self.gather(idx)
+        """Rows [start, stop) as views: no copy, no device work."""
+        start, stop = min(start, self.num_rows), min(stop, self.num_rows)
+        return ColumnarBatch([c.slice_rows(start, stop) for c in self.columns],
+                             max(stop - start, 0), self.schema, self.device)
+
+    def slice_prefix(self, n: int) -> "ColumnarBatch":
+        """The first ``n`` rows (all of them when there are fewer)."""
+        return self.slice(0, n)
+
+
+def null_batch(schema: T.Schema, num_rows: int,
+               device: torch.device) -> ColumnarBatch:
+    """``num_rows`` rows of a schema, every value NULL (zeroed data,
+    empty strings)."""
+    cols: list[AnyColumn] = []
+    for f in schema.fields:
+        valid = torch.zeros(num_rows, dtype=torch.bool, device=device)
+        if isinstance(f.dtype, T.StringType):
+            cols.append(StringColumn(
+                torch.zeros((num_rows, 1), dtype=torch.uint8, device=device),
+                torch.zeros(num_rows, dtype=torch.int32, device=device),
+                valid))
+        else:
+            cols.append(Column(
+                torch.zeros(num_rows, dtype=T.to_torch_dtype(f.dtype),
+                            device=device), valid, f.dtype))
+    return ColumnarBatch(cols, num_rows, schema, device)
 
 
 def empty_batch(schema: T.Schema, device: torch.device) -> ColumnarBatch:
     """Zero-row batch of a schema."""
-    cols: list[AnyColumn] = []
-    for f in schema.fields:
-        valid = torch.zeros(0, dtype=torch.bool, device=device)
-        if isinstance(f.dtype, T.StringType):
-            cols.append(StringColumn(
-                torch.zeros((0, 1), dtype=torch.uint8, device=device),
-                torch.zeros(0, dtype=torch.int32, device=device), valid))
-        else:
-            cols.append(Column(
-                torch.zeros(0, dtype=T.to_torch_dtype(f.dtype),
-                            device=device), valid, f.dtype))
-    return ColumnarBatch(cols, 0, schema, device)
+    return null_batch(schema, 0, device)
 
 
 def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:

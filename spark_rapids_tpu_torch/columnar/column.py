@@ -43,9 +43,22 @@ class Column:
     def with_validity(self, validity: torch.Tensor) -> "Column":
         return dataclasses.replace(self, validity=validity)
 
-    def gather(self, indices: torch.Tensor) -> "Column":
+    def gather(self, indices: torch.Tensor,
+               valid: Optional[torch.Tensor] = None) -> "Column":
+        """Rows by index; where ``valid`` is False the row comes out
+        NULL (an outer join's missing side)."""
+        validity = self.validity[indices]
         codes = None if self.codes is None else self.codes[indices]
-        return Column(self.data[indices], self.validity[indices],
+        if valid is not None:
+            validity = validity & valid
+            codes = None if codes is None else torch.where(valid, codes, 0)
+        return Column(self.data[indices], validity, self.dtype, codes,
+                      self.dict_values)
+
+    def slice_rows(self, start: int, stop: int) -> "Column":
+        """Rows [start, stop) as views of this column's tensors."""
+        codes = None if self.codes is None else self.codes[start:stop]
+        return Column(self.data[start:stop], self.validity[start:stop],
                       self.dtype, codes, self.dict_values)
 
 
@@ -74,10 +87,27 @@ class StringColumn:
     def with_validity(self, validity: torch.Tensor) -> "StringColumn":
         return dataclasses.replace(self, validity=validity)
 
-    def gather(self, indices: torch.Tensor) -> "StringColumn":
+    def gather(self, indices: torch.Tensor,
+               valid: Optional[torch.Tensor] = None) -> "StringColumn":
+        """Rows by index; where ``valid`` is False the row comes out
+        NULL with zeroed chars and length 0."""
+        chars = self.chars[indices]
+        lengths = self.lengths[indices]
+        validity = self.validity[indices]
         codes = None if self.codes is None else self.codes[indices]
-        return StringColumn(self.chars[indices], self.lengths[indices],
-                            self.validity[indices], self.dtype, codes,
+        if valid is not None:
+            validity = validity & valid
+            chars = chars * valid[:, None].to(torch.uint8)
+            lengths = torch.where(valid, lengths, 0)
+            codes = None if codes is None else torch.where(valid, codes, 0)
+        return StringColumn(chars, lengths, validity, self.dtype, codes,
+                            self.dict_chars, self.dict_lens)
+
+    def slice_rows(self, start: int, stop: int) -> "StringColumn":
+        """Rows [start, stop) as views of this column's tensors."""
+        codes = None if self.codes is None else self.codes[start:stop]
+        return StringColumn(self.chars[start:stop], self.lengths[start:stop],
+                            self.validity[start:stop], self.dtype, codes,
                             self.dict_chars, self.dict_lens)
 
     def with_width(self, width: int) -> "StringColumn":

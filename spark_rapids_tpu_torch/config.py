@@ -16,11 +16,15 @@ SHUFFLE_PARTITIONS = "spark.rapids.tpu.sql.shuffle.partitions"
 TASK_TARGET_BYTES = "spark.rapids.tpu.sql.scan.taskTargetBytes"
 #: rows per scanned batch
 BATCH_ROWS = "spark.rapids.tpu.sql.batchSizeRows"
+#: most rows in one join output batch (a stream batch's pairs come in
+#: chunks of at most this many)
+JOIN_OUTPUT_CHUNK_ROWS = "spark.rapids.tpu.sql.join.outputChunkRows"
 
 DEFAULTS: dict[str, Any] = {
     SHUFFLE_PARTITIONS: 8,
     TASK_TARGET_BYTES: 512 << 20,
     BATCH_ROWS: 1 << 20,
+    JOIN_OUTPUT_CHUNK_ROWS: 1 << 22,
 }
 
 

@@ -120,6 +120,18 @@ class TpuHashAggregateExec(TpuExec):
             return 1
         return self.children[0].num_partitions
 
+    @property
+    def output_partitioning(self):
+        """A final aggregate keeps the feeding exchange's distribution
+        when that hashes group-key ordinals: the keys keep their
+        positions and types through the merge."""
+        part = self.children[0].output_partitioning
+        if self.mode != "final" or part is None or not all(
+                isinstance(e, BoundReference) and e.ordinal < self.n_keys
+                for e in part.exprs):
+            return None
+        return part
+
     def node_desc(self) -> str:
         keys = ", ".join(e.name for e in self.groups)
         outs = ", ".join(f"{na.fn.name}->{na.out_name}" for na in self.aggs)
@@ -185,7 +197,7 @@ class TpuHashAggregateExec(TpuExec):
             # grand aggregate of empty input: one default row
             src_schema = (self.partial_schema if self.mode == "final"
                           else self.children[0].schema)
-            eb = empty_batch(src_schema, self._device_of_empty())
+            eb = empty_batch(src_schema, self.leaf_device())
             pending.append(eb if self.mode == "final"
                            else self._update_batch(eb))
         out = concat_batches(pending)
@@ -194,9 +206,3 @@ class TpuHashAggregateExec(TpuExec):
         if self.mode != "partial":
             out = self._finalize(out)
         yield out
-
-    def _device_of_empty(self) -> torch.device:
-        node: TpuExec = self
-        while node.children:
-            node = node.children[0]
-        return node.device

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Iterator
 
+import torch
+
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 
@@ -26,12 +28,27 @@ class TpuExec:
     def num_partitions(self) -> int:
         return self.children[0].num_partitions
 
+    @property
+    def output_partitioning(self):
+        """The hash distribution this exec's output satisfies (a
+        ``HashPartitioning`` bound to its schema), or None: the planner
+        skips an exchange a child already satisfies."""
+        return None
+
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         raise NotImplementedError
 
     def execute(self) -> Iterator[ColumnarBatch]:
         for p in range(self.num_partitions):
             yield from self.execute_partition(p)
+
+    def leaf_device(self) -> torch.device:
+        """The device of the scan under this exec's first child chain:
+        where an exec with no input batch makes its output."""
+        node = self
+        while node.children:
+            node = node.children[0]
+        return node.device
 
     @property
     def name(self) -> str:

@@ -38,6 +38,10 @@ class TpuShuffleExchangeExec(TpuExec):
     def num_partitions(self) -> int:
         return self.partitioning.num_partitions
 
+    @property
+    def output_partitioning(self) -> HashPartitioning:
+        return self.partitioning
+
     def node_desc(self) -> str:
         return f"TpuShuffleExchangeExec {self.partitioning.describe()}"
 

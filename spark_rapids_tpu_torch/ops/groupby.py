@@ -3,9 +3,9 @@
 Counterpart of ``spark_rapids_tpu/ops/groupby.py``.  Two paths, as
 there:
 
-- the sort path (``groupby_aggregate``): a lexicographic sort of the
-  key columns by successive ``torch.sort(stable=True)`` passes, segment
-  starts where adjacent keys differ, and segment reductions with
+- the sort path (``groupby_aggregate``): the key columns' grouping
+  keys sorted by ``ops/sort.py``'s lexicographic sort, segment starts
+  where adjacent keys differ, and segment reductions with
   ``index_add_``;
 - the coded path (``_coded_groupby``): when every key column carries a
   dictionary sidecar and the combined domain is small, each row's
@@ -29,6 +29,11 @@ from spark_rapids_tpu_torch.columnar.column import (
     AnyColumn,
     Column,
     StringColumn,
+)
+from spark_rapids_tpu_torch.ops.sort import (
+    column_sort_keys,
+    group_starts,
+    lexsort,
 )
 
 
@@ -158,47 +163,6 @@ def _coded_groupby(batch: ColumnarBatch, key_ordinals: Sequence[int],
     return ColumnarBatch(out, n_groups, out_schema, dev)
 
 
-def _sort_keys(col: AnyColumn) -> list[torch.Tensor]:
-    """int64 sort keys of one column, most significant first, such that
-    equal keys <=> equal SQL grouping values (NULL == NULL, NaN == NaN,
-    -0.0 == 0.0).  NULLs sort first."""
-    valid = col.validity
-    keys = [valid.long()]
-    if isinstance(col, StringColumn):
-        chars = col.chars.long() * valid[:, None].long()
-        w = col.width
-        # 7 bytes per int64 chunk keeps every chunk non-negative, so the
-        # signed sort is the unsigned byte order
-        for start in range(0, w, 7):
-            chunk = torch.zeros_like(valid, dtype=torch.int64)
-            for i in range(7):
-                chunk = chunk << 8
-                if start + i < w:
-                    chunk = chunk | chars[:, start + i]
-            keys.append(chunk)
-        # zero padding makes "a" and "a\0" byte-equal: length breaks ties
-        keys.append(torch.where(valid, col.lengths.long(), 0))
-        return keys
-    data = col.data
-    if data.is_floating_point():
-        x = torch.where(data == 0, torch.zeros_like(data), data)
-        x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
-        bits = x.view(torch.int64)
-        # IEEE bits -> a signed integer in the float's total order
-        data = torch.where(bits < 0, bits ^ 0x7FFFFFFFFFFFFFFF, bits)
-    keys.append(torch.where(valid, data.long(), 0))
-    return keys
-
-
-def _lexsort(keys: list[torch.Tensor]) -> torch.Tensor:
-    """Permutation that sorts rows by ``keys`` (first most significant):
-    stable sorts from the least significant key up."""
-    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
-    for k in reversed(keys):
-        perm = perm[torch.sort(k[perm], stable=True).indices]
-    return perm
-
-
 def groupby_aggregate(batch: ColumnarBatch, key_ordinals: Sequence[int],
                       aggs: Sequence[AggSpec], out_schema: T.Schema,
                       live_mask: Optional[torch.Tensor] = None
@@ -214,14 +178,10 @@ def groupby_aggregate(batch: ColumnarBatch, key_ordinals: Sequence[int],
     ks = _coded_key_domains(key_cols)
     if ks is not None:
         return _coded_groupby(batch, key_ordinals, ks, aggs, out_schema)
-    keys = [k for kc in key_cols for k in _sort_keys(kc)]
-    perm = _lexsort(keys)
-    differs = torch.zeros(batch.num_rows, dtype=torch.bool,
-                          device=batch.device)
-    differs[0] = True
-    for k in keys:
-        ks_sorted = k[perm]
-        differs[1:] |= ks_sorted[1:] != ks_sorted[:-1]
+    keys = [k for kc in key_cols
+            for k in column_sort_keys(kc, grouping=True)]
+    perm = lexsort(keys)
+    differs = group_starts(keys, perm)
     seg = torch.cumsum(differs.long(), 0) - 1
     starts = perm[torch.nonzero(differs).squeeze(1)]
     n_groups = int(starts.shape[0])

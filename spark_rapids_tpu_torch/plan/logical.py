@@ -1,4 +1,5 @@
-"""Logical plan nodes: Scan, Filter, Project, Aggregate.
+"""Logical plan nodes: Scan, Filter, Project, Aggregate, Join, Sort and
+Limit.
 
 Counterpart of the matching nodes of ``spark_rapids_tpu/plan/logical.py``.
 Nodes keep their expressions by column name; the planner binds them to
@@ -7,12 +8,14 @@ the physical child, after it has pruned the scan's columns.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import pyarrow.parquet as pq
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import schema_from_arrow
+from spark_rapids_tpu_torch.execs.join import JOIN_TYPES, joined_schema
+from spark_rapids_tpu_torch.execs.sort import SortKey
 from spark_rapids_tpu_torch.exprs.aggregates import NamedAgg
 from spark_rapids_tpu_torch.exprs.base import (
     Expression,
@@ -84,3 +87,63 @@ class Aggregate(LogicalPlan):
     @property
     def schema(self) -> T.Schema:
         return self._schema
+
+
+class Join(LogicalPlan):
+    """An equi-join; ``condition`` is a residual predicate over the
+    joined row (the planner refuses it, as it refuses cross and keyless
+    joins)."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression], join_type: str,
+                 condition: Optional[Expression] = None):
+        if join_type not in JOIN_TYPES:
+            raise ValueError(f"unknown join type {join_type!r}")
+        if len(left_keys) != len(right_keys):
+            raise ValueError(f"{len(left_keys)} left keys against "
+                             f"{len(right_keys)} right keys")
+        self.children = [left, right]
+        self.join_type = join_type
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.condition = condition
+        # resolve names now; the key types must compare
+        for lk, rk in zip(self.left_keys, self.right_keys):
+            lt = bind_references(lk, left.schema).dtype
+            rt = bind_references(rk, right.schema).dtype
+            if T.common_type(lt, rt) is None:
+                raise TypeError(f"join keys {lk.name} ({lt}) and "
+                                f"{rk.name} ({rt}) do not compare")
+        self._schema = joined_schema(left.schema, right.schema, join_type)
+        if condition is not None:
+            bind_references(condition, T.Schema(
+                list(left.schema.fields) + list(right.schema.fields)))
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+
+class Sort(LogicalPlan):
+    def __init__(self, keys: Sequence[SortKey], child: LogicalPlan):
+        self.children = [child]
+        self.keys = list(keys)
+        for k in self.keys:
+            bind_references(k.expr, child.schema)
+
+    @property
+    def schema(self) -> T.Schema:
+        return self.children[0].schema
+
+
+class Limit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan):
+        if n < 0:
+            raise ValueError(f"limit of {n} rows")
+        self.children = [child]
+        self.n = n
+
+    @property
+    def schema(self) -> T.Schema:
+        return self.children[0].schema

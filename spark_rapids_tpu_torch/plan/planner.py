@@ -1,13 +1,26 @@
 """Logical -> physical lowering.
 
 Counterpart of ``spark_rapids_tpu/plan/planner.py`` for Scan, Filter,
-Project and Aggregate.  Scan columns are pruned to what the plan above
-reads.  An aggregate over several input partitions lowers as
-``_plan_aggregate`` does there: partial aggregate -> hash exchange on
-the group keys -> final aggregate (a grand aggregate coalesces its
-partials instead of hashing them); a single partition aggregates
-completely.  A node this port cannot lower raises NotImplementedError:
-there is no CPU fallback engine.
+Project, Aggregate, Join, Sort and Limit.  Scan columns are pruned to
+what the plan above reads.
+
+- An aggregate over several input partitions lowers as
+  ``_plan_aggregate`` does there: partial aggregate -> hash exchange on
+  the group keys -> final aggregate (a grand aggregate coalesces its
+  partials instead of hashing them); a single partition aggregates
+  completely.
+- A join whose key types match on both sides, with more than one input
+  partition on either, lowers as ``_plan_join``'s shuffled branch: a
+  hash exchange on each side's keys (unless the side is already
+  distributed so) under a partition-wise join.  Only identical key
+  types hash alike, so other joins run as one wide join.  Broadcast,
+  adaptive and collective joins are not ported.
+- A sort coalesces its input and sorts it in memory; a LIMIT over a
+  sort with a fixed-width primary key becomes a streaming top-n
+  (``_maybe_topn``), any other LIMIT a collect or global limit.
+
+A node this port cannot lower raises NotImplementedError: there is no
+CPU fallback engine.
 """
 
 from __future__ import annotations
@@ -24,7 +37,18 @@ from spark_rapids_tpu_torch.execs.exchange import (
     TpuCoalescePartitionsExec,
     TpuShuffleExchangeExec,
 )
-from spark_rapids_tpu_torch.exprs.base import BoundReference
+from spark_rapids_tpu_torch.execs.join import TpuShuffledHashJoinExec
+from spark_rapids_tpu_torch.execs.limit import (
+    TpuCollectLimitExec,
+    TpuGlobalLimitExec,
+)
+from spark_rapids_tpu_torch.execs.sort import (
+    TOPN_MAX_ROWS,
+    TOPN_PRIMARY_TYPES,
+    TpuSortExec,
+    TpuTopNExec,
+)
+from spark_rapids_tpu_torch.exprs.base import BoundReference, bind_references
 from spark_rapids_tpu_torch.io.scan import ParquetScanExec
 from spark_rapids_tpu_torch.ops.partition import HashPartitioning
 from spark_rapids_tpu_torch.plan import logical as L
@@ -68,6 +92,36 @@ class Planner:
                                *(e.references() for na in p.aggs
                                  for e in na.fn.inputs()))
             return self._plan_aggregate(p, self._lower(p.children[0], need))
+        if isinstance(p, L.Join):
+            sides = []
+            for child, keys, keep in (
+                    (p.children[0], p.left_keys, True),
+                    (p.children[1], p.right_keys,
+                     p.join_type not in ("left_semi", "left_anti"))):
+                need = None
+                if required is not None:
+                    # each side: its keys, and what the parent reads of
+                    # its half of the output
+                    need = set().union(*(k.references() for k in keys))
+                    if keep:
+                        need |= required & set(child.schema.names)
+                sides.append(self._lower(child, need))
+            return self._plan_join(p, *sides)
+        if isinstance(p, L.Sort):
+            need = None if required is None else required.union(
+                *(k.expr.references() for k in p.keys))
+            child = self._lower(p.children[0], need)
+            if child.num_partitions > 1:
+                child = TpuCoalescePartitionsExec(child)
+            return TpuSortExec(p.keys, child)
+        if isinstance(p, L.Limit):
+            child = self._lower(p.children[0], required)
+            topn = self._maybe_topn(p, child)
+            if topn is not None:
+                return topn
+            if child.num_partitions > 1:
+                return TpuCollectLimitExec(p.n, child)
+            return TpuGlobalLimitExec(p.n, child)
         raise NotImplementedError(
             f"{type(p).__name__} is not lowered by spark_rapids_tpu_torch")
 
@@ -87,3 +141,65 @@ class Planner:
             source = TpuCoalescePartitionsExec(partial)
         return TpuHashAggregateExec(p.groups, p.aggs, source, mode="final",
                                     input_schema=child.schema)
+
+    def _maybe_topn(self, p: L.Limit, child: TpuExec) -> Optional[TpuExec]:
+        """LIMIT n over a sort with a fixed-width primary key -> a
+        streaming top-n over the sort's input (no coalesce needed: the
+        top-n drains every partition)."""
+        if not (isinstance(child, TpuSortExec)
+                and 0 < p.n <= TOPN_MAX_ROWS
+                and isinstance(child.keys[0].expr.dtype,
+                               TOPN_PRIMARY_TYPES)):
+            return None
+        source = child.children[0]
+        if isinstance(source, TpuCoalescePartitionsExec):
+            source = source.children[0]
+        return TpuTopNExec(p.n, child.keys, source)
+
+    def _plan_join(self, p: L.Join, left: TpuExec,
+                   right: TpuExec) -> TpuExec:
+        chunk = self.conf.get(C.JOIN_OUTPUT_CHUNK_ROWS)
+        lkeys = [bind_references(k, left.schema) for k in p.left_keys]
+        rkeys = [bind_references(k, right.schema) for k in p.right_keys]
+        # both sides hash a key alike only when its types are identical
+        same_types = all(lk.dtype == rk.dtype
+                         for lk, rk in zip(lkeys, rkeys))
+        if not same_types or (left.num_partitions <= 1
+                              and right.num_partitions <= 1):
+            return TpuShuffledHashJoinExec(p.left_keys, p.right_keys,
+                                           p.join_type, left, right, chunk,
+                                           p.condition)
+        lsat = _hash_satisfies(left, lkeys)
+        rsat = _hash_satisfies(right, rkeys)
+        if lsat is not None:
+            n = lsat.num_partitions
+            if rsat is not None and rsat.num_partitions != n:
+                rsat = None  # mismatched widths: re-shuffle the right
+        elif rsat is not None:
+            n = rsat.num_partitions
+        else:
+            n = self.conf.get(C.SHUFFLE_PARTITIONS)
+        if lsat is None:
+            left = TpuShuffleExchangeExec(HashPartitioning(p.left_keys, n),
+                                          left, self.manager)
+        if rsat is None:
+            right = TpuShuffleExchangeExec(
+                HashPartitioning(p.right_keys, n), right, self.manager)
+        return TpuShuffledHashJoinExec(p.left_keys, p.right_keys,
+                                       p.join_type, left, right, chunk,
+                                       p.condition, partition_wise=True)
+
+
+def _hash_satisfies(exec_: TpuExec,
+                    keys: list) -> Optional[HashPartitioning]:
+    """The child's hash distribution when it hashes exactly these key
+    columns (same ordinals, same types), else None."""
+    part = exec_.output_partitioning
+    if part is None or len(part.exprs) != len(keys):
+        return None
+    for pe, jk in zip(part.exprs, keys):
+        if not (isinstance(pe, BoundReference)
+                and isinstance(jk, BoundReference)
+                and pe.ordinal == jk.ordinal and pe.dtype == jk.dtype):
+            return None
+    return part

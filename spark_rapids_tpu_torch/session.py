@@ -1,9 +1,9 @@
 """The port's front door: a pyspark-shaped session and DataFrame.
 
-Counterpart of ``spark_rapids_tpu/session.py`` for the slice:
-``TorchSession.read_parquet`` and ``DataFrame.where / select /
-group_by(...).agg / agg / collect``, with ``col``, ``lit``, ``sum_``,
-``avg`` and ``count_star``.
+Counterpart of ``spark_rapids_tpu/session.py`` for the slices ported so
+far: ``TorchSession.read_parquet`` and ``DataFrame.where / select /
+group_by(...).agg / agg / join / order_by / limit / collect``, with
+``col``, ``lit``, ``sum_``, ``avg`` and ``count_star``.
 
 A session runs on one device, ``cuda`` unless the caller asks for the
 CPU.  Asking for CUDA on a host without it raises: nothing falls back
@@ -12,7 +12,7 @@ to the CPU.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import pyarrow as pa
 import torch
@@ -21,6 +21,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
 from spark_rapids_tpu_torch.config import TorchConf
 from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.execs.sort import SortKey
 from spark_rapids_tpu_torch.exprs.aggregates import (
     AggregateFunction,
     Average,
@@ -28,7 +29,13 @@ from spark_rapids_tpu_torch.exprs.aggregates import (
     NamedAgg,
     Sum,
 )
-from spark_rapids_tpu_torch.exprs.base import Expression, _expr, col, lit
+from spark_rapids_tpu_torch.exprs.base import (
+    ColumnReference,
+    Expression,
+    _expr,
+    col,
+    lit,
+)
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.planner import Planner
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
@@ -111,6 +118,35 @@ class DataFrame:
 
     def agg(self, *aggs: AggLike) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
+
+    def join(self, other: "DataFrame",
+             on: Union[str, Sequence[str], None] = None, how: str = "inner",
+             left_on: Optional[Sequence] = None,
+             right_on: Optional[Sequence] = None,
+             condition: Optional[Expression] = None) -> "DataFrame":
+        """Equi-join on ``on`` (column names both sides share) or on
+        ``left_on`` / ``right_on``; the output is left ++ right
+        columns."""
+        if on is not None:
+            names = [on] if isinstance(on, str) else list(on)
+            lk = [ColumnReference(n) for n in names]
+            rk = [ColumnReference(n) for n in names]
+        else:
+            lk = [_expr(e) for e in (left_on or [])]
+            rk = [_expr(e) for e in (right_on or [])]
+        return DataFrame(L.Join(self._plan, other._plan, lk, rk, how,
+                                condition), self._session)
+
+    def order_by(self, *keys, desc: bool = False) -> "DataFrame":
+        """Sort by ``keys`` (expressions or SortKeys); ``desc`` sorts
+        descending with NULLs last, as Spark does."""
+        sks = [k if isinstance(k, SortKey)
+               else SortKey(_expr(k), descending=desc, nulls_last=desc)
+               for k in keys]
+        return DataFrame(L.Sort(sks, self._plan), self._session)
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(L.Limit(n, self._plan), self._session)
 
     def physical_plan(self) -> TpuExec:
         s = self._session

@@ -343,6 +343,50 @@ def test_q1_on_the_card_launches_k1(cuda, tmp_path):
             assert g[k] == pytest.approx(c[k], rel=1e-12)
 
 
+def _map_batches(plan) -> int:
+    """Non-empty batches the plan's exchanges hash: each exchange's
+    child drained on its own."""
+    from spark_rapids_tpu_torch.execs.exchange import TpuShuffleExchangeExec
+
+    n = 0
+    for ex in plan.walk():
+        if isinstance(ex, TpuShuffleExchangeExec):
+            child = ex.children[0]
+            n += sum(1 for p in range(child.num_partitions)
+                     for b in child.execute_partition(p) if b.num_rows)
+    for node in plan.walk():
+        if hasattr(node, "close"):
+            node.close()
+    return n
+
+
+@pytest.mark.cuda
+def test_q3_on_the_card_launches_k1_per_map_batch(cuda, tmp_path):
+    from spark_rapids_tpu_torch import tpch
+
+    paths = tpch.make_lineitem(str(tmp_path), n_files=3, with_orderkey=True,
+                               n_orders=2048, rows_per_file=4096)
+    orders = tpch.make_orders(str(tmp_path), n_orders=2048)
+    ttb = {"spark.rapids.tpu.sql.scan.taskTargetBytes": 1}
+    session = TorchSession(ttb)
+    planned = _map_batches(tpch.q3_dataframe(session, paths,
+                                             orders).physical_plan())
+    assert planned == 3 + 1 + 8  # lineitem files, orders, partials
+    kernels.hash_columns.launches = 0
+    kernels.hash_string.launches = 0
+    gpu = tpch.q3_dataframe(session, paths, orders).collect()
+    assert kernels.hash_columns.launches == planned
+    assert kernels.hash_string.launches == 0
+    cpu = tpch.q3_dataframe(TorchSession(ttb, device="cpu"), paths,
+                            orders).collect()
+    assert gpu.num_rows == cpu.num_rows == 10
+    for g, c in zip(gpu.to_pylist(), cpu.to_pylist()):
+        assert [g[k] for k in ("l_orderkey", "o_orderdate",
+                               "o_shippriority")] == \
+            [c[k] for k in ("l_orderkey", "o_orderdate", "o_shippriority")]
+        assert g["revenue"] == pytest.approx(c["revenue"], rel=1e-12)
+
+
 def test_build_paths_live_in_the_package():
     assert kernels.BUILD_DIR == PORT_DIR / "_build"
     assert kernels.library_path("hash_string").parent == kernels.BUILD_DIR

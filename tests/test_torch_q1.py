@@ -90,6 +90,18 @@ def test_make_lineitem_copies_bench(tmp_path, monkeypatch):
                              with_q1_cols=True, rows_per_file=ROWS)
     for g, w in zip(got, want):
         assert pq.read_table(g).equals(pq.read_table(w))
+    # q3's lineitem: the order key drawn last, from the same generator
+    (tmp_path / "c").mkdir()
+    (tmp_path / "d").mkdir()
+    want = bench.make_lineitem(str(tmp_path / "c"), n_files=2,
+                               with_q1_cols=True, with_orderkey=True,
+                               n_orders=1000)
+    got = tpch.make_lineitem(str(tmp_path / "d"), n_files=2,
+                             with_q1_cols=True, with_orderkey=True,
+                             n_orders=1000, rows_per_file=ROWS)
+    for g, w in zip(got, want):
+        assert pq.read_table(g).equals(pq.read_table(w))
+        assert "l_orderkey" in pq.read_schema(g).names
 
 
 @pytest.mark.parametrize("query", ["q1", "q6"])
