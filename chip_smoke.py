@@ -30,8 +30,19 @@ Phases, one JSON line each:
            per non-empty map batch of its three exchanges (counted by
            draining each exchange's child before the runs) and
            hash_string never;
-  main     hash_columns at the calls q1 and q3 made (the largest call of
-           each key signature), and hash_string on one of q1's key
+  q67      TPC-DS q67 (sales per store and item, ranked within each store
+           by a rank() window, the top 10 of each store ORDER BY store,
+           rank, item) over 6 x 2^20 generated store_sales rows in six
+           files, one scan task each (scan.taskTargetBytes = 4 MiB, below
+           one ~4.6 MiB file), the same way: the rows held against a
+           pyarrow group_by and a numpy rank of the same files (keys and
+           ranks exact, sums within REL_TOL; two rows of one store whose
+           sums agree within REL_TOL may come in either order);
+           hash_columns must launch once per non-empty map batch of its
+           two hash exchanges (the range exchange of its ORDER BY hashes
+           nothing) and hash_string never;
+  main     hash_columns at the calls q1, q3 and q67 made (the largest call
+           of each key signature), and hash_string on one of q1's key
            columns, against their plain versions, with the device's own
            time per launch (torch.profiler kernel time over a loop) and
            the host-inclusive time per call (host clock over the same
@@ -87,6 +98,8 @@ MIXES = {
                    ("string", 16)),
 }
 TASK_TARGET_BYTES = 8 << 20
+#: q67: six files of 2^20 store_sales rows, ~4.6 MiB each, a task each
+Q67_ROWS, Q67_FILES, Q67_TASK_TARGET_BYTES = 6 << 20, 6, 4 << 20
 REL_TOL = 1e-9
 
 
@@ -526,12 +539,72 @@ def compare_top(got_table, ref, n: int) -> float:
     return worst
 
 
+def reference_q67(pc, tables):
+    """q67 by pyarrow and numpy: every (store, item) group's sales, and
+    the rows q67 keeps (rank within the store by sales, descending, ties
+    sharing the lowest rank; rank <= 10), by (store, rank, item)."""
+    import numpy as np
+
+    t = tables.append_column("sales", pc.multiply(
+        tables["ss_sales_price"], tables["ss_quantity"]))
+    g = t.group_by(["ss_store_sk", "ss_item_sk"]).aggregate(
+        [("sales", "sum")])
+    store = g["ss_store_sk"].to_numpy()
+    item = g["ss_item_sk"].to_numpy()
+    sums = g["sales_sum"].to_numpy()
+    rows = []
+    for s in np.unique(store):
+        m = store == s
+        desc = np.sort(-sums[m])
+        rank = np.searchsorted(desc, -sums[m], side="left") + 1
+        for it, v, rk in zip(item[m], sums[m], rank):
+            if rk <= 10:
+                rows.append({"ss_store_sk": int(s), "ss_item_sk": int(it),
+                             "sumsales": float(v), "rk": int(rk)})
+    rows.sort(key=lambda r: (r["ss_store_sk"], r["rk"], r["ss_item_sk"]))
+    all_sums = {(int(a), int(b)): float(v)
+                for a, b, v in zip(store, item, sums)}
+    return rows, all_sums
+
+
+def compare_q67(got_table, want: list, all_sums: dict) -> float:
+    """q67's rows against the reference's, place by place: keys and ranks
+    exact and sums within REL_TOL, except that two rows of one store
+    whose sums agree within REL_TOL may come in either order.  Returns
+    the largest relative sum error."""
+    got = got_table.to_pylist()
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} rows, reference has {len(want)}")
+    order = [(r["ss_store_sk"], r["rk"], r["ss_item_sk"]) for r in got]
+    if order != sorted(order):
+        raise AssertionError("rows are not in (store, rank, item) order")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        key = (g["ss_store_sk"], g["ss_item_sk"])
+        if key not in all_sums:
+            raise AssertionError(f"place {i}: unexpected group {key}")
+        ref = all_sums[key]
+        rel = abs(g["sumsales"] - ref) / abs(ref)
+        worst = max(worst, rel)
+        if rel > REL_TOL:
+            raise AssertionError(f"place {i} {key}: sales {g['sumsales']} "
+                                 f"vs {ref} (rel {rel:.3e})")
+        same = all(g[k] == w[k] for k in ("ss_store_sk", "ss_item_sk", "rk"))
+        tied = g["ss_store_sk"] == w["ss_store_sk"] and abs(
+            ref - w["sumsales"]) <= REL_TOL * abs(w["sumsales"])
+        if not (same or tied):
+            raise AssertionError(f"place {i}: {g} vs reference {w}")
+    return worst
+
+
 def map_batches(plan) -> int:
-    """Non-empty batches the plan's exchanges hash: each exchange's
-    child drained on its own (its own hashes launch here too)."""
+    """Non-empty batches the plan's hash exchanges hash: each exchange's
+    child drained on its own (its own hashes launch here too).  A range
+    exchange hashes nothing."""
     n = 0
     for ex in plan.walk():
-        if type(ex).__name__ == "TpuShuffleExchangeExec":
+        if type(ex).__name__ == "TpuShuffleExchangeExec" and type(
+                ex.partitioning).__name__ == "HashPartitioning":
             child = ex.children[0]
             n += sum(1 for p in range(child.num_partitions)
                      for b in child.execute_partition(p) if b.num_rows)
@@ -653,7 +726,7 @@ def main() -> int:
     import pyarrow.compute as pc
     import pyarrow.parquet as pq
 
-    from spark_rapids_tpu_torch import TorchSession, tpch
+    from spark_rapids_tpu_torch import TorchSession, tpcds, tpch
     from spark_rapids_tpu_torch.config import TASK_TARGET_BYTES as TTB
     from spark_rapids_tpu_torch.ops import kernels
 
@@ -738,6 +811,38 @@ def main() -> int:
              planned_map_batches=planned, hash_columns_calls=sorted(
                  {(n, signature(cols), parts)
                   for cols, n, _, parts in q3_calls}), **q3)
+        del lineitem, orders
+
+        q67_dir = os.path.join(data_dir, "q67")
+        os.makedirs(q67_dir)
+        t0 = time.perf_counter()
+        ss_paths = tpcds.make_store_sales(q67_dir, n_rows=Q67_ROWS,
+                                          n_files=Q67_FILES)
+        gen67_s = time.perf_counter() - t0
+        sales = pa.concat_tables([pq.read_table(p) for p in ss_paths])
+        ref67, sums67 = reference_q67(pc, sales)
+        session67 = TorchSession({TTB: Q67_TASK_TARGET_BYTES}, device="cuda")
+
+        def q67_df():
+            return tpcds.q67_dataframe(session67, ss_paths)
+
+        tasks = [n.num_partitions for n in q67_df().physical_plan().walk()
+                 if not n.children]
+        if tasks != [Q67_FILES]:
+            raise AssertionError(f"q67 scan tasks {tasks}, expected "
+                                 f"{[Q67_FILES]}")
+        planned67 = map_batches(q67_df().physical_plan())
+        q67_calls: list = []
+        q67 = run_query(torch, q67_df, kernels,
+                        lambda t: compare_q67(t, ref67, sums67), q67_calls)
+        emit("q67", rows_in=sales.num_rows, groups=len(sums67),
+             rows_out=q67["rows"], file_bytes=[os.path.getsize(p)
+                                               for p in ss_paths],
+             datagen_s=gen67_s, planned_map_batches=planned67,
+             hash_columns_calls=sorted(
+                 {(n, signature(cols), parts)
+                  for cols, n, _, parts in q67_calls}), **q67)
+        del sales
     want = {"hash_columns": q1["runs"] * len(paths), "hash_string": 0}
     if q1["launches"] != want:
         raise AssertionError(f"q1 launched {q1['launches']}, expected "
@@ -748,8 +853,14 @@ def main() -> int:
     if q3["launches"] != want:
         raise AssertionError(f"q3 launched {q3['launches']}, expected "
                              f"{want} (one hash_columns per map batch)")
+    want = {"hash_columns": q67["runs"] * planned67, "hash_string": 0}
+    if q67["launches"] != want:
+        raise AssertionError(f"q67 launched {q67['launches']}, expected "
+                             f"{want} (one hash_columns per hash map "
+                             f"batch)")
 
-    worst, at_main = at_main_path(torch, kernels, q1_calls + q3_calls)
+    worst, at_main = at_main_path(torch, kernels,
+                                  q1_calls + q3_calls + q67_calls)
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
@@ -757,13 +868,13 @@ def main() -> int:
         "name": "hash_columns", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
-        "launches": q1["launches"]["hash_columns"]
-        + q6["launches"]["hash_columns"] + q3["launches"]["hash_columns"],
+        "launches": sum(q["launches"]["hash_columns"]
+                        for q in (q6, q1, q3, q67)),
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
         "library_ms": None,
-        "shape": "the largest of q1's and q3's calls; ms is the "
+        "shape": "the largest of q1's, q3's and q67's calls; ms is the "
                  "device's own time per launch",
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,
@@ -771,8 +882,8 @@ def main() -> int:
         "name": "hash_string", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
-        "launches": q1["launches"]["hash_string"]
-        + q6["launches"]["hash_string"] + q3["launches"]["hash_string"],
+        "launches": sum(q["launches"]["hash_string"]
+                        for q in (q6, q1, q3, q67)),
         "max_abs_err": max(r["max_abs_err"] for r in large),
         "ms": w64["ms"], "plain_ms": w64["plain_ms"],
         "bound_ms": w64["bound_ms"], "bound_by": w64["bound_by"],

@@ -6,12 +6,23 @@ TPU kernels.  It mirrors ``spark_rapids_tpu``'s layout and names, and
 imports neither JAX nor that package.  Entry point: ``TorchSession``.
 """
 
+from spark_rapids_tpu_torch.exprs.window import (  # noqa: F401
+    Window,
+    dense_rank,
+    lag,
+    lead,
+    rank,
+    row_number,
+)
 from spark_rapids_tpu_torch.session import (  # noqa: F401
     DataFrame,
     TorchSession,
     avg,
     col,
+    count,
     count_star,
     lit,
+    max_,
+    min_,
     sum_,
 )

@@ -19,12 +19,19 @@ BATCH_ROWS = "spark.rapids.tpu.sql.batchSizeRows"
 #: most rows in one join output batch (a stream batch's pairs come in
 #: chunks of at most this many)
 JOIN_OUTPUT_CHUNK_ROWS = "spark.rapids.tpu.sql.join.outputChunkRows"
+#: plan a multi-partition ORDER BY as a range exchange plus a sort of
+#: each partition; off, the partitions coalesce into one sort
+SORT_RANGE_EXCHANGE = "spark.rapids.tpu.sql.sort.rangeExchange"
+#: rows sampled from each map batch for a range exchange's bounds
+SORT_SAMPLES_PER_BATCH = "spark.rapids.tpu.sql.sort.samplesPerBatch"
 
 DEFAULTS: dict[str, Any] = {
     SHUFFLE_PARTITIONS: 8,
     TASK_TARGET_BYTES: 512 << 20,
     BATCH_ROWS: 1 << 20,
     JOIN_OUTPUT_CHUNK_ROWS: 1 << 22,
+    SORT_RANGE_EXCHANGE: True,
+    SORT_SAMPLES_PER_BATCH: 128,
 }
 
 

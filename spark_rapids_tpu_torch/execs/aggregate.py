@@ -36,6 +36,7 @@ from spark_rapids_tpu_torch.exprs.base import (
     output_field,
 )
 from spark_rapids_tpu_torch.ops.groupby import (
+    GROUPBY_OPS,
     AggSpec,
     groupby_aggregate,
     reduce_aggregate,
@@ -58,6 +59,10 @@ class TpuHashAggregateExec(TpuExec):
             raise ValueError("final mode requires input_schema")
         self.aggs = [NamedAgg(na.fn.bind(bind_schema), na.out_name)
                      for na in aggs]
+        for na in self.aggs:
+            if not set(na.fn.update_ops()) <= set(GROUPBY_OPS):
+                raise NotImplementedError(
+                    f"{na.fn.name} is not ported as a group-by aggregate")
         self.n_keys = len(groups)
         if mode == "final":
             self.partial_schema = child_schema

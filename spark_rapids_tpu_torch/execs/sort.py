@@ -1,10 +1,12 @@
 """Sort and top-n execs.
 
-Counterparts of ``TpuSortExec`` (its in-memory global sort of one
-partition) and ``TpuTopNExec`` in ``spark_rapids_tpu/execs/sort.py``.
-Sort keys are expressions: they are evaluated per batch and sorted by
-``ops/sort.py``; the out-of-core and range-partitioned sorts are not
-ported.
+Counterparts of ``TpuSortExec`` and ``TpuTopNExec`` in
+``spark_rapids_tpu/execs/sort.py``.  Sort keys are expressions: they
+are evaluated per batch and sorted by ``ops/sort.py``.  A sort of one
+partition (``scope="global"``) sorts its input in memory; below a
+range exchange (``scope="partition"``) each partition is sorted alone,
+and partition order is then the total order.  The out-of-core
+sample-split sort is not ported.
 """
 
 from __future__ import annotations
@@ -71,18 +73,29 @@ class _SortMixin(TpuExec):
 
 
 class TpuSortExec(_SortMixin):
-    """Global sort of one partition in memory: every child batch is
-    concatenated and sorted once."""
+    """An in-memory sort: each child partition's batches concatenated
+    and sorted once.  ``scope="global"`` sorts a child of one partition;
+    ``scope="partition"`` sorts every partition of a range-partitioned
+    child and keeps its distribution."""
 
-    def __init__(self, keys: Sequence[SortKey], child: TpuExec):
+    def __init__(self, keys: Sequence[SortKey], child: TpuExec,
+                 scope: str = "global"):
         super().__init__(child)
-        if child.num_partitions != 1:
-            raise ValueError("TpuSortExec sorts one partition; coalesce "
-                             "its child first")
+        if scope not in ("global", "partition"):
+            raise ValueError(f"unknown sort scope {scope!r}")
+        if scope == "global" and child.num_partitions != 1:
+            raise ValueError("a global TpuSortExec sorts one partition; "
+                             "coalesce its child first")
+        self.scope = scope
         self._bind(keys, child)
 
+    @property
+    def output_partitioning(self):
+        return self.children[0].output_partitioning \
+            if self.scope == "partition" else None
+
     def node_desc(self) -> str:
-        return f"TpuSortExec [{describe_keys(self.keys)}]"
+        return f"TpuSortExec [{describe_keys(self.keys)}] scope={self.scope}"
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         parts = [b for b in self.children[0].execute_partition(p)

@@ -3,8 +3,10 @@
 Counterpart of ``spark_rapids_tpu/exprs/aggregates.py``: each SQL
 aggregate decomposes into *update* ops (per input batch), *merge* ops
 (over partial results, e.g. after a shuffle) and a *finalize*
-expression over the partial columns.  The slice ports Sum, CountStar
-and Average; the ops they name run in ``ops/groupby.py``.
+expression over the partial columns.  Sum, Count, CountStar and
+Average group-aggregate: the ops they name run in ``ops/groupby.py``.
+Min and Max serve window frames only (``exprs/window.py``); a group-by
+over them raises NotImplementedError when it is planned.
 """
 
 from __future__ import annotations
@@ -57,6 +59,12 @@ class AggregateFunction:
     def nullable(self) -> bool:
         return True
 
+    def over(self, spec):
+        """This aggregate over a window: ``sum_(col("v")).over(w)``."""
+        from spark_rapids_tpu_torch.exprs.window import WindowAgg
+
+        return WindowAgg(self).over(spec)
+
 
 class Sum(AggregateFunction):
     def update_ops(self):
@@ -64,6 +72,46 @@ class Sum(AggregateFunction):
 
     def merge_ops(self):
         return ["sum"]
+
+
+class Count(AggregateFunction):
+    """count(expr): the non-NULL rows."""
+
+    def update_ops(self):
+        return ["count"]
+
+    def merge_ops(self):
+        return ["sum"]
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def finalize_expr(self, partial_refs):
+        from spark_rapids_tpu_torch.exprs.predicates import Coalesce
+
+        return Coalesce(partial_refs[0], Literal.of(0))
+
+
+class _Extremum(AggregateFunction):
+    op = ""
+
+    def update_ops(self):
+        return [self.op]
+
+    def merge_ops(self):
+        return [self.op]
+
+    def partial_dtypes(self):
+        return [self.child.dtype]
+
+
+class Min(_Extremum):
+    op = "min"
+
+
+class Max(_Extremum):
+    op = "max"
 
 
 class CountStar(AggregateFunction):

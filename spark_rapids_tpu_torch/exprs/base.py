@@ -163,6 +163,11 @@ def _expr(v) -> Expression:
     return v if isinstance(v, Expression) else Literal.of(v)
 
 
+def _column(v) -> Expression:
+    """A column name as a reference, anything else as an expression."""
+    return ColumnReference(v) if isinstance(v, str) else _expr(v)
+
+
 def lit(v) -> "Literal":
     return Literal.of(v)
 

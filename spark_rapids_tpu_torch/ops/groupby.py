@@ -12,8 +12,8 @@ there:
   combined code IS its group id and no sort runs.
 
 Aggregations are (update, merge) op pairs as Spark's aggregate modes
-use them.  The slice ports the ops its aggregates need: ``sum``,
-``count`` and ``count_star``.  Output batches hold one row per group.
+use them.  The slice ports the ops its aggregates need (``GROUPBY_OPS``).
+Output batches hold one row per group.
 """
 
 from __future__ import annotations
@@ -46,6 +46,10 @@ class AggSpec:
     op: str
     ordinal: int  # ignored for count_star
     out_dtype: Optional[T.DataType] = None
+
+
+#: the aggregate ops a group-by evaluates; min and max are not ported
+GROUPBY_OPS = ("sum", "count", "count_star")
 
 
 def _sum_dtype(dt: T.DataType) -> T.DataType:

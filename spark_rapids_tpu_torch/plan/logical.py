@@ -1,5 +1,5 @@
-"""Logical plan nodes: Scan, Filter, Project, Aggregate, Join, Sort and
-Limit.
+"""Logical plan nodes: Scan, Filter, Project, Aggregate, Join, Window,
+Sort and Limit.
 
 Counterpart of the matching nodes of ``spark_rapids_tpu/plan/logical.py``.
 Nodes keep their expressions by column name; the planner binds them to
@@ -119,6 +119,25 @@ class Join(LogicalPlan):
         if condition is not None:
             bind_references(condition, T.Schema(
                 list(left.schema.fields) + list(right.schema.fields)))
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+
+class Window(LogicalPlan):
+    """One (partition_by, order_by) group of window expressions, their
+    columns appended to the child's (``DataFrame.select`` chains one
+    node per group)."""
+
+    def __init__(self, window_exprs, child: LogicalPlan):
+        self.children = [child]
+        self.window_exprs = list(window_exprs)  # of (expression, name)
+        bound = [(we.bind(child.schema), name)
+                 for we, name in self.window_exprs]
+        self._schema = T.Schema(
+            list(child.schema.fields)
+            + [T.Field(name, we.dtype, we.nullable) for we, name in bound])
 
     @property
     def schema(self) -> T.Schema:

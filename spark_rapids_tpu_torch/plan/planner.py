@@ -1,8 +1,8 @@
 """Logical -> physical lowering.
 
 Counterpart of ``spark_rapids_tpu/plan/planner.py`` for Scan, Filter,
-Project, Aggregate, Join, Sort and Limit.  Scan columns are pruned to
-what the plan above reads.
+Project, Aggregate, Join, Window, Sort and Limit.  Scan columns are
+pruned to what the plan above reads.
 
 - An aggregate over several input partitions lowers as
   ``_plan_aggregate`` does there: partial aggregate -> hash exchange on
@@ -15,9 +15,20 @@ what the plan above reads.
   distributed so) under a partition-wise join.  Only identical key
   types hash alike, so other joins run as one wide join.  Broadcast,
   adaptive and collective joins are not ported.
-- A sort coalesces its input and sorts it in memory; a LIMIT over a
-  sort with a fixed-width primary key becomes a streaming top-n
-  (``_maybe_topn``), any other LIMIT a collect or global limit.
+- A window with partition keys over several input partitions lowers
+  as the JAX planner's ``L.Window`` branch: a hash exchange on the
+  partition keys (unless the child is already hash-distributed so)
+  under a per-partition ``TpuWindowExec``; any other window drains its
+  input into one batch.
+- A sort over several partitions lowers as ``_plan_sort``: a range
+  exchange (bounds from a sample) under a partition-scoped sort, whose
+  partitions come out in key order (``sort.rangeExchange`` off, or one
+  input partition: coalesce and sort once).  A LIMIT over a sort with a
+  fixed-width primary key becomes a streaming top-n (``_maybe_topn``,
+  which reads the sort's input before any exchange), any other LIMIT a
+  collect or global limit.
+- Only a hash distribution satisfies a join, an aggregate or a window:
+  a range exchange's does not (``_hash_satisfies``).
 
 A node this port cannot lower raises NotImplementedError: there is no
 CPU fallback engine.
@@ -48,9 +59,13 @@ from spark_rapids_tpu_torch.execs.sort import (
     TpuSortExec,
     TpuTopNExec,
 )
+from spark_rapids_tpu_torch.execs.window import TpuWindowExec
 from spark_rapids_tpu_torch.exprs.base import BoundReference, bind_references
 from spark_rapids_tpu_torch.io.scan import ParquetScanExec
-from spark_rapids_tpu_torch.ops.partition import HashPartitioning
+from spark_rapids_tpu_torch.ops.partition import (
+    HashPartitioning,
+    RangePartitioning,
+)
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 
@@ -107,13 +122,17 @@ class Planner:
                         need |= required & set(child.schema.names)
                 sides.append(self._lower(child, need))
             return self._plan_join(p, *sides)
+        if isinstance(p, L.Window):
+            need = None
+            if required is not None:
+                made = {name for _, name in p.window_exprs}
+                need = (required - made).union(
+                    *(we.references() for we, _ in p.window_exprs))
+            return self._plan_window(p, self._lower(p.children[0], need))
         if isinstance(p, L.Sort):
             need = None if required is None else required.union(
                 *(k.expr.references() for k in p.keys))
-            child = self._lower(p.children[0], need)
-            if child.num_partitions > 1:
-                child = TpuCoalescePartitionsExec(child)
-            return TpuSortExec(p.keys, child)
+            return self._plan_sort(p, self._lower(p.children[0], need))
         if isinstance(p, L.Limit):
             child = self._lower(p.children[0], required)
             topn = self._maybe_topn(p, child)
@@ -142,17 +161,41 @@ class Planner:
         return TpuHashAggregateExec(p.groups, p.aggs, source, mode="final",
                                     input_schema=child.schema)
 
+    def _plan_window(self, p: L.Window, child: TpuExec) -> TpuExec:
+        part_by = p.window_exprs[0][0].spec.partition_by
+        if not part_by or child.num_partitions <= 1:
+            return TpuWindowExec(p.window_exprs, child)
+        bound = [bind_references(e, child.schema) for e in part_by]
+        if _hash_satisfies(child, bound) is None:
+            n = self.conf.get(C.SHUFFLE_PARTITIONS)
+            child = TpuShuffleExchangeExec(HashPartitioning(part_by, n),
+                                           child, self.manager)
+        return TpuWindowExec(p.window_exprs, child, partitioned=True)
+
+    def _plan_sort(self, p: L.Sort, child: TpuExec) -> TpuExec:
+        if child.num_partitions > 1 and self.conf.get(C.SORT_RANGE_EXCHANGE):
+            n = self.conf.get(C.SHUFFLE_PARTITIONS)
+            ex = TpuShuffleExchangeExec(
+                RangePartitioning(p.keys, n), child, self.manager,
+                samples_per_batch=self.conf.get(C.SORT_SAMPLES_PER_BATCH))
+            return TpuSortExec(p.keys, ex, scope="partition")
+        if child.num_partitions > 1:
+            child = TpuCoalescePartitionsExec(child)
+        return TpuSortExec(p.keys, child)
+
     def _maybe_topn(self, p: L.Limit, child: TpuExec) -> Optional[TpuExec]:
         """LIMIT n over a sort with a fixed-width primary key -> a
-        streaming top-n over the sort's input (no coalesce needed: the
-        top-n drains every partition)."""
+        streaming top-n over the sort's input before its coalesce or
+        range exchange (the top-n drains every partition)."""
         if not (isinstance(child, TpuSortExec)
                 and 0 < p.n <= TOPN_MAX_ROWS
                 and isinstance(child.keys[0].expr.dtype,
                                TOPN_PRIMARY_TYPES)):
             return None
         source = child.children[0]
-        if isinstance(source, TpuCoalescePartitionsExec):
+        if isinstance(source, TpuCoalescePartitionsExec) or (
+                isinstance(source, TpuShuffleExchangeExec)
+                and isinstance(source.partitioning, RangePartitioning)):
             source = source.children[0]
         return TpuTopNExec(p.n, child.keys, source)
 
@@ -195,7 +238,8 @@ def _hash_satisfies(exec_: TpuExec,
     """The child's hash distribution when it hashes exactly these key
     columns (same ordinals, same types), else None."""
     part = exec_.output_partitioning
-    if part is None or len(part.exprs) != len(keys):
+    if not isinstance(part, HashPartitioning) \
+            or len(part.exprs) != len(keys):
         return None
     for pe, jk in zip(part.exprs, keys):
         if not (isinstance(pe, BoundReference)

@@ -3,7 +3,12 @@
 Counterpart of ``spark_rapids_tpu/session.py`` for the slices ported so
 far: ``TorchSession.read_parquet`` and ``DataFrame.where / select /
 group_by(...).agg / agg / join / order_by / limit / collect``, with
-``col``, ``lit``, ``sum_``, ``avg`` and ``count_star``.
+``col``, ``lit``, ``sum_``, ``avg``, ``count``, ``count_star``, ``min_``
+and ``max_``.  ``select`` takes window expressions (``rank()``,
+``row_number()``, ``dense_rank()``, ``lead``, ``lag`` or an aggregate,
+``.over(Window.partition_by(...).order_by(...))``) anywhere in its
+list: they are extracted into ``Window`` plan nodes under the
+projection, one per (partition_by, order_by) group.
 
 A session runs on one device, ``cuda`` unless the caller asks for the
 CPU.  Asking for CUDA on a host without it raises: nothing falls back
@@ -25,37 +30,69 @@ from spark_rapids_tpu_torch.execs.sort import SortKey
 from spark_rapids_tpu_torch.exprs.aggregates import (
     AggregateFunction,
     Average,
+    Count,
     CountStar,
+    Max,
+    Min,
     NamedAgg,
     Sum,
 )
 from spark_rapids_tpu_torch.exprs.base import (
     ColumnReference,
     Expression,
+    _column,
     _expr,
     col,
     lit,
 )
+from spark_rapids_tpu_torch.exprs.window import WindowExpression
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.planner import Planner
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 
 __all__ = ["TorchSession", "DataFrame", "col", "lit", "sum_", "avg",
-           "count_star"]
+           "count", "count_star", "min_", "max_"]
 
 AggLike = Union[NamedAgg, AggregateFunction, tuple]
 
 
 def sum_(e) -> Sum:
-    return Sum(_expr(e))
+    return Sum(_column(e))
 
 
 def avg(e) -> Average:
-    return Average(_expr(e))
+    return Average(_column(e))
+
+
+def count(e) -> Count:
+    return Count(_column(e))
 
 
 def count_star() -> CountStar:
     return CountStar()
+
+
+def min_(e) -> Min:
+    return Min(_column(e))
+
+
+def max_(e) -> Max:
+    return Max(_column(e))
+
+
+def _extract_windows(e: Expression, acc: list) -> Expression:
+    """``e`` with every window expression replaced by a reference to a
+    generated column ``__w<i>``; the expressions and names go to
+    ``acc``."""
+    if isinstance(e, WindowExpression):
+        name = f"__w{len(acc)}"
+        acc.append((e, name))
+        return ColumnReference(name)
+    kids = e.children
+    new = [_extract_windows(c, acc) for c in kids]
+    if all(n is o for n, o in zip(new, kids)):
+        return e
+    return e.with_children(new)
 
 
 class TorchSession:
@@ -105,8 +142,24 @@ class DataFrame:
         return self._plan.schema
 
     def select(self, *exprs) -> "DataFrame":
-        return DataFrame(L.Project([_expr(e) for e in exprs], self._plan),
-                         self._session)
+        """Projection of expressions or column names; window expressions
+        in it become ``Window`` nodes under it, one per (partition_by,
+        order_by) group, as Spark's ExtractWindowExpressions rule does."""
+        acc: list = []
+        rewritten = [_extract_windows(_column(e), acc) for e in exprs]
+        groups: list[tuple[tuple, list]] = []
+        for we, name in acc:
+            key = (we.spec.partition_by, we.spec.order_by)
+            for k, members in groups:
+                if k == key:
+                    members.append((we, name))
+                    break
+            else:
+                groups.append((key, [(we, name)]))
+        plan = self._plan
+        for _, members in groups:
+            plan = L.Window(members, plan)
+        return DataFrame(L.Project(rewritten, plan), self._session)
 
     def where(self, cond: Expression) -> "DataFrame":
         return DataFrame(L.Filter(cond, self._plan), self._session)

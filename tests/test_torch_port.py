@@ -344,13 +344,15 @@ def test_q1_on_the_card_launches_k1(cuda, tmp_path):
 
 
 def _map_batches(plan) -> int:
-    """Non-empty batches the plan's exchanges hash: each exchange's
-    child drained on its own."""
+    """Non-empty batches the plan's hash exchanges hash: each exchange's
+    child drained on its own (a range exchange hashes nothing)."""
     from spark_rapids_tpu_torch.execs.exchange import TpuShuffleExchangeExec
+    from spark_rapids_tpu_torch.ops.partition import HashPartitioning
 
     n = 0
     for ex in plan.walk():
-        if isinstance(ex, TpuShuffleExchangeExec):
+        if isinstance(ex, TpuShuffleExchangeExec) and isinstance(
+                ex.partitioning, HashPartitioning):
             child = ex.children[0]
             n += sum(1 for p in range(child.num_partitions)
                      for b in child.execute_partition(p) if b.num_rows)
@@ -385,6 +387,31 @@ def test_q3_on_the_card_launches_k1_per_map_batch(cuda, tmp_path):
                                "o_shippriority")] == \
             [c[k] for k in ("l_orderkey", "o_orderdate", "o_shippriority")]
         assert g["revenue"] == pytest.approx(c["revenue"], rel=1e-12)
+
+
+@pytest.mark.cuda
+def test_q67_on_the_card_launches_k1_per_hash_map_batch(cuda, tmp_path):
+    from spark_rapids_tpu_torch import tpcds
+
+    paths = tpcds.make_store_sales(str(tmp_path), n_rows=3 * 4096,
+                                   n_files=3)
+    ttb = {"spark.rapids.tpu.sql.scan.taskTargetBytes": 1}
+    session = TorchSession(ttb)
+    planned = _map_batches(tpcds.q67_dataframe(session,
+                                               paths).physical_plan())
+    assert planned == 3 + 8  # scan tasks' partials, final partitions
+    kernels.hash_columns.launches = 0
+    kernels.hash_string.launches = 0
+    gpu = tpcds.q67_dataframe(session, paths).collect()
+    assert kernels.hash_columns.launches == planned
+    assert kernels.hash_string.launches == 0
+    cpu = tpcds.q67_dataframe(TorchSession(ttb, device="cpu"),
+                              paths).collect()
+    assert gpu.num_rows == cpu.num_rows >= 80
+    keys = ("ss_store_sk", "ss_item_sk", "rk")
+    for g, c in zip(gpu.to_pylist(), cpu.to_pylist()):
+        assert [g[k] for k in keys] == [c[k] for k in keys]
+        assert g["sumsales"] == pytest.approx(c["sumsales"], rel=1e-12)
 
 
 def test_build_paths_live_in_the_package():

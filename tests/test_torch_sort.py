@@ -33,6 +33,7 @@ from spark_rapids_tpu_torch.exprs.base import BoundReference
 from spark_rapids_tpu_torch.ops import groupby as G
 from spark_rapids_tpu_torch.ops import join as J
 from spark_rapids_tpu_torch.ops import sort as S
+from spark_rapids_tpu_torch.ops.partition import RangePartitioning
 
 #: kind -> (JAX type, port type)
 KINDS = {"int": (JT.INT, T.INT), "long": (JT.LONG, T.LONG),
@@ -230,13 +231,19 @@ def test_order_by_and_limit_through_the_session(tmp_path):
     sorted_df = df.order_by(SortKey(col("s")), SortKey(col("d"), True, True),
                             SortKey(col("k")))
     plan = sorted_df.physical_plan()
-    assert isinstance(plan, TpuSortExec)
-    assert plan.children[0].num_partitions == 1  # coalesced, sorted once
+    # three scan tasks: a range exchange, then each partition sorted
+    assert isinstance(plan, TpuSortExec) and plan.scope == "partition"
+    assert isinstance(plan.children[0].partitioning, RangePartitioning)
     assert _rows(sorted_df.collect()) == _rows(want)
-    # a string primary key cannot threshold: sort, then a global limit
+    # a string primary key cannot threshold: sort, then a limit over
+    # the sorted partitions in order
     lim = sorted_df.limit(17)
-    assert isinstance(lim.physical_plan(), TpuGlobalLimitExec)
+    assert isinstance(lim.physical_plan(), TpuCollectLimitExec)
     assert _rows(lim.collect()) == _rows(want.slice(0, 17))
+    one = TorchSession(device="cpu").read_parquet(*paths).order_by(
+        SortKey(col("s")), SortKey(col("d"), True, True), SortKey(col("k")))
+    assert isinstance(one.limit(17).physical_plan(), TpuGlobalLimitExec)
+    assert _rows(one.limit(17).collect()) == _rows(want.slice(0, 17))
     # a double primary becomes a top-n: NULLs last, as desc=True sets
     top = df.order_by(col("d"), desc=True).limit(9)
     assert isinstance(top.physical_plan(), TpuTopNExec)
