@@ -29,7 +29,13 @@ Phases, one JSON line each:
            10th place by revenue only); hash_columns must launch once
            per non-empty map batch of its three exchanges (counted by
            draining each exchange's child before the runs) and
-           hash_string never;
+           hash_string never.  Its orders side is too large to
+           broadcast, so it plans a partition-wise shuffled join.  It
+           runs first with the runtime filter off (the earlier slices'
+           plan and launches), then with it on, as users get it: a
+           filter from the orders keys, built under the orders side's
+           exchange, on the lineitem scan, which adds two hash_columns
+           launches per batch it folds and two for its range table;
   q67      TPC-DS q67 (sales per store and item, ranked within each store
            by a rank() window, the top 10 of each store ORDER BY store,
            rank, item) over 6 x 2^20 generated store_sales rows in six
@@ -41,8 +47,26 @@ Phases, one JSON line each:
            hash_columns must launch once per non-empty map batch of its
            two hash exchanges (the range exchange of its ORDER BY hashes
            nothing) and hash_string never;
-  main     hash_columns at the calls q1, q3 and q67 made (the largest call
-           of each key signature), and hash_string on one of q1's key
+  q3ds     TPC-DS q3 (date_dim JOIN store_sales JOIN item, November sales
+           of manufacturer 128's brands by year, ORDER BY year, sales DESC,
+           brand LIMIT 100) over the whole calendar (73 049 days), 18 000
+           items and 6 x 2^20 store_sales rows in six files, a scan task
+           each, the same way: two broadcast joins (date_dim built left,
+           item built right), a runtime filter from date_dim's keys on the
+           store_sales scan, whose two Bloom lanes K1 hashes; the 100 rows
+           held against a pyarrow join / group_by / sort (keys exact, sums
+           within REL_TOL, rows tied on sales may trade places); the
+           filter's state, what it pruned and the rows each scan uploaded
+           from one more run; then all of it again with the filter off,
+           whose rows must be the same.  hash_columns must launch once per
+           non-empty map batch of the aggregate's exchange plus twice per
+           non-empty batch the filter folds plus twice per filter
+           published with a range table, and hash_string never;
+  main     hash_columns at the calls q1, q3 (filter off and on), q67 and
+           q3ds made (the largest call of each key signature and seed:
+           the filters' lanes and range tables hash from seeds 42 and
+           0x9747B28C), and hash_string on
+           one of q1's key
            columns, against their plain versions, with the device's own
            time per launch (torch.profiler kernel time over a loop) and
            the host-inclusive time per call (host clock over the same
@@ -100,6 +124,8 @@ MIXES = {
 TASK_TARGET_BYTES = 8 << 20
 #: q67: six files of 2^20 store_sales rows, ~4.6 MiB each, a task each
 Q67_ROWS, Q67_FILES, Q67_TASK_TARGET_BYTES = 6 << 20, 6, 4 << 20
+#: q3ds: six store_sales files of 2^20 rows and 23 columns, a task each
+Q3DS_FILES, Q3DS_ROWS_PER_FILE, Q3DS_TASK_TARGET_BYTES = 6, 1 << 20, 8 << 20
 REL_TOL = 1e-9
 
 
@@ -403,7 +429,8 @@ def at_main_path(torch, kernels, calls: list) -> dict:
     for (sig, _, _), (cols, n, seed, parts) in largest.items():
         key = (n, sig, seed, parts)
         dev = cols[0].validity.device if cols else torch.device("cuda")
-        seeds = torch.full((n,), seed, dtype=torch.int32, device=dev)
+        seeds = torch.full((n,), seed - (1 << 32) if seed >= 1 << 31
+                           else seed, dtype=torch.int32, device=dev)
         got = kernels.hash_columns(cols, n, dev, seed, parts)
         want = kernels.hash_columns_reference(cols, seeds, parts)
         err = int((got.long() - want.long()).abs().max()) if n else 0
@@ -416,7 +443,8 @@ def at_main_path(torch, kernels, calls: list) -> dict:
             torch, lambda: kernels.hash_columns_reference(cols, seeds,
                                                           parts), iters=50)
         bound_ms, bound_by = tuple_bound_ms(torch, cols, n, parts)
-        rows.append({"n": n, "columns": list(sig), "partitions": parts,
+        rows.append({"n": n, "columns": list(sig), "seed": seed,
+                     "partitions": parts,
                      "max_abs_err": err, "ms": kt["device_ms"],
                      "host_ms": kt["host_ms"],
                      "plain_ms": pt["host_ms"],
@@ -597,6 +625,124 @@ def compare_q67(got_table, want: list, all_sums: dict) -> float:
     return worst
 
 
+def reference_q3ds(pc, date_dim, sales, item):
+    """q3 by pyarrow: every (year, brand id, brand) group's November
+    sales of manufacturer 128, by year, sales descending, brand id."""
+    dd = date_dim.filter(pc.equal(date_dim["d_moy"], 11)).select(
+        ["d_date_sk", "d_year"])
+    it = item.filter(pc.equal(item["i_manufact_id"], 128)).select(
+        ["i_item_sk", "i_brand_id", "i_brand"])
+    j = dd.join(sales, keys="d_date_sk", right_keys="ss_sold_date_sk",
+                join_type="inner")
+    j = j.join(it, keys="ss_item_sk", right_keys="i_item_sk",
+               join_type="inner")
+    g = j.group_by(["d_year", "i_brand_id", "i_brand"]).aggregate(
+        [("ss_ext_sales_price", "sum")])
+    return g.sort_by([("d_year", "ascending"),
+                      ("ss_ext_sales_price_sum", "descending"),
+                      ("i_brand_id", "ascending")])
+
+
+def compare_q3ds(got_table, ref, n: int) -> float:
+    """q3's rows against the reference's first n, place by place: keys
+    exact and sums within REL_TOL, except that two rows of one year
+    whose sums agree within REL_TOL may trade places (the 100th place
+    included).  Returns the largest relative sum error."""
+    def key(r):
+        return (r["d_year"], r["i_brand_id"], r["i_brand"])
+
+    got = got_table.to_pylist()
+    want = ref.slice(0, n).to_pylist()
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} rows, reference has {len(want)}")
+    sums = {key(r): r["ss_ext_sales_price_sum"] for r in ref.to_pylist()}
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if key(g) not in sums:
+            raise AssertionError(f"place {i}: unexpected group {key(g)}")
+        ref_sum = sums[key(g)]
+        rel = abs(g["sum_agg"] - ref_sum) / abs(ref_sum)
+        worst = max(worst, rel)
+        if rel > REL_TOL:
+            raise AssertionError(f"place {i} {key(g)}: {g['sum_agg']} vs "
+                                 f"{ref_sum} (rel {rel:.3e})")
+        w_sum = w["ss_ext_sales_price_sum"]
+        tied = g["d_year"] == w["d_year"] and abs(
+            ref_sum - w_sum) <= REL_TOL * abs(w_sum)
+        if not (key(g) == key(w) or tied):
+            raise AssertionError(f"place {i}: {g} vs reference {w}")
+    return worst
+
+
+def same_rows(a, b) -> float:
+    """Two runs' q3 rows: keys equal place by place, sums within REL_TOL
+    (the card's atomic adds sum in no fixed order).  Returns the largest
+    relative sum difference."""
+    worst = 0.0
+    ra, rb = a.to_pylist(), b.to_pylist()
+    if len(ra) != len(rb):
+        raise AssertionError(f"{len(ra)} rows against {len(rb)}")
+    for i, (x, y) in enumerate(zip(ra, rb)):
+        keys = ("d_year", "i_brand_id", "i_brand")
+        rel = abs(x["sum_agg"] - y["sum_agg"]) / abs(y["sum_agg"])
+        worst = max(worst, rel)
+        if [x[k] for k in keys] != [y[k] for k in keys] or rel > REL_TOL:
+            raise AssertionError(f"place {i}: {x} against {y}")
+    return worst
+
+
+def join_strategies(plan) -> list:
+    """Each join of the plan: its exec, type, and the side it builds."""
+    return [[type(n).__name__, n.join_type,
+             "right" if n.build_is_right else "left"]
+            for n in plan.walk() if hasattr(n, "build_is_right")]
+
+
+def filter_folds(plan) -> tuple:
+    """(folds, tables): the non-empty batches the plan's runtime filters
+    fold, once for each filter of a build exec, and the filters published
+    with a range table (each fold and each table hashes the key's two
+    lanes, one K1 launch each): each build exec drained on its own, which
+    publishes its filters."""
+    folds = tables = 0
+    for node in plan.walk():
+        if type(node).__name__ == "TpuRuntimeFilterBuildExec":
+            folds += len(node.entries) * sum(
+                1 for p in range(node.num_partitions)
+                for b in node.execute_partition(p) if b.num_rows)
+            tables += sum(rf.range_table is not None
+                          for _k, rf in node.entries)
+    for node in plan.walk():
+        if hasattr(node, "close"):
+            node.close()
+    return folds, tables
+
+
+def filtered_run(make_df, RF) -> dict:
+    """One more run of the plan, kept: its filter's state and build
+    time, what each scan pruned, and the rows each uploaded."""
+    plan = make_df().physical_plan()
+    t0 = time.perf_counter()
+    rows = sum(b.num_rows for b in plan.execute())
+    wall = time.perf_counter() - t0
+    filters = RF.plan_runtime_filters(plan)
+    scans = [n for n in plan.walk() if type(n).__name__ == "ParquetScanExec"]
+    out = {"rows": rows, "wall_s": wall,
+           "pruned_rows": sum(n.metrics["rfPrunedRows"] for n in scans),
+           "filters": [{"describe": rf.describe(), "n_keys": rf.n_keys,
+                        "min": rf.min_val, "max": rf.max_val,
+                        "range_table": None if rf.range_table is None
+                        else len(rf.range_table),
+                        "build_ms": rf.build_ms} for rf in filters],
+           "scans": [{"columns": n.schema.names, "files": len(n.paths),
+                      "filters": [c for c, _ in n.runtime_filters],
+                      **n.metrics} for n in scans]}
+    for node in plan.walk():
+        if hasattr(node, "close"):
+            node.close()
+    return out
+
+
 def map_batches(plan) -> int:
     """Non-empty batches the plan's hash exchanges hash: each exchange's
     child drained on its own (its own hashes launch here too).  A range
@@ -714,6 +860,160 @@ def breakdown(torch, make_df) -> dict:
                                for e in top]}
 
 
+def q3_phase(torch, kernels, RF, tpch, session, li_paths, orders_path, ref3,
+             rf_on: bool) -> tuple:
+    """TPC-H q3 in one session: the plan's shape (six lineitem tasks,
+    one partition-wise shuffled join; with the filter on, its build exec
+    under the orders side's exchange and the filter on the lineitem
+    scan), the top 10 against the reference, and K1's launches.  Returns
+    the record and the hash_columns calls."""
+    def q3_df():
+        return tpch.q3_dataframe(session, li_paths, orders_path)
+
+    plan = q3_df().physical_plan()
+    tasks = [n.num_partitions for n in plan.walk() if not n.children]
+    if tasks != [len(li_paths), 1]:
+        raise AssertionError(f"q3 scan tasks {tasks}, expected "
+                             f"{[len(li_paths), 1]}")
+    joins = join_strategies(plan)
+    join = next(n for n in plan.walk() if hasattr(n, "build_is_right"))
+    if joins != [["TpuShuffledHashJoinExec", "inner", "right"]] or \
+            not join.partition_wise:
+        raise AssertionError(f"q3 joins {joins}, expected one "
+                             f"partition-wise shuffled join")
+    built = type(join.children[1].children[0]).__name__ == \
+        "TpuRuntimeFilterBuildExec"
+    applied = [(n.paths, c) for n in plan.walk()
+               for c, _ in getattr(n, "runtime_filters", ())]
+    want_rf = (True, [(li_paths, "l_orderkey")]) if rf_on else (False, [])
+    if (built, applied) != want_rf:
+        raise AssertionError(f"q3 (filter {'on' if rf_on else 'off'}): "
+                             f"build exec under the orders exchange "
+                             f"{built}, filters {applied}")
+    planned = map_batches(q3_df().physical_plan())
+    folds, tables = filter_folds(q3_df().physical_plan())
+    calls: list = []
+    rec = run_query(torch, q3_df, kernels,
+                    lambda t: compare_top(t, ref3, 10), calls)
+    want = {"hash_columns": rec["runs"] * (planned + 2 * folds + 2 * tables),
+            "hash_string": 0}
+    if rec["launches"] != want:
+        raise AssertionError(
+            f"q3 (filter {'on' if rf_on else 'off'}) launched "
+            f"{rec['launches']}, expected {want} ({planned} map batches + "
+            f"2 x {folds} filter folds + 2 x {tables} range tables a run)")
+    out = {"joins": joins, "planned_map_batches": planned,
+           "planned_filter_folds": folds, "planned_range_tables": tables,
+           "hash_columns_calls": sorted({(n, signature(cols), seed, parts)
+                                         for cols, n, seed, parts in calls}),
+           **rec}
+    if rf_on:
+        run = filtered_run(q3_df, RF)
+        if not (run["pruned_rows"] > 0 and run["filters"][0]["n_keys"] > 0):
+            raise AssertionError(f"q3 filter pruned nothing: {run}")
+        # the scans alone run with nothing built: no filter applies
+        out["scan_only_unfiltered_s"] = out.pop("scan_only_s")
+        out["kept_run"] = run
+    return out, calls
+
+
+def q3ds_phase(torch, pa, pc, pq, data_dir, kernels, RF, TorchSession,
+               tpcds, TTB, RF_ENABLED):
+    """TPC-DS q3 with its runtime filter, then without: each run held
+    against the pyarrow reference, the plan's shape and K1's launches
+    checked; emits the phase's line.  Returns both runs' records and the
+    filtered runs' hash_columns calls."""
+    q3ds_dir = os.path.join(data_dir, "q3ds")
+    os.makedirs(q3ds_dir)
+    t0 = time.perf_counter()
+    dd_path, ss_paths, item_path = tpcds.write_q3_tables(
+        q3ds_dir, n_files=Q3DS_FILES, rows_per_file=Q3DS_ROWS_PER_FILE)
+    gen_s = time.perf_counter() - t0
+    date_dim = pq.read_table(dd_path)
+    item = pq.read_table(item_path)
+    sales = pa.concat_tables([pq.read_table(p, columns=[
+        "ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price"])
+        for p in ss_paths])
+    ref = reference_q3ds(pc, date_dim, sales, item)
+    results: dict = {}
+    records = {}
+    calls_on: list = []
+    for rf_on in (True, False):
+        session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES,
+                                RF_ENABLED: rf_on}, device="cuda")
+
+        def q3ds_df():
+            return tpcds.q3_dataframe(session, dd_path, ss_paths, item_path)
+
+        plan = q3ds_df().physical_plan()
+        tasks = [n.num_partitions for n in plan.walk() if not n.children]
+        if tasks != [1, Q3DS_FILES, 1]:
+            raise AssertionError(f"q3ds scan tasks {tasks}, expected "
+                                 f"{[1, Q3DS_FILES, 1]}")
+        joins = join_strategies(plan)
+        want_joins = [["TpuBroadcastHashJoinExec", "inner", "right"],
+                      ["TpuBroadcastHashJoinExec", "inner", "left"]]
+        if joins != want_joins:
+            raise AssertionError(f"q3ds joins {joins}, expected "
+                                 f"{want_joins}")
+        builds = [n for n in plan.walk()
+                  if type(n).__name__ == "TpuRuntimeFilterBuildExec"]
+        applied = [(n.paths, c) for n in plan.walk()
+                   for c, _ in getattr(n, "runtime_filters", ())]
+        want_rf = ([(ss_paths, "ss_sold_date_sk")], 1) if rf_on else ([], 0)
+        if (applied, len(builds)) != want_rf:
+            raise AssertionError(f"q3ds runtime filters {applied} from "
+                                 f"{len(builds)} builds")
+        planned = map_batches(q3ds_df().physical_plan())
+        folds, tables = filter_folds(q3ds_df().physical_plan())
+        calls: list = calls_on if rf_on else []
+        kept: list = []
+
+        def check(t):
+            kept.append(t)
+            return compare_q3ds(t, ref, 100)
+
+        rec = run_query(torch, q3ds_df, kernels, check, calls)
+        results[rf_on] = kept[-1]
+        # the scans alone run with nothing built: no filter applies
+        rec["scan_only_unfiltered_s"] = rec.pop("scan_only_s")
+        want = {"hash_columns": rec["runs"] * (planned + 2 * folds
+                                               + 2 * tables),
+                "hash_string": 0}
+        if rec["launches"] != want:
+            raise AssertionError(
+                f"q3ds (filter {'on' if rf_on else 'off'}) launched "
+                f"{rec['launches']}, expected {want} ({planned} map batches "
+                f"+ 2 x {folds} filter folds + 2 x {tables} range tables "
+                f"a run)")
+        run = filtered_run(q3ds_df, RF)
+        if rf_on and not (run["pruned_rows"] > 0
+                          and run["filters"][0]["n_keys"] > 0):
+            raise AssertionError(f"q3ds filter pruned nothing: {run}")
+        records[rf_on] = {"plan": plan.tree_string().splitlines(),
+                          "joins": joins, "planned_map_batches": planned,
+                          "planned_filter_folds": folds,
+                          "planned_range_tables": tables,
+                          "hash_columns_calls": sorted(
+                              {(n, signature(cols), seed, parts)
+                               for cols, n, seed, parts in calls}),
+                          "kept_run": run, **rec}
+    off_err = same_rows(results[True], results[False])
+    on, off = records[True], records[False]
+    emit("q3ds", rows_in=sales.num_rows, date_dim_rows=date_dim.num_rows,
+         item_rows=item.num_rows, groups=ref.num_rows,
+         file_bytes=[os.path.getsize(p) for p in ss_paths],
+         datagen_s=gen_s, rf_off_max_rel_diff=off_err,
+         rf_off_median_s=off["median_s"],
+         rf_off_wall_s=off["wall_s"], rf_off_launches=off["launches"],
+         rf_off_scan_rows=[sc["numOutputRows"]
+                           for sc in off["kept_run"]["scans"]],
+         rf_off_device_busy_s=off["device_busy_s"],
+         rf_off_device_idle_share=off["device_idle_share"],
+         rf_off_profiled_wall_s=off["profiled_wall_s"], **on)
+    return on, off, calls_on
+
+
 def main() -> int:
     import torch
 
@@ -727,8 +1027,10 @@ def main() -> int:
     import pyarrow.parquet as pq
 
     from spark_rapids_tpu_torch import TorchSession, tpcds, tpch
+    from spark_rapids_tpu_torch.config import RF_ENABLED
     from spark_rapids_tpu_torch.config import TASK_TARGET_BYTES as TTB
     from spark_rapids_tpu_torch.ops import kernels
+    from spark_rapids_tpu_torch.plan import runtime_filter as RF
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -794,23 +1096,17 @@ def main() -> int:
         orders = pq.read_table(orders_path)
         ref3 = reference_q3(pa, pc, lineitem, orders)
 
-        def q3_df():
-            return tpch.q3_dataframe(session, li_paths, orders_path)
-
-        tasks = [n.num_partitions for n in q3_df().physical_plan().walk()
-                 if not n.children]
-        if tasks != [len(li_paths), 1]:
-            raise AssertionError(f"q3 scan tasks {tasks}, expected "
-                                 f"{[len(li_paths), 1]}")
-        planned = map_batches(q3_df().physical_plan())
-        q3_calls: list = []
-        q3 = run_query(torch, q3_df, kernels,
-                       lambda t: compare_top(t, ref3, 10), q3_calls)
+        q3_runs = {}
+        for rf_on in (False, True):
+            q3_runs[rf_on] = q3_phase(
+                torch, kernels, RF, tpch, TorchSession({
+                    TTB: TASK_TARGET_BYTES, RF_ENABLED: rf_on},
+                    device="cuda"), li_paths, orders_path, ref3, rf_on)
+        q3, q3_calls = q3_runs[False]
+        q3_rf, q3_rf_calls = q3_runs[True]
         emit("q3", rows_in=lineitem.num_rows, orders_in=orders.num_rows,
-             groups=ref3.num_rows, datagen_s=gen3_s,
-             planned_map_batches=planned, hash_columns_calls=sorted(
-                 {(n, signature(cols), parts)
-                  for cols, n, _, parts in q3_calls}), **q3)
+             groups=ref3.num_rows, datagen_s=gen3_s, **q3)
+        emit("q3_rf_on", rf_off_median_s=q3["median_s"], **q3_rf)
         del lineitem, orders
 
         q67_dir = os.path.join(data_dir, "q67")
@@ -843,24 +1139,24 @@ def main() -> int:
                  {(n, signature(cols), parts)
                   for cols, n, _, parts in q67_calls}), **q67)
         del sales
+
+        q3ds, q3ds_off, q3ds_calls = q3ds_phase(torch, pa, pc, pq, data_dir,
+                                                kernels, RF, TorchSession,
+                                                tpcds, TTB, RF_ENABLED)
     want = {"hash_columns": q1["runs"] * len(paths), "hash_string": 0}
     if q1["launches"] != want:
         raise AssertionError(f"q1 launched {q1['launches']}, expected "
                              f"{want} (one hash_columns per map batch)")
     if q6["launches"] != {"hash_columns": 0, "hash_string": 0}:
         raise AssertionError(f"q6 launched {q6['launches']}")
-    want = {"hash_columns": q3["runs"] * planned, "hash_string": 0}
-    if q3["launches"] != want:
-        raise AssertionError(f"q3 launched {q3['launches']}, expected "
-                             f"{want} (one hash_columns per map batch)")
     want = {"hash_columns": q67["runs"] * planned67, "hash_string": 0}
     if q67["launches"] != want:
         raise AssertionError(f"q67 launched {q67['launches']}, expected "
                              f"{want} (one hash_columns per hash map "
                              f"batch)")
 
-    worst, at_main = at_main_path(torch, kernels,
-                                  q1_calls + q3_calls + q67_calls)
+    worst, at_main = at_main_path(torch, kernels, q1_calls + q3_calls
+                                  + q3_rf_calls + q67_calls + q3ds_calls)
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
@@ -869,13 +1165,14 @@ def main() -> int:
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
         "launches": sum(q["launches"]["hash_columns"]
-                        for q in (q6, q1, q3, q67)),
+                        for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off)),
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
         "library_ms": None,
-        "shape": "the largest of q1's, q3's and q67's calls; ms is the "
-                 "device's own time per launch",
+        "shape": "the largest of q1's, q3's (filter off and on), q67's "
+                 "and q3ds's calls; ms "
+                 "is the device's own time per launch",
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,
     }, {
@@ -883,7 +1180,7 @@ def main() -> int:
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
         "launches": sum(q["launches"]["hash_string"]
-                        for q in (q6, q1, q3, q67)),
+                        for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off)),
         "max_abs_err": max(r["max_abs_err"] for r in large),
         "ms": w64["ms"], "plain_ms": w64["plain_ms"],
         "bound_ms": w64["bound_ms"], "bound_by": w64["bound_by"],

@@ -24,6 +24,11 @@ JOIN_OUTPUT_CHUNK_ROWS = "spark.rapids.tpu.sql.join.outputChunkRows"
 SORT_RANGE_EXCHANGE = "spark.rapids.tpu.sql.sort.rangeExchange"
 #: rows sampled from each map batch for a range exchange's bounds
 SORT_SAMPLES_PER_BATCH = "spark.rapids.tpu.sql.sort.samplesPerBatch"
+#: largest estimated build side (bytes) a join broadcasts; -1 disables
+BROADCAST_THRESHOLD = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
+#: runtime join filters (plan/runtime_filter.py): a Bloom filter and the
+#: min/max of an eligible join's build keys, applied in the probe scan
+RF_ENABLED = "spark.rapids.tpu.sql.runtimeFilter.enabled"
 
 DEFAULTS: dict[str, Any] = {
     SHUFFLE_PARTITIONS: 8,
@@ -32,6 +37,8 @@ DEFAULTS: dict[str, Any] = {
     JOIN_OUTPUT_CHUNK_ROWS: 1 << 22,
     SORT_RANGE_EXCHANGE: True,
     SORT_SAMPLES_PER_BATCH: 128,
+    BROADCAST_THRESHOLD: 10 << 20,
+    RF_ENABLED: True,
 }
 
 

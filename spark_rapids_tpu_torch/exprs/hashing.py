@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -98,6 +99,49 @@ def to_int32_bits(u: torch.Tensor) -> torch.Tensor:
 def from_int32_bits(s: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> int64 values in [0, 2^32)."""
     return s.long() & MASK32
+
+
+# --------------------------------------------------------------------- #
+# Host (numpy) mirrors of the fixed-width block hashes: the runtime
+# filter's probe (plan/runtime_filter.py) hashes freshly decoded scan
+# columns on the host, and must agree bit for bit with the Bloom bits K1
+# set on the device.  numpy uint32 arithmetic wraps as uint32 should.
+# --------------------------------------------------------------------- #
+
+
+def _np_mix(h1: np.ndarray, k1: np.ndarray) -> np.ndarray:
+    k1 = k1 * np.uint32(C1)
+    k1 = (k1 << np.uint32(15)) | (k1 >> np.uint32(17))
+    k1 = k1 * np.uint32(C2)
+    h1 = h1 ^ k1
+    h1 = (h1 << np.uint32(13)) | (h1 >> np.uint32(19))
+    return h1 * np.uint32(5) + np.uint32(0xE6546B64)
+
+
+def _np_fmix(h1: np.ndarray, length: int) -> np.ndarray:
+    h1 = h1 ^ np.uint32(length)
+    h1 = h1 ^ (h1 >> np.uint32(16))
+    h1 = h1 * np.uint32(0x85EBCA6B)
+    h1 = h1 ^ (h1 >> np.uint32(13))
+    h1 = h1 * np.uint32(0xC2B2AE35)
+    return h1 ^ (h1 >> np.uint32(16))
+
+
+def np_hash_int32_block(word, seed) -> np.ndarray:
+    """uint32[n] Murmur3 of 4-byte values (Spark hashInt), in numpy."""
+    k1 = np.asarray(word).astype(np.int32).view(np.uint32)
+    h1 = np.full(k1.shape, seed & MASK32, np.uint32)
+    return _np_fmix(_np_mix(h1, k1), 4)
+
+
+def np_hash_int64_blocks(value, seed) -> np.ndarray:
+    """uint32[n] Murmur3 of 8-byte values, low word first (Spark
+    hashLong), in numpy."""
+    v = np.asarray(value).astype(np.int64).view(np.uint64)
+    h1 = np.full(v.shape, seed & MASK32, np.uint32)
+    h1 = _np_mix(h1, (v & np.uint64(MASK32)).astype(np.uint32))
+    h1 = _np_mix(h1, (v >> np.uint64(32)).astype(np.uint32))
+    return _np_fmix(h1, 8)
 
 
 def hash_string_bytes(chars: torch.Tensor, lengths: torch.Tensor,

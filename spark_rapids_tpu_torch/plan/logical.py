@@ -4,6 +4,13 @@ Sort and Limit.
 Counterpart of the matching nodes of ``spark_rapids_tpu/plan/logical.py``.
 Nodes keep their expressions by column name; the planner binds them to
 the physical child, after it has pruned the scan's columns.
+
+Every node estimates an upper bound on its rows and bytes, as there,
+for the planner's broadcast choice: a scan counts its files' footer
+rows, a node with one child passes the child's bound on (a filter can
+only shrink), a grand aggregate makes one row, a LIMIT at most its n,
+and a join at most the sum of its sides (the JAX estimate).  Bytes are
+rows times ``row_width_bytes`` of the node's schema.
 """
 
 from __future__ import annotations
@@ -31,6 +38,29 @@ class LogicalPlan:
     def schema(self) -> T.Schema:
         raise NotImplementedError
 
+    def estimated_rows(self) -> Optional[int]:
+        """An upper bound on the node's rows; None when unknown."""
+        if len(self.children) == 1:
+            return self.children[0].estimated_rows()
+        return None
+
+    def estimated_bytes(self) -> Optional[int]:
+        n = self.estimated_rows()
+        return None if n is None else n * row_width_bytes(self.schema)
+
+
+def row_width_bytes(schema: T.Schema) -> int:
+    """Bytes per row: each fixed-width value's size, 32 chars and a
+    4-byte length for a string, and a validity byte per column."""
+    total = 0
+    for f in schema.fields:
+        if isinstance(f.dtype, T.StringType):
+            total += 32 + 4
+        else:
+            total += T.to_torch_dtype(f.dtype).itemsize
+        total += 1
+    return max(total, 1)
+
 
 class Scan(LogicalPlan):
     """Parquet files of one schema (the first file's)."""
@@ -41,10 +71,21 @@ class Scan(LogicalPlan):
         self.children = []
         self.paths = list(paths)
         self._schema = schema_from_arrow(pq.read_schema(self.paths[0]))
+        self._est_rows: Optional[int] = None
 
     @property
     def schema(self) -> T.Schema:
         return self._schema
+
+    def estimated_rows(self) -> Optional[int]:
+        """The files' footer row counts, read once, on demand."""
+        if self._est_rows is None:
+            try:
+                self._est_rows = sum(pq.read_metadata(p).num_rows
+                                     for p in self.paths)
+            except OSError:
+                return None
+        return self._est_rows
 
 
 class Filter(LogicalPlan):
@@ -88,11 +129,16 @@ class Aggregate(LogicalPlan):
     def schema(self) -> T.Schema:
         return self._schema
 
+    def estimated_rows(self) -> Optional[int]:
+        if not self.groups:
+            return 1  # a grand aggregate makes one row
+        return self.children[0].estimated_rows()
+
 
 class Join(LogicalPlan):
     """An equi-join; ``condition`` is a residual predicate over the
-    joined row (the planner refuses it, as it refuses cross and keyless
-    joins)."""
+    joined row (left ++ right columns).  A cross join, or an inner join
+    with no keys, pairs every row with every row."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],
@@ -123,6 +169,10 @@ class Join(LogicalPlan):
     @property
     def schema(self) -> T.Schema:
         return self._schema
+
+    def estimated_rows(self) -> Optional[int]:
+        sides = [c.estimated_rows() for c in self.children]
+        return None if None in sides else sum(sides)
 
 
 class Window(LogicalPlan):
@@ -166,3 +216,7 @@ class Limit(LogicalPlan):
     @property
     def schema(self) -> T.Schema:
         return self.children[0].schema
+
+    def estimated_rows(self) -> Optional[int]:
+        c = self.children[0].estimated_rows()
+        return self.n if c is None else min(self.n, c)

@@ -9,12 +9,17 @@ pruned to what the plan above reads.
   the group keys -> final aggregate (a grand aggregate coalesces its
   partials instead of hashing them); a single partition aggregates
   completely.
-- A join whose key types match on both sides, with more than one input
-  partition on either, lowers as ``_plan_join``'s shuffled branch: a
-  hash exchange on each side's keys (unless the side is already
-  distributed so) under a partition-wise join.  Only identical key
-  types hash alike, so other joins run as one wide join.  Broadcast,
-  adaptive and collective joins are not ported.
+- A join lowers as ``_plan_join`` does there.  When a legal build side
+  is estimated at most ``autoBroadcastJoinThresholdBytes`` (10 MiB;
+  ``broadcast_candidates``, from ``plan/logical.py``'s estimates), the
+  smaller such side is broadcast.  Otherwise a keyed join whose key
+  types match on both sides, with more than one input partition on
+  either, takes a hash exchange on each side's keys (unless the side is
+  already distributed so) under a partition-wise join.  Only identical
+  key types hash alike, so other joins, and keyless ones, run as one
+  wide join.  Adaptive and collective joins are not ported.
+- Once the plan is lowered, ``inject_runtime_filters`` adds a runtime
+  join filter to each eligible join (``plan/runtime_filter.py``).
 - A window with partition keys over several input partitions lowers
   as the JAX planner's ``L.Window`` branch: a hash exchange on the
   partition keys (unless the child is already hash-distributed so)
@@ -48,7 +53,10 @@ from spark_rapids_tpu_torch.execs.exchange import (
     TpuCoalescePartitionsExec,
     TpuShuffleExchangeExec,
 )
-from spark_rapids_tpu_torch.execs.join import TpuShuffledHashJoinExec
+from spark_rapids_tpu_torch.execs.join import (
+    TpuBroadcastHashJoinExec,
+    TpuShuffledHashJoinExec,
+)
 from spark_rapids_tpu_torch.execs.limit import (
     TpuCollectLimitExec,
     TpuGlobalLimitExec,
@@ -67,6 +75,7 @@ from spark_rapids_tpu_torch.ops.partition import (
     RangePartitioning,
 )
 from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan.runtime_filter import inject_runtime_filters
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 
 
@@ -81,7 +90,9 @@ class Planner:
         self.manager = manager
 
     def plan(self, plan: L.LogicalPlan) -> TpuExec:
-        return self._lower(plan, None)
+        root = self._lower(plan, None)
+        inject_runtime_filters(root, self.conf)
+        return root
 
     def _lower(self, p: L.LogicalPlan, required: Optional[set]) -> TpuExec:
         """``required``: column names the parent reads (None = all)."""
@@ -93,7 +104,8 @@ class Planner:
                 cols = cols or [p.schema.fields[0].name]
             return ParquetScanExec(p.paths, p.schema, self.device,
                                    self.conf.get(C.TASK_TARGET_BYTES),
-                                   self.conf.get(C.BATCH_ROWS), cols)
+                                   self.conf.get(C.BATCH_ROWS), cols,
+                                   p.estimated_rows())
         if isinstance(p, L.Filter):
             need = None if required is None \
                 else required | p.condition.references()
@@ -108,6 +120,8 @@ class Planner:
                                  for e in na.fn.inputs()))
             return self._plan_aggregate(p, self._lower(p.children[0], need))
         if isinstance(p, L.Join):
+            cond = set() if p.condition is None \
+                else p.condition.references()
             sides = []
             for child, keys, keep in (
                     (p.children[0], p.left_keys, True),
@@ -118,8 +132,10 @@ class Planner:
                     # each side: its keys, and what the parent reads of
                     # its half of the output
                     need = set().union(*(k.references() for k in keys))
+                    names = set(child.schema.names)
+                    need |= cond & names
                     if keep:
-                        need |= required & set(child.schema.names)
+                        need |= required & names
                 sides.append(self._lower(child, need))
             return self._plan_join(p, *sides)
         if isinstance(p, L.Window):
@@ -202,16 +218,23 @@ class Planner:
     def _plan_join(self, p: L.Join, left: TpuExec,
                    right: TpuExec) -> TpuExec:
         chunk = self.conf.get(C.JOIN_OUTPUT_CHUNK_ROWS)
+        args = (p.left_keys, p.right_keys, p.join_type, left, right, chunk,
+                p.condition)
+        candidates = broadcast_candidates(
+            p.join_type, p.children[0].estimated_bytes(),
+            p.children[1].estimated_bytes(),
+            self.conf.get(C.BROADCAST_THRESHOLD))
+        if candidates:
+            side = min(candidates, key=lambda c: c[1])[0]
+            return TpuBroadcastHashJoinExec(*args, build_side=side)
         lkeys = [bind_references(k, left.schema) for k in p.left_keys]
         rkeys = [bind_references(k, right.schema) for k in p.right_keys]
         # both sides hash a key alike only when its types are identical
         same_types = all(lk.dtype == rk.dtype
                          for lk, rk in zip(lkeys, rkeys))
-        if not same_types or (left.num_partitions <= 1
-                              and right.num_partitions <= 1):
-            return TpuShuffledHashJoinExec(p.left_keys, p.right_keys,
-                                           p.join_type, left, right, chunk,
-                                           p.condition)
+        if not (lkeys and p.join_type != "cross" and same_types) or (
+                left.num_partitions <= 1 and right.num_partitions <= 1):
+            return TpuShuffledHashJoinExec(*args)
         lsat = _hash_satisfies(left, lkeys)
         rsat = _hash_satisfies(right, rkeys)
         if lsat is not None:
@@ -231,6 +254,25 @@ class Planner:
         return TpuShuffledHashJoinExec(p.left_keys, p.right_keys,
                                        p.join_type, left, right, chunk,
                                        p.condition, partition_wise=True)
+
+
+def broadcast_candidates(join_type: str, lbytes: Optional[int],
+                         rbytes: Optional[int],
+                         threshold: int) -> list[tuple[str, int]]:
+    """The legal (build side, estimated bytes) pairs of a broadcast
+    join within the threshold: an outer join builds the side it does not
+    preserve, full_outer never broadcasts, -1 disables."""
+    out: list[tuple[str, int]] = []
+    if threshold < 0 or join_type == "full_outer":
+        return out
+    if join_type in ("inner", "cross", "left_outer", "left_semi",
+                     "left_anti") and rbytes is not None \
+            and rbytes <= threshold:
+        out.append(("right", rbytes))
+    if join_type in ("inner", "cross", "right_outer") \
+            and lbytes is not None and lbytes <= threshold:
+        out.append(("left", lbytes))
+    return out
 
 
 def _hash_satisfies(exec_: TpuExec,

@@ -48,6 +48,7 @@ from spark_rapids_tpu_torch.exprs.base import (
 from spark_rapids_tpu_torch.exprs.window import WindowExpression
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.planner import Planner
+from spark_rapids_tpu_torch.plan.runtime_filter import render_runtime_filters
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 
 __all__ = ["TorchSession", "DataFrame", "col", "lit", "sum_", "avg",
@@ -178,8 +179,10 @@ class DataFrame:
              right_on: Optional[Sequence] = None,
              condition: Optional[Expression] = None) -> "DataFrame":
         """Equi-join on ``on`` (column names both sides share) or on
-        ``left_on`` / ``right_on``; the output is left ++ right
-        columns."""
+        ``left_on`` / ``right_on``; the output is left ++ right columns.
+        ``condition`` (inner joins only) is a residual predicate over
+        them; ``how="cross"``, or an inner join with no keys, pairs every
+        row with every row."""
         if on is not None:
             names = [on] if isinstance(on, str) else list(on)
             lk = [ColumnReference(n) for n in names]
@@ -206,7 +209,11 @@ class DataFrame:
         return Planner(s.conf, s.device, s.shuffle_manager).plan(self._plan)
 
     def explain(self) -> str:
-        return self.physical_plan().tree_string()
+        """The physical plan, then a line for each runtime filter's build
+        site and each scan that applies one."""
+        plan = self.physical_plan()
+        return "\n".join([plan.tree_string(),
+                          *render_runtime_filters(plan)])
 
     def collect(self) -> pa.Table:
         """Run the query on the session's device; the result as Arrow."""

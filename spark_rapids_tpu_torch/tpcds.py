@@ -1,15 +1,29 @@
-"""TPC-DS store_sales data and the q67 DataFrame.
+"""TPC-DS data and the q67 and q3 DataFrames.
 
-The port's own copy of ``bench.py``'s ``make_store_sales`` (the same
-``default_rng(67)`` stream, columns, draw order and row-group layout,
-so the tables come out identical) and ``q67_dataframe``: BASELINE
-config #4, a grouped aggregate, a rank window partitioned by store, a
-rank filter and an ordered output.  6 files of 2^20 rows (~6.3 M rows)
-is about TPC-DS SF2's 5.76 M store_sales rows.
+- q67: the port's own copy of ``bench.py``'s ``make_store_sales`` (the
+  same ``default_rng(67)`` stream, columns, draw order and row-group
+  layout, so the tables come out identical) and ``q67_dataframe``:
+  BASELINE config #4, a grouped aggregate, a rank window partitioned
+  by store, a rank filter and an ordered output.
+- q3: the star join of TPC-DS q3 over date_dim, store_sales and item,
+  from the port's own copy of the column formulas of the JAX package's
+  mini catalog (``tools/tpcds_schema.py``), written with numpy
+  vectorised over the rows.  ``make_date_dim(first, last)`` and
+  ``make_item(rng, n)`` reproduce that catalog's ``_date_dim()`` and
+  ``_item(rng, n)`` exactly (over 1998-2003, and for the same rng
+  state); ``make_catalog_store_sales`` writes its 23 store_sales columns
+  with foreign keys in the ranges of the spec's SF1 dimension counts
+  (``SF1_ROWS``).  ``write_q3_tables`` lays out the spec's whole
+  calendar (1900-01-02 to 2100-01-01), 18 000 items and the given
+  store_sales files.
+
+6 files of 2^20 store_sales rows (~6.3 M rows) is about TPC-DS SF2's
+5.76 M.
 """
 
 from __future__ import annotations
 
+import datetime as dt
 import os
 
 import numpy as np
@@ -17,7 +31,38 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 from spark_rapids_tpu_torch.exprs.window import Window, rank
+from spark_rapids_tpu_torch.execs.sort import SortKey
 from spark_rapids_tpu_torch.session import col, lit, sum_
+
+#: 1998-01-01 as a date_dim surrogate key: its Julian day number
+DATE_SK_EPOCH = 2450815
+_D0 = dt.date(1998, 1, 1)
+_EPOCH = dt.date(1970, 1, 1)
+#: the spec's date_dim: every day from 1900-01-02 to 2100-01-01
+CALENDAR = (dt.date(1900, 1, 2), dt.date(2100, 1, 1))
+#: the spec's SF1 row counts of the dimensions store_sales points into
+SF1_ROWS = {"item": 18_000, "customer": 100_000,
+            "customer_demographics": 1_920_800,
+            "household_demographics": 7_200, "customer_address": 50_000,
+            "store": 12, "promotion": 300, "time_dim": 86_400}
+
+_CATEGORIES = ["Books", "Children", "Electronics", "Home", "Jewelry",
+               "Men", "Music", "Shoes", "Sports", "Women"]
+_CLASSES = ["accent", "bedding", "classical", "dresses", "fiction",
+            "fragrances", "mens watch", "pants", "pop", "romance",
+            "school-uniforms", "shirts"]
+_COLORS = ["aquamarine", "azure", "beige", "black", "blue", "brown",
+           "chocolate", "coral", "cream", "cyan", "gold", "green",
+           "indigo", "ivory", "khaki", "lime", "magenta", "maroon",
+           "navy", "olive", "orange", "pink", "plum", "purple", "red",
+           "rose", "salmon", "silver", "snow", "tan", "violet", "white"]
+_UNITS = ["Box", "Bunch", "Bundle", "Carton", "Case", "Dozen", "Each",
+          "Gram", "Lb", "N/A", "Oz", "Pallet", "Pound", "Tbl", "Ton",
+          "Unknown"]
+_SIZES = ["economy", "extra large", "large", "medium", "N/A", "petite",
+          "small"]
+_DAY_NAMES = ["Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+              "Friday", "Saturday"]
 
 
 def make_store_sales(dirpath: str, n_rows: int = 1 << 21,
@@ -53,3 +98,236 @@ def q67_dataframe(session, paths):
                         rank().over(spec).alias("rk"))
     return (ranked.where(col("rk") <= lit(10))
             .order_by(col("ss_store_sk"), col("rk"), col("ss_item_sk")))
+
+
+# --------------------------------------------------------------------- #
+# q3: date_dim x store_sales x item
+# --------------------------------------------------------------------- #
+
+
+def _money(rng, n, lo=1.0, hi=300.0):
+    return np.round(rng.uniform(lo, hi, n), 2)
+
+
+def _pick(rng, pool, n):
+    return np.array(pool)[rng.integers(0, len(pool), n)]
+
+
+def _fmt(prefix: str, values, width: int = 0, suffix: str = ""):
+    """``f"{prefix}{v:0{width}d}{suffix}"`` over an integer array."""
+    digits = np.asarray(values).astype(str)
+    if width:
+        digits = np.char.zfill(digits, width)
+    return np.char.add(np.char.add(prefix, digits), suffix)
+
+
+def _flag(mask):
+    return np.where(mask, "Y", "N")
+
+
+def make_date_dim(first: dt.date = CALENDAR[0],
+                  last: dt.date = CALENDAR[1]) -> pa.Table:
+    """date_dim, one row a day from ``first`` to ``last``: ``d_date_sk``
+    the Julian day number, ``d_month_seq`` months and ``d_week_seq``
+    weeks since 1900-01-01, ``d_date_id`` counting from ``first``."""
+    n = (last - first).days + 1
+    days = (first - _EPOCH).days + np.arange(n, dtype=np.int64)
+    d = days.astype("datetime64[D]")
+    year = d.astype("datetime64[Y]").astype(np.int64) + 1970
+    moy = d.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    dom = (d - d.astype("datetime64[M]")).astype(np.int64) + 1
+    dow = (days + 4) % 7  # 1970-01-01 was a Thursday; Sunday is 0
+    sk = days - (_D0 - _EPOCH).days + DATE_SK_EPOCH
+    week_seq = (days - (dt.date(1900, 1, 1) - _EPOCH).days) // 7 + 1
+    qoy = (moy - 1) // 3 + 1
+    quarter_seq = (year - 1900) * 4 + (qoy - 1)
+    md = moy * 100 + dom
+    no = np.full(n, "N")
+    return pa.table({
+        "d_date_sk": sk,
+        "d_date_id": pa.array(_fmt("AAAAAAAA", np.arange(n), 8)),
+        "d_date": pa.array(days.astype(np.int32), type=pa.date32()),
+        "d_month_seq": (year - 1900) * 12 + (moy - 1),
+        "d_week_seq": week_seq,
+        "d_quarter_seq": quarter_seq,
+        "d_year": year,
+        "d_dow": dow,
+        "d_moy": moy,
+        "d_dom": dom,
+        "d_qoy": qoy,
+        "d_fy_year": year,
+        "d_fy_quarter_seq": quarter_seq,
+        "d_fy_week_seq": week_seq,
+        "d_day_name": pa.array(np.array(_DAY_NAMES)[dow]),
+        "d_quarter_name": pa.array(np.char.add(
+            np.char.add(year.astype(str), "Q"), qoy.astype(str))),
+        "d_holiday": pa.array(_flag(np.isin(md, (704, 1225, 101)))),
+        "d_weekend": pa.array(_flag(np.isin(dow, (0, 6)))),
+        "d_following_holiday": pa.array(
+            _flag(np.isin(md, (705, 1226, 102)))),
+        "d_first_dom": sk - (dom - 1),
+        "d_last_dom": sk + 27,
+        "d_same_day_ly": sk - 365,
+        "d_same_day_lq": sk - 91,
+        "d_current_day": pa.array(no),
+        "d_current_week": pa.array(no),
+        "d_current_month": pa.array(no),
+        "d_current_quarter": pa.array(no),
+        "d_current_year": pa.array(no),
+    })
+
+
+def make_item(rng: np.random.Generator, n: int) -> pa.Table:
+    """item, ``n`` rows, drawing from ``rng`` in the mini catalog's
+    order: ``i_manufact_id`` in 1..199, ``i_brand_id`` built from it."""
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    manu_id = rng.integers(1, 200, n)
+    brand_id = (rng.integers(1, 10, n) * 1000000
+                + rng.integers(1, 10, n) * 10000 + manu_id)
+    cat_idx = rng.integers(0, len(_CATEGORIES), n)
+    cols = {
+        "i_item_sk": sk,
+        # two sks share one item_id (the spec's SCD pairing)
+        "i_item_id": pa.array(_fmt("AAAAAAAA", sk // 2, 8)),
+        "i_rec_start_date": pa.array(np.full(n, 9131, np.int32),
+                                     type=pa.date32()),
+        "i_rec_end_date": pa.nulls(n, pa.date32()),
+        "i_item_desc": pa.array(_fmt("the promise of item ", sk,
+                                     suffix=" landed")),
+    }
+    cols["i_current_price"] = _money(rng, n, 0.5, 100.0)
+    cols["i_wholesale_cost"] = _money(rng, n, 0.2, 80.0)
+    cols["i_brand_id"] = brand_id.astype(np.int64)
+    cols["i_brand"] = pa.array(_fmt("brand#", brand_id % 100))
+    cols["i_class_id"] = rng.integers(1, 17, n).astype(np.int64)
+    cols["i_class"] = pa.array(_pick(rng, _CLASSES, n))
+    cols["i_category_id"] = (cat_idx + 1).astype(np.int64)
+    cols["i_category"] = pa.array(np.array(_CATEGORIES)[cat_idx])
+    cols["i_manufact_id"] = manu_id.astype(np.int64)
+    cols["i_manufact"] = pa.array(_fmt("manufact#", manu_id))
+    cols["i_size"] = pa.array(_pick(rng, _SIZES, n))
+    cols["i_formulation"] = pa.array(
+        _fmt("form", rng.integers(0, 1000, n), 5))
+    cols["i_color"] = pa.array(_pick(rng, _COLORS, n))
+    cols["i_units"] = pa.array(_pick(rng, _UNITS, n))
+    cols["i_container"] = pa.array(np.full(n, "Unknown"))
+    cols["i_manager_id"] = rng.integers(1, 100, n).astype(np.int64)
+    cols["i_product_name"] = pa.array(_fmt("product", sk))
+    return pa.table(cols)
+
+
+def _nullable(rng, values, frac: float):
+    """``values`` with about ``frac`` of them NULL."""
+    return pa.array(values, mask=rng.random(len(values)) < frac)
+
+
+def store_sales_table(rng: np.random.Generator, n: int, first_row: int = 0,
+                      rows: dict = SF1_ROWS) -> pa.Table:
+    """``n`` store_sales rows by the mini catalog's formulas: sale dates
+    over 1998-2002 with 2 % NULL, 3 % NULL customers, foreign keys in
+    1..``rows[dimension]``, prices and amounts in cents; ticket numbers
+    continue from row ``first_row``."""
+    def fk(dim):
+        return rng.integers(1, rows[dim] + 1, n).astype(np.int64)
+
+    sold = _nullable(rng, (DATE_SK_EPOCH + rng.integers(0, 365 * 5, n))
+                     .astype(np.int64), 0.02)
+    n_time = rows["time_dim"]
+    cols = {"ss_sold_date_sk": sold,
+            "ss_sold_time_sk": (rng.integers(0, n_time, n)
+                                * (86400 // n_time)).astype(np.int64),
+            "ss_item_sk": fk("item")}
+    cols["ss_customer_sk"] = _nullable(rng, fk("customer"), 0.03)
+    for name, dim in (("ss_cdemo_sk", "customer_demographics"),
+                      ("ss_hdemo_sk", "household_demographics"),
+                      ("ss_addr_sk", "customer_address"),
+                      ("ss_store_sk", "store"),
+                      ("ss_promo_sk", "promotion")):
+        cols[name] = fk(dim)
+    cols["ss_ticket_number"] = (first_row + np.arange(n, dtype=np.int64)) \
+        // 4 + 1
+    qty = rng.integers(1, 101, n).astype(np.int64)
+    wcost = _money(rng, n, 1, 100)
+    lprice = np.round(wcost * rng.uniform(1.0, 2.0, n), 2)
+    sprice = np.round(lprice * rng.uniform(0.3, 1.0, n), 2)
+    ext_sales = np.round(sprice * qty, 2)
+    ext_wcost = np.round(wcost * qty, 2)
+    ext_list = np.round(lprice * qty, 2)
+    tax = np.round(ext_sales * 0.05, 2)
+    coupon = np.round(ext_sales * (rng.random(n) < 0.1)
+                      * rng.uniform(0, 0.5, n), 2)
+    net_paid = np.round(ext_sales - coupon, 2)
+    cols.update({
+        "ss_quantity": qty,
+        "ss_wholesale_cost": wcost,
+        "ss_list_price": lprice,
+        "ss_sales_price": sprice,
+        "ss_ext_discount_amt": np.round(ext_list - ext_sales, 2),
+        "ss_ext_sales_price": ext_sales,
+        "ss_ext_wholesale_cost": ext_wcost,
+        "ss_ext_list_price": ext_list,
+        "ss_ext_tax": tax,
+        "ss_coupon_amt": coupon,
+        "ss_net_paid": net_paid,
+        "ss_net_paid_inc_tax": np.round(net_paid + tax, 2),
+        "ss_net_profit": np.round(net_paid - ext_wcost, 2),
+    })
+    return pa.table(cols)
+
+
+def make_catalog_store_sales(dirpath: str, n_files: int,
+                             rows_per_file: int, seed: int = 3,
+                             rows: dict = SF1_ROWS) -> list[str]:
+    """store_sales in ``n_files`` Parquet files of ``rows_per_file``
+    rows (one row group each)."""
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n_files):
+        t = store_sales_table(rng, rows_per_file, i * rows_per_file, rows)
+        p = os.path.join(dirpath, f"store_sales-{i}.parquet")
+        pq.write_table(t, p, row_group_size=rows_per_file)
+        paths.append(p)
+    return paths
+
+
+def write_q3_tables(dirpath: str, n_files: int = 6,
+                    rows_per_file: int = 1 << 20,
+                    seed: int = 3) -> tuple[str, list[str], str]:
+    """q3's three tables as Parquet: the whole calendar, SF1's 18 000
+    items and the store_sales files.  Returns (date_dim path,
+    store_sales paths, item path)."""
+    dd = os.path.join(dirpath, "date_dim.parquet")
+    pq.write_table(make_date_dim(), dd)
+    item = os.path.join(dirpath, "item.parquet")
+    pq.write_table(make_item(np.random.default_rng(seed), SF1_ROWS["item"]),
+                   item)
+    ss = make_catalog_store_sales(dirpath, n_files, rows_per_file, seed + 1)
+    return dd, ss, item
+
+
+def q3_dataframe(session, date_dim_path: str, store_sales_paths,
+                 item_path: str):
+    """TPC-DS q3: November sales of manufacturer 128's brands by year,
+    joined in the query text's FROM order (date_dim, store_sales, item),
+    ordered by year, sales descending and brand, the first 100 rows.
+    The dimension sides are narrow projections (so each estimates small
+    enough to broadcast); the fact side stays a bare scan, so the
+    runtime filter on ``ss_sold_date_sk`` reaches it."""
+    dt_ = (session.read_parquet(date_dim_path)
+           .where(col("d_moy").eq(lit(11)))
+           .select(col("d_date_sk"), col("d_year")))
+    ss = session.read_parquet(*store_sales_paths)
+    it = (session.read_parquet(item_path)
+          .where(col("i_manufact_id").eq(lit(128)))
+          .select(col("i_item_sk"), col("i_brand_id"), col("i_brand")))
+    return (dt_.join(ss, left_on=[col("d_date_sk")],
+                     right_on=[col("ss_sold_date_sk")])
+            .join(it, left_on=[col("ss_item_sk")],
+                  right_on=[col("i_item_sk")])
+            .group_by(col("d_year"), col("i_brand_id"), col("i_brand"))
+            .agg((sum_(col("ss_ext_sales_price")), "sum_agg"))
+            .order_by(SortKey(col("d_year")),
+                      SortKey(col("sum_agg"), descending=True,
+                              nulls_last=True),
+                      SortKey(col("i_brand_id")))
+            .limit(100))

@@ -42,6 +42,8 @@ KEYS = {"long": ["long"], "int": ["int"], "double": ["double"],
 OPS_TYPES = ["inner", "left_outer", "full_outer", "left_semi", "left_anti"]
 TTB = "spark.rapids.tpu.sql.scan.taskTargetBytes"
 CHUNK = "spark.rapids.tpu.sql.join.outputChunkRows"
+#: -1 turns broadcast joins off: these small tables would broadcast
+BCAST = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
 
 
 def _values(kind, n, rng):
@@ -265,7 +267,7 @@ JOIN_TYPES = ["inner", "left_outer", "right_outer", "full_outer",
 @pytest.mark.parametrize("jt", JOIN_TYPES)
 def test_partition_wise_join_through_the_session(tmp_path, jt):
     t = _tables(tmp_path, seed=len(jt))
-    s = TorchSession({TTB: 1}, device="cpu")
+    s = TorchSession({TTB: 1, BCAST: -1}, device="cpu")
     left = s.read_parquet(*t["left"][0])
     right = s.read_parquet(*t["right"][0])
     df = left.join(right, how=jt, left_on=[col("l_k0"), col("l_k1")],
@@ -282,7 +284,7 @@ def test_partition_wise_join_through_the_session(tmp_path, jt):
 @pytest.mark.parametrize("empty", ["left", "right"])
 def test_join_with_a_side_filtered_empty(tmp_path, jt, empty):
     t = _tables(tmp_path, seed=5, n_files=1)
-    s = TorchSession(device="cpu")
+    s = TorchSession({BCAST: -1}, device="cpu")
     left = s.read_parquet(*t["left"][0])
     right = s.read_parquet(*t["right"][0])
     if empty == "left":
@@ -319,7 +321,7 @@ def test_skewed_key_comes_out_in_bounded_chunks(tmp_path):
     want = _jax_join(jright, jleft, 1, "inner", len(rk), len(lk))
     assert want["total"] > 5000
 
-    s = TorchSession({CHUNK: 700}, device="cpu")
+    s = TorchSession({CHUNK: 700, BCAST: -1}, device="cpu")
     df = s.read_parquet(_write(tmp_path / "l.parquet", left, lvalid)).join(
         s.read_parquet(_write(tmp_path / "r.parquet", right, rvalid)),
         left_on=[col("l_k0")], right_on=[col("r_k0")])
@@ -333,7 +335,7 @@ def test_skewed_key_comes_out_in_bounded_chunks(tmp_path):
 
 def test_join_on_an_aggregate_reuses_its_exchange(tmp_path):
     t = _tables(tmp_path, seed=2)
-    s = TorchSession({TTB: 1}, device="cpu")
+    s = TorchSession({TTB: 1, BCAST: -1}, device="cpu")
     agg = (s.read_parquet(*t["left"][0])
            .group_by(col("l_k0")).agg((sum_(col("l_v")), "n")))
     right = s.read_parquet(*t["right"][0])
@@ -344,7 +346,8 @@ def test_join_on_an_aggregate_reuses_its_exchange(tmp_path):
     assert not isinstance(lchild, TpuShuffleExchangeExec)  # reused
     assert isinstance(rchild, TpuShuffleExchangeExec)
     assert rchild.num_partitions == lchild.num_partitions
-    one = TorchSession(device="cpu")  # one partition a side: a wide join
+    # one partition a side: a wide join
+    one = TorchSession({BCAST: -1}, device="cpu")
     wide = (one.read_parquet(*t["left"][0])
             .group_by(col("l_k0")).agg((sum_(col("l_v")), "n"))
             .join(one.read_parquet(*t["right"][0]),
@@ -360,7 +363,7 @@ def test_keys_of_other_types_take_the_wide_join(tmp_path):
                {"x": np.ones(4, bool)})
     b = _write(tmp_path / "b.parquet",
                {"y": np.array([2, 5, 9], np.int64)}, {"y": np.ones(3, bool)})
-    s = TorchSession({TTB: 1}, device="cpu")
+    s = TorchSession({TTB: 1, BCAST: -1}, device="cpu")
     left = s.read_parquet(a, a)
     df = left.join(s.read_parquet(b), left_on=[col("x")],
                    right_on=[col("y")])

@@ -369,7 +369,11 @@ def test_q3_on_the_card_launches_k1_per_map_batch(cuda, tmp_path):
     paths = tpch.make_lineitem(str(tmp_path), n_files=3, with_orderkey=True,
                                n_orders=2048, rows_per_file=4096)
     orders = tpch.make_orders(str(tmp_path), n_orders=2048)
-    ttb = {"spark.rapids.tpu.sql.scan.taskTargetBytes": 1}
+    # the shuffled shape, with no runtime filter: these orders would
+    # broadcast, and their keys would add two filter lanes
+    ttb = {"spark.rapids.tpu.sql.scan.taskTargetBytes": 1,
+           "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes": -1,
+           "spark.rapids.tpu.sql.runtimeFilter.enabled": False}
     session = TorchSession(ttb)
     planned = _map_batches(tpch.q3_dataframe(session, paths,
                                              orders).physical_plan())
@@ -412,6 +416,65 @@ def test_q67_on_the_card_launches_k1_per_hash_map_batch(cuda, tmp_path):
     for g, c in zip(gpu.to_pylist(), cpu.to_pylist()):
         assert [g[k] for k in keys] == [c[k] for k in keys]
         assert g["sumsales"] == pytest.approx(c["sumsales"], rel=1e-12)
+
+
+@pytest.mark.cuda
+def test_q3ds_on_the_card_builds_its_filter_with_k1(cuda, tmp_path):
+    from spark_rapids_tpu_torch import tpcds
+    from spark_rapids_tpu_torch.plan import runtime_filter as RF
+
+    dd, ss, item = tpcds.write_q3_tables(str(tmp_path), n_files=2,
+                                         rows_per_file=1 << 14)
+    ttb = {"spark.rapids.tpu.sql.scan.taskTargetBytes": 1}
+    calls = []
+    real = kernels.hash_columns
+
+    def recording(cols, num_rows, device, seed=42, num_partitions=0):
+        calls.append((list(cols), num_rows, seed, num_partitions))
+        return real(cols, num_rows, device, seed, num_partitions)
+
+    kernels.hash_columns = recording
+    try:
+        plan = tpcds.q3_dataframe(TorchSession(ttb), dd, ss,
+                                  item).physical_plan()
+        real.launches = 0
+        gpu = list(plan.execute())
+    finally:
+        kernels.hash_columns = real
+    [rf] = RF.plan_runtime_filters(plan)
+    assert rf.ready and rf.n_keys == 6000  # November of 200 years
+    # the two lanes over the build keys, then over the key range for the
+    # range table
+    lanes = [c for c in calls if c[3] == 0]
+    assert [c[2] for c in lanes] == [RF.BLOOM_SEED1, RF.BLOOM_SEED2] * 2
+    span = rf.max_val - rf.min_val + 1
+    assert [c[1] for c in lanes] == [6000, 6000, span, span]
+    # the card's range table gives the numpy lanes' answers
+    direct = RF.RuntimeFilter("k", rf.dtype, "inner", rf.n_bits,
+                              rf.n_hashes)
+    direct.publish(rf.min_val, rf.max_val, rf.n_keys, rf.bloom_words, 0.0)
+    keys = np.arange(rf.min_val, rf.max_val + 1, dtype=np.int64)
+    np.testing.assert_array_equal(rf.range_table[1:-1],
+                                  direct.probe_host(keys))
+    # one launch a call: the lanes, then each map batch's partition ids
+    assert real.launches == len(calls)
+    assert 1 <= sum(1 for c in calls if c[3] == 8) <= 2
+    for cols, n, seed, _ in lanes:
+        assert cols[0].validity.is_cuda
+        seeds = torch.full((n,), seed - (1 << 32) if seed >= 1 << 31
+                           else seed, dtype=torch.int32, device=cuda)
+        assert torch.equal(real(cols, n, cuda, seed),
+                           kernels.hash_columns_reference(cols, seeds))
+    cpu = tpcds.q3_dataframe(TorchSession(ttb, device="cpu"), dd, ss,
+                             item).collect()
+    from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
+
+    got = batches_to_arrow(gpu, plan.schema)
+    assert got.num_rows == cpu.num_rows > 0
+    keys = ("d_year", "i_brand_id", "i_brand")
+    for g, c in zip(got.to_pylist(), cpu.to_pylist()):
+        assert [g[k] for k in keys] == [c[k] for k in keys]
+        assert g["sum_agg"] == pytest.approx(c["sum_agg"], rel=1e-12)
 
 
 def test_build_paths_live_in_the_package():

@@ -22,12 +22,17 @@ from differential import assert_tables_equal
 from spark_rapids_tpu_torch import TorchSession, col, lit, tpch
 from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.execs.exchange import TpuShuffleExchangeExec
-from spark_rapids_tpu_torch.execs.join import TpuShuffledHashJoinExec
+from spark_rapids_tpu_torch.execs.join import (
+    TpuRuntimeFilterBuildExec,
+    TpuShuffledHashJoinExec,
+)
 from spark_rapids_tpu_torch.execs.sort import TpuTopNExec
 from spark_rapids_tpu_torch.ops import kernels
 from spark_rapids_tpu_torch.ops.partition import HashPartitioning
 
 TTB = "spark.rapids.tpu.sql.scan.taskTargetBytes"
+#: -1 turns broadcast joins off: the orders side would broadcast
+BCAST = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
 ROWS = 4096
 N_ORDERS = 2048
 N_FILES = 3
@@ -58,7 +63,7 @@ def jax_results(data):
 
 @pytest.fixture
 def port_session():
-    return TorchSession({TTB: 1}, device="cpu")
+    return TorchSession({TTB: 1, BCAST: -1}, device="cpu")
 
 
 def _significant(table: pa.Table, digits: int = 12) -> pa.Table:
@@ -122,27 +127,39 @@ def test_q3_plan_and_its_hashes(data, port_session, monkeypatch):
         ["l_extendedprice", "l_discount", "l_shipdate", "l_orderkey"],
         ["o_orderkey", "o_orderdate", "o_shippriority"]]
 
+    # the runtime filter: orders' keys prune the lineitem scan
+    rf_build = sides[1].children[0]
+    assert isinstance(rf_build, TpuRuntimeFilterBuildExec)
+    assert [(s.name, n) for s in scans for n, _ in s.runtime_filters] == [
+        ("ParquetScanExec", "l_orderkey")]
+
     calls = []
     real = kernels.hash_columns
 
     def spy(cols, num_rows, device, seed=42, num_partitions=0):
         calls.append(([c.dtype.name for c in cols], num_rows,
-                      num_partitions))
+                      num_partitions, seed))
         return real(cols, num_rows, device, seed, num_partitions)
 
     monkeypatch.setattr(kernels, "hash_columns", spy)
     df.collect()
     # one hash per non-empty map batch: a lineitem file each, the orders
     # file, and the partial aggregate of each join partition
-    kinds = sorted({tuple(c[0]) for c in calls})
+    ex = [c for c in calls if c[2] == 8]
+    kinds = sorted({tuple(c[0]) for c in ex})
     assert kinds == [("bigint",), ("bigint", "int", "int")]
-    by_kind = [sum(1 for c in calls if tuple(c[0]) == k) for k in kinds]
+    by_kind = [sum(1 for c in ex if tuple(c[0]) == k) for k in kinds]
     assert by_kind == [N_FILES + 1, 8]
-    assert all(n > 0 and p == 8 for _, n, p in calls)
+    assert all(n > 0 for _, n, _, _ in ex)
+    # and the filter's two seeded lanes over the one orders batch, then
+    # over the orders keys' range for its range table
+    lanes = [(c[0], c[2], c[3]) for c in calls if c[2] != 8]
+    assert lanes == [(["bigint"], 0, 42), (["bigint"], 0, 0x9747B28C)] * 2
 
 
 def test_q3_in_one_partition_a_side_joins_wide(data, port_session):
-    s = TorchSession(device="cpu")  # small files pack into one task
+    # small files pack into one task
+    s = TorchSession({BCAST: -1}, device="cpu")
     df = tpch.q3_dataframe(s, *data)
     join = next(n for n in df.physical_plan().walk()
                 if isinstance(n, TpuShuffledHashJoinExec))
@@ -155,17 +172,17 @@ def test_q3_in_one_partition_a_side_joins_wide(data, port_session):
 
 
 def test_unported_joins_raise(data, port_session):
+    """A residual condition or a missing key on an outer, semi or anti
+    join has no port (the JAX planner falls back to its CPU engine)."""
     li = port_session.read_parquet(*data[0])
     orders = port_session.read_parquet(data[1])
-    cross = li.join(orders, how="cross")
-    with pytest.raises(NotImplementedError):
-        cross.physical_plan()
-    residual = li.join(orders, left_on=[col("l_orderkey")],
+    residual = li.join(orders, how="left_outer",
+                       left_on=[col("l_orderkey")],
                        right_on=[col("o_orderkey")],
                        condition=col("l_shipdate") > col("o_orderdate"))
     with pytest.raises(NotImplementedError):
         residual.physical_plan()
-    keyless = li.join(orders, how="inner")
+    keyless = li.join(orders, how="left_semi")
     with pytest.raises(NotImplementedError):
         keyless.collect()
     with pytest.raises(ValueError):
