@@ -62,15 +62,32 @@ Phases, one JSON line each:
            non-empty map batch of the aggregate's exchange plus twice per
            non-empty batch the filter folds plus twice per filter
            published with a range table, and hash_string never;
-  main     hash_columns at the calls q1, q3 (filter off and on), q67 and
-           q3ds made (the largest call of each key signature and seed:
-           the filters' lanes and range tables hash from seeds 42 and
-           0x9747B28C), and hash_string on
-           one of q1's key
-           columns, against their plain versions, with the device's own
-           time per launch (torch.profiler kernel time over a loop) and
-           the host-inclusive time per call (host clock over the same
-           loop) reported apart.
+  q93      TPC-DS q93 over the same store_sales files and a store_returns
+           derived from them (~10 % of the sales rows, the spec's SF1
+           ratio; each return copies the keys of a sale) with the ten
+           reasons, the same way: store_sales LEFT OUTER JOIN
+           store_returns, too large to broadcast, plans a partition-wise
+           shuffled join (a hash exchange on each side's (LONG, LONG)
+           key), and the one reason row broadcasts; no runtime filter;
+           the 100 rows held against a pyarrow left outer join /
+           filter / CASE / group_by / sort (customers exact, sums within
+           REL_TOL, rows whose sums tie may trade places); hash_columns
+           must launch once per non-empty map batch of its three
+           exchanges and hash_string never;
+  star     TPC-DS q42, q52 and q55 (the star join under other filters
+           and STRING group keys) once each over the same tables, not
+           profiled: two broadcast joins and the runtime filter on the
+           store_sales scan, the rows held against a pyarrow reference,
+           and hash_columns launched as q3ds's rule says;
+  main     hash_columns at the calls q1, q3 (filter off and on), q67,
+           q3ds, q93 and the star queries made (the largest call of
+           each key signature and seed in each phase: the filters'
+           lanes and range tables hash from seeds 42 and 0x9747B28C),
+           and hash_string on one of q1's key columns, against their
+           plain versions, with the device's own time per launch
+           (torch.profiler kernel time over a loop) and the
+           host-inclusive time per call (host clock over the same loop)
+           reported apart.
 Then the per-kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises before that line and
 exits non-zero.  Without CUDA, or outside a checkout of the repository,
@@ -127,10 +144,18 @@ Q67_ROWS, Q67_FILES, Q67_TASK_TARGET_BYTES = 6 << 20, 6, 4 << 20
 #: q3ds: six store_sales files of 2^20 rows and 23 columns, a task each
 Q3DS_FILES, Q3DS_ROWS_PER_FILE, Q3DS_TASK_TARGET_BYTES = 6, 1 << 20, 8 << 20
 REL_TOL = 1e-9
+#: launches timed at each main-path shape: the kernel's, and its plain
+#: version's (tens to hundreds of PyTorch kernels a call, so fewer)
+KERNEL_ITERS, PLAIN_ITERS = 50, 10
+
+
+_START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script began."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - _START,
+                      **fields}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -384,7 +409,10 @@ def device_and_host_ms(torch, fn, iters: int) -> dict:
     host-inclusive time per call (host clock over ``iters`` calls ending
     in a synchronize, profiler off) and the CUDA-event time of the same
     loop, reported apart: where the host enqueues a call more slowly than
-    the device runs it, the event time is the host's, not the device's."""
+    the device runs it, the event time is the host's, not the device's.
+    The profiler now and then records no device event for a loop; it is
+    asked up to 3 times, then the event time stands in, and
+    ``device_ms_source`` says which it is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -397,17 +425,24 @@ def device_and_host_ms(torch, fn, iters: int) -> dict:
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / iters
     event_ms = cuda_ms(torch, fn, iters)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kern)
-    return {"device_ms": device_us / 1e3 / iters, "host_ms": host_ms,
-            "event_ms": event_ms,
-            "device_kernels_per_call": sum(e.count for e in kern) / iters}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in kern)
+        if device_us > 0:
+            return {"device_ms": device_us / 1e3 / iters,
+                    "device_ms_source": "profiler", "host_ms": host_ms,
+                    "event_ms": event_ms,
+                    "device_kernels_per_call":
+                        sum(e.count for e in kern) / iters}
+    return {"device_ms": event_ms, "device_ms_source": "cuda_events",
+            "host_ms": host_ms, "event_ms": event_ms,
+            "device_kernels_per_call": None}
 
 
 def signature(cols) -> tuple:
@@ -415,18 +450,19 @@ def signature(cols) -> tuple:
     return tuple(f"{c.dtype.name}{getattr(c, 'width', '')}" for c in cols)
 
 
-def at_main_path(torch, kernels, calls: list) -> dict:
-    """hash_columns at the largest call of each key signature the main
-    path made: held against its plain version on the same inputs, then
-    timed both ways."""
+def at_main_path(torch, kernels, calls: dict) -> dict:
+    """hash_columns at the largest call of each key signature each phase
+    of the main path made (``calls``: phase -> its calls): held against
+    its plain version on the same inputs, then timed both ways."""
     largest: dict = {}
-    for call in calls:
-        cols, n, seed, parts = call
-        key = (signature(cols), seed, parts)
-        if key not in largest or n > largest[key][1]:
-            largest[key] = call
+    for phase, phase_calls in calls.items():
+        for call in phase_calls:
+            cols, n, seed, parts = call
+            key = (phase, signature(cols), seed, parts)
+            if key not in largest or n > largest[key][1]:
+                largest[key] = call
     rows = []
-    for (sig, _, _), (cols, n, seed, parts) in largest.items():
+    for (phase, sig, _, _), (cols, n, seed, parts) in largest.items():
         key = (n, sig, seed, parts)
         dev = cols[0].validity.device if cols else torch.device("cuda")
         seeds = torch.full((n,), seed - (1 << 32) if seed >= 1 << 31
@@ -438,14 +474,16 @@ def at_main_path(torch, kernels, calls: list) -> dict:
             raise AssertionError(f"hash_columns disagrees at {key}")
         kt = device_and_host_ms(
             torch, lambda: kernels.hash_columns(cols, n, dev, seed, parts),
-            iters=50)
+            iters=KERNEL_ITERS)
         pt = device_and_host_ms(
-            torch, lambda: kernels.hash_columns_reference(cols, seeds,
-                                                          parts), iters=50)
+            torch, lambda: kernels.hash_columns_reference(cols, seeds, parts),
+            iters=PLAIN_ITERS)
         bound_ms, bound_by = tuple_bound_ms(torch, cols, n, parts)
-        rows.append({"n": n, "columns": list(sig), "seed": seed,
+        rows.append({"phase": phase, "n": n, "columns": list(sig),
+                     "seed": seed,
                      "partitions": parts,
                      "max_abs_err": err, "ms": kt["device_ms"],
+                     "ms_source": kt["device_ms_source"],
                      "host_ms": kt["host_ms"],
                      "plain_ms": pt["host_ms"],
                      "plain_device_ms": pt["device_ms"],
@@ -473,10 +511,10 @@ def k1_at_main_path(torch, kernels, calls: list) -> dict:
                              f"{c.width})")
     kt = device_and_host_ms(
         torch, lambda: kernels.hash_string(c.chars, c.lengths, seeds),
-        iters=50)
+        iters=KERNEL_ITERS)
     pt = device_and_host_ms(
         torch, lambda: kernels.hash_string_bytes_reference(
-            c.chars, c.lengths, seeds), iters=50)
+            c.chars, c.lengths, seeds), iters=PLAIN_ITERS)
     bound_ms, bound_by = k1_bound_ms(torch, c.lengths, c.width)
     return {"n": n, "w": c.width, "max_abs_err": err,
             "ms": kt["device_ms"], "host_ms": kt["host_ms"],
@@ -536,34 +574,33 @@ def reference_q3(pa, pc, lineitem, orders):
     return g.sort_by([("rev_sum", "descending")])
 
 
-def compare_top(got_table, ref, n: int) -> float:
-    """The top n of a revenue ranking against the reference's, row by
-    row: revenue within REL_TOL at every place, and the keys of every
-    row above the n-th revenue exact; rows tied with the n-th revenue
-    may be any of the reference's tied rows.  Returns the largest
-    relative revenue error."""
-    def key(r):
-        return (r["l_orderkey"], r["o_orderdate"], r["o_shippriority"])
-
+def compare_ranked(got_table, want: list, n: int, keys: tuple, got_sum: str,
+                   want_sum: str) -> float:
+    """Rows of a ranking against the reference's first n (``want``: every
+    group, in order), place by place: keys exact and sums within
+    REL_TOL, except that a row may trade places with one whose sum
+    agrees within REL_TOL (rows tied at the n-th place included).
+    Returns the largest relative sum error."""
     got = got_table.to_pylist()
-    want = ref.slice(0, n).to_pylist()
+    sums = {tuple(r[k] for k in keys): r[want_sum] for r in want}
+    want = want[:n]
     if len(got) != len(want):
         raise AssertionError(f"{len(got)} rows, reference has {len(want)}")
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
-        rel = abs(g["revenue"] - w["rev_sum"]) / abs(w["rev_sum"])
+        key = tuple(g[k] for k in keys)
+        if key not in sums:
+            raise AssertionError(f"place {i}: unexpected group {key}")
+        ref_sum = sums[key]
+        rel = abs(g[got_sum] - ref_sum) / max(abs(ref_sum), 1e-300)
         worst = max(worst, rel)
         if rel > REL_TOL:
-            raise AssertionError(f"place {i}: revenue {g['revenue']} vs "
-                                 f"{w['rev_sum']} (rel {rel:.3e})")
-    last = want[-1]["rev_sum"]
-    tied = {key(r) for r in ref.slice(0, 4 * n + 100).to_pylist()
-            if abs(r["rev_sum"] - last) <= REL_TOL * abs(last)}
-    above_got = {key(r) for r in got if key(r) not in tied}
-    above_want = {key(r) for r in want if key(r) not in tied}
-    if above_got != above_want:
-        raise AssertionError(f"top rows {sorted(above_got)} != reference "
-                             f"{sorted(above_want)}")
+            raise AssertionError(f"place {i} {key}: {g[got_sum]} vs "
+                                 f"{ref_sum} (rel {rel:.3e})")
+        tied = abs(g[got_sum] - w[want_sum]) <= REL_TOL * max(
+            abs(w[want_sum]), 1e-300)
+        if key != tuple(w[k] for k in keys) and not tied:
+            raise AssertionError(f"place {i}: {g} vs reference {w}")
     return worst
 
 
@@ -625,53 +662,27 @@ def compare_q67(got_table, want: list, all_sums: dict) -> float:
     return worst
 
 
-def reference_q3ds(pc, date_dim, sales, item):
-    """q3 by pyarrow: every (year, brand id, brand) group's November
-    sales of manufacturer 128, by year, sales descending, brand id."""
-    dd = date_dim.filter(pc.equal(date_dim["d_moy"], 11)).select(
-        ["d_date_sk", "d_year"])
-    it = item.filter(pc.equal(item["i_manufact_id"], 128)).select(
-        ["i_item_sk", "i_brand_id", "i_brand"])
-    j = dd.join(sales, keys="d_date_sk", right_keys="ss_sold_date_sk",
-                join_type="inner")
+def reference_star(pc, star, date_cond, item_cond, keys: list,
+                   names: dict, order: list) -> list:
+    """A star query by pyarrow: the date_dim rows ``date_cond(date_dim)``
+    keeps x store_sales x the items ``item_cond(item)`` keeps, the sales
+    summed by ``keys``; every group as a row of the query's output names
+    (``names``: key -> output name) and ``sum``, sorted by ``order``
+    ((output name, descending), most significant first)."""
+    dd, item = star["date_dim"], star["item"]
+    dd = dd.filter(date_cond(dd)).select(["d_date_sk", "d_year"])
+    it = item.filter(item_cond(item)).select(
+        ["i_item_sk"] + [k for k in keys if k.startswith("i_")])
+    j = dd.join(star["sales"], keys="d_date_sk",
+                right_keys="ss_sold_date_sk", join_type="inner")
     j = j.join(it, keys="ss_item_sk", right_keys="i_item_sk",
                join_type="inner")
-    g = j.group_by(["d_year", "i_brand_id", "i_brand"]).aggregate(
-        [("ss_ext_sales_price", "sum")])
-    return g.sort_by([("d_year", "ascending"),
-                      ("ss_ext_sales_price_sum", "descending"),
-                      ("i_brand_id", "ascending")])
-
-
-def compare_q3ds(got_table, ref, n: int) -> float:
-    """q3's rows against the reference's first n, place by place: keys
-    exact and sums within REL_TOL, except that two rows of one year
-    whose sums agree within REL_TOL may trade places (the 100th place
-    included).  Returns the largest relative sum error."""
-    def key(r):
-        return (r["d_year"], r["i_brand_id"], r["i_brand"])
-
-    got = got_table.to_pylist()
-    want = ref.slice(0, n).to_pylist()
-    if len(got) != len(want):
-        raise AssertionError(f"{len(got)} rows, reference has {len(want)}")
-    sums = {key(r): r["ss_ext_sales_price_sum"] for r in ref.to_pylist()}
-    worst = 0.0
-    for i, (g, w) in enumerate(zip(got, want)):
-        if key(g) not in sums:
-            raise AssertionError(f"place {i}: unexpected group {key(g)}")
-        ref_sum = sums[key(g)]
-        rel = abs(g["sum_agg"] - ref_sum) / abs(ref_sum)
-        worst = max(worst, rel)
-        if rel > REL_TOL:
-            raise AssertionError(f"place {i} {key(g)}: {g['sum_agg']} vs "
-                                 f"{ref_sum} (rel {rel:.3e})")
-        w_sum = w["ss_ext_sales_price_sum"]
-        tied = g["d_year"] == w["d_year"] and abs(
-            ref_sum - w_sum) <= REL_TOL * abs(w_sum)
-        if not (key(g) == key(w) or tied):
-            raise AssertionError(f"place {i}: {g} vs reference {w}")
-    return worst
+    g = j.group_by(keys).aggregate([("ss_ext_sales_price", "sum")])
+    rows = [{**{names.get(k, k): r[k] for k in keys},
+             "sum": r["ss_ext_sales_price_sum"]} for r in g.to_pylist()]
+    for col_name, desc in reversed(order):
+        rows.sort(key=lambda r: r[col_name], reverse=desc)
+    return rows
 
 
 def same_rows(a, b) -> float:
@@ -787,11 +798,14 @@ def compare(got_table, want: dict, n_keys: int) -> float:
     return worst
 
 
-def run_query(torch, make_df, kernels, check, calls: list) -> dict:
+def run_query(torch, make_df, kernels, check, calls: list,
+              quick: bool = False) -> dict:
     """The main path: ``make_df()`` is the query's DataFrame, ``check``
     holds a result against its reference and returns the largest
-    relative float error.  Counts reset just before, read just after;
-    every hash_columns call is recorded with its inputs."""
+    relative float error.  One warm-up, 3 timed runs and ``breakdown``;
+    ``quick``: one timed run only.  Counts reset just before, read just
+    after; every hash_columns call is recorded with its inputs."""
+    runs = 1 if quick else 4
     original = kernels.hash_columns
 
     def recording(cols, num_rows, device, seed=42, num_partitions=0):
@@ -801,14 +815,9 @@ def run_query(torch, make_df, kernels, check, calls: list) -> dict:
     kernels.hash_columns = recording
     original.launches = 0
     kernels.hash_string.launches = 0
+    walls = []
     try:
-        t0 = time.perf_counter()
-        make_df().collect()
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        walls = []
-        result = None
-        for _ in range(3):
+        for _ in range(runs):
             t0 = time.perf_counter()
             result = make_df().collect()
             torch.cuda.synchronize()
@@ -818,10 +827,11 @@ def run_query(torch, make_df, kernels, check, calls: list) -> dict:
     launches = {"hash_columns": original.launches,
                 "hash_string": kernels.hash_string.launches}
     worst = check(result)
-    return {"rows": result.num_rows, "warmup_s": warm_s,
+    warm = None if quick else walls.pop(0)
+    return {"rows": result.num_rows, "warmup_s": warm,
             "wall_s": walls, "median_s": statistics.median(walls),
-            "runs": 4, "launches": launches, "max_rel_err": worst,
-            **breakdown(torch, make_df)}
+            "runs": runs, "launches": launches, "max_rel_err": worst,
+            **({} if quick else breakdown(torch, make_df))}
 
 
 def breakdown(torch, make_df) -> dict:
@@ -894,7 +904,10 @@ def q3_phase(torch, kernels, RF, tpch, session, li_paths, orders_path, ref3,
     folds, tables = filter_folds(q3_df().physical_plan())
     calls: list = []
     rec = run_query(torch, q3_df, kernels,
-                    lambda t: compare_top(t, ref3, 10), calls)
+                    lambda t: compare_ranked(
+                        t, ref3, 10, ("l_orderkey", "o_orderdate",
+                                      "o_shippriority"), "revenue",
+                        "rev_sum"), calls)
     want = {"hash_columns": rec["runs"] * (planned + 2 * folds + 2 * tables),
             "hash_string": 0}
     if rec["launches"] != want:
@@ -917,24 +930,21 @@ def q3_phase(torch, kernels, RF, tpch, session, li_paths, orders_path, ref3,
     return out, calls
 
 
-def q3ds_phase(torch, pa, pc, pq, data_dir, kernels, RF, TorchSession,
-               tpcds, TTB, RF_ENABLED):
+def q3ds_phase(torch, pc, star, kernels, RF, TorchSession, tpcds, TTB,
+               RF_ENABLED):
     """TPC-DS q3 with its runtime filter, then without: each run held
     against the pyarrow reference, the plan's shape and K1's launches
-    checked; emits the phase's line.  Returns both runs' records and the
-    filtered runs' hash_columns calls."""
-    q3ds_dir = os.path.join(data_dir, "q3ds")
-    os.makedirs(q3ds_dir)
-    t0 = time.perf_counter()
-    dd_path, ss_paths, item_path = tpcds.write_q3_tables(
-        q3ds_dir, n_files=Q3DS_FILES, rows_per_file=Q3DS_ROWS_PER_FILE)
-    gen_s = time.perf_counter() - t0
-    date_dim = pq.read_table(dd_path)
-    item = pq.read_table(item_path)
-    sales = pa.concat_tables([pq.read_table(p, columns=[
-        "ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price"])
-        for p in ss_paths])
-    ref = reference_q3ds(pc, date_dim, sales, item)
+    checked; emits the phase's line.  ``star``: the tables' paths and
+    what the references read of them.  Returns both runs' records and
+    the filtered runs' hash_columns calls."""
+    dd_path, ss_paths, item_path = star["paths"]
+    date_dim, sales, item = star["date_dim"], star["sales"], star["item"]
+    gen_s = star["datagen_s"]
+    ref = reference_star(
+        pc, star, lambda d: pc.equal(d["d_moy"], 11),
+        lambda i: pc.equal(i["i_manufact_id"], 128),
+        ["d_year", "i_brand_id", "i_brand"], {},
+        [("d_year", False), ("sum", True), ("i_brand_id", False)])
     results: dict = {}
     records = {}
     calls_on: list = []
@@ -971,7 +981,8 @@ def q3ds_phase(torch, pa, pc, pq, data_dir, kernels, RF, TorchSession,
 
         def check(t):
             kept.append(t)
-            return compare_q3ds(t, ref, 100)
+            return compare_ranked(t, ref, 100, ("d_year", "i_brand_id",
+                                                "i_brand"), "sum_agg", "sum")
 
         rec = run_query(torch, q3ds_df, kernels, check, calls)
         results[rf_on] = kept[-1]
@@ -1001,7 +1012,7 @@ def q3ds_phase(torch, pa, pc, pq, data_dir, kernels, RF, TorchSession,
     off_err = same_rows(results[True], results[False])
     on, off = records[True], records[False]
     emit("q3ds", rows_in=sales.num_rows, date_dim_rows=date_dim.num_rows,
-         item_rows=item.num_rows, groups=ref.num_rows,
+         item_rows=item.num_rows, groups=len(ref),
          file_bytes=[os.path.getsize(p) for p in ss_paths],
          datagen_s=gen_s, rf_off_max_rel_diff=off_err,
          rf_off_median_s=off["median_s"],
@@ -1012,6 +1023,175 @@ def q3ds_phase(torch, pa, pc, pq, data_dir, kernels, RF, TorchSession,
          rf_off_device_idle_share=off["device_idle_share"],
          rf_off_profiled_wall_s=off["profiled_wall_s"], **on)
     return on, off, calls_on
+
+
+def star_tables(pa, pq, data_dir, tpcds) -> dict:
+    """q3ds's tables (the whole calendar, 18 000 items, six store_sales
+    files), written once for q3ds, q93 and q42/q52/q55, and what the
+    star references read of them."""
+    star_dir = os.path.join(data_dir, "q3ds")
+    os.makedirs(star_dir)
+    t0 = time.perf_counter()
+    paths = tpcds.write_q3_tables(star_dir, n_files=Q3DS_FILES,
+                                  rows_per_file=Q3DS_ROWS_PER_FILE)
+    gen_s = time.perf_counter() - t0
+    dd_path, ss_paths, item_path = paths
+    return {"dir": star_dir, "paths": paths, "datagen_s": gen_s,
+            "date_dim": pq.read_table(dd_path),
+            "item": pq.read_table(item_path),
+            "sales": pa.concat_tables([pq.read_table(p, columns=[
+                "ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price"])
+                for p in ss_paths])}
+
+
+def reference_q93(pa, pc, sales, returns, reason, reason_desc: str):
+    """q93 by pyarrow: store_sales LEFT OUTER JOIN store_returns, the
+    reason filter, the CASE per row, the sum per customer; every group,
+    by (sum, customer with NULL first).  Returns the rows and the row
+    counts after the outer join and after the reason filter."""
+    keys = reason.filter(pc.equal(reason["r_reason_desc"], reason_desc))[
+        "r_reason_sk"]
+    j = sales.join(returns, keys=["ss_item_sk", "ss_ticket_number"],
+                   right_keys=["sr_item_sk", "sr_ticket_number"],
+                   join_type="left outer")
+    joined_rows = j.num_rows
+    j = j.filter(pc.is_in(j["sr_reason_sk"], value_set=keys))
+    qty, rq, price = j["ss_quantity"], j["sr_return_quantity"], \
+        j["ss_sales_price"]
+    act = pc.if_else(pc.is_valid(rq),
+                     pc.multiply(pc.subtract(qty, rq), price),
+                     pc.multiply(qty, price))
+    g = pa.table({"ss_customer_sk": j["ss_customer_sk"], "act": act}) \
+        .group_by(["ss_customer_sk"]).aggregate([("act", "sum")])
+    rows = sorted(g.to_pylist(), key=lambda r: (
+        r["act_sum"], r["ss_customer_sk"] is not None,
+        r["ss_customer_sk"] or 0))
+    return rows, joined_rows, j.num_rows
+
+
+def q93_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB):
+    """TPC-DS q93 over q3ds's store_sales files and a store_returns
+    derived from them: the plan (a partition-wise shuffled left outer
+    join under the broadcast reason join, no runtime filter), the 100
+    rows against the pyarrow reference, and K1's launches: one
+    hash_columns per map batch of its three exchanges.  Emits the
+    phase's line; returns its record and hash_columns calls."""
+    _, ss_paths, _ = star["paths"]
+    t0 = time.perf_counter()
+    sr_path, reason_path = tpcds.write_q93_tables(star["dir"], ss_paths)
+    gen_s = time.perf_counter() - t0
+    session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
+
+    def q93_df():
+        return tpcds.q93_dataframe(session, ss_paths, sr_path, reason_path)
+
+    plan = q93_df().physical_plan()
+    tasks = [n.num_partitions for n in plan.walk() if not n.children]
+    if tasks != [Q3DS_FILES, 1, 1]:
+        raise AssertionError(f"q93 scan tasks {tasks}, expected "
+                             f"{[Q3DS_FILES, 1, 1]}")
+    joins = join_strategies(plan)
+    want_joins = [["TpuBroadcastHashJoinExec", "inner", "right"],
+                  ["TpuShuffledHashJoinExec", "left_outer", "right"]]
+    outer = [n for n in plan.walk() if hasattr(n, "partition_wise")]
+    if joins != want_joins or not outer[0].partition_wise:
+        raise AssertionError(f"q93 joins {joins}, expected {want_joins} "
+                             f"with the outer join partition-wise")
+    if any(type(n).__name__ == "TpuRuntimeFilterBuildExec"
+           or getattr(n, "runtime_filters", None) for n in plan.walk()):
+        raise AssertionError("q93 planned a runtime filter")
+    planned = map_batches(q93_df().physical_plan())
+    sales = pa.concat_tables([pq.read_table(p, columns=[
+        "ss_item_sk", "ss_ticket_number", "ss_customer_sk", "ss_quantity",
+        "ss_sales_price"]) for p in ss_paths])
+    returns = pq.read_table(sr_path, columns=[
+        "sr_item_sk", "sr_ticket_number", "sr_reason_sk",
+        "sr_return_quantity"])
+    ref, joined_rows, reason_rows = reference_q93(
+        pa, pc, sales, returns, pq.read_table(reason_path), tpcds.Q93_REASON)
+    calls: list = []
+    rec = run_query(torch, q93_df, kernels, lambda t: compare_ranked(
+        t, ref, 100, ("ss_customer_sk",), "sumsales", "act_sum"), calls)
+    want = {"hash_columns": rec["runs"] * planned, "hash_string": 0}
+    if rec["launches"] != want:
+        raise AssertionError(f"q93 launched {rec['launches']}, expected "
+                             f"{want} ({planned} map batches a run)")
+    out = {"plan": plan.tree_string().splitlines(), "joins": joins,
+           "planned_map_batches": planned,
+           "hash_columns_calls": sorted({(n, signature(cols), seed, parts)
+                                         for cols, n, seed, parts in calls}),
+           **rec}
+    emit("q93", rows_in=sales.num_rows, returns_in=returns.num_rows,
+         store_returns_bytes=os.path.getsize(sr_path), datagen_s=gen_s,
+         outer_join_rows=joined_rows, reason_rows=reason_rows,
+         groups=len(ref), **out)
+    return out, calls
+
+
+#: query -> (DataFrame name, (year, manager), group keys, output names of
+#: keys, sum column, the order: (column, descending) over output names)
+STAR_QUERIES = {
+    "q42": ("q42_dataframe", (2000, 1),
+            ["d_year", "i_category_id", "i_category"], {}, "sum_agg",
+            [("sum", True), ("d_year", False), ("i_category_id", False),
+             ("i_category", False)]),
+    "q52": ("q52_dataframe", (2000, 1), ["d_year", "i_brand", "i_brand_id"],
+            {"i_brand_id": "brand_id", "i_brand": "brand"}, "ext_price",
+            [("d_year", False), ("sum", True), ("brand_id", False)]),
+    "q55": ("q55_dataframe", (1999, 28), ["i_brand", "i_brand_id"],
+            {"i_brand_id": "brand_id", "i_brand": "brand"}, "ext_price",
+            [("sum", True), ("brand_id", False)]),
+}
+
+
+def star_phase(torch, pc, star, kernels, TorchSession, tpcds, TTB):
+    """TPC-DS q42, q52 and q55 once each over q3ds's tables: the plan
+    (two broadcast joins, the runtime filter on the store_sales scan),
+    the rows against the pyarrow reference, and K1's launches (the
+    aggregate's map batches, the filter's two lanes per folded batch and
+    per range table).  No profile.  Emits the phase's line; returns the
+    records and the hash_columns calls."""
+    dd_path, ss_paths, item_path = star["paths"]
+    session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
+    records, calls = {}, []
+    for name, (fn, (year, manager), keys, names, sum_col, order) in \
+            STAR_QUERIES.items():
+        def star_df(fn=fn):
+            return getattr(tpcds, fn)(session, dd_path, ss_paths, item_path)
+
+        plan = star_df().physical_plan()
+        joins = join_strategies(plan)
+        want_joins = [["TpuBroadcastHashJoinExec", "inner", "right"],
+                      ["TpuBroadcastHashJoinExec", "inner", "left"]]
+        applied = [(n.paths, c) for n in plan.walk()
+                   for c, _ in getattr(n, "runtime_filters", ())]
+        if joins != want_joins or applied != [(ss_paths,
+                                               "ss_sold_date_sk")]:
+            raise AssertionError(f"{name}: joins {joins}, runtime filters "
+                                 f"{applied}")
+        planned = map_batches(star_df().physical_plan())
+        folds, tables = filter_folds(star_df().physical_plan())
+        ref = reference_star(
+            pc, star, lambda d, y=year: pc.and_(pc.equal(d["d_moy"], 11),
+                                                pc.equal(d["d_year"], y)),
+            lambda i, m=manager: pc.equal(i["i_manager_id"], m), keys,
+            names, order)
+        out_keys = tuple(names.get(k, k) for k in keys)
+        rec = run_query(torch, star_df, kernels, lambda t: compare_ranked(
+            t, ref, 100, out_keys, sum_col, "sum"), calls, quick=True)
+        want = {"hash_columns": planned + 2 * folds + 2 * tables,
+                "hash_string": 0}
+        if rec["launches"] != want:
+            raise AssertionError(
+                f"{name} launched {rec['launches']}, expected {want} "
+                f"({planned} map batches + 2 x {folds} filter folds + "
+                f"2 x {tables} range tables)")
+        records[name] = {"groups": len(ref), "joins": joins,
+                         "planned_map_batches": planned,
+                         "planned_filter_folds": folds,
+                         "planned_range_tables": tables, **rec}
+    emit("star", **records)
+    return records, calls
 
 
 def main() -> int:
@@ -1094,7 +1274,7 @@ def main() -> int:
         gen3_s = time.perf_counter() - t0
         lineitem = pa.concat_tables([pq.read_table(p) for p in li_paths])
         orders = pq.read_table(orders_path)
-        ref3 = reference_q3(pa, pc, lineitem, orders)
+        ref3 = reference_q3(pa, pc, lineitem, orders).to_pylist()
 
         q3_runs = {}
         for rf_on in (False, True):
@@ -1105,7 +1285,7 @@ def main() -> int:
         q3, q3_calls = q3_runs[False]
         q3_rf, q3_rf_calls = q3_runs[True]
         emit("q3", rows_in=lineitem.num_rows, orders_in=orders.num_rows,
-             groups=ref3.num_rows, datagen_s=gen3_s, **q3)
+             groups=len(ref3), datagen_s=gen3_s, **q3)
         emit("q3_rf_on", rf_off_median_s=q3["median_s"], **q3_rf)
         del lineitem, orders
 
@@ -1140,9 +1320,14 @@ def main() -> int:
                   for cols, n, _, parts in q67_calls}), **q67)
         del sales
 
-        q3ds, q3ds_off, q3ds_calls = q3ds_phase(torch, pa, pc, pq, data_dir,
-                                                kernels, RF, TorchSession,
-                                                tpcds, TTB, RF_ENABLED)
+        star = star_tables(pa, pq, data_dir, tpcds)
+        q3ds, q3ds_off, q3ds_calls = q3ds_phase(torch, pc, star, kernels,
+                                                RF, TorchSession, tpcds, TTB,
+                                                RF_ENABLED)
+        q93, q93_calls = q93_phase(torch, pa, pc, pq, star, kernels,
+                                   TorchSession, tpcds, TTB)
+        star_runs, star_calls = star_phase(torch, pc, star, kernels,
+                                           TorchSession, tpcds, TTB)
     want = {"hash_columns": q1["runs"] * len(paths), "hash_string": 0}
     if q1["launches"] != want:
         raise AssertionError(f"q1 launched {q1['launches']}, expected "
@@ -1155,8 +1340,10 @@ def main() -> int:
                              f"{want} (one hash_columns per hash map "
                              f"batch)")
 
-    worst, at_main = at_main_path(torch, kernels, q1_calls + q3_calls
-                                  + q3_rf_calls + q67_calls + q3ds_calls)
+    worst, at_main = at_main_path(torch, kernels, {
+        "q1": q1_calls, "q3": q3_calls, "q3_rf_on": q3_rf_calls,
+        "q67": q67_calls, "q3ds": q3ds_calls, "q93": q93_calls,
+        "star": star_calls})
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
@@ -1165,14 +1352,15 @@ def main() -> int:
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
         "launches": sum(q["launches"]["hash_columns"]
-                        for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off)),
+                        for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off,
+                                  q93, *star_runs.values())),
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
         "library_ms": None,
-        "shape": "the largest of q1's, q3's (filter off and on), q67's "
-                 "and q3ds's calls; ms "
-                 "is the device's own time per launch",
+        "shape": "the largest of q1's, q3's (filter off and on), q67's, "
+                 "q3ds's, q93's and q42/q52/q55's calls; ms is the "
+                 "device's own time per launch",
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,
     }, {
@@ -1180,7 +1368,8 @@ def main() -> int:
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
         "launches": sum(q["launches"]["hash_string"]
-                        for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off)),
+                        for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off,
+                                  q93, *star_runs.values())),
         "max_abs_err": max(r["max_abs_err"] for r in large),
         "ms": w64["ms"], "plain_ms": w64["plain_ms"],
         "bound_ms": w64["bound_ms"], "bound_by": w64["bound_by"],

@@ -155,6 +155,21 @@ class Expression:
 
         return EqualTo(_expr(self), _expr(other))
 
+    def ne(self, other):
+        from spark_rapids_tpu_torch.exprs.predicates import EqualTo, Not
+
+        return Not(EqualTo(_expr(self), _expr(other)))
+
+    def is_null(self):
+        from spark_rapids_tpu_torch.exprs.predicates import IsNull
+
+        return IsNull(self)
+
+    def is_not_null(self):
+        from spark_rapids_tpu_torch.exprs.predicates import IsNotNull
+
+        return IsNotNull(self)
+
     def alias(self, name: str) -> "Alias":
         return Alias(self, name)
 

@@ -1,4 +1,4 @@
-"""TPC-DS data and the q67 and q3 DataFrames.
+"""TPC-DS data and the q67, q3, q42, q52, q55 and q93 DataFrames.
 
 - q67: the port's own copy of ``bench.py``'s ``make_store_sales`` (the
   same ``default_rng(67)`` stream, columns, draw order and row-group
@@ -16,6 +16,17 @@
   (``SF1_ROWS``).  ``write_q3_tables`` lays out the spec's whole
   calendar (1900-01-02 to 2100-01-01), 18 000 items and the given
   store_sales files.
+- q42, q52, q55: the same star join over the same three tables, with
+  other filters, group keys (``i_category``, ``i_brand``: STRING keys
+  of the aggregate's exchange) and orders.
+- q93: store_sales LEFT OUTER JOIN store_returns on (item, ticket),
+  joined to the return reason "Did not like the model", the CASE of the
+  net sale per row summed by customer.  ``make_reason(n)`` copies the
+  catalog's ``_reason(n)``; ``store_returns_table`` its store_returns
+  formulas (each return copies the keys of a store_sales row drawn with
+  replacement), gathered by one vectorised take; ``write_q93_tables``
+  derives store_returns from store_sales files already written, at the
+  spec's SF1 ratio of returns to sales.
 
 6 files of 2^20 store_sales rows (~6.3 M rows) is about TPC-DS SF2's
 5.76 M.
@@ -30,8 +41,9 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 
-from spark_rapids_tpu_torch.exprs.window import Window, rank
 from spark_rapids_tpu_torch.execs.sort import SortKey
+from spark_rapids_tpu_torch.exprs.predicates import CaseWhen
+from spark_rapids_tpu_torch.exprs.window import Window, rank
 from spark_rapids_tpu_torch.session import col, lit, sum_
 
 #: 1998-01-01 as a date_dim surrogate key: its Julian day number
@@ -61,6 +73,18 @@ _UNITS = ["Box", "Bunch", "Bundle", "Carton", "Case", "Dozen", "Each",
           "Unknown"]
 _SIZES = ["economy", "extra large", "large", "medium", "N/A", "petite",
           "small"]
+#: the catalog's return reasons
+_REASONS = ["Package was damaged", "Stopped working",
+            "Did not get it on time", "Not the product that was ordred",
+            "Parts missing", "Does not work with a product that I have",
+            "Gift exchange", "Did not like the color",
+            "Did not like the model", "Did not fit"]
+#: the reason q93 asks for: key 9
+Q93_REASON = _REASONS[8]
+#: the spec's SF1 store_returns rows over its store_sales rows
+RETURNS_PER_SALE = 287_514 / 2_880_404
+#: sales dates span 1998-2002 in the catalog (its ``dsk``)
+_SALES_DAYS = 365 * 5
 _DAY_NAMES = ["Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
               "Friday", "Saturday"]
 
@@ -305,29 +329,205 @@ def write_q3_tables(dirpath: str, n_files: int = 6,
     return dd, ss, item
 
 
-def q3_dataframe(session, date_dim_path: str, store_sales_paths,
-                 item_path: str):
-    """TPC-DS q3: November sales of manufacturer 128's brands by year,
-    joined in the query text's FROM order (date_dim, store_sales, item),
-    ordered by year, sales descending and brand, the first 100 rows.
-    The dimension sides are narrow projections (so each estimates small
-    enough to broadcast); the fact side stays a bare scan, so the
-    runtime filter on ``ss_sold_date_sk`` reaches it."""
-    dt_ = (session.read_parquet(date_dim_path)
-           .where(col("d_moy").eq(lit(11)))
+def _star_join(session, date_dim_path: str, store_sales_paths,
+               item_path: str, date_cond, item_cond, item_cols: list[str]):
+    """date_dim JOIN store_sales JOIN item in the texts' FROM order.  The
+    dimension sides are narrow projections of the rows ``date_cond`` and
+    ``item_cond`` keep (so each estimates small enough to broadcast);
+    the fact side stays a bare scan, so the runtime filter on
+    ``ss_sold_date_sk`` reaches it."""
+    dt_ = (session.read_parquet(date_dim_path).where(date_cond)
            .select(col("d_date_sk"), col("d_year")))
     ss = session.read_parquet(*store_sales_paths)
-    it = (session.read_parquet(item_path)
-          .where(col("i_manufact_id").eq(lit(128)))
-          .select(col("i_item_sk"), col("i_brand_id"), col("i_brand")))
+    it = (session.read_parquet(item_path).where(item_cond)
+          .select(col("i_item_sk"), *[col(c) for c in item_cols]))
     return (dt_.join(ss, left_on=[col("d_date_sk")],
                      right_on=[col("ss_sold_date_sk")])
             .join(it, left_on=[col("ss_item_sk")],
-                  right_on=[col("i_item_sk")])
+                  right_on=[col("i_item_sk")]))
+
+
+def _november(year: int):
+    return col("d_moy").eq(lit(11)) & col("d_year").eq(lit(year))
+
+
+def q3_dataframe(session, date_dim_path: str, store_sales_paths,
+                 item_path: str):
+    """TPC-DS q3: November sales of manufacturer 128's brands by year,
+    ordered by year, sales descending and brand, the first 100 rows."""
+    return (_star_join(session, date_dim_path, store_sales_paths, item_path,
+                       col("d_moy").eq(lit(11)),
+                       col("i_manufact_id").eq(lit(128)),
+                       ["i_brand_id", "i_brand"])
             .group_by(col("d_year"), col("i_brand_id"), col("i_brand"))
             .agg((sum_(col("ss_ext_sales_price")), "sum_agg"))
             .order_by(SortKey(col("d_year")),
                       SortKey(col("sum_agg"), descending=True,
                               nulls_last=True),
                       SortKey(col("i_brand_id")))
+            .limit(100))
+
+
+def q42_dataframe(session, date_dim_path: str, store_sales_paths,
+                  item_path: str):
+    """TPC-DS q42: November 2000 sales of manager 1's items by year and
+    category, sales descending, then year, category id and category,
+    the first 100 rows."""
+    return (_star_join(session, date_dim_path, store_sales_paths, item_path,
+                       _november(2000), col("i_manager_id").eq(lit(1)),
+                       ["i_category_id", "i_category"])
+            .group_by(col("d_year"), col("i_category_id"), col("i_category"))
+            .agg((sum_(col("ss_ext_sales_price")), "sum_agg"))
+            .order_by(SortKey(col("sum_agg"), descending=True,
+                              nulls_last=True),
+                      SortKey(col("d_year")), SortKey(col("i_category_id")),
+                      SortKey(col("i_category")))
+            .limit(100))
+
+
+def q52_dataframe(session, date_dim_path: str, store_sales_paths,
+                  item_path: str):
+    """TPC-DS q52: November 2000 sales of manager 1's items by year and
+    brand, ordered by year, sales descending and brand id, the first 100
+    rows."""
+    return (_star_join(session, date_dim_path, store_sales_paths, item_path,
+                       _november(2000), col("i_manager_id").eq(lit(1)),
+                       ["i_brand_id", "i_brand"])
+            .group_by(col("d_year"), col("i_brand"), col("i_brand_id"))
+            .agg((sum_(col("ss_ext_sales_price")), "ext_price"))
+            .select(col("d_year"), col("i_brand_id").alias("brand_id"),
+                    col("i_brand").alias("brand"), col("ext_price"))
+            .order_by(SortKey(col("d_year")),
+                      SortKey(col("ext_price"), descending=True,
+                              nulls_last=True),
+                      SortKey(col("brand_id")))
+            .limit(100))
+
+
+def q55_dataframe(session, date_dim_path: str, store_sales_paths,
+                  item_path: str):
+    """TPC-DS q55: November 1999 sales of manager 28's items by brand,
+    sales descending, then brand id, the first 100 rows."""
+    return (_star_join(session, date_dim_path, store_sales_paths, item_path,
+                       _november(1999), col("i_manager_id").eq(lit(28)),
+                       ["i_brand_id", "i_brand"])
+            .group_by(col("i_brand"), col("i_brand_id"))
+            .agg((sum_(col("ss_ext_sales_price")), "ext_price"))
+            .select(col("i_brand_id").alias("brand_id"),
+                    col("i_brand").alias("brand"), col("ext_price"))
+            .order_by(SortKey(col("ext_price"), descending=True,
+                              nulls_last=True),
+                      SortKey(col("brand_id")))
+            .limit(100))
+
+
+# --------------------------------------------------------------------- #
+# q93: store_sales LEFT OUTER JOIN store_returns, and reason
+# --------------------------------------------------------------------- #
+
+
+def make_reason(n: int = len(_REASONS)) -> pa.Table:
+    """reason, the catalog's first ``n`` rows."""
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    return pa.table({
+        "r_reason_sk": sk,
+        "r_reason_id": pa.array(_fmt("AAAAAAAA", sk, 8)),
+        "r_reason_desc": pa.array(_REASONS[:n]),
+    })
+
+
+def store_returns_table(rng: np.random.Generator, sales: pa.Table, n: int,
+                        rows: dict | None = None) -> pa.Table:
+    """``n`` store_returns rows by the mini catalog's formulas, drawing
+    from ``rng`` in its order: the sampled sales rows, the return
+    amount, then the columns in order.  Each return copies the item,
+    customer, store and ticket of a ``sales`` row drawn with replacement
+    (that table needs only those four columns); ``rows`` holds the
+    dimension counts, ``reason`` included (the catalog's ten by
+    default)."""
+    rows = rows or {**SF1_ROWS, "reason": len(_REASONS)}
+    ridx = rng.integers(0, sales.num_rows, n)
+    ret_amt = _money(rng, n, 1, 300)
+    take = pa.array(ridx)
+
+    def copied(name):
+        return sales.column(name).take(take).combine_chunks()
+
+    def fk(dim):
+        return rng.integers(1, rows[dim] + 1, n).astype(np.int64)
+
+    cols = {"sr_returned_date_sk": (DATE_SK_EPOCH + rng.integers(
+        0, _SALES_DAYS, n)).astype(np.int64)}
+    n_time = rows["time_dim"]
+    cols["sr_return_time_sk"] = (rng.integers(0, n_time, n)
+                                 * (86400 // n_time)).astype(np.int64)
+    cols["sr_item_sk"] = copied("ss_item_sk")
+    cols["sr_customer_sk"] = copied("ss_customer_sk")
+    cols["sr_cdemo_sk"] = fk("customer_demographics")
+    cols["sr_hdemo_sk"] = fk("household_demographics")
+    cols["sr_addr_sk"] = fk("customer_address")
+    cols["sr_store_sk"] = copied("ss_store_sk")
+    cols["sr_reason_sk"] = fk("reason")
+    cols["sr_ticket_number"] = copied("ss_ticket_number")
+    cols["sr_return_quantity"] = rng.integers(1, 20, n).astype(np.int64)
+    cols["sr_return_amt"] = ret_amt
+    cols["sr_return_tax"] = np.round(ret_amt * 0.05, 2)
+    cols["sr_return_amt_inc_tax"] = np.round(ret_amt * 1.05, 2)
+    cols["sr_fee"] = _money(rng, n, 0.5, 100)
+    cols["sr_return_ship_cost"] = _money(rng, n, 0, 50)
+    cols["sr_refunded_cash"] = np.round(ret_amt * 0.7, 2)
+    cols["sr_reversed_charge"] = np.round(ret_amt * 0.2, 2)
+    cols["sr_store_credit"] = np.round(ret_amt * 0.1, 2)
+    cols["sr_net_loss"] = _money(rng, n, 0.5, 200)
+    return pa.table(cols)
+
+
+def write_q93_tables(dirpath: str, store_sales_paths,
+                     seed: int = 93) -> tuple[str, str]:
+    """store_returns, from the store_sales files already written (their
+    four key columns read back), at the spec's SF1 ratio of returns to
+    sales, as one file of one row group; and the catalog's ten
+    reasons.  Returns (store_returns path, reason path)."""
+    sales = pa.concat_tables([pq.read_table(p, columns=[
+        "ss_item_sk", "ss_customer_sk", "ss_store_sk", "ss_ticket_number"])
+        for p in store_sales_paths])
+    n = round(sales.num_rows * RETURNS_PER_SALE)
+    sr = os.path.join(dirpath, "store_returns.parquet")
+    pq.write_table(store_returns_table(np.random.default_rng(seed), sales,
+                                       n), sr, row_group_size=max(n, 1))
+    reason = os.path.join(dirpath, "reason.parquet")
+    pq.write_table(make_reason(), reason)
+    return sr, reason
+
+
+def q93_dataframe(session, store_sales_paths, store_returns_path: str,
+                  reason_path: str):
+    """TPC-DS q93 as its text reads: store_sales LEFT OUTER JOIN
+    store_returns on (item, ticket), joined to the reason "Did not like
+    the model"; each row's sale net of its return (the whole sale when
+    no return matched) summed by customer, ordered by the sum and the
+    customer (NULLs first), the first 100 rows.  store_returns is the
+    narrow projection of the columns the query reads."""
+    ss = session.read_parquet(*store_sales_paths)
+    sr = session.read_parquet(store_returns_path).select(
+        col("sr_item_sk"), col("sr_ticket_number"), col("sr_reason_sk"),
+        col("sr_return_quantity"))
+    reason = (session.read_parquet(reason_path)
+              .where(col("r_reason_desc").eq(lit(Q93_REASON)))
+              .select(col("r_reason_sk")))
+    joined = (ss.join(sr, left_on=[col("ss_item_sk"),
+                                   col("ss_ticket_number")],
+                      right_on=[col("sr_item_sk"), col("sr_ticket_number")],
+                      how="left_outer")
+              .join(reason, left_on=[col("sr_reason_sk")],
+                    right_on=[col("r_reason_sk")]))
+    qty, price = col("ss_quantity"), col("ss_sales_price")
+    act_sales = CaseWhen(
+        ((col("sr_return_quantity").is_not_null(),
+          (qty - col("sr_return_quantity")) * price),), qty * price)
+    return (joined.select(col("ss_customer_sk"),
+                          act_sales.alias("act_sales"))
+            .group_by(col("ss_customer_sk"))
+            .agg((sum_(col("act_sales")), "sumsales"))
+            .order_by(col("sumsales"), col("ss_customer_sk"))
             .limit(100))

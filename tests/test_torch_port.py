@@ -477,6 +477,34 @@ def test_q3ds_on_the_card_builds_its_filter_with_k1(cuda, tmp_path):
         assert g["sum_agg"] == pytest.approx(c["sum_agg"], rel=1e-12)
 
 
+@pytest.mark.cuda
+def test_q93_outer_join_on_the_card(cuda, tmp_path):
+    from spark_rapids_tpu_torch import tpcds
+    from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
+
+    _, ss, _ = tpcds.write_q3_tables(str(tmp_path), n_files=2,
+                                     rows_per_file=1 << 15)
+    sr, reason = tpcds.write_q93_tables(str(tmp_path), ss)
+    # store_returns (~6 500 rows) shuffles, the reason row broadcasts
+    conf = {"spark.rapids.tpu.sql.scan.taskTargetBytes": 1,
+            "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes": 4096}
+    plan = tpcds.q93_dataframe(TorchSession(conf), ss, sr,
+                               reason).physical_plan()
+    [outer] = [n for n in plan.walk()
+               if getattr(n, "join_type", "") == "left_outer"]
+    assert outer.partition_wise
+    kernels.hash_columns.launches = 0
+    got = batches_to_arrow(list(plan.execute()), plan.schema)
+    assert kernels.hash_columns.launches >= 3
+    cpu = tpcds.q93_dataframe(TorchSession(conf, device="cpu"), ss, sr,
+                              reason).collect()
+    assert got.num_rows == cpu.num_rows == 100
+    for g, c in zip(got.to_pylist(), cpu.to_pylist()):
+        assert g["sumsales"] == pytest.approx(c["sumsales"], rel=1e-9)
+    assert got.column("ss_customer_sk").to_pylist() == \
+        cpu.column("ss_customer_sk").to_pylist()
+
+
 def test_build_paths_live_in_the_package():
     assert kernels.BUILD_DIR == PORT_DIR / "_build"
     assert kernels.library_path("hash_string").parent == kernels.BUILD_DIR
