@@ -15,12 +15,20 @@ Phases, one JSON line each:
            is not aligned; then timed at N = 6 x 2^20 rows (the
            device's own time per launch, from torch.profiler);
   q6, q1   TPC-H q6 and q1 over 6 x 2^20 generated lineitem rows (about
-           SF1) through TorchSession(device="cuda"), six scan tasks
+           SF1) through TorchSession(device="cuda") under the default
+           keys (map tasks, coalesced partitions and scan files on pools
+           of host threads, decode / upload / result fetch as stages,
+           uploads on a side stream), six scan tasks
            (scan.taskTargetBytes = 8 MiB): one warm-up, then the median
            of 3 wall times; each result held against a pyarrow.compute
-           reference on the same files.  Kernel launch counts are reset
-           just before each query's runs and read just after; q1 must
-           launch hash_columns once per map batch and hash_string never;
+           reference on the same files.  Each query's breakdown drains
+           its scans alone twice, serially and with their tasks on the
+           pool, and prints each run's host split (decode, Arrow ->
+           numpy, owned copy, pin, copy enqueue, the wait on the upload
+           event, and how many batches' copies were still running).
+           Kernel launch counts are reset just before each query's runs
+           and read just after; q1 must launch hash_columns once per map
+           batch and hash_string never;
   q3       TPC-H q3 (lineitem JOIN orders, revenue per order, ORDER BY
            revenue DESC LIMIT 10) over 6 x 2^20 lineitem rows with order
            keys and 2^20 orders, the same way: the top 10 held against
@@ -79,6 +87,18 @@ Phases, one JSON line each:
            profiled: two broadcast joins and the runtime filter on the
            store_sales scan, the rows held against a pyarrow reference,
            and hash_columns launched as q3ds's rule says;
+  concurrency
+           q6, q1, q3 (filter on), q67, q3ds and q93 at the sizes above,
+           each serially (config.SERIAL: one task thread, one decode
+           thread, no stages) and pooled (the default keys) in
+           CONCURRENCY_PAIRS alternating pairs after a warm-up of each:
+           every result equal to the first serial one by
+           pyarrow.Table.equals (floats included), the K1 launches of
+           every run equal, and no stage or pool thread alive after any
+           run; both walls of every pair, the medians, the pairs the
+           pooled run won, and one profiled run of each side (device
+           busy, idle share, kernel count: the profiler sees the pool
+           threads' kernels);
   main     hash_columns at the calls q1, q3 (filter off and on), q67,
            q3ds, q93 and the star queries made (the largest call of
            each key signature and seed in each phase: the filters'
@@ -147,6 +167,8 @@ REL_TOL = 1e-9
 #: launches timed at each main-path shape: the kernel's, and its plain
 #: version's (tens to hundreds of PyTorch kernels a call, so fewer)
 KERNEL_ITERS, PLAIN_ITERS = 50, 10
+#: serial / pooled pairs of each query in the concurrency phase
+CONCURRENCY_PAIRS = 4
 
 
 _START = time.perf_counter()
@@ -404,17 +426,22 @@ def time_hash_columns(torch, kernels, dev, n: int, gen) -> dict:
 
 
 def device_and_host_ms(torch, fn, iters: int) -> dict:
-    """The device's own time per call (the CUDA kernel time that
-    torch.profiler records over ``iters`` calls, over ``iters``), the
-    host-inclusive time per call (host clock over ``iters`` calls ending
-    in a synchronize, profiler off) and the CUDA-event time of the same
-    loop, reported apart: where the host enqueues a call more slowly than
-    the device runs it, the event time is the host's, not the device's.
+    """The device's own time per call, the host-inclusive time per call
+    (host clock over ``iters`` calls ending in a synchronize, profiler
+    off) and the CUDA-event time of the same loop, reported apart: where
+    the host enqueues a call more slowly than the device runs it, the
+    event time is the host's, not the device's.  The device time comes
+    from torch.profiler over a second loop of ``iters`` calls, after a
+    warm-up loop under the profiler's schedule (it records fewer kernels
+    than ran when it starts cold): each kernel's mean time, times how
+    many of it a call launches (its count over ``iters``, rounded), so a
+    launch the profiler still missed does not lower it;
+    ``device_kernels_per_call`` is the count it recorded over ``iters``.
     The profiler now and then records no device event for a loop; it is
     asked up to 3 times, then the event time stands in, and
     ``device_ms_source`` says which it is."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         fn()
@@ -427,15 +454,20 @@ def device_and_host_ms(torch, fn, iters: int) -> dict:
     event_ms = cuda_ms(torch, fn, iters)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        device_us = sum(e.self_device_time_total for e in kern)
+                if e.device_type == DeviceType.CUDA and e.count]
+        device_us = sum(e.self_device_time_total / e.count
+                        * round(e.count / iters) for e in kern)
         if device_us > 0:
-            return {"device_ms": device_us / 1e3 / iters,
+            return {"device_ms": device_us / 1e3,
                     "device_ms_source": "profiler", "host_ms": host_ms,
                     "event_ms": event_ms,
                     "device_kernels_per_call":
@@ -834,23 +866,47 @@ def run_query(torch, make_df, kernels, check, calls: list,
             **({} if quick else breakdown(torch, make_df))}
 
 
-def breakdown(torch, make_df) -> dict:
-    """Where one run's time goes: the scans alone (Parquet decode and
-    upload of every task of every scan, drained with nothing above
-    them), and the device's busy time and kernel count over a profiled
-    run, whose busy time over the run's wall time gives the device's
-    idle share."""
+#: the scan's host split (io/scan.py, columnar/arrow.py): nanosecond
+#: timers, then the count of batches whose copy was still running
+SCAN_SPLIT = ("decodeTime", "convertTime", "hostCopyTime", "pinTime",
+              "copyEnqueueTime", "uploadWaitTime")
+
+
+def scan_alone(torch, plan, serial: bool) -> dict:
+    """Every task of every scan of ``plan`` drained with nothing above
+    them: one after another with the scans' stages and decode pool off
+    (``serial``, as the earlier slices ran them), or through
+    ``run_tasks`` on the session's task threads, as the query's map
+    tasks run them.  The wall, and the scans' host split summed."""
+    import dataclasses
+
+    from spark_rapids_tpu_torch.execs.base import run_tasks
+
+    scans = [n for n in plan.walk() if not n.children]
+    if serial:
+        for scan in scans:
+            scan.runtime = dataclasses.replace(
+                scan.runtime, task_threads=1, decode_threads=1,
+                stage_depth=0)
+    t0 = time.perf_counter()
+    for scan in scans:
+        run_tasks(lambda p, scan=scan: sum(
+            b.num_rows for b in scan.execute_partition(p)),
+            scan.num_partitions, scan.runtime.task_threads)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split = {k: sum(n.metrics[k] for n in scans) / 1e9 for k in SCAN_SPLIT}
+    return {"wall_s": wall, "host_split_s": split,
+            "upload_pending": sum(n.metrics["uploadPending"] for n in scans),
+            "batches_rows": sum(n.metrics["numOutputRows"] for n in scans)}
+
+
+def profiled_run(torch, make_df) -> dict:
+    """One run under torch.profiler: the device's busy time and kernel
+    count, and busy over wall as the device's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    plan = make_df().physical_plan()
-    scans = [n for n in plan.walk() if not n.children]
-    t0 = time.perf_counter()
-    for scan in scans:
-        for _ in scan.execute():
-            pass
-    torch.cuda.synchronize()
-    scan_s = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -861,13 +917,29 @@ def breakdown(torch, make_df) -> dict:
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    return {"scan_only_s": scan_s, "profiled_wall_s": wall,
-            "device_busy_s": busy_us / 1e6,
+    return {"profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "device_kernel_count": sum(e.count for e in kern),
             "device_kernels": [[e.key[:60], e.count,
                                 e.self_device_time_total / 1e3]
-                               for e in top]}
+                               for e in top],
+            "kernel_counts": {e.key: e.count for e in kern}}
+
+
+def breakdown(torch, make_df) -> dict:
+    """Where one run's time goes: the scans alone (Parquet decode and
+    upload of every task of every scan, drained with nothing above
+    them), serially and pooled, each with its host split; and the
+    device's busy time and kernel count over a profiled run, whose busy
+    time over the run's wall time gives the device's idle share."""
+    serial = scan_alone(torch, make_df().physical_plan(), serial=True)
+    pooled = scan_alone(torch, make_df().physical_plan(), serial=False)
+    prof = profiled_run(torch, make_df)
+    del prof["kernel_counts"]
+    return {"scan_only_s": serial["wall_s"],
+            "scan_only_pooled_s": pooled["wall_s"],
+            "scan_split_serial": serial, "scan_split_pooled": pooled,
+            **prof}
 
 
 def q3_phase(torch, kernels, RF, tpch, session, li_paths, orders_path, ref3,
@@ -926,6 +998,7 @@ def q3_phase(torch, kernels, RF, tpch, session, li_paths, orders_path, ref3,
             raise AssertionError(f"q3 filter pruned nothing: {run}")
         # the scans alone run with nothing built: no filter applies
         out["scan_only_unfiltered_s"] = out.pop("scan_only_s")
+        out["scan_only_pooled_unfiltered_s"] = out.pop("scan_only_pooled_s")
         out["kept_run"] = run
     return out, calls
 
@@ -988,6 +1061,7 @@ def q3ds_phase(torch, pc, star, kernels, RF, TorchSession, tpcds, TTB,
         results[rf_on] = kept[-1]
         # the scans alone run with nothing built: no filter applies
         rec["scan_only_unfiltered_s"] = rec.pop("scan_only_s")
+        rec["scan_only_pooled_unfiltered_s"] = rec.pop("scan_only_pooled_s")
         want = {"hash_columns": rec["runs"] * (planned + 2 * folds
                                                + 2 * tables),
                 "hash_string": 0}
@@ -1080,6 +1154,7 @@ def q93_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB):
     t0 = time.perf_counter()
     sr_path, reason_path = tpcds.write_q93_tables(star["dir"], ss_paths)
     gen_s = time.perf_counter() - t0
+    star["q93_paths"] = (sr_path, reason_path)
     session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
 
     def q93_df():
@@ -1194,6 +1269,81 @@ def star_phase(torch, pc, star, kernels, TorchSession, tpcds, TTB):
     return records, calls
 
 
+def concurrency_phase(torch, kernels, TorchSession, SERIAL,
+                      queries: dict) -> dict:
+    """Each query serially (``config.SERIAL``: one task thread, one
+    decode thread, no stages) and pooled (the default keys) in
+    alternating pairs, ``CONCURRENCY_PAIRS`` of them after one warm-up
+    of each: every result equal to the first serial one by
+    ``pyarrow.Table.equals`` (floats included), every run's K1 launches
+    equal, and no stage or pool thread alive after any run.  Then one
+    profiled run of each side.  ``queries``: name -> (conf, a function
+    of a session giving the DataFrame).  Emits the phase's line."""
+    from spark_rapids_tpu_torch.execs.base import live_pool_threads
+    from spark_rapids_tpu_torch.parallel.pipeline import live_stage_threads
+
+    out = {}
+    for name, (conf, make) in queries.items():
+        sessions = {"serial": TorchSession({**conf, **SERIAL},
+                                           device="cuda"),
+                    "pooled": TorchSession(conf, device="cuda")}
+
+        def run(side):
+            before = (kernels.hash_columns.launches,
+                      kernels.hash_string.launches)
+            t0 = time.perf_counter()
+            table = make(sessions[side]).collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if live_stage_threads() or live_pool_threads():
+                raise AssertionError(
+                    f"{name} ({side}): {live_stage_threads()} stage and "
+                    f"{live_pool_threads()} pool threads outlived collect()")
+            return wall, table, (kernels.hash_columns.launches - before[0],
+                                 kernels.hash_string.launches - before[1])
+
+        _, want, want_launches = run("serial")
+        run("pooled")
+        walls: dict = {"serial": [], "pooled": []}
+        won = 0
+        for i in range(CONCURRENCY_PAIRS):
+            order = ("serial", "pooled") if i % 2 == 0 \
+                else ("pooled", "serial")
+            for side in order:
+                wall, table, launches = run(side)
+                walls[side].append(wall)
+                if not table.equals(want):
+                    raise AssertionError(
+                        f"{name}: a {side} result differs from the first "
+                        f"serial one")
+                if launches != want_launches:
+                    raise AssertionError(
+                        f"{name}: {side} launched {launches}, serial "
+                        f"{want_launches}")
+            won += walls["pooled"][-1] < walls["serial"][-1]
+        prof = {side: profiled_run(torch, lambda side=side: make(
+            sessions[side])) for side in ("serial", "pooled")}
+        counts = {side: prof[side].pop("kernel_counts") for side in prof}
+        diff = {k: counts["pooled"].get(k, 0) - counts["serial"].get(k, 0)
+                for k in set(counts["serial"]) | set(counts["pooled"])}
+        diff = sorted(((k[:60], v) for k, v in diff.items() if v),
+                      key=lambda kv: -abs(kv[1]))[:10]
+        out[name] = {
+            "rows": want.num_rows, "pairs": CONCURRENCY_PAIRS,
+            "launches_per_run": {"hash_columns": want_launches[0],
+                                 "hash_string": want_launches[1]},
+            "serial_wall_s": walls["serial"],
+            "pooled_wall_s": walls["pooled"],
+            "serial_median_s": statistics.median(walls["serial"]),
+            "pooled_median_s": statistics.median(walls["pooled"]),
+            "pooled_won": won,
+            "serial_profiled": prof["serial"],
+            "pooled_profiled": prof["pooled"],
+            "kernel_count_pooled_minus_serial": diff}
+    emit("concurrency", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1207,7 +1357,7 @@ def main() -> int:
     import pyarrow.parquet as pq
 
     from spark_rapids_tpu_torch import TorchSession, tpcds, tpch
-    from spark_rapids_tpu_torch.config import RF_ENABLED
+    from spark_rapids_tpu_torch.config import RF_ENABLED, SERIAL
     from spark_rapids_tpu_torch.config import TASK_TARGET_BYTES as TTB
     from spark_rapids_tpu_torch.ops import kernels
     from spark_rapids_tpu_torch.plan import runtime_filter as RF
@@ -1328,6 +1478,25 @@ def main() -> int:
                                    TorchSession, tpcds, TTB)
         star_runs, star_calls = star_phase(torch, pc, star, kernels,
                                            TorchSession, tpcds, TTB)
+        dd_path, star_ss, item_path = star["paths"]
+        sr_path, reason_path = star["q93_paths"]
+        li8 = {TTB: TASK_TARGET_BYTES}
+        ds8 = {TTB: Q3DS_TASK_TARGET_BYTES}
+        kernels.hash_columns.launches = 0
+        kernels.hash_string.launches = 0
+        concurrency_phase(torch, kernels, TorchSession, SERIAL, {
+            "q6": (li8, lambda s: tpch.q6_dataframe(s, paths)),
+            "q1": (li8, lambda s: tpch.q1_dataframe(s, paths)),
+            "q3_rf_on": (li8, lambda s: tpch.q3_dataframe(s, li_paths,
+                                                          orders_path)),
+            "q67": ({TTB: Q67_TASK_TARGET_BYTES},
+                    lambda s: tpcds.q67_dataframe(s, ss_paths)),
+            "q3ds": (ds8, lambda s: tpcds.q3_dataframe(s, dd_path, star_ss,
+                                                       item_path)),
+            "q93": (ds8, lambda s: tpcds.q93_dataframe(s, star_ss, sr_path,
+                                                       reason_path))})
+        conc_launches = {"hash_columns": kernels.hash_columns.launches,
+                         "hash_string": kernels.hash_string.launches}
     want = {"hash_columns": q1["runs"] * len(paths), "hash_string": 0}
     if q1["launches"] != want:
         raise AssertionError(f"q1 launched {q1['launches']}, expected "
@@ -1351,9 +1520,10 @@ def main() -> int:
         "name": "hash_columns", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
-        "launches": sum(q["launches"]["hash_columns"]
-                        for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off,
-                                  q93, *star_runs.values())),
+        "launches": conc_launches["hash_columns"] + sum(
+            q["launches"]["hash_columns"]
+            for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off, q93,
+                      *star_runs.values())),
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
@@ -1361,15 +1531,17 @@ def main() -> int:
         "shape": "the largest of q1's, q3's (filter off and on), q67's, "
                  "q3ds's, q93's and q42/q52/q55's calls; ms is the "
                  "device's own time per launch",
+        "concurrency_launches": conc_launches["hash_columns"],
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,
     }, {
         "name": "hash_string", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
-        "launches": sum(q["launches"]["hash_string"]
-                        for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off,
-                                  q93, *star_runs.values())),
+        "launches": conc_launches["hash_string"] + sum(
+            q["launches"]["hash_string"]
+            for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off, q93,
+                      *star_runs.values())),
         "max_abs_err": max(r["max_abs_err"] for r in large),
         "ms": w64["ms"], "plain_ms": w64["plain_ms"],
         "bound_ms": w64["bound_ms"], "bound_by": w64["bound_by"],

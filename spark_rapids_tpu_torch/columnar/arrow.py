@@ -1,9 +1,22 @@
 """Arrow <-> device batch conversion.
 
 Counterpart of ``spark_rapids_tpu/columnar/arrow.py`` (``from_arrow``
-and ``to_arrow``).  Host arrays go to the device through pinned host
-tensors and ``.to(device, non_blocking=True)``; the CUDA caching host
-allocator keeps each pinned buffer alive until its copy has run.
+and ``to_arrow``).  An upload runs in two halves, so a scan can run the
+first on a stage thread of its own (``io/scan.py``):
+
+- ``stage_upload``: Arrow -> host numpy arrays (``convertTime``), an
+  owned copy of each (pyarrow buffers are read-only), a pinned copy,
+  and the copy to the card enqueued with ``non_blocking=True`` on the
+  session's upload stream, then an event recorded there.  The copy is
+  issued under that stream, so the CUDA caching host allocator keeps
+  each pinned buffer until the copy has run;
+- ``finish_upload``: the consuming stream waits for the event before
+  the first use, each uploaded tensor is recorded on that stream (the
+  caching allocator then cannot hand its block out while the stream
+  still reads it), and the columns are assembled there.
+
+Each part's host time, and whether the copy was still running when the
+consumer took it, can go to a scan's metrics.
 
 A dictionary-encoded string column (Parquet read with
 ``read_dictionary``) uploads its int32 codes and the small dictionary;
@@ -13,7 +26,10 @@ the codes stay on the column as the sidecar the coded group-by reads.
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import dataclasses
+import time
+from typing import Iterable, Optional
 
 import numpy as np
 import pyarrow as pa
@@ -26,6 +42,11 @@ from spark_rapids_tpu_torch.columnar.column import (
     Column,
     StringColumn,
 )
+
+#: the host time of each part of an upload, and the count of batches
+#: whose copy was still running when the consumer took them
+UPLOAD_METRICS = ("convertTime", "hostCopyTime", "pinTime",
+                  "copyEnqueueTime", "uploadWaitTime", "uploadPending")
 
 
 def _numpy_dtype(dt: T.DataType) -> np.dtype:
@@ -78,8 +99,10 @@ def _validity(arr: pa.Array) -> np.ndarray:
     return arr.is_valid().to_numpy(zero_copy_only=False)
 
 
-def column_from_arrow(arr, dtype: T.DataType,
-                      device: torch.device) -> AnyColumn:
+def _host_arrays(arr, dtype: T.DataType) -> tuple[str, dict]:
+    """One Arrow column as host numpy arrays: ("fixed", values, valid),
+    ("string", chars, lengths, valid) or ("dict", codes, valid, and the
+    dictionary's chars and lengths)."""
     if isinstance(arr, pa.ChunkedArray):
         arr = arr.combine_chunks()
     valid = _validity(arr)
@@ -93,27 +116,118 @@ def column_from_arrow(arr, dtype: T.DataType,
                 doffs, ddata, np.ones(len(dictionary), np.bool_))
             codes = arr.indices.fill_null(0).to_numpy(
                 zero_copy_only=False).astype(np.int32)
-            v = to_device(valid, device)
-            c = to_device(codes, device)
-            dchars_t = to_device(dchars, device)
-            dlens_t = to_device(dlens, device)
-            chars = dchars_t[c.long()] * v[:, None].to(torch.uint8)
-            lengths = torch.where(v, dlens_t[c.long()], 0).to(torch.int32)
-            return StringColumn(chars, lengths, v, T.STRING, c, dchars_t,
-                                dlens_t)
+            return "dict", {"codes": codes, "valid": valid,
+                            "dchars": dchars, "dlens": dlens}
         offsets, data = _string_buffers(arr)
         chars, lengths = strings_to_matrix(offsets, data, valid)
-        return StringColumn(to_device(chars, device),
-                            to_device(lengths, device),
-                            to_device(valid, device))
+        return "string", {"chars": chars, "lengths": lengths,
+                          "valid": valid}
     if pa.types.is_dictionary(arr.type):
         arr = arr.cast(arr.type.value_type)
     if isinstance(dtype, T.DateType):
         arr = arr.cast(pa.int32())
     values = arr.fill_null(False if isinstance(dtype, T.BooleanType)
                            else 0).to_numpy(zero_copy_only=False)
-    return Column(to_device(values.astype(_numpy_dtype(dtype)), device),
-                  to_device(valid, device), dtype)
+    return "fixed", {"values": values.astype(_numpy_dtype(dtype)),
+                     "valid": valid}
+
+
+def _assemble(kind: str, dtype: T.DataType, t: dict) -> AnyColumn:
+    """A column from its uploaded tensors, on the current stream."""
+    if kind == "fixed":
+        return Column(t["values"], t["valid"], dtype)
+    if kind == "string":
+        return StringColumn(t["chars"], t["lengths"], t["valid"])
+    v, c = t["valid"], t["codes"]
+    chars = t["dchars"][c.long()] * v[:, None].to(torch.uint8)
+    lengths = torch.where(v, t["dlens"][c.long()], 0).to(torch.int32)
+    return StringColumn(chars, lengths, v, T.STRING, c, t["dchars"],
+                        t["dlens"])
+
+
+class _Timer:
+    """Adds the nanoseconds since the last ``lap`` to a metric."""
+
+    def __init__(self, metrics):
+        self.metrics = metrics
+        self.t = time.perf_counter_ns()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter_ns()
+        if self.metrics is not None:
+            self.metrics.add(name, now - self.t)
+        self.t = now
+
+
+@dataclasses.dataclass
+class UploadUnit:
+    """One batch whose copies to the device are enqueued: its columns'
+    tensors, and the event recorded after the copies (None when the
+    copies went on the consumer's stream or to the CPU)."""
+
+    columns: list[tuple[str, T.DataType, dict]]
+    num_rows: int
+    schema: T.Schema
+    device: torch.device
+    event: Optional[object] = None
+
+
+def stage_upload(table, device: torch.device,
+                 schema: T.Schema | None = None, stream=None,
+                 metrics=None) -> UploadUnit:
+    """The first half of an upload (module docstring): a pyarrow Table
+    or RecordBatch to device tensors whose copies are enqueued on
+    ``stream`` (a ``torch.cuda.Stream``; None: the current stream).
+    ``metrics`` (an ``execs.base.Metrics`` with ``UPLOAD_METRICS``, or
+    None) takes each part's host time."""
+    device = torch.device(device)
+    schema = schema or schema_from_arrow(table.schema)
+    timer = _Timer(metrics)
+    host = [(f.dtype, *_host_arrays(table.column(f.name), f.dtype))
+            for f in schema.fields]
+    timer.lap("convertTime")
+    owned = [(dtype, kind, {k: torch.from_numpy(np.array(a, copy=True,
+                                                         order="C"))
+                            for k, a in arrays.items()})
+             for dtype, kind, arrays in host]
+    timer.lap("hostCopyTime")
+    if device.type != "cuda":
+        cols = [(kind, dtype, {k: t.to(device) for k, t in ts.items()})
+                for dtype, kind, ts in owned]
+        return UploadUnit(cols, table.num_rows, schema, device)
+    pinned = [(dtype, kind, {k: t.pin_memory() for k, t in ts.items()})
+              for dtype, kind, ts in owned]
+    timer.lap("pinTime")
+    event = None
+    with torch.cuda.device(device), (
+            torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext()):
+        cols = [(kind, dtype, {k: t.to(device, non_blocking=True)
+                               for k, t in ts.items()})
+                for dtype, kind, ts in pinned]
+        if stream is not None:
+            event = torch.cuda.Event()
+            event.record(stream)
+    timer.lap("copyEnqueueTime")
+    return UploadUnit(cols, table.num_rows, schema, device, event)
+
+
+def finish_upload(unit: UploadUnit, metrics=None) -> ColumnarBatch:
+    """The second half of an upload: the current stream waits for the
+    copies, holds their tensors, and assembles the batch."""
+    if unit.event is not None:
+        timer = _Timer(metrics)
+        pending = not unit.event.query()
+        cur = torch.cuda.current_stream(unit.device)
+        cur.wait_event(unit.event)
+        for _kind, _dtype, ts in unit.columns:
+            for t in ts.values():
+                t.record_stream(cur)
+        timer.lap("uploadWaitTime")
+        if metrics is not None:
+            metrics.add("uploadPending", int(pending))
+    cols = [_assemble(kind, dtype, ts) for kind, dtype, ts in unit.columns]
+    return ColumnarBatch(cols, unit.num_rows, unit.schema, unit.device)
 
 
 def schema_from_arrow(schema: pa.Schema) -> T.Schema:
@@ -123,11 +237,9 @@ def schema_from_arrow(schema: pa.Schema) -> T.Schema:
 
 def from_arrow(table, device: torch.device,
                schema: T.Schema | None = None) -> ColumnarBatch:
-    """A pyarrow Table or RecordBatch -> one device batch."""
-    schema = schema or schema_from_arrow(table.schema)
-    cols = [column_from_arrow(table.column(f.name), f.dtype, device)
-            for f in schema.fields]
-    return ColumnarBatch(cols, table.num_rows, schema, torch.device(device))
+    """A pyarrow Table or RecordBatch -> one device batch, on the
+    current stream."""
+    return finish_upload(stage_upload(table, device, schema))
 
 
 def from_numpy_columns(data: dict, schema: T.Schema,
@@ -194,7 +306,7 @@ def schema_to_arrow(schema: T.Schema) -> pa.Schema:
                       for f in schema.fields])
 
 
-def batches_to_arrow(batches: Sequence[ColumnarBatch],
+def batches_to_arrow(batches: Iterable[ColumnarBatch],
                      schema: T.Schema) -> pa.Table:
     tables = [to_arrow(b) for b in batches]
     if not tables:

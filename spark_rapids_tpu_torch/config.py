@@ -29,6 +29,19 @@ BROADCAST_THRESHOLD = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
 #: runtime join filters (plan/runtime_filter.py): a Bloom filter and the
 #: min/max of an eligible join's build keys, applied in the probe scan
 RF_ENABLED = "spark.rapids.tpu.sql.runtimeFilter.enabled"
+#: host threads running an exchange's map tasks, and a coalesce's
+#: partitions, at once (1: one after another on the caller's thread)
+TASK_THREADS = "spark.rapids.tpu.sql.taskThreads"
+#: host threads decoding the files of one scan task at once
+DECODE_THREADS = "spark.rapids.tpu.sql.scan.decodeThreads"
+#: tasks that may hold device batches at once (the task semaphore's
+#: permits, ``memory/semaphore.py``)
+CONCURRENT_TASKS = "spark.rapids.tpu.sql.concurrentTpuTasks"
+#: run a scan's decode and upload, and the result fetch, as bounded
+#: background stages (``parallel/pipeline.py``); off, they run inline
+PIPELINE_ENABLED = "spark.rapids.tpu.sql.pipeline.enabled"
+#: items each such stage may hold ahead of its consumer
+PIPELINE_DEPTH = "spark.rapids.tpu.sql.pipeline.depth"
 
 DEFAULTS: dict[str, Any] = {
     SHUFFLE_PARTITIONS: 8,
@@ -39,7 +52,21 @@ DEFAULTS: dict[str, Any] = {
     SORT_SAMPLES_PER_BATCH: 128,
     BROADCAST_THRESHOLD: 10 << 20,
     RF_ENABLED: True,
+    TASK_THREADS: 4,
+    DECODE_THREADS: 4,
+    CONCURRENT_TASKS: 2,
+    PIPELINE_ENABLED: True,
+    PIPELINE_DEPTH: 2,
 }
+
+#: the keys that run a query serially: every task, file and stage one
+#: after another on the caller's thread
+SERIAL: dict[str, Any] = {TASK_THREADS: 1, DECODE_THREADS: 1,
+                          PIPELINE_ENABLED: False}
+
+
+_AT_LEAST_ONE = (TASK_THREADS, DECODE_THREADS, CONCURRENT_TASKS,
+                 PIPELINE_DEPTH)
 
 
 class TorchConf:
@@ -53,7 +80,10 @@ class TorchConf:
     def set(self, key: str, value: Any) -> "TorchConf":
         if key not in DEFAULTS:
             raise KeyError(f"unknown conf key {key!r}")
-        self._values[key] = type(DEFAULTS[key])(value)
+        value = type(DEFAULTS[key])(value)
+        if key in _AT_LEAST_ONE and value < 1:
+            raise ValueError(f"{key} must be >= 1, got {value}")
+        self._values[key] = value
         return self
 
     def get(self, key: str) -> Any:

@@ -2,7 +2,8 @@
 
 Counterparts of ``spark_rapids_tpu/execs/limit.py``: batches pass until
 the limit is met, and the batch that meets it is cut to a prefix (a
-view, no copy).
+view, no copy).  A limit that is met closes its source at once, so the
+stages and pools below it stop and are joined.
 
 - ``TpuLocalLimitExec``: at most n rows per partition;
 - ``TpuGlobalLimitExec``: at most n rows in all, one output partition;
@@ -22,13 +23,26 @@ from spark_rapids_tpu_torch.execs.base import TpuExec
 def _limited(source: Iterable[ColumnarBatch],
              n: int) -> Iterator[ColumnarBatch]:
     remaining = n
-    for b in source:
+    it = iter(source)
+    try:
         if remaining <= 0:
             return
-        if b.num_rows > remaining:
-            b = b.slice_prefix(remaining)
-        remaining -= b.num_rows
-        yield b
+        for b in it:
+            if b.num_rows > remaining:
+                b = b.slice_prefix(remaining)
+            remaining -= b.num_rows
+            yield b
+            if remaining <= 0:
+                return
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+
+
+def _local_limits(child: TpuExec, n: int) -> Iterator[ColumnarBatch]:
+    for q in range(child.num_partitions):
+        yield from _limited(child.execute_partition(q), n)
 
 
 class TpuLocalLimitExec(TpuExec):
@@ -63,7 +77,4 @@ class TpuCollectLimitExec(TpuGlobalLimitExec):
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         if p != 0:
             return
-        child = self.children[0]
-        local = (b for q in range(child.num_partitions)
-                 for b in _limited(child.execute_partition(q), self.n))
-        yield from _limited(local, self.n)
+        yield from _limited(_local_limits(self.children[0], self.n), self.n)

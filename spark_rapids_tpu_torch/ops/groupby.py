@@ -5,11 +5,18 @@ there:
 
 - the sort path (``groupby_aggregate``): the key columns' grouping
   keys sorted by ``ops/sort.py``'s lexicographic sort, segment starts
-  where adjacent keys differ, and segment reductions with
-  ``index_add_``;
+  where adjacent keys differ, and segment reductions;
 - the coded path (``_coded_groupby``): when every key column carries a
   dictionary sidecar and the combined domain is small, each row's
   combined code IS its group id and no sort runs.
+
+Counts and integer sums are ``index_add_``s (exact in any order).  A
+floating sum adds each group's rows in row order, over the rows sorted
+stably by group (``torch.segment_reduce``, one CUDA block a group): on
+the card ``index_add_``'s atomic adds take a different order on every
+run, and a query's result would then differ in its last bits from one
+run to the next; on the CPU the order, and so every bit, is
+``index_add_``'s.
 
 Aggregations are (update, merge) op pairs as Spark's aggregate modes
 use them.  The slice ports the ops its aggregates need (``GROUPBY_OPS``).
@@ -19,6 +26,7 @@ Output batches hold one row per group.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -96,9 +104,36 @@ def _coded_key_domains(key_cols: Sequence[AnyColumn]) -> Optional[list[int]]:
     return ks
 
 
-def _eval_agg(spec: AggSpec, batch: ColumnarBatch, gid: torch.Tensor,
-              n_groups: int) -> Column:
-    """One aggregation as segment sums: ``gid[row]`` in [0, n_groups)."""
+@dataclasses.dataclass
+class Groups:
+    """A batch's rows by group: ``gid[row]`` in [0, n), ``sizes`` (each
+    group's rows) and ``perm``, the rows sorted stably by group when the
+    caller has it (None: ``gid`` is sorted at the first floating sum)."""
+
+    gid: torch.Tensor
+    n: int
+    sizes: torch.Tensor
+    perm: Optional[torch.Tensor] = None
+
+    @functools.cached_property
+    def order(self) -> Optional[torch.Tensor]:
+        """The rows sorted stably by group; None when one group holds
+        them all in row order."""
+        if self.perm is not None or self.n <= 1:
+            return self.perm
+        return torch.argsort(self.gid, stable=True)
+
+    def float_sums(self, vals: torch.Tensor) -> torch.Tensor:
+        """Each group's sum of ``vals``, its rows added in row order."""
+        if self.order is not None:
+            vals = vals[self.order]
+        return torch.segment_reduce(vals, "sum", lengths=self.sizes,
+                                    unsafe=True)
+
+
+def _eval_agg(spec: AggSpec, batch: ColumnarBatch, groups: Groups) -> Column:
+    """One aggregation as segment sums over ``groups``."""
+    gid, n_groups = groups.gid, groups.n
     dev = batch.device
     all_valid = torch.ones(n_groups, dtype=torch.bool, device=dev)
     if spec.op == "count_star":
@@ -118,8 +153,11 @@ def _eval_agg(spec: AggSpec, batch: ColumnarBatch, gid: torch.Tensor,
     phys = T.to_torch_dtype(out_dtype)
     vals = torch.where(valid, vcol.data.to(phys),
                        torch.zeros((), dtype=phys, device=dev))
-    sums = torch.zeros(n_groups, dtype=phys, device=dev)
-    sums.index_add_(0, gid, vals)
+    if vals.is_floating_point():
+        sums = groups.float_sums(vals)
+    else:
+        sums = torch.zeros(n_groups, dtype=phys, device=dev)
+        sums.index_add_(0, gid, vals)
     return Column(sums, nvalid > 0, out_dtype)
 
 
@@ -163,7 +201,8 @@ def _coded_groupby(batch: ColumnarBatch, key_ordinals: Sequence[int],
             out.append(StringColumn(chars, lengths, valid))
         else:
             out.append(Column(kc.dict_values[safe], valid, kc.dtype))
-    out += [_eval_agg(spec, batch, gid, n_groups) for spec in aggs]
+    groups = Groups(gid, n_groups, occupancy[occupied])
+    out += [_eval_agg(spec, batch, groups) for spec in aggs]
     return ColumnarBatch(out, n_groups, out_schema, dev)
 
 
@@ -187,13 +226,17 @@ def groupby_aggregate(batch: ColumnarBatch, key_ordinals: Sequence[int],
     perm = lexsort(keys)
     differs = group_starts(keys, perm)
     seg = torch.cumsum(differs.long(), 0) - 1
-    starts = perm[torch.nonzero(differs).squeeze(1)]
+    start_pos = torch.nonzero(differs).squeeze(1)
+    starts = perm[start_pos]
     n_groups = int(starts.shape[0])
     gid = torch.empty_like(seg)
     gid[perm] = seg
+    sizes = torch.diff(start_pos, append=start_pos.new_tensor(
+        [batch.num_rows]))
     out: list[AnyColumn] = [kc.gather(starts) for kc in key_cols]
     out = [dataclasses.replace(c, codes=None) for c in out]
-    out += [_eval_agg(spec, batch, gid, n_groups) for spec in aggs]
+    groups = Groups(gid, n_groups, sizes, perm)
+    out += [_eval_agg(spec, batch, groups) for spec in aggs]
     return ColumnarBatch(out, n_groups, out_schema, batch.device)
 
 
@@ -205,5 +248,7 @@ def reduce_aggregate(batch: ColumnarBatch, aggs: Sequence[AggSpec],
     if live_mask is not None:
         batch = batch.compact(live_mask)
     gid = torch.zeros(batch.num_rows, dtype=torch.int64, device=batch.device)
-    cols = [_eval_agg(spec, batch, gid, 1) for spec in aggs]
+    groups = Groups(gid, 1, torch.tensor([batch.num_rows],
+                                         device=batch.device))
+    cols = [_eval_agg(spec, batch, groups) for spec in aggs]
     return ColumnarBatch(cols, 1, out_schema, batch.device)

@@ -11,7 +11,10 @@ Every wrapper launches its kernel for a CUDA tensor and runs the
 kernel's plain PyTorch version for a CPU tensor; there is no other
 route, and a failed build or launch raises.  ``<wrapper>.launches``
 counts kernel launches (and nothing else), so a run can show that its
-main path went through the kernel.
+main path went through the kernel.  Wrappers are called from the
+session's pool threads at once: the count is locked, the build runs
+once under ``_BUILD_LOCK``, and each launch goes on the calling
+thread's current stream (the one compute stream every thread shares).
 """
 
 from __future__ import annotations
@@ -223,15 +226,25 @@ def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-class HashString:
+class _LaunchCounter:
+    """``launches``: kernel launches so far.  Pool threads launch at
+    once, so the increment is locked; assigning 0 resets it."""
+
+    def __init__(self):
+        self.launches = 0
+        self._launch_lock = threading.Lock()
+
+    def _launched(self) -> None:
+        with self._launch_lock:
+            self.launches += 1
+
+
+class HashString(_LaunchCounter):
     """K1 on one string column.  On CUDA it launches ``srt_hash_string``
     on the current stream; on the CPU it runs
     ``hash_string_bytes_reference``.  Lengths are expected in [0, W];
     the kernel reads no byte past W whatever they hold.  ``launches``
     counts kernel launches."""
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, chars: torch.Tensor, lengths: torch.Tensor,
                  seeds: torch.Tensor) -> torch.Tensor:
@@ -258,7 +271,7 @@ class HashString:
                                       width, geo.threads, geo.pitches[0],
                                       stream)
         _check_launch("hash_string", err)
-        self.launches += 1
+        self._launched()
         return out
 
 
@@ -350,16 +363,13 @@ def hash_columns_reference(cols: Sequence[AnyColumn], seeds: torch.Tensor,
     return h
 
 
-class HashColumns:
+class HashColumns(_LaunchCounter):
     """K1 over a key tuple: Spark ``hash(cols...)`` from ``seed``, or
     ``pmod(hash, num_partitions)`` as int64 when ``num_partitions`` > 0.
     On CUDA it launches ``srt_hash_columns`` once per 16 columns, each
     launch seeded by the last one's hashes; on the CPU each such chunk
     runs ``hash_columns_reference``.  ``launches`` counts kernel
     launches."""
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, cols: Sequence[AnyColumn], num_rows: int,
                  device, seed: int = DEFAULT_SEED,
@@ -414,7 +424,7 @@ class HashColumns:
                 None if seeds is None else seeds.data_ptr(), n,
                 num_partitions, geo.threads, out.data_ptr(), stream)
         _check_launch("hash_columns", err)
-        self.launches += 1
+        self._launched()
         return out
 
 

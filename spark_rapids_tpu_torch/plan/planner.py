@@ -35,6 +35,11 @@ pruned to what the plan above reads.
 - Only a hash distribution satisfies a join, an aggregate or a window:
   a range exchange's does not (``_hash_satisfies``).
 
+The planner hands the scans, exchanges and coalesces one
+``TaskRuntime``: the session's task semaphore and upload stream, and
+``sql.taskThreads``, ``sql.scan.decodeThreads`` and the stage depth
+from its conf.
+
 A node this port cannot lower raises NotImplementedError: there is no
 CPU fallback engine.
 """
@@ -47,7 +52,7 @@ import torch
 
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
-from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
 from spark_rapids_tpu_torch.execs.basic import TpuFilterExec, TpuProjectExec
 from spark_rapids_tpu_torch.execs.exchange import (
     TpuCoalescePartitionsExec,
@@ -70,24 +75,34 @@ from spark_rapids_tpu_torch.execs.sort import (
 from spark_rapids_tpu_torch.execs.window import TpuWindowExec
 from spark_rapids_tpu_torch.exprs.base import BoundReference, bind_references
 from spark_rapids_tpu_torch.io.scan import ParquetScanExec
+from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.ops.partition import (
     HashPartitioning,
     RangePartitioning,
 )
+from spark_rapids_tpu_torch.parallel.pipeline import stage_depth
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.runtime_filter import inject_runtime_filters
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 
 
 class Planner:
-    """Lowers logical plans for one session: its conf, device and
-    shuffle manager."""
+    """Lowers logical plans for one session: its conf, device, shuffle
+    manager, task semaphore (None: one sized by the conf) and upload
+    stream (None: uploads on the consumer's stream)."""
 
     def __init__(self, conf: C.TorchConf, device: torch.device,
-                 manager: ShuffleManager):
+                 manager: ShuffleManager,
+                 semaphore: Optional[TpuSemaphore] = None,
+                 upload_stream=None):
         self.conf = conf
         self.device = device
         self.manager = manager
+        self.runtime = TaskRuntime(
+            semaphore or TpuSemaphore(conf.get(C.CONCURRENT_TASKS)),
+            task_threads=conf.get(C.TASK_THREADS),
+            decode_threads=conf.get(C.DECODE_THREADS),
+            stage_depth=stage_depth(conf), upload_stream=upload_stream)
 
     def plan(self, plan: L.LogicalPlan) -> TpuExec:
         root = self._lower(plan, None)
@@ -105,7 +120,7 @@ class Planner:
             return ParquetScanExec(p.paths, p.schema, self.device,
                                    self.conf.get(C.TASK_TARGET_BYTES),
                                    self.conf.get(C.BATCH_ROWS), cols,
-                                   p.estimated_rows())
+                                   p.estimated_rows(), self.runtime)
         if isinstance(p, L.Filter):
             need = None if required is None \
                 else required | p.condition.references()
@@ -160,6 +175,12 @@ class Planner:
         raise NotImplementedError(
             f"{type(p).__name__} is not lowered by spark_rapids_tpu_torch")
 
+    def _exchange(self, partitioning, child: TpuExec
+                  ) -> TpuShuffleExchangeExec:
+        return TpuShuffleExchangeExec(
+            partitioning, child, self.manager,
+            self.conf.get(C.SORT_SAMPLES_PER_BATCH), self.runtime)
+
     def _plan_aggregate(self, p: L.Aggregate, child: TpuExec) -> TpuExec:
         if child.num_partitions <= 1:
             return TpuHashAggregateExec(p.groups, p.aggs, child)
@@ -170,10 +191,10 @@ class Planner:
                     for i, f in enumerate(
                         partial.schema.fields[: len(p.groups)])]
             n = self.conf.get(C.SHUFFLE_PARTITIONS)
-            source: TpuExec = TpuShuffleExchangeExec(
-                HashPartitioning(keys, n), partial, self.manager)
+            source: TpuExec = self._exchange(HashPartitioning(keys, n),
+                                             partial)
         else:
-            source = TpuCoalescePartitionsExec(partial)
+            source = TpuCoalescePartitionsExec(partial, self.runtime)
         return TpuHashAggregateExec(p.groups, p.aggs, source, mode="final",
                                     input_schema=child.schema)
 
@@ -184,19 +205,16 @@ class Planner:
         bound = [bind_references(e, child.schema) for e in part_by]
         if _hash_satisfies(child, bound) is None:
             n = self.conf.get(C.SHUFFLE_PARTITIONS)
-            child = TpuShuffleExchangeExec(HashPartitioning(part_by, n),
-                                           child, self.manager)
+            child = self._exchange(HashPartitioning(part_by, n), child)
         return TpuWindowExec(p.window_exprs, child, partitioned=True)
 
     def _plan_sort(self, p: L.Sort, child: TpuExec) -> TpuExec:
         if child.num_partitions > 1 and self.conf.get(C.SORT_RANGE_EXCHANGE):
             n = self.conf.get(C.SHUFFLE_PARTITIONS)
-            ex = TpuShuffleExchangeExec(
-                RangePartitioning(p.keys, n), child, self.manager,
-                samples_per_batch=self.conf.get(C.SORT_SAMPLES_PER_BATCH))
+            ex = self._exchange(RangePartitioning(p.keys, n), child)
             return TpuSortExec(p.keys, ex, scope="partition")
         if child.num_partitions > 1:
-            child = TpuCoalescePartitionsExec(child)
+            child = TpuCoalescePartitionsExec(child, self.runtime)
         return TpuSortExec(p.keys, child)
 
     def _maybe_topn(self, p: L.Limit, child: TpuExec) -> Optional[TpuExec]:
@@ -246,11 +264,9 @@ class Planner:
         else:
             n = self.conf.get(C.SHUFFLE_PARTITIONS)
         if lsat is None:
-            left = TpuShuffleExchangeExec(HashPartitioning(p.left_keys, n),
-                                          left, self.manager)
+            left = self._exchange(HashPartitioning(p.left_keys, n), left)
         if rsat is None:
-            right = TpuShuffleExchangeExec(
-                HashPartitioning(p.right_keys, n), right, self.manager)
+            right = self._exchange(HashPartitioning(p.right_keys, n), right)
         return TpuShuffledHashJoinExec(p.left_keys, p.right_keys,
                                        p.join_type, left, right, chunk,
                                        p.condition, partition_wise=True)

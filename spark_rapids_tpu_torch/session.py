@@ -12,7 +12,12 @@ projection, one per (partition_by, order_by) group.
 
 A session runs on one device, ``cuda`` unless the caller asks for the
 CPU.  Asking for CUDA on a host without it raises: nothing falls back
-to the CPU.
+to the CPU.  It owns its shuffle manager, its task semaphore (sized by
+``sql.concurrentTpuTasks`` when it is made) and, on CUDA, the side
+stream its scans upload on.  ``collect`` runs the plan on a
+``result.fetch`` stage and converts each batch as it comes, as the JAX
+package's ``stream_exec`` does.  ``config.SERIAL`` holds the keys that
+run a query serially.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Optional, Sequence, Union
 import pyarrow as pa
 import torch
 
+from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
 from spark_rapids_tpu_torch.config import TorchConf
@@ -46,6 +52,8 @@ from spark_rapids_tpu_torch.exprs.base import (
     lit,
 )
 from spark_rapids_tpu_torch.exprs.window import WindowExpression
+from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
+from spark_rapids_tpu_torch.parallel.pipeline import prefetch, stage_depth
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.planner import Planner
 from spark_rapids_tpu_torch.plan.runtime_filter import render_runtime_filters
@@ -110,6 +118,9 @@ class TorchSession:
         self.device = device
         self.conf = conf if isinstance(conf, TorchConf) else TorchConf(conf)
         self.shuffle_manager = ShuffleManager()
+        self.semaphore = TpuSemaphore(self.conf.get(C.CONCURRENT_TASKS))
+        self.upload_stream = torch.cuda.Stream(device) \
+            if device.type == "cuda" else None
 
     def read_parquet(self, *paths: str) -> "DataFrame":
         return DataFrame(L.Scan(list(paths)), self)
@@ -206,7 +217,8 @@ class DataFrame:
 
     def physical_plan(self) -> TpuExec:
         s = self._session
-        return Planner(s.conf, s.device, s.shuffle_manager).plan(self._plan)
+        return Planner(s.conf, s.device, s.shuffle_manager, s.semaphore,
+                       s.upload_stream).plan(self._plan)
 
     def explain(self) -> str:
         """The physical plan, then a line for each runtime filter's build
@@ -216,12 +228,15 @@ class DataFrame:
                           *render_runtime_filters(plan)])
 
     def collect(self) -> pa.Table:
-        """Run the query on the session's device; the result as Arrow."""
+        """Run the query on the session's device; the result as Arrow.
+        The stage and the exec tree are closed on every exit."""
         exec_ = self.physical_plan()
+        fetch = prefetch(exec_.execute(), stage_depth(self._session.conf),
+                         "result.fetch")
         try:
-            batches = list(exec_.execute())
+            return batches_to_arrow(fetch, exec_.schema)
         finally:
+            fetch.close()
             for node in exec_.walk():
                 if hasattr(node, "close"):
                     node.close()
-        return batches_to_arrow(batches, exec_.schema)

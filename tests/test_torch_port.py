@@ -343,6 +343,34 @@ def test_q1_on_the_card_launches_k1(cuda, tmp_path):
             assert g[k] == pytest.approx(c[k], rel=1e-12)
 
 
+@pytest.mark.cuda
+def test_k1_from_eight_threads_counts_every_launch(cuda):
+    """Pool threads launch K1 at once: every launch is counted, and each
+    thread's hashes equal the plain version's."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import Column
+    from spark_rapids_tpu_torch.execs.base import run_tasks
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(8)
+    n = 70_000
+    keys = Column(torch.randint(-2 ** 62, 2 ** 62, (n,), generator=g,
+                                device=cuda),
+                  torch.rand(n, generator=g, device=cuda) > 0.1, T.LONG)
+    seeds = torch.full((n,), 42, dtype=torch.int32, device=cuda)
+    want = kernels.hash_columns_reference([keys], seeds, 8)
+    kernels.hash_columns.launches = 0
+
+    def task(i):
+        outs = [kernels.hash_columns([keys], n, cuda, 42, 8)
+                for _ in range(50)]
+        torch.cuda.synchronize()
+        return all(torch.equal(o, want) for o in outs)
+
+    assert all(run_tasks(task, 8, 8))
+    assert kernels.hash_columns.launches == 400
+
+
 def _map_batches(plan) -> int:
     """Non-empty batches the plan's hash exchanges hash: each exchange's
     child drained on its own (a range exchange hashes nothing)."""
