@@ -13,7 +13,8 @@ Phases, one JSON line each:
            widths (the direct-load width included), row counts,
            partition counts, type mixes and a row slice whose data_ptr()
            is not aligned; then timed at N = 6 x 2^20 rows (the
-           device's own time per launch, from torch.profiler);
+           device's own time per launch, from torch.profiler); the
+           seconds each of the three parts took;
   q6, q1   TPC-H q6 and q1 over 6 x 2^20 generated lineitem rows (about
            SF1) through TorchSession(device="cuda") under the default
            keys (map tasks, coalesced partitions and scan files on pools
@@ -87,11 +88,47 @@ Phases, one JSON line each:
            profiled: two broadcast joins and the runtime filter on the
            store_sales scan, the rows held against a pyarrow reference,
            and hash_columns launched as q3ds's rule says;
+  q67_rollup
+           TPC-DS q67 as written (store_sales x date_dim x store x item,
+           months 1200-1211, the sales ROLLUP over eight keys: nine
+           grouping sets, an Expand of nine projections under the
+           partial aggregate, K1 hashing the 9-column key tuple with
+           NULLs where a set drops a key; a rank within each category,
+           its NULL one too; the first 100 rows in key order) over q3ds's
+           tables and SF1's 12 stores, the same way: three broadcast
+           joins, the date filter on the store_sales scan, the rows held
+           against a pyarrow reference (nine group_bys concatenated, a
+           numpy rank; keys exact, sums within REL_TOL, a rank within
+           the span of sums tied within REL_TOL), hash_columns as q3ds's
+           rule says; the joined rows, the expanded rows (x 9) and the
+           groups;
+  q5       TPC-DS q5's store channel: store_sales UNION ALL q93's
+           store_returns (the union's partitions its members', seven),
+           two weeks of dates and the 12 stores, summed by store id, the
+           same way: two broadcast joins, no runtime filter (none
+           reaches through a union, as in the JAX plan), the rows against
+           pyarrow;
+  q27      TPC-DS q27 with SF1's 1 920 800 customer_demographics rows
+           (too large to broadcast: a partition-wise shuffled join whose
+           runtime filter prunes the store_sales scan) and the three
+           grouping sets of (item id, state): the text's states match
+           no store, so it gives 0 rows and, its store join's build side
+           empty, launches nothing (one run, no profile); the variant
+           asks for the state most stores are in, and its 100 rows are
+           held against pyarrow;
+  agg_family
+           store_sales in (ticket, item) order (a range exchange and a
+           sort of each partition) grouped by store with min, max, first
+           and last (NULLs kept and skipped), and COUNT(DISTINCT
+           ss_customer_sk) by store, each against pyarrow: the first and
+           last rows of the stable sort, exact;
   concurrency
            q6, q1, q3 (filter on), q67, q3ds and q93 at the sizes above,
+           and q67_rollup and q5,
            each serially (config.SERIAL: one task thread, one decode
            thread, no stages) and pooled (the default keys) in
-           CONCURRENCY_PAIRS alternating pairs after a warm-up of each:
+           alternating pairs (CONCURRENCY_PAIRS, NEW_PAIRS for the
+           last two) after a warm-up of each:
            every result equal to the first serial one by
            pyarrow.Table.equals (floats included), the K1 launches of
            every run equal, and no stage or pool thread alive after any
@@ -100,7 +137,8 @@ Phases, one JSON line each:
            busy, idle share, kernel count: the profiler sees the pool
            threads' kernels);
   main     hash_columns at the calls q1, q3 (filter off and on), q67,
-           q3ds, q93 and the star queries made (the largest call of
+           q3ds, q93, the star queries, q67_rollup, q5, q27 and
+           agg_family made (the largest call of
            each key signature and seed in each phase: the filters'
            lanes and range tables hash from seeds 42 and 0x9747B28C),
            and hash_string on one of q1's key columns, against their
@@ -165,10 +203,12 @@ Q67_ROWS, Q67_FILES, Q67_TASK_TARGET_BYTES = 6 << 20, 6, 4 << 20
 Q3DS_FILES, Q3DS_ROWS_PER_FILE, Q3DS_TASK_TARGET_BYTES = 6, 1 << 20, 8 << 20
 REL_TOL = 1e-9
 #: launches timed at each main-path shape: the kernel's, and its plain
-#: version's (tens to hundreds of PyTorch kernels a call, so fewer)
-KERNEL_ITERS, PLAIN_ITERS = 50, 10
-#: serial / pooled pairs of each query in the concurrency phase
-CONCURRENCY_PAIRS = 4
+#: version's (tens to hundreds of PyTorch kernels a call, so fewer; 10
+#: until the run passed 9 minutes)
+KERNEL_ITERS, PLAIN_ITERS = 50, 5
+#: serial / pooled pairs of each earlier query in the concurrency phase
+#: (4 until the run passed 9 minutes), and of q67_rollup and q5
+CONCURRENCY_PAIRS, NEW_PAIRS = 2, 1
 
 
 _START = time.perf_counter()
@@ -788,8 +828,10 @@ def filtered_run(make_df, RF) -> dict:
 
 def map_batches(plan) -> int:
     """Non-empty batches the plan's hash exchanges hash: each exchange's
-    child drained on its own (its own hashes launch here too).  A range
-    exchange hashes nothing."""
+    child drained on its own (its own hashes launch here too), so an
+    Expand under it counts its batches (it multiplies rows, not
+    batches) and a union its members' partitions.  A range exchange
+    hashes nothing."""
     n = 0
     for ex in plan.walk():
         if type(ex).__name__ == "TpuShuffleExchangeExec" and type(
@@ -803,9 +845,28 @@ def map_batches(plan) -> int:
     return n
 
 
+def launches_planned(make_df) -> dict:
+    """What one run launches, from its plan drained piece by piece: the
+    hash exchanges' map batches, and the runtime filters' folds and
+    range tables (two K1 launches each)."""
+    planned = map_batches(make_df().physical_plan())
+    folds, tables = filter_folds(make_df().physical_plan())
+    return {"planned_map_batches": planned, "planned_filter_folds": folds,
+            "planned_range_tables": tables,
+            "per_run": planned + 2 * folds + 2 * tables}
+
+
+def check_launches(name: str, rec: dict, planned: dict) -> None:
+    want = {"hash_columns": rec["runs"] * planned["per_run"],
+            "hash_string": 0}
+    if rec["launches"] != want:
+        raise AssertionError(f"{name} launched {rec['launches']}, expected "
+                             f"{want} ({planned} a run)")
+
+
 def compare(got_table, want: dict, n_keys: int) -> float:
-    """Keys and integer columns exact, floats within REL_TOL; returns
-    the largest relative float error."""
+    """Keys, integer columns and NULLs exact, floats within REL_TOL;
+    returns the largest relative float error."""
     rows = got_table.to_pylist()
     names = got_table.schema.names
     if len(rows) != len(want):
@@ -818,7 +879,7 @@ def compare(got_table, want: dict, n_keys: int) -> float:
             raise AssertionError(f"unexpected group {key}")
         for name, ref in want[key].items():
             v = row[name]
-            if isinstance(ref, int):
+            if ref is None or isinstance(ref, int):
                 if v != ref:
                     raise AssertionError(f"{key} {name}: {v} != {ref}")
                 continue
@@ -972,23 +1033,15 @@ def q3_phase(torch, kernels, RF, tpch, session, li_paths, orders_path, ref3,
         raise AssertionError(f"q3 (filter {'on' if rf_on else 'off'}): "
                              f"build exec under the orders exchange "
                              f"{built}, filters {applied}")
-    planned = map_batches(q3_df().physical_plan())
-    folds, tables = filter_folds(q3_df().physical_plan())
+    planned = launches_planned(q3_df)
     calls: list = []
     rec = run_query(torch, q3_df, kernels,
                     lambda t: compare_ranked(
                         t, ref3, 10, ("l_orderkey", "o_orderdate",
                                       "o_shippriority"), "revenue",
                         "rev_sum"), calls)
-    want = {"hash_columns": rec["runs"] * (planned + 2 * folds + 2 * tables),
-            "hash_string": 0}
-    if rec["launches"] != want:
-        raise AssertionError(
-            f"q3 (filter {'on' if rf_on else 'off'}) launched "
-            f"{rec['launches']}, expected {want} ({planned} map batches + "
-            f"2 x {folds} filter folds + 2 x {tables} range tables a run)")
-    out = {"joins": joins, "planned_map_batches": planned,
-           "planned_filter_folds": folds, "planned_range_tables": tables,
+    check_launches(f"q3 (filter {'on' if rf_on else 'off'})", rec, planned)
+    out = {"joins": joins, **planned,
            "hash_columns_calls": sorted({(n, signature(cols), seed, parts)
                                          for cols, n, seed, parts in calls}),
            **rec}
@@ -1047,8 +1100,7 @@ def q3ds_phase(torch, pc, star, kernels, RF, TorchSession, tpcds, TTB,
         if (applied, len(builds)) != want_rf:
             raise AssertionError(f"q3ds runtime filters {applied} from "
                                  f"{len(builds)} builds")
-        planned = map_batches(q3ds_df().physical_plan())
-        folds, tables = filter_folds(q3ds_df().physical_plan())
+        planned = launches_planned(q3ds_df)
         calls: list = calls_on if rf_on else []
         kept: list = []
 
@@ -1062,23 +1114,14 @@ def q3ds_phase(torch, pc, star, kernels, RF, TorchSession, tpcds, TTB,
         # the scans alone run with nothing built: no filter applies
         rec["scan_only_unfiltered_s"] = rec.pop("scan_only_s")
         rec["scan_only_pooled_unfiltered_s"] = rec.pop("scan_only_pooled_s")
-        want = {"hash_columns": rec["runs"] * (planned + 2 * folds
-                                               + 2 * tables),
-                "hash_string": 0}
-        if rec["launches"] != want:
-            raise AssertionError(
-                f"q3ds (filter {'on' if rf_on else 'off'}) launched "
-                f"{rec['launches']}, expected {want} ({planned} map batches "
-                f"+ 2 x {folds} filter folds + 2 x {tables} range tables "
-                f"a run)")
+        check_launches(f"q3ds (filter {'on' if rf_on else 'off'})", rec,
+                       planned)
         run = filtered_run(q3ds_df, RF)
         if rf_on and not (run["pruned_rows"] > 0
                           and run["filters"][0]["n_keys"] > 0):
             raise AssertionError(f"q3ds filter pruned nothing: {run}")
         records[rf_on] = {"plan": plan.tree_string().splitlines(),
-                          "joins": joins, "planned_map_batches": planned,
-                          "planned_filter_folds": folds,
-                          "planned_range_tables": tables,
+                          "joins": joins, **planned,
                           "hash_columns_calls": sorted(
                               {(n, signature(cols), seed, parts)
                                for cols, n, seed, parts in calls}),
@@ -1175,7 +1218,7 @@ def q93_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB):
     if any(type(n).__name__ == "TpuRuntimeFilterBuildExec"
            or getattr(n, "runtime_filters", None) for n in plan.walk()):
         raise AssertionError("q93 planned a runtime filter")
-    planned = map_batches(q93_df().physical_plan())
+    planned = launches_planned(q93_df)
     sales = pa.concat_tables([pq.read_table(p, columns=[
         "ss_item_sk", "ss_ticket_number", "ss_customer_sk", "ss_quantity",
         "ss_sales_price"]) for p in ss_paths])
@@ -1187,12 +1230,9 @@ def q93_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB):
     calls: list = []
     rec = run_query(torch, q93_df, kernels, lambda t: compare_ranked(
         t, ref, 100, ("ss_customer_sk",), "sumsales", "act_sum"), calls)
-    want = {"hash_columns": rec["runs"] * planned, "hash_string": 0}
-    if rec["launches"] != want:
-        raise AssertionError(f"q93 launched {rec['launches']}, expected "
-                             f"{want} ({planned} map batches a run)")
+    check_launches("q93", rec, planned)
     out = {"plan": plan.tree_string().splitlines(), "joins": joins,
-           "planned_map_batches": planned,
+           **planned,
            "hash_columns_calls": sorted({(n, signature(cols), seed, parts)
                                          for cols, n, seed, parts in calls}),
            **rec}
@@ -1244,8 +1284,7 @@ def star_phase(torch, pc, star, kernels, TorchSession, tpcds, TTB):
                                                "ss_sold_date_sk")]:
             raise AssertionError(f"{name}: joins {joins}, runtime filters "
                                  f"{applied}")
-        planned = map_batches(star_df().physical_plan())
-        folds, tables = filter_folds(star_df().physical_plan())
+        planned = launches_planned(star_df)
         ref = reference_star(
             pc, star, lambda d, y=year: pc.and_(pc.equal(d["d_moy"], 11),
                                                 pc.equal(d["d_year"], y)),
@@ -1254,18 +1293,485 @@ def star_phase(torch, pc, star, kernels, TorchSession, tpcds, TTB):
         out_keys = tuple(names.get(k, k) for k in keys)
         rec = run_query(torch, star_df, kernels, lambda t: compare_ranked(
             t, ref, 100, out_keys, sum_col, "sum"), calls, quick=True)
-        want = {"hash_columns": planned + 2 * folds + 2 * tables,
-                "hash_string": 0}
-        if rec["launches"] != want:
-            raise AssertionError(
-                f"{name} launched {rec['launches']}, expected {want} "
-                f"({planned} map batches + 2 x {folds} filter folds + "
-                f"2 x {tables} range tables)")
-        records[name] = {"groups": len(ref), "joins": joins,
-                         "planned_map_batches": planned,
-                         "planned_filter_folds": folds,
-                         "planned_range_tables": tables, **rec}
+        check_launches(name, rec, planned)
+        records[name] = {"groups": len(ref), "joins": joins, **planned,
+                         **rec}
     emit("star", **records)
+    return records, calls
+
+
+def dimension_tables(pq, star, tpcds) -> None:
+    """SF1's 12 stores and 1 920 800 customer_demographics rows, written
+    beside q3ds's tables; their paths (and the stores) go into ``star``."""
+    t0 = time.perf_counter()
+    star["store_path"] = tpcds.write_store(star["dir"])
+    star["cdemo_path"] = tpcds.write_customer_demographics(star["dir"])
+    star["dimensions_datagen_s"] = time.perf_counter() - t0
+    star["store"] = pq.read_table(star["store_path"])
+
+
+def read_sales(pa, pq, star, columns: list):
+    return pa.concat_tables([pq.read_table(p, columns=columns)
+                             for p in star["paths"][1]])
+
+
+def reference_q67_rollup(pa, pc, pq, star, tpcds) -> dict:
+    """q67 as written by pyarrow and numpy: the year's joined rows, the
+    sales of each of the nine ROLLUP levels (the dropped keys NULL),
+    ranked within each category (its NULL one too) by sum, descending,
+    ties sharing the lowest rank; the rows ranked 1-100 in the text's
+    order (keys with NULLs first, sum, rank), the first 100.  Returns
+    those rows, each category's sums sorted descending (for ties), the
+    joined rows and the groups."""
+    import numpy as np
+
+    keys = list(tpcds.Q67_KEYS)
+    dd = star["date_dim"]
+    dd = dd.filter(pc.and_(pc.greater_equal(dd["d_month_seq"], 1200),
+                           pc.less_equal(dd["d_month_seq"], 1211))).select(
+        ["d_date_sk", "d_year", "d_qoy", "d_moy"])
+    item = star["item"].select(["i_item_sk", "i_category", "i_class",
+                                "i_brand", "i_product_name"])
+    store = star["store"].select(["s_store_sk", "s_store_id"])
+    j = read_sales(pa, pq, star, ["ss_sold_date_sk", "ss_item_sk",
+                                  "ss_store_sk", "ss_quantity",
+                                  "ss_sales_price"])
+    j = j.join(dd, keys="ss_sold_date_sk", right_keys="d_date_sk",
+               join_type="inner")
+    j = j.join(store, keys="ss_store_sk", right_keys="s_store_sk",
+               join_type="inner")
+    j = j.join(item, keys="ss_item_sk", right_keys="i_item_sk",
+               join_type="inner")
+    j = j.append_column("sales", pc.coalesce(pc.multiply(
+        j["ss_sales_price"], pc.cast(j["ss_quantity"], pa.float64())), 0.0))
+    levels = []
+    for n in range(len(keys), -1, -1):
+        if n:
+            g = j.group_by(keys[:n]).aggregate([("sales", "sum")])
+        else:
+            g = pa.table({"sales_sum": [pc.sum(j["sales"]).as_py()]})
+        cols = [g[k] if k in keys[:n] else pa.nulls(g.num_rows,
+                                                     j.schema.field(k).type)
+                for k in keys]
+        levels.append(pa.table(cols + [g["sales_sum"]],
+                               names=keys + ["sumsales"]))
+    groups = pa.concat_tables(levels)
+    cat = groups["i_category"].combine_chunks().dictionary_encode()
+    codes = cat.indices.fill_null(-1).to_numpy(zero_copy_only=False)
+    sums = groups["sumsales"].to_numpy()
+    order = np.lexsort((-sums, codes))
+    cs, ss = codes[order], sums[order]
+    idx = np.arange(len(order))
+    new_cat = np.r_[True, cs[1:] != cs[:-1]]
+    new_run = new_cat | np.r_[True, ss[1:] != ss[:-1]]
+    seg = np.maximum.accumulate(np.where(new_cat, idx, 0))
+    run = np.maximum.accumulate(np.where(new_run, idx, 0))
+    rank = np.empty(len(order), np.int64)
+    rank[order] = run - seg + 1
+    kept = groups.take(pa.array(np.nonzero(rank <= 100)[0])).append_column(
+        "rk", pa.array(rank[rank <= 100]))
+    rows = sorted(kept.to_pylist(), key=lambda r: [
+        *[(r[k] is not None, r[k]) for k in keys], r["sumsales"], r["rk"]])
+    by_cat = {}
+    for c in {r["i_category"] for r in rows[:100]}:
+        m = codes == (-1 if c is None else cat.dictionary.index(c).as_py())
+        by_cat[c] = np.sort(sums[m])[::-1]
+    return {"rows": rows[:100], "sums_by_category": by_cat,
+            "joined_rows": j.num_rows, "groups": groups.num_rows}
+
+
+def compare_q67_rollup(got_table, ref: dict) -> float:
+    """q67's 100 rows against the reference's, place by place: keys
+    exact, sums within REL_TOL, and the rank exact unless other sums of
+    the category lie within REL_TOL of the row's (then within their
+    span).  Returns the largest relative sum error."""
+    import numpy as np
+
+    got, want = got_table.to_pylist(), ref["rows"]
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} rows, reference has {len(want)}")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        keys = [k for k in g if k not in ("sumsales", "rk")]
+        if [g[k] for k in keys] != [w[k] for k in keys]:
+            raise AssertionError(f"place {i}: {g} vs reference {w}")
+        rel = abs(g["sumsales"] - w["sumsales"]) / max(abs(w["sumsales"]),
+                                                       1e-300)
+        worst = max(worst, rel)
+        if rel > REL_TOL:
+            raise AssertionError(f"place {i}: sum {g['sumsales']} vs "
+                                 f"{w['sumsales']} (rel {rel:.3e})")
+        desc = ref["sums_by_category"][g["i_category"]]
+        tol = REL_TOL * abs(w["sumsales"])
+        lo = 1 + int(np.sum(desc > w["sumsales"] + tol))
+        hi = 1 + int(np.sum(desc > w["sumsales"] - tol))
+        if not lo <= g["rk"] <= hi:
+            raise AssertionError(f"place {i}: rank {g['rk']}, reference "
+                                 f"{w['rk']} (ties allow {lo}-{hi})")
+    return worst
+
+
+def expect_plan(name: str, plan, star, joins: list, filters: list) -> None:
+    """The plan's joins (exec, type, build side, in plan order) and the
+    runtime filters' keys on the store_sales scan."""
+    got = join_strategies(plan)
+    if got != joins:
+        raise AssertionError(f"{name} joins {got}, expected {joins}")
+    applied = [(n.paths, c) for n in plan.walk()
+               for c, _ in getattr(n, "runtime_filters", ())]
+    if applied != [(star["paths"][1], k) for k in filters]:
+        raise AssertionError(f"{name} runtime filters {applied}, expected "
+                             f"{filters} on the store_sales scan")
+
+
+BCAST_RIGHT = ["TpuBroadcastHashJoinExec", "inner", "right"]
+
+
+def q67_rollup_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
+                     TTB) -> tuple:
+    """TPC-DS q67 as written over q3ds's tables and the 12 stores: the
+    plan (three broadcast joins, the date filter on the store_sales
+    scan, the Expand of nine projections under the partial aggregate),
+    the 100 rows against the pyarrow reference, K1's launches, and the
+    expanded rows and groups.  Emits the phase's line; returns its
+    record and hash_columns calls."""
+    dd_path, ss_paths, item_path = star["paths"]
+    session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
+
+    def q67r_df():
+        return tpcds.q67_rollup_dataframe(session, dd_path, ss_paths,
+                                          item_path, star["store_path"])
+
+    plan = q67r_df().physical_plan()
+    expect_plan("q67_rollup", plan, star, [BCAST_RIGHT] * 3,
+                ["ss_sold_date_sk"])
+    [expand] = [n for n in plan.walk() if type(n).__name__ ==
+                "TpuExpandExec"]
+    partial = [n for n in plan.walk() if getattr(n, "mode", "") ==
+               "partial"]
+    if len(expand.projections) != 9 or partial[0].children[0] is not expand:
+        raise AssertionError("q67_rollup: no Expand of 9 projections under "
+                             "the partial aggregate")
+    planned = launches_planned(q67r_df)
+    t0 = time.perf_counter()
+    ref = reference_q67_rollup(pa, pc, pq, star, tpcds)
+    ref_s = time.perf_counter() - t0
+    calls: list = []
+    rec = run_query(torch, q67r_df, kernels,
+                    lambda t: compare_q67_rollup(t, ref), calls)
+    check_launches("q67_rollup", rec, planned)
+    out = {"plan": plan.tree_string().splitlines(), **planned,
+           "joined_rows": ref["joined_rows"],
+           "expanded_rows": 9 * ref["joined_rows"], "groups": ref["groups"],
+           "reference_s": ref_s,
+           "hash_columns_calls": sorted({(n, signature(cols), seed, parts)
+                                         for cols, n, seed, parts in calls}),
+           **rec}
+    emit("q67_rollup", stores=star["store"].num_rows, **out)
+    return out, calls
+
+
+def reference_q5(pa, pc, pq, star, tpcds) -> dict:
+    """q5's store channel by pyarrow: each store id's sales, returns and
+    profit net of losses over the two weeks."""
+    dd = star["date_dim"]
+    d = pc.cast(dd["d_date"], pa.int32())
+    keys = dd.filter(pc.and_(pc.greater_equal(d, tpcds.Q5_DATES[0]),
+                             pc.less_equal(d, tpcds.Q5_DATES[1])))[
+        "d_date_sk"]
+    names = ["store_sk", "date_sk", "sales_price", "profit", "return_amt",
+             "net_loss"]
+    ss = read_sales(pa, pq, star, ["ss_store_sk", "ss_sold_date_sk",
+                                   "ss_ext_sales_price", "ss_net_profit"])
+    zero = pa.array([0.0] * ss.num_rows)
+    ss = pa.table(list(ss.columns) + [zero, zero], names=names)
+    sr = pq.read_table(star["q93_paths"][0], columns=[
+        "sr_store_sk", "sr_returned_date_sk", "sr_return_amt",
+        "sr_net_loss"])
+    zero = pa.array([0.0] * sr.num_rows)
+    sr = pa.table([sr.column(0), sr.column(1), zero, zero, sr.column(2),
+                   sr.column(3)], names=names)
+    u = pa.concat_tables([ss, sr])
+    u = u.filter(pc.is_in(u["date_sk"], value_set=keys))
+    u = u.join(star["store"].select(["s_store_sk", "s_store_id"]),
+               keys="store_sk", right_keys="s_store_sk", join_type="inner")
+    g = u.group_by(["s_store_id"]).aggregate([
+        ("sales_price", "sum"), ("profit", "sum"), ("return_amt", "sum"),
+        ("net_loss", "sum")])
+    return {(r["s_store_id"],): {
+        "sales": r["sales_price_sum"], "returns_amt": r["return_amt_sum"],
+        "profit": r["profit_sum"] - r["net_loss_sum"]}
+        for r in g.to_pylist()}, u.num_rows
+
+
+def q5_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
+             TTB) -> tuple:
+    """TPC-DS q5's store channel over q3ds's store_sales, q93's
+    store_returns and the 12 stores: the plan (the union of both,
+    numbered member after member, under the date and store broadcasts;
+    no runtime filter reaches through the union, as in the JAX plan),
+    the rows against the pyarrow reference, K1's launches.  Emits the
+    phase's line; returns its record and hash_columns calls."""
+    dd_path, ss_paths, _ = star["paths"]
+    sr_path = star["q93_paths"][0]
+    session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
+
+    def q5_df():
+        return tpcds.q5_dataframe(session, dd_path, ss_paths, sr_path,
+                                  star["store_path"])
+
+    plan = q5_df().physical_plan()
+    expect_plan("q5", plan, star, [BCAST_RIGHT] * 2, [])
+    [union] = [n for n in plan.walk() if type(n).__name__ == "TpuUnionExec"]
+    if union.num_partitions != Q3DS_FILES + 1:
+        raise AssertionError(f"q5 union of {union.num_partitions} "
+                             f"partitions, expected {Q3DS_FILES + 1}")
+    planned = launches_planned(q5_df)
+    ref, union_rows = reference_q5(pa, pc, pq, star, tpcds)
+
+    def check(t):
+        ids = t["s_store_id"].to_pylist()
+        if ids != sorted(ids):
+            raise AssertionError("q5 rows are not in store id order")
+        return compare(t, ref, 1)
+
+    calls: list = []
+    rec = run_query(torch, q5_df, kernels, check, calls)
+    check_launches("q5", rec, planned)
+    out = {"plan": plan.tree_string().splitlines(), **planned,
+           "union_rows_in_dates": union_rows,
+           "hash_columns_calls": sorted({(n, signature(cols), seed, parts)
+                                         for cols, n, seed, parts in calls}),
+           **rec}
+    emit("q5", returns_in=pq.read_metadata(sr_path).num_rows, **out)
+    return out, calls
+
+
+def reference_q27(pa, pc, pq, star, tpcds, states) -> list:
+    """q27 by pyarrow: the year's sales to the text's demographic in the
+    stores of ``states``, averaged over its three grouping sets; the
+    rows by item id and state (NULLs last), the first 100."""
+    gender, marital, education = tpcds.Q27_DEMOGRAPHICS
+    cd = pq.read_table(star["cdemo_path"])
+    cd = cd.filter(pc.and_(pc.and_(
+        pc.equal(cd["cd_gender"], gender),
+        pc.equal(cd["cd_marital_status"], marital)),
+        pc.equal(cd["cd_education_status"], education)))
+    dd = star["date_dim"]
+    dd = dd.filter(pc.equal(dd["d_year"], 2002))
+    st = star["store"]
+    st = st.filter(pc.is_in(st["s_state"], value_set=pa.array(states)))
+    j = read_sales(pa, pq, star, [
+        "ss_sold_date_sk", "ss_item_sk", "ss_store_sk", "ss_cdemo_sk",
+        "ss_quantity", "ss_list_price", "ss_coupon_amt", "ss_sales_price"])
+    j = j.filter(pc.is_in(j["ss_cdemo_sk"], value_set=cd["cd_demo_sk"]))
+    j = j.filter(pc.is_in(j["ss_sold_date_sk"], value_set=dd["d_date_sk"]))
+    j = j.join(st.select(["s_store_sk", "s_state"]), keys="ss_store_sk",
+               right_keys="s_store_sk", join_type="inner")
+    j = j.join(star["item"].select(["i_item_sk", "i_item_id"]),
+               keys="ss_item_sk", right_keys="i_item_sk", join_type="inner")
+    vals = [("ss_quantity", "agg1"), ("ss_list_price", "agg2"),
+            ("ss_coupon_amt", "agg3"), ("ss_sales_price", "agg4")]
+    rows = []
+    for keys in (["i_item_id", "s_state"], ["i_item_id"], []):
+        if keys:
+            g = j.group_by(keys).aggregate([(c, "mean") for c, _ in vals])
+            got = g.to_pylist()
+        else:  # a grouping set's groups: none over no rows
+            got = [{f"{c}_mean": pc.mean(j[c]).as_py() for c, _ in vals}
+                   ] if j.num_rows else []
+        for r in got:
+            rows.append({"i_item_id": r.get("i_item_id"),
+                         "s_state": r.get("s_state"),
+                         **{a: r[f"{c}_mean"] for c, a in vals}})
+    rows.sort(key=lambda r: [(r[k] is None, r[k] or "")
+                             for k in ("i_item_id", "s_state")])
+    return rows[:100]
+
+
+def compare_rows(got_table, want: list, n_keys: int) -> float:
+    """Rows place by place: the first ``n_keys`` columns exact, the rest
+    within REL_TOL (NULL where the reference has None).  Returns the
+    largest relative error."""
+    got = got_table.to_pylist()
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} rows, reference has {len(want)}")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        names = list(g)
+        if [g[k] for k in names[:n_keys]] != [w[k] for k in names[:n_keys]]:
+            raise AssertionError(f"place {i}: {g} vs reference {w}")
+        for k in names[n_keys:]:
+            if g[k] is None or w[k] is None:
+                if g[k] is not w[k]:
+                    raise AssertionError(f"place {i} {k}: {g[k]} vs "
+                                         f"{w[k]}")
+                continue
+            rel = abs(g[k] - w[k]) / max(abs(w[k]), 1e-300)
+            worst = max(worst, rel)
+            if rel > REL_TOL:
+                raise AssertionError(f"place {i} {k}: {g[k]} vs {w[k]} "
+                                     f"(rel {rel:.3e})")
+    return worst
+
+
+def q27_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
+              TTB) -> tuple:
+    """TPC-DS q27 over q3ds's tables, the 12 stores and SF1's
+    customer_demographics: the text's values (Tennessee, which no store
+    of the catalog is in) give 0 rows and launch nothing (the empty
+    store side ends the joins above the exchanges); the variant with the
+    state most of the stores are in gives the rows of the pyarrow
+    reference of its three grouping sets.  Each with the plan
+    (customer_demographics too large to broadcast: a shuffled join, its
+    filter on the store_sales scan) and K1's launches.  Emits the
+    phase's line; returns its records and the variant's hash_columns
+    calls."""
+    dd_path, ss_paths, item_path = star["paths"]
+    states = star["store"]["s_state"].to_pylist()
+    state = max(sorted(set(states)), key=states.count)
+    session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
+    records, calls = {}, []
+    for name, st in (("text", tpcds.Q27_STATES), ("variant", (state,))):
+        def q27_df(st=st):
+            return tpcds.q27_dataframe(session, dd_path, ss_paths, item_path,
+                                       star["store_path"],
+                                       star["cdemo_path"], states=st)
+
+        plan = q27_df().physical_plan()
+        expect_plan(f"q27 {name}", plan, star, [BCAST_RIGHT] * 3 + [
+            ["TpuShuffledHashJoinExec", "inner", "right"]], ["ss_cdemo_sk"])
+        ref = reference_q27(pa, pc, pq, star, tpcds, st)
+        if name == "variant":
+            planned = launches_planned(q27_df)
+        elif ref or set(states) & set(st):
+            raise AssertionError(f"q27's text matched {len(ref)} rows")
+        else:
+            # no store is in the text's states: the store join's build
+            # side is empty, so it never pulls the joins under it, and no
+            # exchange or filter runs
+            planned = {"per_run": 0, "store_rows": 0}
+        if name == "variant" and len(ref) < 100:
+            raise AssertionError(f"q27's variant matched {len(ref)} rows")
+        rec = run_query(torch, q27_df, kernels,
+                        lambda t, ref=ref: compare_rows(t, ref, 2),
+                        calls if name == "variant" else [],
+                        quick=name == "text")
+        check_launches(f"q27 {name}", rec, planned)
+        records[name] = {"states": list(st),
+                         "plan": plan.tree_string().splitlines(),
+                         **planned, **rec}
+    emit("q27", cdemo_rows=pq.read_metadata(star["cdemo_path"]).num_rows,
+         store_states=states,
+         dimensions_datagen_s=star["dimensions_datagen_s"],
+         hash_columns_calls=sorted({(n, signature(cols), seed, parts)
+                                    for cols, n, seed, parts in calls}),
+         **records)
+    return records, calls
+
+
+def agg_family_dataframes(session, ss_paths) -> dict:
+    """store_sales in (ticket, item) order, grouped by store with min,
+    max, first and last (both NULL modes); and the distinct customers of
+    each store."""
+    from spark_rapids_tpu_torch.session import (
+        col,
+        count_distinct,
+        first,
+        last,
+        max_,
+        min_,
+    )
+
+    ss = session.read_parquet(*ss_paths)
+    ordered = ss.order_by(col("ss_ticket_number"), col("ss_item_sk"))
+    return {
+        "values": ordered.group_by(col("ss_store_sk")).agg(
+            (min_(col("ss_sales_price")), "min_price"),
+            (max_(col("ss_sales_price")), "max_price"),
+            (min_(col("ss_sold_date_sk")), "min_date"),
+            (max_(col("ss_net_profit")), "max_profit"),
+            (first(col("ss_customer_sk")), "first_customer"),
+            (last(col("ss_customer_sk"), True), "last_customer"),
+            (first(col("ss_sold_date_sk"), True), "first_date"),
+            (last(col("ss_sold_date_sk")), "last_date")),
+        "distinct": ss.group_by(col("ss_store_sk")).agg(
+            (count_distinct(col("ss_customer_sk")), "customers")),
+    }
+
+
+def reference_agg_family(pa, pc, pq, star) -> dict:
+    """The agg_family queries by pyarrow and numpy: the rows in (ticket,
+    item) order (a stable sort of the files' rows in file order), each
+    store's extremes, and its first and last rows' values by position
+    (all rows, or the non-NULL ones)."""
+    import numpy as np
+
+    t = read_sales(pa, pq, star, [
+        "ss_store_sk", "ss_ticket_number", "ss_item_sk", "ss_sales_price",
+        "ss_sold_date_sk", "ss_net_profit", "ss_customer_sk"])
+    distinct = {(r["ss_store_sk"],): {"customers": r[
+        "ss_customer_sk_count_distinct"]} for r in t.group_by(
+        ["ss_store_sk"]).aggregate([("ss_customer_sk",
+                                     "count_distinct")]).to_pylist()}
+    t = t.take(pc.sort_indices(t, sort_keys=[
+        ("ss_ticket_number", "ascending"), ("ss_item_sk", "ascending")]))
+    store = t["ss_store_sk"].to_numpy()
+
+    def pick(column: str, last: bool, skip_nulls: bool) -> dict:
+        arr = t[column]
+        valid = arr.is_valid().to_numpy(zero_copy_only=False)
+        vals = arr.to_pylist()
+        rows = np.nonzero(valid)[0] if skip_nulls else np.arange(len(vals))
+        if last:
+            rows = rows[::-1]
+        _, at = np.unique(store[rows], return_index=True)
+        return {int(store[rows[i]]): vals[rows[i]] for i in at}
+
+    g = t.group_by(["ss_store_sk"]).aggregate([
+        ("ss_sales_price", "min"), ("ss_sales_price", "max"),
+        ("ss_sold_date_sk", "min"), ("ss_net_profit", "max")])
+    picks = {"first_customer": pick("ss_customer_sk", False, False),
+             "last_customer": pick("ss_customer_sk", True, True),
+             "first_date": pick("ss_sold_date_sk", False, True),
+             "last_date": pick("ss_sold_date_sk", True, False)}
+    values = {}
+    for r in g.to_pylist():
+        s = r["ss_store_sk"]
+        values[(s,)] = {"min_price": r["ss_sales_price_min"],
+                        "max_price": r["ss_sales_price_max"],
+                        "min_date": r["ss_sold_date_sk_min"],
+                        "max_profit": r["ss_net_profit_max"],
+                        **{k: v[s] for k, v in picks.items()}}
+    return {"values": values, "distinct": distinct}
+
+
+def agg_family_phase(torch, pa, pc, pq, star, kernels, TorchSession,
+                     TTB) -> tuple:
+    """min / max / first / last over store_sales after an ORDER BY (a
+    range exchange and a sort of each partition under the group-by, so
+    first and last follow the sort), and COUNT(DISTINCT) of the
+    customers, each store's rows against pyarrow (the first / last
+    exact, as the extremes), and K1's launches.  Emits the phase's
+    line; returns its records and hash_columns calls."""
+    session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
+    ref = reference_agg_family(pa, pc, pq, star)
+    records, calls = {}, []
+    for name in ("values", "distinct"):
+        def family_df(name=name):
+            return agg_family_dataframes(session, star["paths"][1])[name]
+
+        planned = launches_planned(family_df)
+        rec = run_query(torch, family_df, kernels,
+                        lambda t, name=name: compare(t, ref[name], 1),
+                        calls)
+        check_launches(f"agg_family {name}", rec, planned)
+        records[name] = {"plan": family_df().physical_plan().tree_string()
+                         .splitlines(), "groups": len(ref[name]),
+                         **planned, **rec}
+    emit("agg_family", hash_columns_calls=sorted(
+        {(n, signature(cols), seed, parts)
+         for cols, n, seed, parts in calls}), **records)
     return records, calls
 
 
@@ -1273,17 +1779,17 @@ def concurrency_phase(torch, kernels, TorchSession, SERIAL,
                       queries: dict) -> dict:
     """Each query serially (``config.SERIAL``: one task thread, one
     decode thread, no stages) and pooled (the default keys) in
-    alternating pairs, ``CONCURRENCY_PAIRS`` of them after one warm-up
-    of each: every result equal to the first serial one by
-    ``pyarrow.Table.equals`` (floats included), every run's K1 launches
-    equal, and no stage or pool thread alive after any run.  Then one
-    profiled run of each side.  ``queries``: name -> (conf, a function
-    of a session giving the DataFrame).  Emits the phase's line."""
+    alternating pairs after one warm-up of each: every result equal to
+    the first serial one by ``pyarrow.Table.equals`` (floats included),
+    every run's K1 launches equal, and no stage or pool thread alive
+    after any run.  Then one profiled run of each side.  ``queries``:
+    name -> (conf, a function of a session giving the DataFrame, the
+    pairs to run).  Emits the phase's line."""
     from spark_rapids_tpu_torch.execs.base import live_pool_threads
     from spark_rapids_tpu_torch.parallel.pipeline import live_stage_threads
 
     out = {}
-    for name, (conf, make) in queries.items():
+    for name, (conf, make, n_pairs) in queries.items():
         sessions = {"serial": TorchSession({**conf, **SERIAL},
                                            device="cuda"),
                     "pooled": TorchSession(conf, device="cuda")}
@@ -1306,7 +1812,7 @@ def concurrency_phase(torch, kernels, TorchSession, SERIAL,
         run("pooled")
         walls: dict = {"serial": [], "pooled": []}
         won = 0
-        for i in range(CONCURRENCY_PAIRS):
+        for i in range(n_pairs):
             order = ("serial", "pooled") if i % 2 == 0 \
                 else ("pooled", "serial")
             for side in order:
@@ -1329,7 +1835,7 @@ def concurrency_phase(torch, kernels, TorchSession, SERIAL,
         diff = sorted(((k[:60], v) for k, v in diff.items() if v),
                       key=lambda kv: -abs(kv[1]))[:10]
         out[name] = {
-            "rows": want.num_rows, "pairs": CONCURRENCY_PAIRS,
+            "rows": want.num_rows, "pairs": n_pairs,
             "launches_per_run": {"hash_columns": want_launches[0],
                                  "hash_string": want_launches[1]},
             "serial_wall_s": walls["serial"],
@@ -1378,15 +1884,22 @@ def main() -> int:
          ptxas=[ln for ln in ptxas.splitlines() if "registers" in ln
                 or "spill" in ln or "smem" in ln])
 
+    parts_s = {}
+    t0 = time.perf_counter()
     exact = check_k1(torch, kernels, dev)
+    parts_s["exact_hash_string"] = time.perf_counter() - t0
     exact_cols = check_hash_columns(torch, kernels, dev)
+    parts_s["exact_hash_columns"] = time.perf_counter() - t0 - sum(
+        parts_s.values())
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
     large = [time_k1(torch, kernels, dev, TIMED_ROWS, w, gen, plain_iters=3)
              for w in TIMED_WIDTHS]
     large_cols = time_hash_columns(torch, kernels, dev, TIMED_ROWS, gen)
+    parts_s["timed"] = time.perf_counter() - t0 - sum(parts_s.values())
     emit("kernels", hash_string={"exact": exact, "timed": large},
-         hash_columns={"exact": exact_cols, "timed": large_cols})
+         hash_columns={"exact": exact_cols, "timed": large_cols},
+         seconds=parts_s)
 
     work = os.path.join(ROOT, "spark_rapids_tpu_torch", "_build")
     os.makedirs(work, exist_ok=True)
@@ -1457,14 +1970,14 @@ def main() -> int:
         if tasks != [Q67_FILES]:
             raise AssertionError(f"q67 scan tasks {tasks}, expected "
                                  f"{[Q67_FILES]}")
-        planned67 = map_batches(q67_df().physical_plan())
+        planned67 = launches_planned(q67_df)
         q67_calls: list = []
         q67 = run_query(torch, q67_df, kernels,
                         lambda t: compare_q67(t, ref67, sums67), q67_calls)
         emit("q67", rows_in=sales.num_rows, groups=len(sums67),
              rows_out=q67["rows"], file_bytes=[os.path.getsize(p)
                                                for p in ss_paths],
-             datagen_s=gen67_s, planned_map_batches=planned67,
+             datagen_s=gen67_s, **planned67,
              hash_columns_calls=sorted(
                  {(n, signature(cols), parts)
                   for cols, n, _, parts in q67_calls}), **q67)
@@ -1478,23 +1991,39 @@ def main() -> int:
                                    TorchSession, tpcds, TTB)
         star_runs, star_calls = star_phase(torch, pc, star, kernels,
                                            TorchSession, tpcds, TTB)
+        dimension_tables(pq, star, tpcds)
+        q67r, q67r_calls = q67_rollup_phase(torch, pa, pc, pq, star, kernels,
+                                            TorchSession, tpcds, TTB)
+        q5, q5_calls = q5_phase(torch, pa, pc, pq, star, kernels,
+                                TorchSession, tpcds, TTB)
+        q27_runs, q27_calls = q27_phase(torch, pa, pc, pq, star, kernels,
+                                        TorchSession, tpcds, TTB)
+        family, family_calls = agg_family_phase(torch, pa, pc, pq, star,
+                                                kernels, TorchSession, TTB)
         dd_path, star_ss, item_path = star["paths"]
         sr_path, reason_path = star["q93_paths"]
+        store_path = star["store_path"]
         li8 = {TTB: TASK_TARGET_BYTES}
         ds8 = {TTB: Q3DS_TASK_TARGET_BYTES}
+        pairs = CONCURRENCY_PAIRS
         kernels.hash_columns.launches = 0
         kernels.hash_string.launches = 0
         concurrency_phase(torch, kernels, TorchSession, SERIAL, {
-            "q6": (li8, lambda s: tpch.q6_dataframe(s, paths)),
-            "q1": (li8, lambda s: tpch.q1_dataframe(s, paths)),
+            "q6": (li8, lambda s: tpch.q6_dataframe(s, paths), pairs),
+            "q1": (li8, lambda s: tpch.q1_dataframe(s, paths), pairs),
             "q3_rf_on": (li8, lambda s: tpch.q3_dataframe(s, li_paths,
-                                                          orders_path)),
+                                                          orders_path),
+                         pairs),
             "q67": ({TTB: Q67_TASK_TARGET_BYTES},
-                    lambda s: tpcds.q67_dataframe(s, ss_paths)),
+                    lambda s: tpcds.q67_dataframe(s, ss_paths), pairs),
             "q3ds": (ds8, lambda s: tpcds.q3_dataframe(s, dd_path, star_ss,
-                                                       item_path)),
+                                                       item_path), pairs),
             "q93": (ds8, lambda s: tpcds.q93_dataframe(s, star_ss, sr_path,
-                                                       reason_path))})
+                                                       reason_path), pairs),
+            "q67_rollup": (ds8, lambda s: tpcds.q67_rollup_dataframe(
+                s, dd_path, star_ss, item_path, store_path), NEW_PAIRS),
+            "q5": (ds8, lambda s: tpcds.q5_dataframe(
+                s, dd_path, star_ss, sr_path, store_path), NEW_PAIRS)})
         conc_launches = {"hash_columns": kernels.hash_columns.launches,
                          "hash_string": kernels.hash_string.launches}
     want = {"hash_columns": q1["runs"] * len(paths), "hash_string": 0}
@@ -1503,34 +2032,32 @@ def main() -> int:
                              f"{want} (one hash_columns per map batch)")
     if q6["launches"] != {"hash_columns": 0, "hash_string": 0}:
         raise AssertionError(f"q6 launched {q6['launches']}")
-    want = {"hash_columns": q67["runs"] * planned67, "hash_string": 0}
-    if q67["launches"] != want:
-        raise AssertionError(f"q67 launched {q67['launches']}, expected "
-                             f"{want} (one hash_columns per hash map "
-                             f"batch)")
+    check_launches("q67", q67, planned67)
 
     worst, at_main = at_main_path(torch, kernels, {
         "q1": q1_calls, "q3": q3_calls, "q3_rf_on": q3_rf_calls,
         "q67": q67_calls, "q3ds": q3ds_calls, "q93": q93_calls,
-        "star": star_calls})
+        "star": star_calls, "q67_rollup": q67r_calls, "q5": q5_calls,
+        "q27": q27_calls, "agg_family": family_calls})
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
+    runs = (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off, q93, *star_runs.values(),
+            q67r, q5, *q27_runs.values(), *family.values())
     summary = [{
         "name": "hash_columns", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
         "launches": conc_launches["hash_columns"] + sum(
-            q["launches"]["hash_columns"]
-            for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off, q93,
-                      *star_runs.values())),
+            q["launches"]["hash_columns"] for q in runs),
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
         "library_ms": None,
         "shape": "the largest of q1's, q3's (filter off and on), q67's, "
-                 "q3ds's, q93's and q42/q52/q55's calls; ms is the "
-                 "device's own time per launch",
+                 "q3ds's, q93's, q42/q52/q55's, q67_rollup's, q5's, q27's "
+                 "and agg_family's calls; ms is the device's own time per "
+                 "launch",
         "concurrency_launches": conc_launches["hash_columns"],
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,
@@ -1539,9 +2066,7 @@ def main() -> int:
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
         "launches": conc_launches["hash_string"] + sum(
-            q["launches"]["hash_string"]
-            for q in (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off, q93,
-                      *star_runs.values())),
+            q["launches"]["hash_string"] for q in runs),
         "max_abs_err": max(r["max_abs_err"] for r in large),
         "ms": w64["ms"], "plain_ms": w64["plain_ms"],
         "bound_ms": w64["bound_ms"], "bound_by": w64["bound_by"],

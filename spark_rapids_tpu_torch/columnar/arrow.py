@@ -122,6 +122,9 @@ def _host_arrays(arr, dtype: T.DataType) -> tuple[str, dict]:
         chars, lengths = strings_to_matrix(offsets, data, valid)
         return "string", {"chars": chars, "lengths": lengths,
                           "valid": valid}
+    if isinstance(dtype, T.NullType):
+        return "fixed", {"values": np.zeros(len(arr), np.bool_),
+                         "valid": valid}
     if pa.types.is_dictionary(arr.type):
         arr = arr.cast(arr.type.value_type)
     if isinstance(dtype, T.DateType):
@@ -288,6 +291,8 @@ def column_to_arrow(col: AnyColumn, dtype: T.DataType) -> pa.Array:
             pa.string(), n,
             [bitmap, pa.py_buffer(offsets),
              pa.py_buffer(np.ascontiguousarray(flat))])
+    if isinstance(dtype, T.NullType):
+        return pa.nulls(n)
     values = col.data.cpu().numpy()
     mask = None if all_valid else ~valid
     if isinstance(dtype, T.DateType):

@@ -54,23 +54,25 @@ class ColumnarBatch:
         return self.slice(0, n)
 
 
+def null_column(dtype: T.DataType, num_rows: int, device: torch.device,
+                width: int = 1) -> AnyColumn:
+    """``num_rows`` NULLs of a type: zeroed data, or strings of
+    ``width`` zeroed chars and length 0."""
+    valid = torch.zeros(num_rows, dtype=torch.bool, device=device)
+    if isinstance(dtype, T.StringType):
+        return StringColumn(
+            torch.zeros((num_rows, width), dtype=torch.uint8, device=device),
+            torch.zeros(num_rows, dtype=torch.int32, device=device), valid)
+    return Column(torch.zeros(num_rows, dtype=T.to_torch_dtype(dtype),
+                              device=device), valid, dtype)
+
+
 def null_batch(schema: T.Schema, num_rows: int,
                device: torch.device) -> ColumnarBatch:
     """``num_rows`` rows of a schema, every value NULL (zeroed data,
     empty strings)."""
-    cols: list[AnyColumn] = []
-    for f in schema.fields:
-        valid = torch.zeros(num_rows, dtype=torch.bool, device=device)
-        if isinstance(f.dtype, T.StringType):
-            cols.append(StringColumn(
-                torch.zeros((num_rows, 1), dtype=torch.uint8, device=device),
-                torch.zeros(num_rows, dtype=torch.int32, device=device),
-                valid))
-        else:
-            cols.append(Column(
-                torch.zeros(num_rows, dtype=T.to_torch_dtype(f.dtype),
-                            device=device), valid, f.dtype))
-    return ColumnarBatch(cols, num_rows, schema, device)
+    return ColumnarBatch([null_column(f.dtype, num_rows, device)
+                          for f in schema.fields], num_rows, schema, device)
 
 
 def empty_batch(schema: T.Schema, device: torch.device) -> ColumnarBatch:

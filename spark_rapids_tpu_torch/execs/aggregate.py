@@ -11,7 +11,10 @@ Counterpart of ``TpuHashAggregateExec`` in
 
 Each input batch runs the update aggregation; the partials of a
 partition are concatenated and merged once at its end (they hold one
-row per group, so they stay small next to the input).
+row per group, so they stay small next to the input).  Partials keep
+their batches' order, and a final aggregate reads its exchange's blocks
+in map-task order, so first / last pick the same row on every run,
+pooled or serial.
 """
 
 from __future__ import annotations
@@ -36,11 +39,16 @@ from spark_rapids_tpu_torch.exprs.base import (
     output_field,
 )
 from spark_rapids_tpu_torch.ops.groupby import (
+    FIRST_LAST,
     GROUPBY_OPS,
     AggSpec,
     groupby_aggregate,
     reduce_aggregate,
 )
+
+
+#: the ops that return one of the group's values
+VALUE_OPS = {"min", "max", *FIRST_LAST}
 
 
 class TpuHashAggregateExec(TpuExec):
@@ -60,9 +68,16 @@ class TpuHashAggregateExec(TpuExec):
         self.aggs = [NamedAgg(na.fn.bind(bind_schema), na.out_name)
                      for na in aggs]
         for na in self.aggs:
-            if not set(na.fn.update_ops()) <= set(GROUPBY_OPS):
+            ops = set(na.fn.update_ops())
+            if not ops <= set(GROUPBY_OPS):
                 raise NotImplementedError(
                     f"{na.fn.name} is not ported as a group-by aggregate")
+            if ops & VALUE_OPS and isinstance(na.fn.child.dtype,
+                                              T.StringType):
+                # the JAX planner runs these over strings on its CPU
+                # engine; the port has none
+                raise NotImplementedError(
+                    f"{na.fn.name} over a string is not ported")
         self.n_keys = len(groups)
         if mode == "final":
             self.partial_schema = child_schema

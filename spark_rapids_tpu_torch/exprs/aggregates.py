@@ -3,10 +3,12 @@
 Counterpart of ``spark_rapids_tpu/exprs/aggregates.py``: each SQL
 aggregate decomposes into *update* ops (per input batch), *merge* ops
 (over partial results, e.g. after a shuffle) and a *finalize*
-expression over the partial columns.  Sum, Count, CountStar and
-Average group-aggregate: the ops they name run in ``ops/groupby.py``.
-Min and Max serve window frames only (``exprs/window.py``); a group-by
-over them raises NotImplementedError when it is planned.
+expression over the partial columns.  Sum, Count, CountStar, Average,
+Min, Max, First and Last group-aggregate: the ops they name run in
+``ops/groupby.py``; Sum, Count, CountStar, Average, Min and Max also
+serve window frames (``exprs/window.py``).  ``CountDistinct`` is a
+marker the session rewrites into a two-level aggregate
+(``session.py::GroupedData._agg_distinct``); it never runs itself.
 """
 
 from __future__ import annotations
@@ -112,6 +114,44 @@ class Min(_Extremum):
 
 class Max(_Extremum):
     op = "max"
+
+
+@dataclasses.dataclass(repr=False)
+class First(_Extremum):
+    """first(expr[, ignoreNulls]): the group's first row in input order
+    (ignoreNulls = false, Spark's default: that row's value, NULL or
+    not) or its first non-NULL value.  Deterministic only after an
+    ORDER BY, as in Spark; the port keeps map-task order through the
+    exchange, so a pooled run picks what a serial one does."""
+
+    ignore_nulls: bool = False
+
+    def bind(self, schema: T.Schema) -> "First":
+        from spark_rapids_tpu_torch.exprs.base import bind_references
+
+        return type(self)(bind_references(self.child, schema),
+                          self.ignore_nulls)
+
+    @property
+    def op(self) -> str:
+        base = type(self).__name__.lower()
+        return base if self.ignore_nulls else f"{base}_any"
+
+
+class Last(First):
+    """last(expr[, ignoreNulls]): as ``First``, from the group's end."""
+
+
+class CountDistinct(AggregateFunction):
+    """count(DISTINCT expr): rewritten by the session before planning."""
+
+    @property
+    def name(self) -> str:
+        return "count_distinct"
+
+    def update_ops(self):
+        raise NotImplementedError(
+            "count_distinct runs as the session's two-level aggregate")
 
 
 class CountStar(AggregateFunction):

@@ -1,4 +1,4 @@
-"""Multi-file Parquet scan.
+"""Multi-file Parquet scan, and the in-memory source.
 
 Counterpart of ``ParquetScanExec`` in ``spark_rapids_tpu/io/scan.py``.
 Files group into scan tasks (the exec's partitions) by the same rule as
@@ -32,6 +32,11 @@ native decoder are not ported.
 rows and the host time of each part of a task: ``decodeTime`` (opening
 files, pyarrow decode and the runtime filter's host mask, summed over
 the decode threads) and ``columnar/arrow.py``'s ``UPLOAD_METRICS``.
+
+``ArrowSourceExec`` (``io/scan.py`` there) serves a host Arrow table
+(``TorchSession.create_dataframe``): a partition per ``batch_rows``
+rows, each uploaded to the session's device through the same
+``stage_upload`` / ``finish_upload`` path and side stream.
 """
 
 from __future__ import annotations
@@ -228,3 +233,41 @@ class ParquetScanExec(TpuExec):
                 yield finish_upload(unit, self.metrics)
         finally:
             units.close()
+
+
+class ArrowSourceExec(TpuExec):
+    def __init__(self, table: pa.Table, schema: T.Schema,
+                 device: torch.device, batch_rows: int,
+                 columns: Optional[Sequence[str]] = None,
+                 runtime: Optional[TaskRuntime] = None):
+        super().__init__()
+        self.runtime = runtime or TaskRuntime.serial()
+        self.table = table
+        self.device = torch.device(device)
+        self.batch_rows = batch_rows
+        self._schema = schema if columns is None else T.Schema(
+            [f for f in schema.fields if f.name in columns])
+        self.estimated_rows = table.num_rows
+        self.metrics = Metrics("numOutputRows", *UPLOAD_METRICS)
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    @property
+    def num_partitions(self) -> int:
+        return max(1, -(-self.table.num_rows // self.batch_rows))
+
+    def node_desc(self) -> str:
+        return (f"ArrowSourceExec [{self.table.num_rows} rows] "
+                f"[{', '.join(self._schema.names)}]")
+
+    def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        chunk = self.table.slice(p * self.batch_rows, self.batch_rows)
+        if chunk.num_rows == 0:
+            return
+        chunk = chunk.select(self._schema.names)
+        self.metrics.add("numOutputRows", chunk.num_rows)
+        yield finish_upload(stage_upload(
+            chunk, self.device, self._schema, self.runtime.upload_stream,
+            self.metrics), self.metrics)

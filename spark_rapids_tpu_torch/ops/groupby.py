@@ -16,11 +16,20 @@ stably by group (``torch.segment_reduce``, one CUDA block a group): on
 the card ``index_add_``'s atomic adds take a different order on every
 run, and a query's result would then differ in its last bits from one
 run to the next; on the CPU the order, and so every bit, is
-``index_add_``'s.
+``index_add_``'s.  A floating min or max reduces the same way; an
+integer one, and the row positions that pick first and last, are
+``scatter_reduce_`` amin / amax (exact in any order).
+
+Min and max follow Spark's float order, as the JAX ``_eval_agg`` does:
+max propagates NaN (the greatest value); min ignores NaN unless every
+valid value of the group is NaN.  ``first`` / ``last`` take the first /
+last non-NULL row of the group in row order; ``first_any`` /
+``last_any`` (Spark's default, ignoreNulls = false) the first / last
+row, NULL or not.  Over fixed-width columns only: the JAX planner runs
+them over strings on its CPU engine, and the aggregate exec raises.
 
 Aggregations are (update, merge) op pairs as Spark's aggregate modes
-use them.  The slice ports the ops its aggregates need (``GROUPBY_OPS``).
-Output batches hold one row per group.
+use them (``GROUPBY_OPS``).  Output batches hold one row per group.
 """
 
 from __future__ import annotations
@@ -47,17 +56,20 @@ from spark_rapids_tpu_torch.ops.sort import (
 
 @dataclasses.dataclass(frozen=True)
 class AggSpec:
-    """One aggregation over a value ordinal; ``op`` in {sum, count,
-    count_star}.  avg is planned as sum + count and finalized by the
-    exec."""
+    """One aggregation over a value ordinal; ``op`` in ``GROUPBY_OPS``.
+    avg is planned as sum + count and finalized by the exec."""
 
     op: str
     ordinal: int  # ignored for count_star
     out_dtype: Optional[T.DataType] = None
 
 
-#: the aggregate ops a group-by evaluates; min and max are not ported
-GROUPBY_OPS = ("sum", "count", "count_star")
+#: first / last and their keep-NULL forms: the op -> (pick the last
+#: row, skip NULL rows)
+FIRST_LAST = {"first": (False, True), "last": (True, True),
+              "first_any": (False, False), "last_any": (True, False)}
+#: the aggregate ops a group-by evaluates
+GROUPBY_OPS = ("sum", "count", "count_star", "min", "max", *FIRST_LAST)
 
 
 def _sum_dtype(dt: T.DataType) -> T.DataType:
@@ -70,10 +82,10 @@ def agg_output_dtype(spec: AggSpec, value_dtype: Optional[T.DataType]
         return spec.out_dtype
     if spec.op in ("count", "count_star"):
         return T.LONG
+    assert value_dtype is not None
     if spec.op == "sum":
-        assert value_dtype is not None
         return _sum_dtype(value_dtype)
-    raise NotImplementedError(f"aggregate op {spec.op} is not ported yet")
+    return value_dtype
 
 
 #: widest combined (dictionary + NULL) key domain the coded path takes
@@ -123,16 +135,68 @@ class Groups:
             return self.perm
         return torch.argsort(self.gid, stable=True)
 
-    def float_sums(self, vals: torch.Tensor) -> torch.Tensor:
-        """Each group's sum of ``vals``, its rows added in row order."""
+    def float_reduce(self, vals: torch.Tensor, op: str) -> torch.Tensor:
+        """Each group's ``op`` ("sum", "min", "max") of ``vals``, its rows
+        taken in row order."""
         if self.order is not None:
             vals = vals[self.order]
-        return torch.segment_reduce(vals, "sum", lengths=self.sizes,
+        return torch.segment_reduce(vals, op, lengths=self.sizes,
                                     unsafe=True)
+
+    def scatter_reduce(self, vals: torch.Tensor, op: str,
+                       init: int) -> torch.Tensor:
+        """Each group's ``op`` ("amin", "amax") of int64 ``vals``; ``init``
+        for a group with no rows."""
+        out = torch.full((self.n,), init, dtype=torch.int64,
+                         device=vals.device)
+        return out.scatter_reduce_(0, self.gid, vals, op)
+
+
+def _extremum(op: str, vcol: Column, valid: torch.Tensor,
+              nvalid: torch.Tensor, groups: Groups,
+              out_dtype: T.DataType) -> Column:
+    """min / max of each group's valid rows, in Spark's float order."""
+    data = vcol.data
+    if data.is_floating_point():
+        inf = torch.tensor(float("inf") if op == "min" else float("-inf"),
+                           dtype=data.dtype, device=data.device)
+        isnan = valid & torch.isnan(data)
+        keep = valid & ~isnan if op == "min" else valid
+        out = groups.float_reduce(torch.where(keep, data, inf), op)
+        if op == "min":
+            n_nan = torch.zeros_like(nvalid).index_add_(0, groups.gid,
+                                                        isnan.long())
+            out = torch.where(n_nan == nvalid, float("nan"), out)
+    else:
+        info = torch.iinfo(torch.int64)
+        init = info.max if op == "min" else info.min
+        vals = torch.where(valid, data.long(), init)
+        out = groups.scatter_reduce(vals, "a" + op, init)
+    return Column(out.to(T.to_torch_dtype(out_dtype)), nvalid > 0,
+                  out_dtype)
+
+
+def _first_last(op: str, vcol: Column, valid: torch.Tensor,
+                groups: Groups, out_dtype: T.DataType) -> Column:
+    """Each group's first / last row (``FIRST_LAST``) by row position."""
+    last, skip_nulls = FIRST_LAST[op]
+    n = len(vcol)
+    pos = torch.arange(n, device=valid.device)
+    miss = -1 if last else n
+    if skip_nulls:
+        pos = torch.where(valid, pos, miss)
+    sel = groups.scatter_reduce(pos, "amax" if last else "amin", miss)
+    found = sel != miss
+    if n == 0:
+        return Column(torch.zeros(groups.n, dtype=T.to_torch_dtype(
+            out_dtype), device=valid.device), found, out_dtype)
+    safe = sel.clamp(0, n - 1)
+    return Column(vcol.data[safe].to(T.to_torch_dtype(out_dtype)),
+                  found & vcol.validity[safe], out_dtype)
 
 
 def _eval_agg(spec: AggSpec, batch: ColumnarBatch, groups: Groups) -> Column:
-    """One aggregation as segment sums over ``groups``."""
+    """One aggregation as segment reductions over ``groups``."""
     gid, n_groups = groups.gid, groups.n
     dev = batch.device
     all_valid = torch.ones(n_groups, dtype=torch.bool, device=dev)
@@ -146,15 +210,19 @@ def _eval_agg(spec: AggSpec, batch: ColumnarBatch, groups: Groups) -> Column:
     nvalid.index_add_(0, gid, valid.long())
     if spec.op == "count":
         return Column(nvalid, all_valid, T.LONG)
-    if spec.op != "sum":
-        raise NotImplementedError(f"aggregate op {spec.op} is not ported yet")
-    assert isinstance(vcol, Column), f"sum over {vcol.dtype}"
+    if spec.op not in GROUPBY_OPS:
+        raise NotImplementedError(f"aggregate op {spec.op} is not ported")
+    assert isinstance(vcol, Column), f"{spec.op} over {vcol.dtype}"
     out_dtype = agg_output_dtype(spec, vcol.dtype)
+    if spec.op in ("min", "max"):
+        return _extremum(spec.op, vcol, valid, nvalid, groups, out_dtype)
+    if spec.op in FIRST_LAST:
+        return _first_last(spec.op, vcol, valid, groups, out_dtype)
     phys = T.to_torch_dtype(out_dtype)
     vals = torch.where(valid, vcol.data.to(phys),
                        torch.zeros((), dtype=phys, device=dev))
     if vals.is_floating_point():
-        sums = groups.float_sums(vals)
+        sums = groups.float_reduce(vals, "sum")
     else:
         sums = torch.zeros(n_groups, dtype=phys, device=dev)
         sums.index_add_(0, gid, vals)

@@ -1,5 +1,5 @@
-"""Logical plan nodes: Scan, Filter, Project, Aggregate, Join, Window,
-Sort and Limit.
+"""Logical plan nodes: Scan, InMemoryRelation, RangeRel, Filter,
+Project, Aggregate, Expand, Join, Window, Sort, Limit and Union.
 
 Counterpart of the matching nodes of ``spark_rapids_tpu/plan/logical.py``.
 Nodes keep their expressions by column name; the planner binds them to
@@ -7,16 +7,19 @@ the physical child, after it has pruned the scan's columns.
 
 Every node estimates an upper bound on its rows and bytes, as there,
 for the planner's broadcast choice: a scan counts its files' footer
-rows, a node with one child passes the child's bound on (a filter can
-only shrink), a grand aggregate makes one row, a LIMIT at most its n,
-and a join at most the sum of its sides (the JAX estimate).  Bytes are
-rows times ``row_width_bytes`` of the node's schema.
+rows, an in-memory table its rows, a range its values, a node with one
+child passes the child's bound on (a filter can only shrink), a grand
+aggregate makes one row, a LIMIT at most its n, a join at most the sum
+of its sides (the JAX estimate), an Expand its child's rows times its
+projections and a Union the sum of its members.  Bytes are rows times
+``row_width_bytes`` of the node's schema.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import pyarrow as pa
 import pyarrow.parquet as pq
 
 from spark_rapids_tpu_torch import types as T
@@ -88,6 +91,41 @@ class Scan(LogicalPlan):
         return self._est_rows
 
 
+class InMemoryRelation(LogicalPlan):
+    """A host Arrow table (``TorchSession.create_dataframe``)."""
+
+    def __init__(self, table: pa.Table):
+        self.children = []
+        self.table = table
+        self._schema = schema_from_arrow(table.schema)
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    def estimated_rows(self) -> Optional[int]:
+        return self.table.num_rows
+
+
+class RangeRel(LogicalPlan):
+    """``id`` from ``start`` (inclusive) to ``end`` (exclusive) by
+    ``step`` (``TorchSession.range``)."""
+
+    def __init__(self, start: int, end: int, step: int = 1):
+        if step == 0:
+            raise ValueError("range step must not be 0")
+        self.children = []
+        self.start, self.end, self.step = start, end, step
+        self._schema = T.Schema([T.Field("id", T.LONG, False)])
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    def estimated_rows(self) -> Optional[int]:
+        return max(0, -(-(self.end - self.start) // self.step))
+
+
 class Filter(LogicalPlan):
     def __init__(self, condition: Expression, child: LogicalPlan):
         self.children = [child]
@@ -133,6 +171,38 @@ class Aggregate(LogicalPlan):
         if not self.groups:
             return 1  # a grand aggregate makes one row
         return self.children[0].estimated_rows()
+
+
+class Expand(LogicalPlan):
+    """Each input row once per projection list (rollup, cube and
+    grouping sets build on it).  A column's type is that of its first
+    projection whose expression is not of the NULL type."""
+
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 names: Sequence[str], child: LogicalPlan):
+        if not projections or any(len(p) != len(names)
+                                  for p in projections):
+            raise ValueError("every Expand projection needs one "
+                             "expression per name")
+        self.children = [child]
+        self.projections = [list(p) for p in projections]
+        self.names = list(names)
+        bound = [[bind_references(e, child.schema) for e in p]
+                 for p in self.projections]
+        fields = []
+        for i, name in enumerate(self.names):
+            dt = next((p[i].dtype for p in bound
+                       if not isinstance(p[i].dtype, T.NullType)), T.NULL)
+            fields.append(T.Field(name, dt, True))
+        self._schema = T.Schema(fields)
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    def estimated_rows(self) -> Optional[int]:
+        n = self.children[0].estimated_rows()
+        return None if n is None else n * len(self.projections)
 
 
 class Join(LogicalPlan):
@@ -220,3 +290,32 @@ class Limit(LogicalPlan):
     def estimated_rows(self) -> Optional[int]:
         c = self.children[0].estimated_rows()
         return self.n if c is None else min(self.n, c)
+
+
+class Union(LogicalPlan):
+    """UNION ALL of members with the same column types, by position
+    (``DataFrame.union`` widens them first); the output names are the
+    first member's."""
+
+    def __init__(self, children: Sequence[LogicalPlan]):
+        if not children:
+            raise ValueError("a union needs at least one member")
+        self.children = list(children)
+        first = self.children[0].schema
+        for c in self.children[1:]:
+            if [f.dtype for f in c.schema.fields] != [
+                    f.dtype for f in first.fields]:
+                raise TypeError(f"union members {first} and {c.schema} "
+                                "differ; DataFrame.union widens them")
+        self._schema = T.Schema([
+            T.Field(f.name, f.dtype, any(c.schema.fields[i].nullable
+                                         for c in self.children))
+            for i, f in enumerate(first.fields)])
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    def estimated_rows(self) -> Optional[int]:
+        rows = [c.estimated_rows() for c in self.children]
+        return None if None in rows else sum(rows)

@@ -1,8 +1,13 @@
 """Logical -> physical lowering.
 
-Counterpart of ``spark_rapids_tpu/plan/planner.py`` for Scan, Filter,
-Project, Aggregate, Join, Window, Sort and Limit.  Scan columns are
-pruned to what the plan above reads.
+Counterpart of ``spark_rapids_tpu/plan/planner.py`` for Scan,
+InMemoryRelation, RangeRel, Filter, Project, Aggregate, Expand, Join,
+Window, Sort, Limit and Union.  Scan and in-memory columns are pruned
+to what the plan above reads: an Expand keeps only the columns read
+above it and needs what their expressions read in every projection; a
+Union prunes by position (its members name their columns apart, as
+q5's ``ss_store_sk`` and ``sr_store_sk``), each member projected to the
+kept positions where its own lowering kept more.
 
 - An aggregate over several input partitions lowers as
   ``_plan_aggregate`` does there: partial aggregate -> hash exchange on
@@ -51,13 +56,20 @@ from typing import Optional
 import torch
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
-from spark_rapids_tpu_torch.execs.basic import TpuFilterExec, TpuProjectExec
+from spark_rapids_tpu_torch.execs.basic import (
+    TpuFilterExec,
+    TpuProjectExec,
+    TpuRangeExec,
+    TpuUnionExec,
+)
 from spark_rapids_tpu_torch.execs.exchange import (
     TpuCoalescePartitionsExec,
     TpuShuffleExchangeExec,
 )
+from spark_rapids_tpu_torch.execs.expand import TpuExpandExec
 from spark_rapids_tpu_torch.execs.join import (
     TpuBroadcastHashJoinExec,
     TpuShuffledHashJoinExec,
@@ -74,7 +86,7 @@ from spark_rapids_tpu_torch.execs.sort import (
 )
 from spark_rapids_tpu_torch.execs.window import TpuWindowExec
 from spark_rapids_tpu_torch.exprs.base import BoundReference, bind_references
-from spark_rapids_tpu_torch.io.scan import ParquetScanExec
+from spark_rapids_tpu_torch.io.scan import ArrowSourceExec, ParquetScanExec
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.ops.partition import (
     HashPartitioning,
@@ -112,15 +124,29 @@ class Planner:
     def _lower(self, p: L.LogicalPlan, required: Optional[set]) -> TpuExec:
         """``required``: column names the parent reads (None = all)."""
         if isinstance(p, L.Scan):
-            cols = None
-            if required is not None:
-                cols = [f.name for f in p.schema.fields if f.name in required]
-                # a COUNT(*)-only plan still needs one column's row counts
-                cols = cols or [p.schema.fields[0].name]
             return ParquetScanExec(p.paths, p.schema, self.device,
                                    self.conf.get(C.TASK_TARGET_BYTES),
-                                   self.conf.get(C.BATCH_ROWS), cols,
+                                   self.conf.get(C.BATCH_ROWS),
+                                   _leaf_columns(p.schema, required),
                                    p.estimated_rows(), self.runtime)
+        if isinstance(p, L.InMemoryRelation):
+            return ArrowSourceExec(p.table, p.schema, self.device,
+                                   self.conf.get(C.BATCH_ROWS),
+                                   _leaf_columns(p.schema, required),
+                                   self.runtime)
+        if isinstance(p, L.RangeRel):
+            return TpuRangeExec(p.start, p.end, p.step, self.device,
+                                self.conf.get(C.BATCH_ROWS))
+        if isinstance(p, L.Expand):
+            keep = _kept_positions(p.schema, required)
+            need = set().union(*(proj[i].references()
+                                 for proj in p.projections for i in keep))
+            return TpuExpandExec(
+                [[proj[i] for i in keep] for proj in p.projections],
+                T.Schema([p.schema.fields[i] for i in keep]),
+                self._lower(p.children[0], need))
+        if isinstance(p, L.Union):
+            return self._plan_union(p, required)
         if isinstance(p, L.Filter):
             need = None if required is None \
                 else required | p.condition.references()
@@ -128,6 +154,8 @@ class Planner:
                                  self._lower(p.children[0], need))
         if isinstance(p, L.Project):
             need = set().union(*(e.references() for e in p.exprs))
+            if any(_by_position(e) for e in p.exprs):
+                need = None  # ordinals of the unpruned child
             return TpuProjectExec(p.exprs, self._lower(p.children[0], need))
         if isinstance(p, L.Aggregate):
             need = set().union(*(e.references() for e in p.groups),
@@ -174,6 +202,31 @@ class Planner:
             return TpuGlobalLimitExec(p.n, child)
         raise NotImplementedError(
             f"{type(p).__name__} is not lowered by spark_rapids_tpu_torch")
+
+    def _plan_union(self, p: L.Union, required: Optional[set]) -> TpuExec:
+        """Each member lowered for the kept positions' names, then
+        projected to exactly those positions where it kept more (a
+        member with a name twice is lowered whole and projected by
+        position)."""
+        keep = _kept_positions(p.schema, required)
+        members = []
+        for child in p.children:
+            names = child.schema.names
+            unique = len(set(names)) == len(names)
+            need = None if required is None or not unique \
+                else {names[i] for i in keep}
+            m = self._lower(child, need)
+            ords = [m.schema.index_of(names[i]) for i in keep] if unique \
+                else keep
+            if ords != list(range(len(m.schema))):
+                m = TpuProjectExec([
+                    BoundReference(o, m.schema.fields[o].dtype,
+                                   m.schema.fields[o].nullable,
+                                   m.schema.fields[o].name)
+                    for o in ords], m)
+            members.append(m)
+        return TpuUnionExec(T.Schema([p.schema.fields[i] for i in keep]),
+                            *members)
 
     def _exchange(self, partitioning, child: TpuExec
                   ) -> TpuShuffleExchangeExec:
@@ -270,6 +323,30 @@ class Planner:
         return TpuShuffledHashJoinExec(p.left_keys, p.right_keys,
                                        p.join_type, left, right, chunk,
                                        p.condition, partition_wise=True)
+
+
+def _by_position(e) -> bool:
+    """True when the expression reads a column by its ordinal."""
+    return isinstance(e, BoundReference) or any(_by_position(c)
+                                                for c in e.children)
+
+
+def _kept_positions(schema: T.Schema, required: Optional[set]
+                    ) -> list[int]:
+    """The positions of ``schema`` whose names the parent reads (all of
+    them for None); a COUNT(*)-only parent still needs one column's row
+    counts, so never none."""
+    if required is None:
+        return list(range(len(schema)))
+    return [i for i, n in enumerate(schema.names) if n in required] or [0]
+
+
+def _leaf_columns(schema: T.Schema, required: Optional[set]
+                  ) -> Optional[list[str]]:
+    """The columns a source reads: None for all."""
+    if required is None:
+        return None
+    return [schema.names[i] for i in _kept_positions(schema, required)]
 
 
 def broadcast_candidates(join_type: str, lbytes: Optional[int],

@@ -1,4 +1,5 @@
-"""TPC-DS data and the q67, q3, q42, q52, q55 and q93 DataFrames.
+"""TPC-DS data and the q67, q3, q42, q52, q55, q93, q5 and q27
+DataFrames.
 
 - q67: the port's own copy of ``bench.py``'s ``make_store_sales`` (the
   same ``default_rng(67)`` stream, columns, draw order and row-group
@@ -28,6 +29,22 @@
   derives store_returns from store_sales files already written, at the
   spec's SF1 ratio of returns to sales.
 
+- q67 as written (``q67_rollup_dataframe``, the text of the JAX
+  package's ``QUERIES[67]``): store_sales x date_dim x store x item,
+  one year of months, the sales ROLLUP over eight keys (nine grouping
+  sets), ranked within each category; the first 100 rows in the text's
+  order.  ``q67_dataframe`` stays the bench shape.
+- q5 (``q5_dataframe``): UNION ALL of store_sales and store_returns,
+  two weeks of dates and the stores, summed by store.
+- q27 (``q27_dataframe``): store_sales x customer_demographics x
+  date_dim x store x item, averaged over the GROUPING SETS ((item,
+  state), (item), ()).  Its states and demographic values are
+  parameters: the text's ('TN') matches none of the catalog's stores,
+  whose states are the first eight of ``_STATES``.
+- ``make_store(rng, n)`` and ``make_customer_demographics(rng, n)``
+  copy the catalog's ``_store`` and ``_customer_demographics``, drawing
+  in their order.
+
 6 files of 2^20 store_sales rows (~6.3 M rows) is about TPC-DS SF2's
 5.76 M.
 """
@@ -41,10 +58,12 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.execs.sort import SortKey
-from spark_rapids_tpu_torch.exprs.predicates import CaseWhen
+from spark_rapids_tpu_torch.exprs.base import Literal
+from spark_rapids_tpu_torch.exprs.predicates import CaseWhen, Coalesce, In
 from spark_rapids_tpu_torch.exprs.window import Window, rank
-from spark_rapids_tpu_torch.session import col, lit, sum_
+from spark_rapids_tpu_torch.session import avg, col, lit, sum_
 
 #: 1998-01-01 as a date_dim surrogate key: its Julian day number
 DATE_SK_EPOCH = 2450815
@@ -87,6 +106,27 @@ RETURNS_PER_SALE = 287_514 / 2_880_404
 _SALES_DAYS = 365 * 5
 _DAY_NAMES = ["Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
               "Friday", "Saturday"]
+_STATES = ["AL", "CA", "GA", "IL", "IN", "KS", "KY", "LA", "MI", "MN",
+           "MO", "MS", "NC", "NY", "OH", "OK", "SD", "TN", "TX", "VA",
+           "WA", "WI"]
+_CITIES = ["Antioch", "Bethel", "Centerville", "Fairview", "Five Points",
+           "Friendship"]
+_COUNTIES = ["Barrow County", "Daviess County", "Fairfield County",
+             "Franklin Parish", "Luce County", "Mobile County",
+             "Richland County", "Walker County", "Williamson County",
+             "Ziebach County"]
+_EDUCATION = ["Primary", "Secondary", "College", "2 yr Degree",
+              "4 yr Degree", "Advanced Degree", "Unknown"]
+_MARITAL = ["M", "S", "D", "W", "U"]
+_CREDIT = ["Good", "High Risk", "Low Risk", "Unknown"]
+_STORE_NAMES = ["ought", "able", "pri", "ese", "anti", "cally",
+                "ation", "eing", "n st", "bar"]
+_FIRST = ["James", "John", "Robert", "Michael", "William", "David",
+          "Mary", "Patricia", "Linda", "Barbara", "Elizabeth",
+          "Jennifer", "Maria", "Susan", "Margaret", "Dorothy"]
+#: q27's text: its states and demographic values
+Q27_STATES = ("TN",) * 6
+Q27_DEMOGRAPHICS = ("M", "S", "College")
 
 
 def make_store_sales(dirpath: str, n_rows: int = 1 << 21,
@@ -530,4 +570,218 @@ def q93_dataframe(session, store_sales_paths, store_returns_path: str,
             .group_by(col("ss_customer_sk"))
             .agg((sum_(col("act_sales")), "sumsales"))
             .order_by(col("sumsales"), col("ss_customer_sk"))
+            .limit(100))
+
+
+# --------------------------------------------------------------------- #
+# store and customer_demographics; q67 as written, q5, q27
+# --------------------------------------------------------------------- #
+
+
+def make_store(rng: np.random.Generator, n: int) -> pa.Table:
+    """store, ``n`` rows, drawing from ``rng`` in the catalog's order;
+    ``s_state`` from the first eight of ``_STATES``."""
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    cols = {
+        "s_store_sk": sk,
+        "s_store_id": pa.array(_fmt("AAAAAAAA", sk, 8)),
+        "s_rec_start_date": pa.array(np.full(n, 9131, np.int32),
+                                     type=pa.date32()),
+        "s_rec_end_date": pa.nulls(n, pa.date32()),
+        "s_closed_date_sk": pa.nulls(n, pa.int64()),
+        "s_store_name": pa.array(np.array(_STORE_NAMES)[sk % 10]),
+    }
+    cols["s_number_employees"] = rng.integers(200, 300, n).astype(np.int64)
+    cols["s_floor_space"] = rng.integers(5000000, 9000000, n).astype(
+        np.int64)
+    cols["s_hours"] = pa.array(_pick(rng, ["8AM-8AM", "8AM-4PM",
+                                           "8AM-12AM"], n))
+    cols["s_manager"] = pa.array(_pick(rng, _FIRST, n))
+    cols["s_market_id"] = rng.integers(1, 11, n).astype(np.int64)
+    cols["s_geography_class"] = pa.array(np.full(n, "Unknown"))
+    cols["s_market_desc"] = pa.array(_fmt("market description ", sk))
+    cols["s_market_manager"] = pa.array(_pick(rng, _FIRST, n))
+    cols["s_division_id"] = np.ones(n, np.int64)
+    cols["s_division_name"] = pa.array(np.full(n, "Unknown"))
+    cols["s_company_id"] = np.ones(n, np.int64)
+    cols["s_company_name"] = pa.array(np.full(n, "Unknown"))
+    cols["s_street_number"] = pa.array(
+        rng.integers(1, 1000, n).astype(str))
+    cols["s_street_name"] = pa.array(_pick(rng, ["Main", "Oak", "Park"], n))
+    cols["s_street_type"] = pa.array(_pick(rng, ["Street", "Ave", "Blvd"],
+                                           n))
+    cols["s_suite_number"] = pa.array(_fmt("Suite ",
+                                           rng.integers(0, 100, n)))
+    cols["s_city"] = pa.array(_pick(rng, _CITIES, n))
+    cols["s_county"] = pa.array(_pick(rng, _COUNTIES, n))
+    cols["s_state"] = pa.array(_pick(rng, _STATES[:8], n))
+    cols["s_zip"] = pa.array(_fmt("", rng.integers(10000, 99999, n), 5))
+    cols["s_country"] = pa.array(np.full(n, "United States"))
+    cols["s_gmt_offset"] = rng.choice([-5.0, -6.0], n)
+    cols["s_tax_precentage"] = np.round(rng.uniform(0.0, 0.11, n), 2)
+    return pa.table(cols)
+
+
+def make_customer_demographics(rng: np.random.Generator,
+                               n: int) -> pa.Table:
+    """customer_demographics, ``n`` rows, drawing from ``rng`` in the
+    catalog's order (SF1 has 1 920 800)."""
+    return pa.table({
+        "cd_demo_sk": np.arange(1, n + 1, dtype=np.int64),
+        "cd_gender": pa.array(_pick(rng, ["M", "F"], n)),
+        "cd_marital_status": pa.array(_pick(rng, _MARITAL, n)),
+        "cd_education_status": pa.array(_pick(rng, _EDUCATION, n)),
+        "cd_purchase_estimate": (rng.integers(1, 20, n) * 500).astype(
+            np.int64),
+        "cd_credit_rating": pa.array(_pick(rng, _CREDIT, n)),
+        "cd_dep_count": rng.integers(0, 7, n).astype(np.int64),
+        "cd_dep_employed_count": rng.integers(0, 7, n).astype(np.int64),
+        "cd_dep_college_count": rng.integers(0, 7, n).astype(np.int64),
+    })
+
+
+def write_store(dirpath: str, n: int = SF1_ROWS["store"],
+                seed: int = 12) -> str:
+    """store as one Parquet file; its path."""
+    path = os.path.join(dirpath, "store.parquet")
+    pq.write_table(make_store(np.random.default_rng(seed), n), path)
+    return path
+
+
+def write_customer_demographics(
+        dirpath: str, n: int = SF1_ROWS["customer_demographics"],
+        seed: int = 27) -> str:
+    """customer_demographics as one Parquet file; its path."""
+    path = os.path.join(dirpath, "customer_demographics.parquet")
+    pq.write_table(make_customer_demographics(np.random.default_rng(seed),
+                                              n), path)
+    return path
+
+
+#: q67's ROLLUP keys, most significant first
+Q67_KEYS = ("i_category", "i_class", "i_brand", "i_product_name", "d_year",
+            "d_qoy", "d_moy", "s_store_id")
+
+
+def q67_rollup_dataframe(session, date_dim_path: str, store_sales_paths,
+                         item_path: str, store_path: str):
+    """TPC-DS q67 as its text reads: the year of months 1200-1211, sales
+    (price x quantity, 0 when NULL) rolled up over ``Q67_KEYS``, ranked
+    within each category by sales descending (the grand total's NULL
+    category its own partition), ranks 1-100, ordered by every key,
+    the sales and the rank (NULLs first), the first 100 rows.  The
+    dimension sides are narrow projections, so each broadcasts and the
+    date filter reaches the store_sales scan."""
+    ss = session.read_parquet(*store_sales_paths)
+    dd = (session.read_parquet(date_dim_path)
+          .where((col("d_month_seq") >= lit(1200))
+                 & (col("d_month_seq") <= lit(1200 + 11)))
+          .select(col("d_date_sk"), col("d_year"), col("d_qoy"),
+                  col("d_moy")))
+    st = session.read_parquet(store_path).select(col("s_store_sk"),
+                                                 col("s_store_id"))
+    it = session.read_parquet(item_path).select(
+        col("i_item_sk"), col("i_category"), col("i_class"), col("i_brand"),
+        col("i_product_name"))
+    sales = (ss.join(dd, left_on=[col("ss_sold_date_sk")],
+                     right_on=[col("d_date_sk")])
+             .join(st, left_on=[col("ss_store_sk")],
+                   right_on=[col("s_store_sk")])
+             .join(it, left_on=[col("ss_item_sk")],
+                   right_on=[col("i_item_sk")])
+             .select(*[col(k) for k in Q67_KEYS],
+                     Coalesce(col("ss_sales_price") * col("ss_quantity"),
+                              lit(0.0)).alias("sales")))
+    dw1 = sales.rollup(*Q67_KEYS).agg((sum_(col("sales")), "sumsales"))
+    spec = Window.partition_by("i_category").order_by("sumsales", desc=True)
+    dw2 = dw1.select(*[col(k) for k in Q67_KEYS], col("sumsales"),
+                     rank().over(spec).alias("rk"))
+    return (dw2.where(col("rk") <= lit(100))
+            .order_by(*[col(k) for k in Q67_KEYS], col("sumsales"),
+                      col("rk"))
+            .limit(100))
+
+
+#: q5's dates: 2000-08-23 and 14 days on, as days since the epoch
+Q5_DATES = ((dt.date(2000, 8, 23) - _EPOCH).days,
+            (dt.date(2000, 9, 6) - _EPOCH).days)
+
+
+def q5_dataframe(session, date_dim_path: str, store_sales_paths,
+                 store_returns_path: str, store_path: str):
+    """TPC-DS q5's store channel: store_sales and store_returns UNION ALL
+    (sales and profit from one, return amount and net loss from the
+    other, 0 in the columns a member lacks), joined to two weeks of
+    dates and to the stores, summed by store id; the first 100 by id.
+    The returns member keeps its own column names: the union names its
+    columns by the first member's, by position."""
+    sales = session.read_parquet(*store_sales_paths).select(
+        col("ss_store_sk").alias("store_sk"),
+        col("ss_sold_date_sk").alias("date_sk"),
+        col("ss_ext_sales_price").alias("sales_price"),
+        col("ss_net_profit").alias("profit"),
+        lit(0.0).alias("return_amt"), lit(0.0).alias("net_loss"))
+    returns = session.read_parquet(store_returns_path).select(
+        col("sr_store_sk"), col("sr_returned_date_sk"),
+        lit(0.0).alias("sales_price"), lit(0.0).alias("profit"),
+        col("sr_return_amt"), col("sr_net_loss"))
+    dd = (session.read_parquet(date_dim_path)
+          .where((col("d_date") >= Literal(Q5_DATES[0], T.DATE))
+                 & (col("d_date") <= Literal(Q5_DATES[1], T.DATE)))
+          .select(col("d_date_sk")))
+    st = session.read_parquet(store_path).select(col("s_store_sk"),
+                                                 col("s_store_id"))
+    ssr = (sales.union(returns)
+           .join(dd, left_on=[col("date_sk")], right_on=[col("d_date_sk")])
+           .join(st, left_on=[col("store_sk")],
+                 right_on=[col("s_store_sk")])
+           .group_by(col("s_store_id"))
+           .agg((sum_(col("sales_price")), "sales"),
+                (sum_(col("profit")), "profit"),
+                (sum_(col("return_amt")), "returns_amt"),
+                (sum_(col("net_loss")), "profit_loss")))
+    return (ssr.select(col("s_store_id"), col("sales"), col("returns_amt"),
+                       (col("profit") - col("profit_loss")).alias("profit"))
+            .order_by(col("s_store_id"))
+            .limit(100))
+
+
+def q27_dataframe(session, date_dim_path: str, store_sales_paths,
+                  item_path: str, store_path: str, cdemo_path: str,
+                  states=Q27_STATES, demographics=Q27_DEMOGRAPHICS):
+    """TPC-DS q27: 2002's sales to one (gender, marital status,
+    education) in the stores of ``states``, the averages of quantity,
+    list price, coupon and sales price over GROUPING SETS ((item id,
+    state), (item id), ()), ordered by item id and state (NULLs last),
+    the first 100 rows."""
+    gender, marital, education = demographics
+    ss = session.read_parquet(*store_sales_paths)
+    cd = (session.read_parquet(cdemo_path)
+          .where(col("cd_gender").eq(lit(gender))
+                 & col("cd_marital_status").eq(lit(marital))
+                 & col("cd_education_status").eq(lit(education)))
+          .select(col("cd_demo_sk")))
+    dd = (session.read_parquet(date_dim_path)
+          .where(col("d_year").eq(lit(2002))).select(col("d_date_sk")))
+    st = (session.read_parquet(store_path)
+          .where(In(col("s_state"), tuple(states)))
+          .select(col("s_store_sk"), col("s_state")))
+    it = session.read_parquet(item_path).select(col("i_item_sk"),
+                                                col("i_item_id"))
+    joined = (ss.join(cd, left_on=[col("ss_cdemo_sk")],
+                      right_on=[col("cd_demo_sk")])
+              .join(dd, left_on=[col("ss_sold_date_sk")],
+                    right_on=[col("d_date_sk")])
+              .join(st, left_on=[col("ss_store_sk")],
+                    right_on=[col("s_store_sk")])
+              .join(it, left_on=[col("ss_item_sk")],
+                    right_on=[col("i_item_sk")]))
+    keys = ("i_item_id", "s_state")
+    return (joined.grouping_sets([keys, keys[:1], ()], keys)
+            .agg((avg(col("ss_quantity")), "agg1"),
+                 (avg(col("ss_list_price")), "agg2"),
+                 (avg(col("ss_coupon_amt")), "agg3"),
+                 (avg(col("ss_sales_price")), "agg4"))
+            .order_by(SortKey(col("i_item_id"), nulls_last=True),
+                      SortKey(col("s_state"), nulls_last=True))
             .limit(100))

@@ -109,6 +109,8 @@ def from_arrow_type(at) -> DataType:
         return STRING
     if pa.types.is_date32(at):
         return DATE
+    if pa.types.is_null(at):
+        return NULL
     raise TypeError(f"arrow type {at} is not supported by this port yet")
 
 

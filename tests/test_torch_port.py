@@ -56,6 +56,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(mods) >= 20
+    # the grouping-set and union slice's modules are among them
+    assert {"spark_rapids_tpu_torch.execs.expand",
+            "spark_rapids_tpu_torch.exprs.cast",
+            "spark_rapids_tpu_torch.execs.basic",
+            "spark_rapids_tpu_torch.io.scan"} <= set(mods)
 
 
 def test_port_sources_name_no_jax_import():
@@ -531,6 +536,64 @@ def test_q93_outer_join_on_the_card(cuda, tmp_path):
         assert g["sumsales"] == pytest.approx(c["sumsales"], rel=1e-9)
     assert got.column("ss_customer_sk").to_pylist() == \
         cpu.column("ss_customer_sk").to_pylist()
+
+
+def _rows_close(got: pa.Table, want: pa.Table) -> None:
+    """Rows in order: floats within rel 1e-9, everything else equal."""
+    assert got.schema.names == want.schema.names
+    assert got.num_rows == want.num_rows
+    for g, w in zip(got.to_pylist(), want.to_pylist()):
+        for k in g:
+            if isinstance(w[k], float):
+                assert g[k] == pytest.approx(w[k], rel=1e-9, nan_ok=True), k
+            else:
+                assert g[k] == w[k], (k, g, w)
+
+
+@pytest.mark.cuda
+def test_grouping_sets_union_and_value_aggregates_on_the_card(cuda,
+                                                             tmp_path):
+    """q67 as written (an Expand under the partial aggregate, K1 over
+    its 9-column tuple), q5 (a union), and min / max / first / last /
+    count_distinct by store, on the card against the CPU."""
+    from spark_rapids_tpu_torch import tpcds
+    from spark_rapids_tpu_torch.session import (
+        count_distinct,
+        first,
+        last,
+        max_,
+        min_,
+    )
+
+    d = str(tmp_path)
+    dd, ss, item = tpcds.write_q3_tables(d, n_files=2, rows_per_file=1 << 15)
+    store = tpcds.write_store(d)
+    sr, _ = tpcds.write_q93_tables(d, ss)
+
+    def run(device):
+        s = TorchSession({"spark.rapids.tpu.sql.scan.taskTargetBytes": 1},
+                         device=device)
+        sales = s.read_parquet(*ss)
+        by_store = sales.group_by(col("ss_store_sk"))
+        return {
+            "q67": tpcds.q67_rollup_dataframe(s, dd, ss, item, store),
+            "q5": tpcds.q5_dataframe(s, dd, ss, sr, store),
+            "values": by_store.agg(
+                (min_(col("ss_sales_price")), "a"),
+                (max_(col("ss_net_profit")), "b"),
+                (first(col("ss_customer_sk")), "c"),
+                (last(col("ss_sold_date_sk"), True), "d")).order_by(
+                col("ss_store_sk")),
+            "distinct": by_store.agg((count_distinct(
+                col("ss_customer_sk")), "n")).order_by(col("ss_store_sk")),
+        }
+
+    kernels.hash_columns.launches = 0
+    got = {k: df.collect() for k, df in run("cuda").items()}
+    assert kernels.hash_columns.launches > 0
+    for k, df in run("cpu").items():
+        _rows_close(got[k], df.collect())
+    assert got["q67"].num_rows == 100 and got["q5"].num_rows == 12
 
 
 def test_build_paths_live_in_the_package():

@@ -521,5 +521,7 @@ def test_unported_windows_raise_when_planned(files):
         "ts", "g").range_between(-1, 1)
     with pytest.raises(NotImplementedError):
         df.select(P.sum_("v").over(two_keys).alias("m")).physical_plan()
+    # a group-by min runs since min / max joined the group-by; over a
+    # string it is still not ported
     with pytest.raises(NotImplementedError):
-        df.group_by(P.col("k")).agg((P.min_("v"), "m")).physical_plan()
+        df.group_by(P.col("k")).agg((P.min_("s"), "m")).physical_plan()
