@@ -122,6 +122,26 @@ Phases, one JSON line each:
            and last (NULLs kept and skipped), and COUNT(DISTINCT
            ss_customer_sk) by store, each against pyarrow: the first and
            last rows of the stable sort, exact;
+  sql      the 22 store-channel TPC-DS texts as written
+           (``tpcds_queries.STORE_CHANNEL``) through
+           ``SqlSession(device="cuda")`` over the 13 store-channel tables
+           (``tpcds.write_store_channel``: q3ds's six store_sales files,
+           q93's store_returns, the whole calendar and every dimension at
+           its SF1 count), one line each (``sql_text``): the plan's
+           joins, the rows, one warm-up and the median of SQL_TIMED_RUNS
+           timed runs,
+           one profiled run (device busy, idle share, kernel count; no
+           scans-alone breakdown), and hash_columns launches equal to
+           runs x (the map batches, filter folds and range tables a run
+           reaches, and what planning launches: q24's scalar subquery
+           runs while its query is planned); a text that gives 0 rows
+           runs its variant (``tpcds_queries.variant``) next.  A text
+           with a hand-built twin (q3, q42, q52, q55, q93, q67, q5, q27's
+           variant) is held against the twin's pyarrow reference; every
+           other against the port's device="cpu" run of the same text
+           over SQL_CPU_FILES of the store_sales files, which the card
+           runs once more for it (integers, strings and NULLs exact,
+           floats within REL_TOL, rows as multisets);
   concurrency
            q6, q1, q3 (filter on), q67, q3ds and q93 at the sizes above,
            and q67_rollup and q5,
@@ -137,15 +157,16 @@ Phases, one JSON line each:
            busy, idle share, kernel count: the profiler sees the pool
            threads' kernels);
   main     hash_columns at the calls q1, q3 (filter off and on), q67,
-           q3ds, q93, the star queries, q67_rollup, q5, q27 and
-           agg_family made (the largest call of
+           q3ds, q93, the star queries, q67_rollup, q5, q27, agg_family
+           and the sql texts made (the largest call of
            each key signature and seed in each phase: the filters'
            lanes and range tables hash from seeds 42 and 0x9747B28C),
            and hash_string on one of q1's key columns, against their
            plain versions, with the device's own time per launch
            (torch.profiler kernel time over a loop) and the
            host-inclusive time per call (host clock over the same loop)
-           reported apart.
+           reported apart; a call under TIMED_MIN_ROWS rows that is not
+           its phase's largest is checked and not timed.
 Then the per-kernel summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises before that line and
 exits non-zero.  Without CUDA, or outside a checkout of the repository,
@@ -174,7 +195,9 @@ EXACT_WIDTHS = (1, 2, 3, 4, 5, 7, 8, 16, 33, 56, 57, 64, 128, 200)
 #: staged through shared memory, and read straight from global memory
 WIDE_WIDTH, DIRECT_WIDTH = 256, 8000
 EXACT_ROWS = (1, 1023, 1025, 65537)
-EXACT_PARTITIONS = (0, 1, 8, 200)
+#: (0 = hashes; 1 and 8 until the sql phase pushed the run past ten
+#: minutes on an H100 80GB HBM3 at 700 W: 8 stays in the unaligned case)
+EXACT_PARTITIONS = (0, 200)
 #: rows cut off the front of a matrix so its data_ptr() is unaligned
 SLICE_ROWS = 3
 TIMED_ROWS = 6 * (1 << 20)
@@ -206,9 +229,14 @@ REL_TOL = 1e-9
 #: version's (tens to hundreds of PyTorch kernels a call, so fewer; 10
 #: until the run passed 9 minutes)
 KERNEL_ITERS, PLAIN_ITERS = 50, 5
+#: main-path calls below this many rows are checked, not timed, unless
+#: they are their phase's largest (all were until the sql phase pushed
+#: the run past ten minutes on an H100 80GB HBM3 at 700 W)
+TIMED_MIN_ROWS = 1 << 14
 #: serial / pooled pairs of each earlier query in the concurrency phase
-#: (4 until the run passed 9 minutes), and of q67_rollup and q5
-CONCURRENCY_PAIRS, NEW_PAIRS = 2, 1
+#: (4 until the run passed 9 minutes, 2 until the sql phase pushed it
+#: past ten, on an H100 80GB HBM3 at 700 W), and of q67_rollup and q5
+CONCURRENCY_PAIRS, NEW_PAIRS = 1, 1
 
 
 _START = time.perf_counter()
@@ -525,7 +553,9 @@ def signature(cols) -> tuple:
 def at_main_path(torch, kernels, calls: dict) -> dict:
     """hash_columns at the largest call of each key signature each phase
     of the main path made (``calls``: phase -> its calls): held against
-    its plain version on the same inputs, then timed both ways."""
+    its plain version on the same inputs, then timed both ways where it
+    hashes at least TIMED_MIN_ROWS rows or is its phase's largest call
+    (a smaller one times the launch, not the kernel)."""
     largest: dict = {}
     for phase, phase_calls in calls.items():
         for call in phase_calls:
@@ -533,6 +563,9 @@ def at_main_path(torch, kernels, calls: dict) -> dict:
             key = (phase, signature(cols), seed, parts)
             if key not in largest or n > largest[key][1]:
                 largest[key] = call
+    phase_top = {}
+    for (phase, *_), call in largest.items():
+        phase_top[phase] = max(phase_top.get(phase, 0), call[1])
     rows = []
     for (phase, sig, _, _), (cols, n, seed, parts) in largest.items():
         key = (n, sig, seed, parts)
@@ -544,6 +577,11 @@ def at_main_path(torch, kernels, calls: dict) -> dict:
         err = int((got.long() - want.long()).abs().max()) if n else 0
         if err:
             raise AssertionError(f"hash_columns disagrees at {key}")
+        if n < TIMED_MIN_ROWS and n < phase_top[phase]:
+            rows.append({"phase": phase, "n": n, "columns": list(sig),
+                         "seed": seed, "partitions": parts,
+                         "max_abs_err": err, "timed": False})
+            continue
         kt = device_and_host_ms(
             torch, lambda: kernels.hash_columns(cols, n, dev, seed, parts),
             iters=KERNEL_ITERS)
@@ -563,7 +601,7 @@ def at_main_path(torch, kernels, calls: dict) -> dict:
                      "kernels_per_call": kt["device_kernels_per_call"],
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "share_of_bound": bound_ms / kt["device_ms"]})
-    return max(rows, key=lambda r: r["ms"]), rows
+    return max((r for r in rows if "ms" in r), key=lambda r: r["ms"]), rows
 
 
 def k1_at_main_path(torch, kernels, calls: list) -> dict:
@@ -781,14 +819,38 @@ def join_strategies(plan) -> list:
             for n in plan.walk() if hasattr(n, "build_is_right")]
 
 
+def reached(plan) -> list:
+    """The nodes a run of ``plan`` executes: every one, but for the
+    stream side of an inner, semi or cross join whose build side (drained
+    here) holds no rows, which such a join never pulls."""
+    out = []
+
+    def visit(node):
+        out.append(node)
+        if getattr(node, "join_type", None) in ("inner", "left_semi",
+                                                "cross"):
+            build = node.children[1 if node.build_is_right else 0]
+            if not any(b.num_rows for b in build.execute()):
+                visit(build)
+                return
+        for child in node.children:
+            visit(child)
+
+    visit(plan)
+    for node in plan.walk():
+        if hasattr(node, "close"):
+            node.close()
+    return out
+
+
 def filter_folds(plan) -> tuple:
     """(folds, tables): the non-empty batches the plan's runtime filters
-    fold, once for each filter of a build exec, and the filters published
-    with a range table (each fold and each table hashes the key's two
-    lanes, one K1 launch each): each build exec drained on its own, which
-    publishes its filters."""
+    fold, once for each filter of a build exec a run reaches, and the
+    filters published with a range table (each fold and each table
+    hashes the key's two lanes, one K1 launch each): each build exec
+    drained on its own, which publishes its filters."""
     folds = tables = 0
-    for node in plan.walk():
+    for node in reached(plan):
         if type(node).__name__ == "TpuRuntimeFilterBuildExec":
             folds += len(node.entries) * sum(
                 1 for p in range(node.num_partitions)
@@ -827,33 +889,55 @@ def filtered_run(make_df, RF) -> dict:
 
 
 def map_batches(plan) -> int:
-    """Non-empty batches the plan's hash exchanges hash: each exchange's
-    child drained on its own (its own hashes launch here too), so an
-    Expand under it counts its batches (it multiplies rows, not
-    batches) and a union its members' partitions.  A range exchange
+    """Non-empty batches the plan's hash exchanges hash in one run of it:
+    each hash exchange's child counted as it feeds the exchange's map
+    tasks while the whole plan is drained, so an Expand under it counts
+    its batches (it multiplies rows, not batches), a union its members'
+    partitions, and an exchange a run never pulls (under the stream side
+    of a join whose build side is empty) nothing.  A range exchange
     hashes nothing."""
-    n = 0
+    import threading
+
+    count, lock = [0], threading.Lock()
+
+    def counted(feed):
+        def execute_partition(p):
+            for batch in feed(p):
+                if batch.num_rows:
+                    with lock:
+                        count[0] += 1
+                yield batch
+        return execute_partition
+
     for ex in plan.walk():
         if type(ex).__name__ == "TpuShuffleExchangeExec" and type(
                 ex.partitioning).__name__ == "HashPartitioning":
             child = ex.children[0]
-            n += sum(1 for p in range(child.num_partitions)
-                     for b in child.execute_partition(p) if b.num_rows)
+            child.execute_partition = counted(child.execute_partition)
+    for _ in plan.execute():
+        pass
     for node in plan.walk():
         if hasattr(node, "close"):
             node.close()
-    return n
+    return count[0]
 
 
 def launches_planned(make_df) -> dict:
     """What one run launches, from its plan drained piece by piece: the
     hash exchanges' map batches, and the runtime filters' folds and
-    range tables (two K1 launches each)."""
-    planned = map_batches(make_df().physical_plan())
+    range tables (two K1 launches each); and what planning itself
+    launches (a scalar subquery runs, with its exchanges, while its
+    query is planned)."""
+    from spark_rapids_tpu_torch.ops import kernels
+
+    before = kernels.hash_columns.launches
+    plan = make_df().physical_plan()
+    planning = kernels.hash_columns.launches - before
+    planned = map_batches(plan)
     folds, tables = filter_folds(make_df().physical_plan())
     return {"planned_map_batches": planned, "planned_filter_folds": folds,
-            "planned_range_tables": tables,
-            "per_run": planned + 2 * folds + 2 * tables}
+            "planned_range_tables": tables, "planning_launches": planning,
+            "per_run": planned + 2 * folds + 2 * tables + planning}
 
 
 def check_launches(name: str, rec: dict, planned: dict) -> None:
@@ -892,13 +976,15 @@ def compare(got_table, want: dict, n_keys: int) -> float:
 
 
 def run_query(torch, make_df, kernels, check, calls: list,
-              quick: bool = False) -> dict:
+              quick: bool = False, scans: bool = True,
+              timed: int = 3) -> dict:
     """The main path: ``make_df()`` is the query's DataFrame, ``check``
     holds a result against its reference and returns the largest
-    relative float error.  One warm-up, 3 timed runs and ``breakdown``;
-    ``quick``: one timed run only.  Counts reset just before, read just
-    after; every hash_columns call is recorded with its inputs."""
-    runs = 1 if quick else 4
+    relative float error.  One warm-up, ``timed`` timed runs and
+    ``breakdown`` (``scans`` False: the profiled run only); ``quick``:
+    one timed run only.  Counts reset just before, read just after;
+    every hash_columns call is recorded with its inputs."""
+    runs = 1 if quick else 1 + timed
     original = kernels.hash_columns
 
     def recording(cols, num_rows, device, seed=42, num_partitions=0):
@@ -921,10 +1007,17 @@ def run_query(torch, make_df, kernels, check, calls: list,
                 "hash_string": kernels.hash_string.launches}
     worst = check(result)
     warm = None if quick else walls.pop(0)
+    if quick:
+        extra = {}
+    elif scans:
+        extra = breakdown(torch, make_df)
+    else:
+        extra = profiled_run(torch, make_df)
+        del extra["kernel_counts"]
     return {"rows": result.num_rows, "warmup_s": warm,
             "wall_s": walls, "median_s": statistics.median(walls),
             "runs": runs, "launches": launches, "max_rel_err": worst,
-            **({} if quick else breakdown(torch, make_df))}
+            **extra}
 
 
 #: the scan's host split (io/scan.py, columnar/arrow.py): nanosecond
@@ -1775,6 +1868,219 @@ def agg_family_phase(torch, pa, pc, pq, star, kernels, TorchSession,
     return records, calls
 
 
+#: store_sales files the sql phase's CPU runs read (its card runs read
+#: all Q3DS_FILES): the texts without a hand-built twin are held against
+#: the port's device="cpu" run of the same text over these files; and
+#: each text's timed runs after its warm-up (2 files and 3 runs until a
+#: run of the script took 844 s on an H100 80GB HBM3 at 700 W)
+SQL_CPU_FILES, SQL_TIMED_RUNS = 1, 2
+
+
+def sql_twin_checks(pa, pc, pq, star, tpcds) -> dict:
+    """Text -> a check of its card result against the pyarrow reference
+    of its hand-built twin's DataFrame (the twin computes what the text
+    does): q3 (q3ds), q42, q52, q55, q93, q67 (q67_rollup), q5 and q27's
+    variant (the state most stores are in, as the q27 phase's)."""
+    def star_check(name, sum_col, names=None):
+        _fn, (year, manager), keys, star_names, _, order = \
+            STAR_QUERIES[name]
+        names = star_names if names is None else names
+        ref = reference_star(
+            pc, star, lambda d: pc.and_(pc.equal(d["d_moy"], 11),
+                                        pc.equal(d["d_year"], year)),
+            lambda i: pc.equal(i["i_manager_id"], manager), keys, names,
+            order)
+        out_keys = tuple(names.get(k, k) for k in keys)
+        return lambda t: compare_ranked(t, ref, 100, out_keys, sum_col,
+                                        "sum")
+
+    names3 = {"i_brand_id": "brand_id", "i_brand": "brand"}
+    ref3 = reference_star(
+        pc, star, lambda d: pc.equal(d["d_moy"], 11),
+        lambda i: pc.equal(i["i_manufact_id"], 128),
+        ["d_year", "i_brand_id", "i_brand"], names3,
+        [("d_year", False), ("sum", True), ("brand_id", False)])
+    sales = read_sales(pa, pq, star, [
+        "ss_item_sk", "ss_ticket_number", "ss_customer_sk", "ss_quantity",
+        "ss_sales_price"])
+    returns = pq.read_table(star["q93_paths"][0], columns=[
+        "sr_item_sk", "sr_ticket_number", "sr_reason_sk",
+        "sr_return_quantity"])
+    ref93, _, _ = reference_q93(pa, pc, sales, returns,
+                                pq.read_table(star["q93_paths"][1]),
+                                tpcds.Q93_REASON)
+    del sales, returns
+    ref67 = reference_q67_rollup(pa, pc, pq, star, tpcds)
+    ref5, _ = reference_q5(pa, pc, pq, star, tpcds)
+    states = star["store"]["s_state"].to_pylist()
+    state = max(sorted(set(states)), key=states.count)
+    ref27 = reference_q27(pa, pc, pq, star, tpcds, (state,))
+
+    def check5(t):
+        ids = t["s_store_id"].to_pylist()
+        if ids != sorted(ids):
+            raise AssertionError("q5 rows are not in store id order")
+        return compare(t, ref5, 1)
+
+    return {
+        "q3": lambda t: compare_ranked(t, ref3, 100,
+                                       ("d_year", "brand_id", "brand"),
+                                       "sum_agg", "sum"),
+        "q42": star_check("q42", "sum"),
+        "q52": star_check("q52", "ext_price"),
+        "q55": star_check("q55", "ext_price"),
+        "q93": lambda t: compare_ranked(t, ref93, 100, ("ss_customer_sk",),
+                                        "sumsales", "act_sum"),
+        "q67": lambda t: compare_q67_rollup(t, ref67),
+        "q5": check5,
+        "q27_variant": (state, lambda t: compare_rows(t, ref27, 2)),
+    }
+
+
+def same_result(got, want) -> float:
+    """The card's result against the CPU's, as multisets of rows: names
+    equal, integers, strings and NULLs exact, floats within REL_TOL.
+    Rows pair up after sorting on their non-float values, then their
+    floats rounded to 9 significant digits.  Returns the largest
+    relative float difference."""
+    if got.schema.names != want.schema.names:
+        raise AssertionError(f"columns {got.schema.names} vs "
+                             f"{want.schema.names}")
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{got.num_rows} rows, the CPU run has "
+                             f"{want.num_rows}")
+
+    def key(row):
+        return ([(v is None, 0 if isinstance(v, float) or v is None else v)
+                 for v in row],
+                [(v is None, float(f"{v:.9g}") if isinstance(v, float)
+                  else 0) for v in row])
+
+    def rows(t):  # by position: a text may name two columns alike (q13)
+        return list(zip(*(c.to_pylist() for c in t.columns)))
+
+    g, w = sorted(rows(got), key=key), sorted(rows(want), key=key)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g, w)):
+        for x, y in zip(a, b):
+            if isinstance(x, float) and isinstance(y, float):
+                rel = abs(x - y) / max(abs(y), 1e-300) if x != y else 0.0
+                worst = max(worst, rel)
+                if rel > REL_TOL:
+                    raise AssertionError(f"row {i}: {a} vs CPU {b}")
+            elif x != y or type(x) is not type(y):
+                raise AssertionError(f"row {i}: {a} vs CPU {b}")
+    return worst
+
+
+def sql_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
+              TTB) -> tuple:
+    """The 22 store-channel TPC-DS texts as written, through the SQL
+    frontend on the card, over the 13 tables (``write_store_channel``:
+    q3ds's six store_sales files, q93's store_returns, the whole
+    calendar and SF1's dimensions): for each text its plan's joins, the
+    rows, one warm-up and the median of SQL_TIMED_RUNS timed runs, one
+    profiled run (device busy, idle share, kernel count), and K1's
+    launches (equal to runs x its plan's map batches, folds and range
+    tables, and what planning launches).  A text with
+    a hand-built twin is held against the twin's pyarrow reference; the
+    others against the port's device="cpu" run of the same text over
+    SQL_CPU_FILES store_sales files, with the card's run over the same
+    files.  A text that gives 0 rows runs its variant too.  Emits the
+    phase's line; returns its records and hash_columns calls."""
+    from spark_rapids_tpu_torch.frontends.sql import SqlSession
+    from spark_rapids_tpu_torch.tpcds_queries import (
+        QUERIES,
+        STORE_CHANNEL,
+        variant,
+    )
+
+    dd_path, ss_paths, item_path = star["paths"]
+    t0 = time.perf_counter()
+    tables = tpcds.write_store_channel(star["dir"], written={
+        "date_dim": [dd_path], "store_sales": ss_paths,
+        "item": [item_path], "store": [star["store_path"]],
+        "customer_demographics": [star["cdemo_path"]],
+        "store_returns": [star["q93_paths"][0]],
+        "reason": [star["q93_paths"][1]]})
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    twins = sql_twin_checks(pa, pc, pq, star, tpcds)
+    ref_s = time.perf_counter() - t0
+    conf = {TTB: Q3DS_TASK_TARGET_BYTES}
+
+    def frontend(device, n_sales):
+        fe = SqlSession(conf, device=device)
+        for name, paths in tables.items():
+            fe.register_parquet(name, *(
+                paths[:n_sales] if name == "store_sales" else paths))
+        return fe
+
+    card, card_cut = frontend("cuda", Q3DS_FILES), \
+        frontend("cuda", SQL_CPU_FILES)
+    cpu = frontend("cpu", SQL_CPU_FILES)
+    texts = [(f"q{q}", QUERIES[q]) for q in STORE_CHANNEL]
+    records, largest = {}, {}
+    cpu_s = 0.0
+    i = 0
+    while i < len(texts):
+        name, text = texts[i]
+        i += 1
+
+        def text_df(text=text):
+            return card.sql(text)
+
+        plan = text_df().physical_plan()
+        planned = launches_planned(text_df)
+        twin = twins.get(name)
+        if isinstance(twin, tuple):  # q27's variant: the phase's state
+            state, twin = twin
+            text = text.replace("'LA'", f"'{state}'")
+        if twin is not None:
+            check, versus = twin, "twin's pyarrow reference"
+        else:
+            t0 = time.perf_counter()
+            want = cpu.sql(text).collect()
+            cpu_s += time.perf_counter() - t0
+            got = card_cut.sql(text).collect()
+            cut = {"cut_rows": got.num_rows,
+                   "cut_max_rel_err": same_result(got, want)}
+            check, versus = (lambda t: 0.0), \
+                f"device='cpu' over {SQL_CPU_FILES} files"
+        calls: list = []
+        rec = run_query(torch, text_df, kernels, check, calls, scans=False,
+                        timed=SQL_TIMED_RUNS)
+        check_launches(name, rec, planned)
+        records[name] = {"checked_against": versus,
+                         **({} if twin is not None else cut),
+                         "joins": join_strategies(plan), **planned,
+                         "hash_columns_calls": sorted(
+                             {(n, signature(cols), seed, parts)
+                              for cols, n, seed, parts in calls}), **rec}
+        emit("sql_text", name=name, **{k: v for k, v in records[name].items()
+                                        if k != "device_kernels"})
+        # keep the largest call of each signature only: the card memory
+        # the recorded inputs hold stays small
+        for call in calls:
+            key = (signature(call[0]), call[2], call[3])
+            if key not in largest or call[1] > largest[key][1]:
+                largest[key] = call
+        if rec["rows"] == 0 and not name.endswith("_variant"):
+            q = int(name[1:])
+            texts.insert(i, (f"{name}_variant", variant(q)))
+    emit("sql", tables={k: [os.path.basename(p) for p in v]
+                        for k, v in tables.items()},
+         table_rows={k: sum(pq.read_metadata(p).num_rows for p in v)
+                     for k, v in tables.items()},
+         datagen_s=gen_s, reference_s=ref_s, cpu_files=SQL_CPU_FILES,
+         cpu_s=cpu_s, summary={
+             name: {k: r[k] for k in (
+                 "rows", "median_s", "device_busy_s", "device_idle_share",
+                 "device_kernel_count", "launches", "checked_against")}
+             for name, r in records.items()})
+    return records, list(largest.values())
+
+
 def concurrency_phase(torch, kernels, TorchSession, SERIAL,
                       queries: dict) -> dict:
     """Each query serially (``config.SERIAL``: one task thread, one
@@ -1850,7 +2156,15 @@ def concurrency_phase(torch, kernels, TorchSession, SERIAL,
     return out
 
 
+#: seconds after which the script prints every thread's stack and exits
+#: non-zero (the run's limit is 1200 s)
+WATCHDOG_S = 1150
+
+
 def main() -> int:
+    import faulthandler
+
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
 
     if not torch.cuda.is_available():
@@ -2000,6 +2314,8 @@ def main() -> int:
                                         TorchSession, tpcds, TTB)
         family, family_calls = agg_family_phase(torch, pa, pc, pq, star,
                                                 kernels, TorchSession, TTB)
+        sql, sql_calls = sql_phase(torch, pa, pc, pq, star, kernels,
+                                   TorchSession, tpcds, TTB)
         dd_path, star_ss, item_path = star["paths"]
         sr_path, reason_path = star["q93_paths"]
         store_path = star["store_path"]
@@ -2038,12 +2354,12 @@ def main() -> int:
         "q1": q1_calls, "q3": q3_calls, "q3_rf_on": q3_rf_calls,
         "q67": q67_calls, "q3ds": q3ds_calls, "q93": q93_calls,
         "star": star_calls, "q67_rollup": q67r_calls, "q5": q5_calls,
-        "q27": q27_calls, "agg_family": family_calls})
+        "q27": q27_calls, "agg_family": family_calls, "sql": sql_calls})
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
     runs = (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off, q93, *star_runs.values(),
-            q67r, q5, *q27_runs.values(), *family.values())
+            q67r, q5, *q27_runs.values(), *family.values(), *sql.values())
     summary = [{
         "name": "hash_columns", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
@@ -2055,9 +2371,9 @@ def main() -> int:
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
         "library_ms": None,
         "shape": "the largest of q1's, q3's (filter off and on), q67's, "
-                 "q3ds's, q93's, q42/q52/q55's, q67_rollup's, q5's, q27's "
-                 "and agg_family's calls; ms is the device's own time per "
-                 "launch",
+                 "q3ds's, q93's, q42/q52/q55's, q67_rollup's, q5's, q27's, "
+                 "agg_family's and the sql texts' calls; ms is the "
+                 "device's own time per launch",
         "concurrency_launches": conc_launches["hash_columns"],
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,

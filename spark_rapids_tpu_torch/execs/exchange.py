@@ -12,6 +12,15 @@ run_tasks``), each holding a permit of the session's task semaphore
 from its child's first batch to its end.  The manager hands blocks back
 in map-task order, so the pool changes no result.
 
+A reduce partition reads its blocks concatenated, in that order, into
+batches of up to ``batch_rows`` rows (``sql.batchSizeRows``), as the
+reference's GpuShuffleCoalesceExec coalesces shuffle reads.  The JAX
+exchange yields block by block; here that made block counts multiply
+by the partition count at every level of a chain of partition-wise
+joins (a join yields a batch per stream block, the next exchange splits
+each into every partition): TPC-DS q13's fourth join ran 3 072 joins
+of a few hundred rows each.
+
 - Hash partitioning: each map batch's key tuple is hashed to partition
   ids (murmur3-pmod) by one K1 launch.
 - Range partitioning: bounds must exist before any batch is split, and
@@ -72,16 +81,19 @@ class TpuShuffleExchangeExec(TpuExec):
                                            RangePartitioning],
                  child: TpuExec, manager: ShuffleManager,
                  samples_per_batch: int = 128,
-                 runtime: Optional[TaskRuntime] = None):
+                 runtime: Optional[TaskRuntime] = None,
+                 batch_rows: int = 1 << 20):
         """``samples_per_batch``: rows a range exchange samples from each
         map batch (``spark.rapids.tpu.sql.sort.samplesPerBatch``);
         ``runtime``: the session's pool size and task semaphore (None:
-        serial)."""
+        serial); ``batch_rows``: the most rows of a batch a reduce
+        partition yields, unless one block holds more."""
         super().__init__(child)
         self.partitioning = partitioning.bind(child.schema)
         self.manager = manager
         self.samples_per_batch = samples_per_batch
         self.runtime = runtime or TaskRuntime.serial()
+        self.batch_rows = batch_rows
         self._map_lock = threading.Lock()
         self._shuffle_id: Optional[int] = None
 
@@ -187,7 +199,16 @@ class TpuShuffleExchangeExec(TpuExec):
             return self._shuffle_id
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
-        yield from self.manager.read(self._ensure_map_stage(), p)
+        pending: list[ColumnarBatch] = []
+        rows = 0
+        for block in self.manager.read(self._ensure_map_stage(), p):
+            if pending and rows + block.num_rows > self.batch_rows:
+                yield concat_batches(pending)
+                pending, rows = [], 0
+            pending.append(block)
+            rows += block.num_rows
+        if pending:
+            yield concat_batches(pending)
 
     def close(self) -> None:
         """Drop this exchange's blocks."""

@@ -343,3 +343,30 @@ def broadcast_validity(*cols: AnyColumn) -> torch.Tensor:
     for c in cols[1:]:
         v = v & c.validity
     return v
+
+
+def _field_key(v) -> str:
+    """One dataclass field serialised; tuples recurse, so CaseWhen's
+    branch pairs key by structure and not by a name-only repr."""
+    if isinstance(v, Expression):
+        return expr_key(v)
+    if isinstance(v, tuple):
+        return "(" + ",".join(_field_key(x) for x in v) + ")"
+    return repr(v)
+
+
+def expr_key(e) -> str:
+    """A deterministic structural key of an expression tree: class names
+    and every dataclass field (names, ordinals, types, literal values).
+    Two trees with equal keys compute the same thing; the SQL frontend
+    dedupes group keys and conjuncts by it.  A non-dataclass Expression
+    would key by its class alone, whatever its state, so it raises
+    TypeError; a value that is not an Expression keys by its repr."""
+    if not isinstance(e, Expression):
+        return repr(e)
+    if dataclasses.is_dataclass(e):
+        parts = [_field_key(getattr(e, f.name))
+                 for f in dataclasses.fields(e)]
+        return f"{type(e).__name__}[{','.join(parts)}]"
+    raise TypeError(f"expression {type(e).__name__} is not a dataclass; "
+                    "its state would not serialise into a key")

@@ -39,6 +39,10 @@ kept positions where its own lowering kept more.
   collect or global limit.
 - Only a hash distribution satisfies a join, an aggregate or a window:
   a range exchange's does not (``_hash_satisfies``).
+- Before lowering, ``_rewrite_scalar_subqueries`` (the JAX planner's
+  prepass of that name) runs each ScalarSubquery of a Filter or Project
+  once, through this planner on the session's device, and splices its
+  value in as a Literal.
 
 The planner hands the scans, exchanges and coalesces one
 ``TaskRuntime``: the session's task semaphore and upload stream, and
@@ -51,12 +55,15 @@ CPU fallback engine.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
+import pyarrow as pa
 import torch
 
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
 from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
 from spark_rapids_tpu_torch.execs.basic import (
@@ -85,14 +92,20 @@ from spark_rapids_tpu_torch.execs.sort import (
     TpuTopNExec,
 )
 from spark_rapids_tpu_torch.execs.window import TpuWindowExec
-from spark_rapids_tpu_torch.exprs.base import BoundReference, bind_references
+from spark_rapids_tpu_torch.exprs.base import (
+    BoundReference,
+    Expression,
+    Literal,
+    bind_references,
+)
+from spark_rapids_tpu_torch.exprs.subquery import ScalarSubquery, scalar_value
 from spark_rapids_tpu_torch.io.scan import ArrowSourceExec, ParquetScanExec
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.ops.partition import (
     HashPartitioning,
     RangePartitioning,
 )
-from spark_rapids_tpu_torch.parallel.pipeline import stage_depth
+from spark_rapids_tpu_torch.parallel.pipeline import prefetch, stage_depth
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.runtime_filter import inject_runtime_filters
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
@@ -117,9 +130,36 @@ class Planner:
             stage_depth=stage_depth(conf), upload_stream=upload_stream)
 
     def plan(self, plan: L.LogicalPlan) -> TpuExec:
-        root = self._lower(plan, None)
+        root = self._lower(self._rewrite_scalar_subqueries(plan), None)
         inject_runtime_filters(root, self.conf)
         return root
+
+    def _rewrite_scalar_subqueries(self, plan: L.LogicalPlan
+                                   ) -> L.LogicalPlan:
+        """The plan with every ScalarSubquery in a Filter's condition or
+        a Project's list replaced by its value, each subplan run once;
+        nodes that change are shallow copies (the caller's plan is not
+        mutated)."""
+        children = [self._rewrite_scalar_subqueries(c)
+                    for c in plan.children]
+
+        def rw(e: Expression) -> Expression:
+            if isinstance(e, ScalarSubquery):
+                value = scalar_value(collect_exec(self.plan(e.plan),
+                                                  self.conf))
+                return Literal(value, e.dtype)
+            return e
+
+        out = copy.copy(plan)
+        out.children = children
+        if isinstance(plan, L.Filter) and _has_subquery(plan.condition):
+            out.condition = plan.condition.transform_up(rw)
+        elif isinstance(plan, L.Project) \
+                and any(_has_subquery(e) for e in plan.exprs):
+            out.exprs = [e.transform_up(rw) for e in plan.exprs]
+        elif all(a is b for a, b in zip(children, plan.children)):
+            return plan
+        return out
 
     def _lower(self, p: L.LogicalPlan, required: Optional[set]) -> TpuExec:
         """``required``: column names the parent reads (None = all)."""
@@ -232,7 +272,8 @@ class Planner:
                   ) -> TpuShuffleExchangeExec:
         return TpuShuffleExchangeExec(
             partitioning, child, self.manager,
-            self.conf.get(C.SORT_SAMPLES_PER_BATCH), self.runtime)
+            self.conf.get(C.SORT_SAMPLES_PER_BATCH), self.runtime,
+            self.conf.get(C.BATCH_ROWS))
 
     def _plan_aggregate(self, p: L.Aggregate, child: TpuExec) -> TpuExec:
         if child.num_partitions <= 1:
@@ -323,6 +364,25 @@ class Planner:
         return TpuShuffledHashJoinExec(p.left_keys, p.right_keys,
                                        p.join_type, left, right, chunk,
                                        p.condition, partition_wise=True)
+
+
+def collect_exec(exec_: TpuExec, conf: C.TorchConf) -> pa.Table:
+    """Run a physical plan to an Arrow table, fetching batches on a
+    ``result.fetch`` stage; the stage and the exec tree are closed on
+    every exit."""
+    fetch = prefetch(exec_.execute(), stage_depth(conf), "result.fetch")
+    try:
+        return batches_to_arrow(fetch, exec_.schema)
+    finally:
+        fetch.close()
+        for node in exec_.walk():
+            if hasattr(node, "close"):
+                node.close()
+
+
+def _has_subquery(e: Expression) -> bool:
+    return isinstance(e, ScalarSubquery) or any(_has_subquery(c)
+                                                 for c in e.children)
 
 
 def _by_position(e) -> bool:

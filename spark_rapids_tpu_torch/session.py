@@ -41,7 +41,6 @@ import torch
 
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
 from spark_rapids_tpu_torch.config import TorchConf
 from spark_rapids_tpu_torch.execs.base import TpuExec
 from spark_rapids_tpu_torch.execs.sort import SortKey
@@ -71,9 +70,8 @@ from spark_rapids_tpu_torch.exprs.base import (
 from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.window import WindowExpression
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
-from spark_rapids_tpu_torch.parallel.pipeline import prefetch, stage_depth
 from spark_rapids_tpu_torch.plan import logical as L
-from spark_rapids_tpu_torch.plan.planner import Planner
+from spark_rapids_tpu_torch.plan.planner import Planner, collect_exec
 from spark_rapids_tpu_torch.plan.runtime_filter import render_runtime_filters
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 
@@ -397,13 +395,4 @@ class DataFrame:
     def collect(self) -> pa.Table:
         """Run the query on the session's device; the result as Arrow.
         The stage and the exec tree are closed on every exit."""
-        exec_ = self.physical_plan()
-        fetch = prefetch(exec_.execute(), stage_depth(self._session.conf),
-                         "result.fetch")
-        try:
-            return batches_to_arrow(fetch, exec_.schema)
-        finally:
-            fetch.close()
-            for node in exec_.walk():
-                if hasattr(node, "close"):
-                    node.close()
+        return collect_exec(self.physical_plan(), self._session.conf)

@@ -75,7 +75,8 @@ CALENDAR = (dt.date(1900, 1, 2), dt.date(2100, 1, 1))
 SF1_ROWS = {"item": 18_000, "customer": 100_000,
             "customer_demographics": 1_920_800,
             "household_demographics": 7_200, "customer_address": 50_000,
-            "store": 12, "promotion": 300, "time_dim": 86_400}
+            "store": 12, "promotion": 300, "time_dim": 86_400,
+            "income_band": 20}
 
 _CATEGORIES = ["Books", "Children", "Electronics", "Home", "Jewelry",
                "Men", "Music", "Shoes", "Sports", "Women"]
@@ -110,7 +111,11 @@ _STATES = ["AL", "CA", "GA", "IL", "IN", "KS", "KY", "LA", "MI", "MN",
            "MO", "MS", "NC", "NY", "OH", "OK", "SD", "TN", "TX", "VA",
            "WA", "WI"]
 _CITIES = ["Antioch", "Bethel", "Centerville", "Fairview", "Five Points",
-           "Friendship"]
+           "Friendship", "Glendale", "Greenville", "Liberty", "Midway",
+           "Mount Olive", "Mount Zion", "Oak Grove", "Oak Ridge",
+           "Oakland", "Pleasant Grove", "Pleasant Hill", "Riverdale",
+           "Riverside", "Salem", "Shiloh", "Springfield", "Union",
+           "Walnut Grove", "Wilson"]
 _COUNTIES = ["Barrow County", "Daviess County", "Fairfield County",
              "Franklin Parish", "Luce County", "Mobile County",
              "Richland County", "Walker County", "Williamson County",
@@ -124,6 +129,15 @@ _STORE_NAMES = ["ought", "able", "pri", "ese", "anti", "cally",
 _FIRST = ["James", "John", "Robert", "Michael", "William", "David",
           "Mary", "Patricia", "Linda", "Barbara", "Elizabeth",
           "Jennifer", "Maria", "Susan", "Margaret", "Dorothy"]
+_LAST = ["Smith", "Johnson", "Williams", "Jones", "Brown", "Davis",
+         "Miller", "Wilson", "Moore", "Taylor", "Anderson", "Thomas",
+         "Jackson", "White", "Harris", "Martin"]
+_COUNTRIES = ["United States", "Canada", "Mexico", "Germany", "Japan",
+              "United Kingdom", "France", "Brazil", "India", "China"]
+_BUY_POTENTIAL = [">10000", "5001-10000", "1001-5000", "501-1000",
+                  "0-500", "Unknown"]
+#: the catalog's dimension dates (its ``n_days``): 1998-2003
+_CATALOG_DAYS = (dt.date(2003, 12, 31) - _D0).days + 1
 #: q27's text: its states and demographic values
 Q27_STATES = ("TN",) * 6
 Q27_DEMOGRAPHICS = ("M", "S", "College")
@@ -612,7 +626,7 @@ def make_store(rng: np.random.Generator, n: int) -> pa.Table:
                                            n))
     cols["s_suite_number"] = pa.array(_fmt("Suite ",
                                            rng.integers(0, 100, n)))
-    cols["s_city"] = pa.array(_pick(rng, _CITIES, n))
+    cols["s_city"] = pa.array(_pick(rng, _CITIES[:6], n))
     cols["s_county"] = pa.array(_pick(rng, _COUNTIES, n))
     cols["s_state"] = pa.array(_pick(rng, _STATES[:8], n))
     cols["s_zip"] = pa.array(_fmt("", rng.integers(10000, 99999, n), 5))
@@ -785,3 +799,196 @@ def q27_dataframe(session, date_dim_path: str, store_sales_paths,
             .order_by(SortKey(col("i_item_id"), nulls_last=True),
                       SortKey(col("s_state"), nulls_last=True))
             .limit(100))
+
+
+# --------------------------------------------------------------------- #
+# The rest of the store channel's dimensions, and all 13 tables on disk
+# --------------------------------------------------------------------- #
+
+
+def _flags(rng, n):
+    return np.array(["Y", "N"])[rng.integers(0, 2, n)]
+
+
+def make_time_dim(n: int = SF1_ROWS["time_dim"]) -> pa.Table:
+    """time_dim, ``n`` rows spread evenly over the day (SF1: one a
+    second): ``t_time_sk`` = ``t_time`` the second of the day; no rng."""
+    mins = np.arange(n, dtype=np.int64)
+    secs = mins * (86400 // max(n, 1))
+    hour = secs // 3600
+    meal = np.select([(hour >= 6) & (hour < 9), (hour >= 11) & (hour < 13),
+                      (hour >= 17) & (hour < 20)],
+                     ["breakfast", "lunch", "dinner"], "")
+    return pa.table({
+        "t_time_sk": secs,
+        "t_time_id": pa.array(_fmt("AAAAAAAA", mins, 8)),
+        "t_time": secs,
+        "t_hour": hour,
+        "t_minute": (secs % 3600) // 60,
+        "t_second": secs % 60,
+        "t_am_pm": pa.array(np.where(hour < 12, "AM", "PM")),
+        "t_shift": pa.array(np.where(hour < 8, "first",
+                                     np.where(hour < 16, "second", "third"))),
+        "t_sub_shift": pa.array(np.where(
+            hour < 12, "morning", np.where(hour < 18, "afternoon",
+                                           "evening"))),
+        "t_meal_time": pa.array(meal, mask=meal == ""),
+    })
+
+
+def make_customer(rng: np.random.Generator, n: int, n_addr: int, n_cd: int,
+                  n_hd: int, n_days: int = _CATALOG_DAYS) -> pa.Table:
+    """customer, ``n`` rows, drawing from ``rng`` in the catalog's order:
+    4 % of the current demographics NULL, keys in 1..the dimensions'
+    counts."""
+    sk = np.arange(1, n + 1, dtype=np.int64)
+
+    def date_sk():
+        return (DATE_SK_EPOCH + rng.integers(0, n_days, n)).astype(np.int64)
+
+    cols = {"c_customer_sk": sk,
+            "c_customer_id": pa.array(_fmt("AAAAAAAA", sk, 8))}
+    cols["c_current_cdemo_sk"] = _nullable(
+        rng, rng.integers(1, n_cd + 1, n).astype(np.int64), 0.04)
+    cols["c_current_hdemo_sk"] = _nullable(
+        rng, rng.integers(1, n_hd + 1, n).astype(np.int64), 0.04)
+    cols["c_current_addr_sk"] = rng.integers(1, n_addr + 1, n).astype(
+        np.int64)
+    cols["c_first_shipto_date_sk"] = date_sk()
+    cols["c_first_sales_date_sk"] = date_sk()
+    cols["c_salutation"] = pa.array(_pick(
+        rng, ["Mr.", "Mrs.", "Ms.", "Dr.", "Sir"], n))
+    cols["c_first_name"] = pa.array(_pick(rng, _FIRST, n))
+    cols["c_last_name"] = pa.array(_pick(rng, _LAST, n))
+    cols["c_preferred_cust_flag"] = pa.array(_flags(rng, n))
+    cols["c_birth_day"] = rng.integers(1, 29, n).astype(np.int64)
+    cols["c_birth_month"] = rng.integers(1, 13, n).astype(np.int64)
+    cols["c_birth_year"] = rng.integers(1930, 1995, n).astype(np.int64)
+    cols["c_birth_country"] = pa.array(_pick(rng, _COUNTRIES, n))
+    cols["c_login"] = pa.array(_fmt("login", sk))
+    cols["c_email_address"] = pa.array(_fmt("c", sk, suffix="@example.com"))
+    cols["c_last_review_date_sk"] = date_sk()
+    return pa.table(cols)
+
+
+def make_customer_address(rng: np.random.Generator, n: int) -> pa.Table:
+    """customer_address, ``n`` rows, drawing from ``rng`` in the
+    catalog's order."""
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    cols = {"ca_address_sk": sk,
+            "ca_address_id": pa.array(_fmt("AAAAAAAA", sk, 8))}
+    cols["ca_street_number"] = pa.array(
+        rng.integers(1, 1000, n).astype(str))
+    cols["ca_street_name"] = pa.array(_pick(
+        rng, ["Main", "Oak", "Park", "First", "Elm", "Cedar", "Maple",
+              "Lake", "Hill", "Pine"], n))
+    cols["ca_street_type"] = pa.array(_pick(
+        rng, ["Street", "Ave", "Blvd", "Ct.", "Dr.", "Lane", "Pkwy", "Rd",
+              "Way"], n))
+    cols["ca_suite_number"] = pa.array(_fmt("Suite ",
+                                            rng.integers(0, 100, n)))
+    cols["ca_city"] = pa.array(_pick(rng, _CITIES, n))
+    cols["ca_county"] = pa.array(_pick(rng, _COUNTIES, n))
+    cols["ca_state"] = pa.array(_pick(rng, _STATES, n))
+    cols["ca_zip"] = pa.array(_fmt("", rng.integers(10000, 99999, n), 5))
+    cols["ca_country"] = pa.array(np.full(n, "United States"))
+    cols["ca_gmt_offset"] = rng.choice([-5.0, -6.0, -7.0, -8.0], n)
+    cols["ca_location_type"] = pa.array(_pick(
+        rng, ["apartment", "condo", "single family"], n))
+    return pa.table(cols)
+
+
+def make_household_demographics(rng: np.random.Generator, n: int,
+                                n_ib: int) -> pa.Table:
+    """household_demographics, ``n`` rows, drawing from ``rng`` in the
+    catalog's order; vehicle counts from -1 to 4."""
+    cols = {"hd_demo_sk": np.arange(1, n + 1, dtype=np.int64)}
+    cols["hd_income_band_sk"] = rng.integers(1, n_ib + 1, n).astype(np.int64)
+    cols["hd_buy_potential"] = pa.array(_pick(rng, _BUY_POTENTIAL, n))
+    cols["hd_dep_count"] = rng.integers(0, 10, n).astype(np.int64)
+    cols["hd_vehicle_count"] = rng.integers(-1, 5, n).astype(np.int64)
+    return pa.table(cols)
+
+
+def make_income_band(n: int = SF1_ROWS["income_band"]) -> pa.Table:
+    """income_band: ``n`` bands of 10 000 from 0; no rng."""
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    return pa.table({"ib_income_band_sk": sk,
+                     "ib_lower_bound": (sk - 1) * 10000,
+                     "ib_upper_bound": sk * 10000})
+
+
+def make_promotion(rng: np.random.Generator, n: int, n_item: int,
+                   n_days: int = _CATALOG_DAYS) -> pa.Table:
+    """promotion, ``n`` rows, drawing from ``rng`` in the catalog's
+    order."""
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    cols = {"p_promo_sk": sk, "p_promo_id": pa.array(_fmt("AAAAAAAA", sk, 8))}
+    for name in ("p_start_date_sk", "p_end_date_sk"):
+        cols[name] = (DATE_SK_EPOCH + rng.integers(0, n_days, n)).astype(
+            np.int64)
+    cols["p_item_sk"] = rng.integers(1, n_item + 1, n).astype(np.int64)
+    cols["p_cost"] = np.round(rng.uniform(500.0, 2000.0, n), 2)
+    cols["p_response_target"] = np.ones(n, np.int64)
+    cols["p_promo_name"] = pa.array(_pick(
+        rng, ["anti", "bar", "cally", "ese", "ought"], n))
+    for ch in ("dmail", "email", "catalog", "tv", "radio", "press", "event",
+               "demo"):
+        cols[f"p_channel_{ch}"] = pa.array(_flags(rng, n))
+    cols["p_channel_details"] = pa.array(_fmt("promo details ", sk))
+    cols["p_purpose"] = pa.array(np.full(n, "Unknown"))
+    cols["p_discount_active"] = pa.array(np.full(n, "N"))
+    return pa.table(cols)
+
+
+#: the store channel's 13 tables
+STORE_CHANNEL_TABLES = (
+    "store_sales", "store_returns", "date_dim", "time_dim", "item", "store",
+    "customer", "customer_address", "customer_demographics",
+    "household_demographics", "income_band", "promotion", "reason")
+
+
+def write_store_channel(dirpath: str, n_files: int = 6,
+                        rows_per_file: int = 1 << 20, seed: int = 3,
+                        written: dict | None = None) -> dict:
+    """The 13 store-channel tables as Parquet: store_sales in
+    ``n_files`` files of ``rows_per_file`` rows and q93's store_returns
+    (``write_q3_tables``, ``write_q93_tables``), the whole calendar, and
+    every dimension at its SF1 count (``SF1_ROWS``; the ten reasons),
+    each from its own seeded rng.  ``written`` (table -> paths) names
+    tables already on disk, which are kept; ``dirpath`` is made if it is
+    missing.  Returns table -> paths."""
+    os.makedirs(dirpath, exist_ok=True)
+    out = {k: list(v) for k, v in (written or {}).items()}
+    if not {"date_dim", "store_sales", "item"} <= set(out):
+        dd, ss, item = write_q3_tables(dirpath, n_files, rows_per_file, seed)
+        out.update(date_dim=[dd], store_sales=ss, item=[item])
+    if not {"store_returns", "reason"} <= set(out):
+        sr, reason = write_q93_tables(dirpath, out["store_sales"])
+        out.update(store_returns=[sr], reason=[reason])
+    if "store" not in out:
+        out["store"] = [write_store(dirpath)]
+    if "customer_demographics" not in out:
+        out["customer_demographics"] = [write_customer_demographics(dirpath)]
+    r = SF1_ROWS
+    makers = {
+        "time_dim": lambda: make_time_dim(),
+        "customer_address": lambda: make_customer_address(
+            np.random.default_rng(50), r["customer_address"]),
+        "household_demographics": lambda: make_household_demographics(
+            np.random.default_rng(72), r["household_demographics"],
+            r["income_band"]),
+        "income_band": lambda: make_income_band(),
+        "customer": lambda: make_customer(
+            np.random.default_rng(100), r["customer"],
+            r["customer_address"], r["customer_demographics"],
+            r["household_demographics"]),
+        "promotion": lambda: make_promotion(
+            np.random.default_rng(300), r["promotion"], r["item"]),
+    }
+    for name, make in makers.items():
+        if name not in out:
+            path = os.path.join(dirpath, f"{name}.parquet")
+            pq.write_table(make(), path)
+            out[name] = [path]
+    return {name: out[name] for name in STORE_CHANNEL_TABLES}

@@ -56,11 +56,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(mods) >= 20
-    # the grouping-set and union slice's modules are among them
+    # the grouping-set and union slice's modules are among them, and the
+    # SQL slice's
     assert {"spark_rapids_tpu_torch.execs.expand",
             "spark_rapids_tpu_torch.exprs.cast",
             "spark_rapids_tpu_torch.execs.basic",
-            "spark_rapids_tpu_torch.io.scan"} <= set(mods)
+            "spark_rapids_tpu_torch.io.scan",
+            "spark_rapids_tpu_torch.frontends.sql",
+            "spark_rapids_tpu_torch.exprs.strings",
+            "spark_rapids_tpu_torch.exprs.datetime",
+            "spark_rapids_tpu_torch.exprs.math",
+            "spark_rapids_tpu_torch.exprs.subquery",
+            "spark_rapids_tpu_torch.tpcds_queries"} <= set(mods)
 
 
 def test_port_sources_name_no_jax_import():
@@ -594,6 +601,77 @@ def test_grouping_sets_union_and_value_aggregates_on_the_card(cuda,
     for k, df in run("cpu").items():
         _rows_close(got[k], df.collect())
     assert got["q67"].num_rows == 100 and got["q5"].num_rows == 12
+
+
+@pytest.mark.cuda
+def test_sql_texts_and_new_expressions_on_the_card(cuda, tmp_path):
+    """Store-channel TPC-DS texts through the SQL frontend (string, date
+    and math functions, the scalar subquery of q24's variant) on the
+    card against the CPU, over the 13 tables at a small size."""
+    from spark_rapids_tpu_torch import tpcds
+    from spark_rapids_tpu_torch.frontends.sql import SqlSession
+    from spark_rapids_tpu_torch.tpcds_queries import QUERIES, variant
+
+    paths = tpcds.write_store_channel(str(tmp_path), n_files=2,
+                                      rows_per_file=1 << 15)
+    texts = [QUERIES[q] for q in (7, 13, 46, 59, 79, 93)] + [
+        variant(24), variant(84),
+        "select upper(s_city) u, lower(s_state) l, substr(s_store_name, 2) "
+        "s, concat(s_city, ', ', s_state) c, trim(s_street_name) t, "
+        "length(s_county) n, year(d_date) y, month(d_date) m, "
+        "d_date + interval '1' month dm, round(s_tax_precentage * 100, 1) "
+        "r, pmod(s_store_sk - 7, 5) p, s_store_sk % 4 md, "
+        "greatest(s_store_sk, 3) g, cast(s_store_sk as string) cs "
+        "from store, date_dim where s_closed_date_sk is null "
+        "and d_date_sk = 2451545 + s_store_sk and s_city like 'F%' "
+        "order by cs"]
+
+    def run(device):
+        fe = SqlSession({"spark.rapids.tpu.sql.scan.taskTargetBytes": 1},
+                        device=device)
+        for name, ps in paths.items():
+            fe.register_parquet(name, *ps)
+        return [fe.sql(t).collect() for t in texts]
+
+    kernels.hash_columns.launches = 0
+    got = run("cuda")
+    assert kernels.hash_columns.launches > 0
+    for g, w in zip(got, run("cpu")):
+        _rows_close(g, w)
+
+
+def test_exchange_reads_blocks_concatenated_in_map_order():
+    """A reduce partition yields its blocks concatenated in map-task
+    order, in batches of at most ``batch_rows`` rows (one block larger
+    than that alone): a chain of partition-wise joins keeps one batch a
+    partition instead of multiplying blocks at every exchange."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.execs.exchange import TpuShuffleExchangeExec
+    from spark_rapids_tpu_torch.exprs.base import BoundReference
+    from spark_rapids_tpu_torch.io.scan import ArrowSourceExec
+    from spark_rapids_tpu_torch.ops.partition import HashPartitioning
+    from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
+
+    t = pa.table({"k": pa.array(np.arange(1000) % 7, pa.int64()),
+                  "v": pa.array(np.arange(1000), pa.int64())})
+    src = ArrowSourceExec(t, T.Schema([T.Field("k", T.LONG),
+                                       T.Field("v", T.LONG)]),
+                          torch.device("cpu"), 64)
+    key = [BoundReference(0, T.LONG, True, "k")]
+    for batch_rows, most in ((1 << 20, 1), (150, 150)):
+        ex = TpuShuffleExchangeExec(HashPartitioning(key, 3), src,
+                                    ShuffleManager(), batch_rows=batch_rows)
+        seen = []
+        for p in range(3):
+            batches = list(ex.execute_partition(p))
+            assert len(batches) <= -(-1000 // batch_rows) + 1
+            assert all(b.num_rows <= max(batch_rows, 64) for b in batches)
+            v = torch.cat([b.columns[1].data for b in batches]).tolist()
+            assert v == sorted(v)  # map-task (and row) order kept
+            seen += v
+            if batch_rows > 1000:
+                assert len(batches) == most
+        assert sorted(seen) == list(range(1000))
 
 
 def test_build_paths_live_in_the_package():
