@@ -186,8 +186,12 @@ def stage_upload(table, device: torch.device,
     device = torch.device(device)
     schema = schema or schema_from_arrow(table.schema)
     timer = _Timer(metrics)
-    host = [(f.dtype, *_host_arrays(table.column(f.name), f.dtype))
-            for f in schema.fields]
+    names = table.column_names
+    # by position where the table's names line up (a join's output may
+    # name two columns alike), else by name
+    host = [(f.dtype, *_host_arrays(
+        table.column(i if names[i:i + 1] == [f.name] else f.name), f.dtype))
+            for i, f in enumerate(schema.fields)]
     timer.lap("convertTime")
     owned = [(dtype, kind, {k: torch.from_numpy(np.array(a, copy=True,
                                                          order="C"))

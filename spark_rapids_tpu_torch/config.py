@@ -2,7 +2,9 @@
 
 The keys and defaults are the JAX package's, so one conf dict plans the
 same physical shape on both engines.  A ``TorchConf`` belongs to the
-session that owns it; nothing here is process-global.
+session that owns it; only the table of keys and defaults is shared,
+and the planner adds its exec and expression switches to it
+(``register``).
 """
 
 from __future__ import annotations
@@ -63,6 +65,16 @@ DEFAULTS: dict[str, Any] = {
 #: after another on the caller's thread
 SERIAL: dict[str, Any] = {TASK_THREADS: 1, DECODE_THREADS: 1,
                           PIPELINE_ENABLED: False}
+
+
+def register(key: str, default: Any) -> str:
+    """Add ``key`` with its default (the planner's per-exec and
+    per-expression switches, ``spark.rapids.tpu.sql.exec.<Node>`` and
+    ``spark.rapids.tpu.sql.expression.<Class>``, register themselves
+    when it is imported, as the package's import does); the key."""
+    if DEFAULTS.setdefault(key, default) != default:
+        raise ValueError(f"{key} is registered with another default")
+    return key
 
 
 _AT_LEAST_ONE = (TASK_THREADS, DECODE_THREADS, CONCURRENT_TASKS,

@@ -74,8 +74,8 @@ class TpuHashAggregateExec(TpuExec):
                     f"{na.fn.name} is not ported as a group-by aggregate")
             if ops & VALUE_OPS and isinstance(na.fn.child.dtype,
                                               T.StringType):
-                # the JAX planner runs these over strings on its CPU
-                # engine; the port has none
+                # the planner tags these and runs them on the CPU
+                # engine, as the JAX planner does
                 raise NotImplementedError(
                     f"{na.fn.name} over a string is not ported")
         self.n_keys = len(groups)

@@ -27,8 +27,8 @@ broadcast), left_semi, left_anti and cross, all from one
 joins are equi-joins on a constant key, so every pair shares one
 group.  An inner join's residual condition filters each output chunk.
 A condition or a missing key on any other join type raises
-NotImplementedError (the JAX planner falls back to its CPU engine
-there; the port has none).  The JAX exec's speculative sizing,
+NotImplementedError: the planner tags such a join and runs it on the
+CPU engine (``plan/planner.py``), as the JAX planner does.  The JAX exec's speculative sizing,
 pipelining, program cache and retry ladder are not ported.
 
 ``TpuRuntimeFilterBuildExec`` passes its child's batches through and

@@ -17,8 +17,9 @@ UNION's type widening and the SQL frontend need:
 
 STRING to DOUBLE and DOUBLE to STRING (Java's shortest round-trip
 digits), STRING to DATE, decimals, timestamps and ANSI error polling
-are not ported; ``check_supported`` raises TypeError for them.  No
-TPC-DS text the port runs casts anything but a number.
+are not ported; ``check_supported`` raises TypeError for them, and the
+planner runs the node on the CPU engine (q37's ``cast('2000-02-01' as
+date)`` filter of date_dim).
 """
 
 from __future__ import annotations

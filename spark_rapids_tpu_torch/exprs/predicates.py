@@ -19,6 +19,7 @@ true there (Spark compares doubles in its total order), while the JAX
 from __future__ import annotations
 
 import dataclasses
+import datetime as _dt
 from typing import Sequence
 
 import torch
@@ -262,11 +263,20 @@ class IsNaN(_NeverNull):
         return torch.isnan(c.data) & c.validity
 
 
+def _day_number(v) -> int:
+    """A DATE literal's value (a ``datetime.date`` or its day number
+    since the epoch) as the day number."""
+    if isinstance(v, _dt.date):
+        return (v - _dt.date(1970, 1, 1)).days
+    return int(v)
+
+
 @dataclasses.dataclass(repr=False)
 class In(Expression):
     """value IN (literals...): NULL when the value is NULL, or when
     nothing matches and the list holds a NULL.  Values compare in the
-    common type of the value and each literal, NaN equal to NaN."""
+    common type of the value and each literal, NaN equal to NaN; a DATE
+    value compares day numbers, as the JAX ``In`` does."""
 
     child: Expression
     values: tuple
@@ -286,6 +296,9 @@ class In(Expression):
             lit = Literal.of(v)
             if isinstance(c, StringColumn):
                 _, eq = _string_cmp(c, lit.eval(ctx))
+            elif isinstance(self.child.dtype, T.DateType):
+                # a DATE compares as its day number, the literal too
+                eq = c.data == _day_number(v)
             else:
                 ct = T.common_type(self.child.dtype, lit.dtype)
                 if ct is None:

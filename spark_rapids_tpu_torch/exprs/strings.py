@@ -26,8 +26,8 @@ for a computed string.
 
 ``Like`` takes the patterns the JAX ``Like.check_supported`` accepts
 (``x``, ``x%``, ``%x``, ``%x%``, ``x%y``) and raises TypeError on the
-others, as that check does; the port has no other engine to send them
-to.  The rest of the JAX module (replace, pad, locate,
+others, as that check does; the planner then runs the node on the CPU
+engine.  The rest of the JAX module (replace, pad, locate,
 ``substring_index``, initcap, ``concat_ws``, split) is not ported yet.
 """
 

@@ -4,8 +4,9 @@ Counterpart of ``spark_rapids_tpu/exprs/subquery.py``.  The planner's
 prepass (``plan/planner.py::Planner.plan``) runs each subplan once,
 through the same planner on the session's device, and splices its value
 in as a Literal before the outer plan is lowered, as Spark's driver
-evaluates a scalar subquery eagerly.  The port has no CPU engine to
-evaluate one instead, so ``eval`` raises.
+evaluates a scalar subquery eagerly, so the device ``eval`` raises; the
+CPU engine (``cpu/engine.py``) runs the subplan itself when it meets
+one.
 """
 
 from __future__ import annotations

@@ -9,8 +9,9 @@ of its input (``ops/window.py``).
 
 Query errors (a ranking function or lead/lag without a window ORDER BY)
 raise when the expression is built, as Spark's analysis does.  Windows
-this port cannot compute raise NotImplementedError when they are
-planned (``check_supported``); nothing falls back to another engine.
+the device path cannot compute raise NotImplementedError from
+``check_supported``; the planner turns that into a will-not-work reason
+and runs the Window node on the CPU engine.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ tokenizer, recursive-descent parser and lowering onto the DataFrame
 surface, over the port's expressions and session.  A parsed query
 lowers to a ``DataFrame`` of ``TorchSession``; planning and execution
 are then the DataFrame API's, on the session's device (``cuda`` unless
-the caller asks for the CPU).  Nothing falls back: an expression or
-operator the port cannot run raises.
+the caller asks for the CPU).  A node the planner's tags keep off the
+GPU runs on the CPU engine, and ``explain()`` names it with its
+reasons (``plan/planner.py``).
 
 Supported (enough to run the text of the store-channel TPC-DS queries
 and the common shapes around them):
@@ -1626,18 +1627,20 @@ class SqlSession:
             vals = {}
             for f in _dcs.fields(e):
                 v = getattr(e, f.name)
-                if isinstance(v, (B.Expression, AG.AggregateFunction)):
-                    nv = rw(v)
-                elif isinstance(v, (tuple, list)):
-                    nv = type(v)(
-                        rw(x) if isinstance(
-                            x, (B.Expression, AG.AggregateFunction))
-                        else x for x in v)
-                else:
-                    nv = v
+                nv = rw_value(v)
                 vals[f.name] = nv
                 changed = changed or nv is not v
             return _rebuild(e, vals, changed)
+
+        def rw_value(v):
+            """A field's value rewritten, into nested tuples too (a
+            CaseWhen's branches are (condition, value) pairs)."""
+            if isinstance(v, (B.Expression, AG.AggregateFunction)):
+                return rw(v)
+            if isinstance(v, (tuple, list)):
+                out = type(v)(rw_value(x) for x in v)
+                return v if all(a is b for a, b in zip(out, v)) else out
+            return v
 
         return rw(e)
 

@@ -245,6 +245,7 @@ class ArrowSourceExec(TpuExec):
         self.table = table
         self.device = torch.device(device)
         self.batch_rows = batch_rows
+        self.columns = columns
         self._schema = schema if columns is None else T.Schema(
             [f for f in schema.fields if f.name in columns])
         self.estimated_rows = table.num_rows
@@ -266,7 +267,8 @@ class ArrowSourceExec(TpuExec):
         chunk = self.table.slice(p * self.batch_rows, self.batch_rows)
         if chunk.num_rows == 0:
             return
-        chunk = chunk.select(self._schema.names)
+        if self.columns is not None:  # the table's own, names may repeat
+            chunk = chunk.select(self._schema.names)
         self.metrics.add("numOutputRows", chunk.num_rows)
         yield finish_upload(stage_upload(
             chunk, self.device, self._schema, self.runtime.upload_stream,

@@ -4,8 +4,9 @@ Counterpart of ``exec_estimated_rows`` in
 ``spark_rapids_tpu/plan/cost.py``, for the physical nodes the port has:
 the runtime-filter pass's gate on the build side's size.  (The
 broadcast choice reads the logical plan's estimates,
-``plan/logical.py``.)  The JAX module's cost-based demotion to a CPU
-engine is not ported (the port has no CPU engine).
+``plan/logical.py``.)  The JAX module's cost-based demotion to the CPU
+engine is not ported: only the tags send a node there
+(``plan/planner.py``).
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ projections and a Union the sum of its members.  Bytes are rows times
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import pyarrow as pa
@@ -50,6 +51,14 @@ class LogicalPlan:
     def estimated_bytes(self) -> Optional[int]:
         n = self.estimated_rows()
         return None if n is None else n * row_width_bytes(self.schema)
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+    def node_desc(self) -> str:
+        """One line for ``explain()``, in the JAX nodes' format."""
+        return self.name
 
 
 def row_width_bytes(schema: T.Schema) -> int:
@@ -90,6 +99,9 @@ class Scan(LogicalPlan):
                 return None
         return self._est_rows
 
+    def node_desc(self) -> str:
+        return f"Scan {[os.path.basename(p) for p in self.paths]}"
+
 
 class InMemoryRelation(LogicalPlan):
     """A host Arrow table (``TorchSession.create_dataframe``)."""
@@ -105,6 +117,9 @@ class InMemoryRelation(LogicalPlan):
 
     def estimated_rows(self) -> Optional[int]:
         return self.table.num_rows
+
+    def node_desc(self) -> str:
+        return f"InMemoryRelation [{self.table.num_rows} rows]"
 
 
 class RangeRel(LogicalPlan):
@@ -125,6 +140,9 @@ class RangeRel(LogicalPlan):
     def estimated_rows(self) -> Optional[int]:
         return max(0, -(-(self.end - self.start) // self.step))
 
+    def node_desc(self) -> str:
+        return f"Range ({self.start}, {self.end}, step={self.step})"
+
 
 class Filter(LogicalPlan):
     def __init__(self, condition: Expression, child: LogicalPlan):
@@ -135,6 +153,9 @@ class Filter(LogicalPlan):
     @property
     def schema(self) -> T.Schema:
         return self.children[0].schema
+
+    def node_desc(self) -> str:
+        return f"Filter [{self.condition!r}]"
 
 
 class Project(LogicalPlan):
@@ -148,6 +169,9 @@ class Project(LogicalPlan):
     @property
     def schema(self) -> T.Schema:
         return self._schema
+
+    def node_desc(self) -> str:
+        return f"Project [{', '.join(e.name for e in self.exprs)}]"
 
 
 class Aggregate(LogicalPlan):
@@ -171,6 +195,11 @@ class Aggregate(LogicalPlan):
         if not self.groups:
             return 1  # a grand aggregate makes one row
         return self.children[0].estimated_rows()
+
+    def node_desc(self) -> str:
+        ks = ", ".join(g.name for g in self.groups)
+        asr = ", ".join(f"{na.fn.name}->{na.out_name}" for na in self.aggs)
+        return f"Aggregate keys=[{ks}] [{asr}]"
 
 
 class Expand(LogicalPlan):
@@ -203,6 +232,10 @@ class Expand(LogicalPlan):
     def estimated_rows(self) -> Optional[int]:
         n = self.children[0].estimated_rows()
         return None if n is None else n * len(self.projections)
+
+    def node_desc(self) -> str:
+        return (f"Expand [{len(self.projections)} projections, "
+                f"{len(self.names)} cols]")
 
 
 class Join(LogicalPlan):
@@ -244,6 +277,12 @@ class Join(LogicalPlan):
         sides = [c.estimated_rows() for c in self.children]
         return None if None in sides else sum(sides)
 
+    def node_desc(self) -> str:
+        ks = ", ".join(f"{l.name}={r.name}" for l, r in
+                       zip(self.left_keys, self.right_keys))
+        c = f" cond={self.condition!r}" if self.condition is not None else ""
+        return f"Join {self.join_type} [{ks}]{c}"
+
 
 class Window(LogicalPlan):
     """One (partition_by, order_by) group of window expressions, their
@@ -263,6 +302,11 @@ class Window(LogicalPlan):
     def schema(self) -> T.Schema:
         return self._schema
 
+    def node_desc(self) -> str:
+        fns = ", ".join(f"{we.fn.describe()}->{n}"
+                        for we, n in self.window_exprs)
+        return f"Window [{fns}] ({self.window_exprs[0][0].spec.describe()})"
+
 
 class Sort(LogicalPlan):
     def __init__(self, keys: Sequence[SortKey], child: LogicalPlan):
@@ -274,6 +318,11 @@ class Sort(LogicalPlan):
     @property
     def schema(self) -> T.Schema:
         return self.children[0].schema
+
+    def node_desc(self) -> str:
+        ks = ", ".join(f"{k.expr.name}{' DESC' if k.descending else ''}"
+                       for k in self.keys)
+        return f"Sort [{ks}]"
 
 
 class Limit(LogicalPlan):
@@ -290,6 +339,9 @@ class Limit(LogicalPlan):
     def estimated_rows(self) -> Optional[int]:
         c = self.children[0].estimated_rows()
         return self.n if c is None else min(self.n, c)
+
+    def node_desc(self) -> str:
+        return f"Limit {self.n}"
 
 
 class Union(LogicalPlan):

@@ -49,8 +49,21 @@ The planner hands the scans, exchanges and coalesces one
 ``sql.taskThreads``, ``sql.scan.decodeThreads`` and the stage depth
 from its conf.
 
-A node this port cannot lower raises NotImplementedError: there is no
-CPU fallback engine.
+Before lowering, the plan is tagged, as the JAX planner tags it
+(``PlanMeta``): each node whose exec switch
+(``spark.rapids.tpu.sql.exec.<Node>``) is off, whose expressions or
+aggregates the registries below do not accept (a class not registered,
+its switch ``spark.rapids.tpu.sql.expression.<Class>`` off, an input
+type outside its signature in ``plan/typesig.py``, or a
+``check_supported`` that raises), or whose shape the device execs do
+not run (a residual condition on an outer, semi or anti join, a
+keyless outer join, a window ``check_supported`` refuses) carries
+will-not-work reasons.  The decision is made here, from the tags
+alone: a tagged node lowers to ``execs/fallback.py::CpuFallbackExec``
+over its lowered children, and runs on ``cpu/engine.py``; every other
+node lowers to the GPU execs, which raise on what they cannot run.
+Nothing catches a run-time error to fall back.  ``explain()`` marks
+each node ``*`` (GPU) or ``!`` (CPU) with the reasons.
 """
 
 from __future__ import annotations
@@ -77,6 +90,7 @@ from spark_rapids_tpu_torch.execs.exchange import (
     TpuShuffleExchangeExec,
 )
 from spark_rapids_tpu_torch.execs.expand import TpuExpandExec
+from spark_rapids_tpu_torch.execs.fallback import CpuFallbackExec
 from spark_rapids_tpu_torch.execs.join import (
     TpuBroadcastHashJoinExec,
     TpuShuffledHashJoinExec,
@@ -92,12 +106,21 @@ from spark_rapids_tpu_torch.execs.sort import (
     TpuTopNExec,
 )
 from spark_rapids_tpu_torch.execs.window import TpuWindowExec
+from spark_rapids_tpu_torch.exprs import aggregates as AG
+from spark_rapids_tpu_torch.exprs import arithmetic as A
+from spark_rapids_tpu_torch.exprs import base as B
+from spark_rapids_tpu_torch.exprs import datetime as DT
+from spark_rapids_tpu_torch.exprs import math as M
+from spark_rapids_tpu_torch.exprs import predicates as P
+from spark_rapids_tpu_torch.exprs import strings as S
 from spark_rapids_tpu_torch.exprs.base import (
     BoundReference,
     Expression,
     Literal,
     bind_references,
 )
+from spark_rapids_tpu_torch.exprs.cast import Cast
+from spark_rapids_tpu_torch.exprs.hashing import Murmur3Hash
 from spark_rapids_tpu_torch.exprs.subquery import ScalarSubquery, scalar_value
 from spark_rapids_tpu_torch.io.scan import ArrowSourceExec, ParquetScanExec
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
@@ -107,8 +130,223 @@ from spark_rapids_tpu_torch.ops.partition import (
 )
 from spark_rapids_tpu_torch.parallel.pipeline import prefetch, stage_depth
 from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan import typesig as TS
 from spark_rapids_tpu_torch.plan.runtime_filter import inject_runtime_filters
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
+
+
+# ---------------------------------------------------------------------- #
+# What the GPU runs: the registries the tags check
+# ---------------------------------------------------------------------- #
+
+#: expression class -> its switch
+SUPPORTED_EXPRS: dict[type, str] = {}
+#: expression class -> the input types its device version takes
+EXPR_SIGS: dict[type, TS.ExprSig] = {}
+
+
+def register_expr(cls: type, sig: TS.ExprSig) -> None:
+    SUPPORTED_EXPRS[cls] = C.register(
+        f"spark.rapids.tpu.sql.expression.{cls.__name__}", True)
+    EXPR_SIGS[cls] = sig
+
+
+_ANY = TS.ExprSig(TS.ALL)
+_NUMERIC = TS.ExprSig(TS.NUMERIC + TS.NULLSIG)
+_LOGIC = TS.ExprSig(TS.BOOLEAN + TS.NULLSIG)
+_DT = TS.ExprSig(TS.DATETIME + TS.INTEGRAL + TS.NULLSIG)
+_STR = TS.ExprSig(TS.STRING + TS.INTEGRAL + TS.NULLSIG,
+                  "needle and length parameters are literals")
+
+for _sig, _classes in (
+    (_ANY, (B.Alias, B.BoundReference, B.ColumnReference, B.Literal,
+            P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
+            P.GreaterThanOrEqual, P.EqualNullSafe, P.In, P.IsNull,
+            P.IsNotNull, P.AtLeastNNonNulls, P.Coalesce, P.If, P.CaseWhen,
+            Murmur3Hash)),
+    (_NUMERIC, (A.Add, A.Subtract, A.Multiply, A.Divide, A.IntegralDivide,
+                A.Remainder, A.Pmod, A.UnaryMinus, A.UnaryPositive, A.Abs,
+                A.Least, A.Greatest, P.IsNaN)),
+    (_LOGIC, (P.And, P.Or, P.Not)),
+    (_NUMERIC, (M.Sqrt, M.Cbrt, M.Exp, M.Expm1, M.Sin, M.Cos, M.Tan, M.Cot,
+             M.Asin, M.Acos, M.Atan, M.Sinh, M.Cosh, M.Tanh, M.Asinh,
+             M.Acosh, M.Atanh, M.Rint, M.Signum, M.ToDegrees,
+             M.ToRadians, M.Log, M.Log10, M.Log2, M.Log1p, M.Logarithm,
+             M.Pow, M.Ceil, M.Floor, M.Round, M.BRound,
+             M.KnownFloatingPointNormalized)),
+    (TS.ExprSig(TS.TypeSig.of("double") + TS.NULLSIG,
+                "NaN semantics need floating inputs"),
+     (M.NaNvl, M.NormalizeNaNAndZero)),
+    (_DT, (DT.Year, DT.Month, DT.DayOfMonth, DT.DayOfWeek, DT.WeekDay,
+           DT.DayOfYear, DT.Quarter, DT.LastDay, DT.DateAdd, DT.DateSub,
+           DT.AddMonths, DT.DateDiff)),
+    (_STR, (S.Length, S.Upper, S.Lower, S.StartsWith, S.EndsWith,
+            S.Contains, S.Like, S.Substring, S.StringTrim,
+            S.StringTrimLeft, S.StringTrimRight, S.Concat)),
+    (TS.ExprSig(TS.ALL, "the cast pairs in check_supported"), (Cast,)),
+):
+    for _cls in _classes:
+        register_expr(_cls, _sig)
+
+#: the aggregates the device group-by computes
+SUPPORTED_AGGS = (AG.Sum, AG.Count, AG.CountStar, AG.Min, AG.Max,
+                  AG.Average, AG.First, AG.Last)
+_VALUE_SIG = TS.ExprSig(TS.NUMERIC + TS.DATETIME + TS.BOOLEAN + TS.NULLSIG,
+                        "string min / max / first / last fall back")
+#: aggregate class -> the input types the device group-by takes
+AGG_SIGS: dict[type, TS.ExprSig] = {
+    AG.Sum: TS.ExprSig(TS.NUMERIC + TS.NULLSIG),
+    AG.Average: TS.ExprSig(TS.NUMERIC + TS.NULLSIG),
+    AG.Count: TS.ExprSig(TS.ALL),
+    AG.CountStar: TS.ExprSig(TS.ALL),
+    AG.Min: _VALUE_SIG,
+    AG.Max: _VALUE_SIG,
+    AG.First: _VALUE_SIG,
+    AG.Last: _VALUE_SIG,
+}
+
+#: logical node class -> its switch, under the JAX package's key names
+#: (the Parquet leaf is its ``ParquetRelation``)
+EXEC_SWITCHES: dict[type, str] = {
+    cls: C.register("spark.rapids.tpu.sql.exec." + (
+        "ParquetRelation" if cls is L.Scan else cls.__name__), True)
+    for cls in (L.Scan, L.InMemoryRelation, L.RangeRel, L.Project,
+                L.Filter, L.Aggregate, L.Expand, L.Join, L.Window, L.Sort,
+                L.Limit, L.Union)
+}
+
+
+def _check_expr(e: Expression, conf: C.TorchConf, reasons: set) -> None:
+    """Reasons ``e`` (bound) or any expression under it cannot run on
+    the GPU."""
+    key = SUPPORTED_EXPRS.get(type(e))
+    if key is None:
+        reasons.add(f"expression {type(e).__name__} is not supported on "
+                    "the GPU")
+    elif not conf.get(key):
+        reasons.add(f"expression {type(e).__name__} disabled by {key}")
+    TS.check_inputs(e, EXPR_SIGS.get(type(e)), reasons)
+    check = getattr(e, "check_supported", None)
+    if check is not None:
+        try:
+            check()
+        except TypeError as exc:
+            reasons.add(str(exc))
+    for c in e.children:
+        _check_expr(c, conf, reasons)
+
+
+def _check_agg(fn: AG.AggregateFunction, reasons: set) -> None:
+    """Reasons the device group-by cannot compute ``fn`` (bound)."""
+    if not isinstance(fn, SUPPORTED_AGGS):
+        reasons.add(f"aggregate {fn.name} is not supported on the GPU")
+        return
+    sig = AGG_SIGS[type(fn)]
+    if fn.child is not None and not sig.inputs.supports(fn.child.dtype):
+        reasons.add(
+            f"aggregate {fn.name} does not support input type "
+            f"{fn.child.dtype.name} on the GPU (supported: "
+            f"{sig.inputs.describe()})")
+
+
+class PlanMeta:
+    """A logical node with its will-not-work reasons, over its
+    children's metas."""
+
+    def __init__(self, plan: L.LogicalPlan, conf: C.TorchConf):
+        self.plan = plan
+        self.conf = conf
+        self.children = [PlanMeta(c, conf) for c in plan.children]
+        self.reasons: set[str] = set()
+
+    @property
+    def can_replace(self) -> bool:
+        return not self.reasons
+
+    def will_not_work(self, reason: str) -> None:
+        self.reasons.add(reason)
+
+    def walk(self):
+        yield self
+        for c in self.children:
+            yield from c.walk()
+
+    def tag(self) -> None:
+        key = EXEC_SWITCHES.get(type(self.plan))
+        if key is None:
+            self.will_not_work(
+                f"operator {self.plan.name} is not supported on the GPU")
+        elif not self.conf.get(key):
+            self.will_not_work(f"disabled by {key}")
+        self._tag_exprs()
+        for c in self.children:
+            c.tag()
+
+    def _check(self, e: Expression, schema: T.Schema) -> None:
+        _check_expr(bind_references(e, schema), self.conf, self.reasons)
+
+    def _tag_exprs(self) -> None:  # noqa: C901 - one branch a node
+        p = self.plan
+        cs = p.children[0].schema if p.children else None
+        if isinstance(p, L.Project):
+            for e in p.exprs:
+                self._check(e, cs)
+        elif isinstance(p, L.Filter):
+            self._check(p.condition, cs)
+        elif isinstance(p, L.Expand):
+            for proj in p.projections:
+                for e in proj:
+                    self._check(e, cs)
+        elif isinstance(p, L.Aggregate):
+            for g in p.groups:
+                self._check(g, cs)
+            for na in p.aggs:
+                fn = na.fn.bind(cs) if isinstance(na.fn, SUPPORTED_AGGS) \
+                    else na.fn
+                _check_agg(fn, self.reasons)
+                for e in na.fn.inputs():
+                    self._check(e, cs)
+        elif isinstance(p, L.Sort):
+            for k in p.keys:
+                self._check(k.expr, cs)
+        elif isinstance(p, L.Window):
+            for we, _ in p.window_exprs:
+                for e in (list(we.fn.inputs()) + list(we.spec.partition_by)
+                          + [k.expr for k in we.spec.order_by]):
+                    self._check(e, cs)
+                try:
+                    we.bind(cs).check_supported()
+                except (NotImplementedError, TypeError) as exc:
+                    self.will_not_work(str(exc))
+        elif isinstance(p, L.Join):
+            ls, rs = (c.schema for c in p.children)
+            for k in p.left_keys:
+                self._check(k, ls)
+            for k in p.right_keys:
+                self._check(k, rs)
+            if p.condition is not None:
+                if p.join_type != "inner":
+                    self.will_not_work(
+                        f"{p.join_type} join with a residual condition")
+                else:
+                    self._check(p.condition, T.Schema(
+                        list(ls.fields) + list(rs.fields)))
+            if not p.left_keys and p.join_type not in ("cross", "inner"):
+                self.will_not_work(f"{p.join_type} join without keys")
+
+    def explain(self, indent: int = 0) -> str:
+        """The tree, one node a line: ``*`` runs on the GPU, ``!`` on the
+        CPU engine, with its reasons."""
+        mark = "*" if self.can_replace else "!"
+        s = "  " * indent + f"{mark} {self.plan.node_desc()}"
+        if self.reasons:
+            s += "  <-- cannot run on the GPU because " + "; ".join(
+                sorted(self.reasons))
+        s += "\n"
+        for c in self.children:
+            s += c.explain(indent + 1)
+        return s
+
 
 
 class Planner:
@@ -128,11 +366,25 @@ class Planner:
             task_threads=conf.get(C.TASK_THREADS),
             decode_threads=conf.get(C.DECODE_THREADS),
             stage_depth=stage_depth(conf), upload_stream=upload_stream)
+        #: id(logical node) -> its meta, while a plan is lowered
+        self._tags: dict[int, PlanMeta] = {}
 
     def plan(self, plan: L.LogicalPlan) -> TpuExec:
-        root = self._lower(self._rewrite_scalar_subqueries(plan), None)
+        return self.plan_with_meta(plan)[0]
+
+    def plan_with_meta(self, plan: L.LogicalPlan
+                       ) -> tuple[TpuExec, PlanMeta]:
+        """The physical plan and the tagged logical tree it came from."""
+        plan = self._rewrite_scalar_subqueries(plan)
+        meta = PlanMeta(plan, self.conf)
+        meta.tag()
+        saved, self._tags = self._tags, {id(m.plan): m for m in meta.walk()}
+        try:
+            root = self._lower(plan, None)
+        finally:
+            self._tags = saved
         inject_runtime_filters(root, self.conf)
-        return root
+        return root, meta
 
     def _rewrite_scalar_subqueries(self, plan: L.LogicalPlan
                                    ) -> L.LogicalPlan:
@@ -163,6 +415,12 @@ class Planner:
 
     def _lower(self, p: L.LogicalPlan, required: Optional[set]) -> TpuExec:
         """``required``: column names the parent reads (None = all)."""
+        meta = self._tags.get(id(p))
+        if meta is not None and not meta.can_replace:
+            # the CPU engine reads its children's whole schemas
+            return CpuFallbackExec(
+                p, meta.reasons, [self._lower(c, None) for c in p.children],
+                self.device, self.conf.get(C.BATCH_ROWS), self.runtime)
         if isinstance(p, L.Scan):
             return ParquetScanExec(p.paths, p.schema, self.device,
                                    self.conf.get(C.TASK_TARGET_BYTES),

@@ -1,0 +1,88 @@
+"""Declarative type-support signatures driving plan tagging.
+
+Counterpart of ``spark_rapids_tpu/plan/typesig.py`` over the port's
+types (BOOLEAN, INT, LONG, DOUBLE, STRING, DATE and NULL).  Every
+expression and aggregate rule of the planner declares the input types
+its device version handles; tagging checks the declarations, not the
+operator code, and turns each unsupported child type into a
+will-not-work reason, so the node runs on the CPU engine with an
+explanation instead of raising.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from spark_rapids_tpu_torch import types as T
+
+_KIND_OF = {
+    T.BooleanType: "boolean",
+    T.IntegerType: "int",
+    T.LongType: "long",
+    T.DoubleType: "double",
+    T.StringType: "string",
+    T.DateType: "date",
+    T.NullType: "null",
+}
+
+KIND_ORDER = ["boolean", "int", "long", "double", "string", "date", "null"]
+
+
+def kind_of(dtype: T.DataType) -> str:
+    return _KIND_OF[type(dtype)]
+
+
+@dataclasses.dataclass(frozen=True)
+class TypeSig:
+    kinds: frozenset
+
+    def supports(self, dtype: T.DataType) -> bool:
+        return kind_of(dtype) in self.kinds
+
+    def __add__(self, other: "TypeSig") -> "TypeSig":
+        return TypeSig(self.kinds | other.kinds)
+
+    def describe(self) -> str:
+        return ", ".join(k for k in KIND_ORDER if k in self.kinds)
+
+    @staticmethod
+    def of(*kinds: str) -> "TypeSig":
+        unknown = set(kinds) - set(KIND_ORDER)
+        assert not unknown, f"unknown type kinds {unknown}"
+        return TypeSig(frozenset(kinds))
+
+
+BOOLEAN = TypeSig.of("boolean")
+INTEGRAL = TypeSig.of("int", "long")
+NUMERIC = INTEGRAL + TypeSig.of("double")
+STRING = TypeSig.of("string")
+DATETIME = TypeSig.of("date")
+NULLSIG = TypeSig.of("null")
+#: every type of the port: each sorts, compares, groups and hashes
+ALL = NUMERIC + BOOLEAN + STRING + DATETIME + NULLSIG
+
+
+@dataclasses.dataclass(frozen=True)
+class ExprSig:
+    """Input signature of one expression rule: the types its children
+    may produce for the device version to run."""
+
+    inputs: TypeSig
+    note: str = ""
+
+
+def check_inputs(expr, sig: Optional[ExprSig], reasons: set) -> None:
+    """Add a reason for each child whose type ``sig`` does not accept."""
+    if sig is None:
+        return
+    for c in expr.children:
+        try:
+            dt = c.dtype
+        except Exception:
+            continue  # unresolved: binding errors surface elsewhere
+        if not sig.inputs.supports(dt):
+            reasons.add(
+                f"expression {type(expr).__name__} does not support "
+                f"input type {dt.name} on the GPU "
+                f"(supported: {sig.inputs.describe()})")

@@ -22,8 +22,9 @@ cast, or raises TypeError.  ``grouping()`` / ``grouping_id()``, and
 not in the JAX package and not here.
 
 A session runs on one device, ``cuda`` unless the caller asks for the
-CPU.  Asking for CUDA on a host without it raises: nothing falls back
-to the CPU.  It owns its shuffle manager, its task semaphore (sized by
+CPU.  Asking for CUDA on a host without it raises: the CPU engine that
+runs the nodes the planner tags off the GPU is part of the plan, not a
+device.  It owns its shuffle manager, its task semaphore (sized by
 ``sql.concurrentTpuTasks`` when it is made) and, on CUDA, the side
 stream its scans upload on.  ``collect`` runs the plan on a
 ``result.fetch`` stage and converts each batch as it comes, as the JAX
@@ -380,16 +381,21 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(L.Limit(n, self._plan), self._session)
 
-    def physical_plan(self) -> TpuExec:
+    def _planner(self) -> Planner:
         s = self._session
         return Planner(s.conf, s.device, s.shuffle_manager, s.semaphore,
-                       s.upload_stream).plan(self._plan)
+                       s.upload_stream)
+
+    def physical_plan(self) -> TpuExec:
+        return self._planner().plan(self._plan)
 
     def explain(self) -> str:
-        """The physical plan, then a line for each runtime filter's build
-        site and each scan that applies one."""
-        plan = self.physical_plan()
-        return "\n".join([plan.tree_string(),
+        """The tagged logical tree (``*`` on the GPU, ``!`` on the CPU
+        engine with its reasons), then the physical plan and a line for
+        each runtime filter's build site and each scan that applies
+        one."""
+        plan, meta = self._planner().plan_with_meta(self._plan)
+        return "\n".join([meta.explain().rstrip("\n"), plan.tree_string(),
                           *render_runtime_filters(plan)])
 
     def collect(self) -> pa.Table:

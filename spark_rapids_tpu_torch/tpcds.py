@@ -992,3 +992,460 @@ def write_store_channel(dirpath: str, n_files: int = 6,
             pq.write_table(make(), path)
             out[name] = [path]
     return {name: out[name] for name in STORE_CHANNEL_TABLES}
+
+
+# --------------------------------------------------------------------- #
+# The catalog and web channels: the 11 tables the other 29 texts read,
+# and the whole catalog in its draw order
+# --------------------------------------------------------------------- #
+
+#: the spec's SF1 row counts of the channels' dimensions
+SF1_CHANNEL_DIMS = {"warehouse": 5, "ship_mode": 20, "call_center": 6,
+                    "web_site": 30, "web_page": 60, "catalog_page": 11_718}
+#: the spec's SF1 rows of the channels' facts, and the files they are
+#: written in
+SF1_CHANNEL_FACTS = {"catalog_sales": (1_441_548, 3),
+                     "web_sales": (719_384, 2),
+                     "catalog_returns": (144_067, 1),
+                     "web_returns": (71_763, 1),
+                     "inventory": (11_745_000, 6)}
+#: the 11 tables the catalog and web texts read beside the store
+#: channel's
+CHANNEL_TABLES = ("catalog_sales", "catalog_returns", "web_sales",
+                  "web_returns", "inventory", "warehouse", "ship_mode",
+                  "call_center", "web_site", "web_page", "catalog_page")
+_SHIP_TYPES = ["EXPRESS", "NEXT DAY", "OVERNIGHT", "REGULAR", "LIBRARY"]
+_SHIP_CODES = ["AIR", "SURFACE", "SEA", "AIR", "SURFACE"]
+_CARRIERS = ["UPS", "FEDEX", "AIRBORNE", "USPS", "DHL"]
+#: the mini catalog's base rows at scale 1 (``generate``)
+CATALOG_ROWS = {
+    "store_sales": 20_000, "catalog_sales": 12_000, "web_sales": 12_000,
+    "store_returns": 3_000, "catalog_returns": 2_000,
+    "web_returns": 2_000, "inventory": 12_000,
+    "customer": 1_000, "customer_address": 800,
+    "customer_demographics": 1_920, "household_demographics": 720,
+    "item": 1_000, "time_dim": 1_440, "income_band": 20,
+    "store": 12, "warehouse": 6, "promotion": 30, "reason": 10,
+    "ship_mode": 5, "call_center": 4, "web_site": 6, "web_page": 20,
+    "catalog_page": 40,
+}
+
+
+def _sk(n: int) -> np.ndarray:
+    return np.arange(1, n + 1, dtype=np.int64)
+
+
+def _ids(sk) -> pa.Array:
+    return pa.array(_fmt("AAAAAAAA", sk, 8))
+
+
+def make_warehouse(rng: np.random.Generator, n: int) -> pa.Table:
+    """warehouse, ``n`` rows, drawing from ``rng`` in the catalog's
+    order."""
+    sk = _sk(n)
+    cols = {"w_warehouse_sk": sk, "w_warehouse_id": _ids(sk),
+            "w_warehouse_name": pa.array(_fmt("Warehouse number ", sk))}
+    cols["w_warehouse_sq_ft"] = rng.integers(50000, 1000000, n).astype(
+        np.int64)
+    cols["w_street_number"] = pa.array(rng.integers(1, 1000, n).astype(str))
+    cols["w_street_name"] = pa.array(_pick(rng, ["Main", "Oak", "Park"], n))
+    cols["w_street_type"] = pa.array(_pick(rng, ["Street", "Ave"], n))
+    cols["w_suite_number"] = pa.array(_fmt("Suite ",
+                                           rng.integers(0, 100, n)))
+    cols["w_city"] = pa.array(_pick(rng, _CITIES[:6], n))
+    cols["w_county"] = pa.array(_pick(rng, _COUNTIES, n))
+    cols["w_state"] = pa.array(_pick(rng, _STATES[:8], n))
+    cols["w_zip"] = pa.array(_fmt("", rng.integers(10000, 99999, n), 5))
+    cols["w_country"] = pa.array(np.full(n, "United States"))
+    cols["w_gmt_offset"] = rng.choice([-5.0, -6.0], n)
+    return pa.table(cols)
+
+
+def make_ship_mode(n: int) -> pa.Table:
+    """ship_mode, ``n`` rows; no rng.  The catalog cuts its five codes
+    and carriers to ``n`` (so it stops at 5 rows); here all three lists
+    cycle, as its ``sm_type`` does, and the first 5 rows are its."""
+    sk = _sk(n)
+    cyc = (sk - 1) % 5
+    return pa.table({
+        "sm_ship_mode_sk": sk,
+        "sm_ship_mode_id": _ids(sk),
+        "sm_type": pa.array(np.array(_SHIP_TYPES)[cyc]),
+        "sm_code": pa.array(np.array(_SHIP_CODES)[cyc]),
+        "sm_carrier": pa.array(np.array(_CARRIERS)[cyc]),
+        "sm_contract": pa.array(_fmt("contract", sk)),
+    })
+
+
+def make_call_center(rng: np.random.Generator, n: int) -> pa.Table:
+    """call_center, ``n`` rows, drawing from ``rng`` in the catalog's
+    order."""
+    sk = _sk(n)
+    cols = {
+        "cc_call_center_sk": sk, "cc_call_center_id": _ids(sk),
+        "cc_rec_start_date": pa.array(np.full(n, 9131, np.int32),
+                                      type=pa.date32()),
+        "cc_rec_end_date": pa.nulls(n, pa.date32()),
+        "cc_name": pa.array(_fmt("call center ", sk)),
+    }
+    cols["cc_class"] = pa.array(_pick(rng, ["small", "medium", "large"], n))
+    cols["cc_employees"] = rng.integers(100, 700, n).astype(np.int64)
+    cols["cc_sq_ft"] = rng.integers(10000, 50000, n).astype(np.int64)
+    cols["cc_hours"] = pa.array(_pick(rng, ["8AM-8AM", "8AM-4PM"], n))
+    cols["cc_manager"] = pa.array(_pick(rng, _FIRST, n))
+    cols["cc_mkt_id"] = rng.integers(1, 7, n).astype(np.int64)
+    cols["cc_mkt_class"] = pa.array(_fmt("mkt class ", sk))
+    cols["cc_mkt_desc"] = pa.array(_fmt("mkt desc ", sk))
+    cols["cc_market_manager"] = pa.array(_pick(rng, _FIRST, n))
+    cols["cc_division"] = np.ones(n, np.int64)
+    cols["cc_division_name"] = pa.array(np.full(n, "Unknown"))
+    cols["cc_company"] = np.ones(n, np.int64)
+    cols["cc_company_name"] = pa.array(np.full(n, "Unknown"))
+    cols["cc_county"] = pa.array(_pick(rng, _COUNTIES, n))
+    cols["cc_state"] = pa.array(_pick(rng, _STATES[:8], n))
+    cols["cc_country"] = pa.array(np.full(n, "United States"))
+    cols["cc_gmt_offset"] = rng.choice([-5.0, -6.0], n)
+    cols["cc_tax_percentage"] = np.round(rng.uniform(0.0, 0.12, n), 2)
+    return pa.table(cols)
+
+
+def make_web_site(rng: np.random.Generator, n: int) -> pa.Table:
+    """web_site, ``n`` rows, drawing from ``rng`` in the catalog's
+    order."""
+    sk = _sk(n)
+    cols = {"web_site_sk": sk, "web_site_id": _ids(sk),
+            "web_name": pa.array(_fmt("site_", sk))}
+    cols["web_mkt_id"] = rng.integers(1, 7, n).astype(np.int64)
+    cols["web_company_name"] = pa.array(_pick(
+        rng, ["pri", "able", "ought", "ese", "anti"], n))
+    cols["web_manager"] = pa.array(_pick(rng, _FIRST, n))
+    cols["web_county"] = pa.array(_pick(rng, _COUNTIES, n))
+    cols["web_state"] = pa.array(_pick(rng, _STATES[:8], n))
+    cols["web_country"] = pa.array(np.full(n, "United States"))
+    cols["web_gmt_offset"] = rng.choice([-5.0, -6.0], n)
+    cols["web_tax_percentage"] = np.round(rng.uniform(0.0, 0.12, n), 2)
+    return pa.table(cols)
+
+
+def make_web_page(rng: np.random.Generator, n: int,
+                  n_days: int = _CATALOG_DAYS) -> pa.Table:
+    """web_page, ``n`` rows, drawing from ``rng`` in the catalog's
+    order; half the customers NULL."""
+    sk = _sk(n)
+    cols = {"wp_web_page_sk": sk, "wp_web_page_id": _ids(sk)}
+    for name in ("wp_creation_date_sk", "wp_access_date_sk"):
+        cols[name] = (DATE_SK_EPOCH + rng.integers(0, n_days, n)).astype(
+            np.int64)
+    cols["wp_autogen_flag"] = pa.array(_flags(rng, n))
+    cols["wp_customer_sk"] = _nullable(
+        rng, rng.integers(1, 100, n).astype(np.int64), 0.5)
+    cols["wp_url"] = pa.array(np.full(n, "http://www.foo.com"))
+    cols["wp_type"] = pa.array(_pick(
+        rng, ["ad", "dynamic", "feedback", "general", "order", "protected",
+              "welcome"], n))
+    cols["wp_char_count"] = rng.integers(1000, 8000, n).astype(np.int64)
+    cols["wp_link_count"] = rng.integers(2, 25, n).astype(np.int64)
+    cols["wp_image_count"] = rng.integers(1, 7, n).astype(np.int64)
+    cols["wp_max_ad_count"] = rng.integers(0, 5, n).astype(np.int64)
+    return pa.table(cols)
+
+
+def make_catalog_page(rng: np.random.Generator, n: int) -> pa.Table:
+    """catalog_page, ``n`` rows (ten pages a catalog), drawing from
+    ``rng`` in the catalog's order."""
+    sk = _sk(n)
+    return pa.table({
+        "cp_catalog_page_sk": sk,
+        "cp_catalog_page_id": _ids(sk),
+        "cp_start_date_sk": np.full(n, DATE_SK_EPOCH, np.int64),
+        "cp_end_date_sk": np.full(n, DATE_SK_EPOCH + 364, np.int64),
+        "cp_department": pa.array(np.full(n, "DEPARTMENT")),
+        "cp_catalog_number": (sk - 1) // 10 + 1,
+        "cp_catalog_page_number": (sk - 1) % 10 + 1,
+        "cp_description": pa.array(_fmt("catalog page ", sk)),
+        "cp_type": pa.array(_pick(rng, ["bi-annual", "monthly",
+                                        "quarterly"], n)),
+    })
+
+
+def _amounts(rng: np.random.Generator, n: int, ship: bool) -> dict:
+    """A sales row's quantity and money columns, by the catalog's
+    formulas and in its draw order (``ship``: the catalog and web sales'
+    shipping cost, drawn before the coupon)."""
+    qty = rng.integers(1, 101, n).astype(np.int64)
+    wcost = _money(rng, n, 1, 100)
+    lprice = np.round(wcost * rng.uniform(1.0, 2.0, n), 2)
+    sprice = np.round(lprice * rng.uniform(0.3, 1.0, n), 2)
+    ext_sales = np.round(sprice * qty, 2)
+    ext_wcost = np.round(wcost * qty, 2)
+    ext_list = np.round(lprice * qty, 2)
+    tax = np.round(ext_sales * 0.05, 2)
+    cost = _money(rng, n, 0, 150) if ship else None
+    coupon = np.round(ext_sales * (rng.random(n) < 0.1)
+                      * rng.uniform(0, 0.5, n), 2)
+    net_paid = np.round(ext_sales - coupon, 2)
+    out = {"quantity": qty, "wholesale_cost": wcost, "list_price": lprice,
+           "sales_price": sprice,
+           "ext_discount_amt": np.round(ext_list - ext_sales, 2),
+           "ext_sales_price": ext_sales, "ext_wholesale_cost": ext_wcost,
+           "ext_list_price": ext_list, "ext_tax": tax, "coupon_amt": coupon}
+    if ship:
+        out["ext_ship_cost"] = cost
+    out["net_paid"] = net_paid
+    out["net_paid_inc_tax"] = np.round(net_paid + tax, 2)
+    if ship:
+        out["net_paid_inc_ship"] = np.round(net_paid + cost, 2)
+        out["net_paid_inc_ship_tax"] = np.round(net_paid + cost + tax, 2)
+    out["net_profit"] = np.round(net_paid - ext_wcost, 2)
+    return out
+
+
+def _dates(rng: np.random.Generator, n: int) -> np.ndarray:
+    """The catalog's ``dsk``: sale dates over 1998-2002."""
+    return (DATE_SK_EPOCH + rng.integers(0, _SALES_DAYS, n)).astype(np.int64)
+
+
+def _times(rng: np.random.Generator, n: int, n_time: int) -> np.ndarray:
+    """The catalog's ``tsk``: a time_dim key of ``n_time`` spread over
+    the day."""
+    return (rng.integers(0, n_time, n) * (86400 // n_time)).astype(np.int64)
+
+
+def _fks(rng: np.random.Generator, n: int, rows: dict, *dims) -> list:
+    return [rng.integers(1, rows[d] + 1, n).astype(np.int64) for d in dims]
+
+
+_SALES_KEYS = ("bill_customer", "bill_cdemo", "bill_hdemo", "bill_addr",
+               "ship_customer", "ship_cdemo", "ship_hdemo", "ship_addr",
+               "ship_mode", "warehouse", "item", "promo")
+_SALES_DIMS = ("customer", "customer_demographics", "household_demographics",
+               "customer_address", "customer", "customer_demographics",
+               "household_demographics", "customer_address", "ship_mode",
+               "warehouse", "item", "promotion")
+
+
+def channel_sales_table(rng: np.random.Generator, prefix: str, n: int,
+                        rows: dict, first_row: int = 0) -> pa.Table:
+    """``n`` catalog_sales (``prefix`` "cs") or web_sales ("ws") rows by
+    the catalog's ``_sales`` formulas, drawing from ``rng`` in its order;
+    order numbers (three rows an order) continue from row ``first_row``;
+    foreign keys in 1..``rows[dimension]``."""
+    amounts = _amounts(rng, n, ship=True)
+    sold = _dates(rng, n)
+    times = _times(rng, n, rows["time_dim"])
+    shipped = sold + rng.integers(2, 90, n)
+    keys = dict(zip(_SALES_KEYS, _fks(rng, n, rows, *_SALES_DIMS)))
+    p = prefix + "_"
+    cols = {p + "sold_date_sk": _nullable(rng, sold, 0.02),
+            p + "sold_time_sk": times, p + "ship_date_sk": shipped}
+    if prefix == "cs":
+        for k in _SALES_KEYS[:8]:
+            cols[p + k + "_sk"] = keys[k]
+        cols["cs_call_center_sk"], cols["cs_catalog_page_sk"] = _fks(
+            rng, n, rows, "call_center", "catalog_page")
+        for k in ("ship_mode", "warehouse", "item", "promo"):
+            cols[p + k + "_sk"] = keys[k]
+    else:
+        cols["ws_item_sk"] = keys["item"]
+        for k in _SALES_KEYS[:8]:
+            cols[p + k + "_sk"] = keys[k]
+        cols["ws_web_page_sk"], cols["ws_web_site_sk"] = _fks(
+            rng, n, rows, "web_page", "web_site")
+        for k in ("ship_mode", "warehouse", "promo"):
+            cols[p + k + "_sk"] = keys[k]
+    cols[p + "order_number"] = (first_row + np.arange(n, dtype=np.int64)) \
+        // 3 + 1
+    for k, v in amounts.items():
+        cols[p + k] = v
+    return pa.table(cols)
+
+
+def channel_returns_table(rng: np.random.Generator, prefix: str,
+                          sales: pa.Table, n: int,
+                          rows: dict) -> pa.Table:
+    """``n`` catalog_returns ("cr") or web_returns ("wr") rows by the
+    catalog's ``_returns`` formulas, drawing from ``rng`` in its order:
+    each copies the item, order number and bill customer of a ``sales``
+    row drawn with replacement (one take), the rest drawn."""
+    s = "cs_" if prefix == "cr" else "ws_"
+    ridx = pa.array(rng.integers(0, sales.num_rows, n))
+    amt = _money(rng, n, 1, 300)
+    returned = _dates(rng, n)
+    times = _times(rng, n, rows["time_dim"])
+    qty = rng.integers(1, 20, n).astype(np.int64)
+    fee = _money(rng, n, 0.5, 100)
+    ship_cost = _money(rng, n, 0, 50)
+    net_loss = _money(rng, n, 0.5, 200)
+
+    def copied(name):
+        return sales.column(s + name).take(ridx).combine_chunks()
+
+    p = prefix + "_"
+    cols = {p + "returned_date_sk": returned,
+            p + "returned_time_sk": times,
+            p + "item_sk": copied("item_sk"),
+            p + "refunded_customer_sk": copied("bill_customer_sk")}
+    dims = ["customer_demographics", "household_demographics",
+            "customer_address", "customer", "customer_demographics",
+            "household_demographics", "customer_address"]
+    names = ["refunded_cdemo", "refunded_hdemo", "refunded_addr",
+             "returning_customer", "returning_cdemo", "returning_hdemo",
+             "returning_addr"]
+    if prefix == "cr":
+        dims += ["call_center", "catalog_page", "ship_mode", "warehouse",
+                 "reason"]
+        names += ["call_center", "catalog_page", "ship_mode", "warehouse",
+                  "reason"]
+    else:
+        dims += ["web_page", "reason"]
+        names += ["web_page", "reason"]
+    for name, v in zip(names, _fks(rng, n, rows, *dims)):
+        cols[p + name + "_sk"] = v
+    cols[p + "order_number"] = copied("order_number")
+    amount = "return_amount" if prefix == "cr" else "return_amt"
+    credit = "store_credit" if prefix == "cr" else "account_credit"
+    cols.update({
+        p + "return_quantity": qty, p + amount: amt,
+        p + "return_tax": np.round(amt * 0.05, 2),
+        p + "return_amt_inc_tax": np.round(amt * 1.05, 2),
+        p + "fee": fee, p + "return_ship_cost": ship_cost,
+        p + "refunded_cash": np.round(amt * 0.7, 2),
+        p + "reversed_charge": np.round(amt * 0.2, 2),
+        p + credit: np.round(amt * 0.1, 2), p + "net_loss": net_loss})
+    return pa.table(cols)
+
+
+def inventory_table(rng: np.random.Generator, n: int,
+                    rows: dict) -> pa.Table:
+    """``n`` inventory rows by the catalog's formulas: a sale date, an
+    item, a warehouse and 0-999 on hand."""
+    return pa.table({
+        "inv_date_sk": _dates(rng, n),
+        "inv_item_sk": rng.integers(1, rows["item"] + 1, n).astype(np.int64),
+        "inv_warehouse_sk": rng.integers(1, rows["warehouse"] + 1,
+                                         n).astype(np.int64),
+        "inv_quantity_on_hand": rng.integers(0, 1000, n).astype(np.int64),
+    })
+
+
+def _catalog_store_sales(rng: np.random.Generator, n: int,
+                         rows: dict) -> pa.Table:
+    """store_sales in the catalog's draw order (the amounts first)."""
+    amounts = _amounts(rng, n, ship=False)
+    cols = {"ss_sold_date_sk": _nullable(rng, _dates(rng, n), 0.02),
+            "ss_sold_time_sk": _times(rng, n, rows["time_dim"])}
+    cols["ss_item_sk"], = _fks(rng, n, rows, "item")
+    cols["ss_customer_sk"] = _nullable(rng, *_fks(rng, n, rows, "customer"),
+                                       0.03)
+    for name, v in zip(("ss_cdemo_sk", "ss_hdemo_sk", "ss_addr_sk",
+                        "ss_store_sk", "ss_promo_sk"),
+                       _fks(rng, n, rows, "customer_demographics",
+                            "household_demographics", "customer_address",
+                            "store", "promotion")):
+        cols[name] = v
+    cols["ss_ticket_number"] = np.arange(n, dtype=np.int64) // 4 + 1
+    for k, v in amounts.items():
+        cols["ss_" + k] = v
+    return pa.table(cols)
+
+
+def generate(scale: float = 1.0, seed: int = 7) -> dict:
+    """The JAX package's mini catalog (``tools/tpcds_schema.generate``),
+    all 24 tables, from one ``default_rng(seed)`` in its draw order:
+    equal to it table by table where it has at most 5 ship modes."""
+    rng = np.random.default_rng(seed)
+    rows = {k: max(4, int(v * scale)) for k, v in CATALOG_ROWS.items()}
+    out = {"date_dim": make_date_dim(_D0, dt.date(2003, 12, 31)),
+           "time_dim": make_time_dim(rows["time_dim"])}
+    out["item"] = make_item(rng, rows["item"])
+    out["customer_address"] = make_customer_address(
+        rng, rows["customer_address"])
+    out["customer_demographics"] = make_customer_demographics(
+        rng, rows["customer_demographics"])
+    out["income_band"] = make_income_band(rows["income_band"])
+    out["household_demographics"] = make_household_demographics(
+        rng, rows["household_demographics"], rows["income_band"])
+    out["customer"] = make_customer(
+        rng, rows["customer"], rows["customer_address"],
+        rows["customer_demographics"], rows["household_demographics"])
+    out["store"] = make_store(rng, rows["store"])
+    out["warehouse"] = make_warehouse(rng, rows["warehouse"])
+    out["ship_mode"] = make_ship_mode(rows["ship_mode"])
+    out["reason"] = make_reason(rows["reason"])
+    out["promotion"] = make_promotion(rng, rows["promotion"], rows["item"])
+    out["call_center"] = make_call_center(rng, rows["call_center"])
+    out["web_site"] = make_web_site(rng, rows["web_site"])
+    out["web_page"] = make_web_page(rng, rows["web_page"])
+    out["catalog_page"] = make_catalog_page(rng, rows["catalog_page"])
+    out["store_sales"] = _catalog_store_sales(rng, rows["store_sales"], rows)
+    out["store_returns"] = store_returns_table(
+        rng, out["store_sales"], rows["store_returns"], rows)
+    for prefix, name in (("cs", "catalog_sales"), ("ws", "web_sales")):
+        out[name] = channel_sales_table(rng, prefix, rows[name], rows)
+    for prefix, name, sales in (("cr", "catalog_returns", "catalog_sales"),
+                                ("wr", "web_returns", "web_sales")):
+        out[name] = channel_returns_table(rng, prefix, out[sales],
+                                          rows[name], rows)
+    out["inventory"] = inventory_table(rng, rows["inventory"], rows)
+    return out
+
+
+def write_channels(dirpath: str, scale: float = 1.0, seed: int = 5,
+                   written: dict | None = None) -> dict:
+    """The 11 tables as Parquet at ``scale`` times the spec's SF1 rows
+    (``SF1_CHANNEL_DIMS``, ``SF1_CHANNEL_FACTS``), foreign keys inside
+    the SF1 dimensions (``SF1_ROWS``; the store channel's ten reasons):
+    each dimension one file, each fact table in its files, every file
+    from its own seeded rng.  Order numbers continue across a fact's
+    files; each returns row copies the keys of a sales row drawn from
+    every file (read back).  ``written`` (table -> paths) names tables
+    already on disk, which are kept.  Returns table -> paths."""
+    os.makedirs(dirpath, exist_ok=True)
+    out = {k: list(v) for k, v in (written or {}).items()}
+    rows = {**SF1_ROWS, **SF1_CHANNEL_DIMS, "reason": len(_REASONS)}
+    dims = {
+        "warehouse": lambda r: make_warehouse(r, rows["warehouse"]),
+        "ship_mode": lambda r: make_ship_mode(rows["ship_mode"]),
+        "call_center": lambda r: make_call_center(r, rows["call_center"]),
+        "web_site": lambda r: make_web_site(r, rows["web_site"]),
+        "web_page": lambda r: make_web_page(r, rows["web_page"]),
+        "catalog_page": lambda r: make_catalog_page(r, rows["catalog_page"]),
+    }
+    def rng(name, i=0):
+        return np.random.default_rng([seed, CHANNEL_TABLES.index(name), i])
+
+    for name, make in dims.items():
+        if name not in out:
+            path = os.path.join(dirpath, f"{name}.parquet")
+            pq.write_table(make(rng(name)), path)
+            out[name] = [path]
+
+    def facts(name, make):
+        if name in out:
+            return
+        total, n_files = SF1_CHANNEL_FACTS[name]
+        total = max(n_files, round(total * scale))
+        per = -(-total // n_files)
+        paths = []
+        for i in range(n_files):
+            n = min(per, total - i * per)
+            path = os.path.join(dirpath, f"{name}-{i}.parquet")
+            pq.write_table(make(rng(name, i), n, i * per), path,
+                           row_group_size=n)
+            paths.append(path)
+        out[name] = paths
+
+    facts("catalog_sales", lambda r, n, first: channel_sales_table(
+        r, "cs", n, rows, first))
+    facts("web_sales", lambda r, n, first: channel_sales_table(
+        r, "ws", n, rows, first))
+    for name, prefix, sales, s in (
+            ("catalog_returns", "cr", "catalog_sales", "cs"),
+            ("web_returns", "wr", "web_sales", "ws")):
+        keys = pa.concat_tables(pq.read_table(p, columns=[
+            f"{s}_item_sk", f"{s}_order_number", f"{s}_bill_customer_sk"])
+            for p in out[sales])
+        facts(name, lambda r, n, first, p=prefix, k=keys:
+              channel_returns_table(r, p, k, n, rows))
+    facts("inventory", lambda r, n, first: inventory_table(r, n, rows))
+    return {name: out[name] for name in CHANNEL_TABLES}

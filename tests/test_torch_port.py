@@ -56,9 +56,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(mods) >= 20
-    # the grouping-set and union slice's modules are among them, and the
-    # SQL slice's
-    assert {"spark_rapids_tpu_torch.execs.expand",
+    # the grouping-set and union slice's modules are among them, the
+    # SQL slice's and the plan-rewriting slice's
+    assert {"spark_rapids_tpu_torch.cpu.engine",
+            "spark_rapids_tpu_torch.execs.fallback",
+            "spark_rapids_tpu_torch.plan.typesig",
+            "spark_rapids_tpu_torch.execs.expand",
             "spark_rapids_tpu_torch.exprs.cast",
             "spark_rapids_tpu_torch.execs.basic",
             "spark_rapids_tpu_torch.io.scan",
@@ -96,6 +99,9 @@ def test_session_defaults_to_cuda_and_raises_without_it():
 
 
 def test_unlowerable_plan_raises():
+    """A node no exec switch names is tagged off the GPU and planned on
+    the CPU engine, which raises on a node it does not know."""
+    from spark_rapids_tpu_torch.execs.fallback import CpuFallbackExec
     from spark_rapids_tpu_torch.plan.logical import LogicalPlan
     from spark_rapids_tpu_torch.plan.planner import Planner
 
@@ -103,8 +109,11 @@ def test_unlowerable_plan_raises():
         children = []
 
     s = TorchSession(device="cpu")
+    plan = Planner(s.conf, s.device, s.shuffle_manager).plan(Sort())
+    assert isinstance(plan, CpuFallbackExec)
+    assert plan.reasons == ["operator Sort is not supported on the GPU"]
     with pytest.raises(NotImplementedError):
-        Planner(s.conf, s.device, s.shuffle_manager).plan(Sort())
+        list(plan.execute())
 
 
 def test_unknown_conf_key_raises():

@@ -173,18 +173,22 @@ def test_q3_in_one_partition_a_side_joins_wide(data, port_session):
 
 def test_unported_joins_raise(data, port_session):
     """A residual condition or a missing key on an outer, semi or anti
-    join has no port (the JAX planner falls back to its CPU engine)."""
+    join has no device exec (it would raise): the planner tags the join
+    and plans it on the CPU engine, as the JAX planner does."""
+    from spark_rapids_tpu_torch.execs.fallback import CpuFallbackExec
+
     li = port_session.read_parquet(*data[0])
     orders = port_session.read_parquet(data[1])
     residual = li.join(orders, how="left_outer",
                        left_on=[col("l_orderkey")],
                        right_on=[col("o_orderkey")],
                        condition=col("l_shipdate") > col("o_orderdate"))
-    with pytest.raises(NotImplementedError):
-        residual.physical_plan()
     keyless = li.join(orders, how="left_semi")
-    with pytest.raises(NotImplementedError):
-        keyless.collect()
+    for df, reason in ((residual, "residual condition"),
+                       (keyless, "without keys")):
+        root = df.physical_plan()
+        assert isinstance(root, CpuFallbackExec)
+        assert any(reason in r for r in root.reasons)
     with pytest.raises(ValueError):
         li.join(orders, how="sideways", left_on=[col("l_orderkey")],
                 right_on=[lit(1)])
