@@ -158,7 +158,10 @@ Phases, one JSON line each:
            ``cpu/engine.execute_cpu`` of its logical plan over the first
            file of each fact table, which the card runs once more (q72
            reads the first Q72_INVENTORY_ROWS of inventory, card and
-           reference alike); a text that gives 0 rows runs its variant;
+           reference alike: at 2^20 its store passes the device budget
+           and spills to disk); a text that gives 0 rows runs its
+           variant; each record carries its store peak and
+           torch.cuda.max_memory_allocated;
   fallback q3ds and q93 over one store_sales file with each of the
            Filter, Project, Aggregate, Join and Sort switches off in
            turn (the rows equal the all-on run's, ``explain()`` marks
@@ -167,6 +170,36 @@ Phases, one JSON line each:
            keyless left join, each planned on the CPU engine and held
            against pyarrow.  Every other phase's plans must hold no
            CpuFallbackExec;
+  memory   the memory runtime on the card.  Spill: q93, q67_rollup and
+           q72 (at its inventory cut) under memory.hbm.budgetBytes = a
+           quarter of the query's unconstrained store peak and
+           memory.host.spillStorageSize = a half, so batches go to host
+           and on to disk (q72 over the first Q72_MEMORY_ROWS inventory
+           rows); each result equal to the unconstrained
+           run's rows bit for bit, with the store's spill bytes per
+           hop, restores, time inside spill and restore, its peak
+           device_used gauge beside torch.cuda.max_memory_allocated,
+           and an empty leak_report.  Forced split: q93 and q1's
+           grouped aggregate serially under robustness.faults.spec
+           exec.batch:nth=3,times=2: splits > 0, no task retry, the
+           result equal to the unconstrained run's (floats within
+           REL_TOL), K1's launches = the planned map batches + the
+           exchanges' ladder re-runs.  Real OOM: OOM_QUERY serially, in
+           a child process (``--oom-step``) so that no earlier phase's
+           tensors shape the allocator, under
+           torch.cuda.set_per_process_memory_fraction(f), f the
+           share of the card that is the allocator's reserved bytes
+           before it + OOM_SHARE of its unconstrained peak above the
+           allocated bytes before it: at least one
+           torch.cuda.OutOfMemoryError absorbed by the ladder and the
+           result equal to the unconstrained run's; the fraction goes
+           back to 1.0 however the step ends.  Out-of-core sort: ORDER
+           BY every column of q6's 6 x 2^20 lineitem rows, no LIMIT,
+           sort.rangeExchange off, so the global sort passes
+           sort.singleBatchRows (2^21): rows equal to pyarrow's
+           sort_indices order, with its buckets and host-parked rows.
+           Every earlier phase must leave retry_stats() and every
+           store's spill counters at zero;
   concurrency
            q6, q1, q3 (filter on), q67, q3ds and q93 at the sizes above,
            and q67_rollup and q5,
@@ -221,7 +254,9 @@ ALU_OPS_PER_S = 67e12
 EXACT_WIDTHS = (1, 2, 3, 4, 5, 7, 8, 16, 33, 56, 57, 64, 128, 200)
 #: staged through shared memory, and read straight from global memory
 WIDE_WIDTH, DIRECT_WIDTH = 256, 8000
-EXACT_ROWS = (1, 1023, 1025, 65537)
+#: (and 65 537 until the memory phase and q72's larger cut pushed the
+#: run past 750 s on an H100 80GB HBM3 at 700 W)
+EXACT_ROWS = (1, 1023, 1025)
 #: the row counts DIRECT_WIDTH (and the mix holding it) is checked at:
 #: its plain version takes ~2 s a call on the card (EXACT_ROWS until the
 #: channels phase pushed the run past 750 s on an H100 80GB HBM3 at 700 W)
@@ -890,11 +925,15 @@ def counted_run(make_df, counter) -> tuple:
     each); and the K1 launches (``counter``: the kernel wrapper) its
     planning makes (a scalar subquery runs while its query is planned).
     What the run never pulls (the stream side of a join whose build
-    side is empty) counts nothing.  Returns (the result, the counts and
-    ``per_run``, what one run must launch)."""
+    side is empty) counts nothing.  The session's fault schedule, if
+    any, is armed for the run; ``ladder_reruns`` counts the hash
+    exchanges' map batches that the OOM ladder ran again (each a K1
+    launch more).  Returns (the result, the counts and ``per_run``,
+    what one run must launch without re-runs)."""
     import threading
 
     from spark_rapids_tpu_torch.plan.planner import collect_exec
+    from spark_rapids_tpu_torch.robustness import faults
 
     lock = threading.Lock()
     counts = {"map": 0, "folds": 0}
@@ -923,10 +962,15 @@ def counted_run(make_df, counter) -> tuple:
             builds.append(node)
             node.execute_partition = counted(node.execute_partition,
                                              "folds", len(node.entries))
-    result = collect_exec(plan, df._session.conf)
+    with faults.query_scope(df._session.conf):
+        result = collect_exec(plan, df._session.conf)
     tables = sum(rf.range_table is not None
                  for node in builds for _k, rf in node.entries)
+    reruns = sum(n.metrics["mapBatchRuns"] - n.metrics["mapBatches"]
+                 for n in plan.walk()
+                 if type(n).__name__ == "TpuShuffleExchangeExec")
     return result, {"planned_map_batches": counts["map"],
+                    "ladder_reruns": reruns,
                     "planned_filter_folds": counts["folds"],
                     "planned_range_tables": tables,
                     "planning_launches": planning,
@@ -995,9 +1039,13 @@ def run_query(torch, make_df, kernels, check, calls: list,
         calls.append((list(cols), num_rows, seed, num_partitions))
         return original(cols, num_rows, device, seed, num_partitions)
 
+    from spark_rapids_tpu_torch.execs import retry as R
+
     kernels.hash_columns = recording
     original.launches = 0
     kernels.hash_string.launches = 0
+    R.reset_retry_stats()
+    torch.cuda.reset_peak_memory_stats()
     walls, planned = [], {}
     try:
         for i in range(runs):
@@ -1012,6 +1060,9 @@ def run_query(torch, make_df, kernels, check, calls: list,
         kernels.hash_columns = original
     launches = {"hash_columns": original.launches,
                 "hash_string": kernels.hash_string.launches}
+    ladder = ladder_quiet("run_query", [make_df()._session])
+    if planned.get("ladder_reruns"):
+        raise AssertionError(f"the ladder re-ran map batches: {planned}")
     worst = check(result)
     warm = None if quick else walls.pop(0)
     if quick:
@@ -1024,6 +1075,8 @@ def run_query(torch, make_df, kernels, check, calls: list,
     return {"rows": result.num_rows, "warmup_s": warm,
             "wall_s": walls, "median_s": statistics.median(walls),
             "runs": runs, "launches": launches, "max_rel_err": worst,
+            "ladder": ladder,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
             **planned, **extra}
 
 
@@ -2092,7 +2145,7 @@ CHANNEL_TIMED_RUNS = 1
 #: sale at SF1, ~940 M pairs through nine more joins.  Its card run and
 #: its reference read the first Q72_INVENTORY_ROWS rows of inventory
 #: (the text unchanged)
-Q72_INVENTORY_ROWS = 1 << 18
+Q72_INVENTORY_ROWS = 1 << 19
 #: the exec switches the fallback phase turns off, one at a time
 FALLBACK_SWITCHES = ("Filter", "Project", "Aggregate", "Join", "Sort")
 
@@ -2221,6 +2274,7 @@ def channels_phase(torch, pa, pc, pq, star, kernels, tpcds, TTB,
         0, Q72_INVENTORY_ROWS), q72_inv)
     gen_s = time.perf_counter() - t0
     tables = {**store_tables, **channel}
+    star["channel_tables"], star["q72_inv"] = tables, q72_inv
     facts = ("store_sales", "catalog_sales", "web_sales", "inventory")
     conf = {TTB: Q3DS_TASK_TARGET_BYTES}
 
@@ -2473,6 +2527,9 @@ def concurrency_phase(torch, kernels, TorchSession, SERIAL,
     from spark_rapids_tpu_torch.execs.base import live_pool_threads
     from spark_rapids_tpu_torch.parallel.pipeline import live_stage_threads
 
+    from spark_rapids_tpu_torch.execs import retry as R
+
+    R.reset_retry_stats()
     out = {}
     for name, (conf, make, n_pairs) in queries.items():
         sessions = {"serial": TorchSession({**conf, **SERIAL},
@@ -2512,6 +2569,7 @@ def concurrency_phase(torch, kernels, TorchSession, SERIAL,
                         f"{name}: {side} launched {launches}, serial "
                         f"{want_launches}")
             won += walls["pooled"][-1] < walls["serial"][-1]
+        ladder_quiet(f"concurrency {name}", sessions.values())
         prof = {side: profiled_run(torch, lambda side=side: make(
             sessions[side])) for side in ("serial", "pooled")}
         counts = {side: prof[side].pop("kernel_counts") for side in prof}
@@ -2535,12 +2593,332 @@ def concurrency_phase(torch, kernels, TorchSession, SERIAL,
     return out
 
 
+#: the memory phase: the device budget is the query's unconstrained
+#: store peak over MEMORY_BUDGET_DIVISOR, the host budget its peak over
+#: MEMORY_HOST_DIVISOR
+MEMORY_BUDGET_DIVISOR, MEMORY_HOST_DIVISOR = 4, 2
+#: the memory phase's q72 reads the first Q72_MEMORY_ROWS inventory
+#: rows: under a quarter of its store peak it spills about three times
+#: that peak to the host and part of it on to disk, so this cut keeps
+#: the phase's time and disk writes small
+Q72_MEMORY_ROWS = 1 << 16
+#: the forced split's fault schedule
+SPLIT_SPEC = "exec.batch:nth=3,times=2"
+#: the real-OOM step: its query, and f = (the bytes the allocator holds
+#: before it + OOM_SHARE x (its unconstrained peak - the bytes allocated
+#: before it)) / the card's memory.  q1's grouped
+#: aggregate cannot serve: its peak is the scan's batches, which the
+#: ladder cannot cut (an upload fails before any ladder unit)
+OOM_QUERY, OOM_SHARE = "q93", 0.8
+
+
+def exact_rows(got, want) -> None:
+    """The same columns and the same multiset of rows, floats bit for
+    bit."""
+    if got.schema.names != want.schema.names:
+        raise AssertionError(f"columns {got.schema.names} vs "
+                             f"{want.schema.names}")
+    g = sorted(zip(*(c.to_pylist() for c in got.columns)), key=repr)
+    w = sorted(zip(*(c.to_pylist() for c in want.columns)), key=repr)
+    if g != w:
+        bad = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b) \
+            if len(g) == len(w) else None
+        raise AssertionError(f"{len(g)} rows vs {len(w)}; first difference "
+                             f"at {bad}")
+
+
+def ladder_quiet(where: str, sessions) -> dict:
+    """Raise unless the OOM ladder absorbed nothing and none of the
+    sessions' stores spilled; their spill stats."""
+    from spark_rapids_tpu_torch.execs import retry as R
+
+    st = R.retry_stats()
+    if any(st.values()):
+        raise AssertionError(f"{where}: the ladder moved {st}")
+    out = []
+    for s in sessions:
+        sp = s.spill_stats()
+        if sp["spilled_device_to_host"] or sp["spilled_host_to_disk"]:
+            raise AssertionError(f"{where}: a store spilled: {sp}")
+        out.append(sp)
+    return {"retry_stats": st, "peak_device_used": max(
+        (sp["peak_device_used"] for sp in out), default=0)}
+
+
+def _fresh(torch) -> int:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _timed_collect(torch, df) -> tuple:
+    t0 = time.perf_counter()
+    table = df.collect()
+    torch.cuda.synchronize()
+    return table, time.perf_counter() - t0
+
+
+def spill_step(torch, name: str, make) -> dict:
+    """``make(conf)``: the query's DataFrame in a new session with
+    those keys over the phase's base keys."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.execs import retry as R
+
+    R.reset_retry_stats()
+    base = _fresh(torch)
+    df = make({})
+    want, wall = _timed_collect(torch, df)
+    un = {**ladder_quiet(name, [df._session]),
+          "max_memory_allocated": torch.cuda.max_memory_allocated() - base,
+          "wall_s": wall}
+    budget = max(1, un["peak_device_used"] // MEMORY_BUDGET_DIVISOR)
+    host = max(1, un["peak_device_used"] // MEMORY_HOST_DIVISOR)
+    base = _fresh(torch)
+    df = make({C.HBM_BUDGET_BYTES: budget, C.HOST_SPILL_BYTES: host})
+    got, wall = _timed_collect(torch, df)
+    st = df._session.spill_stats()
+    leaks = df._session.store.leak_report()
+    if not (st["spilled_device_to_host"] and st["spilled_host_to_disk"]):
+        raise AssertionError(f"{name}: no spill to host and disk: {st}")
+    if leaks:
+        raise AssertionError(f"{name}: {len(leaks)} entries left: {leaks[:3]}")
+    if any(R.retry_stats().values()):
+        raise AssertionError(f"{name}: the ladder moved {R.retry_stats()}")
+    exact_rows(got, want)
+    return {"rows": got.num_rows, "unconstrained": un,
+            "device_budget": budget, "host_budget": host,
+            "spill_stats": st, "spill_s": st["spill_ns"] / 1e9,
+            "restore_s": st["restore_ns"] / 1e9,
+            "max_memory_allocated": torch.cuda.max_memory_allocated() - base,
+            "wall_s": wall, "leak_report": leaks,
+            "equal_to_unconstrained": "bit for bit"}
+
+
+def split_step(torch, kernels, name: str, make, want) -> dict:
+    """The query serially under SPLIT_SPEC, counted (``counted_run``)."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.execs import retry as R
+    from spark_rapids_tpu_torch.robustness import faults
+
+    R.reset_retry_stats()
+    kernels.hash_columns.launches = 0
+    kernels.hash_string.launches = 0
+    conf = {**C.SERIAL, C.FAULTS_ENABLED: True, C.FAULTS_SPEC: SPLIT_SPEC}
+    t0 = time.perf_counter()
+    got, planned = counted_run(lambda: make(conf), kernels.hash_columns)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"hash_columns": kernels.hash_columns.launches,
+                "hash_string": kernels.hash_string.launches}
+    st = R.retry_stats()
+    if st["splits"] < 1 or st["task_retries"]:
+        raise AssertionError(f"{name}: {st} under {SPLIT_SPEC}")
+    expect = planned["per_run"] + planned["ladder_reruns"]
+    if launches != {"hash_columns": expect, "hash_string": 0}:
+        raise AssertionError(f"{name}: K1 launched {launches}, expected "
+                             f"{expect} ({planned})")
+    if faults.fault_stats():
+        raise AssertionError("the schedule outlived its query")
+    return {"rows": got.num_rows, "retry_stats": st, "launches": launches,
+            **planned, "wall_s": wall,
+            "max_rel_err": same_result(got, want)}
+
+
+def oom_step(torch, name: str, make) -> dict:
+    """The query serially, unconstrained, then under a per-process
+    memory fraction below its peak: it must end through the ladder with
+    at least one allocator OOM absorbed."""
+    from spark_rapids_tpu_torch.config import SERIAL
+    from spark_rapids_tpu_torch.execs import retry as R
+
+    R.reset_retry_stats()
+    base = _fresh(torch)
+    # the fraction caps the allocator's reserved bytes; the earlier
+    # phases' live tensors hold segments that empty_cache cannot return
+    held = torch.cuda.memory_reserved()
+    want, wall = _timed_collect(torch, make(SERIAL))
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    frac = (held + OOM_SHARE * (peak - base)) / total
+    _fresh(torch)
+    try:
+        torch.cuda.set_per_process_memory_fraction(frac)
+        got, oom_wall = _timed_collect(torch, make(SERIAL))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    st = R.retry_stats()
+    if st["device_ooms"] < 1:
+        raise AssertionError(f"{name}: no OOM under fraction {frac}: {st}")
+    return {"query": name, "fraction": frac, "oom_share": OOM_SHARE,
+            "baseline_bytes": base, "baseline_reserved_bytes": held,
+            "unconstrained_peak_bytes": peak,
+            "card_bytes": total, "retry_stats": st,
+            "unconstrained_wall_s": wall, "wall_s": oom_wall,
+            "rows": got.num_rows, "max_rel_err": same_result(got, want)}
+
+
+def oom_in_child(TTB, paths: tuple) -> dict:
+    """``oom_step`` for OOM_QUERY in a new process on the same card: the
+    earlier phases' live tensors (the calls the ``main`` phase re-times)
+    leave the allocator's segments in a layout no fraction can be set
+    against, so the step starts from a fresh one.  Its record."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--oom-step",
+           json.dumps({"ttb": TTB, "paths": paths})]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the OOM step failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def oom_child(arg: str) -> int:
+    """The child of ``oom_in_child``: OOM_QUERY's step; its record as
+    the last line of standard output."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from spark_rapids_tpu_torch import TorchSession, tpcds, tpch
+    from spark_rapids_tpu_torch.ops import kernels
+
+    spec = json.loads(arg)
+    kernels.load_library("hash_string")
+    paths = spec["paths"]
+
+    def make(conf):
+        if OOM_QUERY == "q93":
+            return tpcds.q93_dataframe(TorchSession(
+                {spec["ttb"]: Q3DS_TASK_TARGET_BYTES, **conf},
+                device="cuda"), *paths)
+        return tpch.q1_dataframe(TorchSession(
+            {spec["ttb"]: TASK_TARGET_BYTES, **conf}, device="cuda"),
+            paths[0])
+
+    print(json.dumps(oom_step(torch, OOM_QUERY, make)), flush=True)
+    return 0
+
+
+def ooc_sort_step(torch, pa, pc, pq, TorchSession, paths, TTB) -> dict:
+    """ORDER BY every lineitem column (a total order up to identical
+    rows), no LIMIT, range exchange off: the global sort of 6 x 2^20
+    rows goes out of core.  Rows equal to pyarrow's order."""
+    from spark_rapids_tpu_torch import col
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.execs.sort import TpuSortExec
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+
+    s = TorchSession({TTB: TASK_TARGET_BYTES,
+                      C.SORT_RANGE_EXCHANGE: False}, device="cuda")
+    table = pa.concat_tables([pq.read_table(p) for p in paths])
+    keys = table.schema.names
+    plan = s.read_parquet(*paths).order_by(
+        *[col(k) for k in keys]).physical_plan()
+    [sort] = [n for n in plan.walk() if isinstance(n, TpuSortExec)]
+    if sort.scope != "global" or table.num_rows <= sort.single_batch_rows:
+        raise AssertionError(f"sort {sort.node_desc()} over "
+                             f"{table.num_rows} rows is not out of core")
+    _fresh(torch)
+    t0 = time.perf_counter()
+    got = collect_exec(plan, s.conf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the generated columns hold no NULL, so NULL placement is moot
+    want = table.take(pc.sort_indices(table, [(k, "ascending")
+                                              for k in keys]))
+    ref_s = time.perf_counter() - t0
+    want = want.select(got.schema.names).cast(got.schema)
+    if not got.equals(want):
+        bad = [n for n in got.schema.names
+               if not got.column(n).equals(want.column(n))]
+        raise AssertionError(f"out-of-core sort differs from pyarrow in "
+                             f"{bad}")
+    if s.store.leak_report():
+        raise AssertionError("the sort left store entries")
+    m = dict(sort.metrics)
+    if m["oocRows"] != table.num_rows or m["hostRows"] != table.num_rows:
+        raise AssertionError(f"sort metrics {m}")
+    return {"rows": got.num_rows, "keys": keys, **m, "wall_s": wall,
+            "reference_s": ref_s, "spill_stats": s.spill_stats(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def memory_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpch,
+                 tpcds, TTB, li_paths) -> dict:
+    """Spill, forced split, real OOM and the out-of-core sort (module
+    docstring).  Emits the phase's line."""
+    from spark_rapids_tpu_torch.execs import retry as R
+    from spark_rapids_tpu_torch.frontends.sql import SqlSession
+    from spark_rapids_tpu_torch.tpcds_queries import QUERIES
+
+    t_phase = time.perf_counter()
+    quiet = ladder_quiet("the earlier phases", [])
+    dd_path, ss_paths, item_path = star["paths"]
+    sr_path, reason_path = star["q93_paths"]
+    ds8 = {TTB: Q3DS_TASK_TARGET_BYTES}
+
+    def q93(conf):
+        return tpcds.q93_dataframe(TorchSession({**ds8, **conf},
+                                                device="cuda"),
+                                   ss_paths, sr_path, reason_path)
+
+    def q67r(conf):
+        return tpcds.q67_rollup_dataframe(
+            TorchSession({**ds8, **conf}, device="cuda"), dd_path,
+            ss_paths, item_path, star["store_path"])
+
+    q72_inv = os.path.join(star["dir"], "channels", "inventory-mem.parquet")
+    pq.write_table(pq.read_table(star["q72_inv"]).slice(
+        0, Q72_MEMORY_ROWS), q72_inv)
+
+    def q72(conf):
+        fe = SqlSession({**ds8, **conf}, device="cuda")
+        for tname, tpaths in star["channel_tables"].items():
+            fe.register_parquet(tname, *([q72_inv] if tname == "inventory"
+                                         else tpaths))
+        return fe.sql(QUERIES[72])
+
+    def q1_agg(conf):
+        return tpch.q1_dataframe(TorchSession(
+            {TTB: TASK_TARGET_BYTES, **conf}, device="cuda"), li_paths)
+
+    spill = {}
+    for name, make in (("q93", q93), ("q67_rollup", q67r), ("q72", q72)):
+        spill[name] = spill_step(torch, name, make)
+        emit("memory_spill", query=name, **spill[name])
+    split = {}
+    for name, make in (("q93", q93), ("q1_agg", q1_agg)):
+        want = make({}).collect()
+        split[name] = split_step(torch, kernels, name, make, want)
+        emit("memory_split", query=name, **split[name])
+    oom = oom_in_child(TTB, {"q93": (ss_paths, sr_path, reason_path),
+                             "q1_agg": (li_paths,)}[OOM_QUERY])
+    emit("memory_oom", **oom)
+    ooc = ooc_sort_step(torch, pa, pc, pq, TorchSession, li_paths, TTB)
+    emit("memory_ooc_sort", **ooc)
+    R.reset_retry_stats()
+    out = {"earlier_phases": quiet, "spill": {
+        k: {f: v[f] for f in ("device_budget", "host_budget", "spill_stats",
+                              "max_memory_allocated", "wall_s")}
+        for k, v in spill.items()},
+        "split": {k: {f: v[f] for f in ("retry_stats", "launches",
+                                        "ladder_reruns", "max_rel_err")}
+                  for k, v in split.items()},
+        "oom": oom, "ooc_sort": {k: ooc[k] for k in (
+            "rows", "sortBuckets", "hostRows", "wall_s")},
+        "seconds": time.perf_counter() - t_phase}
+    emit("memory", **out)
+    return out
+
+
 #: seconds after which the script prints every thread's stack and exits
 #: non-zero (the run's limit is 1200 s)
 WATCHDOG_S = 1150
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--oom-step"]:
+        return oom_child(sys.argv[2])
     import faulthandler
 
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -2699,6 +3077,8 @@ def main() -> int:
             torch, pa, pc, pq, star, kernels, tpcds, TTB, store_tables)
         fallback, fallback_calls = fallback_phase(
             torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB)
+        memory = memory_phase(torch, pa, pc, pq, star, kernels,
+                              TorchSession, tpch, tpcds, TTB, paths)
         dd_path, star_ss, item_path = star["paths"]
         sr_path, reason_path = star["q93_paths"]
         store_path = star["store_path"]
@@ -2750,7 +3130,9 @@ def main() -> int:
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
         "launches": conc_launches["hash_columns"] + sum(
-            q["launches"]["hash_columns"] for q in runs),
+            q["launches"]["hash_columns"] for q in runs) + sum(
+            q["launches"]["hash_columns"]
+            for q in memory["split"].values()),
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
@@ -2759,7 +3141,7 @@ def main() -> int:
                  "q3ds's, q93's, q42/q52/q55's, q67_rollup's, q5's, q27's, "
                  "agg_family's, the sql and channel texts' and the "
                  "fallback phase's calls; ms is the device's own time per "
-                 "launch",
+                 "launch; launches include the memory phase's split runs",
         "concurrency_launches": conc_launches["hash_columns"],
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,

@@ -45,6 +45,45 @@ PIPELINE_ENABLED = "spark.rapids.tpu.sql.pipeline.enabled"
 #: items each such stage may hold ahead of its consumer
 PIPELINE_DEPTH = "spark.rapids.tpu.sql.pipeline.depth"
 
+# -- the memory runtime (``memory/``, ``execs/retry.py``) ----------------- #
+#: device bytes the buffer store keeps registered batches within; past
+#: it a reservation spills.  On CUDA the session sizes it as
+#: ``memory.fraction`` of the card's memory unless this key is set
+HBM_BUDGET_BYTES = "spark.rapids.tpu.memory.hbm.budgetBytes"
+#: host bytes of spilled batches before they move on to disk
+HOST_SPILL_BYTES = "spark.rapids.tpu.memory.host.spillStorageSize"
+#: directory of the disk tier's files ("": a temporary directory)
+SPILL_DIR = "spark.rapids.tpu.memory.spill.dir"
+#: share of the card's memory given to the store's device budget
+MEMORY_FRACTION = "spark.rapids.tpu.memory.fraction"
+#: codec of the disk tier's frames; only "none" is ported
+SPILL_CODEC = "spark.rapids.tpu.memory.spill.compression.codec"
+#: attempts of a task, or of one batch at one size, before its failure
+#: propagates
+TASK_MAX_FAILURES = "spark.rapids.tpu.task.maxFailures"
+#: base sleep between attempts (doubling, with +-50 % jitter)
+RETRY_BACKOFF_S = "spark.rapids.tpu.task.retryBackoffSeconds"
+#: on a second retryable failure of one batch, bisect it
+SPLIT_RETRY_ENABLED = "spark.rapids.tpu.task.retry.splitEnabled"
+#: a batch of at most this many rows is never bisected
+SPLIT_MIN_ROWS = "spark.rapids.tpu.task.retry.minSplitRows"
+#: rows above which a sort takes the out-of-core sample-split path
+SORT_SINGLE_BATCH_ROWS = "spark.rapids.tpu.sql.sort.singleBatchRows"
+#: most key-range buckets of one out-of-core sort pass
+SORT_MAX_BUCKETS = "spark.rapids.tpu.sql.sort.maxBuckets"
+#: plan ``TpuCoalesceBatchesExec`` under joins, aggregates, windows and
+#: sorts (off: every plan is unchanged)
+COALESCE_ENABLED = "spark.rapids.tpu.sql.coalesce.enabled"
+#: a coalesced batch flushes once its rows reach this ...
+COALESCE_TARGET_ROWS = "spark.rapids.tpu.sql.coalesce.targetRows"
+#: ... or its device bytes reach this
+COALESCE_TARGET_BYTES = "spark.rapids.tpu.sql.coalesce.targetBytes"
+#: arm the fault-injection registry (``robustness/faults.py``) for the
+#: queries of a session with this conf
+FAULTS_ENABLED = "spark.rapids.tpu.robustness.faults.enabled"
+#: its schedule: ``site:key=val,...;site2:...``
+FAULTS_SPEC = "spark.rapids.tpu.robustness.faults.spec"
+
 DEFAULTS: dict[str, Any] = {
     SHUFFLE_PARTITIONS: 8,
     TASK_TARGET_BYTES: 512 << 20,
@@ -59,6 +98,22 @@ DEFAULTS: dict[str, Any] = {
     CONCURRENT_TASKS: 2,
     PIPELINE_ENABLED: True,
     PIPELINE_DEPTH: 2,
+    HBM_BUDGET_BYTES: 12 << 30,
+    HOST_SPILL_BYTES: 1 << 30,
+    SPILL_DIR: "",
+    MEMORY_FRACTION: 0.8,
+    SPILL_CODEC: "none",
+    TASK_MAX_FAILURES: 3,
+    RETRY_BACKOFF_S: 0.2,
+    SPLIT_RETRY_ENABLED: True,
+    SPLIT_MIN_ROWS: 1024,
+    SORT_SINGLE_BATCH_ROWS: 1 << 21,
+    SORT_MAX_BUCKETS: 64,
+    COALESCE_ENABLED: False,
+    COALESCE_TARGET_ROWS: 1 << 20,
+    COALESCE_TARGET_BYTES: 128 << 20,
+    FAULTS_ENABLED: False,
+    FAULTS_SPEC: "",
 }
 
 #: the keys that run a query serially: every task, file and stage one
@@ -78,7 +133,8 @@ def register(key: str, default: Any) -> str:
 
 
 _AT_LEAST_ONE = (TASK_THREADS, DECODE_THREADS, CONCURRENT_TASKS,
-                 PIPELINE_DEPTH)
+                 PIPELINE_DEPTH, SPLIT_MIN_ROWS, COALESCE_TARGET_ROWS,
+                 COALESCE_TARGET_BYTES)
 
 
 class TorchConf:
@@ -102,3 +158,7 @@ class TorchConf:
         if key not in DEFAULTS:
             raise KeyError(f"unknown conf key {key!r}")
         return self._values.get(key, DEFAULTS[key])
+
+    def is_set(self, key: str) -> bool:
+        """Whether ``key`` was given explicitly (not its default)."""
+        return key in self._values

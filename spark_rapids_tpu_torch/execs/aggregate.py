@@ -9,12 +9,18 @@ Counterpart of ``TpuHashAggregateExec`` in
   partition (the exchange made partitions key-disjoint);
 - ``complete``: the whole aggregation in one partition.
 
-Each input batch runs the update aggregation; the partials of a
-partition are concatenated and merged once at its end (they hold one
-row per group, so they stay small next to the input).  Partials keep
-their batches' order, and a final aggregate reads its exchange's blocks
-in map-task order, so first / last pick the same row on every run,
-pooled or serial.
+Each input batch runs the update aggregation as a unit of the OOM
+ladder (``execs/retry.with_split_retry``).  Its partial waits in the
+buffer store at ``AGGREGATE_PARTIAL`` priority; once the waiting
+partials hold ``goal_rows`` rows (``sql.batchSizeRows``) they are
+merged into one, and at the partition's end the rest are concatenated,
+merged and finalized, each step a restartable closure under
+``run_with_oom_retry`` that drops the partials it merged only once the
+result is parked (the JAX exec's ``merge_and_park``).  The merge points
+depend on the partials' rows alone, so a run that spills adds in the
+same order as one that does not.  Partials keep their batches' order,
+and a final aggregate reads its exchange's blocks in map-task order, so
+first / last pick the same row on every run, pooled or serial.
 """
 
 from __future__ import annotations
@@ -29,7 +35,11 @@ from spark_rapids_tpu_torch.columnar.batch import (
     concat_batches,
     empty_batch,
 )
-from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
+from spark_rapids_tpu_torch.execs.retry import (
+    run_with_oom_retry,
+    with_split_retry,
+)
 from spark_rapids_tpu_torch.exprs.aggregates import NamedAgg
 from spark_rapids_tpu_torch.exprs.base import (
     BoundReference,
@@ -37,6 +47,10 @@ from spark_rapids_tpu_torch.exprs.base import (
     Expression,
     bind_references,
     output_field,
+)
+from spark_rapids_tpu_torch.memory.store import (
+    SpillableBatch,
+    SpillPriorities,
 )
 from spark_rapids_tpu_torch.ops.groupby import (
     FIRST_LAST,
@@ -54,10 +68,15 @@ VALUE_OPS = {"min", "max", *FIRST_LAST}
 class TpuHashAggregateExec(TpuExec):
     def __init__(self, groups: Sequence[Expression], aggs: Sequence[NamedAgg],
                  child: TpuExec, mode: str = "complete",
-                 input_schema: Optional[T.Schema] = None):
+                 input_schema: Optional[T.Schema] = None,
+                 runtime: Optional[TaskRuntime] = None,
+                 goal_rows: int = 1 << 20):
         """``input_schema``: for mode="final" only, the pre-aggregation
-        schema the aggregate inputs refer to."""
+        schema the aggregate inputs refer to; ``goal_rows``: waiting
+        partials merge once they hold this many rows."""
         super().__init__(child)
+        self.runtime = runtime or TaskRuntime.serial()
+        self.goal_rows = goal_rows
         if mode not in ("partial", "final", "complete"):
             raise ValueError(f"unknown aggregate mode {mode!r}")
         self.mode = mode
@@ -207,22 +226,87 @@ class TpuHashAggregateExec(TpuExec):
         else:
             source = self.children[0].execute_partition(p)
             emit_empty_default = p == 0
-        pending: list[ColumnarBatch] = []
-        for batch in source:
-            pending.append(batch if self.mode == "final"
-                           else self._update_batch(batch))
-        if not pending:
-            if self.n_keys > 0 or not emit_empty_default:
-                return  # grouped aggregate of empty input: no rows
-            # grand aggregate of empty input: one default row
-            src_schema = (self.partial_schema if self.mode == "final"
-                          else self.children[0].schema)
-            eb = empty_batch(src_schema, self.leaf_device())
-            pending.append(eb if self.mode == "final"
-                           else self._update_batch(eb))
-        out = concat_batches(pending)
-        if len(pending) > 1 or self.mode == "final":
-            out = self._merge(out)
-        if self.mode != "partial":
-            out = self._finalize(out)
+        store, policy = self.runtime.store, self.runtime.retry
+        pending: list[SpillableBatch] = []
+        rows = 0
+
+        def park(part: ColumnarBatch) -> None:
+            nonlocal rows
+            pending.append(store.register(part,
+                                          SpillPriorities.AGGREGATE_PARTIAL))
+            rows += part.num_rows
+
+        def drain() -> ColumnarBatch:
+            """The waiting partials as one batch; they stay registered
+            (a failure leaves them evictable)."""
+            got: list[SpillableBatch] = []
+            try:
+                batches = []
+                for h in pending:
+                    batches.append(h.get())
+                    got.append(h)
+                return concat_batches(batches)
+            finally:
+                for h in got:
+                    h.unpin()
+
+        def commit(out: Optional[ColumnarBatch]) -> None:
+            """Replace the waiting partials by ``out`` (None: by
+            nothing).  ``out`` is parked first: if that fails, the
+            partials are still there for the ladder's re-run."""
+            nonlocal rows
+            merged = [] if out is None else [run_with_oom_retry(
+                lambda: store.register(out, SpillPriorities.AGGREGATE_PARTIAL),
+                "agg.park", policy=policy)]
+            for h in pending:
+                h.close()
+            pending[:] = merged
+            rows = 0 if out is None else out.num_rows
+
+        def update(batch: ColumnarBatch):
+            nonlocal rows
+            n0, r0 = len(pending), rows
+            try:
+                park(batch if self.mode == "final"
+                     else self._update_batch(batch))
+                if len(pending) > 1 and rows >= self.goal_rows:
+                    commit(run_with_oom_retry(
+                        lambda: self._merge(drain()), "agg.merge",
+                        policy=policy))
+            except BaseException:
+                for h in pending[n0:]:
+                    h.close()
+                del pending[n0:]
+                rows = r0
+                raise
+            return ()
+
+        try:
+            for batch in source:
+                for _ in with_split_retry(update, batch, "agg.update",
+                                          policy):
+                    pass
+            if not pending:
+                if self.n_keys > 0 or not emit_empty_default:
+                    return  # grouped aggregate of empty input: no rows
+                # grand aggregate of empty input: one default row
+                src_schema = (self.partial_schema if self.mode == "final"
+                              else self.children[0].schema)
+                eb = empty_batch(src_schema, self.leaf_device())
+                park(eb if self.mode == "final" else self._update_batch(eb))
+            single = len(pending) == 1
+
+            def finish() -> ColumnarBatch:
+                out = drain()
+                if not single or self.mode == "final":
+                    out = self._merge(out)
+                if self.mode != "partial":
+                    out = self._finalize(out)
+                return out
+
+            out = run_with_oom_retry(finish, "agg.drain", policy=policy)
+            commit(None)
+        finally:
+            for h in pending:
+                h.close()
         yield out

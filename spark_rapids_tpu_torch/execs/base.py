@@ -6,8 +6,11 @@ batches per partition.  An exchange's map tasks, a coalesce's
 partitions and a scan task's files run on pools of host threads
 (``run_tasks``, ``TaskRuntime``), as in the JAX package; every exec's
 per-partition code may therefore run on several threads at once, and
-what one partition writes that another reads is locked.  No fusion,
-speculation, buffer donation or retry ladder in this port.
+what one partition writes that another reads is locked.  The batches
+an exec holds between uses go through the session's buffer store, and
+its stream loops run under the OOM ladder (``execs/retry.py``), both
+reached through ``TaskRuntime.retry``.  No fusion, speculation or
+buffer donation in this port.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.execs.retry import DEFAULT_POLICY, RetryPolicy
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 
 R = TypeVar("R")
@@ -36,14 +40,20 @@ class TaskRuntime:
     """What one session's execs share to run tasks: the task semaphore,
     the pool sizes and stage depth read from its conf
     (``sql.taskThreads``, ``sql.scan.decodeThreads``,
-    ``sql.pipeline.*``), and the CUDA stream its scans upload on (None
-    on the CPU)."""
+    ``sql.pipeline.*``), the CUDA stream its scans upload on (None
+    on the CPU), and its retry policy with its buffer store."""
 
     semaphore: TpuSemaphore
     task_threads: int = 1
     decode_threads: int = 1
     stage_depth: int = 0
     upload_stream: Optional[object] = None
+    retry: RetryPolicy = DEFAULT_POLICY
+
+    @property
+    def store(self):
+        """The buffer store the execs park batches in."""
+        return self.retry.get_store()
 
     @classmethod
     def serial(cls) -> "TaskRuntime":

@@ -21,12 +21,22 @@ joins (a join yields a batch per stream block, the next exchange splits
 each into every partition): TPC-DS q13's fourth join ran 3 072 joins
 of a few hundred rows each.
 
+Map output lives in the buffer store (``shuffle/manager.py``): a map
+task parks each block at ``OUTPUT_FOR_SHUFFLE`` priority as it makes
+it and commits them all at its end, so a failed attempt leaves none
+behind.  A map task runs under ``with_task_retries`` and each of its
+batches under ``with_split_retry`` (``execs/retry.py``), as in the JAX
+exchange; ``metrics`` counts the batches of committed attempts
+(``mapBatches``) and the ladder's runs over them (``mapBatchRuns``:
+one K1 launch each).
+
 - Hash partitioning: each map batch's key tuple is hashed to partition
   ids (murmur3-pmod) by one K1 launch.
 - Range partitioning: bounds must exist before any batch is split, and
   they come from a sample of the whole input, so the map stage makes
   two passes, each on the pool (``_run_range_map_stage`` there).  Pass
-  1 drains every map task, parks its batches and samples
+  1 drains every map task, parks its batches in the store at
+  ``COALESCE_PENDING`` and samples
   ``samplesPerBatch`` rows (with replacement) from each; the bounds come
   from the samples pooled in map order; pass 2 splits the parked
   batches by their rows' buckets.  A batch's sample positions come
@@ -59,11 +69,21 @@ from spark_rapids_tpu_torch.columnar.batch import (
 )
 from spark_rapids_tpu_torch.execs.base import (
     POOL_THREAD_PREFIX,
+    Metrics,
     TaskRuntime,
     TpuExec,
     run_tasks,
 )
+from spark_rapids_tpu_torch.execs.retry import (
+    run_with_oom_retry,
+    with_split_retry,
+    with_task_retries,
+)
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
+from spark_rapids_tpu_torch.memory.store import (
+    SpillableBatch,
+    SpillPriorities,
+)
 from spark_rapids_tpu_torch.ops.partition import (
     HashPartitioning,
     RangePartitioning,
@@ -96,6 +116,13 @@ class TpuShuffleExchangeExec(TpuExec):
         self.batch_rows = batch_rows
         self._map_lock = threading.Lock()
         self._shuffle_id: Optional[int] = None
+        #: reduce partitions of the current shuffle read and released
+        self._released: set[int] = set()
+        #: hash map stage: the non-empty batches its committed attempts
+        #: split, and the runs of the split ladder over them (more than
+        #: the batches when the ladder re-ran or bisected one; each run
+        #: launches K1 once)
+        self.metrics = Metrics("mapBatches", "mapBatchRuns")
 
     @property
     def schema(self) -> T.Schema:
@@ -119,26 +146,70 @@ class TpuShuffleExchangeExec(TpuExec):
         return [(rid, sub) for rid, sub in enumerate(
             split_batch(batch, pids, self.num_partitions)) if sub.num_rows]
 
+    def _park(self, blocks: list, rid: int, sub: ColumnarBatch) -> None:
+        blocks.append((rid, self.runtime.store.register(
+            sub, SpillPriorities.OUTPUT_FOR_SHUFFLE)))
+
     def _map_task(self, shuffle_id: int, child_part: int) -> None:
+        with_task_retries(lambda: self._map_task_attempt(shuffle_id,
+                                                         child_part),
+                          f"map task {child_part}", self.runtime.retry)
+
+    def _map_task_attempt(self, shuffle_id: int, child_part: int) -> None:
+        """One attempt of a map task.  Each batch is a unit of the split
+        ladder; its blocks are parked in the store as they are made and
+        published only when the attempt commits, so a failed attempt
+        leaves none behind."""
         sem, task = self.runtime.semaphore, object()
-        blocks: list[tuple[int, ColumnarBatch]] = []
+        blocks: list[tuple[int, SpillableBatch]] = []
+        batches = runs = 0
+
+        def run(batch: ColumnarBatch):
+            nonlocal runs
+            n0 = len(blocks)
+            runs += 1
+            try:
+                for rid, sub in self._blocks(
+                        batch, self.partitioning.partition_ids(batch)):
+                    self._park(blocks, rid, sub)
+            except BaseException:
+                for _rid, h in blocks[n0:]:
+                    h.close()
+                del blocks[n0:]
+                raise
+            return ()
+
         try:
             for batch in self.children[0].execute_partition(child_part):
                 sem.acquire_if_necessary(task)
                 if batch.num_rows:
-                    blocks += self._blocks(
-                        batch, self.partitioning.partition_ids(batch))
+                    batches += 1
+                    for _ in with_split_retry(run, batch, "exchange.map",
+                                              self.runtime.retry):
+                        pass
             self.manager.commit_task(shuffle_id, child_part, blocks)
+        except BaseException:
+            for _rid, h in blocks:
+                h.close()
+            raise
         finally:
             sem.release_if_necessary(task)
+            self.metrics.add("mapBatchRuns", runs)
+        self.metrics.add("mapBatches", batches)
 
     def _sample_task(self, child_part: int
-                     ) -> tuple[list[ColumnarBatch], list[ColumnarBatch]]:
-        """Range pass 1 for one map task: (its non-empty batches, a
-        sample of each's keys)."""
+                     ) -> tuple[list[SpillableBatch], list[ColumnarBatch]]:
+        """Range pass 1 for one map task: (its non-empty batches, parked
+        in the store, and a sample of each's keys)."""
+        return with_task_retries(lambda: self._sample_attempt(child_part),
+                                 f"range pass1 {child_part}",
+                                 self.runtime.retry)
+
+    def _sample_attempt(self, child_part: int
+                        ) -> tuple[list[SpillableBatch], list[ColumnarBatch]]:
         part = self.partitioning
         sem, task = self.runtime.semaphore, object()
-        parked: list[ColumnarBatch] = []
+        parked: list[SpillableBatch] = []
         samples: list[ColumnarBatch] = []
         try:
             for i, batch in enumerate(
@@ -151,7 +222,12 @@ class TpuShuffleExchangeExec(TpuExec):
                 pos = rng.integers(0, batch.num_rows, self.samples_per_batch)
                 samples.append(part.key_batch(batch).gather(
                     torch.from_numpy(pos).to(batch.device)))
-                parked.append(batch)
+                parked.append(self.runtime.store.register(
+                    batch, SpillPriorities.COALESCE_PENDING))
+        except BaseException:
+            for h in parked:
+                h.close()
+            raise
         finally:
             sem.release_if_necessary(task)
         return parked, samples
@@ -161,29 +237,53 @@ class TpuShuffleExchangeExec(TpuExec):
         threads = self.runtime.task_threads
         tasks = run_tasks(self._sample_task, self.children[0].num_partitions,
                           threads)
-        parked = [b for batches, _ in tasks for b in batches]
-        if not parked:
-            return
-        bounds = choose_bounds(concat_batches([s for _, ss in tasks
-                                               for s in ss]),
-                               part.key_orders(), self.num_partitions)
-        sem = self.runtime.semaphore
+        parked = [h for handles, _ in tasks for h in handles]
+        try:
+            if parked:
+                bounds = choose_bounds(concat_batches(
+                    [s for _, ss in tasks for s in ss]), part.key_orders(),
+                    self.num_partitions)
+                run_tasks(lambda i: self._range_split(shuffle_id, i,
+                                                      parked[i], bounds),
+                          len(parked), threads)
+        finally:
+            for h in parked:
+                h.close()
 
-        def split(i: int) -> None:
+    def _range_split(self, shuffle_id: int, i: int, h: SpillableBatch,
+                     bounds: ColumnarBatch) -> None:
+        """Range pass 2 for parked batch ``i``: its blocks, committed as
+        map task ``i`` (the input is closed by the caller, after every
+        attempt)."""
+        part, sem = self.partitioning, self.runtime.semaphore
+
+        def attempt() -> None:
             task = object()
+            blocks: list[tuple[int, SpillableBatch]] = []
             sem.acquire_if_necessary(task)
             try:
-                self.manager.commit_task(shuffle_id, i, self._blocks(
-                    parked[i], part.partition_ids_with_bounds(parked[i],
-                                                              bounds)))
+                batch = h.get()
+                try:
+                    for rid, sub in self._blocks(
+                            batch, part.partition_ids_with_bounds(batch,
+                                                                  bounds)):
+                        self._park(blocks, rid, sub)
+                finally:
+                    h.unpin()
+                self.manager.commit_task(shuffle_id, i, blocks)
+            except BaseException:
+                for _rid, bh in blocks:
+                    bh.close()
+                raise
             finally:
                 sem.release_if_necessary(task)
 
-        run_tasks(split, len(parked), threads)
+        with_task_retries(attempt, f"range pass2 {i}", self.runtime.retry)
 
     def _ensure_map_stage(self) -> int:
         with self._map_lock:
             if self._shuffle_id is None:
+                self._released = set()
                 sid = self.manager.new_shuffle_id()
                 try:
                     if isinstance(self.partitioning, RangePartitioning):
@@ -198,17 +298,35 @@ class TpuShuffleExchangeExec(TpuExec):
                 self._shuffle_id = sid
             return self._shuffle_id
 
+    def _concat(self, blocks: list[ColumnarBatch]) -> ColumnarBatch:
+        """The blocks as one batch, spill-and-retried on an OOM."""
+        return run_with_oom_retry(lambda: concat_batches(blocks),
+                                  "exchange.read", policy=self.runtime.retry)
+
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        """Partition ``p``'s blocks as batches of up to ``batch_rows``
+        rows.  Read to its end, the partition is released, so a query's
+        shuffle data leaves the store as its reduce side reads it; a
+        second read of it (a test's, never a query's) maps again."""
+        with self._map_lock:
+            if p in self._released:
+                self.manager.unregister(self._shuffle_id)
+                self._shuffle_id = None
+        sid = self._ensure_map_stage()
         pending: list[ColumnarBatch] = []
         rows = 0
-        for block in self.manager.read(self._ensure_map_stage(), p):
+        for block in self.manager.read(sid, p):
             if pending and rows + block.num_rows > self.batch_rows:
-                yield concat_batches(pending)
+                yield self._concat(pending)
                 pending, rows = [], 0
             pending.append(block)
             rows += block.num_rows
         if pending:
-            yield concat_batches(pending)
+            yield self._concat(pending)
+        with self._map_lock:
+            if sid == self._shuffle_id:
+                self.manager.release(sid, p)
+                self._released.add(p)
 
     def close(self) -> None:
         """Drop this exchange's blocks."""

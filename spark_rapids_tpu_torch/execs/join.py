@@ -1,11 +1,16 @@
 """Hash join execs and the runtime filter's build exec.
 
 Counterpart of ``spark_rapids_tpu/execs/join.py``: the build side is
-collected into one batch (``concat_batches``), then every stream batch
-probes it through ``ops/join.py``.  Each stream batch costs one host
-sync, for its pair count; its output then comes in chunks of at most
+collected into one batch (each build batch waits in the buffer store at
+``JOIN_BUILD`` priority until the side is drained, then they are
+concatenated), then every stream batch probes it through
+``ops/join.py``.  Each stream batch costs one host sync, for its pair
+count; its output then comes in chunks of at most
 ``spark.rapids.tpu.sql.join.outputChunkRows`` rows, so a skewed key
-cannot build one unbounded batch.
+cannot build one unbounded batch.  Each stream batch is a unit of the
+OOM ladder (``execs/retry.with_split_retry``): a retryable failure
+before its first chunk re-runs it, then bisects it; after a chunk has
+gone downstream it raises.
 
 Three strategies, chosen by the planner:
 
@@ -16,8 +21,9 @@ Three strategies, chosen by the planner:
   partition p joins build part p with stream part p;
 - ``TpuBroadcastHashJoinExec``: a small build side collected once and
   shared by every stream partition, so a dimension table never
-  shuffles.  The JAX exec registers that batch in its spill store; the
-  port has no memory runtime yet and holds it until ``close()``.
+  shuffles.  The collected build is a store entry at ``BROADCAST``
+  priority (spilled last), pinned only while a stream partition joins,
+  as in the JAX exec.
 
 Join types: inner, left_outer, right_outer (the left side builds),
 full_outer (the build rows no stream batch matched come last; never
@@ -28,8 +34,9 @@ joins are equi-joins on a constant key, so every pair shares one
 group.  An inner join's residual condition filters each output chunk.
 A condition or a missing key on any other join type raises
 NotImplementedError: the planner tags such a join and runs it on the
-CPU engine (``plan/planner.py``), as the JAX planner does.  The JAX exec's speculative sizing,
-pipelining, program cache and retry ladder are not ported.
+CPU engine (``plan/planner.py``), as the JAX planner does.  The JAX
+exec's speculative sizing, pipelining and program cache are not
+ported.
 
 ``TpuRuntimeFilterBuildExec`` passes its child's batches through and
 folds their join keys into a runtime filter on the device
@@ -50,12 +57,20 @@ from spark_rapids_tpu_torch.columnar.batch import (
     empty_batch,
     null_batch,
 )
-from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
+from spark_rapids_tpu_torch.execs.retry import (
+    run_with_oom_retry,
+    with_split_retry,
+)
 from spark_rapids_tpu_torch.exprs.base import (
     EvalContext,
     Expression,
     Literal,
     bind_references,
+)
+from spark_rapids_tpu_torch.memory.store import (
+    SpillableBatch,
+    SpillPriorities,
 )
 from spark_rapids_tpu_torch.ops.join import (
     expand_pairs,
@@ -94,8 +109,10 @@ class _HashJoinBase(TpuExec):
                  right_keys: Sequence[Expression], join_type: str,
                  left: TpuExec, right: TpuExec, chunk_rows: int,
                  condition: Optional[Expression] = None,
-                 build_side: Optional[str] = None):
+                 build_side: Optional[str] = None,
+                 runtime: Optional[TaskRuntime] = None):
         super().__init__(left, right)
+        self.runtime = runtime or TaskRuntime.serial()
         if join_type not in JOIN_TYPES:
             raise ValueError(f"unknown join type {join_type!r}")
         self.join_type = join_type
@@ -146,12 +163,26 @@ class _HashJoinBase(TpuExec):
     def _stream_child(self) -> TpuExec:
         return self.children[0] if self.build_is_right else self.children[1]
 
-    @staticmethod
-    def _collect(batches: Iterable[ColumnarBatch]
+    def _collect(self, batches: Iterable[ColumnarBatch]
                  ) -> Optional[ColumnarBatch]:
-        """The build side as one batch; None when it has no rows."""
-        parts = [b for b in batches if b.num_rows]
-        return concat_batches(parts) if parts else None
+        """The build side as one batch; None when it has no rows.  Each
+        batch waits in the store, spillable, until the side is
+        drained."""
+        store = self.runtime.store
+        handles: list[SpillableBatch] = []
+        try:
+            for b in batches:
+                if b.num_rows:
+                    handles.append(store.register(
+                        b, SpillPriorities.JOIN_BUILD))
+            if not handles:
+                return None
+            return run_with_oom_retry(
+                lambda: concat_batches([h.get() for h in handles]),
+                "join.build", policy=self.runtime.retry)
+        finally:
+            for h in handles:
+                h.close()
 
     def _apply_condition(self, batch: ColumnarBatch) -> ColumnarBatch:
         pred = self.condition.eval(EvalContext.for_batch(batch))
@@ -176,9 +207,12 @@ class _HashJoinBase(TpuExec):
             "left_outer", "right_outer", "full_outer") else "inner" \
             if self.join_type == "cross" else self.join_type
         matched_b: Optional[torch.Tensor] = None
-        for stream in stream_batches:
-            if stream.num_rows == 0:
-                continue
+
+        def run(stream: ColumnarBatch) -> Iterator[ColumnarBatch]:
+            """One stream batch's output chunks; the ladder re-runs it
+            (or its halves) until a chunk is out.  OR-ing the matched
+            build rows again is harmless."""
+            nonlocal matched_b
             sctx = EvalContext.for_batch(stream)
             st = join_state(bkc, [k.eval(sctx) for k in stream_keys], jt)
             if self.join_type == "full_outer":
@@ -190,7 +224,7 @@ class _HashJoinBase(TpuExec):
                 out = stream.compact(keep)
                 if out.num_rows:
                     yield out
-                continue
+                return
             total = int(st.total)  # the one host sync of this batch
             step = min(total, self.chunk_rows)
             for off in range(0, total, step or 1):
@@ -203,6 +237,11 @@ class _HashJoinBase(TpuExec):
                     out = self._apply_condition(out)
                 if out.num_rows:
                     yield out
+
+        for stream in stream_batches:
+            if stream.num_rows:
+                yield from with_split_retry(run, stream, "join.stream",
+                                            self.runtime.retry)
         if self.join_type == "full_outer":
             yield from self._emit_unmatched_build(build, matched_b)
 
@@ -293,9 +332,10 @@ class TpuShuffledHashJoinExec(_HashJoinBase):
                  left: TpuExec, right: TpuExec, chunk_rows: int,
                  condition: Optional[Expression] = None,
                  partition_wise: bool = False,
-                 build_side: Optional[str] = None):
+                 build_side: Optional[str] = None,
+                 runtime: Optional[TaskRuntime] = None):
         super().__init__(left_keys, right_keys, join_type, left, right,
-                         chunk_rows, condition, build_side)
+                         chunk_rows, condition, build_side, runtime)
         self.partition_wise = partition_wise
         if partition_wise and left.num_partitions != right.num_partitions:
             raise ValueError("a partition-wise join needs co-partitioned "
@@ -325,20 +365,23 @@ class TpuShuffledHashJoinExec(_HashJoinBase):
 class TpuBroadcastHashJoinExec(_HashJoinBase):
     """A small build side, collected once (on the first stream partition
     that asks) and shared by every stream partition; the output keeps
-    the stream side's partitions.  full_outer is refused: its unmatched
-    build rows need the matches of every stream partition."""
+    the stream side's partitions.  The collected build waits in the
+    store at ``BROADCAST`` priority, pinned while a partition joins.
+    full_outer is refused: its unmatched build rows need the matches of
+    every stream partition."""
 
     def __init__(self, left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], join_type: str,
                  left: TpuExec, right: TpuExec, chunk_rows: int,
                  condition: Optional[Expression] = None,
-                 build_side: Optional[str] = None):
+                 build_side: Optional[str] = None,
+                 runtime: Optional[TaskRuntime] = None):
         if join_type == "full_outer":
             raise ValueError("a broadcast join cannot run full_outer")
         super().__init__(left_keys, right_keys, join_type, left, right,
-                         chunk_rows, condition, build_side)
+                         chunk_rows, condition, build_side, runtime)
         self._build_lock = threading.Lock()
-        self._build: Optional[ColumnarBatch] = None
+        self._build: Optional[SpillableBatch] = None
         self._build_done = False
 
     @property
@@ -349,19 +392,30 @@ class TpuBroadcastHashJoinExec(_HashJoinBase):
         side = "right" if self.build_is_right else "left"
         return f"{super().node_desc()} build={side}"
 
-    def _get_build(self) -> Optional[ColumnarBatch]:
+    def _get_build(self) -> Optional[SpillableBatch]:
         with self._build_lock:
             if not self._build_done:
-                self._build = self._collect(self._build_child.execute())
+                b = self._collect(self._build_child.execute())
+                if b is not None:
+                    self._build = self.runtime.store.register(
+                        b, SpillPriorities.BROADCAST)
                 self._build_done = True
             return self._build
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
-        yield from self._join_stream(self._get_build(),
-                                     self._stream_child.execute_partition(p))
+        h = self._get_build()
+        build = None if h is None else h.get()
+        try:
+            yield from self._join_stream(
+                build, self._stream_child.execute_partition(p))
+        finally:
+            if h is not None:
+                h.unpin()
 
     def close(self) -> None:
         """Drop the collected build side."""
         with self._build_lock:
+            if self._build is not None:
+                self._build.close()
             self._build = None
             self._build_done = False

@@ -3,17 +3,32 @@
 Counterparts of ``TpuSortExec`` and ``TpuTopNExec`` in
 ``spark_rapids_tpu/execs/sort.py``.  Sort keys are expressions: they
 are evaluated per batch and sorted by ``ops/sort.py``.  A sort of one
-partition (``scope="global"``) sorts its input in memory; below a
-range exchange (``scope="partition"``) each partition is sorted alone,
-and partition order is then the total order.  The out-of-core
-sample-split sort is not ported.
+partition (``scope="global"``) sorts its input; below a range exchange
+(``scope="partition"``) each partition is sorted alone, and partition
+order is then the total order.
+
+Up to ``sql.sort.singleBatchRows`` rows a partition sorts as one batch.
+Above it the sort is the JAX exec's out-of-core sample-split sort (the
+reference's GpuOutOfCoreSortIterator, redesigned): each batch, with its
+keys evaluated and appended, waits in the buffer store while keys are
+sampled (``samplesPerBatch`` rows a batch, once the running total
+passes the threshold); bounds come from the pooled samples
+(``ops/range_partition.choose_bounds``); every batch is split into at
+most ``sql.sort.maxBuckets`` key-range buckets and parked on the host
+(``register_host``: it may go on to disk); then each bucket is
+assembled from its runs, uploaded, sorted alone and emitted in bound
+order.  A bucket over twice the threshold (skewed keys) is sorted the
+same way once more; past that it sorts as one batch.  Every step is
+stable, so rows with equal keys come out in input order either way.
+Collecting a batch is a unit of the OOM ladder.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -21,11 +36,23 @@ from spark_rapids_tpu_torch.columnar.batch import (
     ColumnarBatch,
     concat_batches,
 )
-from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.columnar.column import Column, StringColumn
+from spark_rapids_tpu_torch.execs.base import Metrics, TaskRuntime, TpuExec
+from spark_rapids_tpu_torch.execs.retry import with_split_retry
 from spark_rapids_tpu_torch.exprs.base import (
     EvalContext,
     Expression,
     bind_references,
+)
+from spark_rapids_tpu_torch.memory.store import (
+    SpillableBatch,
+    SpillPriorities,
+    batch_to_host,
+    host_to_batch,
+)
+from spark_rapids_tpu_torch.ops.range_partition import (
+    bucket_ids,
+    choose_bounds,
 )
 from spark_rapids_tpu_torch.ops.sort import SortOrder, sort_permutation
 
@@ -72,14 +99,35 @@ class _SortMixin(TpuExec):
         return batch.gather(sort_permutation(keys, orders))
 
 
+def _plain(c):
+    """A column without its dictionary sidecar (a bucket's rows come
+    from batches with different dictionaries)."""
+    if isinstance(c, StringColumn):
+        return StringColumn(c.chars, c.lengths, c.validity, c.dtype)
+    return Column(c.data, c.validity, c.dtype)
+
+
+def _host_rows(arrays: dict, start: int, stop: int) -> dict:
+    """Rows [start, stop) of a host batch (``batch_to_host``'s layout,
+    no sidecars), as views."""
+    out = {k: t[start:stop] for k, t in arrays.items() if k != "__num_rows"}
+    out["__num_rows"] = torch.tensor(stop - start, dtype=torch.int64)
+    return out
+
+
 class TpuSortExec(_SortMixin):
-    """An in-memory sort: each child partition's batches concatenated
-    and sorted once.  ``scope="global"`` sorts a child of one partition;
+    """Each child partition sorted: in one batch up to
+    ``single_batch_rows`` rows, out of core above (module docstring).
+    ``scope="global"`` sorts a child of one partition;
     ``scope="partition"`` sorts every partition of a range-partitioned
-    child and keeps its distribution."""
+    child and keeps its distribution.  ``metrics``: the out-of-core
+    path's buckets, its rows, and the rows it parked on the host."""
 
     def __init__(self, keys: Sequence[SortKey], child: TpuExec,
-                 scope: str = "global"):
+                 scope: str = "global",
+                 runtime: Optional[TaskRuntime] = None,
+                 single_batch_rows: int = 1 << 21, max_buckets: int = 64,
+                 samples_per_batch: int = 128):
         super().__init__(child)
         if scope not in ("global", "partition"):
             raise ValueError(f"unknown sort scope {scope!r}")
@@ -88,6 +136,18 @@ class TpuSortExec(_SortMixin):
                              "coalesce its child first")
         self.scope = scope
         self._bind(keys, child)
+        self.runtime = runtime or TaskRuntime.serial()
+        self.single_batch_rows = single_batch_rows
+        self.max_buckets = max_buckets
+        self.samples_per_batch = samples_per_batch
+        self.metrics = Metrics("sortBuckets", "oocRows", "hostRows")
+        self._n_data = len(child.schema)
+        self.key_schema = T.Schema([T.Field(f"__sortkey{i}", k.expr.dtype)
+                                    for i, k in enumerate(self.keys)])
+        self.aug_schema = T.Schema(list(child.schema.fields)
+                                   + list(self.key_schema.fields))
+        self.key_orders = [SortOrder(i, k.descending, k.nulls_last)
+                           for i, k in enumerate(self.keys)]
 
     @property
     def output_partitioning(self):
@@ -98,10 +158,151 @@ class TpuSortExec(_SortMixin):
         return f"TpuSortExec [{describe_keys(self.keys)}] scope={self.scope}"
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
-        parts = [b for b in self.children[0].execute_partition(p)
-                 if b.num_rows]
-        if parts:
-            yield self._sorted(concat_batches(parts))
+        yield from self._sort_stream(self.children[0].execute_partition(p))
+
+    # -- the augmented layout: data columns ++ evaluated keys ------------ #
+
+    def _augment(self, batch: ColumnarBatch) -> ColumnarBatch:
+        ctx = EvalContext.for_batch(batch)
+        cols = [_plain(c) for c in batch.columns] \
+            + [_plain(k.expr.eval(ctx)) for k in self.keys]
+        return ColumnarBatch(cols, batch.num_rows, self.aug_schema,
+                             batch.device)
+
+    def _keys_of(self, aug: ColumnarBatch) -> ColumnarBatch:
+        return aug.with_columns(aug.columns[self._n_data:], self.key_schema)
+
+    def _sort_aug(self, aug: ColumnarBatch) -> ColumnarBatch:
+        """Sorted by the appended keys (stable), keys dropped."""
+        out = aug.gather(sort_permutation(self._keys_of(aug),
+                                          self.key_orders))
+        return ColumnarBatch(out.columns[: self._n_data], out.num_rows,
+                             self.schema, out.device)
+
+    def _sample(self, aug: ColumnarBatch, rng) -> ColumnarBatch:
+        pos = rng.integers(0, aug.num_rows, self.samples_per_batch)
+        return self._keys_of(aug).gather(
+            torch.from_numpy(pos).to(aug.device))
+
+    # -- driver ------------------------------------------------------------ #
+
+    def _sort_stream(self, source, depth: int = 0
+                     ) -> Iterator[ColumnarBatch]:
+        """Collect (each batch a ladder unit), then sort in one batch or
+        out of core.  ``depth`` > 0: ``source`` holds augmented batches
+        of one oversized bucket."""
+        store, policy = self.runtime.store, self.runtime.retry
+        single = self.single_batch_rows
+        handles: list[SpillableBatch] = []
+        rows: list[int] = []
+        samples: list[ColumnarBatch] = []
+        rng = np.random.default_rng(0x5047 + depth)
+        total = 0
+
+        def ingest(b: ColumnarBatch):
+            nonlocal total
+            h0, s0, t0 = len(handles), len(samples), total
+            try:
+                aug = self._augment(b) if depth == 0 else b
+                n = aug.num_rows
+                crossing = total <= single < total + n
+                total += n
+                handles.append(store.register(
+                    aug, SpillPriorities.COALESCE_PENDING))
+                rows.append(n)
+                if crossing:
+                    # the threshold is passed: sample the batches before
+                    for h in handles[:-1]:
+                        try:
+                            samples.append(self._sample(h.get(), rng))
+                        finally:
+                            h.unpin()
+                if total > single:
+                    samples.append(self._sample(aug, rng))
+            except BaseException:
+                for h in handles[h0:]:
+                    h.close()
+                del handles[h0:], rows[h0:], samples[s0:]
+                total = t0
+                raise
+            return ()
+
+        try:
+            for b in source:
+                if b.num_rows:
+                    for _ in with_split_retry(ingest, b, "sort.collect",
+                                              policy):
+                        pass
+            if total == 0:
+                return
+            if total <= single or len(handles) == 1:
+                big = concat_batches([h.get() for h in handles])
+                for h in handles:
+                    h.close()
+                handles.clear()
+                yield self._sort_aug(big)
+                return
+            yield from self._merge_buckets(handles, total, samples, depth)
+        finally:
+            for h in handles:
+                h.close()
+
+    def _merge_buckets(self, handles: list, total: int, samples: list,
+                       depth: int) -> Iterator[ColumnarBatch]:
+        """Bounds, each batch split into host-parked bucket runs, then
+        each bucket assembled, sorted and emitted in bound order."""
+        store, single = self.runtime.store, self.single_batch_rows
+        n_parts = min(max(2, -(-total // single)), self.max_buckets)
+        self.metrics.add("sortBuckets", n_parts)
+        self.metrics.add("oocRows", total)
+        bounds = choose_bounds(concat_batches(samples), self.key_orders,
+                               n_parts)
+        runs: list[tuple[SpillableBatch, np.ndarray]] = []
+        try:
+            while handles:
+                aug = handles[0].get()
+                pids = bucket_ids(self._keys_of(aug), bounds, self.key_orders)
+                grouped = aug.gather(torch.sort(pids, stable=True).indices)
+                counts = torch.bincount(pids, minlength=n_parts).cpu().numpy()
+                host = batch_to_host(grouped)
+                del aug, grouped
+                handles.pop(0).close()
+                runs.append((store.register_host(
+                    host, self.aug_schema, self.leaf_device(),
+                    SpillPriorities.COALESCE_PENDING),
+                    np.concatenate([[0], np.cumsum(counts)])))
+                self.metrics.add("hostRows", int(counts.sum()))
+            for b in range(n_parts):
+                total_b = sum(int(offs[b + 1] - offs[b]) for _, offs in runs)
+                if total_b == 0:
+                    continue
+                if depth < 1 and total_b > 2 * single:
+                    yield from self._sort_stream(
+                        self._bucket_chunks(runs, b, single), depth + 1)
+                    continue
+                yield self._sort_aug(concat_batches(
+                    list(self._bucket_chunks(runs, b, total_b))))
+        finally:
+            for rh, _ in runs:
+                rh.close()
+
+    def _bucket_chunks(self, runs: list, b: int, chunk_rows: int
+                       ) -> Iterator[ColumnarBatch]:
+        """Bucket ``b``'s rows, run by run, uploaded in chunks of at most
+        ``chunk_rows`` rows."""
+        device = self.leaf_device()
+        for rh, offs in runs:
+            start, stop = int(offs[b]), int(offs[b + 1])
+            if start == stop:
+                continue
+            arrays = rh.get_host()
+            try:
+                for off in range(start, stop, chunk_rows):
+                    yield host_to_batch(
+                        _host_rows(arrays, off, min(off + chunk_rows, stop)),
+                        self.aug_schema, device)
+            finally:
+                rh.unpin()
 
 
 class TpuTopNExec(_SortMixin):

@@ -23,7 +23,7 @@ just below 0.0, so the two are adjacent.
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, Sequence
+from typing import Iterable, Iterator, Optional, Sequence
 
 import torch
 
@@ -33,7 +33,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     concat_batches,
 )
 from spark_rapids_tpu_torch.columnar.column import AnyColumn, Column
-from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
 from spark_rapids_tpu_torch.execs.sort import describe_keys
 from spark_rapids_tpu_torch.exprs.aggregates import (
     Average,
@@ -50,6 +50,7 @@ from spark_rapids_tpu_torch.exprs.window import (
     WindowAgg,
     WindowExpression,
 )
+from spark_rapids_tpu_torch.memory.store import SpillPriorities
 from spark_rapids_tpu_torch.ops import window as W
 from spark_rapids_tpu_torch.ops.groupby import _sum_dtype
 from spark_rapids_tpu_torch.ops.sort import (
@@ -62,8 +63,10 @@ from spark_rapids_tpu_torch.ops.sort import (
 
 class TpuWindowExec(TpuExec):
     def __init__(self, window_exprs: Sequence[tuple[WindowExpression, str]],
-                 child: TpuExec, partitioned: bool = False):
+                 child: TpuExec, partitioned: bool = False,
+                 runtime: Optional[TaskRuntime] = None):
         super().__init__(child)
+        self.runtime = runtime or TaskRuntime.serial()
         if not window_exprs:
             raise ValueError("a window exec needs window expressions")
         self.named = [(we.bind(child.schema), name)
@@ -202,9 +205,23 @@ class TpuWindowExec(TpuExec):
 
     def _window_source(self, source: Iterable[ColumnarBatch]
                        ) -> Iterator[ColumnarBatch]:
-        parts = [b for b in source if b.num_rows]
-        if parts:
-            yield self._window_batch(concat_batches(parts))
+        """The input drained into one batch (each part waiting in the
+        store at ``COALESCE_PENDING`` until the last arrives), then
+        windowed."""
+        store = self.runtime.store
+        handles = []
+        try:
+            for b in source:
+                if b.num_rows:
+                    handles.append(store.register(
+                        b, SpillPriorities.COALESCE_PENDING))
+            if not handles:
+                return
+            batch = concat_batches([h.get() for h in handles])
+        finally:
+            for h in handles:
+                h.close()
+        yield self._window_batch(batch)
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         if self.partitioned:

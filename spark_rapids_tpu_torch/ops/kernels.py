@@ -45,6 +45,11 @@ _BUILD_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel that failed to build or launch: never retried
+    (``execs/retry.classify`` calls it fatal)."""
+
+
 def find_nvcc() -> str:
     for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
                  "/usr/local/cuda"):
@@ -52,7 +57,7 @@ def find_nvcc() -> str:
             return os.path.join(root, "bin", "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels of "
+        raise KernelError("nvcc not found: the CUDA kernels of "
                            "spark_rapids_tpu_torch need the CUDA toolkit")
     return found
 
@@ -78,7 +83,7 @@ def build_library(name: str) -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        raise KernelError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 
@@ -107,7 +112,7 @@ def _hash_lib() -> ctypes.CDLL:
 
 def _check_launch(name: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise KernelError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 # --------------------------------------------------------------------- #

@@ -79,6 +79,8 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
 from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
+from spark_rapids_tpu_torch.execs.coalesce import plan_coalesce
+from spark_rapids_tpu_torch.execs.retry import RetryPolicy
 from spark_rapids_tpu_torch.execs.basic import (
     TpuFilterExec,
     TpuProjectExec,
@@ -357,7 +359,7 @@ class Planner:
     def __init__(self, conf: C.TorchConf, device: torch.device,
                  manager: ShuffleManager,
                  semaphore: Optional[TpuSemaphore] = None,
-                 upload_stream=None):
+                 upload_stream=None, store=None):
         self.conf = conf
         self.device = device
         self.manager = manager
@@ -365,7 +367,8 @@ class Planner:
             semaphore or TpuSemaphore(conf.get(C.CONCURRENT_TASKS)),
             task_threads=conf.get(C.TASK_THREADS),
             decode_threads=conf.get(C.DECODE_THREADS),
-            stage_depth=stage_depth(conf), upload_stream=upload_stream)
+            stage_depth=stage_depth(conf), upload_stream=upload_stream,
+            retry=RetryPolicy.from_conf(conf, store))
         #: id(logical node) -> its meta, while a plan is lowered
         self._tags: dict[int, PlanMeta] = {}
 
@@ -384,6 +387,7 @@ class Planner:
         finally:
             self._tags = saved
         inject_runtime_filters(root, self.conf)
+        plan_coalesce(root, self.conf)
         return root, meta
 
     def _rewrite_scalar_subqueries(self, plan: L.LogicalPlan
@@ -534,10 +538,13 @@ class Planner:
             self.conf.get(C.BATCH_ROWS))
 
     def _plan_aggregate(self, p: L.Aggregate, child: TpuExec) -> TpuExec:
+        rt, goal = self.runtime, self.conf.get(C.BATCH_ROWS)
         if child.num_partitions <= 1:
-            return TpuHashAggregateExec(p.groups, p.aggs, child)
+            return TpuHashAggregateExec(p.groups, p.aggs, child, runtime=rt,
+                                        goal_rows=goal)
         partial = TpuHashAggregateExec(p.groups, p.aggs, child,
-                                       mode="partial")
+                                       mode="partial", runtime=rt,
+                                       goal_rows=goal)
         if p.groups:
             keys = [BoundReference(i, f.dtype, f.nullable, f.name)
                     for i, f in enumerate(
@@ -548,26 +555,35 @@ class Planner:
         else:
             source = TpuCoalescePartitionsExec(partial, self.runtime)
         return TpuHashAggregateExec(p.groups, p.aggs, source, mode="final",
-                                    input_schema=child.schema)
+                                    input_schema=child.schema, runtime=rt,
+                                    goal_rows=goal)
 
     def _plan_window(self, p: L.Window, child: TpuExec) -> TpuExec:
         part_by = p.window_exprs[0][0].spec.partition_by
         if not part_by or child.num_partitions <= 1:
-            return TpuWindowExec(p.window_exprs, child)
+            return TpuWindowExec(p.window_exprs, child,
+                                 runtime=self.runtime)
         bound = [bind_references(e, child.schema) for e in part_by]
         if _hash_satisfies(child, bound) is None:
             n = self.conf.get(C.SHUFFLE_PARTITIONS)
             child = self._exchange(HashPartitioning(part_by, n), child)
-        return TpuWindowExec(p.window_exprs, child, partitioned=True)
+        return TpuWindowExec(p.window_exprs, child, partitioned=True,
+                             runtime=self.runtime)
 
     def _plan_sort(self, p: L.Sort, child: TpuExec) -> TpuExec:
         if child.num_partitions > 1 and self.conf.get(C.SORT_RANGE_EXCHANGE):
             n = self.conf.get(C.SHUFFLE_PARTITIONS)
             ex = self._exchange(RangePartitioning(p.keys, n), child)
-            return TpuSortExec(p.keys, ex, scope="partition")
+            return self._sort(p.keys, ex, "partition")
         if child.num_partitions > 1:
             child = TpuCoalescePartitionsExec(child, self.runtime)
-        return TpuSortExec(p.keys, child)
+        return self._sort(p.keys, child, "global")
+
+    def _sort(self, keys, child: TpuExec, scope: str) -> TpuSortExec:
+        return TpuSortExec(keys, child, scope, self.runtime,
+                           self.conf.get(C.SORT_SINGLE_BATCH_ROWS),
+                           self.conf.get(C.SORT_MAX_BUCKETS),
+                           self.conf.get(C.SORT_SAMPLES_PER_BATCH))
 
     def _maybe_topn(self, p: L.Limit, child: TpuExec) -> Optional[TpuExec]:
         """LIMIT n over a sort with a fixed-width primary key -> a
@@ -590,13 +606,15 @@ class Planner:
         chunk = self.conf.get(C.JOIN_OUTPUT_CHUNK_ROWS)
         args = (p.left_keys, p.right_keys, p.join_type, left, right, chunk,
                 p.condition)
+        rt = self.runtime
         candidates = broadcast_candidates(
             p.join_type, p.children[0].estimated_bytes(),
             p.children[1].estimated_bytes(),
             self.conf.get(C.BROADCAST_THRESHOLD))
         if candidates:
             side = min(candidates, key=lambda c: c[1])[0]
-            return TpuBroadcastHashJoinExec(*args, build_side=side)
+            return TpuBroadcastHashJoinExec(*args, build_side=side,
+                                            runtime=rt)
         lkeys = [bind_references(k, left.schema) for k in p.left_keys]
         rkeys = [bind_references(k, right.schema) for k in p.right_keys]
         # both sides hash a key alike only when its types are identical
@@ -604,7 +622,7 @@ class Planner:
                          for lk, rk in zip(lkeys, rkeys))
         if not (lkeys and p.join_type != "cross" and same_types) or (
                 left.num_partitions <= 1 and right.num_partitions <= 1):
-            return TpuShuffledHashJoinExec(*args)
+            return TpuShuffledHashJoinExec(*args, runtime=rt)
         lsat = _hash_satisfies(left, lkeys)
         rsat = _hash_satisfies(right, rkeys)
         if lsat is not None:
@@ -621,7 +639,8 @@ class Planner:
             right = self._exchange(HashPartitioning(p.right_keys, n), right)
         return TpuShuffledHashJoinExec(p.left_keys, p.right_keys,
                                        p.join_type, left, right, chunk,
-                                       p.condition, partition_wise=True)
+                                       p.condition, partition_wise=True,
+                                       runtime=rt)
 
 
 def collect_exec(exec_: TpuExec, conf: C.TorchConf) -> pa.Table:

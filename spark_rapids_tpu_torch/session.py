@@ -25,10 +25,17 @@ A session runs on one device, ``cuda`` unless the caller asks for the
 CPU.  Asking for CUDA on a host without it raises: the CPU engine that
 runs the nodes the planner tags off the GPU is part of the plan, not a
 device.  It owns its shuffle manager, its task semaphore (sized by
-``sql.concurrentTpuTasks`` when it is made) and, on CUDA, the side
-stream its scans upload on.  ``collect`` runs the plan on a
-``result.fetch`` stage and converts each batch as it comes, as the JAX
-package's ``stream_exec`` does.  ``config.SERIAL`` holds the keys that
+``sql.concurrentTpuTasks`` when it is made), its buffer store (made by
+``memory/device_manager.initialize`` and installed as the process
+store: on CUDA its device budget is ``memory.fraction`` of the card
+unless ``memory.hbm.budgetBytes`` is set; its disk tier under
+``memory.spill.dir`` or a temporary directory) and, on CUDA, the side
+stream its scans upload on.  ``spill_stats()`` and ``retry_stats()``
+read the store's and the OOM ladder's counters; after a ``collect``
+the store holds none of the query's batches.  A conf with
+``robustness.faults.enabled`` arms its fault schedule for each query.
+``collect`` runs the plan on a ``result.fetch`` stage and converts each
+batch as it comes, as the JAX package's ``stream_exec`` does.  ``config.SERIAL`` holds the keys that
 run a query serially.
 """
 
@@ -70,10 +77,13 @@ from spark_rapids_tpu_torch.exprs.base import (
 )
 from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.window import WindowExpression
+from spark_rapids_tpu_torch.execs import retry as _retry
+from spark_rapids_tpu_torch.memory import device_manager
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.planner import Planner, collect_exec
 from spark_rapids_tpu_torch.plan.runtime_filter import render_runtime_filters
+from spark_rapids_tpu_torch.robustness import faults
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 
 __all__ = ["TorchSession", "DataFrame", "col", "lit", "sum_", "avg",
@@ -170,6 +180,18 @@ class TorchSession:
         self.semaphore = TpuSemaphore(self.conf.get(C.CONCURRENT_TASKS))
         self.upload_stream = torch.cuda.Stream(device) \
             if device.type == "cuda" else None
+        self.store = device_manager.initialize(self.conf, device)
+
+    def spill_stats(self) -> dict:
+        """The session store's gauges and spill totals
+        (``BufferStore.spill_stats``)."""
+        return self.store.spill_stats()
+
+    @staticmethod
+    def retry_stats() -> dict:
+        """What the OOM ladder absorbed, process-wide
+        (``execs/retry.retry_stats``)."""
+        return _retry.retry_stats()
 
     def read_parquet(self, *paths: str) -> "DataFrame":
         return DataFrame(L.Scan(list(paths)), self)
@@ -384,7 +406,7 @@ class DataFrame:
     def _planner(self) -> Planner:
         s = self._session
         return Planner(s.conf, s.device, s.shuffle_manager, s.semaphore,
-                       s.upload_stream)
+                       s.upload_stream, s.store)
 
     def physical_plan(self) -> TpuExec:
         return self._planner().plan(self._plan)
@@ -400,5 +422,8 @@ class DataFrame:
 
     def collect(self) -> pa.Table:
         """Run the query on the session's device; the result as Arrow.
-        The stage and the exec tree are closed on every exit."""
-        return collect_exec(self.physical_plan(), self._session.conf)
+        The stage and the exec tree are closed on every exit, which
+        releases the query's store entries."""
+        conf = self._session.conf
+        with faults.query_scope(conf):
+            return collect_exec(self.physical_plan(), conf)

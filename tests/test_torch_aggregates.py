@@ -367,3 +367,7 @@ def test_count_distinct_refuses_what_the_jax_session_refuses(files):
                (P.count_distinct(P.col("vi")), "m"))
     with pytest.raises(ValueError):
         df.rollup("k").agg((P.count_distinct(P.col("g")), "n"))
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

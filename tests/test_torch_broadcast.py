@@ -182,3 +182,7 @@ def test_condition_columns_survive_scan_pruning(files):
                             **_keys(jcol, False))
                   .select(jcol("l_k")).collect().column("l_k").to_pylist())
     assert got == want and len(got) > 0
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

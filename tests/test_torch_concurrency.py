@@ -334,3 +334,7 @@ def test_scan_task_decodes_its_files_on_the_pool_in_file_order(
         want["l_returnflag"].to_pylist()
     assert any(n.startswith("srt-pool-decode") for n in threads_seen)
     assert threading.current_thread().name in threads_seen  # serial run
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

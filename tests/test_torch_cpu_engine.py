@@ -436,3 +436,7 @@ def test_the_engine_uses_no_torch_and_no_device_path():
     for part in ("ops", "execs", "columnar"):
         assert not any(m.startswith(f"spark_rapids_tpu_torch.{part}")
                        for m in mods), part
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

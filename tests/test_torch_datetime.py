@@ -104,3 +104,7 @@ def test_fields_agree_with_python(table):
                        day.isoweekday() % 7 + 1, day.weekday(),
                        day.timetuple().tm_yday, last,
                        dt.date(pm_y, pm_m, min(day.day, pm_last))]
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

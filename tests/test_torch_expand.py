@@ -295,3 +295,7 @@ def test_expand_estimates_its_rows_times_its_projections(files):
     [phys] = [n for n in cube.physical_plan().walk()
               if isinstance(n, TpuExpandExec)]
     assert exec_estimated_rows(phys) == 900 * 4
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -417,3 +417,7 @@ def test_earlier_workloads_plan_no_cpu_fallback(tmp_path):
         assert not _off(df), name
         assert not any(isinstance(n, CpuFallbackExec)
                        for n in df.physical_plan().walk()), name
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -195,3 +195,7 @@ def test_reduce_aggregate_of_empty_input_is_one_null_row():
     got = to_arrow(G.reduce_aggregate(empty, _specs(G, ORDS), pschema))
     assert got.to_pylist() == [{"s_vd": None, "s_vi": None, "c_vd": 0,
                                 "c_star": 0}]
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -388,3 +388,7 @@ def test_the_sf1_store_states_leave_q27s_text_empty():
     states = set(store["s_state"].to_pylist())
     assert states <= set(tpcds._STATES[:8])
     assert not states & set(tpcds.Q27_STATES)
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

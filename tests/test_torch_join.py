@@ -373,3 +373,7 @@ def test_keys_of_other_types_take_the_wide_join(tmp_path):
                    for n in plan.walk())
     assert sorted(df.collect().to_pylist(), key=repr) == sorted(
         [{"x": 2, "y": 2}] * 4 + [{"x": 5, "y": 5}] * 2, key=repr)
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -230,3 +230,7 @@ def test_nested_exchange_finishes_with_one_permit(tmp_path):
     assert rows == [{"v": float(i), "sw": 100.0 * i} for i in range(4)]
     assert s.semaphore.usage()["in_use"] == 0
     assert P.live_stage_threads() == 0 and live_pool_threads() == 0
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -70,7 +70,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "spark_rapids_tpu_torch.exprs.datetime",
             "spark_rapids_tpu_torch.exprs.math",
             "spark_rapids_tpu_torch.exprs.subquery",
-            "spark_rapids_tpu_torch.tpcds_queries"} <= set(mods)
+            "spark_rapids_tpu_torch.tpcds_queries",
+            # the memory runtime's
+            "spark_rapids_tpu_torch.memory.store",
+            "spark_rapids_tpu_torch.memory.device_manager",
+            "spark_rapids_tpu_torch.execs.retry",
+            "spark_rapids_tpu_torch.execs.coalesce",
+            "spark_rapids_tpu_torch.columnar.serde",
+            "spark_rapids_tpu_torch.robustness.faults"} <= set(mods)
 
 
 def test_port_sources_name_no_jax_import():
@@ -689,3 +696,7 @@ def test_build_paths_live_in_the_package():
     assert (PORT_DIR / "csrc" / "hash_string.cu").exists()
     assert os.path.basename(kernels.library_path("hash_string")).startswith(
         "hash_string-")
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -348,3 +348,7 @@ def test_a_string_and_a_number_do_not_mix(path):
         df.select(P.Coalesce(col("s"), lit(1)).alias("c0"))
     with pytest.raises(TypeError):
         df.select(col("s").eq(lit(1)).alias("c0")).collect()
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -179,3 +179,7 @@ def test_q1_grand_total_matches_numpy(paths, port_session):
     assert sum(got["count_order"].to_pylist()) == int((ship <= 10471).sum())
     assert sum(got["sum_qty"].to_pylist()) == pytest.approx(
         float(qty[ship <= 10471].sum()), rel=1e-12)
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

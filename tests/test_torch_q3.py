@@ -192,3 +192,7 @@ def test_unported_joins_raise(data, port_session):
     with pytest.raises(ValueError):
         li.join(orders, how="sideways", left_on=[col("l_orderkey")],
                 right_on=[lit(1)])
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

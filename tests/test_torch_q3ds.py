@@ -274,3 +274,7 @@ def test_store_sales_has_the_catalog_schema_and_ranges(catalog, tmp_path):
     assert all(m.num_row_groups == 1 for m in meta)
     tickets = pq.read_table(paths[1]).column("ss_ticket_number").to_numpy()
     assert tickets[0] == 1000 // 4 + 1
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

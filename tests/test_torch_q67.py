@@ -178,3 +178,7 @@ def test_q67_hashes_once_per_hash_map_batch(paths, port_session,
     assert sum(1 for c in calls if c[0] == ("bigint",)) == planned == 8
     assert all(n > 0 and p == 8 for _, n, p in calls)
     assert strings == []
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

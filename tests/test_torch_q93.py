@@ -451,3 +451,7 @@ def test_store_returns_name_their_sales(tmp_path):
         v = sr.column(name).to_numpy()
         assert v.min() >= 1 and v.max() <= rows[dim]
     assert sr.column("sr_customer_sk").null_count > 0
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -255,3 +255,7 @@ def test_hash_satisfies_refuses_a_range_distribution(files):
     rows = ranked.collect().to_pylist()
     assert all(r["r"] == 1 + sum(1 for q in rows if q["l"] == r["l"]
                                  and q["k"] < r["k"]) for r in rows)
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -506,3 +506,7 @@ def test_explain_lists_build_and_apply_lines(tmp_path):
     assert "TpuRuntimeFilterBuildExec" in out
     assert "build rf#" in out and "apply rf#" in out
     assert "ParquetScanExec.l_key" in out
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

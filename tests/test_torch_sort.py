@@ -255,3 +255,7 @@ def test_order_by_and_limit_through_the_session(tmp_path):
     want = to_arrow(whole.slice_prefix(250))
     assert _rows(first.collect()) == _rows(want)
     assert df.limit(0).collect().num_rows == 0
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -229,3 +229,7 @@ def test_scalar_subquery_runs_once_per_plan_and_splices_a_literal(frontends):
         df._plan.children[0].condition
     assert any(isinstance(e, ScalarSubquery) for e in [cond, *cond.children])
     assert "scalar_subquery" not in df.physical_plan().tree_string()
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

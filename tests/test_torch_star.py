@@ -214,3 +214,7 @@ def test_k1_launches(q, datasets, port_session, monkeypatch):
     assert [c[0] for c in lanes] == [30] * 4
     assert len([c for c in calls if c[2] == 8]) == N_FILES
     assert len(calls) == len(lanes) + N_FILES
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -221,3 +221,7 @@ def test_date_to_string_is_iso():
     assert got == [None if d is None else
                    (dt.date(1970, 1, 1) + dt.timedelta(days=d)).isoformat()
                    for d in days]
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -261,3 +261,7 @@ def test_in_over_dates_equals_the_jax_engine():
                             ignore_order=False)
     assert got["c0"].null_count == t["d"].null_count
     assert got["c3"].null_count == 64
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -27,3 +27,7 @@ def test_text_equals_the_jax_engine(name, port, oracle):  # noqa: F811
     assert_tables_equal(_significant(got), _significant(want),
                         approx_float=True)
     assert got.num_rows > 0 or name == "q84"
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -173,3 +173,7 @@ def test_write_store_channel_lays_out_every_table(tmp_path):
                      ("ss_promo_sk", "promotion")):
         assert 1 <= pc.min(ss[col]).as_py()
         assert pc.max(ss[col]).as_py() <= sf1[dim]
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -319,3 +319,7 @@ def test_estimates_sum_the_members_and_count_the_sources():
         .physical_plan()
     assert type(plan).__name__ == "TpuBroadcastHashJoinExec" and \
         plan.build_is_right
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401

@@ -534,3 +534,48 @@ def test_unported_windows_raise_when_planned(files):
     # string it runs on the CPU engine
     assert any("string" in r for r in fallback_reasons(
         df.group_by(P.col("k")).agg((P.min_("s"), "m"))))
+
+
+def test_lead_lag_with_a_plain_default_through_sql():
+    """``lag(i, 1, -99)`` and ``lead(i, 2, 7)`` through the port's SQL
+    frontend, against a hand-built pandas shift: the default fills only
+    the rows whose offset row lies outside the partition, and a NULL
+    value at the offset row stays NULL.  Both JAX engines raise on a
+    plain default (ROADMAP §3), so the reference is pandas."""
+    import pandas as pd
+
+    from spark_rapids_tpu_torch.frontends.sql import SqlSession
+
+    rng = np.random.default_rng(77)
+    n = 60
+    t = pa.table({"k": pa.array(rng.integers(0, 4, n), pa.int64()),
+                  "o": rng.permutation(n).astype(np.int64),
+                  "i": pa.array(rng.integers(-20, 20, n), pa.int64(),
+                                mask=rng.random(n) < 0.2)})
+    fe = SqlSession(device="cpu")
+    fe.register_table("t", t)
+    got = fe.sql("SELECT k, o, i, "
+                 "lag(i, 1, -99) OVER (PARTITION BY k ORDER BY o) AS lg, "
+                 "lead(i, 2, 7) OVER (PARTITION BY k ORDER BY o) AS ld "
+                 "FROM t").collect()
+    df = t.to_pandas().astype({"i": object}).sort_values(["k", "o"])
+    df["i"] = [None if pd.isna(v) else int(v) for v in df["i"]]
+    g = df.groupby("k")["i"]
+    df["lg"] = g.shift(1, fill_value=-99)
+    df["ld"] = g.shift(-2, fill_value=7)
+
+    def norm(v):
+        return None if v is None or (isinstance(v, float) and np.isnan(v)) \
+            else int(v)
+
+    want = sorted((int(r.k), int(r.o), norm(r.i), norm(r.lg), norm(r.ld))
+                  for r in df.itertuples())
+    rows = sorted((r["k"], r["o"], r["i"], r["lg"], r["ld"])
+                  for r in got.to_pylist())
+    assert rows == want
+    edges = sum(v == -99 for *_, v, _ in want)
+    assert edges == 4  # one partition start each
+
+
+# the OOM ladder and the spill store stay quiet on these tests
+from torch_quiet import quiet_ladder  # noqa: E402,F401
