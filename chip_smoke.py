@@ -6,7 +6,9 @@ NVIDIA card.
 
 Phases, one JSON line each:
   device   card name, and its name and power limit from nvidia-smi;
-  build    nvcc build of every kernel from csrc/, with its time;
+  build    nvcc build of every kernel from csrc/, with its time, and
+           the g++ build of the Parquet decoder's host codec
+           (native/hostcodec.cpp), with its time and g++ --version;
   kernels  both entry points of K1 (hash_string: one string column;
            hash_columns: a key tuple -> hash or partition id) against
            their plain PyTorch versions, bit for bit, over a grid of
@@ -71,6 +73,21 @@ Phases, one JSON line each:
            non-empty map batch of the aggregate's exchange plus twice per
            non-empty batch the filter folds plus twice per filter
            published with a range table, and hash_string never;
+  scan_host
+           the scan's host path (io/scan.py, io/fastpar.py) on q6, q1
+           and q3ds at the sizes above, with scan.fastDecode on (the
+           native decoder, which filters on the Parquet dictionaries)
+           and off (pyarrow, the default), one line each (``scan_host_<query>``):
+           for each setting the scans' counters from one kept run
+           (files on the fast and the standard path, rows decoded,
+           filtered on the host, pruned by the runtime filter and
+           uploaded, row groups pruned on the footers), the scans
+           alone serially and pooled with their host split, and
+           SCAN_HOST_PAIRS pairs of walls in alternating order; every
+           result held against the query's reference, every lineitem
+           and store_sales file on the fast path when it is on, and no
+           TpuFilterExec in q6's plan (the scan applies its condition
+           on the host, exactly);
   q93      TPC-DS q93 over the same store_sales files and a store_returns
            derived from them (~10 % of the sales rows, the spec's SF1
            ratio; each return copies the keys of a sale) with the ten
@@ -1122,26 +1139,71 @@ def profiled_run(torch, make_df) -> dict:
     ``key_averages()`` builds a Python event per kernel and per host
     operator first, ~0.2 ms each, which made the profile of a text of
     100 000 kernels cost four times its run on an H100 80GB HBM3 at
-    700 W."""
+    700 W.  A run that shows no device time fails, unless every leaf of
+    its plan is a Parquet scan and they handed up no row."""
+    import threading
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from spark_rapids_tpu_torch.ops import kernels
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+    from spark_rapids_tpu_torch.robustness import faults
+
+    def k1_launches() -> int:
+        return kernels.hash_columns.launches + kernels.hash_string.launches
+
+    lock = threading.Lock()
+    shipped = {"rows": 0, "other_leaves": 0}
+
+    def counted(feed):
+        def execute_partition(p):
+            for batch in feed(p):
+                if batch.columns:
+                    with lock:
+                        shipped["rows"] += batch.num_rows
+                yield batch
+        return execute_partition
+
+    k1 = k1_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        make_df().collect()
+        df = make_df()
+        plan = df.physical_plan()
+        for node in plan.walk():
+            if node.children:
+                continue
+            if type(node).__name__ == "ParquetScanExec":
+                node.execute_partition = counted(node.execute_partition)
+            else:
+                shipped["other_leaves"] += 1
+        with faults.query_scope(df._session.conf):
+            collect_exec(plan, df._session.conf)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    k1 = k1_launches() - k1
     counts: dict = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             n, ns = counts.get(e.name(), (0, 0))
             counts[e.name()] = (n + 1, ns + e.duration_ns())
     busy_s = sum(ns for _, ns in counts.values()) / 1e9
-    if not busy_s:
-        raise AssertionError("the profiler saw no device time")
+    # rows the run's Parquet scans handed up, each batch uploaded (a
+    # copy on the card) before it is; None when another kind of leaf
+    # (a source, a range) may have put work on the card uncounted
+    uploaded = None if shipped["other_leaves"] else shipped["rows"]
+    if not busy_s and uploaded != 0:
+        # a run may reach the card with nothing at all (q27's and q56's
+        # texts: the host filters keep no dimension row, and a join
+        # whose build side is empty never reads its stream); any other
+        # run that shows no device time means the profiler is blind
+        raise AssertionError(
+            f"the profiler saw no device time in a run whose scans "
+            f"uploaded {uploaded} rows and that launched K1 {k1} times")
     top = sorted(counts.items(), key=lambda kv: -kv[1][1])[:8]
     return {"profiled_wall_s": wall, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / wall,
+            "k1_launches": k1, "rows_uploaded": uploaded,
             "device_kernel_count": sum(n for n, _ in counts.values()),
             "device_kernels": [[k[:60], n, ns / 1e6] for k, (n, ns) in top],
             "kernel_counts": {k: n for k, (n, _) in counts.items()}}
@@ -1298,6 +1360,123 @@ def q3ds_phase(torch, pc, star, kernels, RF, TorchSession, tpcds, TTB,
          rf_off_device_idle_share=off["device_idle_share"],
          rf_off_profiled_wall_s=off["profiled_wall_s"], **on)
     return on, off, calls_on
+
+
+#: fastDecode on / off pairs of the scan_host phase, each pair's order
+#: alternating (on, off), (off, on)
+SCAN_HOST_PAIRS = 2
+def scan_counts(plan) -> list:
+    """Every Parquet scan of ``plan``: its files, output columns,
+    whether its Filter was elided, and its counters, with the rows it
+    decoded (what the footers kept: emitted + filtered on the host +
+    pruned by a runtime filter)."""
+    from spark_rapids_tpu_torch.io.scan import SCAN_COUNTERS
+
+    out = []
+    for n in plan.walk():
+        if type(n).__name__ != "ParquetScanExec":
+            continue
+        c = {k: n.metrics[k] for k in SCAN_COUNTERS}
+        c["rows_decoded"] = (c["numOutputRows"] + c["hostFilteredRows"]
+                             + c["rfPrunedRows"])
+        out.append({"files": [os.path.basename(p) for p in n.paths[:1]]
+                    + ([f"+{len(n.paths) - 1}"] if len(n.paths) > 1
+                       else []),
+                    "columns": n.schema.names,
+                    "elided_filter": n.exact_prefilter, **c})
+    return out
+
+
+def scan_host_phase(torch, pc, TorchSession, tpch, tpcds, TTB, paths,
+                    ref6, ref1, star) -> dict:
+    """The scan's host path (io/scan.py, io/fastpar.py): q6, q1 and q3ds
+    with scan.fastDecode on and off.  For each setting one kept run: its
+    scans' counters (files on the fast and the standard path, rows
+    decoded, filtered on the host, pruned by the runtime filter and
+    uploaded, row groups pruned), every lineitem and store_sales file on
+    the fast path when it is on; then the scans alone, serially and
+    pooled, with their host split; then SCAN_HOST_PAIRS pairs of walls
+    in alternating order.  Every run's result is held against its
+    reference; q6's plan must hold no TpuFilterExec (its Filter elided
+    into the scan)."""
+    from spark_rapids_tpu_torch.config import FAST_DECODE
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+
+    dd_path, ss_paths, item_path = star["paths"]
+    ref3ds = reference_star(
+        pc, star, lambda d: pc.equal(d["d_moy"], 11),
+        lambda i: pc.equal(i["i_manufact_id"], 128),
+        ["d_year", "i_brand_id", "i_brand"], {},
+        [("d_year", False), ("sum", True), ("i_brand_id", False)])
+    queries = {
+        "q6": ({TTB: TASK_TARGET_BYTES},
+               lambda s: tpch.q6_dataframe(s, paths),
+               lambda t: compare(t, ref6, 0), paths),
+        "q1": ({TTB: TASK_TARGET_BYTES},
+               lambda s: tpch.q1_dataframe(s, paths),
+               lambda t: compare(t, ref1, 2), paths),
+        "q3ds": ({TTB: Q3DS_TASK_TARGET_BYTES},
+                 lambda s: tpcds.q3_dataframe(s, dd_path, ss_paths,
+                                              item_path),
+                 lambda t: compare_ranked(
+                     t, ref3ds, 100, ("d_year", "i_brand_id", "i_brand"),
+                     "sum_agg", "sum"), ss_paths),
+    }
+    out = {}
+    for name, (conf, make, check, facts) in queries.items():
+        sessions = {fd: TorchSession({**conf, FAST_DECODE: fd},
+                                     device="cuda") for fd in (True, False)}
+        rec: dict = {}
+        worst = 0.0
+        for fd, session in sessions.items():
+            side = "fast" if fd else "standard"
+            make(session).collect()  # warm-up: the runtime filter built
+            plan = make(session).physical_plan()
+            worst = max(worst, check(collect_exec(plan, session.conf)))
+            torch.cuda.synchronize()
+            counts = scan_counts(plan)
+            if name == "q6" and any(type(n).__name__ == "TpuFilterExec"
+                                    for n in plan.walk()):
+                raise AssertionError("q6 plans a TpuFilterExec: "
+                                     + plan.tree_string())
+            fact = [c for c in counts
+                    if c["files"][0] == os.path.basename(facts[0])]
+            if len(fact) != 1:
+                raise AssertionError(f"{name}: no one scan of its fact "
+                                     f"files in {counts}")
+            f = fact[0]
+            if fd and not (f["standardDecodedFiles"] == 0
+                           and f["fastDecodedFiles"] > 0):
+                raise AssertionError(f"{name}: a fact file left the fast "
+                                     f"path: {f}")
+            if not fd and f["fastDecodedFiles"]:
+                raise AssertionError(f"{name}: fastDecode off, yet {f}")
+            alone = {mode: scan_alone(torch, make(session).physical_plan(),
+                                      serial=mode == "serial")
+                     for mode in ("serial", "pooled")}
+            rec[side] = {"scans": counts,
+                         "scan_only_s": alone["serial"]["wall_s"],
+                         "scan_only_pooled_s": alone["pooled"]["wall_s"],
+                         "scan_split_serial": alone["serial"],
+                         "scan_split_pooled": alone["pooled"]}
+        walls = {True: [], False: []}
+        for i in range(SCAN_HOST_PAIRS):
+            for fd in ((True, False) if i % 2 == 0 else (False, True)):
+                session = sessions[fd]
+                t0 = time.perf_counter()
+                result = make(session).collect()
+                torch.cuda.synchronize()
+                walls[fd].append(time.perf_counter() - t0)
+                worst = max(worst, check(result))
+        rec["fast"]["wall_s"], rec["standard"]["wall_s"] = (walls[True],
+                                                            walls[False])
+        rec["pairs_fast_won"] = sum(a < b for a, b in zip(walls[True],
+                                                          walls[False]))
+        rec["max_rel_err"] = worst
+        emit(f"scan_host_{name}", **rec)
+        out[name] = rec
+    return out
+
 
 
 def star_tables(pa, pq, data_dir, tpcds) -> dict:
@@ -2951,9 +3130,19 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = built.with_suffix(".log").read_text() if \
         built.with_suffix(".log").exists() else ""
+    from spark_rapids_tpu_torch import native
+
+    t0 = time.perf_counter()
+    codec = native.build()
+    native.load()
+    codec_s = time.perf_counter() - t0
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
     emit("build", seconds=build_s, library=os.path.relpath(built, ROOT),
          ptxas=[ln for ln in ptxas.splitlines() if "registers" in ln
-                or "spill" in ln or "smem" in ln])
+                or "spill" in ln or "smem" in ln],
+         host_codec_s=codec_s, host_codec=os.path.relpath(codec, ROOT),
+         gxx=gxx)
 
     parts_s = {}
     t0 = time.perf_counter()
@@ -3058,6 +3247,8 @@ def main() -> int:
         q3ds, q3ds_off, q3ds_calls = q3ds_phase(torch, pc, star, kernels,
                                                 RF, TorchSession, tpcds, TTB,
                                                 RF_ENABLED)
+        scan_host_phase(torch, pc, TorchSession, tpch, tpcds, TTB, paths,
+                        ref6, ref1, star)
         q93, q93_calls = q93_phase(torch, pa, pc, pq, star, kernels,
                                    TorchSession, tpcds, TTB)
         star_runs, star_calls = star_phase(torch, pc, star, kernels,

@@ -4,12 +4,19 @@ Counterpart of ``spark_rapids_tpu/columnar/arrow.py`` (``from_arrow``
 and ``to_arrow``).  An upload runs in two halves, so a scan can run the
 first on a stage thread of its own (``io/scan.py``):
 
-- ``stage_upload``: Arrow -> host numpy arrays (``convertTime``), an
-  owned copy of each (pyarrow buffers are read-only), a pinned copy,
-  and the copy to the card enqueued with ``non_blocking=True`` on the
-  session's upload stream, then an event recorded there.  The copy is
-  issued under that stream, so the CUDA caching host allocator keeps
-  each pinned buffer until the copy has run;
+- ``stage_upload``: each column's host tensors are allocated once,
+  pinned on the card path (``torch.empty(pin_memory=True)``, from the
+  CUDA caching host allocator; ``pinTime``), and filled straight from
+  the Arrow buffers in one pass (``_Filler``; ``hostCopyTime``): the
+  conversion to numpy, the zeroing of NULL slots, the widening of a
+  type, the owned copy and the pinned copy, which were separate passes
+  before, are that one pass, and a dictionary column of a fixed-width
+  type is gathered (``dict_values[codes]``) into it.  Reading the
+  validity bitmaps and string offsets is ``convertTime``.  Then the
+  copy to the card is enqueued with ``non_blocking=True`` on the
+  session's upload stream and an event recorded there.  The copy is
+  issued under that stream, so the caching host allocator keeps each
+  pinned buffer until the copy has run;
 - ``finish_upload``: the consuming stream waits for the event before
   the first use, each uploaded tensor is recorded on that stream (the
   caching allocator then cannot hand its block out while the stream
@@ -19,7 +26,8 @@ Each part's host time, and whether the copy was still running when the
 consumer took it, can go to a scan's metrics.
 
 A dictionary-encoded string column (Parquet read with
-``read_dictionary``) uploads its int32 codes and the small dictionary;
+``read_dictionary``, or from ``io/fastpar.py``) uploads its int32 codes
+and the small dictionary;
 the row byte matrix is gathered on the device from the dictionary, and
 the codes stay on the column as the sidecar the coded group-by reads.
 """
@@ -35,6 +43,7 @@ import numpy as np
 import pyarrow as pa
 import torch
 
+from spark_rapids_tpu_torch import native
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import (
@@ -64,15 +73,23 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def strings_to_matrix(offsets: np.ndarray, data: np.ndarray,
-                      valid: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+                      valid: np.ndarray, out: Optional[np.ndarray] = None
+                      ) -> tuple[np.ndarray, np.ndarray]:
     """Offset-encoded strings -> (zero-padded (N, W) uint8 matrix,
-    int32 lengths); NULL rows become empty strings."""
+    int32 lengths); NULL rows become empty strings.  ``out``: the
+    matrix to fill, of width at least the longest string."""
     starts = offsets[:-1].astype(np.int64)
     lengths = (offsets[1:] - offsets[:-1]).astype(np.int32)
     lengths = np.where(valid, lengths, 0).astype(np.int32)
     n = len(lengths)
     width = max(int(lengths.max()) if n else 0, 1)
-    chars = np.zeros((n, width), np.uint8)
+    if out is None:
+        chars = np.zeros((n, width), np.uint8)
+    else:
+        chars = out
+        width = chars.shape[1]
+        if not len(data):
+            chars[:] = 0
     if len(data):
         for j in range(width):
             has = j < lengths
@@ -93,46 +110,167 @@ def _string_buffers(arr: pa.Array) -> tuple[np.ndarray, np.ndarray]:
     return offsets, data
 
 
-def _validity(arr: pa.Array) -> np.ndarray:
-    if arr.null_count == 0:
-        return np.ones(len(arr), np.bool_)
-    return arr.is_valid().to_numpy(zero_copy_only=False)
+class _Filler:
+    """Fills one batch's host tensors straight from Arrow buffers.
 
+    Each destination is allocated once (``torch.empty(pin_memory=True)``
+    on the card path, so from the CUDA caching host allocator; plain
+    memory for the CPU) and written in one pass over its source: a
+    fixed-width column is copied with ``np.copyto``, which widens its
+    type in that pass, and its NULL slots are zeroed in place; a
+    dictionary column of a fixed-width type gathers ``dict_values[codes]``
+    into the buffer (``np.take(..., out=)``); string matrices are
+    filled in place.  Allocation time goes to ``pinTime``, reading the
+    Arrow buffers (validity bitmaps, offsets) to ``convertTime`` and the
+    fill to ``hostCopyTime``."""
 
-def _host_arrays(arr, dtype: T.DataType) -> tuple[str, dict]:
-    """One Arrow column as host numpy arrays: ("fixed", values, valid),
-    ("string", chars, lengths, valid) or ("dict", codes, valid, and the
-    dictionary's chars and lengths)."""
-    if isinstance(arr, pa.ChunkedArray):
-        arr = arr.combine_chunks()
-    valid = _validity(arr)
-    if isinstance(dtype, T.StringType):
-        if pa.types.is_dictionary(arr.type):
-            dictionary = arr.dictionary
-            if len(dictionary) == 0:
-                dictionary = pa.array([""], pa.string())
-            doffs, ddata = _string_buffers(dictionary)
-            dchars, dlens = strings_to_matrix(
-                doffs, ddata, np.ones(len(dictionary), np.bool_))
-            codes = arr.indices.fill_null(0).to_numpy(
-                zero_copy_only=False).astype(np.int32)
-            return "dict", {"codes": codes, "valid": valid,
-                            "dchars": dchars, "dlens": dlens}
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.ns = dict.fromkeys(("convertTime", "hostCopyTime", "pinTime"),
+                                0)
+
+    def _lap(self, name: str, t0: int) -> int:
+        now = time.perf_counter_ns()
+        self.ns[name] += now - t0
+        return now
+
+    def empty(self, shape, np_dtype) -> tuple[torch.Tensor, np.ndarray]:
+        """A host tensor and its numpy view."""
+        t0 = time.perf_counter_ns()
+        dt = torch.from_numpy(np.empty(0, np_dtype)).dtype
+        t = torch.empty(shape, dtype=dt, pin_memory=self.pinned)
+        self._lap("pinTime", t0)
+        return t, t.numpy()
+
+    def validity(self, arr: pa.Array, out: np.ndarray) -> bool:
+        """Unpack ``arr``'s validity into ``out``; whether it has NULLs."""
+        if arr.null_count == 0:
+            out[:] = True
+            return False
+        if arr.buffers()[0] is None:  # the NULL type: no bitmap
+            out[:] = False
+            return True
+        bitmap = np.frombuffer(arr.buffers()[0], np.uint8)
+        bits = np.unpackbits(bitmap, count=arr.offset + len(arr),
+                             bitorder="little")[arr.offset:]
+        np.copyto(out, bits, casting="unsafe")
+        return True
+
+    def fixed(self, chunks: list, dtype: T.DataType) -> dict:
+        """("fixed") values and validity of a fixed-width column."""
+        n = sum(len(c) for c in chunks)
+        valid, mnp = self.empty((n,), np.bool_)
+        if isinstance(dtype, T.NullType):
+            values, vnp = self.empty((n,), np.bool_)
+            vnp[:] = False
+            mnp[:] = False
+            return {"values": values, "valid": valid}
+        np_dt = _numpy_dtype(dtype)
+        values, vnp = self.empty((n,), np_dt)
+        at = 0
+        for arr in chunks:
+            m = len(arr)
+            t0 = time.perf_counter_ns()
+            dst, ok = vnp[at:at + m], mnp[at:at + m]
+            nulls = self.validity(arr, ok)
+            t0 = self._lap("convertTime", t0)
+            if m == 0 or pa.types.is_null(arr.type):
+                dst[:] = 0
+            elif pa.types.is_dictionary(arr.type):
+                codes = _fixed_view(arr.indices)
+                dvals = arr.dictionary
+                if len(dvals) == 0:  # every row NULL
+                    dst[:] = 0
+                else:
+                    dnp = np.ascontiguousarray(
+                        _fixed_values(dvals).astype(np_dt, copy=False))
+                    _gather(dnp, codes, dst)
+            elif pa.types.is_boolean(arr.type):
+                bits = np.unpackbits(
+                    np.frombuffer(arr.buffers()[1], np.uint8),
+                    count=arr.offset + m, bitorder="little")[arr.offset:]
+                np.copyto(dst, bits, casting="unsafe")
+            else:
+                np.copyto(dst, _fixed_view(arr), casting="unsafe")
+            if nulls:
+                np.putmask(dst, ~ok, 0)
+            self._lap("hostCopyTime", t0)
+            at += m
+        return {"values": values, "valid": valid}
+
+    def matrix(self, arr: pa.Array, valid: np.ndarray) -> dict:
+        """(chars, lengths) of a string array, filled in place."""
+        t0 = time.perf_counter_ns()
         offsets, data = _string_buffers(arr)
-        chars, lengths = strings_to_matrix(offsets, data, valid)
-        return "string", {"chars": chars, "lengths": lengths,
-                          "valid": valid}
-    if isinstance(dtype, T.NullType):
-        return "fixed", {"values": np.zeros(len(arr), np.bool_),
-                         "valid": valid}
-    if pa.types.is_dictionary(arr.type):
-        arr = arr.cast(arr.type.value_type)
-    if isinstance(dtype, T.DateType):
-        arr = arr.cast(pa.int32())
-    values = arr.fill_null(False if isinstance(dtype, T.BooleanType)
-                           else 0).to_numpy(zero_copy_only=False)
-    return "fixed", {"values": values.astype(_numpy_dtype(dtype)),
-                     "valid": valid}
+        lengths = np.where(valid, offsets[1:] - offsets[:-1], 0)
+        width = max(int(lengths.max()) if len(lengths) else 0, 1)
+        t0 = self._lap("convertTime", t0)
+        chars, cnp = self.empty((len(arr), width), np.uint8)
+        lens, lnp = self.empty((len(arr),), np.int32)
+        t0 = time.perf_counter_ns()
+        np.copyto(lnp, lengths, casting="unsafe")
+        strings_to_matrix(offsets, data, valid, out=cnp)
+        self._lap("hostCopyTime", t0)
+        return {"chars": chars, "lengths": lens}
+
+    def column(self, col, dtype: T.DataType) -> tuple[str, dict]:
+        """One Arrow column as host tensors: ("fixed", values, valid),
+        ("string", chars, lengths, valid) or ("dict", codes, valid, and
+        the dictionary's chars and lengths)."""
+        chunks = col.chunks if isinstance(col, pa.ChunkedArray) else [col]
+        if not isinstance(dtype, T.StringType):
+            return "fixed", self.fixed(chunks, dtype)
+        t0 = time.perf_counter_ns()
+        arr = chunks[0] if len(chunks) == 1 else pa.concat_arrays(chunks)
+        self._lap("convertTime", t0)
+        valid, vnp = self.empty((len(arr),), np.bool_)
+        nulls = self.validity(arr, vnp)
+        if not pa.types.is_dictionary(arr.type):
+            return "string", {**self.matrix(arr, vnp), "valid": valid}
+        dictionary = arr.dictionary
+        if len(dictionary) == 0:
+            dictionary = pa.array([""], pa.string())
+        d = self.matrix(dictionary, np.ones(len(dictionary), np.bool_))
+        codes, cnp = self.empty((len(arr),), np.int32)
+        t0 = time.perf_counter_ns()
+        if len(arr):
+            np.copyto(cnp, _fixed_view(arr.indices), casting="unsafe")
+        if nulls:
+            np.putmask(cnp, ~vnp, 0)
+        self._lap("hostCopyTime", t0)
+        return "dict", {"codes": codes, "valid": valid,
+                        "dchars": d["chars"], "dlens": d["lengths"]}
+
+
+def _gather(dictionary: np.ndarray, codes: np.ndarray,
+            out: np.ndarray) -> None:
+    """``out[i] = dictionary[codes[i]]``, a code out of range clipped:
+    the host codec's ``gather_codes`` for int32 codes, else numpy."""
+    if codes.dtype == np.int32 and dictionary.itemsize in (1, 2, 4, 8):
+        codes = np.ascontiguousarray(codes)
+        rc = native.load().gather_codes(
+            dictionary.ctypes.data, len(dictionary), dictionary.itemsize,
+            codes.ctypes.data, len(codes), out.ctypes.data)
+        if rc == 0:
+            return
+    np.take(dictionary, codes, out=out, mode="clip")
+
+
+def _fixed_view(arr: pa.Array) -> np.ndarray:
+    """A zero-copy view of a fixed-width array's values buffer (NULL
+    slots hold whatever is there); a date as its int32 day numbers."""
+    t = arr.type
+    np_dt = np.dtype(np.int32) if pa.types.is_date32(t) \
+        else np.dtype(t.to_pandas_dtype())
+    return np.frombuffer(arr.buffers()[1], np_dt, count=len(arr),
+                         offset=arr.offset * np_dt.itemsize)
+
+
+def _fixed_values(arr: pa.Array) -> np.ndarray:
+    """A dictionary's values (never NULL) as numpy."""
+    if pa.types.is_boolean(arr.type):
+        return arr.to_numpy(zero_copy_only=False)
+    return _fixed_view(arr)
 
 
 def _assemble(kind: str, dtype: T.DataType, t: dict) -> AnyColumn:
@@ -185,33 +323,28 @@ def stage_upload(table, device: torch.device,
     None) takes each part's host time."""
     device = torch.device(device)
     schema = schema or schema_from_arrow(table.schema)
-    timer = _Timer(metrics)
+    filler = _Filler(pinned=device.type == "cuda")
     names = table.column_names
     # by position where the table's names line up (a join's output may
     # name two columns alike), else by name
-    host = [(f.dtype, *_host_arrays(
-        table.column(i if names[i:i + 1] == [f.name] else f.name), f.dtype))
+    cols = [(*filler.column(table.column(
+        i if names[i:i + 1] == [f.name] else f.name), f.dtype), f.dtype)
             for i, f in enumerate(schema.fields)]
-    timer.lap("convertTime")
-    owned = [(dtype, kind, {k: torch.from_numpy(np.array(a, copy=True,
-                                                         order="C"))
-                            for k, a in arrays.items()})
-             for dtype, kind, arrays in host]
-    timer.lap("hostCopyTime")
+    if metrics is not None:
+        for name, ns in filler.ns.items():
+            metrics.add(name, ns)
     if device.type != "cuda":
         cols = [(kind, dtype, {k: t.to(device) for k, t in ts.items()})
-                for dtype, kind, ts in owned]
+                for kind, ts, dtype in cols]
         return UploadUnit(cols, table.num_rows, schema, device)
-    pinned = [(dtype, kind, {k: t.pin_memory() for k, t in ts.items()})
-              for dtype, kind, ts in owned]
-    timer.lap("pinTime")
+    timer = _Timer(metrics)
     event = None
     with torch.cuda.device(device), (
             torch.cuda.stream(stream) if stream is not None
             else contextlib.nullcontext()):
         cols = [(kind, dtype, {k: t.to(device, non_blocking=True)
                                for k, t in ts.items()})
-                for dtype, kind, ts in pinned]
+                for kind, ts, dtype in cols]
         if stream is not None:
             event = torch.cuda.Event()
             event.record(stream)

@@ -36,6 +36,19 @@ RF_ENABLED = "spark.rapids.tpu.sql.runtimeFilter.enabled"
 TASK_THREADS = "spark.rapids.tpu.sql.taskThreads"
 #: host threads decoding the files of one scan task at once
 DECODE_THREADS = "spark.rapids.tpu.sql.scan.decodeThreads"
+#: decode Parquet with the native decoder (``io/fastpar.py``), which
+#: filters on the dictionaries; a file outside its scope goes to pyarrow.
+#: Off by default, unlike the JAX package's key: pyarrow's reader
+#: decoded faster on an H100 host (PERF.md)
+FAST_DECODE = "spark.rapids.tpu.sql.scan.fastDecode"
+#: evaluate the Filter pushed into a scan on the host before upload
+HOST_PREFILTER = "spark.rapids.tpu.sql.scan.hostPrefilter"
+#: drop the device Filter over a scan when the prefilter applies all of
+#: its condition (then exactly: a host evaluation failure raises)
+ELIDE_DEVICE_FILTER = "spark.rapids.tpu.sql.scan.elideDeviceFilter"
+#: the most bytes the native decoder decodes a row group's needed
+#: columns to; past it the file goes to pyarrow
+MAX_READ_BATCH_BYTES = "spark.rapids.tpu.sql.scan.maxReadBatchSizeBytes"
 #: tasks that may hold device batches at once (the task semaphore's
 #: permits, ``memory/semaphore.py``)
 CONCURRENT_TASKS = "spark.rapids.tpu.sql.concurrentTpuTasks"
@@ -95,6 +108,10 @@ DEFAULTS: dict[str, Any] = {
     RF_ENABLED: True,
     TASK_THREADS: 4,
     DECODE_THREADS: 4,
+    FAST_DECODE: False,
+    HOST_PREFILTER: True,
+    ELIDE_DEVICE_FILTER: True,
+    MAX_READ_BATCH_BYTES: 128 << 20,
     CONCURRENT_TASKS: 2,
     PIPELINE_ENABLED: True,
     PIPELINE_DEPTH: 2,

@@ -1,19 +1,122 @@
 """Host-side row masks over decoded Arrow columns.
 
-Counterpart of the runtime-filter part of
-``spark_rapids_tpu/io/pa_filter.py``: application point 3 of
-``plan/runtime_filter.py``, a keep-mask over a decoded key column,
-computed before the batch is uploaded.  The JAX module's compiled
-pushed-predicate prefilter is not ported.
+Counterpart of ``spark_rapids_tpu/io/pa_filter.py``:
+
+- ``compile_filter``: a pushed Filter's condition as a function of a
+  decoded table, in ``pyarrow.compute`` (C++ kernels that release the
+  GIL), for the scan's host prefilter (``io/scan.py``) and the
+  decoder's per-dictionary evaluation (``io/fastpar.py``).  Column
+  references (bound), literals, comparisons, AND / OR / NOT, IS NULL
+  and IS NOT NULL compile; anything else returns None and the caller
+  uses ``cpu/engine.py::cpu_eval``.  A comparison with a floating
+  operand follows Spark's total order (``_float_cmp``): NaN equals NaN
+  and sorts above every value, as the device Filter has it, so no NaN
+  row is lost on the host.  NULL slots of a result count as false;
+- application point 3 of ``plan/runtime_filter.py``: a runtime join
+  filter's keep-mask over a decoded key column, computed before the
+  batch is uploaded.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
+
+from spark_rapids_tpu_torch.exprs import base as B
+
+
+class _Unsupported(Exception):
+    pass
+
+
+def compile_filter(e) -> Optional[Callable]:
+    """A bound expression -> (table -> pyarrow boolean array), or None
+    when some part of it does not compile."""
+    try:
+        return _compile(e)
+    except _Unsupported:
+        return None
+
+
+_CMP = {
+    "GreaterThan": pc.greater,
+    "GreaterThanOrEqual": pc.greater_equal,
+    "LessThan": pc.less,
+    "LessThanOrEqual": pc.less_equal,
+    "EqualTo": pc.equal,
+    "NotEqual": pc.not_equal,
+}
+_FLOATING = ("FloatType", "DoubleType")
+
+
+def _compile(e) -> Callable:  # noqa: C901 - one branch a class
+    name = type(e).__name__
+    if isinstance(e, B.BoundReference):
+        i = e.ordinal
+        return lambda t: t.column(i)
+    if isinstance(e, B.Literal):
+        v = e.value
+        return lambda t: v
+    kids = list(e.children)
+    if name in _CMP:
+        if len(kids) != 2:
+            raise _Unsupported
+        lf, rf = _compile(kids[0]), _compile(kids[1])
+        if any(type(k.dtype).__name__ in _FLOATING for k in kids):
+            return _float_cmp(name, lf, rf)
+        op = _CMP[name]
+        return lambda t: op(lf(t), rf(t))
+    if name in ("And", "Or"):
+        lf, rf = _compile(kids[0]), _compile(kids[1])
+        op = pc.and_kleene if name == "And" else pc.or_kleene
+        return lambda t: op(lf(t), rf(t))
+    if name == "Not":
+        kf = _compile(kids[0])
+        return lambda t: pc.invert(kf(t))
+    if name in ("IsNull", "IsNotNull"):
+        kf = _compile(kids[0])
+        op = pc.is_null if name == "IsNull" else pc.is_valid
+        return lambda t: op(kf(t))
+    # ``In`` keeps its list as plain values, not Literal children: it
+    # does not compile, as in the JAX package
+    raise _Unsupported
+
+
+def _float_cmp(name: str, lf: Callable, rf: Callable) -> Callable:
+    """A comparison in Spark's float order: NaN == NaN, NaN above all."""
+
+    def nan(x):
+        try:
+            return pc.is_nan(x)
+        except Exception:
+            return False  # an integer operand is never NaN
+
+    def fn(t):
+        l, r = lf(t), rf(t)
+        ln, rn = nan(l), nan(r)
+        eq = pc.or_kleene(pc.equal(l, r), pc.and_kleene(ln, rn)) \
+            if ln is not False and rn is not False else pc.equal(l, r)
+        lt = pc.less(l, r)
+        if rn is not False:
+            not_ln = pc.invert(ln) if ln is not False else True
+            lt = pc.or_kleene(lt, pc.and_kleene(not_ln, rn)
+                              if not_ln is not True else rn)
+        if name == "EqualTo":
+            return eq
+        if name == "NotEqual":
+            return pc.invert(eq)
+        if name == "LessThan":
+            return lt
+        if name == "LessThanOrEqual":
+            return pc.or_kleene(lt, eq)
+        if name == "GreaterThan":
+            return pc.invert(pc.or_kleene(lt, eq))
+        return pc.invert(lt)  # GreaterThanOrEqual
+
+    return fn
 
 
 def _int64_values(arr) -> Optional[tuple]:

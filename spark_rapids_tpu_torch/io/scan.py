@@ -4,34 +4,66 @@ Counterpart of ``ParquetScanExec`` in ``spark_rapids_tpu/io/scan.py``.
 Files group into scan tasks (the exec's partitions) by the same rule as
 there, ``_group_files``: files pack into one task until the next would
 push it past ``scan.taskTargetBytes`` (default 512 MiB), so both
-engines plan the same shape for the same conf.  Only the projected
-columns are read.  Decoding is ``pyarrow.parquet``; string columns are
-read dictionary-encoded, so their codes reach the coded group-by.
+engines plan the same shape for the same conf.  Only the columns the
+plan reads are decoded.
+
+A file is read in four steps, each the JAX scan's:
+
+1. row-group pruning on the footers: the conjuncts of the Filter the
+   planner pushed into the scan (``pushed_filter``; ``io/pushdown.py::
+   row_group_may_match``, ``rowGroupsPruned``), then the runtime join
+   filters' [min, max] (application point 1 of
+   ``plan/runtime_filter.py``, ``rfRowGroupsPruned``);
+2. decode: by ``pyarrow.parquet`` (``standardDecodedFiles``), string
+   columns dictionary-encoded, or with ``scan.fastDecode`` (default
+   off, unlike the JAX key: pyarrow decoded faster on the card's host)
+   by the native decoder (``io/fastpar.py``), which decodes the kept
+   row groups and applies the pushed conjuncts that read one column and
+   the runtime filters on the Parquet dictionaries
+   (``fastDecodedFiles``).  A file with any chunk outside its scope is
+   read whole by pyarrow.  Either way string columns reach the coded
+   group-by with their codes.  The native decoder decodes a row
+   group's columns on one pool of a thread a host core, shared by
+   every scan task;
+3. the host prefilter: the runtime filters probe the decoded rows
+   (point 3, ``rfPrunedRows``) unless the decoder already applied every
+   one to every row, then, with ``scan.hostPrefilter`` (default on),
+   the whole pushed condition drops rows before upload
+   (``hostFilteredRows``): in its compiled ``pyarrow.compute`` form
+   (``io/pa_filter.py::compile_filter``) where it compiles and runs,
+   else through ``cpu/engine.py::cpu_eval``.  When the planner elided
+   the device Filter (``exact_prefilter``), the scan reads the
+   condition's columns besides its output, filters exactly (a host
+   evaluation failure raises) and emits only its output columns;
+4. each decoded table is cut into batches of at most ``batch_rows``
+   (the size the memory runtime expects; a batch the filters emptied is
+   not emitted) and uploaded (``columnar/arrow.py::stage_upload``).
+
+The conf keys (``scan.fastDecode``, ``scan.hostPrefilter``,
+``scan.maxReadBatchSizeBytes``: the most bytes a row group's needed
+columns may decode to on the fast path, 128 MiB) are read by the
+planner on the session's thread and handed to the exec, as the JAX
+``execute_partition`` warns they must be.  The JAX package's
+accumulation across row groups and ``_harmonize_dicts`` serve its wire
+encoder and are not ported, nor is Hive partition pruning.
 
 A scan task runs as the JAX one does (``_local_units`` there): its
 files decode on a pool of ``scan.decodeThreads`` threads, at most that
-many files in flight and yielded in file order (a task's files together
-stay under the task target, so the window's decoded tables do too); the
-decoded batches cross a ``scan.decode`` stage, the first half of their
-upload (``columnar/arrow.py::stage_upload``: host copies, pinning, the
-copy enqueued on the session's upload stream) runs on a ``scan.upload``
-stage, and the task's consumer finishes each upload on its own stream.
-With ``pipeline.enabled`` off the stages run inline, and with one
-decode thread the files decode one after another.
-
-Runtime join filters (``plan/runtime_filter.py``) registered on the scan
-are read when a scan task's generator first runs (a filter its build
-side has not published yet applies nothing; no stage starts before
-that), and applied at two points: a row group whose footer min/max
-misses a filter's range is not decoded (``rfRowGroupsPruned``), and
-each decoded batch is masked on the host before upload
-(``rfPrunedRows``).  Static predicate pushdown, wire codecs and the
-native decoder are not ported.
+many files in flight and yielded in file order; the decoded batches
+cross a ``scan.decode`` stage, the first half of their upload (host
+copies into pinned buffers, the copy enqueued on the session's upload
+stream) runs on a ``scan.upload`` stage, and the task's consumer
+finishes each upload on its own stream.  With ``pipeline.enabled`` off
+the stages run inline, and with one decode thread the files decode one
+after another.  Runtime filters are read when a scan task's generator
+first runs (a filter its build side has not published yet applies
+nothing).
 
 ``metrics`` (atomic: tasks and decodes run on several threads) count
-rows and the host time of each part of a task: ``decodeTime`` (opening
-files, pyarrow decode and the runtime filter's host mask, summed over
-the decode threads) and ``columnar/arrow.py``'s ``UPLOAD_METRICS``.
+rows emitted (``numOutputRows``, after every filter), the counters
+above, and the host time of each part of a task: ``decodeTime``
+(opening files, decode, pruning and the host filters, summed over the
+decode threads) and ``columnar/arrow.py``'s ``UPLOAD_METRICS``.
 
 ``ArrowSourceExec`` (``io/scan.py`` there) serves a host Arrow table
 (``TorchSession.create_dataframe``): a partition per ``batch_rows``
@@ -49,6 +81,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Sequence
 
 import pyarrow as pa
+import pyarrow.compute as pc
 import pyarrow.parquet as pq
 import torch
 
@@ -59,15 +92,30 @@ from spark_rapids_tpu_torch.columnar.arrow import (
     stage_upload,
 )
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.cpu.engine import cpu_eval
 from spark_rapids_tpu_torch.execs.base import (
     POOL_THREAD_PREFIX,
     Metrics,
     TaskRuntime,
     TpuExec,
 )
-from spark_rapids_tpu_torch.io.pa_filter import runtime_filter_column_mask
-from spark_rapids_tpu_torch.io.pushdown import runtime_range_may_match
+from spark_rapids_tpu_torch.exprs.base import Expression, bind_references
+from spark_rapids_tpu_torch.io import fastpar
+from spark_rapids_tpu_torch.io.pa_filter import (
+    compile_filter,
+    runtime_filter_column_mask,
+)
+from spark_rapids_tpu_torch.io.pushdown import (
+    row_group_may_match,
+    runtime_range_may_match,
+    split_conjuncts,
+)
 from spark_rapids_tpu_torch.parallel.pipeline import prefetch
+
+#: the scan's counters, besides the host split
+SCAN_COUNTERS = ("numOutputRows", "rowGroupsPruned", "hostFilteredRows",
+                 "rfPrunedRows", "rfRowGroupsPruned", "fastDecodedFiles",
+                 "standardDecodedFiles")
 
 
 def group_files(paths: Sequence[str], target: int) -> list[list[int]]:
@@ -95,24 +143,55 @@ class ParquetScanExec(TpuExec):
                  device: torch.device, task_target_bytes: int,
                  batch_rows: int, columns: Optional[Sequence[str]] = None,
                  estimated_rows: Optional[int] = None,
-                 runtime: Optional[TaskRuntime] = None):
+                 runtime: Optional[TaskRuntime] = None,
+                 fast_decode: bool = False, host_prefilter: bool = True,
+                 max_decoded_bytes: int = 128 << 20):
         super().__init__()
         self.runtime = runtime or TaskRuntime.serial()
         self.paths = list(paths)
         self.device = torch.device(device)
         self.batch_rows = batch_rows
         self.columns = list(columns) if columns is not None else None
+        self._file_schema = schema
         self._schema = schema if columns is None else T.Schema(
             [f for f in schema.fields if f.name in self.columns])
+        #: the columns decoded: the output, and with an exact prefilter
+        #: the columns its condition reads
+        self._read_schema = self._schema
         self._groups = group_files(self.paths, task_target_bytes)
+        self.fast_decode = fast_decode
+        self.host_prefilter = host_prefilter
+        self.max_decoded_bytes = max_decoded_bytes
+        #: the condition of the Filter above, pushed by the planner
+        self.pushed_filter: Optional[Expression] = None
+        #: the planner elided that Filter: the prefilter must be exact
+        self.exact_prefilter = False
+        self._bound_filter: Optional[Expression] = None
+        self._conjuncts: Optional[list] = None
+        self._pa_filter = None
+        self._pa_filter_failed = False
+        self._prefilter_failed = False
         #: [(column name, RuntimeFilter)], registered by the planner
         self.runtime_filters: list = []
         #: the files' footer row count, from the logical scan
         #: (plan/cost.py)
         self.estimated_rows = estimated_rows
-        self.metrics = Metrics("numOutputRows", "rfPrunedRows",
-                               "rfRowGroupsPruned", "decodeTime",
+        self.metrics = Metrics(*SCAN_COUNTERS, "decodeTime",
                                *UPLOAD_METRICS)
+
+    def push_filter(self, condition: Expression, exact: bool = False) -> None:
+        """Take the condition of the Filter above (unbound, by name).
+        ``exact``: that Filter is elided, so the scan also reads the
+        condition's columns and filters exactly."""
+        self.pushed_filter = condition
+        self.exact_prefilter = exact
+        if exact:
+            need = set(self._schema.names) | condition.references()
+            self._read_schema = T.Schema(
+                [f for f in self._file_schema.fields if f.name in need])
+        self._bound_filter = bind_references(condition, self._read_schema)
+        self._conjuncts = split_conjuncts(self._bound_filter)
+        self._pa_filter = compile_filter(self._bound_filter)
 
     @property
     def schema(self) -> T.Schema:
@@ -122,9 +201,24 @@ class ParquetScanExec(TpuExec):
     def num_partitions(self) -> int:
         return len(self._groups)
 
+    @property
+    def _prefilter_on(self) -> bool:
+        return self.pushed_filter is not None and (
+            self.exact_prefilter
+            or (self.host_prefilter and not self._prefilter_failed))
+
     def node_desc(self) -> str:
+        pushed = "" if self.pushed_filter is None \
+            else f" pushed=[{self.pushed_filter!r}]"
+        if self.exact_prefilter:
+            pushed += " (device Filter elided)"
+        decoded = ""
+        fast, std = (self.metrics["fastDecodedFiles"],
+                     self.metrics["standardDecodedFiles"])
+        if fast or std:
+            decoded = f" [files decoded: {fast} fast, {std} standard]"
         return (f"ParquetScanExec [{len(self.paths)} files, "
-                f"{len(self._groups)} tasks] "
+                f"{len(self._groups)} tasks]{pushed}{decoded} "
                 f"[{', '.join(self._schema.names)}]")
 
     def _ready_runtime_filters(self) -> list:
@@ -132,59 +226,135 @@ class ParquetScanExec(TpuExec):
         return [(n, rf) for n, rf in self.runtime_filters if rf.ready]
 
     def _keep_row_groups(self, f: pq.ParquetFile, rfs: list) -> list[int]:
-        """Application point 1 (``plan/runtime_filter.py``): the row
-        groups whose footer min/max may hold a key every filter can
-        pass."""
-        n_rgs = f.metadata.num_row_groups
-        keep = [g for g in range(n_rgs)
-                if all(runtime_range_may_match(n, rf, f.metadata.row_group(g))
-                       for n, rf in rfs)]
-        self.metrics.add("rfRowGroupsPruned", n_rgs - len(keep))
+        """The row groups the pushed conjuncts' footer check and then
+        the runtime filters' (application point 1) keep."""
+        md = f.metadata
+        keep = list(range(md.num_row_groups))
+        if self._conjuncts is not None:
+            before = len(keep)
+            keep = [g for g in keep if row_group_may_match(
+                self._conjuncts, self._read_schema, md.row_group(g))]
+            self.metrics.add("rowGroupsPruned", before - len(keep))
+        if rfs and keep:
+            before = len(keep)
+            keep = [g for g in keep
+                    if all(runtime_range_may_match(n, rf, md.row_group(g))
+                           for n, rf in rfs)]
+            self.metrics.add("rfRowGroupsPruned", before - len(keep))
         return keep
 
-    def _apply_runtime_filters(self, rb: pa.RecordBatch,
-                               rfs: list) -> pa.RecordBatch:
-        """Application point 3 (``plan/runtime_filter.py``): drop
-        decoded rows whose key no build key can match, before upload.  A
-        column the probe cannot model is skipped."""
+    def _apply_runtime_filters(self, tbl, rfs: list):
+        """Application point 3 (``plan/runtime_filter.py``): drop decoded
+        rows whose key no build key can match, before upload.  A column
+        the probe cannot model is skipped."""
         keep = None
         for name, rf in rfs:
-            m = runtime_filter_column_mask(rb.column(name), rf)
+            m = runtime_filter_column_mask(tbl.column(name), rf)
             if m is not None:
                 keep = m if keep is None else keep & m
         if keep is None or keep.all():
-            return rb
-        kept = rb.filter(pa.array(keep))
-        self.metrics.add("rfPrunedRows", rb.num_rows - kept.num_rows)
+            return tbl
+        kept = tbl.filter(pa.array(keep))
+        self.metrics.add("rfPrunedRows", tbl.num_rows - kept.num_rows)
         return kept
 
-    def _file_batches(self, fi: int, rfs: list
-                      ) -> Iterator[pa.RecordBatch]:
-        """One file's decoded batches, masked by the runtime filters."""
-        names = self._schema.names
-        strings = [f.name for f in self._schema.fields
+    def _host_prefilter(self, tbl, rfs: list, filter_done: bool = False):
+        """The runtime filters (``rfs``), then the pushed condition
+        (unless the decoder applied all of it) over a decoded table,
+        before upload.  Outside exact mode a failure turns the
+        prefilter off for this scan (the device Filter above decides);
+        in exact mode it raises."""
+        if rfs:
+            tbl = self._apply_runtime_filters(tbl, rfs)
+        if filter_done or not self._prefilter_on or tbl.num_rows == 0:
+            return tbl
+        try:
+            mask = None
+            if self._pa_filter is not None and not self._pa_filter_failed:
+                try:
+                    mask = self._pa_filter(tbl)
+                except (pa.ArrowException, TypeError, ValueError):
+                    # a kernel gap (date32 against an integer literal,
+                    # a dictionary column): the CPU engine takes it
+                    self._pa_filter_failed = True
+            if mask is None:
+                mask = cpu_eval(self._bound_filter, tbl)
+            kept = tbl.filter(pc.fill_null(mask, False))
+        except Exception:
+            if self.exact_prefilter:
+                raise
+            self._prefilter_failed = True
+            return tbl
+        self.metrics.add("hostFilteredRows", tbl.num_rows - kept.num_rows)
+        return kept
+
+    def _fast_tables(self, f: pq.ParquetFile, fi: int, keep: list,
+                     rfs: list) -> Optional[tuple]:
+        """The native decoder's tables of the kept row groups, whether
+        it applied the whole pushed condition, and whether it applied
+        every runtime filter, to every row; None when the file is
+        outside its scope."""
+        conjuncts = self._conjuncts if self._prefilter_on else None
+        counters: dict = {}
+        tables = fastpar.read_file(
+            self.paths[fi], keep, self._read_schema.names, conjuncts,
+            self._read_schema, pqfile=f,
+            max_decoded_bytes=self.max_decoded_bytes,
+            runtime_filters=rfs or None, counters=counters)
+        if tables is None:
+            return None
+        rf_pruned = counters.get("rf_pruned", 0)
+        self.metrics.add("rfPrunedRows", rf_pruned)
+        if conjuncts:
+            rows = sum(f.metadata.row_group(g).num_rows for g in keep)
+            self.metrics.add("hostFilteredRows",
+                             rows - sum(t.num_rows for t in tables)
+                             - rf_pruned)
+        return (tables, bool(conjuncts)
+                and counters.get("filter_complete", False),
+                bool(rfs) and counters.get("rf_complete", False))
+
+    def _file_batches(self, fi: int, rfs: list) -> Iterator[pa.Table]:
+        """One file's batches: pruned, decoded, prefiltered, and cut to
+        at most ``batch_rows`` rows."""
+        names = self._read_schema.names
+        out_names = self._schema.names
+        strings = [f.name for f in self._read_schema.fields
                    if isinstance(f.dtype, T.StringType)]
         t0 = time.perf_counter_ns()
         f = pq.ParquetFile(self.paths[fi], read_dictionary=strings)
-        row_groups = None
-        if rfs:
-            row_groups = self._keep_row_groups(f, rfs)
-        batches = iter(()) if row_groups == [] else f.iter_batches(
-            batch_size=self.batch_rows, columns=names, row_groups=row_groups)
-        for rb in batches:
-            if rfs:
-                rb = self._apply_runtime_filters(rb, rfs)
-            self.metrics.add("numOutputRows", rb.num_rows)
-            self.metrics.add("decodeTime", time.perf_counter_ns() - t0)
-            yield rb
-            t0 = time.perf_counter_ns()
+        keep = self._keep_row_groups(f, rfs)
+        tables, filter_done, rf_done = None, False, False
+        if keep and self.fast_decode:
+            fast = self._fast_tables(f, fi, keep, rfs)
+            if fast is not None:
+                tables, filter_done, rf_done = fast
+        if keep:
+            self.metrics.add("fastDecodedFiles" if tables is not None
+                             else "standardDecodedFiles", 1)
+        if not keep:
+            tables = []
+        elif tables is None:
+            tables = f.iter_batches(batch_size=self.batch_rows,
+                                    columns=names, row_groups=keep)
+        for tbl in tables:
+            tbl = self._host_prefilter(tbl, [] if rf_done else rfs,
+                                       filter_done)
+            if out_names != names:
+                tbl = tbl.select(out_names)
+            for off in range(0, tbl.num_rows, self.batch_rows):
+                part = tbl.slice(off, self.batch_rows)
+                self.metrics.add("numOutputRows", part.num_rows)
+                self.metrics.add("decodeTime", time.perf_counter_ns() - t0)
+                yield part
+                t0 = time.perf_counter_ns()
         self.metrics.add("decodeTime", time.perf_counter_ns() - t0)
 
-    def _decoded(self, p: int, rfs: list) -> Iterator[pa.RecordBatch]:
-        """Scan task ``p``'s decoded batches in file order: one file
-        after another, or on a pool with at most ``decode_threads``
-        files in flight (file k + threads starts while file k's batches
-        are consumed)."""
+    def _decoded(self, p: int, rfs: list) -> Iterator[pa.Table]:
+        """Scan task ``p``'s batches in file order: one file after
+        another, or on a pool with at most ``decode_threads`` files in
+        flight (file k + threads starts while file k's batches are
+        consumed)."""
         files = self._groups[p]
         threads = min(self.runtime.decode_threads, len(files))
         if threads <= 1:
@@ -195,7 +365,7 @@ class ParquetScanExec(TpuExec):
             max_workers=threads,
             thread_name_prefix=POOL_THREAD_PREFIX + "decode")
 
-        def decode(fi: int) -> list[pa.RecordBatch]:
+        def decode(fi: int) -> list[pa.Table]:
             return list(self._file_batches(fi, rfs))
 
         try:
@@ -211,7 +381,7 @@ class ParquetScanExec(TpuExec):
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
-    def _staged(self, decoded: Iterator[pa.RecordBatch]) -> Iterator:
+    def _staged(self, decoded: Iterator[pa.Table]) -> Iterator:
         """The first half of each decoded batch's upload."""
         try:
             for rb in decoded:
@@ -221,7 +391,7 @@ class ParquetScanExec(TpuExec):
             decoded.close()
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
-        names = self._schema.names
+        names = self._read_schema.names
         rfs = [(n, rf) for n, rf in self._ready_runtime_filters()
                if n in names]
         depth = self.runtime.stage_depth

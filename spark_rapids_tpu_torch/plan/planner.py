@@ -23,6 +23,16 @@ kept positions where its own lowering kept more.
   already distributed so) under a partition-wise join.  Only identical
   key types hash alike, so other joins, and keyless ones, run as one
   wide join.  Adaptive and collective joins are not ported.
+- A Filter over a Parquet scan, both lowered to the GPU, pushes its
+  condition into the scan (JAX ``_maybe_push_filter``): footer pruning
+  and the host prefilter (``io/scan.py``).  With
+  ``scan.elideDeviceFilter`` and ``scan.hostPrefilter`` on and a
+  condition that compiles whole to ``pyarrow.compute``, the Filter is
+  elided (JAX ``_can_elide_device_filter``): the scan reads what the
+  parent needs and the condition's columns, filters exactly and emits
+  only what the parent needs (the JAX ``null_upload_cols``
+  placeholders are not needed: the port binds by name).  A Filter the
+  tags keep on the CPU engine pushes nothing.
 - Once the plan is lowered, ``inject_runtime_filters`` adds a runtime
   join filter to each eligible join (``plan/runtime_filter.py``).
 - A window with partition keys over several input partitions lowers
@@ -124,6 +134,7 @@ from spark_rapids_tpu_torch.exprs.base import (
 from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.hashing import Murmur3Hash
 from spark_rapids_tpu_torch.exprs.subquery import ScalarSubquery, scalar_value
+from spark_rapids_tpu_torch.io.pa_filter import compile_filter
 from spark_rapids_tpu_torch.io.scan import ArrowSourceExec, ParquetScanExec
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.ops.partition import (
@@ -426,11 +437,14 @@ class Planner:
                 p, meta.reasons, [self._lower(c, None) for c in p.children],
                 self.device, self.conf.get(C.BATCH_ROWS), self.runtime)
         if isinstance(p, L.Scan):
-            return ParquetScanExec(p.paths, p.schema, self.device,
-                                   self.conf.get(C.TASK_TARGET_BYTES),
-                                   self.conf.get(C.BATCH_ROWS),
-                                   _leaf_columns(p.schema, required),
-                                   p.estimated_rows(), self.runtime)
+            return ParquetScanExec(
+                p.paths, p.schema, self.device,
+                self.conf.get(C.TASK_TARGET_BYTES),
+                self.conf.get(C.BATCH_ROWS), _leaf_columns(p.schema, required),
+                p.estimated_rows(), self.runtime,
+                fast_decode=self.conf.get(C.FAST_DECODE),
+                host_prefilter=self.conf.get(C.HOST_PREFILTER),
+                max_decoded_bytes=self.conf.get(C.MAX_READ_BATCH_BYTES))
         if isinstance(p, L.InMemoryRelation):
             return ArrowSourceExec(p.table, p.schema, self.device,
                                    self.conf.get(C.BATCH_ROWS),
@@ -450,10 +464,15 @@ class Planner:
         if isinstance(p, L.Union):
             return self._plan_union(p, required)
         if isinstance(p, L.Filter):
+            elide = self._can_elide_device_filter(p)
             need = None if required is None \
                 else required | p.condition.references()
-            return TpuFilterExec(p.condition,
-                                 self._lower(p.children[0], need))
+            child = self._lower(p.children[0], required if elide else need)
+            if isinstance(child, ParquetScanExec):
+                child.push_filter(p.condition, exact=elide)
+                if elide:
+                    return child
+            return TpuFilterExec(p.condition, child)
         if isinstance(p, L.Project):
             need = set().union(*(e.references() for e in p.exprs))
             if any(_by_position(e) for e in p.exprs):
@@ -504,6 +523,21 @@ class Planner:
             return TpuGlobalLimitExec(p.n, child)
         raise NotImplementedError(
             f"{type(p).__name__} is not lowered by spark_rapids_tpu_torch")
+
+    def _can_elide_device_filter(self, p: L.Filter) -> bool:
+        """Whether the Filter over a Parquet scan can go: the prefilter
+        is on and its compiled form covers the whole condition, which
+        reads at least one column (JAX ``_can_elide_device_filter``)."""
+        child = p.children[0]
+        meta = self._tags.get(id(child))
+        if not (isinstance(child, L.Scan)
+                and (meta is None or meta.can_replace)
+                and self.conf.get(C.ELIDE_DEVICE_FILTER)
+                and self.conf.get(C.HOST_PREFILTER)
+                and p.condition.references()):
+            return False
+        return compile_filter(
+            bind_references(p.condition, child.schema)) is not None
 
     def _plan_union(self, p: L.Union, required: Optional[set]) -> TpuExec:
         """Each member lowered for the kept positions' names, then

@@ -77,7 +77,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "spark_rapids_tpu_torch.execs.retry",
             "spark_rapids_tpu_torch.execs.coalesce",
             "spark_rapids_tpu_torch.columnar.serde",
-            "spark_rapids_tpu_torch.robustness.faults"} <= set(mods)
+            "spark_rapids_tpu_torch.robustness.faults",
+            # the scan's host path: the native decoder and its codec
+            "spark_rapids_tpu_torch.io.fastpar",
+            "spark_rapids_tpu_torch.native"} <= set(mods)
 
 
 def test_port_sources_name_no_jax_import():

@@ -121,11 +121,16 @@ def test_q3_plan_and_its_hashes(data, port_session, monkeypatch):
     assert [s.partitioning.exprs[0].name for s in sides] == [
         "l_orderkey", "o_orderkey"]
     assert sides[0].num_partitions == sides[1].num_partitions == 8
-    # each scan reads only the columns q3 uses
+    # each scan reads only the columns q3 uses; its Filter is elided,
+    # so it emits only what the plan reads above it
     scans = [n for n in plan.walk() if not n.children]
-    assert [s._schema.names for s in scans] == [
+    assert [s._read_schema.names for s in scans] == [
         ["l_extendedprice", "l_discount", "l_shipdate", "l_orderkey"],
         ["o_orderkey", "o_orderdate", "o_shippriority"]]
+    assert [s._schema.names for s in scans] == [
+        ["l_extendedprice", "l_discount", "l_orderkey"],
+        ["o_orderkey", "o_orderdate", "o_shippriority"]]
+    assert all(s.exact_prefilter for s in scans)
 
     # the runtime filter: orders' keys prune the lineitem scan
     rf_build = sides[1].children[0]

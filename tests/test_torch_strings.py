@@ -35,8 +35,10 @@ JAX = types.SimpleNamespace(S=JS, col=JB.ColumnReference, lit=JB.Literal.of)
 PORT = types.SimpleNamespace(S=S, col=B.col, lit=B.Literal.of)
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture
 def table():
+    """A fresh table per test, from the same seed: no Arrow object (or
+    state either package keys on it) is shared between tests."""
     rng = np.random.default_rng(9)
 
     def words():
