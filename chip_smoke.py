@@ -13,7 +13,9 @@ Phases, one JSON line each:
            hash_columns: a key tuple -> hash or partition id) against
            their plain PyTorch versions, bit for bit, over a grid of
            widths (the direct-load width included), row counts,
-           partition counts, type mixes and a row slice whose data_ptr()
+           partition counts, type mixes (``new_types``: TINYINT,
+           SMALLINT, FLOAT, TIMESTAMP and DECIMAL beside a STRING and a
+           LONG) and a row slice whose data_ptr()
            is not aligned; then timed at N = 6 x 2^20 rows (the
            device's own time per launch, from torch.profiler); the
            seconds each of the three parts took;
@@ -145,11 +147,10 @@ Phases, one JSON line each:
            (``tpcds.write_store_channel``: q3ds's six store_sales files,
            q93's store_returns, the whole calendar and every dimension at
            its SF1 count), one line each (``sql_text``): the plan's
-           joins, the rows, one warm-up and the median of SQL_TIMED_RUNS
-           timed runs,
-           one profiled run (device busy, idle share, kernel count; no
-           scans-alone breakdown), and hash_columns launches equal to
-           runs x (the map batches, filter folds and range tables a run
+           joins, the rows, one profiled run (device busy, idle share,
+           kernel count; no scans-alone breakdown) that is the warm-up,
+           one counted run after it, timed (SQL_TIMED_RUNS = 0), and
+           hash_columns launches equal to runs x (the map batches, filter folds and range tables a run
            reaches, and what planning launches: q24's scalar subquery
            runs while its query is planned); a text that gives 0 rows
            runs its variant (``tpcds_queries.variant``) next.  A text
@@ -159,6 +160,23 @@ Phases, one JSON line each:
            over SQL_CPU_FILES of the store_sales files, which the card
            runs once more for it (integers, strings and NULLs exact,
            floats within REL_TOL, rows as multisets);
+  types    the scalar types over the same data (``types_phase``): q3,
+           q42, q52 and q55 through the SQL frontend over store_sales
+           written again with its twelve money columns DECIMAL(7,2)
+           (INT32 in Parquet), no CPU node, their DECIMAL(17,2) sums
+           exactly pyarrow's decimal group_by and 100 x the DOUBLE
+           text's rounded to cents; q7 and q27 (and its variant) with
+           exactly their Aggregate on the CPU engine (a decimal
+           average, the JAX reason in ``explain()``), their rows
+           against pyarrow's averages of the decimals as DOUBLE over
+           the six files (within REL_TOL), and on one file their rows
+           and transitions against the port's CPU run; then a
+           TIMESTAMP, TINYINT, SMALLINT and FLOAT column beside the
+           DECIMAL one in two queries whose exchanges hash a key of
+           each new type, exactly pyarrow's; one ``types_text`` line a
+           text (a profiled run that is the warm-up, one counted run,
+           timed, K1 launches against the planned map batches), then
+           the ``types`` line;
   channels the 29 catalog and web TPC-DS texts the JAX sweep runs
            correctly (``tpcds_queries.CATALOG_WEB``) the same way, over
            those 13 tables and the 11 channel tables at SF1's rows
@@ -168,8 +186,9 @@ Phases, one JSON line each:
            ``channel_text`` line each: the plan's joins and CPU nodes
            (only q37's date_dim Filter, whose two transitions are
            counted against date_dim's rows and the rows it keeps; no
-           other text plans one), the rows, one warm-up and
-           CHANNEL_TIMED_RUNS timed runs, one profiled run, K1 launches
+           other text plans one), the rows, one profiled run that is
+           the warm-up, one counted run, timed (CHANNEL_TIMED_RUNS = 0),
+           K1 launches
            as the plan says; q97 and q82 held against pyarrow over the
            full tables, every other text against
            ``cpu/engine.execute_cpu`` of its logical plan over the first
@@ -233,7 +252,8 @@ Phases, one JSON line each:
            threads' kernels);
   main     hash_columns at the calls q1, q3 (filter off and on), q67,
            q3ds, q93, the star queries, q67_rollup, q5, q27, agg_family,
-           the sql and channel texts and the fallback phase made (the
+           the sql, types and channel texts and the fallback phase made,
+           and the ``new_types`` mix at 6 x 2^20 rows (the
            largest call of
            each key signature and seed in each phase: the filters'
            lanes and range tables hash from seeds 42 and 0x9747B28C),
@@ -259,6 +279,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -276,8 +297,13 @@ WIDE_WIDTH, DIRECT_WIDTH = 256, 8000
 EXACT_ROWS = (1, 1023, 1025)
 #: the row counts DIRECT_WIDTH (and the mix holding it) is checked at:
 #: its plain version takes ~2 s a call on the card (EXACT_ROWS until the
-#: channels phase pushed the run past 750 s on an H100 80GB HBM3 at 700 W)
-DIRECT_ROWS = (1, 1025)
+#: channels phase pushed the run past 750 s on an H100 80GB HBM3 at
+#: 700 W; (1, 1025) until the types phase took the run to 780 s, past
+#: the 717 s before it, on an H100 80GB HBM3 at 700 W: every other
+#: width is checked at 1 row).  The mix holding it is checked at
+#: DIRECT_ROWS hashed and, on a row slice, partitioned (each row count
+#: x EXACT_PARTITIONS, a slice and a seed until then)
+DIRECT_ROWS = (1025,)
 #: (0 = hashes; 1 and 8 until the sql phase pushed the run past ten
 #: minutes on an H100 80GB HBM3 at 700 W: 8 stays in the unaligned case)
 EXACT_PARTITIONS = (0, 200)
@@ -296,6 +322,8 @@ MIXES = {
                   ("string", 3), ("string", 64)),
     "strings": (("string", WIDE_WIDTH), ("string", 2), ("string", 128)),
     "direct": (("string", DIRECT_WIDTH), ("string", 5), ("int",)),
+    "new_types": (("tinyint",), ("smallint",), ("float",), ("timestamp",),
+                  ("decimal",), ("string", 16), ("long",)),
     "chained_17": (("string", 1), ("int",), ("long",), ("double",),
                    ("string", 7), ("bool",), ("date",), ("string", 33),
                    ("long",), ("string", 4), ("double",), ("int",),
@@ -311,7 +339,10 @@ REL_TOL = 1e-9
 #: launches timed at each main-path shape: the kernel's, and its plain
 #: version's (tens to hundreds of PyTorch kernels a call, so fewer; 10
 #: until the run passed 9 minutes; 50 and 5 until the channels phase
-#: pushed it past 750 s on an H100 80GB HBM3 at 700 W)
+#: pushed it past 750 s on an H100 80GB HBM3 at 700 W).  The plain
+#: version is timed by the host clock only (also under torch.profiler
+#: until the types phase took the run to 780 s, past the 717 s before
+#: it, on an H100 80GB HBM3 at 700 W)
 KERNEL_ITERS, PLAIN_ITERS = 20, 2
 #: main-path calls below this many rows are checked, not timed, unless
 #: they are their phase's largest (all were until the sql phase pushed
@@ -438,8 +469,10 @@ def check_k1(torch, kernels, dev) -> dict:
 
 
 def make_column(torch, spec: tuple, n: int, gen, offset: int = 0):
-    """One random column of ``spec`` with NULL_SHARE NULLs; doubles hold
-    -0.0, 0.0 and NaNs with several payloads.  ``offset`` > 0 cuts that
+    """One random column of ``spec`` with NULL_SHARE NULLs; doubles and
+    floats hold -0.0, 0.0 and NaNs with several payloads (floats +/-inf
+    too), tinyints and smallints their MIN_VALUE, timestamps instants
+    before 1970, decimals negative values.  ``offset`` > 0 cuts that
     many rows off the front of every tensor (unaligned data_ptr())."""
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.columnar.column import Column, StringColumn
@@ -461,6 +494,33 @@ def make_column(torch, spec: tuple, n: int, gen, offset: int = 0):
         bits[3::13] = 0x7FF0000000000001      # signalling NaN payload
         bits[4::17] = -0x0008000000000000     # 0xFFF8...: negative NaN
         return Column(x[offset:], valid, T.DOUBLE)
+    if kind == "float":
+        x = (torch.randn(m, generator=gen, device=dev) * 1e3).float()
+        x[::7] = -0.0
+        x[1::11] = 0.0
+        x[2::13] = float("nan")
+        x[5::19] = float("inf")
+        x[6::23] = float("-inf")
+        bits = x.view(torch.int32)
+        bits[3::13] = 0x7F800001              # signalling NaN payload
+        bits[4::17] = -0x00400000             # 0xFFC00000: negative NaN
+        return Column(x[offset:], valid, T.FLOAT)
+    if kind in ("tinyint", "smallint"):
+        dtype = torch.int8 if kind == "tinyint" else torch.int16
+        info = torch.iinfo(dtype)
+        data = torch.randint(info.min, info.max + 1, (m,), generator=gen,
+                             device=dev, dtype=torch.int32).to(dtype)
+        data[::9] = info.min
+        return Column(data[offset:], valid,
+                      T.BYTE if kind == "tinyint" else T.SHORT)
+    if kind == "timestamp":  # microseconds, before 1970 too
+        data = torch.randint(-(1 << 55), 1 << 55, (m,), generator=gen,
+                             device=dev, dtype=torch.int64)
+        return Column(data[offset:], valid, T.TIMESTAMP)
+    if kind == "decimal":  # negative unscaled values too
+        data = torch.randint(-(10 ** 17 - 1), 10 ** 17, (m,), generator=gen,
+                             device=dev, dtype=torch.int64)
+        return Column(data[offset:], valid, T.DecimalType(17, 2))
     if kind == "bool":
         data = torch.randint(0, 2, (m,), generator=gen, device=dev).bool()
         return Column(data[offset:], valid, T.BOOLEAN)
@@ -481,10 +541,13 @@ def check_hash_columns(torch, kernels, dev) -> dict:
     gen.manual_seed(4321)
     checked = 0
     for name, mix in MIXES.items():
-        rows = DIRECT_ROWS if name == "direct" else EXACT_ROWS
-        cases = [(n, 0, parts, 42) for n in rows
-                 for parts in EXACT_PARTITIONS]
-        cases += [(1025, SLICE_ROWS, 8, 42), (1023, 0, 0, 7)]
+        if name == "direct":
+            cases = [(n, 0, 0, 42) for n in DIRECT_ROWS]
+            cases += [(n, SLICE_ROWS, 8, 42) for n in DIRECT_ROWS]
+        else:
+            cases = [(n, 0, parts, 42) for n in EXACT_ROWS
+                     for parts in EXACT_PARTITIONS]
+            cases += [(1025, SLICE_ROWS, 8, 42), (1023, 0, 0, 7)]
         for n, offset, parts, seed in cases:
             cols = [make_column(torch, spec, n, gen, offset) for spec in mix]
             seeds = torch.full((n,), seed, dtype=torch.int32, device=dev)
@@ -550,7 +613,7 @@ def tuple_bound_ms(torch, cols, n: int, num_partitions: int):
             size = c.data.element_size()
             n_bytes += size * n
             ops += (15 * max(1, size // 4) + 12) * n
-            if c.data.dtype == torch.float64:
+            if c.data.is_floating_point():
                 ops += 10 * n
     return bound(n_bytes, ops)
 
@@ -580,6 +643,18 @@ def time_hash_columns(torch, kernels, dev, n: int, gen) -> dict:
                  (kernels.FLOAT64_TAG, 0)], n))}
 
 
+def host_ms(torch, fn, iters: int) -> float:
+    """Host-inclusive milliseconds a call: the host clock over ``iters``
+    calls after one more, ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def device_and_host_ms(torch, fn, iters: int) -> dict:
     """The device's own time per call, the host-inclusive time per call
     (host clock over ``iters`` calls ending in a synchronize, profiler
@@ -598,14 +673,9 @@ def device_and_host_ms(torch, fn, iters: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(3):
+    for _ in range(2):
         fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    host = host_ms(torch, fn, iters)
     event_ms = cuda_ms(torch, fn, iters)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
@@ -623,12 +693,12 @@ def device_and_host_ms(torch, fn, iters: int) -> dict:
                         * round(e.count / iters) for e in kern)
         if device_us > 0:
             return {"device_ms": device_us / 1e3,
-                    "device_ms_source": "profiler", "host_ms": host_ms,
+                    "device_ms_source": "profiler", "host_ms": host,
                     "event_ms": event_ms,
                     "device_kernels_per_call":
                         sum(e.count for e in kern) / iters}
     return {"device_ms": event_ms, "device_ms_source": "cuda_events",
-            "host_ms": host_ms, "event_ms": event_ms,
+            "host_ms": host, "event_ms": event_ms,
             "device_kernels_per_call": None}
 
 
@@ -672,7 +742,7 @@ def at_main_path(torch, kernels, calls: dict) -> dict:
         kt = device_and_host_ms(
             torch, lambda: kernels.hash_columns(cols, n, dev, seed, parts),
             iters=KERNEL_ITERS)
-        pt = device_and_host_ms(
+        plain_ms = host_ms(
             torch, lambda: kernels.hash_columns_reference(cols, seeds, parts),
             iters=PLAIN_ITERS)
         bound_ms, bound_by = tuple_bound_ms(torch, cols, n, parts)
@@ -682,13 +752,22 @@ def at_main_path(torch, kernels, calls: dict) -> dict:
                      "max_abs_err": err, "ms": kt["device_ms"],
                      "ms_source": kt["device_ms_source"],
                      "host_ms": kt["host_ms"],
-                     "plain_ms": pt["host_ms"],
-                     "plain_device_ms": pt["device_ms"],
-                     "plain_device_kernels": pt["device_kernels_per_call"],
+                     "plain_ms": plain_ms,
                      "kernels_per_call": kt["device_kernels_per_call"],
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "share_of_bound": bound_ms / kt["device_ms"]})
     return max((r for r in rows if "ms" in r), key=lambda r: r["ms"]), rows
+
+
+def new_types_call(torch, dev) -> tuple:
+    """A hash_columns call over the ``new_types`` mix at TIMED_ROWS rows,
+    TIMED_PARTITIONS partitions: the scalar types' K1 shape in the
+    ``main`` phase's table."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    cols = [make_column(torch, spec, TIMED_ROWS, gen)
+            for spec in MIXES["new_types"]]
+    return cols, TIMED_ROWS, 42, TIMED_PARTITIONS
 
 
 def k1_at_main_path(torch, kernels, calls: list) -> dict:
@@ -709,14 +788,13 @@ def k1_at_main_path(torch, kernels, calls: list) -> dict:
     kt = device_and_host_ms(
         torch, lambda: kernels.hash_string(c.chars, c.lengths, seeds),
         iters=KERNEL_ITERS)
-    pt = device_and_host_ms(
+    plain_ms = host_ms(
         torch, lambda: kernels.hash_string_bytes_reference(
             c.chars, c.lengths, seeds), iters=PLAIN_ITERS)
     bound_ms, bound_by = k1_bound_ms(torch, c.lengths, c.width)
     return {"n": n, "w": c.width, "max_abs_err": err,
             "ms": kt["device_ms"], "host_ms": kt["host_ms"],
-            "event_ms": kt["event_ms"], "plain_ms": pt["host_ms"],
-            "plain_device_ms": pt["device_ms"],
+            "event_ms": kt["event_ms"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -1039,17 +1117,23 @@ def run_query(torch, make_df, kernels, check, calls: list,
     relative float error.  Its plan must hold ``fallback``
     CpuFallbackExecs (none: every node on the card).  One warm-up,
     ``timed`` timed runs and ``breakdown`` (``scans`` False: the
-    profiled run only); ``quick``: one timed run only.  Counts reset
-    just before, read just after; every hash_columns call is recorded
-    with its inputs.  ``counted``: the warm-up is a ``counted_run``,
-    and the record holds what it counted (``per_run``...) for
-    ``check_launches``."""
+    profiled run only); ``timed`` 0 (``scans`` False): the profiled run
+    comes first and is the warm-up, and the one run after it, counted
+    when ``counted``, is timed; ``quick``: one timed run only, no
+    profile.  Counts reset just before the runs, read just after; every
+    hash_columns call is recorded with its inputs.  ``counted``: the
+    first of the runs is a ``counted_run``, and the record holds what
+    it counted (``per_run``...) for ``check_launches``."""
     nodes = fallback_nodes(make_df().physical_plan())
     if len(nodes) != fallback:
         raise AssertionError(f"the plan holds {len(nodes)} CPU nodes, "
                              f"expected {fallback}: "
                              f"{[n.node_desc() for n in nodes]}")
     runs = 1 if quick else 1 + timed
+    profile_first = not (quick or scans or timed)
+    if profile_first:
+        extra = profiled_run(torch, make_df)
+        del extra["kernel_counts"]
     original = kernels.hash_columns
 
     def recording(cols, num_rows, device, seed=42, num_partitions=0):
@@ -1081,12 +1165,12 @@ def run_query(torch, make_df, kernels, check, calls: list,
     if planned.get("ladder_reruns"):
         raise AssertionError(f"the ladder re-ran map batches: {planned}")
     worst = check(result)
-    warm = None if quick else walls.pop(0)
+    warm = None if quick or not timed else walls.pop(0)
     if quick:
         extra = {}
     elif scans:
         extra = breakdown(torch, make_df)
-    else:
+    elif not profile_first:
         extra = profiled_run(torch, make_df)
         del extra["kernel_counts"]
     return {"rows": result.num_rows, "warmup_s": warm,
@@ -1881,10 +1965,15 @@ def q5_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
     return out, calls
 
 
-def reference_q27(pa, pc, pq, star, tpcds, states) -> list:
-    """q27 by pyarrow: the year's sales to the text's demographic in the
-    stores of ``states``, averaged over its three grouping sets; the
-    rows by item id and state (NULLs last), the first 100."""
+#: the columns q7 and q27 average, and their names in the result
+AVG_COLUMNS = [("ss_quantity", "agg1"), ("ss_list_price", "agg2"),
+               ("ss_coupon_amt", "agg3"), ("ss_sales_price", "agg4")]
+
+
+def demographic_sales(pa, pc, pq, star, tpcds, year: int, keys: list):
+    """The year's store_sales rows sold to the demographic q7 and q27
+    both ask for (``tpcds.Q27_DEMOGRAPHICS``): ``keys`` and AVG_COLUMNS,
+    these as DOUBLE (a decimal too, as the average gives it)."""
     gender, marital, education = tpcds.Q27_DEMOGRAPHICS
     cd = pq.read_table(star["cdemo_path"])
     cd = cd.filter(pc.and_(pc.and_(
@@ -1892,32 +1981,64 @@ def reference_q27(pa, pc, pq, star, tpcds, states) -> list:
         pc.equal(cd["cd_marital_status"], marital)),
         pc.equal(cd["cd_education_status"], education)))
     dd = star["date_dim"]
-    dd = dd.filter(pc.equal(dd["d_year"], 2002))
-    st = star["store"]
-    st = st.filter(pc.is_in(st["s_state"], value_set=pa.array(states)))
-    j = read_sales(pa, pq, star, [
-        "ss_sold_date_sk", "ss_item_sk", "ss_store_sk", "ss_cdemo_sk",
-        "ss_quantity", "ss_list_price", "ss_coupon_amt", "ss_sales_price"])
+    dd = dd.filter(pc.equal(dd["d_year"], year))
+    j = read_sales(pa, pq, star, ["ss_sold_date_sk", "ss_cdemo_sk", *keys,
+                                  *(c for c, _ in AVG_COLUMNS)])
     j = j.filter(pc.is_in(j["ss_cdemo_sk"], value_set=cd["cd_demo_sk"]))
     j = j.filter(pc.is_in(j["ss_sold_date_sk"], value_set=dd["d_date_sk"]))
+    for c, _ in AVG_COLUMNS:
+        j = j.set_column(j.schema.get_field_index(c), c,
+                         j[c].cast(pa.float64()))
+    return j
+
+
+def reference_q7(pa, pc, pq, star, tpcds, promotion) -> list:
+    """q7 by pyarrow: the year 2000's sales to the demographic under a
+    promotion not by email or not by event, averaged by item id; the
+    rows by item id (NULL first), the first 100."""
+    j = demographic_sales(pa, pc, pq, star, tpcds, 2000,
+                          ["ss_item_sk", "ss_promo_sk"])
+    p = promotion.filter(pc.or_kleene(
+        pc.equal(promotion["p_channel_email"], "N"),
+        pc.equal(promotion["p_channel_event"], "N")))
+    j = j.filter(pc.is_in(j["ss_promo_sk"], value_set=p["p_promo_sk"]))
+    j = j.join(star["item"].select(["i_item_sk", "i_item_id"]),
+               keys="ss_item_sk", right_keys="i_item_sk", join_type="inner")
+    g = j.group_by(["i_item_id"]).aggregate(
+        [(c, "mean") for c, _ in AVG_COLUMNS])
+    rows = [{"i_item_id": r["i_item_id"],
+             **{a: r[f"{c}_mean"] for c, a in AVG_COLUMNS}}
+            for r in g.to_pylist()]
+    rows.sort(key=lambda r: (r["i_item_id"] is not None,
+                             r["i_item_id"] or ""))
+    return rows[:100]
+
+
+def reference_q27(pa, pc, pq, star, tpcds, states) -> list:
+    """q27 by pyarrow: the year's sales to the text's demographic in the
+    stores of ``states``, averaged over its three grouping sets; the
+    rows by item id and state (NULLs last), the first 100."""
+    st = star["store"]
+    st = st.filter(pc.is_in(st["s_state"], value_set=pa.array(states)))
+    j = demographic_sales(pa, pc, pq, star, tpcds, 2002,
+                          ["ss_item_sk", "ss_store_sk"])
     j = j.join(st.select(["s_store_sk", "s_state"]), keys="ss_store_sk",
                right_keys="s_store_sk", join_type="inner")
     j = j.join(star["item"].select(["i_item_sk", "i_item_id"]),
                keys="ss_item_sk", right_keys="i_item_sk", join_type="inner")
-    vals = [("ss_quantity", "agg1"), ("ss_list_price", "agg2"),
-            ("ss_coupon_amt", "agg3"), ("ss_sales_price", "agg4")]
     rows = []
     for keys in (["i_item_id", "s_state"], ["i_item_id"], []):
         if keys:
-            g = j.group_by(keys).aggregate([(c, "mean") for c, _ in vals])
+            g = j.group_by(keys).aggregate(
+                [(c, "mean") for c, _ in AVG_COLUMNS])
             got = g.to_pylist()
         else:  # a grouping set's groups: none over no rows
-            got = [{f"{c}_mean": pc.mean(j[c]).as_py() for c, _ in vals}
-                   ] if j.num_rows else []
+            got = [{f"{c}_mean": pc.mean(j[c]).as_py()
+                    for c, _ in AVG_COLUMNS}] if j.num_rows else []
         for r in got:
             rows.append({"i_item_id": r.get("i_item_id"),
                          "s_state": r.get("s_state"),
-                         **{a: r[f"{c}_mean"] for c, a in vals}})
+                         **{a: r[f"{c}_mean"] for c, a in AVG_COLUMNS}})
     rows.sort(key=lambda r: [(r[k] is None, r[k] or "")
                              for k in ("i_item_id", "s_state")])
     return rows[:100]
@@ -2109,8 +2230,11 @@ def agg_family_phase(torch, pa, pc, pq, star, kernels, TorchSession,
 #: each text's timed runs after its warm-up (2 files and 3 runs until a
 #: run of the script took 844 s on an H100 80GB HBM3 at 700 W)
 #: (2 timed runs until the channels phase pushed the run past 750 s on
-#: an H100 80GB HBM3 at 700 W)
-SQL_CPU_FILES, SQL_TIMED_RUNS = 1, 1
+#: an H100 80GB HBM3 at 700 W; 1 until the types phase came, to keep the
+#: run within the 717 s it took before on an H100 80GB HBM3 at 700 W: 0
+#: makes the profiled run the warm-up and times the one counted run
+#: after it)
+SQL_CPU_FILES, SQL_TIMED_RUNS = 1, 0
 
 
 def sql_twin_checks(pa, pc, pq, star, tpcds) -> dict:
@@ -2216,8 +2340,9 @@ def sql_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
     frontend on the card, over the 13 tables (``write_store_channel``:
     q3ds's six store_sales files, q93's store_returns, the whole
     calendar and SF1's dimensions): for each text its plan's joins, the
-    rows, one warm-up and the median of SQL_TIMED_RUNS timed runs, one
-    profiled run (device busy, idle share, kernel count), and K1's
+    rows, one profiled run (device busy, idle share, kernel count) that
+    is the warm-up, one counted run after it, timed (SQL_TIMED_RUNS =
+    0), and K1's
     launches (equal to runs x its plan's map batches, folds and range
     tables, and what planning launches).  A text with
     a hand-built twin is held against the twin's pyarrow reference; the
@@ -2317,14 +2442,422 @@ def sql_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
     return records, list(largest.values()), tables
 
 
-#: catalog and web texts: timed runs after the warm-up
-CHANNEL_TIMED_RUNS = 1
+#: the decimal sums of the spec-typed texts: DECIMAL(7,2) summed
+TYPES_SUM_TYPE = "decimal128(17, 2)"
+#: the text -> (its sum column, and the reference_star arguments: the
+#: date_dim year (None: every year), the item filter, keys, output
+#: names, order), as sql_twin_checks holds the DOUBLE texts
+TYPES_STAR = {
+    "q3": ("sum_agg", None, ("i_manufact_id", 128),
+           ["d_year", "i_brand_id", "i_brand"],
+           {"i_brand_id": "brand_id", "i_brand": "brand"},
+           [("d_year", False), ("sum", True), ("brand_id", False)]),
+    "q42": ("sum", 2000, ("i_manager_id", 1), *STAR_QUERIES["q42"][2:4],
+            STAR_QUERIES["q42"][5]),
+    "q52": ("ext_price", 2000, ("i_manager_id", 1),
+            *STAR_QUERIES["q52"][2:4], STAR_QUERIES["q52"][5]),
+    "q55": ("ext_price", 1999, ("i_manager_id", 28),
+            *STAR_QUERIES["q55"][2:4], STAR_QUERIES["q55"][5]),
+}
+#: the texts whose Aggregate averages DECIMAL(7,2) money: on the CPU
+#: engine, as the JAX planner puts it
+TYPES_AVG_TEXTS = ("q7", "q27")
+AVG_REASON = "aggregate average does not support input type decimal(7,2)"
+
+
+def exact_ranked(got_table, want: list, n: int, keys: tuple, got_sum: str,
+                 want_sum: str) -> None:
+    """Rows of a ranking against the reference's first n, place by
+    place: keys and sums equal exactly (Decimals), a row free to trade
+    places with one of the same sum."""
+    got = got_table.to_pylist()
+    sums = {tuple(r[k] for k in keys): r[want_sum] for r in want}
+    want = want[:n]
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} rows, reference has {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        key = tuple(g[k] for k in keys)
+        if sums.get(key) != g[got_sum]:
+            raise AssertionError(f"place {i} {key}: {g[got_sum]} vs "
+                                 f"{sums.get(key)}")
+        if key != tuple(w[k] for k in keys) and g[got_sum] != w[want_sum]:
+            raise AssertionError(f"place {i}: {g} vs reference {w}")
+
+
+def cents_agree(dec_table, dbl_table, keys: tuple, col: str) -> int:
+    """The decimal text's sums are 100 x its DOUBLE twin's, rounded to
+    cents, group by group; a group in one LIMIT and not the other only
+    where it ties the last place.  Returns the groups compared."""
+    def by_key(t):
+        return {tuple(r[k] for k in keys): r[col] for r in t.to_pylist()}
+
+    dec, dbl = by_key(dec_table), by_key(dbl_table)
+    if len(dec) != len(dbl):
+        raise AssertionError(f"{len(dec)} groups against {len(dbl)}")
+    last = min(dec.values(), default=None)
+    for key, v in dec.items():
+        if key not in dbl:
+            if v != last:
+                raise AssertionError(f"group {key} is not in the DOUBLE "
+                                     "text's result")
+            continue
+        if int(v.scaleb(2)) != round(dbl[key] * 100):
+            raise AssertionError(f"{key}: {v} against {dbl[key]}")
+    return len(dec)
+
+
+def exact_multiset(got, want) -> None:
+    """Two tables equal as multisets of rows: names, and every value
+    exactly (decimals, timestamps as their microseconds, floats by
+    their bits, NULLs), both sorted by every column in Arrow: no Python
+    object a value (a timestamp with a zone costs milliseconds apiece
+    to make on some hosts)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    if got.schema.names != want.schema.names:
+        raise AssertionError(f"columns {got.schema.names} vs "
+                             f"{want.schema.names}")
+
+    def canon(t):
+        cols = []
+        for c in t.columns:
+            c = c.combine_chunks()
+            if pa.types.is_timestamp(c.type):
+                c = c.cast(pa.int64())
+            elif pa.types.is_floating(c.type):
+                bits = pc.fill_null(c, 0).to_numpy(zero_copy_only=False)
+                c = pa.array(bits.view(f"int{8 * bits.itemsize}"),
+                             mask=np.asarray(c.is_null()))
+            cols.append(c)
+        names = [f"c{i}" for i in range(len(cols))]
+        tt = pa.table(cols, names=names)
+        return tt.take(pc.sort_indices(
+            tt, sort_keys=[(n, "ascending") for n in names]))
+
+    g, w = canon(got), canon(want)
+    if g.num_rows != w.num_rows:
+        raise AssertionError(f"{g.num_rows} rows against {w.num_rows}")
+    for i, (a, b) in enumerate(zip(g.columns, w.columns)):
+        if not a.equals(b):
+            raise AssertionError(f"column {got.schema.names[i]} differs")
+
+
+#: the other four types' queries: TIMESTAMP, FLOAT, TINYINT and SMALLINT
+#: columns beside a DECIMAL one; between them K1 hashes a key of each
+TYPES_HOUR_TEXT = (
+    "select extract(hour from ss_sold_at) as hr, ss_store_sk, ss_quantity, "
+    "sum(ss_ext_sales_price) as sales, max(ss_sales_price) as top_price, "
+    "min(ss_sold_at) as first_sale from ss_types "
+    "group by extract(hour from ss_sold_at), ss_store_sk, ss_quantity")
+#: query 2 keeps the rows of few items, so that its groups (one a sale
+#: of a price on a day) stay few and its month strings, formatted on the
+#: CPU engine, cheap
+TYPES_DAY_MAX_QUANTITY = 5
+
+
+def types_day_df(session, paths):
+    """Query 2 of the types phase, through the DataFrame API: sales of
+    fewer than TYPES_DAY_MAX_QUANTITY items grouped by (the day of
+    ``ss_sold_at`` as a TIMESTAMP at midnight, the FLOAT price, the
+    DECIMAL amount), with their count and summed TINYINT quantity, and
+    the day's ``date_format(day, 'yyyy-MM')``: a format the device
+    refuses (as the JAX package's), so that Project runs on the CPU
+    engine."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exprs.cast import Cast
+    from spark_rapids_tpu_torch.session import (
+        col,
+        count_star,
+        date_format,
+        lit,
+        sum_,
+    )
+
+    day = Cast(Cast(col("ss_sold_at"), T.DATE), T.TIMESTAMP).alias("day")
+    return (session.read_parquet(*paths)
+            .where(col("ss_quantity") < lit(TYPES_DAY_MAX_QUANTITY))
+            .group_by(day, col("ss_sales_price"), col("ss_ext_sales_price"))
+            .agg((count_star(), "n"), (sum_(col("ss_quantity")), "qty"))
+            .select(col("day"), date_format(col("day"), "yyyy-MM")
+                    .alias("month"), col("ss_sales_price"),
+                    col("ss_ext_sales_price"), col("n"), col("qty")))
+
+
+def reference_types(pa, pc, pq, paths) -> tuple:
+    """The types phase's two queries by pyarrow and numpy over the same
+    files, timestamps as int64 microseconds (no time-zone arithmetic)."""
+    import numpy as np
+
+    t = pa.concat_tables([pq.read_table(p) for p in paths])
+    us = t["ss_sold_at"].cast(pa.int64()).combine_chunks()
+    ok = np.asarray(us.is_valid())
+    v = np.asarray(pc.fill_null(us, 0))
+    day_us = 86_400_000_000
+    hr = pa.array(((v // 3_600_000_000) % 24).astype(np.int32), mask=~ok)
+    g = pa.table({"hr": hr, "ss_store_sk": t["ss_store_sk"],
+                  "ss_quantity": t["ss_quantity"],
+                  "s": t["ss_ext_sales_price"],
+                  "p": t["ss_sales_price"], "a": us}
+                 ).group_by(["hr", "ss_store_sk", "ss_quantity"]).aggregate(
+        [("s", "sum"), ("p", "max"), ("a", "min")])
+    utc = pa.timestamp("us", tz="UTC")
+    hour = pa.table({
+        "hr": g["hr"], "ss_store_sk": g["ss_store_sk"],
+        "ss_quantity": g["ss_quantity"],
+        "sales": g["s_sum"].cast(pa.decimal128(17, 2)),
+        "top_price": g["p_max"], "first_sale": g["a_min"].cast(utc)})
+    few = np.asarray(pc.fill_null(pc.less(
+        t["ss_quantity"].cast(pa.int64()), TYPES_DAY_MAX_QUANTITY), False))
+    day = pa.array((v[few] // day_us) * day_us, mask=~ok[few])
+    sub = t.filter(pa.array(few))
+    d = pa.table({"day": day, "ss_sales_price": sub["ss_sales_price"],
+                  "ss_ext_sales_price": sub["ss_ext_sales_price"],
+                  "q": sub["ss_quantity"].cast(pa.int64())}).group_by(
+        ["day", "ss_sales_price", "ss_ext_sales_price"]).aggregate(
+        [([], "count_all"), ("q", "sum")])
+    dv = d["day"].combine_chunks()
+    months = np.datetime_as_string(np.asarray(pc.fill_null(dv, 0)).astype(
+        "datetime64[us]").astype("datetime64[M]"))
+    days = pa.table({"day": dv.cast(utc),
+                     "month": pa.array(months.astype(object),
+                                       mask=np.asarray(dv.is_null())),
+                     "ss_sales_price": d["ss_sales_price"],
+                     "ss_ext_sales_price": d["ss_ext_sales_price"],
+                     "n": d["count_all"], "qty": d["q_sum"]})
+    return hour, days
+
+
+def types_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
+                store_tables: dict) -> tuple:
+    """The scalar types on the card, at full width.  (a) store_sales as
+    the spec types it (``tpcds.write_decimal_store_sales``: the q3ds
+    files with the twelve money columns DECIMAL(7,2), INT32 in Parquet)
+    beside the store channel's other tables, through the SQL frontend:
+    q3, q42, q52 and q55 plan no CPU node, sum DECIMAL(17,2) exactly as
+    pyarrow's decimal group_by of the same files and as 100 x the
+    DOUBLE text's sums rounded to cents; q7 and q27 (each with its
+    variant when it gives no rows, in the state most stores are in, as
+    the sql phase's) plan exactly their Aggregate on the CPU engine,
+    which ``explain()`` marks with AVG_REASON, their rows against
+    pyarrow's averages of the decimals as DOUBLE over the six files
+    (``reference_q7``, ``reference_q27``; within REL_TOL), and, over the
+    first file, against the port's device="cpu" run, with their
+    transitions' rows and batches against what the CPU engine feeds and
+    makes there.  Each text: one profiled run that is the warm-up, one
+    counted run, timed, K1's launches equal to runs x its plan's map
+    batches, folds and range tables.  (b) the
+    same rows with a TIMESTAMP, a TINYINT, a SMALLINT and a FLOAT
+    column (``tpcds.write_scalar_types_sales``): TYPES_HOUR_TEXT and
+    ``types_day_df``, each exactly equal to pyarrow's, K1 as planned
+    and, between them, hashing a key of each of the five new types.
+    Emits ``types_text`` lines and the ``types`` line; returns the
+    records and the largest hash_columns call of each signature."""
+    from spark_rapids_tpu_torch.cpu.engine import execute_cpu
+    from spark_rapids_tpu_torch.frontends.sql import SqlSession
+    from spark_rapids_tpu_torch.plan import logical as L
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+    from spark_rapids_tpu_torch.tpcds_queries import QUERIES, variant
+
+    _dd, ss_paths, _item = star["paths"]
+    types_dir = os.path.join(star["dir"], "types")
+    os.makedirs(types_dir)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:  # a file a task: pyarrow and
+        # numpy let go of the GIL
+        dec = [pool.submit(tpcds.write_decimal_store_sales, types_dir, [p])
+               for p in ss_paths]
+        typed = [pool.submit(tpcds.write_scalar_types_sales, types_dir,
+                             [p]) for p in ss_paths]
+        dec_paths = [f.result()[0] for f in dec]
+        typed_paths = [f.result()[0] for f in typed]
+    gen_s = time.perf_counter() - t0
+    conf = {TTB: Q3DS_TASK_TARGET_BYTES}
+
+    def frontend(device, sales):
+        fe = SqlSession(conf, device=device)
+        for name, paths in store_tables.items():
+            fe.register_parquet(name, *(
+                sales if name == "store_sales" else paths))
+        return fe
+
+    card, card_double = frontend("cuda", dec_paths), \
+        frontend("cuda", store_tables["store_sales"])
+    card_cut, cpu_cut = frontend("cuda", dec_paths[:1]), \
+        frontend("cpu", dec_paths[:1])
+    t0 = time.perf_counter()
+    dec_star = {"date_dim": star["date_dim"], "item": star["item"],
+                "sales": pa.concat_tables([pq.read_table(p, columns=[
+                    "ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price"])
+                    for p in dec_paths])}
+    refs = {}
+    for name, (_c, year, (icol, ival), keys, names, order) in \
+            TYPES_STAR.items():
+        refs[name] = reference_star(
+            pc, dec_star, lambda d, y=year: pc.equal(d["d_moy"], 11)
+            if y is None else pc.and_(pc.equal(d["d_moy"], 11),
+                                      pc.equal(d["d_year"], y)),
+            lambda i, c=icol, v=ival: pc.equal(i[c], v), keys, names, order)
+    states = star["store"]["s_state"].to_pylist()
+    state = max(sorted(set(states)), key=states.count)
+    by_files = dict(star, paths=(star["paths"][0], dec_paths,
+                                 star["paths"][2]))
+    avg_refs = {
+        "q7": (1, reference_q7(pa, pc, pq, by_files, tpcds, pq.read_table(
+            store_tables["promotion"][0]))),
+        "q27": (2, reference_q27(pa, pc, pq, by_files, tpcds,
+                                 tpcds.Q27_STATES)),
+        "q27_variant": (2, reference_q27(pa, pc, pq, by_files, tpcds,
+                                         (state,)))}
+    ref_s = time.perf_counter() - t0
+    records, largest = {}, {}
+
+    def keep_largest(calls):
+        # the card memory the recorded inputs hold stays small
+        for call in calls:
+            key = (signature(call[0]), call[2], call[3])
+            if key not in largest or call[1] > largest[key][1]:
+                largest[key] = call
+
+    texts = [(f"q{q}", QUERIES[q]) for q in (3, 42, 52, 55, 7, 27)]
+    i = 0
+    while i < len(texts):
+        name, text = texts[i]
+        i += 1
+        base = name.split("_")[0]
+        if name == "q27_variant":  # the state of avg_refs's variant
+            text = text.replace("'LA'", f"'{state}'")
+
+        def text_df(text=text):
+            return card.sql(text)
+
+        plan = text_df().physical_plan()
+        cpu_nodes = [n.node_desc() for n in fallback_nodes(plan)]
+        extra: dict = {}
+        if base in TYPES_STAR:
+            if cpu_nodes:
+                raise AssertionError(f"{name} plans {cpu_nodes}")
+            col, _y, _i, keys, names, _o = TYPES_STAR[base]
+            out_keys = tuple(names.get(k, k) for k in keys)
+
+            def check(t, col=col, ref=refs[base], out_keys=out_keys):
+                if str(t.schema.field(col).type) != TYPES_SUM_TYPE:
+                    raise AssertionError(f"{name}'s {col} is "
+                                         f"{t.schema.field(col).type}")
+                exact_ranked(t, ref, 100, out_keys, col, "sum")
+                extra["cents_groups"] = cents_agree(
+                    t, card_double.sql(text).collect(), out_keys, col)
+                return 0.0
+            versus = "pyarrow's decimal group_by, and the DOUBLE text"
+        else:
+            marked = [ln for ln in text_df().explain().splitlines()
+                      if ln.lstrip().startswith("!")]
+            if len(cpu_nodes) != 1 or not cpu_nodes[0].startswith(
+                    "CpuFallbackExec [Aggregate") or len(marked) != 1 \
+                    or "Aggregate" not in marked[0] \
+                    or AVG_REASON not in marked[0]:
+                raise AssertionError(f"{name} plans {cpu_nodes}, explain "
+                                     f"marks {marked}")
+            t0 = time.perf_counter()
+            cut_df = cpu_cut.sql(text)
+            want = execute_cpu(cut_df._plan)
+            nodes, stack = [], [cut_df._plan]
+            while stack:
+                nodes.append(stack.pop())
+                stack += nodes[-1].children
+            (agg,) = [n for n in nodes if isinstance(n, L.Aggregate)]
+            fed = execute_cpu(agg.children[0]).num_rows
+            made = execute_cpu(agg).num_rows
+            cpu_s = time.perf_counter() - t0
+            cut_plan = card_cut.sql(text).physical_plan()
+            got = collect_exec(cut_plan, card_cut.session.conf)
+            (fb,) = fallback_nodes(cut_plan)
+            moved = dict(fb.metrics)
+            if (moved["toHostRows"], moved["toDeviceRows"]) != (fed, made):
+                raise AssertionError(f"{name} moved {moved}, the CPU "
+                                     f"engine fed {fed} rows and made "
+                                     f"{made}")
+            extra.update(cut_rows=got.num_rows, cpu_s=cpu_s,
+                         cut_max_rel_err=same_result(got, want),
+                         transitions=moved, marked=marked[0].strip())
+            n_keys, ref = avg_refs[name]
+
+            def check(t, ref=ref, n_keys=n_keys):
+                return compare_rows(t, ref, n_keys)
+            versus = ("pyarrow's averages as DOUBLE over the six decimal "
+                      "files; device='cpu' over the first")
+        calls: list = []
+        rec = run_query(torch, text_df, kernels, check, calls, scans=False,
+                        timed=0, fallback=len(cpu_nodes),
+                        counted=True)
+        check_launches(name, rec, rec)
+        records[name] = {"checked_against": versus, "cpu_nodes": cpu_nodes,
+                         "joins": join_strategies(plan), **extra,
+                         "hash_columns_calls": sorted(
+                             {(n, signature(cols), seed, parts)
+                              for cols, n, seed, parts in calls}), **rec}
+        emit("types_text", name=name, **{
+            k: v for k, v in records[name].items() if k != "device_kernels"})
+        keep_largest(calls)
+        if rec["rows"] == 0 and not name.endswith("_variant"):
+            texts.insert(i, (f"{name}_variant", variant(int(name[1:]))))
+
+    # (b) the other four types
+    t0 = time.perf_counter()
+    want_hour, want_day = reference_types(pa, pc, pq, typed_paths)
+    ref_s += time.perf_counter() - t0
+    fe = SqlSession(conf, device="cuda")
+    fe.register_parquet("ss_types", *typed_paths)
+    session = TorchSession(conf, device="cuda")
+    hashed = set()
+    for name, make_df, want, n_cpu in (
+            ("hour", lambda: fe.sql(TYPES_HOUR_TEXT), want_hour, 0),
+            ("day", lambda: types_day_df(session, typed_paths), want_day,
+             1)):
+        calls = []
+        rec = run_query(torch, make_df, kernels,
+                        lambda t, w=want: exact_multiset(t, w) or 0.0, calls,
+                        scans=False, timed=0, fallback=n_cpu,
+                        counted=True)
+        check_launches(name, rec, rec)
+        sigs = sorted({(n, signature(cols), seed, parts)
+                       for cols, n, seed, parts in calls})
+        hashed |= {c for _n, sig, _s, _p in sigs for c in sig}
+        records[name] = {"checked_against": "pyarrow, exactly",
+                         "hash_columns_calls": sigs, **rec}
+        emit("types_text", name=name, **{
+            k: v for k, v in records[name].items() if k != "device_kernels"})
+        keep_largest(calls)
+    missing = [t for t in ("tinyint", "smallint", "float", "timestamp",
+                           "decimal(7,2)") if t not in hashed]
+    if missing:
+        raise AssertionError(f"K1 hashed no key of {missing}: {hashed}")
+    emit("types", datagen_s=gen_s, reference_s=ref_s,
+         decimal_files=[os.path.basename(p) for p in dec_paths],
+         typed_files=[os.path.basename(p) for p in typed_paths],
+         hashed_types=sorted(hashed), summary={
+             name: {k: r.get(k) for k in (
+                 "rows", "median_s", "device_busy_s", "device_idle_share",
+                 "device_kernel_count", "launches", "planned_map_batches",
+                 "checked_against", "cpu_nodes")}
+             for name, r in records.items()})
+    return records, list(largest.values())
+
+
+#: catalog and web texts: timed runs after the warm-up (1 until the
+#: types phase came, to keep the run within the 717 s it took before on
+#: an H100 80GB HBM3 at 700 W: 0 makes the profiled run the warm-up and
+#: times the one counted run after it)
+CHANNEL_TIMED_RUNS = 0
 #: q72 joins catalog_sales to inventory on the item before any filter
 #: (its WHERE waits above its two outer joins): ~650 inventory rows a
 #: sale at SF1, ~940 M pairs through nine more joins.  Its card run and
 #: its reference read the first Q72_INVENTORY_ROWS rows of inventory
-#: (the text unchanged)
-Q72_INVENTORY_ROWS = 1 << 19
+#: (the text unchanged; 2^19 until the types phase took the run to
+#: 736 s, past the 717 s before it, on an H100 80GB HBM3 at 700 W,
+#: where q72 took 55 s of it)
+Q72_INVENTORY_ROWS = 1 << 18
 #: the exec switches the fallback phase turns off, one at a time
 FALLBACK_SWITCHES = ("Filter", "Project", "Aggregate", "Join", "Sort")
 
@@ -2427,8 +2960,8 @@ def channels_phase(torch, pa, pc, pq, star, kernels, tpcds, TTB,
     frontend on the card, over the store channel's 13 tables and the 11
     channel tables at SF1's rows (``tpcds.write_channels``): for each
     text its plan's joins and CPU nodes (only q37's date_dim Filter),
-    the rows, one warm-up and CHANNEL_TIMED_RUNS timed runs, one
-    profiled run, and K1's launches (runs x its plan's map batches,
+    the rows, one profiled run that is the warm-up, one counted run
+    after it, timed (CHANNEL_TIMED_RUNS = 0), and K1's launches (runs x its plan's map batches,
     folds and range tables).  q97 and q82 are held against pyarrow over
     the full tables; every other text against ``cpu/engine.execute_cpu``
     of its logical plan over the first file of each fact table, with
@@ -2481,6 +3014,8 @@ def channels_phase(torch, pa, pc, pq, star, kernels, tpcds, TTB,
         name, text = texts[i]
         i += 1
         base = name.split("_")[0]
+        if name == "q27_variant":  # the state of avg_refs's variant
+            text = text.replace("'LA'", f"'{state}'")
         fe, fe_cut = (q72_card, q72_cut) if base == "q72" \
             else (card, card_cut)
 
@@ -3264,6 +3799,9 @@ def main() -> int:
                                                 kernels, TorchSession, TTB)
         sql, sql_calls, store_tables = sql_phase(
             torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB)
+        types, types_calls = types_phase(
+            torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
+            store_tables)
         channels, channel_calls = channels_phase(
             torch, pa, pc, pq, star, kernels, tpcds, TTB, store_tables)
         fallback, fallback_calls = fallback_phase(
@@ -3304,18 +3842,20 @@ def main() -> int:
         raise AssertionError(f"q6 launched {q6['launches']}")
     check_launches("q67", q67, q67)
 
+    new_types_mix = new_types_call(torch, dev)
     worst, at_main = at_main_path(torch, kernels, {
         "q1": q1_calls, "q3": q3_calls, "q3_rf_on": q3_rf_calls,
         "q67": q67_calls, "q3ds": q3ds_calls, "q93": q93_calls,
         "star": star_calls, "q67_rollup": q67r_calls, "q5": q5_calls,
         "q27": q27_calls, "agg_family": family_calls, "sql": sql_calls,
-        "channels": channel_calls, "fallback": fallback_calls})
+        "types": types_calls, "channels": channel_calls,
+        "fallback": fallback_calls, "new_types_mix": [new_types_mix]})
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
     runs = (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off, q93, *star_runs.values(),
             q67r, q5, *q27_runs.values(), *family.values(), *sql.values(),
-            *channels.values(), *fallback.values())
+            *types.values(), *channels.values(), *fallback.values())
     summary = [{
         "name": "hash_columns", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
@@ -3330,8 +3870,9 @@ def main() -> int:
         "library_ms": None,
         "shape": "the largest of q1's, q3's (filter off and on), q67's, "
                  "q3ds's, q93's, q42/q52/q55's, q67_rollup's, q5's, q27's, "
-                 "agg_family's, the sql and channel texts' and the "
-                 "fallback phase's calls; ms is the device's own time per "
+                 "agg_family's, the sql, types and channel texts' and "
+                 "the fallback phase's calls, and the new_types mix at "
+                 "6 x 2^20 rows; ms is the device's own time per "
                  "launch; launches include the memory phase's split runs",
         "concurrency_launches": conc_launches["hash_columns"],
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,

@@ -177,21 +177,16 @@ class _Filler:
             if m == 0 or pa.types.is_null(arr.type):
                 dst[:] = 0
             elif pa.types.is_dictionary(arr.type):
-                codes = _fixed_view(arr.indices)
+                codes = fixed_view(arr.indices)
                 dvals = arr.dictionary
                 if len(dvals) == 0:  # every row NULL
                     dst[:] = 0
                 else:
-                    dnp = np.ascontiguousarray(
-                        _fixed_values(dvals).astype(np_dt, copy=False))
+                    dnp = np.empty(len(dvals), np_dt)
+                    _fill_values(dvals, dnp)
                     _gather(dnp, codes, dst)
-            elif pa.types.is_boolean(arr.type):
-                bits = np.unpackbits(
-                    np.frombuffer(arr.buffers()[1], np.uint8),
-                    count=arr.offset + m, bitorder="little")[arr.offset:]
-                np.copyto(dst, bits, casting="unsafe")
             else:
-                np.copyto(dst, _fixed_view(arr), casting="unsafe")
+                _fill_values(arr, dst)
             if nulls:
                 np.putmask(dst, ~ok, 0)
             self._lap("hostCopyTime", t0)
@@ -234,7 +229,7 @@ class _Filler:
         codes, cnp = self.empty((len(arr),), np.int32)
         t0 = time.perf_counter_ns()
         if len(arr):
-            np.copyto(cnp, _fixed_view(arr.indices), casting="unsafe")
+            np.copyto(cnp, fixed_view(arr.indices), casting="unsafe")
         if nulls:
             np.putmask(cnp, ~vnp, 0)
         self._lap("hostCopyTime", t0)
@@ -256,21 +251,53 @@ def _gather(dictionary: np.ndarray, codes: np.ndarray,
     np.take(dictionary, codes, out=out, mode="clip")
 
 
-def _fixed_view(arr: pa.Array) -> np.ndarray:
+#: microseconds per unit of an Arrow timestamp (ns divides by 1000)
+US_PER_UNIT = {"s": 1_000_000, "ms": 1_000, "us": 1}
+
+
+def fixed_view(arr: pa.Array) -> np.ndarray:
     """A zero-copy view of a fixed-width array's values buffer (NULL
-    slots hold whatever is there); a date as its int32 day numbers."""
+    slots hold whatever is there): a date as its int32 day numbers, a
+    timestamp as its raw int64 count of its unit, a decimal as its
+    unscaled integers.  A decimal128 slot is 16 little-endian bytes in
+    two's complement; for a precision up to 18 its value is the low 8
+    bytes, read as a strided int64 view."""
     t = arr.type
-    np_dt = np.dtype(np.int32) if pa.types.is_date32(t) \
-        else np.dtype(t.to_pandas_dtype())
+    if pa.types.is_decimal(t):
+        width = t.byte_width
+        if width == 16:
+            words = np.frombuffer(arr.buffers()[1], np.int64,
+                                  count=2 * len(arr),
+                                  offset=arr.offset * 16)
+            return words[0::2]
+        np_dt = np.dtype(f"<i{width}")
+    elif pa.types.is_date32(t):
+        np_dt = np.dtype(np.int32)
+    elif pa.types.is_timestamp(t):
+        np_dt = np.dtype(np.int64)
+    else:
+        np_dt = np.dtype(t.to_pandas_dtype())
     return np.frombuffer(arr.buffers()[1], np_dt, count=len(arr),
                          offset=arr.offset * np_dt.itemsize)
 
 
-def _fixed_values(arr: pa.Array) -> np.ndarray:
-    """A dictionary's values (never NULL) as numpy."""
-    if pa.types.is_boolean(arr.type):
-        return arr.to_numpy(zero_copy_only=False)
-    return _fixed_view(arr)
+def _fill_values(arr: pa.Array, out: np.ndarray) -> None:
+    """``out`` = the engine's physical values of a plain fixed-width
+    array, in one pass over its buffer: booleans unpacked, a timestamp
+    in microseconds (ns floored, as Spark converts an instant), any
+    other type copied and widened as ``out`` needs."""
+    t = arr.type
+    if pa.types.is_boolean(t):
+        bits = np.unpackbits(np.frombuffer(arr.buffers()[1], np.uint8),
+                             count=arr.offset + len(arr),
+                             bitorder="little")[arr.offset:]
+        np.copyto(out, bits, casting="unsafe")
+    elif pa.types.is_timestamp(t) and t.unit == "ns":
+        np.floor_divide(fixed_view(arr), 1000, out=out)
+    elif pa.types.is_timestamp(t) and t.unit != "us":
+        np.multiply(fixed_view(arr), US_PER_UNIT[t.unit], out=out)
+    else:
+        np.copyto(out, fixed_view(arr), casting="unsafe")
 
 
 def _assemble(kind: str, dtype: T.DataType, t: dict) -> AnyColumn:
@@ -434,6 +461,16 @@ def column_to_arrow(col: AnyColumn, dtype: T.DataType) -> pa.Array:
     mask = None if all_valid else ~valid
     if isinstance(dtype, T.DateType):
         return pa.array(values, pa.int32(), mask=mask).cast(pa.date32())
+    if isinstance(dtype, T.DecimalType):
+        # decimal128 from buffers: the low word is the unscaled value,
+        # the high word its sign extension
+        words = np.empty((n, 2), np.int64)
+        words[:, 0] = values
+        words[:, 1] = values >> 63
+        bitmap = None if all_valid else pa.py_buffer(
+            np.packbits(valid, bitorder="little"))
+        return pa.Array.from_buffers(T.to_arrow_type(dtype), n,
+                                     [bitmap, pa.py_buffer(words)])
     return pa.array(values, T.to_arrow_type(dtype), mask=mask)
 
 

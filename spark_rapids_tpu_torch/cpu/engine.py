@@ -18,7 +18,10 @@ pyarrow's defaults, Spark's are implemented here explicitly:
 - IF / CASE take the else branch on a NULL predicate;
 - greatest() and least() skip NULLs;
 - a residual condition on an outer, semi or anti join decides which
-  pairs match, and unmatched rows are kept or dropped after it.
+  pairs match, and unmatched rows are kept or dropped after it;
+- decimal arithmetic, casts and precision checks run on the unscaled
+  integers, exactly (NULL past the precision); a timestamp of any unit
+  or zone counts microseconds since the epoch, UTC.
 
 ``execute_cpu(plan)`` runs every logical node of ``plan/logical.py``;
 ``cpu_eval(e, table)`` evaluates every expression class of ``exprs/``
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import calendar
 import datetime as _dt
+import decimal as _decimal
 import re
 from typing import Optional
 
@@ -42,12 +46,13 @@ from spark_rapids_tpu_torch.exprs import aggregates as AG
 from spark_rapids_tpu_torch.exprs import arithmetic as A
 from spark_rapids_tpu_torch.exprs import base as B
 from spark_rapids_tpu_torch.exprs import datetime as DT
+from spark_rapids_tpu_torch.exprs import decimal as DEC
 from spark_rapids_tpu_torch.exprs import math as M
 from spark_rapids_tpu_torch.exprs import predicates as P
 from spark_rapids_tpu_torch.exprs import strings as S
 from spark_rapids_tpu_torch.exprs import window as WX
 from spark_rapids_tpu_torch.exprs.base import bind_references
-from spark_rapids_tpu_torch.exprs.cast import Cast
+from spark_rapids_tpu_torch.exprs.cast import Cast, cast_supported
 from spark_rapids_tpu_torch.exprs.hashing import Murmur3Hash
 from spark_rapids_tpu_torch.exprs.subquery import ScalarSubquery
 from spark_rapids_tpu_torch.plan import logical as L
@@ -139,10 +144,60 @@ def _nulls(n: int, atype) -> pa.Array:
     return pa.nulls(n, type=atype)
 
 
-def _day_number(v) -> int:
-    if isinstance(v, _dt.date):
-        return (v - _EPOCH).days
-    return int(v)
+_US_PER_DAY = 86_400_000_000
+_US_PER_UNIT = {"s": 1_000_000, "ms": 1_000, "us": 1}
+_UTC_US = pa.timestamp("us", tz="UTC")
+
+
+def _unscaled(a: pa.Array, scale: int) -> tuple[np.ndarray, np.ndarray]:
+    """(int64 unscaled values at ``scale`` with NULL slots 0, validity)
+    of a decimal array: decimal128's low word, a precision of at most
+    18 digits."""
+    a = _plain(a)
+    if a.type != pa.decimal128(a.type.precision, scale) \
+            or a.type.precision > 18:
+        a = a.cast(pa.decimal128(18, scale))
+    valid = np.asarray(a.is_valid())
+    words = np.frombuffer(a.buffers()[1], np.int64, count=2 * len(a),
+                          offset=a.offset * 16) if len(a) else \
+        np.zeros(0, np.int64)
+    return np.where(valid, words[0::2], 0), valid
+
+
+def _from_unscaled(v: np.ndarray, ok: np.ndarray, dt) -> pa.Array:
+    """A decimal128(p, s) array of int64 unscaled values."""
+    v = np.where(ok, np.asarray(v, np.int64), 0)
+    words = np.empty((len(v), 2), np.int64)
+    words[:, 0] = v
+    words[:, 1] = v >> 63
+    bitmap = None if ok.all() else pa.py_buffer(
+        np.packbits(ok, bitorder="little"))
+    return pa.Array.from_buffers(T.to_arrow_type(dt), len(v),
+                                 [bitmap, pa.py_buffer(words)])
+
+
+def _micros(a: pa.Array) -> tuple[np.ndarray, np.ndarray]:
+    """(int64 microseconds since the epoch, NULL slots 0; validity) of a
+    timestamp array of any unit (ns floored)."""
+    a = _plain(a)
+    unit = a.type.unit
+    v, ok = _np_vals(a.cast(pa.timestamp(unit)).cast(pa.int64()),
+                     pa.int64())
+    if unit == "ns":
+        return np.floor_divide(v, 1000), ok
+    return v * _US_PER_UNIT[unit], ok
+
+
+def _from_micros(v: np.ndarray, ok: np.ndarray) -> pa.Array:
+    return _from_np(np.asarray(v, np.int64), ok, pa.int64()).cast(_UTC_US)
+
+
+def _as_engine_type(a: pa.Array, at: pa.DataType) -> pa.Array:
+    """``a`` in the engine's Arrow type ``at``: a timestamp of another
+    unit or zone to microseconds UTC, any other type by a cast."""
+    if pa.types.is_timestamp(at) and pa.types.is_timestamp(a.type):
+        return _from_micros(*_micros(a))
+    return a.cast(at)
 
 
 def _dispatch(e, table, n):  # noqa: C901 - a dispatcher is a big switch
@@ -157,8 +212,14 @@ def _dispatch(e, table, n):  # noqa: C901 - a dispatcher is a big switch
         if e.value is None:
             return _nulls(n, at)
         if isinstance(e.dtype, T.DateType):
-            return pa.array(np.full(n, _day_number(e.value), np.int32),
+            day = B.physical_value(e.value, T.DATE)
+            return pa.array(np.full(n, day, np.int32),
                             pa.int32()).cast(pa.date32())
+        if isinstance(e.dtype, (T.DecimalType, T.TimestampType)):
+            v = np.full(n, B.physical_value(e.value, e.dtype), np.int64)
+            ok = np.ones(n, bool)
+            return _from_unscaled(v, ok, e.dtype) if isinstance(
+                e.dtype, T.DecimalType) else _from_micros(v, ok)
         return pa.array([e.value] * n, type=at)
     if isinstance(e, ScalarSubquery):
         sub = execute_cpu(e.plan)
@@ -169,6 +230,9 @@ def _dispatch(e, table, n):  # noqa: C901 - a dispatcher is a big switch
         return pa.array([v] * n, _atype(e))
 
     # arithmetic --------------------------------------------------------- #
+    if isinstance(e, (A.Add, A.Subtract, A.Multiply)) \
+            and isinstance(e.dtype, T.DecimalType):
+        return _decimal_arith(e, table)
     if isinstance(e, (A.Add, A.Subtract, A.Multiply)):
         l, r = _operands(e, table)
         at = _atype(e)
@@ -256,6 +320,9 @@ def _dispatch(e, table, n):  # noqa: C901 - a dispatcher is a big switch
         return pa.array(h.view(np.int32))
     if isinstance(e, Cast):
         return _cast(e, table, n)
+    if isinstance(e, (DEC.PromotePrecision, DEC.CheckOverflow,
+                      DEC.UnscaledValue, DEC.MakeDecimal)):
+        return _dispatch_decimal(e, table)
 
     out = _dispatch_math(e, table, n)
     if out is NotImplemented:
@@ -268,6 +335,63 @@ def _dispatch(e, table, n):  # noqa: C901 - a dispatcher is a big switch
     return out
 
 
+def _decimal_arith(e, table) -> pa.Array:
+    """Decimal + - * with exact integers: each operand's unscaled value
+    at the result's scale (a product at the sum of the scales, rounded
+    HALF_UP to the result's), NULL where the result passes its
+    precision (Spark's nullOnOverflow), as the JAX CPU engine does with
+    Python decimals."""
+    dt = e.dtype
+    l = cpu_eval(e.left, table)
+    r = cpu_eval(e.right, table)
+    ls, rs = e.left.dtype.scale, e.right.dtype.scale
+    lv, lok = _unscaled(l, ls)
+    rv, rok = _unscaled(r, rs)
+    lv, rv = lv.astype(object), rv.astype(object)
+    if isinstance(e, A.Multiply):
+        out, scale = lv * rv, ls + rs
+    else:
+        scale = dt.scale
+        lv = lv * 10 ** (scale - ls)
+        rv = rv * 10 ** (scale - rs)
+        out = lv + rv if isinstance(e, A.Add) else lv - rv
+    if scale > dt.scale:
+        p = 10 ** (scale - dt.scale)
+        out = np.array([(abs(x) + p // 2) // p * (1 if x >= 0 else -1)
+                        for x in out], object)
+    ok = lok & rok & np.array([abs(x) < 10 ** dt.precision for x in out],
+                              bool)
+    vals = np.array([int(x) if o else 0 for x, o in zip(out, ok)],
+                    np.int64)
+    return _from_unscaled(vals, ok, dt)
+
+
+def _dispatch_decimal(e, table) -> pa.Array:
+    """The decimal precision expressions, on unscaled integers."""
+    c = cpu_eval(e.child, table)
+    if isinstance(e, DEC.UnscaledValue):
+        v, ok = _unscaled(c, e.child.dtype.scale)
+        return _from_np(v, ok, pa.int64())
+    if isinstance(e, DEC.MakeDecimal):
+        v, ok = _np_vals(c, pa.int64())
+        ok = ok & (np.abs(v) < 10 ** e.precision)
+        return _from_unscaled(v, ok, e.dtype)
+    v, ok = _unscaled(c, e.child.dtype.scale)
+    diff = e.target.scale - e.child.dtype.scale
+    if isinstance(e, DEC.PromotePrecision):
+        return _from_unscaled(v * 10 ** diff, ok, e.target)
+    bound = 10 ** e.target.precision  # CheckOverflow, HALF_UP
+    if diff < 0:
+        p = 10 ** -diff
+        v = np.sign(v) * ((np.abs(v) + p // 2) // p)
+    elif diff > 0:
+        limit = (bound - 1) // 10 ** diff
+        ok = ok & (np.abs(v) <= limit)
+        v = np.where(ok, v, 0) * 10 ** diff
+    ok = ok & (np.abs(v) < bound)
+    return _from_unscaled(v, ok, e.target)
+
+
 def _nan_mask(a: pa.Array) -> Optional[pa.Array]:
     """NaN rows (NULL rows false) of a floating array; None otherwise."""
     if not pa.types.is_floating(a.type):
@@ -277,6 +401,15 @@ def _nan_mask(a: pa.Array) -> Optional[pa.Array]:
 
 def _compare(e, table, n):
     l, r = _operands(e, table)
+    ct = T.common_type(e.left.dtype, e.right.dtype)
+    if isinstance(ct, (T.DecimalType, T.TimestampType)) or (
+            isinstance(ct, T.DoubleType) and not (
+                pa.types.is_floating(l.type)
+                and pa.types.is_floating(r.type))):
+        # in the common type: decimals rescaled or made doubles, a date
+        # at midnight
+        at = T.to_arrow_type(ct)
+        l, r = _as_engine_type(l, at), _as_engine_type(r, at)
     # a DATE compares with an integer as its day number
     for a, b in ((l, r), (r, l)):
         if pa.types.is_date32(a.type) and pa.types.is_integer(b.type):
@@ -310,9 +443,29 @@ def _in(e, table, n):
     has_null = any(v is None for v in e.values)
     vals = [v for v in e.values if v is not None]
     if pa.types.is_date32(c.type):
-        vals = [_day_number(v) for v in vals]
+        vals = [B.physical_value(v, T.DATE) for v in vals]
         c = c.cast(pa.int32())
         vtype = pa.int32()
+    elif pa.types.is_timestamp(c.type) or (
+            pa.types.is_decimal(c.type)
+            and not any(isinstance(v, float) for v in vals)):
+        # physical int64 keys; a decimal value with more digits than the
+        # scale matches no row
+        dt = e.child.dtype
+        cv, cok = _unscaled(c, dt.scale) if isinstance(
+            dt, T.DecimalType) else _micros(c)
+        c = _from_np(cv, cok, pa.int64())
+        keys = []
+        for v in vals:
+            if isinstance(dt, T.DecimalType):
+                d = _decimal.Decimal(v).scaleb(dt.scale)
+                if d != d.to_integral_value():
+                    continue
+            keys.append(B.physical_value(v, dt))
+        vals, vtype = keys, pa.int64()
+    elif pa.types.is_decimal(c.type):  # against doubles
+        c = c.cast(pa.float64())
+        vtype = pa.float64()
     elif pa.types.is_integer(c.type) and any(isinstance(v, float)
                                              for v in vals):
         c = c.cast(pa.float64())
@@ -487,9 +640,12 @@ def _dates(v: np.ndarray, ok: np.ndarray) -> pa.Array:
     return _from_np(v.astype(np.int32), ok, pa.int32()).cast(pa.date32())
 
 
-def _dispatch_datetime(e, table, n):
+def _dispatch_datetime(e, table, n):  # noqa: C901 - one branch a class
     if isinstance(e, DT._DateField):
         c = cpu_eval(e.child, table)
+        if pa.types.is_timestamp(c.type):  # its UTC day
+            v, ok = _micros(c)
+            c = _dates(np.floor_divide(v, _US_PER_DAY), ok)
         fns = {DT.Year: pc.year, DT.Month: pc.month,
                DT.DayOfMonth: pc.day, DT.Quarter: pc.quarter,
                DT.DayOfYear: pc.day_of_year}
@@ -526,7 +682,71 @@ def _dispatch_datetime(e, table, n):
         lv, lok = _days(cpu_eval(e.left, table))
         rv, rok = _days(cpu_eval(e.right, table))
         return _from_np((lv - rv).astype(np.int32), lok & rok, pa.int32())
+    if isinstance(e, DT._TimeField):
+        v, ok = _micros(cpu_eval(e.child, table))
+        secs = np.mod(v, _US_PER_DAY) // 1_000_000
+        field = {DT.Hour: secs // 3600, DT.Minute: secs // 60 % 60,
+                 DT.Second: secs % 60}[type(e)]
+        return _from_np(field.astype(np.int32), ok, pa.int32())
+    if isinstance(e, DT.UnixTimestampFromTs):
+        v, ok = _micros(cpu_eval(e.child, table))
+        return _from_np(np.floor_divide(v, 1_000_000), ok, pa.int64())
+    if isinstance(e, (DT.FromUnixTime, DT.DateFormatClass)):
+        return _format_datetime(e, table)
+    if isinstance(e, DT.TimeAdd):  # TimeSub subclasses TimeAdd
+        v, ok = _micros(cpu_eval(e.child, table))
+        iv, sign = e.interval, e._sign
+        out = [_add_interval_us(int(x), iv.months * sign, iv.days * sign,
+                                iv.microseconds * sign) for x in v]
+        return _from_micros(np.array(out, np.int64), ok)
+    if isinstance(e, DT.DateAddInterval):
+        v, ok = _days(cpu_eval(e.child, table))
+        iv = e.interval
+        out = [_add_interval_us(int(x) * _US_PER_DAY, iv.months, iv.days,
+                                iv.microseconds) // _US_PER_DAY for x in v]
+        return _dates(np.array(out, np.int64), ok)
     return NotImplemented
+
+
+_PY_FORMAT = (("yyyy", "%Y"), ("MM", "%m"), ("dd", "%d"), ("HH", "%H"),
+              ("mm", "%M"), ("ss", "%S"))
+
+
+def _format_datetime(e, table) -> pa.Array:
+    """from_unixtime / date_format in UTC by ``strftime``, any format
+    made of the pattern letters of ``_PY_FORMAT``."""
+    c = cpu_eval(e.child, table)
+    if isinstance(e, DT.FromUnixTime):
+        v, ok = _np_vals(c, pa.int64())
+        v = v * 1_000_000
+    elif pa.types.is_date32(c.type):
+        v, ok = _days(c)
+        v = v.astype(np.int64) * _US_PER_DAY
+    else:
+        v, ok = _micros(c)
+    fmt = e.fmt
+    for token, py in _PY_FORMAT:
+        fmt = fmt.replace(token, py)
+    epoch = _dt.datetime(1970, 1, 1)
+    out = [(epoch + _dt.timedelta(microseconds=int(x))).strftime(fmt)
+           if good else None for x, good in zip(v, ok)]
+    return pa.array(out, pa.string())
+
+
+def _add_interval_us(us: int, months: int, days: int,
+                     microseconds: int) -> int:
+    """Microseconds since the epoch plus a calendar interval: the month
+    shift clamps the day to the target month's end (Spark's
+    add_months), then the days and microseconds add."""
+    t = _dt.datetime(1970, 1, 1) + _dt.timedelta(microseconds=us)
+    m0 = t.month - 1 + months
+    y = t.year + m0 // 12
+    m = m0 % 12 + 1
+    t = t.replace(year=y, month=m,
+                  day=min(t.day, calendar.monthrange(y, m)[1]))
+    t += _dt.timedelta(days=days, microseconds=microseconds)
+    d = t - _dt.datetime(1970, 1, 1)
+    return d.days * _US_PER_DAY + d.seconds * 1_000_000 + d.microseconds
 
 
 # -- strings ------------------------------------------------------------ #
@@ -591,6 +811,10 @@ def _cast(e: Cast, table, n):
         return c
     if isinstance(src, T.NullType):
         return _nulls(n, at)
+    if isinstance(src, (T.DecimalType, T.TimestampType)) or isinstance(
+            dst, (T.DecimalType, T.TimestampType)):
+        if not cast_supported(src, dst):  # as the JAX engines refuse
+            raise NotImplementedError(f"CPU engine: cast {src} -> {dst}")
     if isinstance(src, T.StringType):  # each distinct text parsed once
         enc = c.dictionary_encode()
         return _cast_from_string(enc.dictionary, dst, at).take(enc.indices)
@@ -600,9 +824,29 @@ def _cast(e: Cast, table, n):
         return pc.not_equal(c, pa.scalar(0).cast(c.type))
     if isinstance(src, T.BooleanType):
         return pc.cast(c, at)
+    if isinstance(src, T.DecimalType):
+        v, ok = _unscaled(c, src.scale)
+        if isinstance(dst, T.DecimalType):  # widening: exact
+            return _from_unscaled(v * 10 ** (dst.scale - src.scale), ok, dst)
+        return _from_np((v / 10.0 ** src.scale).astype(
+            at.to_pandas_dtype()), ok, at)
+    if isinstance(dst, T.DecimalType):  # from an integral type
+        v, ok = _np_vals(c, pa.int64())
+        return _from_unscaled(v * 10 ** dst.scale, ok, dst)
+    if isinstance(src, T.TimestampType):
+        v, ok = _micros(c)
+        if isinstance(dst, T.DateType):
+            return _dates(np.floor_divide(v, _US_PER_DAY), ok)
+        return _from_np(np.floor_divide(v, 1_000_000), ok, pa.int64())
+    if isinstance(dst, T.TimestampType):
+        if isinstance(src, T.DateType):
+            v, ok = _days(c)
+            return _from_micros(v.astype(np.int64) * _US_PER_DAY, ok)
+        v, ok = _np_vals(c, pa.int64())  # LONG seconds
+        return _from_micros(v * 1_000_000, ok)
     npdt = at.to_pandas_dtype()
-    if isinstance(src, T.DoubleType) and isinstance(
-            dst, (T.IntegerType, T.LongType)):
+    if isinstance(src, T.FractionalType) and isinstance(
+            dst, T.IntegralType):
         v, ok = _np_vals(c, pa.float64())
         return _from_np(_saturating_long(np.trunc(v), npdt), ok, at)
     v, ok = _np_vals(c, c.type)
@@ -620,7 +864,7 @@ def _cast_from_string(c: pa.Array, dst, at) -> pa.Array:
     is malformed or out of range."""
     out: list = []
     texts = c.to_pylist()
-    if isinstance(dst, (T.IntegerType, T.LongType)):
+    if isinstance(dst, T.IntegralType):
         info = np.iinfo(at.to_pandas_dtype())
         for v in texts:
             m = None if v is None else _INT_RE.match(v.strip(_CAST_WS))
@@ -718,7 +962,12 @@ def _np_hash_col(a: pa.Array, seed: np.ndarray) -> np.ndarray:
                 h1 = _np_mix_h1(h1, _np_mix_k1(np.uint32(b & 0xFFFFFFFF)))
             out[i] = _np_fmix(h1, len(bs))
         return out
-    if pa.types.is_floating(t):
+    if pa.types.is_float32(t):
+        v, _ = _np_vals(a, pa.float32())
+        v = np.where(v == 0.0, np.float32(0.0), v)  # -0.0 hashes as 0.0
+        bits = np.where(np.isnan(v), np.int32(0x7FC00000), v.view(np.int32))
+        h = _np_fmix(_np_mix_h1(seed, _np_mix_k1(bits.astype(np.uint32))), 4)
+    elif pa.types.is_floating(t):
         v, _ = _np_vals(a, pa.float64())
         v = np.where(v == 0.0, 0.0, v)  # -0.0 hashes as 0.0
         bits = np.where(np.isnan(v), np.int64(0x7FF8000000000000),
@@ -727,7 +976,11 @@ def _np_hash_col(a: pa.Array, seed: np.ndarray) -> np.ndarray:
     elif pa.types.is_int64(t):
         v, _ = _np_vals(a, pa.int64())
         h = _np_hash_i64(v, seed)
-    else:  # BOOLEAN, INT and DATE hash as an int
+    elif pa.types.is_timestamp(t):
+        h = _np_hash_i64(_micros(a)[0], seed)
+    elif pa.types.is_decimal(t):
+        h = _np_hash_i64(_unscaled(a, t.scale)[0], seed)
+    else:  # BOOLEAN, TINYINT, SMALLINT, INT and DATE hash as an int
         v, _ = _np_vals(a.cast(pa.int32()), pa.int32())
         h = _np_fmix(_np_mix_h1(seed, _np_mix_k1(v.astype(np.uint32))), 4)
     return np.where(valid, h, seed)
@@ -764,7 +1017,7 @@ def _assemble(arrays: list, schema: T.Schema, n: int) -> pa.Table:
         if a is None:
             f, a = _placeholder(f.name, n)
         elif a.type != f.type:
-            a = a.cast(f.type)
+            a = _as_engine_type(a, f.type)
         fields.append(f)
         cols.append(a)
     return pa.Table.from_arrays(cols, schema=pa.schema(fields))
@@ -1062,10 +1315,13 @@ def _aggregate(plan: L.Aggregate, child: pa.Table) -> pa.Table:
     for g in plan.groups:
         arr = cpu_eval(bind_references(g, cs), child)
         if pa.types.is_floating(arr.type):
-            # Spark's NormalizeFloatingNumbers: -0.0 groups as 0.0
+            # Spark's NormalizeFloatingNumbers: -0.0 groups as 0.0, and
+            # every NaN payload as the one NaN
             zero = pa.scalar(0.0, arr.type)
             arr = pc.if_else(pc.fill_null(pc.equal(arr, zero), False),
                              zero, arr)
+            arr = pc.if_else(_nan_mask(arr), pa.scalar(float("nan"),
+                                                       arr.type), arr)
         keys.append(arr)
     fns = [na.fn.bind(cs) for na in plan.aggs]
     inputs = {j: _agg_input(fn, child)

@@ -15,7 +15,13 @@
 //
 // Bit for bit Spark's function, per row:
 //   BOOLEAN, INT, DATE  one 4-byte block: fmix(mixH1(h, mixK1(v)), 4);
+//   TINYINT, SMALLINT   sign-extended to an int, then as INT (kInt8,
+//                       kInt16: 1- and 2-byte elements);
+//   FLOAT               -0.0 -> 0.0 and every NaN -> 0x7FC00000 (Java's
+//                       floatToIntBits), then the bits as INT (kFloat32);
 //   LONG                two blocks, low word first, fmix(.., 8);
+//   TIMESTAMP, DECIMAL  their int64 (microseconds, unscaled value) as
+//                       LONG: the caller passes them under kInt64;
 //   DOUBLE              -0.0 -> 0.0 and every NaN -> 0x7FF8000000000000,
 //                       then as LONG;
 //   STRING              hashUnsafeBytes: every aligned little-endian
@@ -27,7 +33,7 @@
 //   NULL                the row keeps its running seed.
 //
 // What bounds it on an H100: memory.  Per row it reads each column once
-// (W chars + 4 length bytes for a string, 1, 4 or 8 bytes otherwise, 1
+// (W chars + 4 length bytes for a string, 1, 2, 4 or 8 bytes otherwise, 1
 // validity byte) and writes 4 or 8 bytes, against ~15 integer operations
 // per 4-byte word.  At 3.35 TB/s the bytes take longer than the
 // arithmetic at the 32-bit rate for every type and width.  The copy of a
@@ -98,7 +104,10 @@ constexpr size_t kStaticSmemLimit = 48 * 1024;
 constexpr size_t kSmemPerBlock = 232448;
 
 // column type tags, as ops/kernels.py writes them
-enum : int32_t { kBool = 0, kInt32 = 1, kInt64 = 2, kFloat64 = 3, kString = 4 };
+enum : int32_t {
+  kBool = 0, kInt32 = 1, kInt64 = 2, kFloat64 = 3, kString = 4,
+  kInt8 = 5, kInt16 = 6, kFloat32 = 7
+};
 
 // One column of the key tuple; the layout is ops/kernels.py::_ColDesc.
 struct ColDesc {
@@ -304,9 +313,23 @@ __global__ void __launch_bounds__(kMaxThreads)
       case kInt32:
         h = hash_int((uint32_t)((const int32_t*)d.data)[row], h);
         break;
+      case kInt8:
+        h = hash_int((uint32_t)(int32_t)((const int8_t*)d.data)[row], h);
+        break;
+      case kInt16:
+        h = hash_int((uint32_t)(int32_t)((const int16_t*)d.data)[row], h);
+        break;
       case kInt64:
         h = hash_long((uint64_t)((const int64_t*)d.data)[row], h);
         break;
+      case kFloat32: {
+        const float x = ((const float*)d.data)[row];
+        const uint32_t bits = x == 0.0f ? 0u
+                              : x != x ? 0x7FC00000u
+                                       : (uint32_t)__float_as_int(x);
+        h = hash_int(bits, h);
+        break;
+      }
       case kFloat64: {
         const double x = ((const double*)d.data)[row];
         const uint64_t bits = x == 0.0 ? 0ull
@@ -346,7 +369,7 @@ int launch(const Params& p, int threads, cudaStream_t stream) {
   size_t smem_words = 0;
   for (int c = 0; c < p.n_cols; ++c) {
     const ColDesc& d = p.cols[c];
-    if (d.type < kBool || d.type > kString ||
+    if (d.type < kBool || d.type > kFloat32 ||
         (d.data == nullptr && !(d.type == kString && d.width == 0))) {
       return bad;
     }

@@ -194,7 +194,7 @@ class TpuHashAggregateExec(TpuExec):
         # canonical too
         for i in range(self.n_keys):
             c = cols[i]
-            if isinstance(c.dtype, T.DoubleType):
+            if isinstance(c.dtype, T.FractionalType):
                 d = torch.where(c.data == 0, torch.zeros_like(c.data),
                                 c.data)
                 d = torch.where(torch.isnan(d),

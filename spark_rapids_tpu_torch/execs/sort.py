@@ -57,8 +57,8 @@ from spark_rapids_tpu_torch.ops.range_partition import (
 from spark_rapids_tpu_torch.ops.sort import SortOrder, sort_permutation
 
 #: primary key types a top-n can threshold (fixed width)
-TOPN_PRIMARY_TYPES = (T.BooleanType, T.IntegerType, T.LongType,
-                      T.DoubleType, T.DateType)
+TOPN_PRIMARY_TYPES = (T.BooleanType, T.IntegralType, T.FractionalType,
+                      T.DateType, T.TimestampType, T.DecimalType)
 #: LIMIT values up to this plan ORDER BY + LIMIT as a top-n (the JAX
 #: package's spark.rapids.tpu.sql.topn.maxRows default)
 TOPN_MAX_ROWS = 1 << 14

@@ -1,11 +1,19 @@
 """Arithmetic with Spark SQL semantics.
 
 Counterpart of ``spark_rapids_tpu/exprs/arithmetic.py`` without its
-decimal branches (the port has no DECIMAL type yet) and its ANSI error
-polling:
+ANSI error polling:
 
 - Add / Subtract / Multiply over the numeric common type, NULL in,
-  NULL out; integers wrap, as in Spark's non-ANSI mode;
+  NULL out; integers wrap in their own width (TINYINT in 8 bits,
+  SMALLINT in 16), as in Spark's non-ANSI mode;
+- Add / Subtract of two DECIMALs (``_DecimalAddSub``): Spark's result
+  type (integral digits and scale of both, one digit more, capped at
+  precision 18), each operand's unscaled value rescaled to the result
+  scale, an exact int64 add.  A DECIMAL with any other operand is
+  refused (``check_supported``), as is a result past precision 18;
+  Multiply of two DECIMALs types as Spark does (precision p1 + p2 + 1,
+  scale s1 + s2, capped) and, like Divide over DECIMALs, runs on the
+  CPU engine: the planner's signature refuses it;
 - Divide, always DOUBLE; IntegralDivide (``div``), always LONG,
   truncated toward zero; Remainder (``%``) and Pmod with Java's signs.
   A zero divisor gives NULL in all four;
@@ -48,12 +56,7 @@ class BinaryArithmetic(Expression):
 
     @property
     def dtype(self) -> T.DataType:
-        ct = T.common_type(self.left.dtype, self.right.dtype)
-        if ct is None or isinstance(ct, (T.StringType, T.BooleanType,
-                                         T.DateType)):
-            raise TypeError(
-                f"incompatible types {self.left.dtype} / {self.right.dtype}")
-        return ct
+        return result_numeric_type(self.left.dtype, self.right.dtype)
 
     @property
     def nullable(self) -> bool:
@@ -71,17 +74,85 @@ class BinaryArithmetic(Expression):
         raise NotImplementedError
 
 
-class Add(BinaryArithmetic):
+def result_numeric_type(left: T.DataType,
+                        right: T.DataType) -> T.DataType:
+    """The common type of two arithmetic operands (JAX
+    ``exprs/base.py``), refusing the non-numeric ones."""
+    ct = T.common_type(left, right)
+    if ct is None or isinstance(ct, (T.StringType, T.BooleanType,
+                                     T.DateType, T.TimestampType)):
+        raise TypeError(f"incompatible types {left} / {right}")
+    return ct
+
+
+def _decimal_add_type(l: T.DecimalType, r: T.DecimalType) -> int:
+    """Spark's precision of a decimal + / - (before the cap)."""
+    s = max(l.scale, r.scale)
+    return max(l.precision - l.scale, r.precision - r.scale) + s + 1
+
+
+class _DecimalAddSub(BinaryArithmetic):
+    """+ / - with Spark's decimal result type, exact in int64 while the
+    result precision fits 18 digits."""
+
+    @property
+    def dtype(self) -> T.DataType:
+        l, r = self.left.dtype, self.right.dtype
+        if isinstance(l, T.DecimalType) and isinstance(r, T.DecimalType):
+            return T.DecimalType(
+                min(_decimal_add_type(l, r), T.DecimalType.MAX_PRECISION),
+                max(l.scale, r.scale))
+        return result_numeric_type(l, r)
+
+    def check_supported(self) -> None:
+        l, r = self.left.dtype, self.right.dtype
+        ldec = isinstance(l, T.DecimalType)
+        rdec = isinstance(r, T.DecimalType)
+        if ldec != rdec:
+            raise TypeError("decimal +/- with a non-decimal operand "
+                            "falls back")
+        if ldec and _decimal_add_type(l, r) > T.DecimalType.MAX_PRECISION:
+            raise TypeError(
+                "decimal +/- beyond precision 18 falls back "
+                "(unscaled int64 math would overflow)")
+
+    def eval(self, ctx: EvalContext) -> AnyColumn:
+        out = self.dtype
+        if not isinstance(out, T.DecimalType):
+            return super().eval(ctx)
+        lc = self.left.eval(ctx)
+        rc = self.right.eval(ctx)
+        ls = out.scale - self.left.dtype.scale
+        rs = out.scale - self.right.dtype.scale
+        ld = lc.data * 10 ** ls if ls else lc.data
+        rd = rc.data * 10 ** rs if rs else rc.data
+        data, valid = self.compute(ld, rd, broadcast_validity(lc, rc))
+        return Column(data, valid, out)
+
+
+class Add(_DecimalAddSub):
     def compute(self, ld, rd, valid):
         return ld + rd, valid
 
 
-class Subtract(BinaryArithmetic):
+class Subtract(_DecimalAddSub):
     def compute(self, ld, rd, valid):
         return ld - rd, valid
 
 
 class Multiply(BinaryArithmetic):
+    @property
+    def dtype(self) -> T.DataType:
+        l, r = self.left.dtype, self.right.dtype
+        if isinstance(l, T.DecimalType) and isinstance(r, T.DecimalType):
+            # Spark: scales add, precision p1 + p2 + 1; the type the CPU
+            # engine produces (the device signature refuses it)
+            return T.DecimalType(
+                min(l.precision + r.precision + 1,
+                    T.DecimalType.MAX_PRECISION),
+                min(l.scale + r.scale, T.DecimalType.MAX_PRECISION))
+        return result_numeric_type(l, r)
+
     def compute(self, ld, rd, valid):
         return ld * rd, valid
 
@@ -148,7 +219,7 @@ class IntegralDivide(BinaryArithmetic):
 
     @property
     def dtype(self) -> T.DataType:
-        if isinstance(super().dtype, T.DoubleType):
+        if isinstance(super().dtype, T.FractionalType):
             raise TypeError("div of doubles is not ported: Spark casts "
                             "them to DECIMAL first")
         return T.LONG

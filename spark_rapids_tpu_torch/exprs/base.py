@@ -9,6 +9,8 @@ hold live rows only, so there is no row mask to apply.
 from __future__ import annotations
 
 import dataclasses
+import datetime as _dt
+import decimal
 from typing import Any, Optional, Sequence
 
 import torch
@@ -20,6 +22,9 @@ from spark_rapids_tpu_torch.columnar.column import (
     Column,
     StringColumn,
 )
+
+
+_EPOCH_UTC = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
 
 
 @dataclasses.dataclass
@@ -288,9 +293,29 @@ class Literal(Expression):
             return StringColumn(row.expand(n, -1).contiguous(),
                                 torch.full((n,), len(b), dtype=torch.int32,
                                            device=dev), valid)
-        v = self.value if self.value is not None else 0
+        v = physical_value(self.value, self._dtype)
         return Column(torch.full((n,), v, dtype=T.to_torch_dtype(self._dtype),
                                  device=dev), valid, self._dtype)
+
+
+def physical_value(v, dtype: T.DataType):
+    """A literal's value as its type's physical scalar: 0 for NULL, a
+    DECIMAL's unscaled integer, a TIMESTAMP's microseconds since the
+    epoch (a ``datetime`` without a zone is UTC), a DATE's day number."""
+    if v is None:
+        return 0
+    if isinstance(dtype, T.DecimalType):
+        return int(decimal.Decimal(v).scaleb(dtype.scale)
+                    .to_integral_value(decimal.ROUND_HALF_UP))
+    if isinstance(dtype, T.TimestampType) and isinstance(v, _dt.datetime):
+        if v.tzinfo is None:
+            v = v.replace(tzinfo=_dt.timezone.utc)
+        d = v - _EPOCH_UTC
+        return d.days * 86_400_000_000 + d.seconds * 1_000_000 \
+            + d.microseconds
+    if isinstance(dtype, T.DateType) and isinstance(v, _dt.date):
+        return (v - _dt.date(1970, 1, 1)).days
+    return v
 
 
 @dataclasses.dataclass(repr=False)

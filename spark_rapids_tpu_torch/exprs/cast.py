@@ -1,25 +1,33 @@
 """Casts, with Spark's non-ANSI results.
 
-Counterpart of the part of ``spark_rapids_tpu/exprs/cast.py`` that
-UNION's type widening and the SQL frontend need:
+Counterpart of ``spark_rapids_tpu/exprs/cast.py``, its whole matrix
+(``cast_supported`` is the JAX function) and two pairs more:
 
-- INT, LONG and DOUBLE to one another: integral narrowing keeps the low
-  bits (Java semantics), integral to DOUBLE rounds to nearest, DOUBLE to
-  integral truncates toward zero with NaN -> 0 and +/-inf or out of
-  range saturating at the target's MIN / MAX (Java ``(long) d``);
-- the NULL type to any type: all NULL, a string column of zeroed chars;
-- INT, LONG and BOOLEAN to STRING: decimal digits (``true`` /
+- numeric to numeric across TINYINT, SMALLINT, INT, LONG, FLOAT and
+  DOUBLE: integral narrowing keeps the low bits (Java semantics),
+  floating to integral truncates toward zero with NaN -> 0 and +/-inf
+  or out of range saturating at the target's MIN / MAX (Java
+  ``(long) d``);
+- numeric to BOOLEAN (``!= 0``) and BOOLEAN to numeric (1 / 0);
+- DATE to TIMESTAMP (midnight UTC) and TIMESTAMP to DATE (the day,
+  floored); TIMESTAMP to LONG (epoch seconds, floored) and LONG to
+  TIMESTAMP (seconds);
+- DECIMAL to a DECIMAL that keeps every digit (scale and integral
+  digits both non-decreasing), integral to a DECIMAL that holds every
+  value of the source type, DECIMAL to FLOAT / DOUBLE;
+- integral and BOOLEAN to STRING: decimal digits (``true`` /
   ``false``), as the JAX package expands them on its device;
-- STRING to INT and LONG: an optional sign and digits within ASCII
+- STRING to integral: an optional sign and digits within ASCII
   whitespace, a fractional tail truncated ('3.5' -> 3); NULL when the
   text is malformed or out of the type's range (non-ANSI Spark);
-- DATE to STRING: ``yyyy-MM-dd`` (years 0-9999).
+- and beyond the JAX matrix: the NULL type to any type (all NULL, as
+  UNION's widening needs), DATE to STRING (``yyyy-MM-dd``, years
+  0-9999).
 
-STRING to DOUBLE and DOUBLE to STRING (Java's shortest round-trip
-digits), STRING to DATE, decimals, timestamps and ANSI error polling
-are not ported; ``check_supported`` raises TypeError for them, and the
-planner runs the node on the CPU engine (q37's ``cast('2000-02-01' as
-date)`` filter of date_dim).
+STRING to DOUBLE / DATE / TIMESTAMP, DOUBLE to STRING, decimal
+narrowing and ANSI error polling are not ported; ``check_supported``
+raises TypeError for them, and the planner runs the node on the CPU
+engine (q37's ``cast('2000-02-01' as date)`` filter of date_dim).
 """
 
 from __future__ import annotations
@@ -36,21 +44,41 @@ from spark_rapids_tpu_torch.columnar.column import (
     StringColumn,
 )
 from spark_rapids_tpu_torch.exprs.base import EvalContext, Expression
+from spark_rapids_tpu_torch.exprs.datetime import US_PER_DAY, US_PER_SECOND
 
-_INTEGRAL = (T.IntegerType, T.LongType)
-_NUMERIC = _INTEGRAL + (T.DoubleType,)
+_INTEGRAL = (T.ByteType, T.ShortType, T.IntegerType, T.LongType)
+_FLOATING = (T.FloatType, T.DoubleType)
+_NUMERIC = _INTEGRAL + _FLOATING
 #: decimal digits of the widest int64
 _MAX_DIGITS = 20
 
 
 def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
+    """The JAX package's cast matrix, plus NULL to any type and DATE to
+    STRING."""
     if src == dst or isinstance(src, T.NullType):
         return True
-    if isinstance(src, _NUMERIC) and isinstance(dst, _NUMERIC):
+    ts, td = type(src), type(dst)
+    if ts in _NUMERIC and td in _NUMERIC:
         return True
-    if isinstance(dst, T.StringType):
-        return isinstance(src, _INTEGRAL + (T.BooleanType, T.DateType))
-    return isinstance(src, T.StringType) and isinstance(dst, _INTEGRAL)
+    if (ts in _NUMERIC and td is T.BooleanType) \
+            or (ts is T.BooleanType and td in _NUMERIC):
+        return True
+    if {ts, td} == {T.DateType, T.TimestampType}:
+        return True
+    if {ts, td} == {T.TimestampType, T.LongType}:
+        return True
+    if td is T.StringType:
+        return ts in _INTEGRAL + (T.BooleanType, T.DateType)
+    if ts is T.StringType:
+        return td in _INTEGRAL
+    if ts is T.DecimalType and td is T.DecimalType:
+        # widening only: no value can leave the int64 unscaled backing
+        return (dst.scale >= src.scale
+                and dst.precision - dst.scale >= src.precision - src.scale)
+    if ts in _INTEGRAL and td is T.DecimalType:
+        return dst.precision - dst.scale >= T.INTEGRAL_DECIMAL_DIGITS[ts]
+    return ts is T.DecimalType and td in _FLOATING
 
 
 def saturating_double_to_integral(d: torch.Tensor,
@@ -60,6 +88,7 @@ def saturating_double_to_integral(d: torch.Tensor,
     cannot hold INT64_MAX, so clip-then-convert would overflow."""
     info = torch.iinfo(phys)
     hi, lo = float(info.max) + 1.0, float(info.min)  # exact powers of two
+    d = d.to(torch.float64)
     t = torch.trunc(torch.where(torch.isnan(d), 0.0, d))
     out = torch.where((t > lo) & (t < hi), t, 0.0).to(phys)
     out = torch.where(t >= hi, info.max, out)
@@ -104,11 +133,39 @@ class Cast(Expression):
             if isinstance(src, T.DateType):
                 return _date_to_string(c)
             return _integral_to_string(c)
-        phys = T.to_torch_dtype(dst)
-        if c.data.is_floating_point() and not phys.is_floating_point:
-            return Column(saturating_double_to_integral(c.data, phys),
-                          c.validity, dst)
-        return Column(c.data.to(phys), c.validity, dst)
+        return cast_column(c, src, dst)
+
+
+def cast_column(c: Column, src: T.DataType, dst: T.DataType) -> Column:
+    """A cast between two fixed-width types of the matrix; also the
+    conversion of an operand into its comparison's or branch's common
+    type (``exprs/predicates.py``)."""
+    d, valid = c.data, c.validity
+    ts, td = type(src), type(dst)
+    phys = T.to_torch_dtype(dst)
+    if td is T.BooleanType:
+        return Column(d != 0, valid, dst)
+    if ts is T.DecimalType and td is T.DecimalType:
+        # widening only, so the shift is >= 0 and the result fits
+        return Column(d * 10 ** (dst.scale - src.scale), valid, dst)
+    if ts in _INTEGRAL + (T.BooleanType,) and td is T.DecimalType:
+        return Column(d.to(torch.int64) * 10 ** dst.scale, valid, dst)
+    if ts is T.DecimalType:  # to FLOAT / DOUBLE
+        return Column((d.to(torch.float64) / 10.0 ** src.scale).to(phys),
+                      valid, dst)
+    if ts is T.DateType and td is T.TimestampType:
+        return Column(d.to(torch.int64) * US_PER_DAY, valid, dst)
+    if ts is T.TimestampType and td is T.DateType:
+        return Column(torch.div(d, US_PER_DAY, rounding_mode="floor")
+                      .to(torch.int32), valid, dst)
+    if ts is T.TimestampType:  # to LONG: epoch seconds
+        return Column(torch.div(d, US_PER_SECOND, rounding_mode="floor"),
+                      valid, dst)
+    if td is T.TimestampType:  # from LONG
+        return Column(d * US_PER_SECOND, valid, dst)
+    if c.data.is_floating_point() and not phys.is_floating_point:
+        return Column(saturating_double_to_integral(d, phys), valid, dst)
+    return Column(d.to(phys), valid, dst)
 
 
 def _digits(v: torch.Tensor, n: int) -> torch.Tensor:

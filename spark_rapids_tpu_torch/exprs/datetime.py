@@ -1,18 +1,21 @@
-"""DATE expressions.
+"""DATE and TIMESTAMP expressions.
 
-Counterpart of the DATE half of ``spark_rapids_tpu/exprs/datetime.py``:
-the civil-calendar fields (year, month, day, quarter, day of week,
-weekday, day of year), ``last_day``, ``add_months``, ``date_add``,
-``date_sub`` and ``datediff``.  A DATE is int32 days since 1970-01-01.
-Calendar fields come from Howard Hinnant's ``civil_from_days`` /
-``days_from_civil``: branch-free integer arithmetic, done here in int64
-with floor division, so dates before 1970 (negative days) and the
-spec's whole 1900-2100 calendar convert exactly, on the proleptic
-Gregorian calendar as Python's ``datetime`` does.
+Counterpart of ``spark_rapids_tpu/exprs/datetime.py``: the civil-
+calendar fields (year, month, day, quarter, day of week, weekday, day
+of year) of a DATE or a TIMESTAMP, the time fields (hour, minute,
+second), ``last_day``, ``add_months``, ``date_add``, ``date_sub``,
+``datediff``, ``to_unix_timestamp``, ``from_unixtime`` and
+``date_format`` (the two formats the JAX package formats on its
+device), and timestamp / date plus a literal calendar interval.
 
-The TIMESTAMP fields (hour, minute, second) and every function after
-``datediff`` in the JAX module need the TIMESTAMP type, which the port
-does not have yet; the SQL frontend raises ``SqlError`` for them.
+A DATE is int32 days since 1970-01-01, a TIMESTAMP int64 microseconds
+since the epoch, UTC only.  Calendar fields come from Howard Hinnant's
+``civil_from_days`` / ``days_from_civil``: branch-free integer
+arithmetic, done here in int64 with floor division, so instants before
+1970 (negative counts) and the spec's whole 1900-2100 calendar convert
+exactly, on the proleptic Gregorian calendar as Python's ``datetime``
+does.  A TIMESTAMP's day and time of day are its microseconds floor-
+divided by the day, so 1969-12-31 23:00 is hour 23 of day -1.
 """
 
 from __future__ import annotations
@@ -22,12 +25,22 @@ import dataclasses
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.column import AnyColumn, Column
+from spark_rapids_tpu_torch.columnar.column import (
+    AnyColumn,
+    Column,
+    StringColumn,
+)
 from spark_rapids_tpu_torch.exprs.base import (
     EvalContext,
     Expression,
     broadcast_validity,
 )
+
+
+US_PER_DAY = 86_400_000_000
+US_PER_HOUR = 3_600_000_000
+US_PER_MINUTE = 60_000_000
+US_PER_SECOND = 1_000_000
 
 
 def _fdiv(a: torch.Tensor, b: int) -> torch.Tensor:
@@ -86,12 +99,14 @@ class _DateField(Expression):
         raise NotImplementedError
 
     def eval(self, ctx: EvalContext) -> AnyColumn:
-        if not isinstance(self.child.dtype, T.DateType):
-            raise TypeError(f"{self.name} needs a DATE, got "
-                            f"{self.child.dtype}")
+        if not isinstance(self.child.dtype, (T.DateType, T.TimestampType)):
+            raise TypeError(f"{self.name} needs a DATE or a TIMESTAMP, "
+                            f"got {self.child.dtype}")
         c = self.child.eval(ctx)
-        return Column(self._field(c.data.to(torch.int64)).to(torch.int32),
-                      c.validity, T.INT)
+        days = c.data.to(torch.int64)
+        if isinstance(self.child.dtype, T.TimestampType):
+            days = _fdiv(days, US_PER_DAY)
+        return Column(self._field(days).to(torch.int32), c.validity, T.INT)
 
 
 class Year(_DateField):
@@ -227,3 +242,241 @@ class DateDiff(Expression):
         rc = self.right.eval(ctx)
         out = lc.data.to(torch.int32) - rc.data.to(torch.int32)
         return Column(out, broadcast_validity(lc, rc), T.INT)
+
+
+@dataclasses.dataclass(repr=False)
+class _TimeField(Expression):
+    """A field of a TIMESTAMP's time of day (floor-mod, so instants
+    before the epoch count from their own midnight)."""
+
+    child: Expression
+
+    divisor = US_PER_HOUR
+    modulus = 24
+
+    @property
+    def dtype(self) -> T.DataType:
+        return T.INT
+
+    def eval(self, ctx: EvalContext) -> AnyColumn:
+        c = self.child.eval(ctx)
+        day_us = torch.remainder(c.data.to(torch.int64), US_PER_DAY)
+        out = torch.remainder(_fdiv(day_us, self.divisor), self.modulus)
+        return Column(out.to(torch.int32), c.validity, T.INT)
+
+
+class Hour(_TimeField):
+    divisor = US_PER_HOUR
+    modulus = 24
+
+
+class Minute(_TimeField):
+    divisor = US_PER_MINUTE
+    modulus = 60
+
+
+class Second(_TimeField):
+    divisor = US_PER_SECOND
+    modulus = 60
+
+
+@dataclasses.dataclass(repr=False)
+class UnixTimestampFromTs(Expression):
+    """to_unix_timestamp(timestamp) -> LONG seconds (floored)."""
+
+    child: Expression
+
+    @property
+    def dtype(self) -> T.DataType:
+        return T.LONG
+
+    def eval(self, ctx: EvalContext) -> AnyColumn:
+        c = self.child.eval(ctx)
+        return Column(_fdiv(c.data.to(torch.int64), US_PER_SECOND),
+                      c.validity, T.LONG)
+
+
+#: the formats formatted on the device, as in the JAX package; any
+#: other is refused by ``check_supported`` and runs on the CPU engine
+SUPPORTED_FORMATS = ("yyyy-MM-dd HH:mm:ss", "yyyy-MM-dd")
+
+
+def _format_chars(days: torch.Tensor, sec_of_day: torch.Tensor,
+                  fmt: str) -> tuple[torch.Tensor, int]:
+    """Civil fields formatted into an ``(N, len(fmt))`` byte matrix: each
+    pattern token a run of digits, any other character itself."""
+    y, m, d = civil_from_days(days)
+    fields = {
+        "yyyy": (y, 4), "MM": (m, 2), "dd": (d, 2),
+        "HH": (_fdiv(sec_of_day, 3600), 2),
+        "mm": (torch.remainder(_fdiv(sec_of_day, 60), 60), 2),
+        "ss": (torch.remainder(sec_of_day, 60), 2),
+    }
+    n = days.shape[0]
+    cols: list[torch.Tensor] = []
+    i = 0
+    while i < len(fmt):
+        for token, (val, nd) in fields.items():
+            if fmt.startswith(token, i):
+                for k in range(nd):
+                    cols.append(torch.remainder(
+                        _fdiv(val, 10 ** (nd - 1 - k)), 10) + 48)
+                i += len(token)
+                break
+        else:
+            cols.append(torch.full((n,), ord(fmt[i]), dtype=torch.int64,
+                                   device=days.device))
+            i += 1
+    chars = torch.stack(cols, dim=1).to(torch.uint8)
+    return chars, len(cols)
+
+
+def _formatted(days, sod, fmt: str, validity: torch.Tensor) -> StringColumn:
+    chars, width = _format_chars(days, sod, fmt)
+    chars = chars * validity[:, None].to(torch.uint8)
+    lengths = torch.where(validity, width, 0).to(torch.int32)
+    return StringColumn(chars, lengths, validity)
+
+
+@dataclasses.dataclass(repr=False)
+class FromUnixTime(Expression):
+    """from_unixtime(seconds, fmt) -> the UTC instant formatted."""
+
+    child: Expression
+    fmt: str = "yyyy-MM-dd HH:mm:ss"
+
+    @property
+    def dtype(self) -> T.DataType:
+        return T.STRING
+
+    def check_supported(self) -> None:
+        if self.fmt not in SUPPORTED_FORMATS:
+            raise TypeError(
+                f"from_unixtime format {self.fmt!r} not supported "
+                f"(supported: {', '.join(SUPPORTED_FORMATS)})")
+
+    def eval(self, ctx: EvalContext) -> AnyColumn:
+        self.check_supported()
+        c = self.child.eval(ctx)
+        secs = c.data.to(torch.int64)
+        days = _fdiv(secs, 86400)
+        return _formatted(days, secs - days * 86400, self.fmt, c.validity)
+
+
+@dataclasses.dataclass(repr=False)
+class DateFormatClass(Expression):
+    """date_format(date or timestamp, fmt) -> the UTC value formatted."""
+
+    child: Expression
+    fmt: str = "yyyy-MM-dd"
+
+    @property
+    def dtype(self) -> T.DataType:
+        return T.STRING
+
+    def check_supported(self) -> None:
+        if self.fmt not in SUPPORTED_FORMATS:
+            raise TypeError(
+                f"date_format format {self.fmt!r} not supported "
+                f"(supported: {', '.join(SUPPORTED_FORMATS)})")
+        if not isinstance(self.child.dtype, (T.DateType, T.TimestampType)):
+            raise TypeError("date_format needs a date/timestamp input")
+
+    def eval(self, ctx: EvalContext) -> AnyColumn:
+        self.check_supported()
+        c = self.child.eval(ctx)
+        v = c.data.to(torch.int64)
+        if isinstance(self.child.dtype, T.DateType):
+            days, sod = v, torch.zeros_like(v)
+        else:
+            days = _fdiv(v, US_PER_DAY)
+            sod = _fdiv(v - days * US_PER_DAY, US_PER_SECOND)
+        return _formatted(days, sod, self.fmt, c.validity)
+
+
+@dataclasses.dataclass
+class CalendarInterval:
+    """A literal calendar interval (months, days, microseconds), the
+    value ``TimeAdd`` / ``DateAddInterval`` take."""
+
+    months: int = 0
+    days: int = 0
+    microseconds: int = 0
+
+
+@dataclasses.dataclass(repr=False)
+class TimeAdd(Expression):
+    """timestamp + interval.  A month component depends on the calendar
+    and is refused (the planner runs it on the CPU engine)."""
+
+    child: Expression
+    interval: CalendarInterval
+    _sign = 1
+
+    @property
+    def dtype(self) -> T.DataType:
+        return T.TIMESTAMP
+
+    @property
+    def nullable(self) -> bool:
+        return self.child.nullable
+
+    @property
+    def name(self) -> str:
+        iv = self.interval
+        return (f"{self.child.name} + interval({iv.months}m "
+                f"{iv.days}d {iv.microseconds}us)")
+
+    def check_supported(self) -> None:
+        if not isinstance(self.child.dtype, T.TimestampType):
+            raise TypeError("TimeAdd needs a timestamp input")
+        if self.interval.months:
+            raise TypeError(
+                "interval months are calendar-dependent — CPU fallback "
+                "(the reference rejects them too)")
+
+    def eval(self, ctx: EvalContext) -> AnyColumn:
+        self.check_supported()
+        c = self.child.eval(ctx)
+        delta = (self.interval.days * US_PER_DAY
+                 + self.interval.microseconds) * self._sign
+        return Column(c.data.to(torch.int64) + delta, c.validity,
+                      T.TIMESTAMP)
+
+
+class TimeSub(TimeAdd):
+    _sign = -1
+
+
+@dataclasses.dataclass(repr=False)
+class DateAddInterval(Expression):
+    """date + interval -> DATE: whole days, the microseconds truncated
+    toward zero to days; a month component is refused."""
+
+    child: Expression
+    interval: CalendarInterval
+
+    @property
+    def dtype(self) -> T.DataType:
+        return T.DATE
+
+    @property
+    def nullable(self) -> bool:
+        return self.child.nullable
+
+    @property
+    def name(self) -> str:
+        return f"{self.child.name} + interval({self.interval.days}d)"
+
+    def check_supported(self) -> None:
+        if not isinstance(self.child.dtype, T.DateType):
+            raise TypeError("DateAddInterval needs a date input")
+        if self.interval.months:
+            raise TypeError("interval months fall back")
+
+    def eval(self, ctx: EvalContext) -> AnyColumn:
+        self.check_supported()
+        c = self.child.eval(ctx)
+        days = self.interval.days + int(
+            self.interval.microseconds / US_PER_DAY)
+        return Column(c.data.to(torch.int32) + days, c.validity, T.DATE)

@@ -3,8 +3,12 @@
 Counterpart of ``spark_rapids_tpu/exprs/hashing.py``: Spark's Murmur3
 x86_32 with Spark's quirks, bit for bit:
 
-- int/date/boolean (and float bits) hash as one 4-byte block;
-- long and double bits hash as two 4-byte blocks, low word first;
+- int/date/boolean, tinyint and smallint (sign-extended) and float
+  bits hash as one 4-byte block;
+- long, timestamp (microseconds), decimal (unscaled) and double bits
+  hash as two 4-byte blocks, low word first;
+- a float or double folds -0.0 into 0.0 first, and every NaN hashes
+  as Java's canonical NaN bits;
 - strings hash their bytes (``hashUnsafeBytes``): aligned 4-byte
   little-endian blocks, then each tail byte on its own, sign-extended;
 - a NULL leaves the running seed untouched; multi-column hashes chain
@@ -89,6 +93,15 @@ def _double_to_bits(x: torch.Tensor) -> torch.Tensor:
     bits = x.contiguous().view(torch.int64)
     return torch.where(torch.isnan(x),
                        torch.full_like(bits, 0x7FF8000000000000), bits)
+
+
+def _float_to_bits(x: torch.Tensor) -> torch.Tensor:
+    """Java floatToIntBits with -0.0 folded into 0.0 first; every NaN is
+    0x7fc00000."""
+    x = torch.where(x == 0.0, torch.zeros_like(x), x)
+    bits = x.contiguous().view(torch.int32)
+    return torch.where(torch.isnan(x),
+                       torch.full_like(bits, 0x7FC00000), bits)
 
 
 def to_int32_bits(u: torch.Tensor) -> torch.Tensor:

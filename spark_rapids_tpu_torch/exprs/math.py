@@ -239,13 +239,13 @@ class Ceil(Expression):
 
     @property
     def dtype(self) -> T.DataType:
-        if isinstance(self.child.dtype, T.DoubleType):
+        if isinstance(self.child.dtype, T.FractionalType):
             return T.LONG
         return self.child.dtype
 
     def eval(self, ctx: EvalContext) -> AnyColumn:
         c = self.child.eval(ctx)
-        if not isinstance(self.child.dtype, T.DoubleType):
+        if not isinstance(self.child.dtype, T.FractionalType):
             return c
         r = type(self)._fn(c.data.to(torch.float64))
         return Column(saturating_double_to_integral(r, torch.int64),
@@ -274,14 +274,14 @@ class Round(Expression):
     def eval(self, ctx: EvalContext) -> AnyColumn:
         c = self.child.eval(ctx)
         dt = self.child.dtype
-        if isinstance(dt, T.DoubleType):
+        if isinstance(dt, T.FractionalType):
             p = 10.0 ** self.scale
             scaled = c.data.to(torch.float64) * p
             if self.half_even:
                 r = torch.round(scaled)
             else:
                 r = _signum(scaled) * torch.floor(torch.abs(scaled) + 0.5)
-            return Column(r / p, c.validity, dt)
+            return Column((r / p).to(c.data.dtype), c.validity, dt)
         if self.scale >= 0:
             return c
         p = 10 ** (-self.scale)

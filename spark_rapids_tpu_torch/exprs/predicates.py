@@ -19,7 +19,7 @@ true there (Spark compares doubles in its total order), while the JAX
 from __future__ import annotations
 
 import dataclasses
-import datetime as _dt
+import decimal
 from typing import Sequence
 
 import torch
@@ -35,7 +35,9 @@ from spark_rapids_tpu_torch.exprs.base import (
     Expression,
     Literal,
     broadcast_validity,
+    physical_value,
 )
+from spark_rapids_tpu_torch.exprs.cast import cast_column
 
 
 def _widen(dtypes: Sequence[T.DataType]) -> T.DataType:
@@ -63,8 +65,9 @@ def _result_type(dtypes: Sequence[T.DataType]) -> T.DataType:
 
 
 def _as_type(c: AnyColumn, dtype: T.DataType) -> AnyColumn:
-    """``c`` in ``dtype``: a number converted, or a NULL-typed column (a
-    NULL literal) as empty, NULL strings."""
+    """``c`` in ``dtype``: converted as a cast converts it (a DECIMAL
+    rescaled or made a double, a DATE made a TIMESTAMP at midnight), or
+    a NULL-typed column (a NULL literal) as empty, NULL strings."""
     if isinstance(dtype, T.StringType):
         if isinstance(c, StringColumn):
             return c
@@ -75,7 +78,11 @@ def _as_type(c: AnyColumn, dtype: T.DataType) -> AnyColumn:
             torch.zeros((n, 1), dtype=torch.uint8, device=c.validity.device),
             torch.zeros(n, dtype=torch.int32, device=c.validity.device),
             c.validity)
-    return Column(c.data.to(T.to_torch_dtype(dtype)), c.validity, dtype)
+    if c.dtype == dtype:
+        return c
+    if isinstance(c.dtype, T.NullType):
+        return Column(c.data.to(T.to_torch_dtype(dtype)), c.validity, dtype)
+    return cast_column(c, c.dtype, dtype)
 
 
 def _string_cmp(lc: StringColumn, rc: StringColumn):
@@ -116,10 +123,11 @@ class BinaryComparison(Expression):
         if isinstance(lc, StringColumn) or isinstance(rc, StringColumn):
             return _string_cmp(_as_type(lc, T.STRING),
                                _as_type(rc, T.STRING))
-        ct = T.common_type(self.left.dtype, self.right.dtype) \
-            or self.left.dtype
-        phys = T.to_torch_dtype(ct)
-        return _ordered_cmp(lc.data.to(phys), rc.data.to(phys))
+        ct = T.common_type(self.left.dtype, self.right.dtype)
+        if ct is None:  # a DATE against an integer: its day number
+            phys = T.to_torch_dtype(self.left.dtype)
+            return _ordered_cmp(lc.data.to(phys), rc.data.to(phys))
+        return _ordered_cmp(_as_type(lc, ct).data, _as_type(rc, ct).data)
 
     def eval(self, ctx: EvalContext) -> AnyColumn:
         lc = self.left.eval(ctx)
@@ -263,14 +271,6 @@ class IsNaN(_NeverNull):
         return torch.isnan(c.data) & c.validity
 
 
-def _day_number(v) -> int:
-    """A DATE literal's value (a ``datetime.date`` or its day number
-    since the epoch) as the day number."""
-    if isinstance(v, _dt.date):
-        return (v - _dt.date(1970, 1, 1)).days
-    return int(v)
-
-
 @dataclasses.dataclass(repr=False)
 class In(Expression):
     """value IN (literals...): NULL when the value is NULL, or when
@@ -296,15 +296,23 @@ class In(Expression):
             lit = Literal.of(v)
             if isinstance(c, StringColumn):
                 _, eq = _string_cmp(c, lit.eval(ctx))
-            elif isinstance(self.child.dtype, T.DateType):
-                # a DATE compares as its day number, the literal too
-                eq = c.data == _day_number(v)
+            elif isinstance(self.child.dtype, (T.DateType, T.TimestampType)):
+                # a DATE compares as its day number, a TIMESTAMP as its
+                # microseconds, the literal too
+                eq = c.data == physical_value(v, self.child.dtype)
+            elif isinstance(self.child.dtype, T.DecimalType) \
+                    and not isinstance(v, float):
+                # exact: a value with more digits than the scale matches
+                # no row
+                d = decimal.Decimal(v).scaleb(self.child.dtype.scale)
+                eq = c.data == int(d) if d == d.to_integral_value() \
+                    else torch.zeros_like(match)
             else:
                 ct = T.common_type(self.child.dtype, lit.dtype)
                 if ct is None:
                     raise TypeError(f"{v!r} does not compare with "
                                     f"{self.child.dtype}")
-                d = c.data.to(T.to_torch_dtype(ct))
+                d = _as_type(c, ct).data
                 eq = d == v
                 if d.is_floating_point() and v != v:
                     eq = torch.isnan(d)

@@ -292,7 +292,8 @@ class Lag(Lead):
     _sign = -1
 
 
-_NUMERIC_ORDER = (T.IntegerType, T.LongType, T.DoubleType, T.DateType)
+_NUMERIC_ORDER = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
+                  T.FloatType, T.DoubleType, T.DateType, T.TimestampType)
 
 
 @dataclasses.dataclass(repr=False)

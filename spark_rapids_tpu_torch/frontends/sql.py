@@ -26,7 +26,9 @@ and the common shapes around them):
   rank, dense_rank, row_number, lead, lag and aggregates ``OVER (...)``;
 - expressions: arithmetic, comparisons, AND / OR / NOT, BETWEEN, IN
   (literal lists), [NOT] LIKE, IS [NOT] NULL, CASE (searched and
-  simple), CAST(x AS t), EXTRACT of a DATE field, the scalar functions
+  simple), CAST(x AS t) (t also tinyint, smallint, float / real,
+  timestamp and decimal(p, s)), EXTRACT of a DATE or TIMESTAMP field
+  (hour, minute and second of a TIMESTAMP), the scalar functions
   of ``_SCALAR_FNS`` (upper, lower, length, substring, trim, concat,
   coalesce, abs, round, bround, pmod, year, month, day, quarter, nullif,
   if, least, greatest), ``||``, string, number and date literals, and
@@ -50,11 +52,14 @@ Output column names are the JAX frontend's, letter for letter: an
 unaliased aggregate is named for its function (``sum``), an unaliased
 computed column ``col<i>``.
 
-Left out of the port: the TIMESTAMP fields (EXTRACT of hour, minute and
-second) and casts to types the port lacks (smallint, tinyint, float,
-real, timestamp, decimal), which raise SqlError at parse time; the
-serving tier's ``prepare`` / ``PreparedQuery``; the plugin registry;
-and the sweep harness's feature kill switches.
+Left out of the port: the serving tier's ``prepare`` /
+``PreparedQuery``; the plugin registry; and the sweep harness's feature
+kill switches.  What the JAX frontend rejects, the port rejects with
+the same SqlError: ``hour()``, ``minute()``, ``date_format()``,
+``unix_timestamp()`` and ``from_unixtime()`` as functions (the last two
+exist in the DataFrame API), a ``timestamp '...'`` literal, and an
+interval of hours.  A number literal with a fraction parses as a
+DOUBLE, where Spark makes a DECIMAL (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -260,19 +265,17 @@ _SCALAR_FNS = {
 
 _EXTRACT_FIELDS = {
     "year": DT.Year, "month": DT.Month, "day": DT.DayOfMonth,
-    "quarter": DT.Quarter, "dayofyear": DT.DayOfYear,
+    "quarter": DT.Quarter, "hour": DT.Hour, "minute": DT.Minute,
+    "second": DT.Second, "dayofyear": DT.DayOfYear,
 }
-#: EXTRACT fields of a TIMESTAMP, a type the port does not have yet
-_TIME_FIELDS = ("hour", "minute", "second")
 
 _CAST_TYPES = {
     "int": T.INT, "integer": T.INT, "bigint": T.LONG, "long": T.LONG,
-    "double": T.DOUBLE, "string": T.STRING, "varchar": T.STRING,
-    "char": T.STRING, "boolean": T.BOOLEAN, "date": T.DATE,
+    "smallint": T.SHORT, "tinyint": T.BYTE, "float": T.FLOAT,
+    "real": T.FLOAT, "double": T.DOUBLE, "string": T.STRING,
+    "varchar": T.STRING, "char": T.STRING, "boolean": T.BOOLEAN,
+    "date": T.DATE, "timestamp": T.TIMESTAMP,
 }
-#: cast targets the JAX frontend names whose types the port lacks
-_UNPORTED_CAST_TYPES = ("smallint", "tinyint", "float", "real",
-                        "timestamp", "decimal")
 
 _EPOCH = _dt.date(1970, 1, 1)
 
@@ -799,15 +802,24 @@ class _Parser:
             e = self.expr()
             self.expect("as")
             tname = self.ident()
-            if tname in _UNPORTED_CAST_TYPES:
-                raise SqlError(f"cast to {tname} is not supported: the "
-                               "port has no such type yet")
-            if tname not in _CAST_TYPES:
-                raise SqlError(f"unsupported cast type {tname!r}")
-            dtype = _CAST_TYPES[tname]
-            if self.accept_op("("):  # varchar(n) etc.
-                while not self.accept_op(")"):
+            if tname == "decimal":
+                # DECIMAL(p, s)
+                self.expect_op("(")
+                p = int(self.peek()[1])
+                self.i += 1
+                sc = 0
+                if self.accept_op(","):
+                    sc = int(self.peek()[1])
                     self.i += 1
+                self.expect_op(")")
+                dtype: T.DataType = T.DecimalType(p, sc)
+            else:
+                if tname not in _CAST_TYPES:
+                    raise SqlError(f"unsupported cast type {tname!r}")
+                dtype = _CAST_TYPES[tname]
+                if self.accept_op("("):  # varchar(n) etc.
+                    while not self.accept_op(")"):
+                        self.i += 1
             self.expect_op(")")
             return C.Cast(e, dtype)
         if word == "extract":
@@ -817,9 +829,6 @@ class _Parser:
             self.expect("from")
             e = self.expr()
             self.expect_op(")")
-            if field in _TIME_FIELDS:
-                raise SqlError(f"extract of {field} needs the TIMESTAMP "
-                               "type, which the port does not have yet")
             if field not in _EXTRACT_FIELDS:
                 raise SqlError(f"unsupported extract field {field!r}")
             return _EXTRACT_FIELDS[field](e)

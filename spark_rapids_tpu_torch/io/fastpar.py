@@ -29,7 +29,12 @@ Scope (anything else makes ``read_file`` return None, and the caller
 reads the whole FILE with pyarrow, so a result never depends on which
 path ran): INT32 / INT64 / FLOAT / DOUBLE, and BYTE_ARRAY when every
 data page is dictionary-encoded; SNAPPY, GZIP, ZSTD or UNCOMPRESSED;
-data pages v1 and v2; no repetition levels.  A string dictionary is an
+data pages v1 and v2; no repetition levels.  A chunk's physical values
+become its logical type by reinterpretation (``_logical``): an INT32
+or INT64 DECIMAL's unscaled digits, a TIMESTAMP's count of its unit, a
+DATE's day number, a TINYINT's or SMALLINT's INT32; any other pair,
+and a FIXED_LEN_BYTE_ARRAY decimal, sends the file to pyarrow.  A
+string dictionary is an
 Arrow string array built from the page's own bytes, so NUL bytes are
 kept (the JAX decoder builds a numpy unicode array, which cuts a string
 at its first NUL); invalid UTF-8 sends the file to pyarrow, as there.
@@ -739,7 +744,7 @@ def _decode_chunks(chunks: list) -> list:
         lambda c: _decode_chunk_bytes(*c), chunks))
 
 
-def _eval_runtime_filter_mask(cols: dict, rfs
+def _eval_runtime_filter_mask(cols: dict, rfs, arrow_types: dict
                               ) -> tuple[Optional[np.ndarray], bool]:
     """(the AND of the runtime filters' keep-masks over the decoded
     chunks, complete): a dictionary chunk probes its dictionary once
@@ -752,6 +757,11 @@ def _eval_runtime_filter_mask(cols: dict, rfs
         fc = cols.get(name)
         if fc is None:
             return None, False  # a partial mask would miscount
+        want = arrow_types.get(name)
+        if want is not None and pa.types.is_timestamp(want) \
+                and want.unit != "us":
+            complete = False  # its values are not microseconds
+            continue
         if fc.codes is not None:
             dv = fc.dict_values
             if not (isinstance(dv, np.ndarray)
@@ -779,12 +789,12 @@ def _filter_project(cols: dict, filter_cols: dict, n_rows: int,
     chunks as ``pa.DictionaryArray`` (whatever the dictionary's size),
     the rest materialized for the kept rows only."""
     mask, applied = _eval_filter_mask(cols, filter_cols, n_rows,
-                                      engine_schema)
+                                      engine_schema, arrow_types)
     if counters is not None and applied < n_conjuncts:
         counters["filter_complete"] = False
     if runtime_filters:
-        rf_mask, rf_complete = _eval_runtime_filter_mask(cols,
-                                                         runtime_filters)
+        rf_mask, rf_complete = _eval_runtime_filter_mask(
+            cols, runtime_filters, arrow_types)
         if counters is not None and not rf_complete:
             counters["rf_complete"] = False
         if rf_mask is not None:
@@ -814,24 +824,59 @@ def _filter_project(cols: dict, filter_cols: dict, n_rows: int,
             codes = kept(fc.codes).view(np.int32)
             dvals = fc.dict_values
             if not isinstance(dvals, pa.Array):
-                dvals = pa.array(dvals)
+                dvals = _logical(dvals, want)  # the small dictionary side
+                if dvals is None:
+                    return None
             try:
                 if want is not None and dvals.type != want:
-                    dvals = dvals.cast(want)  # the small dictionary side
+                    dvals = dvals.cast(want)
             except (pa.ArrowException, ValueError):
                 return None
             arrays.append(pa.DictionaryArray.from_arrays(
                 pa.array(codes, mask=null_mask), dvals))
             continue
-        arr = pa.array(kept(fc.values), mask=null_mask)
-        if want is not None and arr.type != want:
-            # the physical type to the logical one (int32 -> date32)
-            try:
-                arr = arr.cast(want)
-            except (pa.ArrowException, ValueError):
-                return None
+        arr = _logical(kept(fc.values), want, null_mask)
+        if arr is None:
+            return None
         arrays.append(arr)
     return pa.Table.from_arrays(arrays, list(columns))
+
+
+def _logical(vals: np.ndarray, want, null_mask=None) -> Optional[pa.Array]:
+    """A chunk's physical values as its logical Arrow type ``want``, by
+    reinterpretation, never by a value cast: an INT32 or INT64 decimal
+    holds its unscaled digits (decimal128's low word, the high word its
+    sign), an INT64 timestamp its count of the column's unit, an INT32
+    date its day number, an INT32 TINYINT or SMALLINT its value.  None
+    when the pair is outside the decoder's scope (the file goes to
+    pyarrow)."""
+    kind = vals.dtype.kind
+    if want is None:
+        return pa.array(vals, mask=null_mask)
+    if pa.types.is_decimal(want):
+        if kind != "i" or want.precision > 18:
+            return None
+        v = vals.astype(np.int64, copy=False)
+        words = np.empty((len(v), 2), np.int64)
+        words[:, 0] = v
+        words[:, 1] = v >> 63
+        bitmap = None if null_mask is None else pa.py_buffer(
+            np.packbits(~null_mask, bitorder="little"))
+        return pa.Array.from_buffers(
+            pa.decimal128(want.precision, want.scale), len(v),
+            [bitmap, pa.py_buffer(words)])
+    if pa.types.is_timestamp(want) or pa.types.is_date32(want):
+        width = 8 if pa.types.is_timestamp(want) else 4
+        if kind != "i" or vals.dtype.itemsize != width:
+            return None
+        return pa.array(vals, mask=null_mask).view(want)
+    if pa.types.is_int8(want) or pa.types.is_int16(want):
+        if kind != "i":
+            return None
+        return pa.array(vals.astype(want.to_pandas_dtype()),
+                        mask=null_mask)
+    arr = pa.array(vals, mask=null_mask)
+    return arr if arr.type == want else None
 
 
 def _conjunct_columns(conjuncts, engine_schema) -> dict:
@@ -871,8 +916,21 @@ def _as_bool(res, n: int) -> np.ndarray:
     return np.asarray(pc.fill_null(res, False)).astype(bool)
 
 
+def _filter_values(vals: np.ndarray, want, null_mask=None) -> pa.Array:
+    """A chunk's values as a conjunct reads them: physical, as the
+    compiled comparisons take a DATE's day numbers and a DECIMAL's
+    unscaled digits, except a TIMESTAMP, whose unit the comparison
+    must know."""
+    if want is not None and pa.types.is_timestamp(want):
+        arr = _logical(vals, want, null_mask)
+        if arr is not None:
+            return arr
+    return pa.array(vals, mask=null_mask)
+
+
 def _eval_filter_mask(cols: dict, filter_cols: dict, n_rows: int,
-                      engine_schema) -> tuple[Optional[np.ndarray], int]:
+                      engine_schema, arrow_types: dict
+                      ) -> tuple[Optional[np.ndarray], int]:
     """(the AND of every single-column conjunct's mask, None to keep
     all; how many conjuncts it applied).
     A dictionary column ANDs its conjuncts' LUTs (and their results on
@@ -885,9 +943,10 @@ def _eval_filter_mask(cols: dict, filter_cols: dict, n_rows: int,
         if fc is None:
             continue
         fns = [fn for fn in map(compile_filter, conjs) if fn is not None]
+        want = arrow_types.get(name)
         if fc.codes is not None:
             dv = fc.dict_values
-            dv = dv if isinstance(dv, pa.Array) else pa.array(dv)
+            dv = dv if isinstance(dv, pa.Array) else _filter_values(dv, want)
             values = _eval_table(name, dv, engine_schema)
             nulls = _eval_table(name, pa.nulls(1, dv.type), engine_schema)
             lut, keep_null, used = np.ones(len(dv), bool), True, False
@@ -909,8 +968,8 @@ def _eval_filter_mask(cols: dict, filter_cols: dict, n_rows: int,
                 m = np.where(fc.validity, m, keep_null)
             mask = m if mask is None else mask & m
             continue
-        arr = pa.array(fc.values, mask=None
-                       if fc.validity is None else ~fc.validity)
+        arr = _filter_values(fc.values, want, None
+                             if fc.validity is None else ~fc.validity)
         table = _eval_table(name, arr, engine_schema)
         for fn in fns:
             try:

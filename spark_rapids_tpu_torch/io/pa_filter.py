@@ -11,7 +11,10 @@ Counterpart of ``spark_rapids_tpu/io/pa_filter.py``:
   uses ``cpu/engine.py::cpu_eval``.  A comparison with a floating
   operand follows Spark's total order (``_float_cmp``): NaN equals NaN
   and sorts above every value, as the device Filter has it, so no NaN
-  row is lost on the host.  NULL slots of a result count as false;
+  row is lost on the host.  Two TIMESTAMPs, or two DECIMALs of one
+  type, compare their int64 values (``_int64_cmp``); a TIMESTAMP or a
+  DECIMAL against another type does not compile.  NULL slots of a
+  result count as false;
 - application point 3 of ``plan/runtime_filter.py``: a runtime join
   filter's keep-mask over a decoded key column, computed before the
   batch is uploaded.
@@ -25,6 +28,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
+from spark_rapids_tpu_torch.columnar.arrow import US_PER_UNIT, fixed_view
 from spark_rapids_tpu_torch.exprs import base as B
 
 
@@ -50,6 +54,8 @@ _CMP = {
     "NotEqual": pc.not_equal,
 }
 _FLOATING = ("FloatType", "DoubleType")
+#: types compared by their int64 physical values on the host
+_INT64_BACKED = ("TimestampType", "DecimalType")
 
 
 def _compile(e) -> Callable:  # noqa: C901 - one branch a class
@@ -65,6 +71,8 @@ def _compile(e) -> Callable:  # noqa: C901 - one branch a class
         if len(kids) != 2:
             raise _Unsupported
         lf, rf = _compile(kids[0]), _compile(kids[1])
+        if any(type(k.dtype).__name__ in _INT64_BACKED for k in kids):
+            return _int64_cmp(name, kids)
         if any(type(k.dtype).__name__ in _FLOATING for k in kids):
             return _float_cmp(name, lf, rf)
         op = _CMP[name]
@@ -83,6 +91,66 @@ def _compile(e) -> Callable:  # noqa: C901 - one branch a class
     # ``In`` keeps its list as plain values, not Literal children: it
     # does not compile, as in the JAX package
     raise _Unsupported
+
+
+def _int64_cmp(name: str, kids) -> Callable:
+    """A comparison of TIMESTAMPs or of DECIMALs of one type, as the
+    device compares them: their int64 values (microseconds, unscaled
+    digits).  Operands of two types would compare in a common type,
+    and do not compile."""
+    if kids[0].dtype != kids[1].dtype or name not in _NP_CMP:
+        raise _Unsupported
+
+    def side(k):
+        if isinstance(k, B.Literal):
+            v = B.physical_value(k.value, k.dtype)
+            return lambda t: (v, k.value is not None)
+        if not isinstance(k, B.BoundReference):
+            raise _Unsupported
+        i = k.ordinal
+
+        def fn(t):
+            col = t.column(i)
+            col = col.combine_chunks() if isinstance(
+                col, pa.ChunkedArray) else col
+            if pa.types.is_dictionary(col.type):
+                col = col.dictionary_decode()
+            vals, valid = _physical_int64(col)
+            return vals, True if valid is None else valid
+        return fn
+
+    lf, rf = side(kids[0]), side(kids[1])
+    op = _NP_CMP[name]
+
+    def fn(t):
+        (lv, lok), (rv, rok) = lf(t), rf(t)
+        valid = np.logical_and(lok, rok)
+        out = np.asarray(op(lv, rv), bool)
+        out = np.broadcast_to(out, (t.num_rows,))
+        valid = np.broadcast_to(valid, (t.num_rows,))
+        return pa.array(out, pa.bool_(), mask=~valid)
+
+    return fn
+
+
+_NP_CMP = {
+    "GreaterThan": np.greater,
+    "GreaterThanOrEqual": np.greater_equal,
+    "LessThan": np.less,
+    "LessThanOrEqual": np.less_equal,
+    "EqualTo": np.equal,
+    "NotEqual": np.not_equal,
+}
+
+
+def _physical_int64(arr) -> tuple:
+    """(int64 values, validity or None) of a TIMESTAMP (microseconds)
+    or DECIMAL (unscaled) array."""
+    if pa.types.is_decimal(arr.type):
+        vals = np.array(fixed_view(arr), np.int64)
+        valid = np.asarray(pc.is_valid(arr)) if arr.null_count else None
+        return vals, valid
+    return _int64_values(arr)
 
 
 def _float_cmp(name: str, lf: Callable, rf: Callable) -> Callable:
@@ -122,12 +190,14 @@ def _float_cmp(name: str, lf: Callable, rf: Callable) -> Callable:
 def _int64_values(arr) -> Optional[tuple]:
     """An Arrow array -> (int64 values, bool validity, or None when it
     has no NULL) in the engine's integer key representation (epoch days
-    for a date); None for any other type.  The values are read straight
-    from the data buffer, so a NULL slot holds whatever is there: its
-    validity drops it."""
+    for a date, microseconds for a timestamp); None for any other type.
+    The values are read straight from the data buffer, so a NULL slot
+    holds whatever is there: its validity drops it."""
     t = arr.type
     if pa.types.is_date32(t):
         t = pa.int32()
+    elif pa.types.is_timestamp(t):
+        t = pa.int64()
     elif not pa.types.is_signed_integer(t):
         return None
     width = t.bit_width // 8
@@ -136,6 +206,10 @@ def _int64_values(arr) -> Optional[tuple]:
     vals = np.frombuffer(arr.buffers()[1], np.dtype(f"<i{width}"),
                          count=len(arr), offset=arr.offset * width)
     valid = np.asarray(pc.is_valid(arr)) if arr.null_count else None
+    if pa.types.is_timestamp(arr.type):  # to microseconds
+        if arr.type.unit == "ns":
+            return np.floor_divide(vals, 1000), valid
+        return vals * US_PER_UNIT[arr.type.unit], valid
     return vals.astype(np.int64, copy=False), valid
 
 

@@ -8,9 +8,10 @@ it is decoded:
   pushed into the scan (``row_group_may_match``)?  A comparison of one
   column with a literal is checked against [min, max] (a NaN in the
   literal or the statistics keeps the group, and so does ``>`` / ``>=``
-  on a floating column: NaN rows pass it and the statistics omit them,
-  where the JAX function prunes), IS NULL / IS NOT NULL against the
-  null count, anything else keeps the group;
+  on a FLOAT or DOUBLE column: NaN rows pass it and the statistics omit
+  them, where the JAX function prunes), DATE, TIMESTAMP and DECIMAL
+  statistics in the literal's terms (``_in_stat_terms``), IS NULL / IS
+  NOT NULL against the null count, anything else keeps the group;
 - the runtime filter's [min, max] against the group's key statistics,
   application point 1 of ``plan/runtime_filter.py``.
 
@@ -23,6 +24,7 @@ directories.
 from __future__ import annotations
 
 import datetime
+import decimal
 import math
 from typing import Optional, Sequence
 
@@ -46,9 +48,17 @@ def _col_name(e: B.Expression, schema: T.Schema) -> Optional[str]:
 
 
 def _lit_value(e: B.Expression):
+    """A literal's value; a TIMESTAMP literal as ``_TsMicros``, so that
+    only a timestamp column's statistics compare with it."""
     if isinstance(e, B.Literal) and e.value is not None:
+        if isinstance(e.dtype, T.TimestampType):
+            return _TsMicros(B.physical_value(e.value, e.dtype))
         return e.value
     return None
+
+
+class _TsMicros(int):
+    """A TIMESTAMP literal's microseconds since the epoch."""
 
 
 _FLIP = {P.LessThan: P.GreaterThan, P.LessThanOrEqual: P.GreaterThanOrEqual,
@@ -126,8 +136,10 @@ def row_group_may_match(conjuncts: Sequence[B.Expression],
         st = stats_by_name.get(name)
         if st is None or not st.has_min_max:
             continue
-        v = _coerce_like(v, st.min)
-        if not _range_may_match(op, v, st.min, st.max):
+        coerced = _in_stat_terms(v, st.min, st.max)
+        if coerced is None:
+            continue
+        if not _range_may_match(op, *coerced):
             return False
         # a comparison is never true of a NULL
         if st.null_count is not None and st.null_count >= nrows:
@@ -141,9 +153,31 @@ def _coerce_like(v, stat_sample):
     literals are epoch days."""
     if isinstance(stat_sample, datetime.date) \
             and not isinstance(stat_sample, datetime.datetime) \
-            and isinstance(v, int):
+            and isinstance(v, int) and not isinstance(v, _TsMicros):
         return datetime.date(1970, 1, 1) + datetime.timedelta(days=v)
     return v
+
+
+def _in_stat_terms(v, lo, hi):
+    """(literal, min, max) in one representation, as the device compares
+    them; None when they do not compare (the group is kept):
+
+    - a DATE column's statistics against epoch days (``_coerce_like``);
+    - a TIMESTAMP column's come as ``datetime.datetime``: both sides in
+      microseconds, and only against a TIMESTAMP literal;
+    - a DECIMAL column's come as ``Decimal``: against a floating literal
+      the device compares the decimal converted to double, a monotone
+      rounding, so the statistics are rounded the same way; against an
+      integer or a decimal literal the comparison is exact."""
+    if isinstance(lo, datetime.datetime):
+        if not isinstance(v, _TsMicros):
+            return None
+        return int(v), _stat_to_int(lo), _stat_to_int(hi)
+    if isinstance(v, _TsMicros):
+        return None
+    if isinstance(lo, decimal.Decimal) and isinstance(v, float):
+        return v, float(lo), float(hi)
+    return _coerce_like(v, lo), lo, hi
 
 
 def _stat_to_int(v) -> Optional[int]:
@@ -154,7 +188,11 @@ def _stat_to_int(v) -> Optional[int]:
     if isinstance(v, int):
         return v
     if isinstance(v, datetime.datetime):
-        return None  # the port has no timestamp type
+        # exact integer microseconds: total_seconds() as a float rounds
+        # at ~0.25 us, enough to shift a boundary and prune wrongly
+        d = v - datetime.datetime(1970, 1, 1, tzinfo=v.tzinfo)
+        return (d.days * 86_400_000_000 + d.seconds * 1_000_000
+                + d.microseconds)
     if isinstance(v, datetime.date):
         return (v - datetime.date(1970, 1, 1)).days
     return None

@@ -39,9 +39,13 @@ A file is read in four steps, each the JAX scan's:
    (the size the memory runtime expects; a batch the filters emptied is
    not emitted) and uploaded (``columnar/arrow.py::stage_upload``).
 
+Each file's footer is checked against the datetime rebase policy
+(``io/rebase.py``) when it is opened, before pruning.
+
 The conf keys (``scan.fastDecode``, ``scan.hostPrefilter``,
 ``scan.maxReadBatchSizeBytes``: the most bytes a row group's needed
-columns may decode to on the fast path, 128 MiB) are read by the
+columns may decode to on the fast path, 128 MiB, and
+``parquet.datetimeRebaseModeInRead``) are read by the
 planner on the session's thread and handed to the exec, as the JAX
 ``execute_partition`` warns they must be.  The JAX package's
 accumulation across row groups and ``_harmonize_dicts`` serve its wire
@@ -110,6 +114,7 @@ from spark_rapids_tpu_torch.io.pushdown import (
     runtime_range_may_match,
     split_conjuncts,
 )
+from spark_rapids_tpu_torch.io.rebase import check_rebase
 from spark_rapids_tpu_torch.parallel.pipeline import prefetch
 
 #: the scan's counters, besides the host split
@@ -145,7 +150,8 @@ class ParquetScanExec(TpuExec):
                  estimated_rows: Optional[int] = None,
                  runtime: Optional[TaskRuntime] = None,
                  fast_decode: bool = False, host_prefilter: bool = True,
-                 max_decoded_bytes: int = 128 << 20):
+                 max_decoded_bytes: int = 128 << 20,
+                 rebase_mode: str = "EXCEPTION"):
         super().__init__()
         self.runtime = runtime or TaskRuntime.serial()
         self.paths = list(paths)
@@ -162,6 +168,7 @@ class ParquetScanExec(TpuExec):
         self.fast_decode = fast_decode
         self.host_prefilter = host_prefilter
         self.max_decoded_bytes = max_decoded_bytes
+        self.rebase_mode = rebase_mode
         #: the condition of the Filter above, pushed by the planner
         self.pushed_filter: Optional[Expression] = None
         #: the planner elided that Filter: the prefilter must be exact
@@ -323,6 +330,8 @@ class ParquetScanExec(TpuExec):
                    if isinstance(f.dtype, T.StringType)]
         t0 = time.perf_counter_ns()
         f = pq.ParquetFile(self.paths[fi], read_dictionary=strings)
+        check_rebase(self.paths[fi], f.metadata, self._read_schema,
+                     self.rebase_mode)
         keep = self._keep_row_groups(f, rfs)
         tables, filter_done, rf_done = None, False, False
         if keep and self.fast_decode:

@@ -73,7 +73,15 @@ GROUPBY_OPS = ("sum", "count", "count_star", "min", "max", *FIRST_LAST)
 
 
 def _sum_dtype(dt: T.DataType) -> T.DataType:
-    return T.DOUBLE if isinstance(dt, T.DoubleType) else T.LONG
+    """Spark's sum type: DOUBLE for a FLOAT or DOUBLE, DECIMAL(p + 10, s)
+    for a DECIMAL(p, s), capped at precision 18 (the sum is an int64 sum
+    of unscaled values), LONG otherwise."""
+    if isinstance(dt, T.FractionalType):
+        return T.DOUBLE
+    if isinstance(dt, T.DecimalType):
+        return T.DecimalType(min(dt.precision + 10,
+                                 T.DecimalType.MAX_PRECISION), dt.scale)
+    return T.LONG
 
 
 def agg_output_dtype(spec: AggSpec, value_dtype: Optional[T.DataType]
@@ -103,7 +111,7 @@ def _coded_key_domains(key_cols: Sequence[AnyColumn]) -> Optional[list[int]]:
         if isinstance(kc, StringColumn):
             k = int(kc.dict_chars.shape[0])
         else:
-            if isinstance(kc.dtype, T.DoubleType):
+            if isinstance(kc.dtype, T.FractionalType):
                 # a Parquet dictionary may hold -0.0 and 0.0 (or two NaN
                 # payloads) as distinct entries; raw codes would split
                 # groups SQL merges, so float keys take the sort path

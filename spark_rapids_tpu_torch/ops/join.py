@@ -33,7 +33,8 @@ from spark_rapids_tpu_torch.columnar.batch import (
     concat_batches,
     null_batch,
 )
-from spark_rapids_tpu_torch.columnar.column import AnyColumn, Column
+from spark_rapids_tpu_torch.columnar.column import AnyColumn
+from spark_rapids_tpu_torch.exprs.cast import cast_column
 from spark_rapids_tpu_torch.ops.sort import (
     column_sort_keys,
     group_starts,
@@ -51,9 +52,11 @@ def key_type(a: T.DataType, b: T.DataType) -> T.DataType:
 
 
 def _widen(col: AnyColumn, dtype: T.DataType) -> AnyColumn:
+    """A key in the type it compares in, converted as a cast converts it
+    (a DECIMAL rescaled, a DATE made a TIMESTAMP)."""
     if col.dtype == dtype:
         return col
-    return Column(col.data.to(T.to_torch_dtype(dtype)), col.validity, dtype)
+    return cast_column(col, col.dtype, dtype)
 
 
 def _concat_key_cols(build: Sequence[AnyColumn],

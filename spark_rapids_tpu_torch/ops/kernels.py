@@ -120,7 +120,8 @@ def _check_launch(name: str, err: int) -> None:
 # --------------------------------------------------------------------- #
 
 #: column type tags of csrc/hash_string.cu
-BOOL_TAG, INT32_TAG, INT64_TAG, FLOAT64_TAG, STRING_TAG = range(5)
+(BOOL_TAG, INT32_TAG, INT64_TAG, FLOAT64_TAG, STRING_TAG, INT8_TAG,
+ INT16_TAG, FLOAT32_TAG) = range(8)
 #: shared memory one block may use on sm_90 (227 KB)
 SMEM_PER_BLOCK = 232448
 #: bytes of staged chars a tile aims at
@@ -289,12 +290,19 @@ hash_string = HashString()
 
 DEFAULT_SEED = 42
 
-#: SQL type -> (type tag, physical dtype) of a fixed-width column
+#: SQL type -> (type tag, physical dtype) of a fixed-width column; a
+#: TIMESTAMP (microseconds) and a DECIMAL (unscaled value) hash their
+#: int64 as a LONG does, in place
 _FIXED_TAGS = {
     T.BooleanType: (BOOL_TAG, torch.bool),
+    T.ByteType: (INT8_TAG, torch.int8),
+    T.ShortType: (INT16_TAG, torch.int16),
     T.IntegerType: (INT32_TAG, torch.int32),
     T.DateType: (INT32_TAG, torch.int32),
     T.LongType: (INT64_TAG, torch.int64),
+    T.TimestampType: (INT64_TAG, torch.int64),
+    T.DecimalType: (INT64_TAG, torch.int64),
+    T.FloatType: (FLOAT32_TAG, torch.float32),
     T.DoubleType: (FLOAT64_TAG, torch.float64),
 }
 
@@ -319,6 +327,11 @@ def _check_column(col: AnyColumn, n: int, device: torch.device) -> None:
         if tag is None:
             raise TypeError(f"murmur3 unsupported for {col.dtype}")
         _check_tensor(f"{col.dtype} data", col.data, tag[1], (n,), device)
+        if device.type == "cuda" \
+                and col.data.data_ptr() % col.data.element_size():
+            # the kernel reads an element with one load of its size
+            raise ValueError(f"{col.dtype} data is not aligned to its "
+                             f"{col.data.element_size()}-byte elements")
     _check_tensor("validity", col.validity, torch.bool, (n,), device)
 
 
@@ -328,6 +341,7 @@ def _hash_column_reference(col: AnyColumn,
     keep the seed."""
     from spark_rapids_tpu_torch.exprs.hashing import (
         _double_to_bits,
+        _float_to_bits,
         from_int32_bits,
         hash_int32_block,
         hash_int64_blocks,
@@ -337,10 +351,15 @@ def _hash_column_reference(col: AnyColumn,
     if isinstance(col, StringColumn):
         h = from_int32_bits(hash_string_bytes_reference(
             col.chars, col.lengths, to_int32_bits(seed)))
-    elif isinstance(col.dtype, (T.BooleanType, T.IntegerType, T.DateType)):
+    elif isinstance(col.dtype, (T.BooleanType, T.ByteType, T.ShortType,
+                                T.IntegerType, T.DateType)):
+        # TINYINT and SMALLINT sign-extend to an int
         h = hash_int32_block(col.data.to(torch.int32), seed)
-    elif isinstance(col.dtype, T.LongType):
+    elif isinstance(col.dtype, (T.LongType, T.TimestampType,
+                                T.DecimalType)):
         h = hash_int64_blocks(col.data, seed)
+    elif isinstance(col.dtype, T.FloatType):
+        h = hash_int32_block(_float_to_bits(col.data), seed)
     elif isinstance(col.dtype, T.DoubleType):
         h = hash_int64_blocks(_double_to_bits(col.data), seed)
     else:

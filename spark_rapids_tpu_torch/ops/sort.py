@@ -7,12 +7,14 @@ SQL order; a stable lexicographic sort of those keys (one stable
 Group-by, the join's dense key ranks and ORDER BY all sort here.
 
 Key transforms:
-- integers, dates, booleans: the value (descending: bitwise NOT, which
-  reverses the order without overflow); a 32-bit value shares one key
-  with its NULL flag;
-- doubles: the IEEE bits as a signed integer in the float's total
-  order, with every NaN the canonical NaN (above +inf, as Spark sorts
-  it) and -0.0 strictly below 0.0.  ``grouping=True`` folds -0.0 into
+- integers, dates, booleans, timestamps and decimals (int64
+  microseconds and unscaled values): the value (descending: bitwise
+  NOT, which reverses the order without overflow); a value of 32 bits
+  or fewer shares one key with its NULL flag;
+- floats and doubles (a float widened exactly): the IEEE bits as a
+  signed integer in the float's total order, with every NaN the
+  canonical NaN (above +inf, as Spark sorts it) and -0.0 strictly below
+  0.0.  ``grouping=True`` folds -0.0 into
   0.0 instead, so that equal keys are exactly equal grouping values;
 - strings: big-endian 7-byte chunks of the zero-padded byte matrix (7
   keeps every chunk non-negative, so the signed sort is the unsigned
@@ -49,8 +51,10 @@ class SortOrder:
 
 def double_order_bits(x: torch.Tensor, grouping: bool = False
                       ) -> torch.Tensor:
-    """float64 -> int64 whose signed order is the float's total order,
-    every NaN canonical; ``grouping`` folds -0.0 into 0.0."""
+    """float64 (or float32, widened exactly) -> int64 whose signed order
+    is the float's total order, every NaN canonical; ``grouping`` folds
+    -0.0 into 0.0."""
+    x = x.to(torch.float64)
     if grouping:
         x = torch.where(x == 0, torch.zeros_like(x), x)
     bits = x.contiguous().view(torch.int64)

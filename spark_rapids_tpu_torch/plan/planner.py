@@ -122,6 +122,7 @@ from spark_rapids_tpu_torch.exprs import aggregates as AG
 from spark_rapids_tpu_torch.exprs import arithmetic as A
 from spark_rapids_tpu_torch.exprs import base as B
 from spark_rapids_tpu_torch.exprs import datetime as DT
+from spark_rapids_tpu_torch.exprs import decimal as DEC
 from spark_rapids_tpu_torch.exprs import math as M
 from spark_rapids_tpu_torch.exprs import predicates as P
 from spark_rapids_tpu_torch.exprs import strings as S
@@ -135,6 +136,7 @@ from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.hashing import Murmur3Hash
 from spark_rapids_tpu_torch.exprs.subquery import ScalarSubquery, scalar_value
 from spark_rapids_tpu_torch.io.pa_filter import compile_filter
+from spark_rapids_tpu_torch.io.rebase import REBASE_MODE_READ
 from spark_rapids_tpu_torch.io.scan import ArrowSourceExec, ParquetScanExec
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.ops.partition import (
@@ -165,34 +167,49 @@ def register_expr(cls: type, sig: TS.ExprSig) -> None:
 
 
 _ANY = TS.ExprSig(TS.ALL)
+_ARITH = TS.ExprSig(
+    TS.NUMERIC + TS.NULLSIG,
+    "decimal arithmetic falls back (unscaled-value math would be wrong)")
 _NUMERIC = TS.ExprSig(TS.NUMERIC + TS.NULLSIG)
 _LOGIC = TS.ExprSig(TS.BOOLEAN + TS.NULLSIG)
 _DT = TS.ExprSig(TS.DATETIME + TS.INTEGRAL + TS.NULLSIG)
 _STR = TS.ExprSig(TS.STRING + TS.INTEGRAL + TS.NULLSIG,
                   "needle and length parameters are literals")
 
+# the JAX planner's signatures, class by class
 for _sig, _classes in (
     (_ANY, (B.Alias, B.BoundReference, B.ColumnReference, B.Literal,
-            P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
-            P.GreaterThanOrEqual, P.EqualNullSafe, P.In, P.IsNull,
-            P.IsNotNull, P.AtLeastNNonNulls, P.Coalesce, P.If, P.CaseWhen,
-            Murmur3Hash)),
-    (_NUMERIC, (A.Add, A.Subtract, A.Multiply, A.Divide, A.IntegralDivide,
-                A.Remainder, A.Pmod, A.UnaryMinus, A.UnaryPositive, A.Abs,
-                A.Least, A.Greatest, P.IsNaN)),
+            P.IsNull, P.IsNotNull, P.AtLeastNNonNulls)),
+    (TS.ExprSig(TS.NUMERIC + TS.DECIMAL + TS.NULLSIG,
+                "decimal results wider than precision 18 fall back"),
+     (A.Add, A.Subtract)),
+    (_ARITH, (A.Multiply, A.Divide, A.IntegralDivide, A.Remainder, A.Pmod,
+              A.UnaryMinus, A.UnaryPositive, A.Abs, A.Least, A.Greatest)),
+    (_ANY, (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
+            P.GreaterThanOrEqual, P.EqualNullSafe, P.In, P.Coalesce, P.If,
+            P.CaseWhen)),
+    (_NUMERIC, (P.IsNaN,)),
     (_LOGIC, (P.And, P.Or, P.Not)),
+    (TS.ExprSig(TS.COMMON + TS.NULLSIG), (Murmur3Hash,)),
+    (TS.ExprSig(TS.DECIMAL + TS.NULLSIG),
+     (DEC.PromotePrecision, DEC.CheckOverflow, DEC.UnscaledValue)),
+    (TS.ExprSig(TS.INTEGRAL + TS.DECIMAL + TS.NULLSIG), (DEC.MakeDecimal,)),
     (_NUMERIC, (M.Sqrt, M.Cbrt, M.Exp, M.Expm1, M.Sin, M.Cos, M.Tan, M.Cot,
-             M.Asin, M.Acos, M.Atan, M.Sinh, M.Cosh, M.Tanh, M.Asinh,
-             M.Acosh, M.Atanh, M.Rint, M.Signum, M.ToDegrees,
-             M.ToRadians, M.Log, M.Log10, M.Log2, M.Log1p, M.Logarithm,
-             M.Pow, M.Ceil, M.Floor, M.Round, M.BRound,
-             M.KnownFloatingPointNormalized)),
-    (TS.ExprSig(TS.TypeSig.of("double") + TS.NULLSIG,
+                M.Asin, M.Acos, M.Atan, M.Sinh, M.Cosh, M.Tanh, M.Asinh,
+                M.Acosh, M.Atanh, M.Rint, M.Signum, M.ToDegrees,
+                M.ToRadians, M.Log, M.Log10, M.Log2, M.Log1p, M.Logarithm,
+                M.Pow, M.Ceil, M.Floor, M.Round, M.BRound,
+                M.KnownFloatingPointNormalized)),
+    (TS.ExprSig(TS.TypeSig.of("float", "double") + TS.NULLSIG,
                 "NaN semantics need floating inputs"),
      (M.NaNvl, M.NormalizeNaNAndZero)),
     (_DT, (DT.Year, DT.Month, DT.DayOfMonth, DT.DayOfWeek, DT.WeekDay,
-           DT.DayOfYear, DT.Quarter, DT.LastDay, DT.DateAdd, DT.DateSub,
-           DT.AddMonths, DT.DateDiff)),
+           DT.DayOfYear, DT.Quarter, DT.LastDay, DT.Hour, DT.Minute,
+           DT.Second, DT.DateAdd, DT.DateSub, DT.AddMonths, DT.DateDiff,
+           DT.UnixTimestampFromTs, DT.DateFormatClass, DT.TimeAdd,
+           DT.TimeSub, DT.DateAddInterval)),
+    (TS.ExprSig(TS.INTEGRAL + TS.NULLSIG, "epoch seconds input"),
+     (DT.FromUnixTime,)),
     (_STR, (S.Length, S.Upper, S.Lower, S.StartsWith, S.EndsWith,
             S.Contains, S.Like, S.Substring, S.StringTrim,
             S.StringTrimLeft, S.StringTrimRight, S.Concat)),
@@ -204,18 +221,20 @@ for _sig, _classes in (
 #: the aggregates the device group-by computes
 SUPPORTED_AGGS = (AG.Sum, AG.Count, AG.CountStar, AG.Min, AG.Max,
                   AG.Average, AG.First, AG.Last)
-_VALUE_SIG = TS.ExprSig(TS.NUMERIC + TS.DATETIME + TS.BOOLEAN + TS.NULLSIG,
-                        "string min / max / first / last fall back")
-#: aggregate class -> the input types the device group-by takes
+_VALUE_TYPES = TS.NUMERIC + TS.DECIMAL + TS.DATETIME + TS.BOOLEAN \
+    + TS.NULLSIG
+#: aggregate class -> the input types the device group-by takes (the
+#: JAX ``AGG_SIGS``)
 AGG_SIGS: dict[type, TS.ExprSig] = {
-    AG.Sum: TS.ExprSig(TS.NUMERIC + TS.NULLSIG),
-    AG.Average: TS.ExprSig(TS.NUMERIC + TS.NULLSIG),
+    AG.Sum: TS.ExprSig(TS.NUMERIC + TS.DECIMAL + TS.NULLSIG),
+    AG.Average: TS.ExprSig(TS.NUMERIC + TS.NULLSIG,
+                           "decimal avg needs scale-aware division"),
     AG.Count: TS.ExprSig(TS.ALL),
     AG.CountStar: TS.ExprSig(TS.ALL),
-    AG.Min: _VALUE_SIG,
-    AG.Max: _VALUE_SIG,
-    AG.First: _VALUE_SIG,
-    AG.Last: _VALUE_SIG,
+    AG.Min: TS.ExprSig(_VALUE_TYPES, "string min/max falls back"),
+    AG.Max: TS.ExprSig(_VALUE_TYPES, "string min/max falls back"),
+    AG.First: TS.ExprSig(_VALUE_TYPES),
+    AG.Last: TS.ExprSig(_VALUE_TYPES),
 }
 
 #: logical node class -> its switch, under the JAX package's key names
@@ -444,7 +463,8 @@ class Planner:
                 p.estimated_rows(), self.runtime,
                 fast_decode=self.conf.get(C.FAST_DECODE),
                 host_prefilter=self.conf.get(C.HOST_PREFILTER),
-                max_decoded_bytes=self.conf.get(C.MAX_READ_BATCH_BYTES))
+                max_decoded_bytes=self.conf.get(C.MAX_READ_BATCH_BYTES),
+                rebase_mode=self.conf.get(REBASE_MODE_READ))
         if isinstance(p, L.InMemoryRelation):
             return ArrowSourceExec(p.table, p.schema, self.device,
                                    self.conf.get(C.BATCH_ROWS),

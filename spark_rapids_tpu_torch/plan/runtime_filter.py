@@ -71,8 +71,8 @@ from spark_rapids_tpu_torch.exprs import hashing
 ELIGIBLE_JOIN_TYPES = ("inner", "left_semi")
 
 #: key types hashed as one 4-byte block, and as an 8-byte value
-_SUPPORTED_32 = (T.IntegerType, T.DateType)
-_SUPPORTED_64 = (T.LongType,)
+_SUPPORTED_32 = (T.ByteType, T.ShortType, T.IntegerType, T.DateType)
+_SUPPORTED_64 = (T.LongType, T.TimestampType)
 
 #: Murmur3 seeds of the two lanes, h_i = h1 + i*h2 mod m (the JAX
 #: package's: Spark's default seed and the classic Murmur3 test seed)

@@ -1,7 +1,9 @@
 """Declarative type-support signatures driving plan tagging.
 
-Counterpart of ``spark_rapids_tpu/plan/typesig.py`` over the port's
-types (BOOLEAN, INT, LONG, DOUBLE, STRING, DATE and NULL).  Every
+Counterpart of ``spark_rapids_tpu/plan/typesig.py``, with its kinds and
+their order; the port has the scalar types (BOOLEAN, TINYINT, SMALLINT,
+INT, LONG, FLOAT, DOUBLE, DECIMAL, STRING, DATE, TIMESTAMP and NULL),
+not the nested ones, whose kinds are named but never produced.  Every
 expression and aggregate rule of the planner declares the input types
 its device version handles; tagging checks the declarations, not the
 operator code, and turns each unsupported child type into a
@@ -18,15 +20,22 @@ from spark_rapids_tpu_torch import types as T
 
 _KIND_OF = {
     T.BooleanType: "boolean",
+    T.ByteType: "byte",
+    T.ShortType: "short",
     T.IntegerType: "int",
     T.LongType: "long",
+    T.FloatType: "float",
     T.DoubleType: "double",
     T.StringType: "string",
     T.DateType: "date",
+    T.TimestampType: "timestamp",
+    T.DecimalType: "decimal",
     T.NullType: "null",
 }
 
-KIND_ORDER = ["boolean", "int", "long", "double", "string", "date", "null"]
+KIND_ORDER = ["boolean", "byte", "short", "int", "long", "float",
+              "double", "decimal", "string", "date", "timestamp",
+              "null", "array", "struct", "map"]
 
 
 def kind_of(dtype: T.DataType) -> str:
@@ -54,13 +63,17 @@ class TypeSig:
 
 
 BOOLEAN = TypeSig.of("boolean")
-INTEGRAL = TypeSig.of("int", "long")
-NUMERIC = INTEGRAL + TypeSig.of("double")
+INTEGRAL = TypeSig.of("byte", "short", "int", "long")
+NUMERIC = INTEGRAL + TypeSig.of("float", "double")
 STRING = TypeSig.of("string")
-DATETIME = TypeSig.of("date")
+DATETIME = TypeSig.of("date", "timestamp")
+DECIMAL = TypeSig.of("decimal")
 NULLSIG = TypeSig.of("null")
-#: every type of the port: each sorts, compares, groups and hashes
-ALL = NUMERIC + BOOLEAN + STRING + DATETIME + NULLSIG
+#: what the columnar kernels handle alike (the reference's
+#: commonCudfTypes)
+COMMON = NUMERIC + BOOLEAN + STRING + DATETIME
+#: every type of the port: each sorts, compares and groups
+ALL = COMMON + DECIMAL + NULLSIG
 
 
 @dataclasses.dataclass(frozen=True)

@@ -76,6 +76,7 @@ from spark_rapids_tpu_torch.exprs.base import (
     lit,
 )
 from spark_rapids_tpu_torch.exprs.cast import Cast
+from spark_rapids_tpu_torch.exprs.datetime import DateFormatClass, FromUnixTime
 from spark_rapids_tpu_torch.exprs.window import WindowExpression
 from spark_rapids_tpu_torch.execs import retry as _retry
 from spark_rapids_tpu_torch.memory import device_manager
@@ -88,7 +89,7 @@ from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 
 __all__ = ["TorchSession", "DataFrame", "col", "lit", "sum_", "avg",
            "count", "count_star", "count_distinct", "min_", "max_",
-           "first", "last"]
+           "first", "last", "from_unixtime", "date_format"]
 
 AggLike = Union[NamedAgg, AggregateFunction, tuple]
 
@@ -127,6 +128,14 @@ def first(e, ignore_nulls: bool = False) -> First:
 
 def last(e, ignore_nulls: bool = False) -> Last:
     return Last(_column(e), ignore_nulls)
+
+
+def from_unixtime(e, fmt: str = "yyyy-MM-dd HH:mm:ss") -> FromUnixTime:
+    return FromUnixTime(_column(e), fmt)
+
+
+def date_format(e, fmt: str = "yyyy-MM-dd") -> DateFormatClass:
+    return DateFormatClass(_column(e), fmt)
 
 
 def _coerce_union_member(plan: L.LogicalPlan,

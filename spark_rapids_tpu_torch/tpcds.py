@@ -368,6 +368,94 @@ def make_catalog_store_sales(dirpath: str, n_files: int,
     return paths
 
 
+#: store_sales' twelve money columns, DECIMAL(7,2) in the spec
+MONEY_COLUMNS = ("ss_wholesale_cost", "ss_list_price", "ss_sales_price",
+                 "ss_ext_discount_amt", "ss_ext_sales_price",
+                 "ss_ext_wholesale_cost", "ss_ext_list_price", "ss_ext_tax",
+                 "ss_coupon_amt", "ss_net_paid", "ss_net_paid_inc_tax",
+                 "ss_net_profit")
+MONEY_TYPE = pa.decimal128(7, 2)
+
+
+def cents(values, dtype=MONEY_TYPE) -> pa.Array:
+    """Amounts the generators round to whole cents as ``dtype``, exactly:
+    each value's unscaled digits are its cents, from which the decimal128
+    slots are built (the high word the sign)."""
+    arr = values if isinstance(values, (pa.Array, pa.ChunkedArray)) \
+        else pa.array(values)
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    f = arr.to_numpy(zero_copy_only=False)
+    ok = np.asarray(arr.is_valid())
+    unscaled = np.round(np.where(ok, f, 0.0) * 10 ** dtype.scale).astype(
+        np.int64)
+    if np.abs(unscaled).max(initial=0) >= 10 ** dtype.precision:
+        raise ValueError(f"an amount does not fit {dtype}")
+    words = np.empty((len(f), 2), np.int64)
+    words[:, 0] = unscaled
+    words[:, 1] = unscaled >> 63
+    bitmap = None if ok.all() else pa.py_buffer(
+        np.packbits(ok, bitorder="little"))
+    return pa.Array.from_buffers(dtype, len(f),
+                                 [bitmap, pa.py_buffer(words)])
+
+
+def write_decimal_store_sales(dirpath: str,
+                              store_sales_paths) -> list[str]:
+    """Each store_sales file again as the spec types it and Spark writes
+    it: the twelve money columns DECIMAL(7,2) (exact: the generator
+    rounds every amount to cents), stored as INT32 (Parquet's layout for
+    a precision up to 9, ``store_decimal_as_integer``).  Test data for
+    the scalar types, not an engine feature."""
+    paths = []
+    for src in store_sales_paths:
+        t = pq.read_table(src)
+        for name in MONEY_COLUMNS:
+            i = t.schema.get_field_index(name)
+            t = t.set_column(i, pa.field(name, MONEY_TYPE),
+                             cents(t.column(name)))
+        p = os.path.join(dirpath, "decimal-" + os.path.basename(src))
+        pq.write_table(t, p, row_group_size=t.num_rows,
+                       store_decimal_as_integer=True)
+        paths.append(p)
+    return paths
+
+
+def write_scalar_types_sales(dirpath: str, store_sales_paths) -> list[str]:
+    """Each store_sales file's rows with the other four scalar types:
+    ``ss_sold_at`` TIMESTAMP (the ``d_date`` of ``ss_sold_date_sk`` at
+    00:00 UTC plus ``ss_sold_time_sk`` seconds; NULL with the date),
+    ``ss_quantity`` as TINYINT (1-100), ``ss_store_sk`` as SMALLINT,
+    ``ss_sales_price`` as FLOAT, beside ``ss_sold_date_sk``,
+    ``ss_sold_time_sk`` and ``ss_ext_sales_price`` DECIMAL(7,2).  Test
+    data, not an engine feature."""
+    day0 = (_D0 - _EPOCH).days - DATE_SK_EPOCH
+    paths = []
+    for src in store_sales_paths:
+        t = pq.read_table(src, columns=[
+            "ss_sold_date_sk", "ss_sold_time_sk", "ss_store_sk",
+            "ss_quantity", "ss_sales_price", "ss_ext_sales_price"])
+        sk = t.column("ss_sold_date_sk").combine_chunks()
+        ok = np.asarray(sk.is_valid())
+        days = np.where(ok, sk.fill_null(0).to_numpy(), 0) + day0
+        secs = t.column("ss_sold_time_sk").to_numpy()
+        at = (days * 86_400 + secs) * 1_000_000
+        out = pa.table({
+            "ss_sold_date_sk": sk,
+            "ss_sold_time_sk": t.column("ss_sold_time_sk"),
+            "ss_sold_at": pa.array(at, pa.timestamp("us", tz="UTC"),
+                                   mask=~ok),
+            "ss_quantity": t.column("ss_quantity").cast(pa.int8()),
+            "ss_store_sk": t.column("ss_store_sk").cast(pa.int16()),
+            "ss_sales_price": t.column("ss_sales_price").cast(pa.float32()),
+            "ss_ext_sales_price": cents(t.column("ss_ext_sales_price")),
+        })
+        p = os.path.join(dirpath, "types-" + os.path.basename(src))
+        pq.write_table(out, p, row_group_size=out.num_rows)
+        paths.append(p)
+    return paths
+
+
 def write_q3_tables(dirpath: str, n_files: int = 6,
                     rows_per_file: int = 1 << 20,
                     seed: int = 3) -> tuple[str, list[str], str]:

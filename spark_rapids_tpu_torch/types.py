@@ -1,13 +1,17 @@
 """SQL data types and their physical torch dtypes.
 
-Counterpart of ``spark_rapids_tpu/types.py``, cut to what the TPC-H
-q1/q6 slice needs: BOOLEAN, INT, LONG, DOUBLE, DATE and STRING, plus the
-NULL type of an untyped literal.  64-bit types never narrow: LONG stays
-int64 and DOUBLE float64 on every device.
+Counterpart of ``spark_rapids_tpu/types.py`` over its scalar types:
+BOOLEAN, TINYINT, SMALLINT, INT, LONG, FLOAT, DOUBLE, DECIMAL(p <= 18,
+s), STRING, DATE and TIMESTAMP, plus the NULL type of an untyped
+literal.  No type narrows: TINYINT is int8, SMALLINT int16, FLOAT
+float32, LONG int64 and DOUBLE float64 on every device.  The nested
+types (array, struct, map) are not ported.
 
 Physical mapping:
 - fixed-width types -> one 1-D tensor plus a bool validity tensor;
 - DATE -> int32 days since the epoch;
+- TIMESTAMP -> int64 microseconds since the epoch, UTC;
+- DECIMAL(p, s) -> int64 unscaled values (value * 10^s), p <= 18;
 - STRING -> a fixed-width ``(N, W)`` uint8 byte matrix plus int32
   lengths (see ``columnar/column.py``).
 """
@@ -34,20 +38,54 @@ class DataType:
     def __hash__(self) -> int:
         return hash(type(self))
 
+    @property
+    def is_numeric(self) -> bool:
+        return False
+
 
 class BooleanType(DataType):
     name = "boolean"
 
 
-class IntegerType(DataType):
+class IntegralType(DataType):
+    bits = 64
+
+    @property
+    def is_numeric(self) -> bool:
+        return True
+
+
+class ByteType(IntegralType):
+    name = "tinyint"
+    bits = 8
+
+
+class ShortType(IntegralType):
+    name = "smallint"
+    bits = 16
+
+
+class IntegerType(IntegralType):
     name = "int"
+    bits = 32
 
 
-class LongType(DataType):
+class LongType(IntegralType):
     name = "bigint"
+    bits = 64
 
 
-class DoubleType(DataType):
+class FractionalType(DataType):
+    @property
+    def is_numeric(self) -> bool:
+        return True
+
+
+class FloatType(FractionalType):
+    name = "float"
+
+
+class DoubleType(FractionalType):
     name = "double"
 
 
@@ -61,24 +99,83 @@ class DateType(DataType):
     name = "date"
 
 
+class TimestampType(DataType):
+    """Microseconds since the unix epoch, int64, UTC only."""
+
+    name = "timestamp"
+
+
+@dataclasses.dataclass(frozen=True)
+class DecimalType(DataType):
+    """Decimal with precision <= 18, backed by int64 unscaled values."""
+
+    precision: int = 10
+    scale: int = 0
+    MAX_PRECISION = 18
+
+    def __post_init__(self):
+        if self.precision > self.MAX_PRECISION:
+            raise ValueError(
+                f"decimal precision {self.precision} > {self.MAX_PRECISION}")
+
+    @property
+    def name(self) -> str:  # type: ignore[override]
+        return f"decimal({self.precision},{self.scale})"
+
+    @property
+    def is_numeric(self) -> bool:
+        return True
+
+    def __repr__(self) -> str:
+        return self.name
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, DecimalType)
+                and other.precision == self.precision
+                and other.scale == self.scale)
+
+    def __hash__(self) -> int:
+        return hash((DecimalType, self.precision, self.scale))
+
+
 class NullType(DataType):
     name = "null"
 
 
 BOOLEAN = BooleanType()
+BYTE = ByteType()
+SHORT = ShortType()
 INT = IntegerType()
 LONG = LongType()
+FLOAT = FloatType()
 DOUBLE = DoubleType()
 STRING = StringType()
 DATE = DateType()
+TIMESTAMP = TimestampType()
 NULL = NullType()
+
+INTEGRAL_TYPES = (BYTE, SHORT, INT, LONG)
+NUMERIC_TYPES = INTEGRAL_TYPES + (FLOAT, DOUBLE)
+ALL_BASIC_TYPES = NUMERIC_TYPES + (BOOLEAN, STRING, DATE, TIMESTAMP)
+
+#: decimal integral digits that hold each integral type losslessly
+#: (Spark's DecimalType.forType).  Shared by common_type and
+#: Cast.cast_supported: they must agree, or union widening would pick a
+#: target the cast then refuses
+INTEGRAL_DECIMAL_DIGITS = {ByteType: 3, ShortType: 5, IntegerType: 10,
+                           LongType: 19}
 
 _TORCH_DTYPES = {
     BooleanType: torch.bool,
+    ByteType: torch.int8,
+    ShortType: torch.int16,
     IntegerType: torch.int32,
     LongType: torch.int64,
+    FloatType: torch.float32,
     DoubleType: torch.float64,
     DateType: torch.int32,
+    TimestampType: torch.int64,
+    DecimalType: torch.int64,
     NullType: torch.bool,
 }
 
@@ -99,16 +196,28 @@ def from_arrow_type(at) -> DataType:
         return from_arrow_type(at.value_type)
     if pa.types.is_boolean(at):
         return BOOLEAN
+    if pa.types.is_int8(at):
+        return BYTE
+    if pa.types.is_int16(at):
+        return SHORT
     if pa.types.is_int32(at):
         return INT
     if pa.types.is_int64(at):
         return LONG
+    if pa.types.is_float32(at):
+        return FLOAT
     if pa.types.is_float64(at):
         return DOUBLE
     if pa.types.is_string(at) or pa.types.is_large_string(at):
         return STRING
     if pa.types.is_date32(at):
         return DATE
+    if pa.types.is_timestamp(at):
+        return TIMESTAMP
+    if pa.types.is_decimal(at):
+        if at.precision > DecimalType.MAX_PRECISION:
+            raise TypeError(f"decimal precision {at.precision} unsupported")
+        return DecimalType(at.precision, at.scale)
     if pa.types.is_null(at):
         return NULL
     raise TypeError(f"arrow type {at} is not supported by this port yet")
@@ -119,13 +228,19 @@ def to_arrow_type(dt: DataType):
 
     m = {
         BooleanType: pa.bool_(),
+        ByteType: pa.int8(),
+        ShortType: pa.int16(),
         IntegerType: pa.int32(),
         LongType: pa.int64(),
+        FloatType: pa.float32(),
         DoubleType: pa.float64(),
         StringType: pa.string(),
         DateType: pa.date32(),
+        TimestampType: pa.timestamp("us", tz="UTC"),
         NullType: pa.null(),
     }
+    if isinstance(dt, DecimalType):
+        return pa.decimal128(dt.precision, dt.scale)
     try:
         return m[type(dt)]
     except KeyError:
@@ -182,8 +297,32 @@ def common_type(a: DataType, b: DataType) -> Optional[DataType]:
         return b
     if isinstance(b, NullType):
         return a
-    order = {IntegerType: 0, LongType: 1, DoubleType: 2}
+    order = {ByteType: 0, ShortType: 1, IntegerType: 2, LongType: 3,
+             FloatType: 4, DoubleType: 5}
     ta, tb = type(a), type(b)
     if ta in order and tb in order:
-        return [INT, LONG, DOUBLE][max(order[ta], order[tb])]
+        return [BYTE, SHORT, INT, LONG, FLOAT, DOUBLE][
+            max(order[ta], order[tb])]
+    if ta is DecimalType and tb is DecimalType:
+        # Spark's widerDecimalType: every integral and fractional digit
+        # of both; past MAX_PRECISION there is no lossless common type
+        # (no 128-bit unscaled values here)
+        scale = max(a.scale, b.scale)
+        integral = max(a.precision - a.scale, b.precision - b.scale)
+        if integral + scale > DecimalType.MAX_PRECISION:
+            return None
+        return DecimalType(integral + scale, scale)
+    if ta is DecimalType or tb is DecimalType:
+        dec, other = (a, b) if ta is DecimalType else (b, a)
+        if type(other) in (FloatType, DoubleType):
+            return DOUBLE  # Spark: decimal with a fractional -> double
+        digits = INTEGRAL_DECIMAL_DIGITS.get(type(other))
+        if digits is None:
+            return None
+        integral = max(dec.precision - dec.scale, digits)
+        if integral + dec.scale > DecimalType.MAX_PRECISION:
+            return None  # LONG needs 19 integral digits
+        return DecimalType(integral + dec.scale, dec.scale)
+    if {ta, tb} == {DateType, TimestampType}:
+        return TIMESTAMP  # the date side at midnight UTC
     return None

@@ -80,7 +80,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "spark_rapids_tpu_torch.robustness.faults",
             # the scan's host path: the native decoder and its codec
             "spark_rapids_tpu_torch.io.fastpar",
-            "spark_rapids_tpu_torch.native"} <= set(mods)
+            "spark_rapids_tpu_torch.native",
+            # the scalar types': decimal precision, the rebase policy
+            "spark_rapids_tpu_torch.exprs.decimal",
+            "spark_rapids_tpu_torch.io.rebase"} <= set(mods)
 
 
 def test_port_sources_name_no_jax_import():
@@ -291,9 +294,11 @@ def test_k1_kernel_matches_plain_version(cuda, width):
 
 
 def _random_column(kind, n, g, offset=0):
-    """A random column with 20 % NULLs; doubles hold -0.0, 0.0 and NaNs
-    with several payloads.  ``offset`` rows are cut off the front of
-    every tensor, so its data_ptr() is not aligned."""
+    """A random column with 20 % NULLs; doubles and floats hold -0.0,
+    0.0 and NaNs with several payloads (floats +/-inf too), tinyints and
+    smallints their MIN_VALUE, timestamps and decimals negatives.
+    ``offset`` rows are cut off the front of every tensor, so its
+    data_ptr() is not aligned."""
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.columnar.column import Column, StringColumn
 
@@ -316,6 +321,30 @@ def _random_column(kind, n, g, offset=0):
         bits[3::13] = 0x7FF0000000000001
         bits[4::17] = -0x0008000000000000
         return Column(x[offset:], valid, T.DOUBLE)
+    if kind == "f":
+        x = torch.randn(m, generator=g, device=dev)
+        x[::7] = -0.0
+        x[1::11] = 0.0
+        x[2::13] = float("nan")
+        x[5::19] = float("inf")
+        x[6::23] = float("-inf")
+        bits = x.view(torch.int32)
+        bits[3::13] = 0x7F800001
+        bits[4::17] = -0x00400000
+        return Column(x[offset:], valid, T.FLOAT)
+    if kind in ("i8", "i16"):
+        dtype = torch.int8 if kind == "i8" else torch.int16
+        info = torch.iinfo(dtype)
+        data = torch.randint(info.min, info.max + 1, (m,), generator=g,
+                             device=dev, dtype=torch.int32).to(dtype)
+        data[::9] = info.min
+        return Column(data[offset:], valid,
+                      T.BYTE if kind == "i8" else T.SHORT)
+    if kind in ("ts", "dec"):  # before 1970; negative unscaled values
+        data = torch.randint(-(1 << 55), 1 << 55, (m,), generator=g,
+                             device=dev, dtype=torch.int64)
+        return Column(data[offset:], valid, T.TIMESTAMP if kind == "ts"
+                      else T.DecimalType(18, 2))
     if kind == "b":
         data = torch.randint(0, 2, (m,), generator=g, device=dev).bool()
         return Column(data[offset:], valid, T.BOOLEAN)
@@ -335,6 +364,10 @@ def _random_column(kind, n, g, offset=0):
     (["s256", "s2", "s128", "s8000"], 1),  # staged, narrow and direct
     (["s1", "i", "l", "d", "s7", "b", "t", "s33", "l", "s4", "d", "i",
       "s1", "b", "s200", "t", "s16"], 0),  # 17 columns: two launches
+    # the scalar types: kInt8, kInt16, kFloat32; TIMESTAMP and DECIMAL
+    # under kInt64
+    (["i8", "i16", "f", "ts", "dec", "s16", "l"], 0),
+    (["i8", "i16", "f", "ts", "dec"], 3),
 ])
 def test_hash_columns_kernel_matches_plain_version(cuda, kinds, offset):
     g = torch.Generator(device=cuda)

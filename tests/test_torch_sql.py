@@ -17,8 +17,9 @@
 - ``greatest`` is held against the JAX engine (``engine="tpu"``): the
   CPU oracle computes least() for it; a CASE without ELSE against
   Spark's NULL, which the JAX frontend cannot select (ROADMAP.md §3).
-- What the port refuses at parse time (TIMESTAMP fields and casts to
-  types it lacks) raises ``SqlError``.
+- Casts to the scalar types and EXTRACT of a TIMESTAMP's time fields,
+  which raised ``SqlError`` before the port had the types, run as the
+  JAX engine runs them; a DOUBLE to DECIMAL cast fails in both engines.
 """
 
 import datetime as dt
@@ -211,13 +212,28 @@ def test_bad_parameters_raise_sql_error_in_both(text, params, frontends):
 
 @pytest.mark.parametrize("text", [
     "select cast(k as timestamp) from t1",
-    "select cast(x as decimal(7, 2)) from t1",
     "select cast(x as float) from t1",
     "select extract(hour from d) from t1",
 ])
-def test_types_the_port_lacks_raise_sql_error(text, frontends):
-    with pytest.raises(SQL.SqlError):
-        frontends[0].sql(text)
+def test_scalar_type_texts_run_as_the_jax_engine_runs_them(text, frontends):
+    """These raised SqlError while the port lacked the scalar types; now
+    each gives the JAX engine's result."""
+    port, jax = frontends
+    assert_tables_equal(port.sql(text).collect(),
+                        jax.sql(text).collect(engine="tpu"))
+
+
+def test_double_to_decimal_cast_fails_in_both_engines(frontends):
+    """A DOUBLE to DECIMAL cast is outside the JAX cast matrix: both
+    planners send it to their CPU engine.  The JAX one fails inside its
+    pyarrow conversion; the port's refuses the cast by name."""
+    port, jax = frontends
+    text = "select cast(x as decimal(7, 2)) from t1"
+    with pytest.raises(pa.ArrowInvalid):
+        jax.sql(text).collect(engine="tpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"cast double -> decimal\(7,2\)"):
+        port.sql(text).collect()
 
 
 def test_scalar_subquery_runs_once_per_plan_and_splices_a_literal(frontends):
