@@ -177,6 +177,28 @@ Phases, one JSON line each:
            text (a profiled run that is the warm-up, one counted run,
            timed, K1 launches against the planned map batches), then
            the ``types`` line;
+  nested   arrays, structs and maps (``nested_phase``) over q3ds's
+           store_sales files, the sql phase's dimensions and 100 000
+           customers: ``baskets`` (collect_list of items and
+           collect_set of stores per customer: an exchange on the
+           customer, the partitioned collect; every array ascends and
+           equals pyarrow's list / distinct aggregation sorted),
+           ``explode_back`` (posexplode of the items, counted per item
+           through an exchange on the exploded column, against
+           pyarrow's value_counts; size, get_item, element_at and
+           array_contains over the baskets against pyarrow's count,
+           min, max and membership), ``baskets_joined`` (the baskets
+           joined to customer with the broadcast threshold off: both
+           sides hash-exchanged, the arrays gathered, parked and
+           concatenated), ``q43_pivot`` (q43's join as a pivot of seven
+           masked sums, equal to the sql phase's q43 text rows) and
+           ``nested_scan`` (the files written again with a struct and a
+           map column, filtered on a struct field, a map value
+           summed, against pyarrow's struct_field / map_lookup; one
+           file's nested columns round trip to Arrow exactly); a
+           ``nested_query`` line a query (a profiled run that is the
+           warm-up, one counted run, timed, K1 launches against the
+           planned map batches, no CPU node), then the ``nested`` line;
   channels the 29 catalog and web TPC-DS texts the JAX sweep runs
            correctly (``tpcds_queries.CATALOG_WEB``) the same way, over
            those 13 tables and the 11 channel tables at SF1's rows
@@ -252,7 +274,8 @@ Phases, one JSON line each:
            threads' kernels);
   main     hash_columns at the calls q1, q3 (filter off and on), q67,
            q3ds, q93, the star queries, q67_rollup, q5, q27, agg_family,
-           the sql, types and channel texts and the fallback phase made,
+           the sql, types and channel texts, the nested queries and the
+           fallback phase made,
            and the ``new_types`` mix at 6 x 2^20 rows (the
            largest call of
            each key signature and seed in each phase: the filters'
@@ -2408,6 +2431,10 @@ def sql_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
                    "cut_max_rel_err": same_result(got, want)}
             check, versus = (lambda t: 0.0), \
                 f"device='cpu' over {SQL_CPU_FILES} files"
+        if name == "q43":  # the nested phase's pivot is held to its rows
+            def check(t, base=check):
+                star["q43_text_rows"] = t
+                return base(t)
         calls: list = []
         rec = run_query(torch, text_df, kernels, check, calls, scans=False,
                         timed=SQL_TIMED_RUNS, counted=True)
@@ -2843,6 +2870,330 @@ def types_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
                  "checked_against", "cpu_nodes")}
              for name, r in records.items()})
     return records, list(largest.values())
+
+
+#: q43's day columns: the pivot's values, the text's names
+Q43_DAYS = {"Sunday": "sun_sales", "Monday": "mon_sales",
+            "Tuesday": "tue_sales", "Wednesday": "wed_sales",
+            "Thursday": "thu_sales", "Friday": "fri_sales",
+            "Saturday": "sat_sales"}
+#: the key a NULL customer groups under in the references (customer
+#: keys start at 1)
+NULL_KEY = -1
+
+
+def keyed_lists(np, pc, keys, lists, sort_within: bool) -> tuple:
+    """(keys, NULL as NULL_KEY, ascending; each row's array length; the
+    arrays' elements in that row order, each array's own sorted when
+    ``sort_within``) of one array column beside its keys."""
+    import pyarrow as pa
+
+    k = np.asarray(pc.fill_null(keys, NULL_KEY))
+    order = np.argsort(k, kind="stable")
+    lists = lists.take(pa.array(order))
+    if isinstance(lists, pa.ChunkedArray):
+        lists = lists.combine_chunks()
+    lens = np.asarray(pc.fill_null(pc.list_value_length(lists), 0))
+    vals = np.asarray(pc.list_flatten(lists))
+    if sort_within:
+        parent = np.asarray(pc.list_parent_indices(lists))
+        vals = vals[np.lexsort((vals, parent))]
+    return k[order], lens, vals
+
+
+def ascending_within(np, pc, lists) -> bool:
+    """Whether every array of a column ascends."""
+    import pyarrow as pa
+
+    if isinstance(lists, pa.ChunkedArray):
+        lists = lists.combine_chunks()
+    vals = np.asarray(pc.list_flatten(lists))
+    parent = np.asarray(pc.list_parent_indices(lists))
+    return bool(np.all((np.diff(vals) >= 0) | (np.diff(parent) != 0)))
+
+
+def same_lists(np, pc, got, want, key: str, cols: dict) -> dict:
+    """A table of arrays by key against the reference's (``cols``: got
+    column -> (reference column, sort the reference's arrays)): the same
+    keys, and per key the same elements in the same order.  Returns the
+    groups and elements compared."""
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"{got.num_rows} groups, the reference has "
+                             f"{want.num_rows}")
+    out = {"groups": got.num_rows}
+    for gc, (wc, sort_want) in cols.items():
+        gk, gl, gv = keyed_lists(np, pc, got.column(key), got.column(gc),
+                                 False)
+        wk, wl, wv = keyed_lists(np, pc, want.column(key), want.column(wc),
+                                 sort_want)
+        if not (np.array_equal(gk, wk) and np.array_equal(gl, wl)
+                and np.array_equal(gv, wv)):
+            raise AssertionError(f"{gc}'s arrays differ from the reference")
+        out[f"{gc}_elements"] = int(len(gv))
+    return out
+
+
+def nested_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
+                 store_tables: dict, q43_text_rows) -> tuple:
+    """Nested types on the card, over q3ds's six store_sales files (6 x
+    2^20 rows), the sql phase's SF1 dimensions and its 100 000
+    customers.  Five queries, each: one profiled run that is the
+    warm-up, one counted run, timed, K1's launches equal to runs x the
+    map batches its hash exchanges are fed (and the runtime filter's
+    folds and range tables), no CPU node in its plan.
+    (1) ``baskets``: store_sales grouped by ss_customer_sk with
+    collect_list(ss_item_sk) and collect_set(ss_store_sk): a hash
+    exchange on the customer (K1 on a LONG), then the partitioned
+    collect; every array ascends, and equals pyarrow's ``list`` and
+    ``distinct`` aggregations sorted, customer by customer (the NULL
+    customer's group too).  (2) ``explode_back``: posexplode of the
+    baskets' items, grouped by item (an exchange hashing the exploded
+    column): the counts equal pyarrow's value_counts; and, over the
+    baskets once, array_size, get_item(items, 0), element_at(items, -1)
+    and array_contains(stores, 1) equal pyarrow's count, min, max and
+    membership per customer.  (3) ``baskets_joined``: the baskets joined
+    to customer on c_customer_sk with the broadcast threshold off: a
+    partition-wise shuffled join whose stream side, the one with the
+    two arrays, is hash-exchanged; its rows equal the baskets' keyed by
+    customer.  (4) ``q43_pivot``: the q43 join (d_year = 2000,
+    s_gmt_offset = -5) as group_by(s_store_name, s_store_id).pivot(
+    d_day_name, the seven days).agg(sum(ss_sales_price)): K1 hashes the
+    (STRING, STRING) key; the rows equal the sql phase's q43 text rows
+    (keys exact, sums within REL_TOL).  (5) ``nested_scan``: the six
+    files written again (8 at a time) with ``ss_pricing`` (a struct of
+    three prices, 5 % NULL) and ``ss_extras`` (a map<bigint, double>
+    of 0-3 entries, 12 % NULL), filtered on ss_pricing.ss_sales_price,
+    element_at(ss_extras, 3) projected, both summed by store: equal to
+    pyarrow's struct_field and map_lookup over the same files; and one
+    file's two nested columns round trip to Arrow exactly.  Emits a
+    ``nested_query`` line a query, then ``nested``; returns the
+    records and the largest hash_columns call of each signature."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.session import (
+        array_contains,
+        array_size,
+        col,
+        collect_list,
+        collect_set,
+        count,
+        get_item,
+        lit,
+        posexplode,
+        sum_,
+    )
+
+    _dd, ss_paths, _item = star["paths"]
+    conf = {TTB: Q3DS_TASK_TARGET_BYTES}
+    session = TorchSession(conf, device="cuda")
+    unbroadcast = TorchSession(
+        {**conf, "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes": -1},
+        device="cuda")
+    t0 = time.perf_counter()
+    sales = pa.concat_tables(pq.read_table(p, columns=[
+        "ss_customer_sk", "ss_item_sk", "ss_store_sk"]) for p in ss_paths)
+    ref_baskets = sales.group_by("ss_customer_sk").aggregate(
+        [("ss_item_sk", "list"), ("ss_store_sk", "distinct")])
+    items = sales.column("ss_item_sk")
+    ref_counts = pc.value_counts(items.drop_null())
+    ref_counts = dict(zip(ref_counts.field("values").to_pylist(),
+                          ref_counts.field("counts").to_pylist()))
+    ref_fns = sales.append_column("at1", pc.equal(
+        sales.column("ss_store_sk"), 1)).group_by("ss_customer_sk").aggregate(
+        [("ss_item_sk", "count"), ("ss_item_sk", "min"),
+         ("ss_item_sk", "max"), ("at1", "any")])
+    ref_s = time.perf_counter() - t0
+    basket_cols = {"items": ("ss_item_sk_list", True),
+                   "stores": ("ss_store_sk_distinct", True)}
+
+    def baskets(s=session):
+        return s.read_parquet(*ss_paths).group_by(col("ss_customer_sk")).agg(
+            (collect_list(col("ss_item_sk")), "items"),
+            (collect_set(col("ss_store_sk")), "stores"))
+
+    extra: dict = {}
+
+    def check_baskets(t):
+        for c in ("items", "stores"):
+            if not ascending_within(np, pc, t.column(c)):
+                raise AssertionError(f"a baskets array of {c} does not "
+                                     "ascend")
+        extra.update(same_lists(np, pc, t, ref_baskets, "ss_customer_sk",
+                                basket_cols))
+        return 0.0
+
+    def explode_back():
+        return baskets().select(col("ss_customer_sk"),
+                                posexplode(col("items"))).group_by(
+            col("col")).agg((count(col("pos")), "n"))
+
+    def check_explode(t):
+        got = dict(zip(t.column("col").to_pylist(),
+                       t.column("n").to_pylist()))
+        if got != ref_counts:
+            raise AssertionError("exploded item counts differ from "
+                                 "pyarrow's value_counts")
+        extra["exploded_rows"] = sum(got.values())
+        return 0.0
+
+    def joined():
+        cust = unbroadcast.read_parquet(*store_tables["customer"]).select(
+            col("c_customer_sk"))
+        return baskets(unbroadcast).join(
+            cust, left_on=[col("ss_customer_sk")],
+            right_on=[col("c_customer_sk")])
+
+    def check_joined(t):
+        if not pc.all(pc.equal(t.column("ss_customer_sk"),
+                               t.column("c_customer_sk"))).as_py():
+            raise AssertionError("joined rows pair other customers")
+        want = ref_baskets.filter(pc.is_valid(
+            ref_baskets.column("ss_customer_sk")))
+        extra.update(same_lists(np, pc, t, want, "ss_customer_sk",
+                                basket_cols))
+        return 0.0
+
+    def q43_pivot():
+        dd = session.read_parquet(*store_tables["date_dim"]).where(
+            col("d_year").eq(lit(2000))).select(col("d_date_sk"),
+                                                 col("d_day_name"))
+        st = session.read_parquet(*store_tables["store"]).where(
+            col("s_gmt_offset").eq(lit(-5))).select(
+            col("s_store_sk"), col("s_store_name"), col("s_store_id"))
+        ss = session.read_parquet(*ss_paths)
+        return (dd.join(ss, left_on=[col("d_date_sk")],
+                        right_on=[col("ss_sold_date_sk")])
+                .join(st, left_on=[col("ss_store_sk")],
+                      right_on=[col("s_store_sk")])
+                .group_by(col("s_store_name"), col("s_store_id"))
+                .pivot(col("d_day_name"), list(Q43_DAYS))
+                .agg((sum_(col("ss_sales_price")), "sales")))
+
+    q43_want = {(r["s_store_name"], r["s_store_id"]): {
+        day: r[name] for day, name in Q43_DAYS.items()}
+        for r in q43_text_rows.to_pylist()}
+
+    def check_q43(t):
+        if t.num_rows != len(q43_want):
+            raise AssertionError(f"{t.num_rows} pivot rows, the q43 text "
+                                 f"has {len(q43_want)}")
+        return compare(t, q43_want, 2)
+
+    nested_dir = os.path.join(star["dir"], "nested")
+    os.makedirs(nested_dir)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:  # a file a task, each its seed
+        nested_paths = [f.result()[0] for f in [
+            pool.submit(tpcds.write_nested_store_sales, nested_dir, [p],
+                        14 + i) for i, p in enumerate(ss_paths)]]
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ntab = pa.concat_tables(pq.read_table(p, columns=[
+        "ss_store_sk", "ss_pricing", "ss_extras"]) for p in nested_paths)
+    price = pc.struct_field(ntab.column("ss_pricing"), "ss_sales_price")
+    price = pc.if_else(pc.is_valid(ntab.column("ss_pricing")), price, None)
+    keep = pc.fill_null(pc.greater(price, 50.0), False)
+    ref_scan = pa.table({
+        "ss_store_sk": ntab.column("ss_store_sk"), "price": price,
+        "x3": pc.map_lookup(ntab.column("ss_extras"), 3, "first")}).filter(
+        keep).group_by("ss_store_sk").aggregate(
+        [("price", "sum"), ("x3", "sum"), ("x3", "count")])
+    scan_want = {(r["ss_store_sk"],): {
+        "price": r["price_sum"], "x3": r["x3_sum"], "n3": r["x3_count"]}
+        for r in ref_scan.to_pylist()}
+    ref_s += time.perf_counter() - t0
+
+    def nested_scan():
+        return session.read_parquet(*nested_paths).where(
+            col("ss_pricing").get_field("ss_sales_price") > lit(50.0)).select(
+            col("ss_store_sk"),
+            col("ss_pricing").get_field("ss_sales_price").alias("price"),
+            col("ss_extras").element_at(3).alias("x3")).group_by(
+            col("ss_store_sk")).agg((sum_(col("price")), "price"),
+                                    (sum_(col("x3")), "x3"),
+                                    (count(col("x3")), "n3"))
+
+    records, largest = {}, {}
+    for name, make_df, check in (
+            ("baskets", baskets, check_baskets),
+            ("explode_back", explode_back, check_explode),
+            ("baskets_joined", joined, check_joined),
+            ("q43_pivot", q43_pivot, check_q43),
+            ("nested_scan", nested_scan,
+             lambda t: compare(t, scan_want, 1))):
+        extra.clear()
+        plan = make_df().physical_plan()
+        calls: list = []
+        rec = run_query(torch, make_df, kernels, check, calls, scans=False,
+                        timed=0, counted=True)
+        check_launches(name, rec, rec)
+        records[name] = {
+            "joins": join_strategies(plan), **extra,
+            "hash_columns_calls": sorted(
+                {(n, signature(cols), seed, parts)
+                 for cols, n, seed, parts in calls}), **rec}
+        if name == "explode_back":
+            records[name]["functions"] = basket_functions(
+                pa, pc, baskets(), ref_fns, array_size, get_item,
+                array_contains, col)
+        if name == "baskets_joined":
+            # the side with the arrays is hash-exchanged into a
+            # partition-wise join, as the customer side is
+            (join,) = [n for n in plan.walk() if type(n).__name__
+                       == "TpuShuffledHashJoinExec"]
+            sides = [type(c).__name__ for c in join.children]
+            if not join.partition_wise or sides != [
+                    "TpuShuffleExchangeExec"] * 2:
+                raise AssertionError(f"baskets_joined plans "
+                                     f"{plan.tree_string()}")
+        # the top kernels stay in the line: what explode and collect
+        # launch on the card (PERF.md section 7)
+        emit("nested_query", name=name, **records[name])
+        for call in calls:
+            key = (signature(call[0]), call[2], call[3])
+            if key not in largest or call[1] > largest[key][1]:
+                largest[key] = call
+    one = nested_paths[0]
+    back = session.read_parquet(one).select(
+        col("ss_pricing"), col("ss_extras")).collect()
+    orig = pq.read_table(one, columns=["ss_pricing", "ss_extras"])
+    for c in ("ss_pricing", "ss_extras"):
+        if not back.column(c).combine_chunks().equals(
+                orig.column(c).combine_chunks()):
+            raise AssertionError(f"{c} did not round trip exactly")
+    emit("nested", datagen_s=gen_s, reference_s=ref_s,
+         nested_files=[os.path.basename(p) for p in nested_paths],
+         round_trip=["ss_pricing", "ss_extras"], summary={
+             name: {k: r.get(k) for k in (
+                 "rows", "median_s", "device_busy_s", "device_idle_share",
+                 "device_kernel_count", "launches", "planned_map_batches")}
+             for name, r in records.items()})
+    return records, list(largest.values())
+
+
+def basket_functions(pa, pc, df, ref_fns, array_size, get_item,
+                     array_contains, col) -> dict:
+    """array_size, get_item(items, 0), element_at(items, -1) and
+    array_contains(stores, 1) over the baskets, once: the count, the
+    minimum, the maximum and the membership pyarrow computes per
+    customer (the arrays ascend)."""
+    got = df.select(col("ss_customer_sk"),
+                    array_size(col("items")).alias("n"),
+                    get_item(col("items"), 0).alias("lo"),
+                    col("items").element_at(-1).alias("hi"),
+                    array_contains(col("stores"), 1).alias("at1")).collect()
+    g = got.sort_by("ss_customer_sk")
+    w = ref_fns.sort_by("ss_customer_sk")
+    for gc, wc in (("ss_customer_sk", "ss_customer_sk"),
+                   ("n", "ss_item_sk_count"), ("lo", "ss_item_sk_min"),
+                   ("hi", "ss_item_sk_max"), ("at1", "at1_any")):
+        a = g.column(gc).combine_chunks()
+        b = w.column(wc).combine_chunks().cast(a.type)
+        if not a.equals(b):
+            raise AssertionError(f"baskets' {gc} differs from pyarrow's "
+                                 f"{wc}")
+    return {"rows": got.num_rows, "checked": ["array_size", "get_item",
+                                              "element_at", "array_contains"]}
 
 
 #: catalog and web texts: timed runs after the warm-up (1 until the
@@ -3802,6 +4153,9 @@ def main() -> int:
         types, types_calls = types_phase(
             torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
             store_tables)
+        nested, nested_calls = nested_phase(
+            torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
+            store_tables, star.pop("q43_text_rows"))
         channels, channel_calls = channels_phase(
             torch, pa, pc, pq, star, kernels, tpcds, TTB, store_tables)
         fallback, fallback_calls = fallback_phase(
@@ -3848,14 +4202,16 @@ def main() -> int:
         "q67": q67_calls, "q3ds": q3ds_calls, "q93": q93_calls,
         "star": star_calls, "q67_rollup": q67r_calls, "q5": q5_calls,
         "q27": q27_calls, "agg_family": family_calls, "sql": sql_calls,
-        "types": types_calls, "channels": channel_calls,
+        "types": types_calls, "nested": nested_calls,
+        "channels": channel_calls,
         "fallback": fallback_calls, "new_types_mix": [new_types_mix]})
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
     runs = (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off, q93, *star_runs.values(),
             q67r, q5, *q27_runs.values(), *family.values(), *sql.values(),
-            *types.values(), *channels.values(), *fallback.values())
+            *types.values(), *nested.values(), *channels.values(),
+            *fallback.values())
     summary = [{
         "name": "hash_columns", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
@@ -3870,8 +4226,9 @@ def main() -> int:
         "library_ms": None,
         "shape": "the largest of q1's, q3's (filter off and on), q67's, "
                  "q3ds's, q93's, q42/q52/q55's, q67_rollup's, q5's, q27's, "
-                 "agg_family's, the sql, types and channel texts' and "
-                 "the fallback phase's calls, and the new_types mix at "
+                 "agg_family's, the sql, types and channel texts', the "
+                 "nested queries' and the fallback phase's calls, and "
+                 "the new_types mix at "
                  "6 x 2^20 rows; ms is the device's own time per "
                  "launch; launches include the memory phase's split runs",
         "concurrency_launches": conc_launches["hash_columns"],

@@ -25,6 +25,12 @@ first on a stage thread of its own (``io/scan.py``):
 Each part's host time, and whether the copy was still running when the
 consumer took it, can go to a scan's metrics.
 
+An array, map or struct column uploads in Arrow's own layout, in the
+same pass: the row validity, the offsets rebased to 0 (a sliced array's
+offsets are absolute into its whole child) and each child column's
+elements between the first and the last offset, filled as a column of
+its own (``_Filler.nested``).
+
 A dictionary-encoded string column (Parquet read with
 ``read_dictionary``, or from ``io/fastpar.py``) uploads its int32 codes
 and the small dictionary;
@@ -49,7 +55,10 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import (
     AnyColumn,
     Column,
+    ListColumn,
+    MapColumn,
     StringColumn,
+    StructColumn,
 )
 
 #: the host time of each part of an upload, and the count of batches
@@ -208,11 +217,45 @@ class _Filler:
         self._lap("hostCopyTime", t0)
         return {"chars": chars, "lengths": lens}
 
+    def nested(self, arr: pa.Array, dtype: T.DataType) -> dict:
+        """An array, map or struct as host tensors: "valid", and
+        "offsets" (rebased to 0) with the child columns' (kind, tensors)
+        under "e" (an array's elements), "k" and "v" (a map's keys and
+        values) or "f<i>" (a struct's fields)."""
+        valid, vnp = self.empty((len(arr),), np.bool_)
+        t0 = time.perf_counter_ns()
+        self.validity(arr, vnp)
+        self._lap("convertTime", t0)
+        out: dict = {"valid": valid}
+        if isinstance(dtype, T.StructType):
+            for i, f in enumerate(dtype.fields):
+                out[f"f{i}"] = self.column(arr.field(i), f.dtype)
+            return out
+        t0 = time.perf_counter_ns()
+        absolute = arr.offsets.to_numpy()
+        lo, hi = int(absolute[0]), int(absolute[-1])
+        self._lap("convertTime", t0)
+        offsets, onp = self.empty((len(arr) + 1,), np.int32)
+        np.subtract(absolute, lo, out=onp, casting="unsafe")
+        if isinstance(dtype, T.ListType):
+            out["e"] = self.column(arr.values.slice(lo, hi - lo),
+                                   dtype.element)
+        else:
+            out["k"] = self.column(arr.keys.slice(lo, hi - lo), dtype.key)
+            out["v"] = self.column(arr.items.slice(lo, hi - lo), dtype.value)
+        out["offsets"] = offsets
+        return out
+
     def column(self, col, dtype: T.DataType) -> tuple[str, dict]:
         """One Arrow column as host tensors: ("fixed", values, valid),
-        ("string", chars, lengths, valid) or ("dict", codes, valid, and
-        the dictionary's chars and lengths)."""
+        ("string", chars, lengths, valid), ("dict", codes, valid, and
+        the dictionary's chars and lengths) or ("nested", ``nested``'s
+        tensors)."""
         chunks = col.chunks if isinstance(col, pa.ChunkedArray) else [col]
+        if isinstance(dtype, T.NESTED_TYPES):
+            return "nested", self.nested(
+                chunks[0] if len(chunks) == 1 else pa.concat_arrays(chunks),
+                dtype)
         if not isinstance(dtype, T.StringType):
             return "fixed", self.fixed(chunks, dtype)
         t0 = time.perf_counter_ns()
@@ -300,8 +343,35 @@ def _fill_values(arr: pa.Array, out: np.ndarray) -> None:
         np.copyto(out, fixed_view(arr), casting="unsafe")
 
 
+def _map_tensors(ts: dict, fn) -> dict:
+    """``fn`` over every tensor of a column's host dict, children
+    included."""
+    return {k: (v[0], _map_tensors(v[1], fn)) if isinstance(v, tuple)
+            else fn(v) for k, v in ts.items()}
+
+
+def _tensors(ts: dict):
+    for v in ts.values():
+        if isinstance(v, tuple):
+            yield from _tensors(v[1])
+        else:
+            yield v
+
+
 def _assemble(kind: str, dtype: T.DataType, t: dict) -> AnyColumn:
     """A column from its uploaded tensors, on the current stream."""
+    if kind == "nested":
+        if isinstance(dtype, T.StructType):
+            return StructColumn(tuple(
+                _assemble(t[f"f{i}"][0], f.dtype, t[f"f{i}"][1])
+                for i, f in enumerate(dtype.fields)), t["valid"], dtype)
+        if isinstance(dtype, T.ListType):
+            return ListColumn(t["offsets"], _assemble(
+                t["e"][0], dtype.element, t["e"][1]), t["valid"], dtype)
+        return MapColumn(t["offsets"],
+                         _assemble(t["k"][0], dtype.key, t["k"][1]),
+                         _assemble(t["v"][0], dtype.value, t["v"][1]),
+                         t["valid"], dtype)
     if kind == "fixed":
         return Column(t["values"], t["valid"], dtype)
     if kind == "string":
@@ -361,7 +431,7 @@ def stage_upload(table, device: torch.device,
         for name, ns in filler.ns.items():
             metrics.add(name, ns)
     if device.type != "cuda":
-        cols = [(kind, dtype, {k: t.to(device) for k, t in ts.items()})
+        cols = [(kind, dtype, _map_tensors(ts, lambda t: t.to(device)))
                 for kind, ts, dtype in cols]
         return UploadUnit(cols, table.num_rows, schema, device)
     timer = _Timer(metrics)
@@ -369,8 +439,8 @@ def stage_upload(table, device: torch.device,
     with torch.cuda.device(device), (
             torch.cuda.stream(stream) if stream is not None
             else contextlib.nullcontext()):
-        cols = [(kind, dtype, {k: t.to(device, non_blocking=True)
-                               for k, t in ts.items()})
+        cols = [(kind, dtype, _map_tensors(
+            ts, lambda t: t.to(device, non_blocking=True)))
                 for kind, ts, dtype in cols]
         if stream is not None:
             event = torch.cuda.Event()
@@ -388,7 +458,7 @@ def finish_upload(unit: UploadUnit, metrics=None) -> ColumnarBatch:
         cur = torch.cuda.current_stream(unit.device)
         cur.wait_event(unit.event)
         for _kind, _dtype, ts in unit.columns:
-            for t in ts.values():
+            for t in _tensors(ts):
                 t.record_stream(cur)
         timer.lap("uploadWaitTime")
         if metrics is not None:
@@ -440,10 +510,37 @@ def from_numpy_columns(data: dict, schema: T.Schema,
     return ColumnarBatch(cols, n, schema, device)
 
 
+def _nested_to_arrow(col, dtype: T.DataType, valid: np.ndarray,
+                     bitmap) -> pa.Array:
+    n = len(valid)
+    if isinstance(dtype, T.StructType):
+        kids = [column_to_arrow(c, f.dtype)
+                for c, f in zip(col.children, dtype.fields)]
+        return pa.Array.from_buffers(T.to_arrow_type(dtype), n, [bitmap],
+                                     children=kids)
+    offsets = col.offsets.cpu().numpy()
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    obuf = pa.py_buffer(np.ascontiguousarray(offsets - lo, np.int32))
+    if isinstance(dtype, T.ListType):
+        child = column_to_arrow(col.child.slice_rows(lo, hi), dtype.element)
+        return pa.Array.from_buffers(T.to_arrow_type(dtype), n,
+                                     [bitmap, obuf], children=[child])
+    at = T.to_arrow_type(dtype)
+    entries = pa.Array.from_buffers(
+        pa.struct([at.key_field, at.item_field]), hi - lo, [None], children=[
+            column_to_arrow(col.keys.slice_rows(lo, hi), dtype.key),
+            column_to_arrow(col.values.slice_rows(lo, hi), dtype.value)])
+    return pa.Array.from_buffers(at, n, [bitmap, obuf], children=[entries])
+
+
 def column_to_arrow(col: AnyColumn, dtype: T.DataType) -> pa.Array:
     valid = col.validity.cpu().numpy()
     n = len(valid)
     all_valid = bool(valid.all())
+    if isinstance(dtype, T.NESTED_TYPES):
+        return _nested_to_arrow(col, dtype, valid, None if all_valid
+                                else pa.py_buffer(np.packbits(
+                                    valid, bitorder="little")))
     if isinstance(col, StringColumn):
         chars = col.chars.cpu().numpy()
         lengths = np.where(valid, col.lengths.cpu().numpy(), 0)

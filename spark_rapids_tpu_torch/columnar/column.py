@@ -11,6 +11,16 @@ is the batch's row count, and there are no padding rows to mask.
   ``lengths``; ``W`` is the longest string of the batch (at least 1).
   Bytes past a row's length are zero, exactly as in the JAX package, so
   string hashes and byte comparisons agree between the two engines.
+- Arrays and maps keep Arrow's layout, where the JAX package pads them
+  into dense ``(rows, max_len)`` matrices: int32 ``offsets[N + 1]``
+  from 0, a flat child column of ``offsets[N]`` elements with its own
+  validity (a map: a ``keys`` and a ``values`` child), and the row
+  ``validity``.  An upload copies Arrow's offsets and child buffers as
+  they are, one long list inflates no other row, and explode is a
+  ``repeat_interleave`` of row ids.  A NULL row may still span elements
+  (Arrow allows it): they are not part of the row, and every reader
+  masks ``lengths`` by the row validity.  Structs are a child column per
+  field and a row validity, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -120,4 +130,138 @@ class StringColumn:
                             self.lengths, self.validity)
 
 
-AnyColumn = Union[Column, StringColumn]
+def take_ranges(starts: torch.Tensor, lengths: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows whose elements are ``[starts[i], starts[i] + lengths[i])``
+    of a child, laid end to end: the new int32 offsets (from 0) and the
+    child index of every element, in row order.  One sizing sync."""
+    n = int(lengths.shape[0])
+    dev = lengths.device
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(lengths.to(torch.int64), 0, out=offsets[1:])
+    total = int(offsets[-1])
+    row = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  lengths.to(torch.int64),
+                                  output_size=total)
+    elem = starts.to(torch.int64)[row] + (
+        torch.arange(total, device=dev) - offsets[:-1][row])
+    return offsets.to(torch.int32), elem
+
+
+class _Ragged:
+    """What an array and a map share: ``offsets[N + 1]`` into their
+    children and the row ``validity``."""
+
+    offsets: torch.Tensor
+    validity: torch.Tensor
+
+    def __len__(self) -> int:
+        return int(self.validity.shape[0])
+
+    def lengths(self) -> torch.Tensor:
+        """int32 elements per row, 0 on a NULL row."""
+        lens = self.offsets[1:] - self.offsets[:-1]
+        return torch.where(self.validity, lens, 0).to(torch.int32)
+
+    def with_validity(self, validity: torch.Tensor):
+        return dataclasses.replace(self, validity=validity)
+
+    def _children(self) -> tuple:
+        raise NotImplementedError
+
+    def _rebuild(self, offsets, children, validity):
+        raise NotImplementedError
+
+    def gather(self, indices: torch.Tensor,
+               valid: Optional[torch.Tensor] = None):
+        """Rows by index, their elements copied end to end; where
+        ``valid`` is False the row comes out NULL and empty."""
+        validity = self.validity[indices]
+        if valid is not None:
+            validity = validity & valid
+        lens = torch.where(validity, self.lengths()[indices], 0)
+        offsets, elem = take_ranges(self.offsets[:-1][indices], lens)
+        return self._rebuild(offsets, [c.gather(elem)
+                                       for c in self._children()], validity)
+
+    def slice_rows(self, start: int, stop: int):
+        """Rows [start, stop): the offsets rebased to 0 and the children
+        as views of their elements (one sync for the two bounds)."""
+        lo, hi = self.offsets[[start, stop]].tolist()
+        return self._rebuild(self.offsets[start:stop + 1] - lo,
+                             [c.slice_rows(lo, hi) for c in self._children()],
+                             self.validity[start:stop])
+
+
+@dataclasses.dataclass
+class ListColumn(_Ragged):
+    """array<element>: ``offsets[N + 1]`` int32 into the flat ``child``
+    column, and the row ``validity``."""
+
+    offsets: torch.Tensor
+    child: "AnyColumn"
+    validity: torch.Tensor
+    dtype: T.DataType = dataclasses.field(
+        default_factory=lambda: T.ListType(T.LONG))
+
+    def _children(self) -> tuple:
+        return (self.child,)
+
+    def _rebuild(self, offsets, children, validity) -> "ListColumn":
+        return ListColumn(offsets, children[0], validity, self.dtype)
+
+
+@dataclasses.dataclass
+class MapColumn(_Ragged):
+    """map<key, value>: ``offsets[N + 1]`` int32 into two aligned flat
+    children, ``keys`` (never NULL) and ``values``, and the row
+    ``validity``."""
+
+    offsets: torch.Tensor
+    keys: "AnyColumn"
+    values: "AnyColumn"
+    validity: torch.Tensor
+    dtype: T.DataType = dataclasses.field(
+        default_factory=lambda: T.MapType(T.LONG, T.LONG))
+
+    def _children(self) -> tuple:
+        return (self.keys, self.values)
+
+    def _rebuild(self, offsets, children, validity) -> "MapColumn":
+        return MapColumn(offsets, children[0], children[1], validity,
+                         self.dtype)
+
+
+@dataclasses.dataclass
+class StructColumn:
+    """struct<...>: one child column per field, each of N rows, and the
+    row ``validity``; a field read through a NULL row is NULL
+    (``exprs/complex.py::GetStructField``)."""
+
+    children: tuple
+    validity: torch.Tensor
+    dtype: T.DataType = dataclasses.field(
+        default_factory=lambda: T.StructType([]))
+
+    def __len__(self) -> int:
+        return int(self.validity.shape[0])
+
+    def with_validity(self, validity: torch.Tensor) -> "StructColumn":
+        return dataclasses.replace(self, validity=validity)
+
+    def gather(self, indices: torch.Tensor,
+               valid: Optional[torch.Tensor] = None) -> "StructColumn":
+        validity = self.validity[indices]
+        if valid is not None:
+            validity = validity & valid
+        return StructColumn(tuple(c.gather(indices, valid)
+                                  for c in self.children),
+                            validity, self.dtype)
+
+    def slice_rows(self, start: int, stop: int) -> "StructColumn":
+        return StructColumn(tuple(c.slice_rows(start, stop)
+                                  for c in self.children),
+                            self.validity[start:stop], self.dtype)
+
+
+AnyColumn = Union[Column, StringColumn, ListColumn, MapColumn, StructColumn]

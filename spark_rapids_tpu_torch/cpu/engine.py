@@ -21,7 +21,15 @@ pyarrow's defaults, Spark's are implemented here explicitly:
   pairs match, and unmatched rows are kept or dropped after it;
 - decimal arithmetic, casts and precision checks run on the unscaled
   integers, exactly (NULL past the precision); a timestamp of any unit
-  or zone counts microseconds since the epoch, UTC.
+  or zone counts microseconds since the epoch, UTC;
+- arrays, structs and maps: a NULL array's elements are not part of it;
+  size(NULL) is NULL (the JAX package's choice; Spark's default is -1);
+  array_contains is NULL when the value is absent and the array holds a
+  NULL; a map lookup takes the first entry with the key; explode_outer
+  keeps a NULL row (and a NULL pos) for an empty or NULL array;
+  collect_list / collect_set skip NULLs, keep input order, and a set
+  keeps the first of equal values (NaN equals NaN, -0.0 equals 0.0);
+  an all-NULL group or an empty grand collect gives an empty array.
 
 ``execute_cpu(plan)`` runs every logical node of ``plan/logical.py``;
 ``cpu_eval(e, table)`` evaluates every expression class of ``exprs/``
@@ -45,6 +53,8 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs import aggregates as AG
 from spark_rapids_tpu_torch.exprs import arithmetic as A
 from spark_rapids_tpu_torch.exprs import base as B
+from spark_rapids_tpu_torch.exprs import collections as COLL
+from spark_rapids_tpu_torch.exprs import complex as CX
 from spark_rapids_tpu_torch.exprs import datetime as DT
 from spark_rapids_tpu_torch.exprs import decimal as DEC
 from spark_rapids_tpu_torch.exprs import math as M
@@ -312,6 +322,8 @@ def _dispatch(e, table, n):  # noqa: C901 - a dispatcher is a big switch
             count += ok.astype(np.int32)
         return pa.array(count >= e.n)
 
+    if isinstance(e, _NESTED_EXPRS):
+        return _dispatch_nested(e, table, n)
     if isinstance(e, Murmur3Hash):
         h = np.full(n, e.seed & 0xFFFFFFFF, np.uint32)
         with np.errstate(over="ignore"):
@@ -333,6 +345,96 @@ def _dispatch(e, table, n):  # noqa: C901 - a dispatcher is a big switch
         raise NotImplementedError(
             f"CPU engine: unsupported expression {type(e).__name__}")
     return out
+
+
+_NESTED_EXPRS = (COLL.Size, COLL.GetArrayItem, COLL.ArrayContains,
+                 COLL.CreateArray, COLL.Explode, CX.GetStructField,
+                 CX.CreateNamedStruct, CX.GetMapValue, CX.ElementAt)
+
+
+def _list_parts(arr) -> tuple[np.ndarray, np.ndarray, pa.Array]:
+    """(row starts into the values, per-row lengths with 0 on NULL rows,
+    the whole values child) of an array or map column."""
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    offsets = arr.offsets.to_numpy().astype(np.int64)
+    valid = np.asarray(arr.is_valid())
+    lens = np.where(valid, offsets[1:] - offsets[:-1], 0)
+    return offsets[:-1], lens, arr
+
+
+def _pick(values: pa.Array, at: np.ndarray, ok: np.ndarray,
+          atype) -> pa.Array:
+    """``values[at]`` where ``ok``, NULL elsewhere."""
+    idx = pa.array(np.where(ok, at, 0), pa.int64(), mask=~ok)
+    out = values.take(idx) if len(values) else _nulls(len(at), atype)
+    return out.cast(atype) if out.type != atype else out
+
+
+def _dispatch_nested(e, table, n):  # noqa: C901 - one branch a class
+    if isinstance(e, COLL.Explode):
+        raise TypeError("explode must appear at the top level of a "
+                        "select list")
+    if isinstance(e, CX.CreateNamedStruct):
+        kids = [cpu_eval(v, table) for v in e.values]
+        return pa.StructArray.from_arrays(kids, fields=list(
+            arrow_schema(T.Schema(e.dtype.fields))))
+    if isinstance(e, COLL.CreateArray):
+        et = T.to_arrow_type(e.dtype.element)
+        kids = [cpu_eval(x, table) for x in e.exprs]
+        kids = [k.cast(et) if k.type != et else k for k in kids]
+        m = len(kids)
+        flat = pa.concat_arrays(kids).take(pa.array(
+            (np.arange(m)[None, :] * n + np.arange(n)[:, None]).reshape(-1),
+            pa.int64())) if n else pa.array([], et)
+        return pa.ListArray.from_arrays(
+            pa.array(np.arange(0, n * m + 1, m), pa.int32()), flat)
+    c = cpu_eval(e.child, table)
+    if isinstance(e, CX.GetStructField):
+        field = c.field(e.child.dtype.field_index(e.field_name))
+        if c.null_count:
+            field = pc.if_else(pc.is_valid(c), field,
+                               pa.scalar(None, field.type))
+        return field
+    starts, lens, arr = _list_parts(c)
+    at = _atype(e)
+    if isinstance(e, COLL.Size):
+        return _from_np(lens.astype(np.int32), np.asarray(arr.is_valid()),
+                        at)
+    if isinstance(e.child.dtype, T.MapType):  # GetMapValue, ElementAt
+        key = e.key.value if isinstance(e, CX.GetMapValue) \
+            else e.index.value
+        keys = arr.keys.to_numpy(zero_copy_only=False)
+        hits = keys == B.physical_value(key, e.child.dtype.key)
+        pos = np.full(len(lens), -1, np.int64)
+        for i in np.nonzero(lens)[0]:
+            row = np.nonzero(hits[starts[i]:starts[i] + lens[i]])[0]
+            if len(row):
+                pos[i] = row[0]  # the first entry with the key
+        return _pick(arr.items, starts + pos, pos >= 0, at)
+    if isinstance(e, COLL.ArrayContains):
+        vals = arr.values
+        v = B.physical_value(e.value.value, e.child.dtype.element)
+        hit = np.zeros(len(vals), bool) if pa.types.is_null(vals.type) \
+            else np.asarray(pc.fill_null(pc.equal(
+                vals, pa.scalar(v, vals.type)), False))
+        null = np.asarray(vals.is_null())
+        found = np.zeros(len(lens), bool)
+        has_null = np.zeros(len(lens), bool)
+        for i in np.nonzero(lens)[0]:
+            found[i] = hit[starts[i]:starts[i] + lens[i]].any()
+            has_null[i] = null[starts[i]:starts[i] + lens[i]].any()
+        valid = np.asarray(arr.is_valid()) & (found | ~has_null)
+        return _from_np(found, valid, pa.bool_())
+    if isinstance(e, CX.ElementAt):
+        k = int(e.index.value)
+        if k == 0:
+            raise ValueError("SQL array indices start at 1")
+        pos = np.full(len(lens), k - 1) if k > 0 else lens + k
+    else:  # GetArrayItem, 0-based
+        pos = np.full(len(lens), int(e.index.value))
+    ok = (pos >= 0) & (pos < lens)
+    return _pick(arr.values, starts + pos, ok, at)
 
 
 def _decimal_arith(e, table) -> pa.Array:
@@ -1048,7 +1150,7 @@ def _kept(schema: T.Schema, need: Optional[set]) -> list[int]:
 
 
 _INNER_NODES = (L.Project, L.Filter, L.Expand, L.Aggregate, L.Sort,
-                L.Limit, L.Union, L.Join, L.Window)
+                L.Limit, L.Union, L.Join, L.Window, L.Generate)
 
 
 def _run(plan: L.LogicalPlan, need: Optional[set]) -> pa.Table:
@@ -1102,6 +1204,10 @@ def _run(plan: L.LogicalPlan, need: Optional[set]) -> pa.Table:
         return pa.concat_tables(tables)
     if isinstance(plan, L.Join):
         return _join(plan, need)
+    if isinstance(plan, L.Generate):
+        keep = None if need is None else need - {plan.out_name, "pos"}
+        return _generate(plan, _run(child, _union(
+            keep, _reads([plan.generator.child]))), keep)
     if isinstance(plan, L.Window):
         made = {name for _, name in plan.window_exprs}
         reads = _reads(e for we, _ in plan.window_exprs for e in (
@@ -1297,6 +1403,34 @@ def _join(plan: L.Join, need: Optional[set]) -> pa.Table:
     return pa.concat_tables(parts)
 
 
+# -- generate ----------------------------------------------------------- #
+
+
+def _generate(plan: L.Generate, child: pa.Table,
+              keep: Optional[set]) -> pa.Table:
+    """explode / posexplode: each row once per element of its array (a
+    NULL array's elements excluded); with ``outer`` once more for an
+    empty or NULL array, its element and pos NULL.  Only the child's
+    columns in ``keep`` (None: all) are repeated, the rest placeholders."""
+    gen = plan.generator
+    starts, lens, arr = _list_parts(cpu_eval(gen.child, child))
+    rep = np.maximum(lens, 1) if gen.outer else lens
+    parent = np.repeat(np.arange(len(lens)), rep)
+    first = np.cumsum(rep) - rep
+    pos = np.arange(len(parent)) - first[parent]
+    real = pos < lens[parent]
+    idx = pa.array(parent, pa.int64())
+    arrays = [None if child.schema.field(i).metadata == _PRUNED or (
+        keep is not None and child.schema.field(i).name not in keep)
+              else child.column(i).take(idx)
+              for i in range(child.num_columns)]
+    if gen.pos:
+        arrays.append(_from_np(pos.astype(np.int32), real, pa.int32()))
+    arrays.append(_pick(arr.values, starts[parent] + pos, real,
+                        T.to_arrow_type(gen.dtype)))
+    return _assemble(arrays, plan.schema, len(parent))
+
+
 # -- aggregate ---------------------------------------------------------- #
 
 
@@ -1357,7 +1491,9 @@ def _grouped_inputs(fn, j: int, arr, aggs: list) -> list:
         aggs += [(f"{col}c", fn.name), (f"{col}n", "any")]
         return [(f"{col}c", pc.if_else(nan, pa.scalar(None, arr.type), arr)),
                 (f"{col}n", nan)]
-    if isinstance(fn, AG.Count):
+    if isinstance(fn, AG.CollectList):  # CollectSet subclasses it
+        aggs.append((col, "list"))
+    elif isinstance(fn, AG.Count):
         aggs.append((col, "count"))
     elif isinstance(fn, AG.CountDistinct):
         aggs.append((col, "count_distinct",
@@ -1390,6 +1526,10 @@ def _grouped_result(fn, j: int, res: pa.Table) -> pa.Array:
         if isinstance(fn, AG.Max):
             return pc.if_else(anynan, nan, vals)
         return pc.if_else(pc.and_(pc.is_null(vals), anynan), nan, vals)
+    if isinstance(fn, AG.CollectList):
+        return pa.array([_collected(fn, xs)
+                         for xs in res.column(f"{col}_list").to_pylist()],
+                        T.to_arrow_type(fn.dtype))
     op = {AG.Count: "count", AG.CountDistinct: "count_distinct",
           AG.Average: "mean"}.get(type(fn))
     if op is None:
@@ -1397,7 +1537,26 @@ def _grouped_result(fn, j: int, res: pa.Table) -> pa.Array:
     return res.column(f"{col}_{op}")
 
 
+def _collected(fn, xs) -> list:
+    """A group's collected values: NULLs dropped; a set keeps the first
+    of equal values (NaN equals NaN, -0.0 equals 0.0)."""
+    xs = [x for x in (xs or []) if x is not None]
+    if not isinstance(fn, AG.CollectSet):
+        return xs
+    kept: list = []
+    seen: set = set()
+    for x in xs:
+        k = _canon(x)
+        if k not in seen:  # 0.0 and -0.0 hash and compare alike
+            seen.add(k)
+            kept.append(x)
+    return kept
+
+
 def _grand(fn, col, num_rows: int) -> pa.Scalar:
+    if isinstance(fn, AG.CollectList):
+        vals = [] if col is None else col.to_pylist()
+        return pa.scalar(_collected(fn, vals), T.to_arrow_type(fn.dtype))
     if isinstance(fn, AG.CountStar):
         return pa.scalar(num_rows, pa.int64())
     if isinstance(fn, AG.Count):

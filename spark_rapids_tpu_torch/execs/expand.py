@@ -22,7 +22,11 @@ from typing import Iterator, Sequence
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, null_column
+from spark_rapids_tpu_torch.columnar.batch import (
+    ColumnarBatch,
+    concat_columns,
+    null_column,
+)
 from spark_rapids_tpu_torch.columnar.column import (
     AnyColumn,
     Column,
@@ -78,6 +82,9 @@ class TpuExpandExec(TpuExec):
             parts = [ev[ci] for ev in evaluated]
             if isinstance(f.dtype, T.StringType):
                 cols.append(_stack_strings(parts, batch.num_rows))
+            elif isinstance(f.dtype, T.NESTED_TYPES):
+                # a payload column, the same in every projection
+                cols.append(concat_columns(parts, f.dtype))
             else:
                 cols.append(_stack_fixed(parts, f.dtype))
         return ColumnarBatch(cols, batch.num_rows * len(self.projections),

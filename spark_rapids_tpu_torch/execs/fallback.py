@@ -12,7 +12,7 @@ this exec (``plan/planner.py``); the node runs on
 - host -> device: the engine's table uploads through
   ``io/scan.py::ArrowSourceExec``, in batches of ``batch_rows``.
 
-A Filter or Project over a device child streams: each child batch
+A Filter, Project or Generate over a device child streams: each child batch
 crosses to the host, runs, and crosses back, partition by partition, so
 the exec keeps its child's partitions.  Any other node drains its
 children, runs once, and makes one partition.  ``metrics`` counts the
@@ -44,7 +44,7 @@ TRANSITION_METRICS = ("toHostRows", "toHostBatches", "toDeviceRows",
 
 class CpuFallbackExec(TpuExec):
     #: logical nodes evaluated row by row: their boundary streams
-    STREAMABLE = (L.Filter, L.Project)
+    STREAMABLE = (L.Filter, L.Project, L.Generate)
 
     def __init__(self, plan: L.LogicalPlan, reasons: Iterable[str],
                  children: Sequence[TpuExec], device: torch.device,

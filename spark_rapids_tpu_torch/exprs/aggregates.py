@@ -9,6 +9,10 @@ Min, Max, First and Last group-aggregate: the ops they name run in
 serve window frames (``exprs/window.py``).  ``CountDistinct`` is a
 marker the session rewrites into a two-level aggregate
 (``session.py::GroupedData._agg_distinct``); it never runs itself.
+``CollectList`` and ``CollectSet`` run in their own exec
+(``execs/collect_agg.py``), never beside other aggregates on the
+device.  ``PivotFirst`` and ``GroupedData.pivot`` expand into one masked
+aggregate per pivot value (``expand_pivot_aggs``) before planning.
 """
 
 from __future__ import annotations
@@ -200,6 +204,96 @@ class Average(AggregateFunction):
         from spark_rapids_tpu_torch.exprs.arithmetic import Divide
 
         return Divide(partial_refs[0], partial_refs[1])
+
+
+class CollectList(AggregateFunction):
+    """collect_list(expr): a group's non-NULL values as an array, never
+    NULL (an all-NULL group gives an empty array).  On the device the
+    elements come in ascending order (``ops/collect.py``); Spark leaves
+    the order unspecified."""
+
+    collect_kind = "list"
+
+    @property
+    def dtype(self) -> T.DataType:
+        cdt = self.child.dtype
+        if isinstance(cdt, T.ListType):
+            # no array of arrays in this engine: a construction error,
+            # not a fallback (the reference supports array<array<T>>)
+            raise TypeError(
+                f"{self.name} over an array column is not supported "
+                "by this engine (no nested array type)")
+        return T.ListType(cdt)
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def check_supported(self) -> None:
+        dt = self.child.dtype
+        if isinstance(dt, (T.StringType, T.DecimalType)):
+            raise TypeError(
+                f"{self.name} over {dt.name} input runs on the CPU "
+                "engine (device lists hold fixed-width elements only)")
+
+
+class CollectSet(CollectList):
+    """collect_set(expr): a group's distinct non-NULL values (NaN equals
+    NaN, -0.0 equals 0.0)."""
+
+    collect_kind = "set"
+
+
+@dataclasses.dataclass(repr=False)
+class PivotFirst(AggregateFunction):
+    """pivot_first(pivot, value, [v1, v2, ...]): the first value of
+    ``child`` per group and pivot value; expanded before planning into
+    one first(if(pivot = v, child, NULL), ignoreNulls) per value."""
+
+    pivot: Optional[Expression] = None
+    pivot_values: tuple = ()
+
+    @property
+    def name(self) -> str:
+        return (f"pivot_first({self.pivot.name}, {self.child.name}, "
+                f"{list(self.pivot_values)})")
+
+    def expand(self, out_name: str) -> list["NamedAgg"]:
+        return expand_pivot_aggs(
+            self.pivot, self.pivot_values,
+            [NamedAgg(First(self.child, ignore_nulls=True), out_name)],
+            single=out_name == "__pivot")
+
+
+def expand_pivot_aggs(pcol: Expression, values, named: list["NamedAgg"],
+                      single: bool) -> list["NamedAgg"]:
+    """F(v) as F(if(p <=> value, v, NULL)) per pivot value, in value
+    order: a None value matches NULL pivot keys; First / Last turn to
+    ignoring NULLs, so a masked-out row never wins the slot (Spark's
+    pivot considers the matching rows only).  Named ``str(value)`` when
+    ``single``, else ``{value}_{name}``."""
+    from spark_rapids_tpu_torch.exprs.predicates import EqualTo, If, IsNull
+
+    out = []
+    for v in values:
+        for na in named:
+            ins = na.fn.inputs()
+            if len(ins) != 1:
+                raise ValueError(f"pivot over {na.fn.name} is not supported")
+            child = ins[0]
+            try:
+                null_dt = child.dtype  # a bound child knows its type
+            except RuntimeError:
+                null_dt = None  # unbound: the NULL literal widens in If
+            cond = IsNull(pcol) if v is None \
+                else EqualTo(pcol, Literal.of(v))
+            fn = dataclasses.replace(
+                na.fn, child=If(cond, child, Literal.of(None, null_dt)))
+            if isinstance(fn, First) and not fn.ignore_nulls:
+                fn = dataclasses.replace(fn, ignore_nulls=True)
+            out.append(NamedAgg(fn, str(v) if single
+                                else f"{v}_{na.out_name}"))
+    return out
 
 
 @dataclasses.dataclass

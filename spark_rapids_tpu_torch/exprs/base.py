@@ -165,6 +165,23 @@ class Expression:
 
         return Not(EqualTo(_expr(self), _expr(other)))
 
+    def get_field(self, name: str):
+        """A struct's field: ``col("s").get_field("x")``."""
+        from spark_rapids_tpu_torch.exprs.complex import GetStructField
+
+        return GetStructField(self, name)
+
+    def element_at(self, key):
+        """element_at(array, 1-based index) or element_at(map, key)."""
+        from spark_rapids_tpu_torch.exprs.complex import ElementAt
+
+        return ElementAt(self, _expr(key))
+
+    def get_map_value(self, key):
+        from spark_rapids_tpu_torch.exprs.complex import GetMapValue
+
+        return GetMapValue(self, _expr(key))
+
     def is_null(self):
         from spark_rapids_tpu_torch.exprs.predicates import IsNull
 

@@ -34,7 +34,10 @@ budgets the two spill at different points.  A dictionary sidecar
 spills and restores with its column, so a restored key still takes
 the coded group-by; a sidecar shared by sibling batches is copied per
 entry, and dropping one entry's reference frees nothing the others
-hold.
+hold.  An array or map spills as its offsets, its row validity and its
+children's leaves (``<prefix>_e``, ``_k``, ``_v``), a struct as its
+validity and its fields' leaves (``<prefix>_f<i>``), and restores the
+same column.
 """
 
 from __future__ import annotations
@@ -52,7 +55,13 @@ import torch
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.column import Column, StringColumn
+from spark_rapids_tpu_torch.columnar.column import (
+    Column,
+    ListColumn,
+    MapColumn,
+    StringColumn,
+    StructColumn,
+)
 
 
 class StorageTier(enum.IntEnum):
@@ -81,6 +90,20 @@ class ConsumedBatchError(RuntimeError):
 
 def _col_leaves(c, prefix: str) -> list[tuple[str, torch.Tensor]]:
     """(name, tensor) leaves of one column, sidecar included."""
+    if isinstance(c, StructColumn):
+        out = [(f"{prefix}_valid", c.validity)]
+        for j, kid in enumerate(c.children):
+            out += _col_leaves(kid, f"{prefix}_f{j}")
+        return out
+    if isinstance(c, ListColumn):
+        return [(f"{prefix}_offsets", c.offsets), (f"{prefix}_valid",
+                                                   c.validity),
+                *_col_leaves(c.child, f"{prefix}_e")]
+    if isinstance(c, MapColumn):
+        return [(f"{prefix}_offsets", c.offsets), (f"{prefix}_valid",
+                                                   c.validity),
+                *_col_leaves(c.keys, f"{prefix}_k"),
+                *_col_leaves(c.values, f"{prefix}_v")]
     if isinstance(c, StringColumn):
         out = [(f"{prefix}_chars", c.chars), (f"{prefix}_lengths", c.lengths),
                (f"{prefix}_valid", c.validity)]
@@ -143,6 +166,19 @@ def _host_to_col(arrays: dict, prefix: str, dtype: T.DataType,
         t = arrays.get(f"{prefix}_{name}")
         return None if t is None else t.to(device, non_blocking=True)
 
+    if isinstance(dtype, T.StructType):
+        return StructColumn(tuple(
+            _host_to_col(arrays, f"{prefix}_f{j}", f.dtype, device)
+            for j, f in enumerate(dtype.fields)), up("valid"), dtype)
+    if isinstance(dtype, T.ListType):
+        return ListColumn(up("offsets"), _host_to_col(
+            arrays, f"{prefix}_e", dtype.element, device), up("valid"), dtype)
+    if isinstance(dtype, T.MapType):
+        return MapColumn(
+            up("offsets"),
+            _host_to_col(arrays, f"{prefix}_k", dtype.key, device),
+            _host_to_col(arrays, f"{prefix}_v", dtype.value, device),
+            up("valid"), dtype)
     if isinstance(dtype, T.StringType):
         return StringColumn(up("chars"), up("lengths"), up("valid"), dtype,
                             up("codes"), up("dchars"), up("dlens"))

@@ -1,5 +1,6 @@
 """Logical plan nodes: Scan, InMemoryRelation, RangeRel, Filter,
-Project, Aggregate, Expand, Join, Window, Sort, Limit and Union.
+Project, Aggregate, Expand, Generate, Join, Window, Sort, Limit and
+Union.
 
 Counterpart of the matching nodes of ``spark_rapids_tpu/plan/logical.py``.
 Nodes keep their expressions by column name; the planner binds them to
@@ -11,7 +12,8 @@ rows, an in-memory table its rows, a range its values, a node with one
 child passes the child's bound on (a filter can only shrink), a grand
 aggregate makes one row, a LIMIT at most its n, a join at most the sum
 of its sides (the JAX estimate), an Expand its child's rows times its
-projections and a Union the sum of its members.  Bytes are rows times
+projections, a Union the sum of its members, and a Generate nothing
+(no bound: nothing bounds an array's length).  Bytes are rows times
 ``row_width_bytes`` of the node's schema.
 """
 
@@ -61,17 +63,25 @@ class LogicalPlan:
         return self.name
 
 
+def _value_bytes(dt: T.DataType) -> int:
+    """Estimated bytes of one value: a fixed-width value's size, 32
+    chars and a 4-byte length for a string, and the JAX scan's nested
+    widths: 128 for an array, 192 for a map, a struct's fields and 1."""
+    if isinstance(dt, T.StringType):
+        return 32 + 4
+    if isinstance(dt, T.ListType):
+        return 128
+    if isinstance(dt, T.MapType):
+        return 192
+    if isinstance(dt, T.StructType):
+        return 1 + sum(_value_bytes(f.dtype) for f in dt.fields)
+    return T.to_torch_dtype(dt).itemsize
+
+
 def row_width_bytes(schema: T.Schema) -> int:
-    """Bytes per row: each fixed-width value's size, 32 chars and a
-    4-byte length for a string, and a validity byte per column."""
-    total = 0
-    for f in schema.fields:
-        if isinstance(f.dtype, T.StringType):
-            total += 32 + 4
-        else:
-            total += T.to_torch_dtype(f.dtype).itemsize
-        total += 1
-    return max(total, 1)
+    """Bytes per row: each value's ``_value_bytes`` and a validity byte
+    per column."""
+    return max(sum(_value_bytes(f.dtype) + 1 for f in schema.fields), 1)
 
 
 class Scan(LogicalPlan):
@@ -236,6 +246,39 @@ class Expand(LogicalPlan):
     def node_desc(self) -> str:
         return (f"Expand [{len(self.projections)} projections, "
                 f"{len(self.names)} cols]")
+
+
+class Generate(LogicalPlan):
+    """explode / posexplode (and their ``_outer`` forms) of one array
+    expression: the child's columns repeated per element, then ``pos``
+    (posexplode) and the element as ``out_name``."""
+
+    def __init__(self, generator, child: LogicalPlan,
+                 out_name: str = "col"):
+        self.children = [child]
+        #: by name, for the exec to bind against its pruned child
+        self.unbound = generator
+        self.generator = generator.with_children(
+            [bind_references(generator.child, child.schema)])
+        # an analysis error, not a fallback: no engine explodes a
+        # non-array (Spark raises AnalysisException the same way)
+        self.generator.check_supported()
+        self.out_name = out_name
+        fields = list(child.schema.fields)
+        if self.generator.pos:
+            fields.append(T.Field("pos", T.INT, self.generator.outer))
+        fields.append(T.Field(out_name, self.generator.dtype, True))
+        self._schema = T.Schema(fields)
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    def estimated_rows(self) -> Optional[int]:
+        return None
+
+    def node_desc(self) -> str:
+        return f"Generate [{self.generator.name}]"
 
 
 class Join(LogicalPlan):

@@ -1,19 +1,27 @@
 """Logical -> physical lowering.
 
 Counterpart of ``spark_rapids_tpu/plan/planner.py`` for Scan,
-InMemoryRelation, RangeRel, Filter, Project, Aggregate, Expand, Join,
-Window, Sort, Limit and Union.  Scan and in-memory columns are pruned
-to what the plan above reads: an Expand keeps only the columns read
-above it and needs what their expressions read in every projection; a
-Union prunes by position (its members name their columns apart, as
-q5's ``ss_store_sk`` and ``sr_store_sk``), each member projected to the
-kept positions where its own lowering kept more.
+InMemoryRelation, RangeRel, Filter, Project, Aggregate, Expand,
+Generate, Join, Window, Sort, Limit and Union.  Scan and in-memory
+columns are pruned to what the plan above reads: an Expand keeps only
+the columns read above it and needs what their expressions read in
+every projection; a Generate repeats only the child columns read above
+it; a Union prunes by position (its members name their columns apart,
+as q5's ``ss_store_sk`` and ``sr_store_sk``), each member projected to
+the kept positions where its own lowering kept more.
 
 - An aggregate over several input partitions lowers as
   ``_plan_aggregate`` does there: partial aggregate -> hash exchange on
   the group keys -> final aggregate (a grand aggregate coalesces its
   partials instead of hashing them); a single partition aggregates
   completely.
+- An aggregate whose every function is a collect (``collect_list``,
+  ``collect_set``) lowers to ``TpuCollectAggExec``: over several input
+  partitions a grouped one takes a hash exchange on its keys (unless
+  the child is already distributed so) and collects each reduce
+  partition alone, a grand one coalesces.  A collect beside another
+  aggregate is tagged for the CPU engine (the JAX planner sends it
+  there at lowering, with no reason in its ``explain()``).
 - A join lowers as ``_plan_join`` does there.  When a legal build side
   is estimated at most ``autoBroadcastJoinThresholdBytes`` (10 MiB;
   ``broadcast_candidates``, from ``plan/logical.py``'s estimates), the
@@ -67,11 +75,16 @@ its switch ``spark.rapids.tpu.sql.expression.<Class>`` off, an input
 type outside its signature in ``plan/typesig.py``, or a
 ``check_supported`` that raises), or whose shape the device execs do
 not run (a residual condition on an outer, semi or anti join, a
-keyless outer join, a window ``check_supported`` refuses) carries
-will-not-work reasons.  The decision is made here, from the tags
-alone: a tagged node lowers to ``execs/fallback.py::CpuFallbackExec``
-over its lowered children, and runs on ``cpu/engine.py``; every other
-node lowers to the GPU execs, which raise on what they cannot run.
+keyless outer join, a window ``check_supported`` refuses), or which
+is a source whose columns have no device layout
+(``schema_device_representable``: an array of a string, decimal or
+struct, a map of such keys or values), carries will-not-work reasons.
+A GPU node over a CPU child whose output has no device layout joins
+the CPU side too (``_demote_unrepresentable_boundaries``, as in JAX).
+The decision is made here, from the tags alone: a tagged node lowers
+to ``execs/fallback.py::CpuFallbackExec`` over its lowered children,
+and runs on ``cpu/engine.py``; every other node lowers to the GPU
+execs, which raise on what they cannot run.
 Nothing catches a run-time error to fall back.  ``explain()`` marks
 each node ``*`` (GPU) or ``!`` (CPU) with the reasons.
 """
@@ -90,6 +103,7 @@ from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
 from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
 from spark_rapids_tpu_torch.execs.coalesce import plan_coalesce
+from spark_rapids_tpu_torch.execs.collect_agg import TpuCollectAggExec
 from spark_rapids_tpu_torch.execs.retry import RetryPolicy
 from spark_rapids_tpu_torch.execs.basic import (
     TpuFilterExec,
@@ -103,6 +117,7 @@ from spark_rapids_tpu_torch.execs.exchange import (
 )
 from spark_rapids_tpu_torch.execs.expand import TpuExpandExec
 from spark_rapids_tpu_torch.execs.fallback import CpuFallbackExec
+from spark_rapids_tpu_torch.execs.generate import TpuGenerateExec
 from spark_rapids_tpu_torch.execs.join import (
     TpuBroadcastHashJoinExec,
     TpuShuffledHashJoinExec,
@@ -121,6 +136,8 @@ from spark_rapids_tpu_torch.execs.window import TpuWindowExec
 from spark_rapids_tpu_torch.exprs import aggregates as AG
 from spark_rapids_tpu_torch.exprs import arithmetic as A
 from spark_rapids_tpu_torch.exprs import base as B
+from spark_rapids_tpu_torch.exprs import collections as COLL
+from spark_rapids_tpu_torch.exprs import complex as CX
 from spark_rapids_tpu_torch.exprs import datetime as DT
 from spark_rapids_tpu_torch.exprs import decimal as DEC
 from spark_rapids_tpu_torch.exprs import math as M
@@ -167,6 +184,7 @@ def register_expr(cls: type, sig: TS.ExprSig) -> None:
 
 
 _ANY = TS.ExprSig(TS.ALL)
+_ORDERABLE = TS.ExprSig(TS.ORDERABLE)
 _ARITH = TS.ExprSig(
     TS.NUMERIC + TS.NULLSIG,
     "decimal arithmetic falls back (unscaled-value math would be wrong)")
@@ -185,9 +203,9 @@ for _sig, _classes in (
      (A.Add, A.Subtract)),
     (_ARITH, (A.Multiply, A.Divide, A.IntegralDivide, A.Remainder, A.Pmod,
               A.UnaryMinus, A.UnaryPositive, A.Abs, A.Least, A.Greatest)),
-    (_ANY, (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
-            P.GreaterThanOrEqual, P.EqualNullSafe, P.In, P.Coalesce, P.If,
-            P.CaseWhen)),
+    (_ORDERABLE, (P.EqualTo, P.LessThan, P.LessThanOrEqual,
+                  P.GreaterThan, P.GreaterThanOrEqual, P.EqualNullSafe,
+                  P.In, P.Coalesce, P.If, P.CaseWhen)),
     (_NUMERIC, (P.IsNaN,)),
     (_LOGIC, (P.And, P.Or, P.Not)),
     (TS.ExprSig(TS.COMMON + TS.NULLSIG), (Murmur3Hash,)),
@@ -214,18 +232,33 @@ for _sig, _classes in (
             S.Contains, S.Like, S.Substring, S.StringTrim,
             S.StringTrimLeft, S.StringTrimRight, S.Concat)),
     (TS.ExprSig(TS.ALL, "the cast pairs in check_supported"), (Cast,)),
+    (TS.ExprSig(TS.ALL, "array input required"),
+     (COLL.Size, COLL.GetArrayItem, COLL.ArrayContains)),
+    (TS.ExprSig(TS.NUMERIC + TS.BOOLEAN + TS.DATETIME + TS.NULLSIG,
+                "fixed-width elements only"), (COLL.CreateArray,)),
+    (TS.ExprSig(TS.ALL + TS.NESTED, "struct/map input; fixed-width map "
+                "key/value on device (check_supported)"),
+     (CX.GetStructField, CX.CreateNamedStruct, CX.GetMapValue,
+      CX.ElementAt)),
 ):
     for _cls in _classes:
         register_expr(_cls, _sig)
 
 #: the aggregates the device group-by computes
 SUPPORTED_AGGS = (AG.Sum, AG.Count, AG.CountStar, AG.Min, AG.Max,
-                  AG.Average, AG.First, AG.Last)
+                  AG.Average, AG.First, AG.Last, AG.CollectList,
+                  AG.CollectSet)
 _VALUE_TYPES = TS.NUMERIC + TS.DECIMAL + TS.DATETIME + TS.BOOLEAN \
     + TS.NULLSIG
 #: aggregate class -> the input types the device group-by takes (the
 #: JAX ``AGG_SIGS``)
 AGG_SIGS: dict[type, TS.ExprSig] = {
+    AG.CollectList: TS.ExprSig(
+        TS.NUMERIC + TS.DATETIME + TS.BOOLEAN + TS.NULLSIG,
+        "fixed-width elements only"),
+    AG.CollectSet: TS.ExprSig(
+        TS.NUMERIC + TS.DATETIME + TS.BOOLEAN + TS.NULLSIG,
+        "fixed-width elements only"),
     AG.Sum: TS.ExprSig(TS.NUMERIC + TS.DECIMAL + TS.NULLSIG),
     AG.Average: TS.ExprSig(TS.NUMERIC + TS.NULLSIG,
                            "decimal avg needs scale-aware division"),
@@ -243,8 +276,8 @@ EXEC_SWITCHES: dict[type, str] = {
     cls: C.register("spark.rapids.tpu.sql.exec." + (
         "ParquetRelation" if cls is L.Scan else cls.__name__), True)
     for cls in (L.Scan, L.InMemoryRelation, L.RangeRel, L.Project,
-                L.Filter, L.Aggregate, L.Expand, L.Join, L.Window, L.Sort,
-                L.Limit, L.Union)
+                L.Filter, L.Aggregate, L.Expand, L.Generate, L.Join, L.Window,
+                L.Sort, L.Limit, L.Union)
 }
 
 
@@ -279,6 +312,41 @@ def _check_agg(fn: AG.AggregateFunction, reasons: set) -> None:
             f"aggregate {fn.name} does not support input type "
             f"{fn.child.dtype.name} on the GPU (supported: "
             f"{sig.inputs.describe()})")
+    check = getattr(fn, "check_supported", None)
+    if check is not None:
+        try:
+            check()
+        except TypeError as exc:
+            reasons.add(str(exc))
+
+
+#: element types an array or a map holds on the device (the JAX list)
+_DEVICE_ELEMENTS = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
+                    T.LongType, T.FloatType, T.DoubleType, T.DateType,
+                    T.TimestampType)
+
+
+def schema_device_representable(schema: T.Schema) -> bool:
+    """Whether a batch of ``schema`` has a device layout: an array's
+    elements and a map's keys and values fixed-width (not a string, a
+    decimal or a nested type), a struct's fields each representable
+    (JAX ``_schema_device_representable``)."""
+
+    def ok(dt: T.DataType) -> bool:
+        if isinstance(dt, T.ListType):
+            return isinstance(dt.element, _DEVICE_ELEMENTS)
+        if isinstance(dt, T.StructType):
+            return all(ok(f.dtype) for f in dt.fields)
+        if isinstance(dt, T.MapType):
+            return isinstance(dt.key, _DEVICE_ELEMENTS) \
+                and isinstance(dt.value, _DEVICE_ELEMENTS)
+        return True
+
+    return all(ok(f.dtype) for f in schema.fields)
+
+
+def _is_collect(fn) -> bool:
+    return isinstance(fn, AG.CollectList)
 
 
 class PlanMeta:
@@ -310,6 +378,10 @@ class PlanMeta:
                 f"operator {self.plan.name} is not supported on the GPU")
         elif not self.conf.get(key):
             self.will_not_work(f"disabled by {key}")
+        if key is not None and not self.children \
+                and not schema_device_representable(self.plan.schema):
+            # a source of columns that can never upload: a CPU source
+            self.will_not_work("source output type has no device layout")
         self._tag_exprs()
         for c in self.children:
             c.tag()
@@ -329,7 +401,18 @@ class PlanMeta:
             for proj in p.projections:
                 for e in proj:
                     self._check(e, cs)
+        elif isinstance(p, L.Generate):
+            _check_expr(p.generator.child, self.conf, self.reasons)
+            try:
+                p.generator.check_supported()
+            except TypeError as exc:
+                self.will_not_work(str(exc))
         elif isinstance(p, L.Aggregate):
+            if any(_is_collect(na.fn) for na in p.aggs) and not all(
+                    _is_collect(na.fn) for na in p.aggs):
+                self.will_not_work(
+                    "collect_list/collect_set beside other aggregates "
+                    "(the collect exec computes collects only)")
             for g in p.groups:
                 self._check(g, cs)
             for na in p.aggs:
@@ -411,6 +494,7 @@ class Planner:
         plan = self._rewrite_scalar_subqueries(plan)
         meta = PlanMeta(plan, self.conf)
         meta.tag()
+        _demote_unrepresentable_boundaries(meta)
         saved, self._tags = self._tags, {id(m.plan): m for m in meta.walk()}
         try:
             root = self._lower(plan, None)
@@ -483,6 +567,12 @@ class Planner:
                 self._lower(p.children[0], need))
         if isinstance(p, L.Union):
             return self._plan_union(p, required)
+        if isinstance(p, L.Generate):
+            made = {p.out_name, "pos"} if p.generator.pos else {p.out_name}
+            keep = None if required is None else required - made
+            need = None if keep is None else keep | p.unbound.references()
+            return TpuGenerateExec(p.unbound, p.out_name,
+                                   self._lower(p.children[0], need), keep)
         if isinstance(p, L.Filter):
             elide = self._can_elide_device_filter(p)
             need = None if required is None \
@@ -591,7 +681,28 @@ class Planner:
             self.conf.get(C.SORT_SAMPLES_PER_BATCH), self.runtime,
             self.conf.get(C.BATCH_ROWS))
 
+    def _plan_collect(self, p: L.Aggregate, child: TpuExec) -> TpuExec:
+        """All-collect aggregates (JAX ``_plan_aggregate``'s collect
+        branch): several partitions hash-exchange on the group keys,
+        unless the child already satisfies them, and collect per reduce
+        partition; a grand collect coalesces them."""
+        rt = self.runtime
+        if child.num_partitions > 1:
+            if not p.groups:
+                return TpuCollectAggExec(
+                    p.groups, p.aggs, TpuCoalescePartitionsExec(child, rt),
+                    runtime=rt)
+            bound = [bind_references(g, child.schema) for g in p.groups]
+            if _hash_satisfies(child, bound) is None:
+                n = self.conf.get(C.SHUFFLE_PARTITIONS)
+                child = self._exchange(HashPartitioning(p.groups, n), child)
+            return TpuCollectAggExec(p.groups, p.aggs, child,
+                                     partitioned=True, runtime=rt)
+        return TpuCollectAggExec(p.groups, p.aggs, child, runtime=rt)
+
     def _plan_aggregate(self, p: L.Aggregate, child: TpuExec) -> TpuExec:
+        if p.aggs and all(_is_collect(na.fn) for na in p.aggs):
+            return self._plan_collect(p, child)
         rt, goal = self.runtime, self.conf.get(C.BATCH_ROWS)
         if child.num_partitions <= 1:
             return TpuHashAggregateExec(p.groups, p.aggs, child, runtime=rt,
@@ -695,6 +806,24 @@ class Planner:
                                        p.join_type, left, right, chunk,
                                        p.condition, partition_wise=True,
                                        runtime=rt)
+
+
+def _demote_unrepresentable_boundaries(meta: PlanMeta) -> None:
+    """A GPU node over a CPU child whose output has no device layout
+    would fail at the upload: move the CPU region up until every
+    host -> device boundary carries representable types (each demotion
+    makes a new boundary one level up, hence the loop)."""
+    changed = True
+    while changed:
+        changed = False
+        for m in list(meta.walk()):
+            for c in m.children:
+                if m.can_replace and not c.can_replace \
+                        and not schema_device_representable(c.plan.schema):
+                    m.will_not_work(
+                        "child output type has no device layout "
+                        "(list of string/decimal) — runs on CPU")
+                    changed = True
 
 
 def collect_exec(exec_: TpuExec, conf: C.TorchConf) -> pa.Table:

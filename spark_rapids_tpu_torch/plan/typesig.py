@@ -1,9 +1,8 @@
 """Declarative type-support signatures driving plan tagging.
 
-Counterpart of ``spark_rapids_tpu/plan/typesig.py``, with its kinds and
-their order; the port has the scalar types (BOOLEAN, TINYINT, SMALLINT,
-INT, LONG, FLOAT, DOUBLE, DECIMAL, STRING, DATE, TIMESTAMP and NULL),
-not the nested ones, whose kinds are named but never produced.  Every
+Counterpart of ``spark_rapids_tpu/plan/typesig.py``, with its kinds,
+their order and its sets: ``ORDERABLE`` (what sorts, compares and
+groups), ``ALL`` (that and arrays) and ``NESTED``.  Every
 expression and aggregate rule of the planner declares the input types
 its device version handles; tagging checks the declarations, not the
 operator code, and turns each unsupported child type into a
@@ -31,6 +30,9 @@ _KIND_OF = {
     T.TimestampType: "timestamp",
     T.DecimalType: "decimal",
     T.NullType: "null",
+    T.ListType: "array",
+    T.StructType: "struct",
+    T.MapType: "map",
 }
 
 KIND_ORDER = ["boolean", "byte", "short", "int", "long", "float",
@@ -69,11 +71,18 @@ STRING = TypeSig.of("string")
 DATETIME = TypeSig.of("date", "timestamp")
 DECIMAL = TypeSig.of("decimal")
 NULLSIG = TypeSig.of("null")
+ARRAY = TypeSig.of("array")
+STRUCT = TypeSig.of("struct")
+MAP = TypeSig.of("map")
+NESTED = ARRAY + STRUCT + MAP
 #: what the columnar kernels handle alike (the reference's
 #: commonCudfTypes)
 COMMON = NUMERIC + BOOLEAN + STRING + DATETIME
-#: every type of the port: each sorts, compares and groups
-ALL = COMMON + DECIMAL + NULLSIG
+#: what sorts, compares and groups
+ORDERABLE = COMMON + DECIMAL + NULLSIG
+#: what passes through an expression untouched (the JAX set: arrays,
+#: not structs or maps)
+ALL = ORDERABLE + ARRAY
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,8 +5,17 @@ far: ``TorchSession.read_parquet / create_dataframe / range`` and
 ``DataFrame.where / select / with_column / group_by(...).agg / rollup /
 cube / grouping_sets / agg / join / union / order_by / limit /
 collect``, with ``col``, ``lit``, ``sum_``, ``avg``, ``count``,
-``count_star``, ``count_distinct``, ``min_``, ``max_``, ``first`` and
-``last``.  ``select`` takes window expressions (``rank()``,
+``count_star``, ``count_distinct``, ``min_``, ``max_``, ``first``,
+``last``, ``collect_list`` and ``collect_set``, the array functions
+``array``, ``array_size``, ``get_item``, ``array_contains`` and
+``named_struct``, and ``Expression.get_field / element_at /
+get_map_value``.  ``GroupedData.pivot(col, values)`` expands each
+aggregate into one masked aggregate per listed value (JAX
+``expand_pivot_aggs``).  ``select`` takes one top-level generator,
+``explode``, ``explode_outer``, ``posexplode`` or ``posexplode_outer``:
+it becomes a ``Generate`` node under the projection, as Spark's
+ExtractGenerator rule makes it; a generator anywhere else in the list
+is an analysis error.  ``select`` takes window expressions (``rank()``,
 ``row_number()``, ``dense_rank()``, ``lead``, ``lag`` or an aggregate,
 ``.over(Window.partition_by(...).order_by(...))``) anywhere in its
 list: they are extracted into ``Window`` plan nodes under the
@@ -55,6 +64,8 @@ from spark_rapids_tpu_torch.execs.sort import SortKey
 from spark_rapids_tpu_torch.exprs.aggregates import (
     AggregateFunction,
     Average,
+    CollectList,
+    CollectSet,
     Count,
     CountDistinct,
     CountStar,
@@ -64,8 +75,10 @@ from spark_rapids_tpu_torch.exprs.aggregates import (
     Min,
     NamedAgg,
     Sum,
+    expand_pivot_aggs,
 )
 from spark_rapids_tpu_torch.exprs.base import (
+    Alias,
     BoundReference,
     ColumnReference,
     Expression,
@@ -76,6 +89,14 @@ from spark_rapids_tpu_torch.exprs.base import (
     lit,
 )
 from spark_rapids_tpu_torch.exprs.cast import Cast
+from spark_rapids_tpu_torch.exprs.collections import (
+    ArrayContains,
+    CreateArray,
+    Explode,
+    GetArrayItem,
+    Size,
+)
+from spark_rapids_tpu_torch.exprs.complex import CreateNamedStruct
 from spark_rapids_tpu_torch.exprs.datetime import DateFormatClass, FromUnixTime
 from spark_rapids_tpu_torch.exprs.window import WindowExpression
 from spark_rapids_tpu_torch.execs import retry as _retry
@@ -89,7 +110,10 @@ from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 
 __all__ = ["TorchSession", "DataFrame", "col", "lit", "sum_", "avg",
            "count", "count_star", "count_distinct", "min_", "max_",
-           "first", "last", "from_unixtime", "date_format"]
+           "first", "last", "from_unixtime", "date_format",
+           "collect_list", "collect_set", "explode", "explode_outer",
+           "posexplode", "posexplode_outer", "array", "array_size",
+           "get_item", "array_contains", "named_struct"]
 
 AggLike = Union[NamedAgg, AggregateFunction, tuple]
 
@@ -128,6 +152,54 @@ def first(e, ignore_nulls: bool = False) -> First:
 
 def last(e, ignore_nulls: bool = False) -> Last:
     return Last(_column(e), ignore_nulls)
+
+
+def collect_list(e) -> CollectList:
+    return CollectList(_column(e))
+
+
+def collect_set(e) -> CollectSet:
+    return CollectSet(_column(e))
+
+
+def explode(e) -> Explode:
+    return Explode(_column(e))
+
+
+def explode_outer(e) -> Explode:
+    return Explode(_column(e), outer=True)
+
+
+def posexplode(e) -> Explode:
+    return Explode(_column(e), pos=True)
+
+
+def posexplode_outer(e) -> Explode:
+    return Explode(_column(e), pos=True, outer=True)
+
+
+def array(*exprs) -> CreateArray:
+    return CreateArray(*[_column(e) for e in exprs])
+
+
+def array_size(e) -> Size:
+    return Size(_column(e))
+
+
+def get_item(e, index: int) -> GetArrayItem:
+    """array[index], 0-based."""
+    return GetArrayItem(_column(e), lit(index))
+
+
+def array_contains(e, value) -> ArrayContains:
+    return ArrayContains(_column(e), lit(value))
+
+
+def named_struct(*names_and_values) -> CreateNamedStruct:
+    """named_struct("a", e1, "b", e2, ...), as Spark's."""
+    names = names_and_values[0::2]
+    values = tuple(_column(v) for v in names_and_values[1::2])
+    return CreateNamedStruct(tuple(names), values)
 
 
 def from_unixtime(e, fmt: str = "yyyy-MM-dd HH:mm:ss") -> FromUnixTime:
@@ -170,6 +242,42 @@ def _extract_windows(e: Expression, acc: list) -> Expression:
     if all(n is o for n, o in zip(new, kids)):
         return e
     return e.with_children(new)
+
+
+def _forbid_nested_explode(e: Expression) -> None:
+    """A generator is valid only at the top of a select list (Spark
+    raises the same analysis error for a nested one)."""
+    for c in e.children:
+        if isinstance(c, Explode):
+            raise ValueError("explode/posexplode must be at the top level "
+                             "of a select list")
+        _forbid_nested_explode(c)
+
+
+def _extract_generator(plan: L.LogicalPlan, exprs: list[Expression]
+                       ) -> L.LogicalPlan:
+    """The select list's one top-level generator (bare or aliased) as a
+    ``Generate`` node over ``plan``; ``exprs`` gets references to its
+    columns in its place."""
+    gens = [(i, e) for i, e in enumerate(exprs)
+            if isinstance(e, Explode)
+            or (isinstance(e, Alias) and isinstance(e.child, Explode))]
+    if gens:
+        if len(gens) > 1:
+            raise ValueError("only one explode per select")
+        i, e = gens[0]
+        alias_name = e.out_name if isinstance(e, Alias) else None
+        gen = e.child if isinstance(e, Alias) else e
+        if gen.pos and alias_name is not None:
+            raise ValueError("posexplode yields two columns (pos, col); "
+                             "alias them with a following select")
+        out_name = alias_name or "col"
+        plan = L.Generate(gen, plan, out_name=out_name)
+        exprs[i:i + 1] = ([ColumnReference("pos")] if gen.pos else []) \
+            + [ColumnReference(out_name)]
+    for e in exprs:
+        _forbid_nested_explode(e)
+    return plan
 
 
 class TorchSession:
@@ -229,6 +337,18 @@ class GroupedData:
         self._df = df
         self._keys = keys
         self._sets = grouping_sets
+        self._pivot: Optional[tuple] = None
+
+    def pivot(self, pivot_col, values: Sequence) -> "GroupedData":
+        """pyspark's pivot with an explicit value list: each aggregate
+        becomes one masked aggregate per value, named ``{value}`` for a
+        single aggregate, ``{value}_{name}`` otherwise (Spark's mode that
+        queries the distinct values first is not supported, as in the
+        JAX package)."""
+        if self._sets is not None:
+            raise ValueError("pivot over rollup/cube is not supported")
+        self._pivot = (_column(pivot_col), list(values))
+        return self
 
     def agg(self, *aggs: AggLike) -> "DataFrame":
         named = []
@@ -239,6 +359,13 @@ class GroupedData:
                 named.append(NamedAgg(*a))
             else:
                 named.append(NamedAgg(a, f"{a.name}_{i}"))
+        if self._pivot is not None:
+            pcol, values = self._pivot
+            named = expand_pivot_aggs(pcol, values, named,
+                                      single=len(named) == 1)
+        named = [x for na in named for x in (
+            na.fn.expand(na.out_name) if hasattr(na.fn, "expand")
+            else (na,))]
         if any(isinstance(na.fn, CountDistinct) for na in named):
             return self._agg_distinct(named)
         if self._sets is not None:
@@ -312,6 +439,7 @@ class DataFrame:
         order_by) group, as Spark's ExtractWindowExpressions rule does."""
         acc: list = []
         rewritten = [_extract_windows(_column(e), acc) for e in exprs]
+        plan = _extract_generator(self._plan, rewritten)
         groups: list[tuple[tuple, list]] = []
         for we, name in acc:
             key = (we.spec.partition_by, we.spec.order_by)
@@ -321,7 +449,6 @@ class DataFrame:
                     break
             else:
                 groups.append((key, [(we, name)]))
-        plan = self._plan
         for _, members in groups:
             plan = L.Window(members, plan)
         return DataFrame(L.Project(rewritten, plan), self._session)

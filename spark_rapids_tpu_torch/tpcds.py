@@ -456,6 +456,62 @@ def write_scalar_types_sales(dirpath: str, store_sales_paths) -> list[str]:
     return paths
 
 
+#: the nested store_sales columns' NULL shares: the pricing struct's
+#: rows, the extras map's rows (the JAX tests' ``_map_table`` shape)
+PRICING_NULLS, EXTRAS_NULLS = 0.05, 0.12
+
+
+def nested_store_sales_table(t: pa.Table, rng: np.random.Generator
+                             ) -> pa.Table:
+    """One store_sales table's keys with two nested columns:
+    ``ss_pricing``, a struct of ``ss_list_price``, ``ss_sales_price``
+    and ``ss_net_profit`` (PRICING_NULLS of its rows NULL), and
+    ``ss_extras``, a map<bigint, double> of 0-3 entries with distinct
+    keys in 0-5 and values in cents (EXTRAS_NULLS of its rows NULL).
+    Test data, not an engine feature."""
+    n = t.num_rows
+    pricing = pa.StructArray.from_arrays(
+        [t.column(c).combine_chunks() for c in (
+            "ss_list_price", "ss_sales_price", "ss_net_profit")],
+        names=["ss_list_price", "ss_sales_price", "ss_net_profit"],
+        mask=pa.array(rng.random(n) < PRICING_NULLS))
+    null = rng.random(n) < EXTRAS_NULLS
+    counts = np.where(null, 0, rng.integers(0, 4, n))
+    keys = np.argsort(rng.random((n, 6)), axis=1)[:, :3]
+    flat = keys[np.arange(3)[None, :] < counts[:, None]].astype(np.int64)
+    values = np.round(rng.uniform(0, 100, len(flat)), 2)
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(counts, out=offsets[1:])
+    mt = pa.map_(pa.int64(), pa.float64())
+    entries = pa.StructArray.from_arrays(
+        [pa.array(flat), pa.array(values)], fields=[mt.key_field,
+                                                     mt.item_field])
+    extras = pa.Array.from_buffers(
+        mt, n, [pa.py_buffer(np.packbits(~null, bitorder="little")),
+                pa.py_buffer(offsets)], children=[entries])
+    return pa.table({"ss_sold_date_sk": t.column("ss_sold_date_sk"),
+                     "ss_item_sk": t.column("ss_item_sk"),
+                     "ss_customer_sk": t.column("ss_customer_sk"),
+                     "ss_store_sk": t.column("ss_store_sk"),
+                     "ss_pricing": pricing, "ss_extras": extras})
+
+
+def write_nested_store_sales(dirpath: str, store_sales_paths,
+                             seed: int = 14) -> list[str]:
+    """Each store_sales file again with ``nested_store_sales_table``'s
+    columns, one row group a file; the i-th file draws from
+    ``default_rng(seed + i)`` (a caller writing files one call each, in
+    parallel, passes each its own seed)."""
+    paths = []
+    for i, src in enumerate(store_sales_paths):
+        t = nested_store_sales_table(pq.read_table(src),
+                                     np.random.default_rng(seed + i))
+        p = os.path.join(dirpath, "nested-" + os.path.basename(src))
+        pq.write_table(t, p, row_group_size=t.num_rows)
+        paths.append(p)
+    return paths
+
+
 def write_q3_tables(dirpath: str, n_files: int = 6,
                     rows_per_file: int = 1 << 20,
                     seed: int = 3) -> tuple[str, list[str], str]:

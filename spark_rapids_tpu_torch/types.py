@@ -5,7 +5,8 @@ BOOLEAN, TINYINT, SMALLINT, INT, LONG, FLOAT, DOUBLE, DECIMAL(p <= 18,
 s), STRING, DATE and TIMESTAMP, plus the NULL type of an untyped
 literal.  No type narrows: TINYINT is int8, SMALLINT int16, FLOAT
 float32, LONG int64 and DOUBLE float64 on every device.  The nested
-types (array, struct, map) are not ported.
+types: ARRAY (``ListType``), STRUCT (``StructType``) and MAP
+(``MapType``); an array of arrays has no type, as in the JAX package.
 
 Physical mapping:
 - fixed-width types -> one 1-D tensor plus a bool validity tensor;
@@ -13,7 +14,10 @@ Physical mapping:
 - TIMESTAMP -> int64 microseconds since the epoch, UTC;
 - DECIMAL(p, s) -> int64 unscaled values (value * 10^s), p <= 18;
 - STRING -> a fixed-width ``(N, W)`` uint8 byte matrix plus int32
-  lengths (see ``columnar/column.py``).
+  lengths (see ``columnar/column.py``);
+- ARRAY and MAP -> Arrow's layout: int32 offsets, a flat child column
+  (a map: a keys and a values child), a row validity; STRUCT -> a child
+  column per field and a row validity.
 """
 
 from __future__ import annotations
@@ -142,6 +146,74 @@ class NullType(DataType):
     name = "null"
 
 
+class ListType(DataType):
+    """array<element>.  On the card the element is fixed-width (the
+    planner's tags send any other to the CPU engine, as the JAX
+    package's do); a nested list is refused outright."""
+
+    def __init__(self, element: DataType):
+        if isinstance(element, ListType):
+            raise TypeError(f"list element type {element} not supported "
+                            "(no nested lists)")
+        self.element = element
+
+    @property
+    def name(self) -> str:  # type: ignore[override]
+        return f"array<{self.element.name}>"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, ListType) and other.element == self.element
+
+    def __hash__(self) -> int:
+        return hash((ListType, self.element))
+
+
+class StructType(DataType):
+    """struct<name: type, ...>: a child column per field."""
+
+    def __init__(self, fields):
+        self.fields = tuple(fields)
+
+    @property
+    def name(self) -> str:  # type: ignore[override]
+        inner = ", ".join(f"{f.name}: {f.dtype.name}" for f in self.fields)
+        return f"struct<{inner}>"
+
+    def field_index(self, name: str) -> int:
+        for i, f in enumerate(self.fields):
+            if f.name == name:
+                return i
+        raise KeyError(name)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, StructType) and other.fields == self.fields
+
+    def __hash__(self) -> int:
+        return hash((StructType, self.fields))
+
+
+class MapType(DataType):
+    """map<key, value>: keys are never NULL, values may be."""
+
+    def __init__(self, key: DataType, value: DataType):
+        self.key = key
+        self.value = value
+
+    @property
+    def name(self) -> str:  # type: ignore[override]
+        return f"map<{self.key.name},{self.value.name}>"
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, MapType) and other.key == self.key
+                and other.value == self.value)
+
+    def __hash__(self) -> int:
+        return hash((MapType, self.key, self.value))
+
+
+NESTED_TYPES = (ListType, StructType, MapType)
+
+
 BOOLEAN = BooleanType()
 BYTE = ByteType()
 SHORT = ShortType()
@@ -220,6 +292,16 @@ def from_arrow_type(at) -> DataType:
         return DecimalType(at.precision, at.scale)
     if pa.types.is_null(at):
         return NULL
+    if pa.types.is_list(at) or pa.types.is_large_list(at):
+        return ListType(from_arrow_type(at.value_type))
+    if pa.types.is_struct(at):
+        return StructType([Field(at.field(i).name,
+                                 from_arrow_type(at.field(i).type),
+                                 at.field(i).nullable)
+                           for i in range(at.num_fields)])
+    if pa.types.is_map(at):
+        return MapType(from_arrow_type(at.key_type),
+                       from_arrow_type(at.item_type))
     raise TypeError(f"arrow type {at} is not supported by this port yet")
 
 
@@ -241,6 +323,13 @@ def to_arrow_type(dt: DataType):
     }
     if isinstance(dt, DecimalType):
         return pa.decimal128(dt.precision, dt.scale)
+    if isinstance(dt, ListType):
+        return pa.list_(to_arrow_type(dt.element))
+    if isinstance(dt, StructType):
+        return pa.struct([pa.field(f.name, to_arrow_type(f.dtype),
+                                   nullable=f.nullable) for f in dt.fields])
+    if isinstance(dt, MapType):
+        return pa.map_(to_arrow_type(dt.key), to_arrow_type(dt.value))
     try:
         return m[type(dt)]
     except KeyError:

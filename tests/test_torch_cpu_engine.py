@@ -358,6 +358,8 @@ def _nodes(ns, paths):
         "limit": g.order_by(c("x"), c("w"), c("s")).limit(17),
         "union": g.select(c("k"), c("s")).union(
             dim.select(c("k2"), c("name"))),
+        "generate": g.select(c("k"), c("s"), F.posexplode_outer(F.array(
+            c("k"), c("j")))),
     }
 
 
@@ -365,7 +367,7 @@ NODES = ["scan", "in_memory", "range", "filter", "project",
          "aggregate_grouped", "aggregate_double_key", "aggregate_grand",
          "expand", "join_inner", "join_left_outer", "join_right_outer",
          "join_full_outer", "join_semi", "join_anti", "join_inner_condition",
-         "join_cross", "window", "sort", "limit", "union"]
+         "join_cross", "window", "sort", "limit", "union", "generate"]
 ORDERED = {"sort", "limit"}
 
 

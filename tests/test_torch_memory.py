@@ -15,6 +15,7 @@ import threading
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.parquet as pq
 import pytest
 import torch
 
@@ -367,3 +368,80 @@ def test_session_store_is_empty_after_collect(tmp_path):
     assert st["spilled_device_to_host"] > 0 and st["spilled_host_to_disk"] > 0
     assert s.store.leak_report() == []
     assert not list(tmp_path.glob("spill-*"))
+
+
+def _nested_table(n=120, seed=5):
+    """A struct with a STRING field, an array and a map, NULLs at every
+    level, as one table."""
+    rng = np.random.default_rng(seed)
+    null = rng.random(n) < 0.2
+    s = pa.StructArray.from_arrays(
+        [pa.array(rng.integers(0, 9, n), pa.int64(),
+                  mask=rng.random(n) < 0.2),
+         pa.array([f"w{i}" for i in range(n)])], names=["x", "w"],
+        mask=pa.array(null))
+    lists = [None if null[i] else rng.integers(0, 50, i % 4).tolist()
+             for i in range(n)]
+    maps = [None if rng.random() < 0.1 else
+            [(j, float(j) / 3) for j in range(i % 3)] for i in range(n)]
+    return pa.table({"s": s, "a": pa.array(lists, pa.list_(pa.int64())),
+                     "m": pa.array(maps, pa.map_(pa.int64(), pa.float64()))})
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+def test_nested_batch_spills_to_disk_and_restores_bit_for_bit(tmp_path,
+                                                             sliced):
+    """Arrays, maps and structs spill DEVICE -> HOST -> DISK as their
+    offsets, validity and children's leaves, and come back equal, a
+    sliced batch (offsets rebased, children its own elements) too."""
+    t = _nested_table()
+    b = from_arrow(t, CPU)
+    if sliced:
+        b, t = b.slice(17, 90), t.slice(17, 73)
+    store = BufferStore(device_budget=1, host_budget=1,
+                        spill_dir=str(tmp_path))
+    h = store.register(b, SpillPriorities.COALESCE_PENDING)
+    h.unpin()
+    store.register(port_batch(50, 6))
+    assert h.tier == StorageTier.DISK
+    host = h.get_host()
+    assert any(k.startswith("c0_f0") for k in host)
+    assert {"c1_offsets", "c1_e_data", "c2_k_data", "c2_v_valid"} <= set(host)
+    back = to_arrow(h.get())
+    for c in t.column_names:
+        assert back.column(c).combine_chunks().equals(
+            t.column(c).combine_chunks()), c
+    store.close()
+    assert store.leak_report() == []
+
+
+def test_nested_queries_spill_and_equal_the_unconstrained_run(tmp_path):
+    """explode over an exchange and a partitioned collect_list, every
+    batch spilled to host and disk: the rows equal the unconstrained
+    run's bit for bit and the store is empty after."""
+    from spark_rapids_tpu_torch import TorchSession, col
+    from spark_rapids_tpu_torch.session import collect_list, explode
+
+    t = _nested_table(600, 7).append_column(
+        "k", pa.array(np.arange(600) % 7))
+    paths = []
+    for i in range(3):
+        paths.append(str(tmp_path / f"n{i}.parquet"))
+        pq.write_table(t.slice(i * 200, 200), paths[-1])
+    base = {C.BATCH_ROWS: 64, C.SHUFFLE_PARTITIONS: 3,
+            C.TASK_TARGET_BYTES: 1}
+
+    def run(conf):
+        s = TorchSession(conf, device="cpu")
+        df = s.read_parquet(*paths).select(
+            col("k"), col("s"), explode(col("a")).alias("x")).group_by(
+            col("k")).agg((collect_list(col("x")), "xs"))
+        return s, df.collect().sort_by("k")
+
+    _, want = run(base)
+    s, got = run({**base, C.HBM_BUDGET_BYTES: 1, C.HOST_SPILL_BYTES: 1,
+                  C.SPILL_DIR: str(tmp_path / "spill")})
+    assert got.equals(want)
+    st = s.spill_stats()
+    assert st["spilled_device_to_host"] > 0 and st["spilled_host_to_disk"] > 0
+    assert s.store.leak_report() == []

@@ -83,7 +83,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "spark_rapids_tpu_torch.native",
             # the scalar types': decimal precision, the rebase policy
             "spark_rapids_tpu_torch.exprs.decimal",
-            "spark_rapids_tpu_torch.io.rebase"} <= set(mods)
+            "spark_rapids_tpu_torch.io.rebase",
+            # the nested types': arrays, structs, maps, explode, collect
+            "spark_rapids_tpu_torch.exprs.complex",
+            "spark_rapids_tpu_torch.exprs.collections",
+            "spark_rapids_tpu_torch.execs.generate",
+            "spark_rapids_tpu_torch.ops.collect",
+            "spark_rapids_tpu_torch.execs.collect_agg"} <= set(mods)
 
 
 def test_port_sources_name_no_jax_import():
