@@ -199,6 +199,37 @@ Phases, one JSON line each:
            ``nested_query`` line a query (a profiled run that is the
            warm-up, one counted run, timed, K1 launches against the
            planned map batches, no CPU node), then the ``nested`` line;
+  long_tail
+           the expression long tail (``long_tail_phase``) over the same
+           store_sales files and the sql phase's SF1 dimensions:
+           ``names`` (customer JOIN customer_address, each written again
+           in LONG_TAIL_SPLIT files, broadcast off so both sides are
+           hash-exchanged; concat_ws / initcap / lower, lpad, rpad, a
+           plain regexp_replace, substring_index, locate and split()[1],
+           grouped by (split()[1], regexp_replace): every column against
+           Python's str methods), ``tickets_md5`` and ``tickets_bucket``
+           (md5 of concat_ws(ticket, item), (ticket >> 4) & 1023 and
+           item ^ customer, grouped by the md5's first two characters
+           over MD5_FILES files and by the bucket over six: against
+           numpy and hashlib, one file's md5 column row for row),
+           ``sample`` (a Filter rand(42) < 0.05,
+           then monotonically_increasing_id, spark_partition_id,
+           input_file_name and rand projected and grouped by partition
+           and file: each file's count is the rows the threefry recipe
+           keeps, the ids unique and carrying their partition, the
+           draws the recipe's, the sample within 5 standard
+           deviations), ``ansi`` (ticket * quantity summed by store with
+           spark.rapids.tpu.sql.ansi.enabled on: one poll a batch, the
+           rows those of the key off; an overflowing Multiply, a zero
+           divisor and a malformed cast raise the JAX messages and,
+           with the key off, wrap or give NULL as numpy does), and four
+           plans with one CPU node each (get_json_object, a bare split,
+           a real regex, ORDER BY rand) against Python's json / re / the
+           recipe, their transitions counted; one ``long_tail_query``
+           line a query (a profiled run that is the warm-up, one counted
+           run, timed, K1 launches against the planned map batches), then
+           ``long_tail`` with md5 of one MD5_BATCH_ROWS batch profiled
+           (K7's launches and device time);
   channels the 29 catalog and web TPC-DS texts the JAX sweep runs
            correctly (``tpcds_queries.CATALOG_WEB``) the same way, over
            those 13 tables and the 11 channel tables at SF1's rows
@@ -274,8 +305,8 @@ Phases, one JSON line each:
            threads' kernels);
   main     hash_columns at the calls q1, q3 (filter off and on), q67,
            q3ds, q93, the star queries, q67_rollup, q5, q27, agg_family,
-           the sql, types and channel texts, the nested queries and the
-           fallback phase made,
+           the sql, types and channel texts, the nested and long_tail
+           queries and the fallback phase made,
            and the ``new_types`` mix at 6 x 2^20 rows (the
            largest call of
            each key signature and seed in each phase: the filters'
@@ -3196,6 +3227,655 @@ def basket_functions(pa, pc, df, ref_fns, array_size, get_item,
                                               "element_at", "array_contains"]}
 
 
+#: the files customer and customer_address are written again in for the
+#: long_tail phase's names query (one file each would make one scan task
+#: a side: a single-partition join and aggregate, which hash nothing)
+LONG_TAIL_SPLIT = 4
+#: the sample query's rand(42) threshold and its seed
+SAMPLE_SHARE, SAMPLE_SEED = 0.05, 42
+#: rows of the one md5 batch the phase profiles (K7 on the card)
+MD5_BATCH_ROWS = 1 << 20
+#: store_sales files the tickets_md5 query and its hashlib reference
+#: read: hashlib over all six took 11 s in six processes, the phase
+#: 44 s, and chip_smoke 716.5 s to its main line, at the 717 s limit, on
+#: an H100 80GB HBM3 at 700 W whose earlier phases ran 20-45 s slower
+#: than on the call before the phase came
+MD5_FILES = 2
+#: rows of customer_demographics the ORDER BY rand fallback sorts (a
+#: run over item's 18 000 rows was too short for the profiler to see
+#: its device work; all 1 920 800 took 7.7 s of the phase)
+ORDER_RAND_ROWS = 1 << 19
+
+
+def initcap_py(s: str) -> str:
+    """initcap as the port defines it: upper after a space or at the
+    start, lower elsewhere."""
+    out, prev = [], " "
+    for ch in s:
+        out.append(ch.upper() if prev == " " else ch.lower())
+        prev = ch
+    return "".join(out)
+
+
+def names_reference(pa, cust, addr) -> tuple:
+    """The names query's columns by Python's ``str`` methods, customer by
+    customer (every customer's address exists), and its groups."""
+    by_sk = {sk: i for i, sk in enumerate(
+        addr.column("ca_address_sk").to_pylist())}
+    a = {c: addr.column(c).to_pylist() for c in (
+        "ca_zip", "ca_street_number", "ca_street_type", "ca_suite_number")}
+    c = {n: cust.column(n).to_pylist() for n in (
+        "c_customer_sk", "c_first_name", "c_last_name", "c_email_address",
+        "c_current_addr_sk")}
+    rows, groups = {}, {}
+    for k, sk in enumerate(c["c_customer_sk"]):
+        j = by_sk[c["c_current_addr_sk"][k]]
+        first, last = c["c_first_name"][k], c["c_last_name"][k]
+        email = c["c_email_address"][k]
+        zip_, num = a["ca_zip"][j], a["ca_street_number"][j]
+        stype, suite = a["ca_street_type"][j], a["ca_suite_number"][j]
+        parts = None if suite is None else suite.split(" ")
+        row = {
+            "name": " ".join(initcap_py(x.lower()) for x in (first, last)
+                             if x is not None),
+            "zip10": None if zip_ is None else zip_.rjust(10, "0")[:10],
+            "number": None if num is None else num.ljust(6, ".")[:6],
+            "street_type": None if stype is None
+            else stype.replace("Street", "St"),
+            "user": None if email is None else email.split("@", 1)[0],
+            "a_at": None if last is None else last.find("a") + 1,
+            "suite": parts[1] if parts is not None and len(parts) > 1
+            else None}
+        rows[sk] = row
+        key = (row["suite"], row["street_type"])
+        groups[key] = groups.get(key, 0) + 1
+    return rows, {k: {"n": n} for k, n in groups.items()}
+
+
+def md5_reference(args) -> tuple:
+    """hashlib's md5 of ``f"{ticket}|{item}"`` for one file's rows: the
+    first byte of each digest (its two hex characters as 0-255), and
+    with ``full`` every hex digest.  Runs in a worker process."""
+    import hashlib
+
+    import numpy as np
+
+    tickets, items, full = args
+    digests = [hashlib.md5(f"{a}|{b}".encode()).digest()
+               for a, b in zip(tickets.tolist(), items.tolist())]
+    first = np.frombuffer(b"".join(d[:1] for d in digests), np.uint8)
+    return first.astype(np.int64), ([d.hex() for d in digests]
+                                    if full else None)
+
+
+def md5_batch_profile(torch, pa, dev, strings) -> dict:
+    """K7 on the card: md5 of one batch of ``strings`` (a pyarrow string
+    array), its launches and device time from torch.profiler, and its
+    time per call from CUDA events over a few calls; the digests held
+    against hashlib."""
+    import hashlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.arrow import from_arrow
+    from spark_rapids_tpu_torch.exprs.hashing import md5_string_bytes
+
+    col = from_arrow(pa.table({"s": strings}), dev).columns[0]
+    if not isinstance(col.dtype, T.StringType):
+        raise AssertionError(f"md5 batch column is {col.dtype}")
+
+    def run():
+        return md5_string_bytes(col.chars, col.lengths)
+
+    out = run()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    launches, busy_ns = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            launches += 1
+            busy_ns += e.duration_ns()
+    ms = cuda_ms(torch, run, 3)
+    got = [bytes(r).decode() for r in out.cpu().numpy()[:1000]]
+    want = [hashlib.md5(v.encode()).hexdigest()
+            for v in strings.to_pylist()[:1000]]
+    if got != want:
+        raise AssertionError("md5 on the card differs from hashlib")
+    return {"rows": len(strings), "width": col.width,
+            "blocks": (col.width + 9 + 63) // 64, "launches": launches,
+            "device_ms": busy_ns / 1e6, "ms": ms}
+
+
+def long_tail_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
+                    TTB, store_tables: dict) -> tuple:
+    """The expression long tail on the card (``long_tail_phase``) over
+    q3ds's six store_sales files (6 x 2^20 rows) and the sql phase's SF1
+    dimensions (100 000 customers, 50 000 addresses, 18 000 items),
+    widths and types as written.  Each query: one profiled run that is
+    the warm-up, one counted run, timed, K1's launches equal to the map
+    batches its hash exchanges are fed, and no CPU node but in the
+    fallbacks.  (1) ``names``: customer JOIN customer_address (each
+    written again in LONG_TAIL_SPLIT files, broadcast off: both sides
+    hash-exchanged on a LONG) projecting concat_ws / initcap / lower,
+    lpad, rpad, a plain regexp_replace, substring_index, locate and
+    split()[1], grouped by (split()[1], regexp_replace) with a count:
+    K1 on a (STRING, STRING) key; every projected column of every
+    customer against Python's str methods, the groups against them.
+    (2) ``tickets_md5`` / ``tickets_bucket``: md5(concat_ws('|',
+    ticket, item)), (ticket >> 4) & 1023 and item ^ customer, grouped by
+    the md5's first two characters (256 groups, K1 on a 2-byte STRING;
+    over the first MD5_FILES files, hashlib's cost) and by the bucket
+    (1 024 groups, K1 on a LONG; six files) with a count and the sums of
+    ss_net_paid and the xor: against numpy and hashlib, and one file's
+    md5 column against hashlib row for row.
+    (3) ``sample``: a Filter rand(42) < 0.05, then
+    monotonically_increasing_id(), spark_partition_id(),
+    input_file_name() and rand(42) projected, grouped by (partition,
+    file) with a count (K1 on an (INT, STRING) key): each file's count
+    equals the rows whose draw passes (the recipe in numpy at every
+    row), and the kept rows' ids are unique, carry their partition, and
+    their rand is the recipe at their position; the sample within 5
+    standard deviations of 5 %.  (4) ``ansi``: ticket * quantity
+    projected and summed by store with the ANSI key on: one poll a
+    batch, the rows those of the key off (whose wall is kept) and
+    numpy's; a Multiply that overflows, a zero divisor and a malformed
+    STRING to INT cast raise AnsiError with the JAX messages, and with
+    the key off wrap or give NULL as numpy does; no ANSI poll may have
+    run before the phase (every earlier phase runs with the key off).
+    (5) ``fallback_json``,
+    ``fallback_split``, ``fallback_regex``, ``fallback_order_rand``:
+    get_json_object over a JSON text made from item, a bare split, a
+    regexp_replace with a real regex and ORDER BY rand(7) (over the
+    first ORDER_RAND_ROWS customer_demographics rows), each beside a
+    projection on the card (lengths, lower-case, sums), each one CPU
+    node with the JAX reason, its transitions counted, its rows those
+    of Python's json / re / the recipe at partition 0.  Then md5 of one
+    MD5_BATCH_ROWS batch profiled (K7's launches and device time).
+    Emits a ``long_tail_query`` line a query, then ``long_tail``;
+    returns the records and the largest hash_columns call of each
+    signature."""
+    import hashlib
+    import json
+    import re
+
+    import numpy as np
+
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.config import ANSI_ENABLED, BATCH_ROWS
+    from spark_rapids_tpu_torch.config import DEFAULTS
+    from spark_rapids_tpu_torch.exprs.arithmetic import IntegralDivide
+    from spark_rapids_tpu_torch.exprs.base import AnsiError, ansi_polls
+    from spark_rapids_tpu_torch.exprs.bitwise import (
+        BitwiseAnd,
+        BitwiseXor,
+        ShiftRight,
+    )
+    from spark_rapids_tpu_torch.exprs.cast import Cast
+    from spark_rapids_tpu_torch.exprs.collections import GetArrayItem
+    from spark_rapids_tpu_torch.exprs.hashing import Md5
+    from spark_rapids_tpu_torch.exprs.nondeterministic import (
+        InputFileName,
+        rand_uniform,
+    )
+    from spark_rapids_tpu_torch.exprs.strings import (
+        GetJsonObject,
+        Length,
+        Lower,
+        StringSplit,
+        Substring,
+    )
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+    from spark_rapids_tpu_torch.session import (
+        col,
+        concat_ws,
+        count,
+        count_star,
+        initcap,
+        lit,
+        locate,
+        lpad,
+        max_,
+        monotonically_increasing_id,
+        rand,
+        regexp_replace,
+        rpad,
+        spark_partition_id,
+        substring_index,
+        sum_,
+    )
+
+    if ansi_polls():  # the key is off in every earlier phase: no sync
+        raise AssertionError(f"{ansi_polls()} ANSI polls before the "
+                             "long_tail phase")
+    _dd, ss_paths, item_path = star["paths"]
+    lt_dir = os.path.join(star["dir"], "long_tail")
+    os.makedirs(lt_dir)
+    t0 = time.perf_counter()
+    cust = pq.read_table(store_tables["customer"][0])
+    addr = pq.read_table(store_tables["customer_address"][0])
+    split_paths = {}
+    for name, tbl in (("customer", cust), ("customer_address", addr)):
+        step = -(-tbl.num_rows // LONG_TAIL_SPLIT)
+        split_paths[name] = []
+        for k in range(LONG_TAIL_SPLIT):
+            path = os.path.join(lt_dir, f"{name}_{k}.parquet")
+            pq.write_table(tbl.slice(k * step, step), path)
+            split_paths[name].append(path)
+    gen_s = time.perf_counter() - t0
+    ref_s = {}
+    t0 = time.perf_counter()
+    name_rows, name_groups = names_reference(pa, cust, addr)
+    ref_s["names"] = time.perf_counter() - t0
+
+    conf = {TTB: Q3DS_TASK_TARGET_BYTES}
+    session = TorchSession(conf, device="cuda")
+    split_session = TorchSession({
+        TTB: 1, "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes": -1},
+        device="cuda")
+
+    def names_projection():
+        c = split_session.read_parquet(*split_paths["customer"])
+        a = split_session.read_parquet(*split_paths["customer_address"])
+        suite = GetArrayItem(StringSplit(col("ca_suite_number"), lit(" ")),
+                             lit(1))
+        return c.join(a, left_on=[col("c_current_addr_sk")],
+                      right_on=[col("ca_address_sk")]).select(
+            col("c_customer_sk"),
+            concat_ws(" ", initcap(Lower(col("c_first_name"))),
+                      initcap(Lower(col("c_last_name")))).alias("name"),
+            lpad("ca_zip", 10, "0").alias("zip10"),
+            rpad("ca_street_number", 6, ".").alias("number"),
+            regexp_replace("ca_street_type", "Street", "St").alias(
+                "street_type"),
+            substring_index("c_email_address", "@", 1).alias("user"),
+            locate("a", "c_last_name").alias("a_at"),
+            suite.alias("suite"))
+
+    def names():
+        return names_projection().group_by(
+            col("suite"), col("street_type")).agg((count_star(), "n"))
+
+    def check_names(t):
+        if t.num_rows != len(name_groups):
+            raise AssertionError(f"{t.num_rows} name groups, reference "
+                                 f"has {len(name_groups)}")
+        return compare(t, name_groups, 2)
+
+    def tickets_projection(key):
+        """The grouping key (the md5's first two characters or the
+        bucket), the xor and ss_net_paid (a projection computes every
+        expression it holds, so each query projects only its key)."""
+        md5 = Md5(concat_ws("|", Cast(col("ss_ticket_number"), T.STRING),
+                            Cast(col("ss_item_sk"), T.STRING)))
+        made = Substring(md5, 1, 2) if key == "h2" else BitwiseAnd(
+            ShiftRight(col("ss_ticket_number"), lit(4)), lit(1023))
+        files = ss_paths[:MD5_FILES] if key == "h2" else ss_paths
+        return session.read_parquet(*files).select(
+            made.alias(key),
+            BitwiseXor(col("ss_item_sk"), col("ss_customer_sk")).alias("x"),
+            col("ss_net_paid"))
+
+    def ticket_aggs(df, key):
+        return df.group_by(col(key)).agg(
+            (count_star(), "n"), (sum_(col("ss_net_paid")), "paid"),
+            (sum_(col("x")), "x"))
+
+    def tickets_md5():
+        return ticket_aggs(tickets_projection("h2"), "h2")
+
+    def tickets_bucket():
+        return ticket_aggs(tickets_projection("bucket"), "bucket")
+
+    t0 = time.perf_counter()
+    sales = [pq.read_table(p, columns=[
+        "ss_ticket_number", "ss_item_sk", "ss_customer_sk", "ss_net_paid",
+        "ss_quantity", "ss_store_sk"]) for p in ss_paths]
+    ticket = np.concatenate([t.column("ss_ticket_number").to_numpy()
+                             for t in sales])
+    item = np.concatenate([t.column("ss_item_sk").to_numpy()
+                           for t in sales])
+    paid = np.concatenate([t.column("ss_net_paid").to_numpy()
+                           for t in sales])
+    cust_sk = pa.chunked_array([t.column("ss_customer_sk") for t in sales])
+    cust_ok = pc.is_valid(cust_sk).to_numpy(zero_copy_only=False)
+    xor = np.where(cust_ok, item ^ pc.fill_null(cust_sk, 0).to_numpy(), 0)
+    # hashlib over each of the md5 query's files in its own process
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(MD5_FILES) as pool:
+        hashed = pool.map(md5_reference, [
+            (t.column("ss_ticket_number").to_numpy(),
+             t.column("ss_item_sk").to_numpy(), k == 0)
+            for k, t in enumerate(sales[:MD5_FILES])])
+    first_md5 = hashed[0][1]
+    prefix = np.concatenate([h[0] for h in hashed])
+    ref_s["tickets_md5"] = time.perf_counter() - t0
+
+    def grouped(codes, names_of):
+        rows = len(codes)
+        n = np.bincount(codes)
+        psum = np.bincount(codes, weights=paid[:rows])
+        xs = np.bincount(codes, weights=xor[:rows])  # < 2^17 a row: exact
+        return {(names_of[k],): {"n": int(n[k]), "paid": float(psum[k]),
+                                 "x": int(xs[k])}
+                for k in range(len(n)) if n[k]}
+
+    md5_want = grouped(prefix, [f"{k:02x}" for k in range(256)])
+    bucket = (ticket >> 4) & 1023
+    bucket_want = grouped(bucket, list(range(1024)))
+    del prefix
+
+    def check_md5(t):  # 256 prefixes at 2 x 2^20 rows
+        return compare(t, md5_want, 1)
+
+    def check_bucket(t):  # 1 024 buckets at 6 x 2^20 rows
+        return compare(t, bucket_want, 1)
+
+    t0 = time.perf_counter()
+    sizes = [t.num_rows for t in sales]
+    passing = [rand_uniform(SAMPLE_SEED, p, np.arange(n)) < SAMPLE_SHARE
+               for p, n in enumerate(sizes)]
+    sample_want = {(p, ss_paths[p]): {"n": int(keep.sum())}
+                   for p, keep in enumerate(passing)}
+    ref_s["sample"] = time.perf_counter() - t0
+
+    def sample_projection():
+        return session.read_parquet(*ss_paths).where(
+            rand(SAMPLE_SEED) < lit(SAMPLE_SHARE)).select(
+            monotonically_increasing_id().alias("id"),
+            spark_partition_id().alias("p"),
+            InputFileName().alias("f"), rand(SAMPLE_SEED).alias("r"))
+
+    def sample():
+        return sample_projection().group_by(col("p"), col("f")).agg(
+            (count_star(), "n"))
+
+    ansi_on = TorchSession({**conf, ANSI_ENABLED: True}, device="cuda")
+    ansi_off = TorchSession({**conf, ANSI_ENABLED: False}, device="cuda")
+
+    def ansi_query(s):
+        return s.read_parquet(*ss_paths).select(
+            col("ss_store_sk"),
+            (col("ss_ticket_number") * col("ss_quantity")).alias("tq")
+        ).group_by(col("ss_store_sk")).agg((sum_(col("tq")), "tq"),
+                                           (count_star(), "n"))
+
+    qty = np.concatenate([t.column("ss_quantity").to_numpy() for t in sales])
+    store = np.concatenate([t.column("ss_store_sk").to_numpy()
+                            for t in sales])
+    tq = ticket * qty
+    ansi_want = {(int(k),): {"tq": int(tq[store == k].sum()),
+                             "n": int((store == k).sum())}
+                 for k in np.unique(store)}
+    polls = {}
+
+    def ansi_df():
+        polls.setdefault("before", ansi_polls())
+        return ansi_query(ansi_on)
+
+    def check_ansi(t):
+        return compare(t, ansi_want, 1)
+
+    item_tbl = pq.read_table(item_path, columns=[
+        "i_item_sk", "i_brand", "i_current_price"])
+    docs = [json.dumps({"brand": b, "price": p}) for b, p in zip(
+        item_tbl.column("i_brand").to_pylist(),
+        item_tbl.column("i_current_price").to_pylist())]
+    json_table = pa.table({"i_item_sk": item_tbl.column("i_item_sk"),
+                           "j": pa.array(docs)})
+
+    def json_value(doc, field):
+        v = json.loads(doc).get(field)
+        if v is None or isinstance(v, str):
+            return v
+        return json.dumps(v, separators=(",", ":"))
+
+    addr_path = store_tables["customer_address"][0]
+    cdemo = pq.read_table(store_tables["customer_demographics"][0])
+    cdemo_path = os.path.join(lt_dir, "customer_demographics_part.parquet")
+    pq.write_table(cdemo.slice(0, ORDER_RAND_ROWS), cdemo_path)
+    cdemo_sk = cdemo.column("cd_demo_sk").to_numpy()[:ORDER_RAND_ROWS]
+    addr_names = addr.column("ca_street_name").to_pylist()
+    addr_types = addr.column("ca_street_type").to_pylist()
+    # each plan puts work on the card beside its CPU node: the profiled
+    # run must see device time, and on an H100 80GB HBM3 the profiler
+    # saw none of a run over item's 18 000 rows that took ~20 ms, so
+    # ORDER BY rand sorts ORDER_RAND_ROWS customer_demographics rows
+    # and adds a projection on the card after its CPU node
+    fallbacks = {
+        "fallback_json": (
+            lambda: session.create_dataframe(json_table).select(
+                col("i_item_sk"), col("j"),
+                Length(col("j")).alias("len")).select(
+                col("i_item_sk"), col("len"),
+                GetJsonObject(col("j"), lit("$.brand")).alias("brand"),
+                GetJsonObject(col("j"), lit("$.price")).alias("price")),
+            "get_json_object evaluates JSON paths on the CPU engine",
+            {"len": [len(d) for d in docs],
+             "brand": [json_value(d, "brand") for d in docs],
+             "price": [json_value(d, "price") for d in docs]}),
+        "fallback_split": (
+            lambda: session.read_parquet(addr_path).select(
+                col("ca_address_sk"),
+                Lower(col("ca_street_name")).alias("name")).select(
+                col("ca_address_sk"),
+                StringSplit(col("name"), lit(" ")).alias("parts")),
+            "bare split() produces array<string>",
+            {"parts": [None if v is None else v.lower().split(" ")
+                       for v in addr_names]}),
+        "fallback_regex": (
+            lambda: session.read_parquet(addr_path).select(
+                col("ca_address_sk"),
+                Lower(col("ca_street_type")).alias("t0")).select(
+                col("ca_address_sk"),
+                regexp_replace("t0", "[aeiou]+", "").alias("t")),
+            "is a real regular expression",
+            {"t": [None if v is None else re.sub("[aeiou]+", "", v.lower())
+                   for v in addr_types]}),
+        "fallback_order_rand": (
+            lambda: session.read_parquet(cdemo_path).select(
+                col("cd_demo_sk"),
+                (col("cd_demo_sk") * lit(2)).alias("twice")).order_by(
+                rand(7)).select(col("twice"),
+                                (col("twice") + lit(1)).alias("odd")),
+            "nondeterministic expression as sort key",
+            {"odd": (2 * cdemo_sk[np.argsort(rand_uniform(
+                7, 0, np.arange(len(cdemo_sk))), kind="stable")]
+                + 1).tolist()}),
+    }
+
+    def exact(want: dict):
+        def check(t):
+            for c, w in want.items():
+                if t.column(c).to_pylist() != w:
+                    raise AssertionError(f"column {c} differs from its "
+                                         "Python reference")
+            return 0.0
+        return check
+
+    records, largest = {}, {}
+    queries = [("names", names, check_names, 0),
+               ("tickets_md5", tickets_md5, check_md5, 0),
+               ("tickets_bucket", tickets_bucket, check_bucket, 0),
+               ("sample", sample, lambda t: compare(t, sample_want, 2), 0),
+               ("ansi", ansi_df, check_ansi, 0)]
+    queries += [(name, make, exact(want), 1)
+                for name, (make, _reason, want) in fallbacks.items()]
+    for name, make_df, check, n_cpu in queries:
+        plan = make_df().physical_plan()
+        calls: list = []
+        rec = run_query(torch, make_df, kernels, check, calls, scans=False,
+                        timed=0, counted=True, fallback=n_cpu)
+        check_launches(name, rec, rec)
+        records[name] = {
+            "joins": join_strategies(plan),
+            "hash_columns_calls": sorted(
+                {(n, signature(cols), seed, parts)
+                 for cols, n, seed, parts in calls}), **rec}
+        for call in calls:
+            key = (signature(call[0]), call[2], call[3])
+            if key not in largest or call[1] > largest[key][1]:
+                largest[key] = call
+        if name in fallbacks:
+            records[name].update(fallback_detail(
+                make_df, fallbacks[name][1], collect_exec))
+        if name == "ansi":
+            # the profiled warm-up polls as the counted runs do
+            batches = (records[name]["runs"] + 1) * sum(
+                -(-n // DEFAULTS[BATCH_ROWS]) for n in sizes)
+            records[name]["ansi_polls"] = ansi_polls() - polls["before"]
+            if records[name]["ansi_polls"] != batches:
+                raise AssertionError(f"ansi polled {records[name]}"
+                                     f"['ansi_polls'] times, expected "
+                                     f"{batches} (one a batch)")
+            records[name].update(ansi_checks(
+                torch, ansi_on, ansi_off, ansi_query, ss_paths, ticket, qty,
+                col, lit, concat_ws, Cast, IntegralDivide, T, max_, count,
+                AnsiError))
+        emit("long_tail_query", name=name, **records[name])
+    names_rows = extra_names_check(names_projection, name_rows)
+    first = session.read_parquet(ss_paths[0]).select(
+        Md5(concat_ws("|", Cast(col("ss_ticket_number"), T.STRING),
+                      Cast(col("ss_item_sk"), T.STRING))).alias(
+            "md5")).collect().column("md5").to_pylist()
+    if first != first_md5:
+        raise AssertionError("one file's md5 column differs from hashlib")
+    sample_rows = sample_projection_check(
+        pa, sample_projection, rand_uniform, ss_paths, sizes)
+    texts = pa.array([f"{a}|{b}" for a, b in zip(
+        sales[0].column("ss_ticket_number").to_pylist()[:MD5_BATCH_ROWS],
+        sales[0].column("ss_item_sk").to_pylist()[:MD5_BATCH_ROWS])])
+    md5_batch = md5_batch_profile(torch, pa, torch.device("cuda"), texts)
+    emit("long_tail", datagen_s=gen_s, reference_s=ref_s,
+         names_rows_checked=names_rows, md5_rows_checked=len(first),
+         sample=sample_rows, md5_batch=md5_batch, summary={
+             name: {k: r.get(k) for k in (
+                 "rows", "median_s", "device_busy_s", "device_idle_share",
+                 "device_kernel_count", "launches", "planned_map_batches")}
+             for name, r in records.items()})
+    return records, list(largest.values())
+
+
+def fallback_detail(make_df, reason: str, collect_exec) -> dict:
+    """One more run of a fallback query: its one CPU node's reason and
+    transitions."""
+    df = make_df()
+    text = df.explain()
+    if reason not in text:
+        raise AssertionError(f"explain() lacks {reason!r}: {text}")
+    plan = df.physical_plan()
+    collect_exec(plan, df._session.conf)
+    (node,) = fallback_nodes(plan)
+    moved = {k: node.metrics[k] for k in (
+        "toHostRows", "toHostBatches", "toDeviceRows", "toDeviceBatches",
+        "cpuTime")}
+    if not (moved["toHostRows"] and moved["toDeviceRows"]):
+        raise AssertionError(f"{node.node_desc()} moved {moved}")
+    return {"reason": reason, "cpu_node": node.node_desc(),
+            "transitions": moved}
+
+
+def ansi_checks(torch, on, off, ansi_query, ss_paths, ticket, qty, col,
+                lit, concat_ws, Cast, IntegralDivide, T, max_, count,
+                AnsiError) -> dict:
+    """The ansi query's rows with the key off (its wall kept), and three
+    queries that raise with the key on and wrap or give NULL with it
+    off, each against numpy."""
+    import numpy as np
+
+    out = {}
+    t0 = time.perf_counter()
+    off_rows = ansi_query(off).collect()
+    torch.cuda.synchronize()
+    out["key_off_wall_s"] = time.perf_counter() - t0
+    on_rows = ansi_query(on).collect()
+    if not on_rows.sort_by("ss_store_sk").equals(
+            off_rows.sort_by("ss_store_sk")):
+        raise AssertionError("ansi rows differ with the key off")
+    suffix = (". If necessary set spark.rapids.tpu.sql.ansi.enabled to "
+              "false to bypass this error.")
+    cases = {
+        "overflow": (lambda s: s.read_parquet(*ss_paths).select(
+            (col("ss_ticket_number") * lit(1 << 62)).alias("v")).agg(
+            (max_(col("v")), "v")), "long overflow",
+            int((ticket * np.int64(1 << 62)).max())),
+        "divide_by_zero": (lambda s: s.read_parquet(*ss_paths).select(
+            IntegralDivide(col("ss_ticket_number"), col("ss_quantity")
+                           - col("ss_quantity")).alias("v")).agg(
+            (count(col("v")), "v")), "Division by zero", 0),
+        "malformed_cast": (lambda s: s.read_parquet(*ss_paths).select(
+            Cast(concat_ws("", lit("x"), Cast(col("ss_ticket_number"),
+                                              T.STRING)), T.INT)
+            .alias("v")).agg((count(col("v")), "v")),
+            "invalid input syntax for type int (ANSI cast)", 0),
+    }
+    for name, (build, message, want) in cases.items():
+        try:
+            build(on).collect()
+        except AnsiError as exc:
+            if str(exc) != message + suffix:
+                raise AssertionError(f"{name}: {exc}") from exc
+        else:
+            raise AssertionError(f"{name} did not raise with ANSI on")
+        got = build(off).collect().column("v")[0].as_py()
+        if got != want:
+            raise AssertionError(f"{name} with ANSI off: {got} != {want}")
+        out[name] = {"raised": message, "key_off": got}
+    return out
+
+
+def extra_names_check(names_projection, want: dict) -> int:
+    """Every projected column of every customer against Python's str
+    methods."""
+    got = names_projection().collect().to_pylist()
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} joined customers, {len(want)} "
+                             "expected")
+    for row in got:
+        ref = want[row["c_customer_sk"]]
+        for k, v in ref.items():
+            if row[k] != v:
+                raise AssertionError(f"customer {row['c_customer_sk']} "
+                                     f"{k}: {row[k]!r} != {v!r}")
+    return len(got)
+
+
+def sample_projection_check(pa, sample_projection, rand_uniform, ss_paths,
+                            sizes) -> dict:
+    """The kept rows: unique ids carrying their partition, their file the
+    partition's, their rand the recipe at their position; the sample's
+    size within 5 standard deviations of SAMPLE_SHARE."""
+    import numpy as np
+
+    t = sample_projection().collect()
+    ids = t.column("id").to_numpy()
+    p = t.column("p").to_numpy().astype(np.int64)
+    if len(np.unique(ids)) != len(ids):
+        raise AssertionError("sample ids repeat")
+    if not (ids >> 33 == p).all():
+        raise AssertionError("a sample id does not carry its partition")
+    files = t.column("f").to_pylist()
+    if any(f != ss_paths[q] for f, q in zip(files, p.tolist())):
+        raise AssertionError("a sampled row names another file")
+    r = t.column("r").to_numpy()
+    pos = ids & ((1 << 33) - 1)
+    for q in np.unique(p):
+        m = p == q
+        want = rand_uniform(SAMPLE_SEED, int(q), pos[m])
+        if not np.array_equal(want.view(np.int64), r[m].view(np.int64)):
+            raise AssertionError(f"partition {q}: rand differs from the "
+                                 "recipe")
+    total = sum(sizes)
+    sd = (total * SAMPLE_SHARE * (1 - SAMPLE_SHARE)) ** 0.5
+    if abs(len(ids) - total * SAMPLE_SHARE) > 5 * sd:
+        raise AssertionError(f"sample of {len(ids)} rows from {total}")
+    return {"rows": len(ids), "of": total, "sd": sd}
+
+
 #: catalog and web texts: timed runs after the warm-up (1 until the
 #: types phase came, to keep the run within the 717 s it took before on
 #: an H100 80GB HBM3 at 700 W: 0 makes the profiled run the warm-up and
@@ -4156,6 +4836,9 @@ def main() -> int:
         nested, nested_calls = nested_phase(
             torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
             store_tables, star.pop("q43_text_rows"))
+        long_tail, long_tail_calls = long_tail_phase(
+            torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
+            store_tables)
         channels, channel_calls = channels_phase(
             torch, pa, pc, pq, star, kernels, tpcds, TTB, store_tables)
         fallback, fallback_calls = fallback_phase(
@@ -4203,14 +4886,15 @@ def main() -> int:
         "star": star_calls, "q67_rollup": q67r_calls, "q5": q5_calls,
         "q27": q27_calls, "agg_family": family_calls, "sql": sql_calls,
         "types": types_calls, "nested": nested_calls,
-        "channels": channel_calls,
+        "long_tail": long_tail_calls, "channels": channel_calls,
         "fallback": fallback_calls, "new_types_mix": [new_types_mix]})
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
     runs = (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off, q93, *star_runs.values(),
             q67r, q5, *q27_runs.values(), *family.values(), *sql.values(),
-            *types.values(), *nested.values(), *channels.values(),
+            *types.values(), *nested.values(), *long_tail.values(),
+            *channels.values(),
             *fallback.values())
     summary = [{
         "name": "hash_columns", "route": "cuda",
@@ -4227,7 +4911,8 @@ def main() -> int:
         "shape": "the largest of q1's, q3's (filter off and on), q67's, "
                  "q3ds's, q93's, q42/q52/q55's, q67_rollup's, q5's, q27's, "
                  "agg_family's, the sql, types and channel texts', the "
-                 "nested queries' and the fallback phase's calls, and "
+                 "nested and long-tail queries' and the fallback "
+                 "phase's calls, and "
                  "the new_types mix at "
                  "6 x 2^20 rows; ms is the device's own time per "
                  "launch; launches include the memory phase's split runs",

@@ -58,6 +58,11 @@ PIPELINE_ENABLED = "spark.rapids.tpu.sql.pipeline.enabled"
 #: items each such stage may hold ahead of its consumer
 PIPELINE_DEPTH = "spark.rapids.tpu.sql.pipeline.depth"
 
+#: ANSI SQL mode (the spark.sql.ansi.enabled analog): overflow in
+#: Add/Subtract/Multiply and invalid/overflowing casts RAISE instead of
+#: wrapping/NULLing (ref: GpuCast.scala:166 ANSI matrix; CheckOverflow)
+ANSI_ENABLED = "spark.rapids.tpu.sql.ansi.enabled"
+
 # -- the memory runtime (``memory/``, ``execs/retry.py``) ----------------- #
 #: device bytes the buffer store keeps registered batches within; past
 #: it a reservation spills.  On CUDA the session sizes it as
@@ -115,6 +120,7 @@ DEFAULTS: dict[str, Any] = {
     CONCURRENT_TASKS: 2,
     PIPELINE_ENABLED: True,
     PIPELINE_DEPTH: 2,
+    ANSI_ENABLED: False,
     HBM_BUDGET_BYTES: 12 << 30,
     HOST_SPILL_BYTES: 1 << 30,
     SPILL_DIR: "",

@@ -29,7 +29,21 @@ pyarrow's defaults, Spark's are implemented here explicitly:
   keeps a NULL row (and a NULL pos) for an empty or NULL array;
   collect_list / collect_set skip NULLs, keep input order, and a set
   keeps the first of equal values (NaN equals NaN, -0.0 equals 0.0);
-  an all-NULL group or an empty grand collect gives an empty array.
+  an all-NULL group or an empty grand collect gives an empty array;
+- the string long tail as Python's ``str`` (JAX's oracle definitions):
+  Java's non-overlapping ``replace``, ``regexp_replace`` and ``split``
+  by Python's ``re`` (``_java_split`` keeps Java's split rules; Java and
+  Python regexes differ on some syntax, ``$`` before a final newline
+  among it), pads and ``locate`` in characters, ``get_json_object`` by
+  ``json``; ``md5`` by ``hashlib``; shifts by Java's rules;
+- ``spark_partition_id()`` is 0, ``monotonically_increasing_id()`` the
+  row's index and ``rand(seed)`` is drawn with partition 0 for every
+  row, as the JAX CPU engine does (it runs a node as one partition);
+  the input-file expressions give Spark's no-file defaults, except over
+  a scan carrying the hidden input-file columns;
+- with ANSI on (``execute_cpu(plan, ansi=True)``) integral overflow in
+  + - *, a zero divisor, a malformed STRING cast to an integral type and
+  an out-of-range cast to one raise ``AnsiError`` with the JAX messages.
 
 ``execute_cpu(plan)`` runs every logical node of ``plan/logical.py``;
 ``cpu_eval(e, table)`` evaluates every expression class of ``exprs/``
@@ -41,7 +55,11 @@ from __future__ import annotations
 import calendar
 import datetime as _dt
 import decimal as _decimal
+import hashlib
+import json
+import os
 import re
+import threading
 from typing import Optional
 
 import numpy as np
@@ -53,17 +71,19 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs import aggregates as AG
 from spark_rapids_tpu_torch.exprs import arithmetic as A
 from spark_rapids_tpu_torch.exprs import base as B
+from spark_rapids_tpu_torch.exprs import bitwise as BW
 from spark_rapids_tpu_torch.exprs import collections as COLL
 from spark_rapids_tpu_torch.exprs import complex as CX
 from spark_rapids_tpu_torch.exprs import datetime as DT
 from spark_rapids_tpu_torch.exprs import decimal as DEC
 from spark_rapids_tpu_torch.exprs import math as M
+from spark_rapids_tpu_torch.exprs import nondeterministic as ND
 from spark_rapids_tpu_torch.exprs import predicates as P
 from spark_rapids_tpu_torch.exprs import strings as S
 from spark_rapids_tpu_torch.exprs import window as WX
 from spark_rapids_tpu_torch.exprs.base import bind_references
 from spark_rapids_tpu_torch.exprs.cast import Cast, cast_supported
-from spark_rapids_tpu_torch.exprs.hashing import Murmur3Hash
+from spark_rapids_tpu_torch.exprs.hashing import Md5, Murmur3Hash
 from spark_rapids_tpu_torch.exprs.subquery import ScalarSubquery
 from spark_rapids_tpu_torch.plan import logical as L
 
@@ -92,6 +112,24 @@ def arrow_schema(schema: T.Schema) -> pa.Schema:
 # ---------------------------------------------------------------------- #
 # Expression evaluation
 # ---------------------------------------------------------------------- #
+
+
+_MODE = threading.local()
+
+
+def _ansi() -> bool:
+    """Whether the ``execute_cpu`` running on this thread has ANSI on."""
+    return getattr(_MODE, "ansi", False)
+
+
+def _ansi_raise(message: str) -> None:
+    B.raise_if_ansi_error(B.ansi_code(message))
+
+
+def _ansi_div_check(zero_rows) -> None:
+    """ANSI: a zero divisor in a row whose operands are both valid."""
+    if _ansi() and bool(np.asarray(zero_rows).any()):
+        _ansi_raise("Division by zero")
 
 
 def cpu_eval(e: B.Expression, table: pa.Table) -> pa.Array:
@@ -246,6 +284,14 @@ def _dispatch(e, table, n):  # noqa: C901 - a dispatcher is a big switch
     if isinstance(e, (A.Add, A.Subtract, A.Multiply)):
         l, r = _operands(e, table)
         at = _atype(e)
+        if _ansi() and pa.types.is_integer(at):
+            fn = {A.Add: pc.add_checked, A.Subtract: pc.subtract_checked,
+                  A.Multiply: pc.multiply_checked}[type(e)]
+            try:
+                return fn(l.cast(at), r.cast(at))
+            except pa.ArrowInvalid:
+                _ansi_raise("long overflow" if pa.types.is_int64(at)
+                            else "integer overflow")
         fn = {A.Add: pc.add, A.Subtract: pc.subtract,
               A.Multiply: pc.multiply}[type(e)]
         return fn(l.cast(at), r.cast(at))  # integers wrap, as Java's
@@ -254,6 +300,7 @@ def _dispatch(e, table, n):  # noqa: C901 - a dispatcher is a big switch
         l = l.cast(pa.float64())
         r = r.cast(pa.float64())
         zero = pc.fill_null(pc.equal(r, 0.0), False)
+        _ansi_div_check(pc.and_(zero, pc.is_valid(l)))
         out = pc.divide(l, pc.if_else(zero, pa.scalar(1.0), r))
         return pc.if_else(zero, _nulls(n, pa.float64()), out)
     if isinstance(e, (A.IntegralDivide, A.Remainder, A.Pmod)):
@@ -332,6 +379,22 @@ def _dispatch(e, table, n):  # noqa: C901 - a dispatcher is a big switch
         return pa.array(h.view(np.int32))
     if isinstance(e, Cast):
         return _cast(e, table, n)
+    if isinstance(e, Md5):
+        return pa.array([None if v is None
+                         else hashlib.md5(v.encode()).hexdigest()
+                         for v in cpu_eval(e.child, table).to_pylist()],
+                        pa.string())
+    if isinstance(e, (BW.BitwiseBinary, BW.BitwiseNot, BW.ShiftLeft)):
+        return _bitwise(e, table)
+    if isinstance(e, ND.SparkPartitionID):  # one partition here
+        return pa.array(np.zeros(n, np.int32))
+    if isinstance(e, ND.MonotonicallyIncreasingID):
+        return pa.array(np.arange(n, dtype=np.int64))
+    if isinstance(e, ND.Rand):  # partition 0, as the JAX CPU engine
+        return pa.array(ND.rand_uniform(e.seed, 0,
+                                        np.arange(n, dtype=np.int64)))
+    if isinstance(e, ND.InputFileName):  # no file context here
+        return pa.array([e.DEFAULT] * n, _atype(e))
     if isinstance(e, (DEC.PromotePrecision, DEC.CheckOverflow,
                       DEC.UnscaledValue, DEC.MakeDecimal)):
         return _dispatch_decimal(e, table)
@@ -604,6 +667,7 @@ def _integral_div(e, table):
     lv, lok = _np_vals(l, at)
     rv, rok = _np_vals(r, at)
     valid = lok & rok
+    _ansi_div_check(valid & (rv == 0))
     if np.issubdtype(npdt, np.floating):
         zero = rv == 0.0
         rv = np.where(zero, 1.0, rv)
@@ -899,7 +963,189 @@ def _dispatch_strings(e, table, n):
         arrs = [cpu_eval(x, table).cast(pa.string()) for x in e.exprs]
         return pc.binary_join_element_wise(*arrs, "",
                                            null_handling="emit_null")
+    if isinstance(e, _STRING_TAIL):
+        return _string_tail(e, table, n)
     return NotImplemented
+
+
+_STRING_TAIL = (S.StringReplace, S.StringLPad, S.StringLocate,
+                S.SubstringIndex, S.InitCap, S.ConcatWs, S.StringSplit,
+                S.SplitPart, S.GetJsonObject)
+
+
+def _string_tail(e, table, n):  # noqa: C901 - one branch a class
+    """The long tail as Python's ``str`` does it (the JAX engine's
+    definitions, Java's where Spark delegates there)."""
+    if isinstance(e, S.ConcatWs):
+        sep = e.sep.value
+        cols = [cpu_eval(c, table).to_pylist() for c in e.exprs]
+        if sep is None:
+            return _nulls(n, pa.string())
+        return pa.array([sep.join(c[i] for c in cols if c[i] is not None)
+                         for i in range(n)], pa.string())
+    vals = cpu_eval(e.child, table).to_pylist()
+
+    def mapped(fn, at=pa.string()):
+        return pa.array([None if v is None else fn(v) for v in vals], at)
+
+    if isinstance(e, S.RegExpReplace):
+        pat, rep = e.search.value, e.replacement.value or ""
+        return mapped(lambda s: re.sub(pat, rep, s))
+    if isinstance(e, S.StringReplace):
+        search, rep = e.search.value or "", e.replacement.value or ""
+        return mapped(lambda s: s.replace(search, rep) if search else s)
+    if isinstance(e, S.StringLPad):  # StringRPad subclasses it
+        tgt, p, left = int(e.length.value), e.pad.value or "", e._left
+
+        def pad(s):
+            if tgt <= 0:
+                return ""
+            if len(s) >= tgt or not p:
+                return s[:tgt]
+            fill = (p * tgt)[: tgt - len(s)]
+            return fill + s if left else s + fill
+
+        return mapped(pad)
+    if isinstance(e, S.StringLocate):
+        sub, start = e.substr.value or "", int(e.start.value)
+
+        def locate(s):
+            if start <= 0:
+                return 0
+            if not sub:
+                return min(start, len(s) + 1)
+            return s.find(sub, start - 1) + 1
+
+        return mapped(locate, pa.int32())
+    if isinstance(e, S.SubstringIndex):
+        d, cnt = e.delim.value or "", int(e.count.value)
+
+        def substring_index(s):
+            if cnt == 0 or not d:
+                return ""
+            hits, pos = [], 0
+            while (j := s.find(d, pos)) >= 0:
+                hits.append(j)
+                pos = j + len(d)
+            if cnt > 0:
+                return s if len(hits) < cnt else s[: hits[cnt - 1]]
+            k = len(hits) + cnt
+            return s if k < 0 else s[hits[k] + len(d):]
+
+        return mapped(substring_index)
+    if isinstance(e, S.InitCap):
+        def initcap(s):
+            out, prev = [], " "
+            for ch in s:
+                out.append(ch.upper() if prev == " " else ch.lower())
+                prev = ch
+            return "".join(out)
+
+        return mapped(initcap)
+    if isinstance(e, S.SplitPart):
+        def part(s):
+            pieces = _java_split(re.escape(e.delim.value), s, -1)
+            return pieces[e.index] if 0 <= e.index < len(pieces) else None
+
+        return mapped(part)
+    if isinstance(e, S.StringSplit):
+        if e.delim.value is None:
+            return _nulls(n, pa.list_(pa.string()))
+        return mapped(lambda s: _java_split(e.delim.value, s, e.limit),
+                      pa.list_(pa.string()))
+    return _get_json_object(e, vals)
+
+
+def _java_split(pattern: str, s: str, limit: int) -> list[str]:
+    """java.lang.String.split: groups never leak into the pieces (unlike
+    re.split), a zero-width match at either end is skipped, ``limit`` >
+    0 caps the piece count, ``limit`` == 0 drops trailing empty
+    pieces."""
+    out, last = [], 0
+    for m in re.finditer(pattern, s):
+        if 0 < limit <= len(out) + 1:
+            break
+        if m.start() == m.end() and (m.start() in (0, len(s))
+                                     or m.start() < last):
+            continue
+        out.append(s[last:m.start()])
+        last = m.end()
+    out.append(s[last:])
+    if limit == 0:
+        while out and out[-1] == "":
+            out.pop()
+    return out
+
+
+def _get_json_object(e, vals: list) -> pa.Array:
+    """get_json_object over Python's ``json``: a string value without
+    its quotes, true / false, anything else as compact JSON; NULL where
+    the text is not JSON or the path finds nothing."""
+    path = e.path.value
+    if any(tok in path for tok in ("*", "..")):
+        raise NotImplementedError(
+            f"get_json_object path {path!r}: wildcard/recursive descent "
+            "is not implemented (simple $.a.b[i] paths only)")
+    steps = S.GetJsonObject.parse_path(path)
+    out = []
+    for v in vals:
+        if v is None or steps is None:
+            out.append(None)
+            continue
+        try:
+            cur = json.loads(v)
+        except ValueError:
+            out.append(None)
+            continue
+        for st in steps:
+            if isinstance(st, int):
+                cur = cur[st] if isinstance(cur, list) \
+                    and 0 <= st < len(cur) else None
+            else:
+                cur = cur.get(st) if isinstance(cur, dict) else None
+            if cur is None:
+                break
+        if cur is None:
+            out.append(None)
+        elif isinstance(cur, str):
+            out.append(cur)
+        elif isinstance(cur, bool):
+            out.append("true" if cur else "false")
+        else:
+            out.append(json.dumps(cur, separators=(",", ":"),
+                                  ensure_ascii=False))
+    return pa.array(out, pa.string())
+
+
+def _bitwise(e, table) -> pa.Array:
+    """& | ^ ~ over pyarrow; shifts in numpy with Java's rules (the
+    amount modulo the width, >>> zero-filling)."""
+    if isinstance(e, BW.BitwiseBinary):
+        at = _atype(e)
+        fn = {BW.BitwiseAnd: pc.bit_wise_and, BW.BitwiseOr: pc.bit_wise_or,
+              BW.BitwiseXor: pc.bit_wise_xor}[type(e)]
+        l, r = _operands(e, table)
+        return fn(l.cast(at), r.cast(at))
+    if isinstance(e, BW.BitwiseNot):
+        return pc.bit_wise_not(cpu_eval(e.child, table))
+    l = cpu_eval(e.left, table)
+    bits = 64 if pa.types.is_int64(l.type) else 32
+    npdt = np.int64 if bits == 64 else np.int32
+    lv, lok = _np_vals(l, l.type)
+    rv, rok = _np_vals(cpu_eval(e.right, table), pa.int32())
+    amount = rv.astype(npdt) & (bits - 1)
+    lv = lv.astype(npdt)
+    if isinstance(e, BW.ShiftRightUnsigned):
+        u = np.uint64 if bits == 64 else np.uint32
+        out = (lv.view(u) >> amount.astype(u)).view(npdt)
+    elif isinstance(e, BW.ShiftRight):
+        out = lv >> amount
+    else:
+        with np.errstate(over="ignore"):
+            out = lv << amount
+    at = _atype(e)
+    with np.errstate(over="ignore"):
+        return _from_np(out.astype(at.to_pandas_dtype()), lok & rok, at)
 
 
 # -- casts -------------------------------------------------------------- #
@@ -919,7 +1165,25 @@ def _cast(e: Cast, table, n):
             raise NotImplementedError(f"CPU engine: cast {src} -> {dst}")
     if isinstance(src, T.StringType):  # each distinct text parsed once
         enc = c.dictionary_encode()
-        return _cast_from_string(enc.dictionary, dst, at).take(enc.indices)
+        out = _cast_from_string(enc.dictionary, dst, at).take(enc.indices)
+        if _ansi() and out.null_count > c.null_count:
+            _ansi_raise(f"invalid input syntax for type {dst.name} "
+                        "(ANSI cast)")
+        return out
+    if _ansi() and isinstance(dst, T.IntegralType) \
+            and isinstance(src, (T.FractionalType, T.IntegralType)):
+        info = np.iinfo(at.to_pandas_dtype())
+        if isinstance(src, T.FractionalType):
+            v, ok = _np_vals(c, pa.float64())
+            t = np.trunc(v)
+            bad = ok & (np.isnan(v) | (t > float(info.max))
+                        | (t < float(info.min)))
+        else:  # integers compared as integers: no float round trip
+            v, ok = _np_vals(c, c.type)
+            bad = ok & ((v > info.max) | (v < info.min))
+        if bad.any():
+            _ansi_raise(f"value out of range for {dst.name} (ANSI cast "
+                        "overflow)")
     if isinstance(dst, T.StringType):
         return pc.cast(c, pa.string())
     if isinstance(dst, T.BooleanType):
@@ -1102,9 +1366,15 @@ def _np_hash_col(a: pa.Array, seed: np.ndarray) -> np.ndarray:
 _PRUNED = {b"pruned": b"1"}
 
 
-def execute_cpu(plan: L.LogicalPlan) -> pa.Table:
-    """``plan`` run to one Arrow table of its schema."""
-    return _run(plan, None)
+def execute_cpu(plan: L.LogicalPlan, ansi: bool = False) -> pa.Table:
+    """``plan`` run to one Arrow table of its schema; ``ansi``: ANSI mode
+    (its errors raise ``AnsiError``)."""
+    prev = _ansi()
+    _MODE.ansi = ansi
+    try:
+        return _run(plan, None)
+    finally:
+        _MODE.ansi = prev
 
 
 def _placeholder(name: str, n: int) -> tuple[pa.Field, pa.Array]:
@@ -1225,7 +1495,8 @@ def _leaf(plan, need: Optional[set]) -> pa.Table:
         t = pa.table({"id": plan.start + np.arange(total, dtype=np.int64)
                       * plan.step})
     elif isinstance(plan, L.Scan):
-        t = pa.concat_tables(pq.read_table(p, columns=names)
+        hidden = {f.name for f in ND.INPUT_FILE_FIELDS}
+        t = pa.concat_tables(_scan_file(p, names, hidden)
                              for p in plan.paths)
     else:
         t = plan.table.select(names)
@@ -1233,6 +1504,21 @@ def _leaf(plan, need: Optional[set]) -> pa.Table:
     return _assemble([cols.get(f.name) if i in kept else None
                       for i, f in enumerate(plan.schema.fields)],
                      plan.schema, t.num_rows)
+
+
+def _scan_file(path: str, names: list, hidden: set) -> pa.Table:
+    """One file's columns ``names``: the hidden input-file ones are the
+    file's path, 0 and its size."""
+    t = pq.read_table(path, columns=[c for c in names if c not in hidden])
+    n = t.num_rows
+    for c in names:
+        if c == ND.InputFileName.HIDDEN:
+            t = t.append_column(c, pa.array([path] * n, pa.string()))
+        elif c in hidden:
+            v = os.path.getsize(path) \
+                if c == ND.InputFileBlockLength.HIDDEN else 0
+            t = t.append_column(c, pa.array(np.full(n, v, np.int64)))
+    return t.select(names)
 
 
 # -- sort --------------------------------------------------------------- #

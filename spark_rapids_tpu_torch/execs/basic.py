@@ -8,6 +8,17 @@ partition on its device.  A union's partitions are its members', one
 member after another, so an exchange above it numbers its map tasks in
 that order; its batches are re-tagged with the union's schema (the
 first member's names).
+
+A projection and a filter evaluate their expressions with the partition
+they run (``execute_partition``'s ``p``) and the rows of it they
+evaluated before the batch (``EvalContext``; the partition-aware
+expressions of ``exprs/nondeterministic.py`` read them).  The JAX
+package fuses such execs and counts the rows entering the chain; these
+count their own input, which is the same when nothing above a Filter or
+a row-multiplying exec (Expand, Generate) reads them, and Spark's
+numbering otherwise.  With ``ansi`` (the session's
+``spark.rapids.tpu.sql.ansi.enabled``) each batch's expressions run
+under one capture, polled once (``exprs/base.py::evaluate``).
 """
 
 from __future__ import annotations
@@ -24,13 +35,16 @@ from spark_rapids_tpu_torch.exprs.base import (
     EvalContext,
     Expression,
     bind_references,
+    evaluate,
     output_field,
 )
 
 
 class TpuProjectExec(TpuExec):
-    def __init__(self, exprs: Sequence[Expression], child: TpuExec):
+    def __init__(self, exprs: Sequence[Expression], child: TpuExec,
+                 ansi: bool = False):
         super().__init__(child)
+        self.ansi = ansi
         self.exprs = [bind_references(e, child.schema) for e in exprs]
         self._schema = T.Schema([output_field(e, i)
                                  for i, e in enumerate(self.exprs)])
@@ -43,15 +57,19 @@ class TpuProjectExec(TpuExec):
         return f"TpuProjectExec [{', '.join(e.name for e in self.exprs)}]"
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        offset = 0
         for b in self.children[0].execute_partition(p):
-            ctx = EvalContext.for_batch(b)
-            yield b.with_columns([e.eval(ctx) for e in self.exprs],
+            ctx = EvalContext.for_batch(b, p, offset)
+            offset += b.num_rows
+            yield b.with_columns(evaluate(self.exprs, ctx, self.ansi),
                                  self._schema)
 
 
 class TpuFilterExec(TpuExec):
-    def __init__(self, condition: Expression, child: TpuExec):
+    def __init__(self, condition: Expression, child: TpuExec,
+                 ansi: bool = False):
         super().__init__(child)
+        self.ansi = ansi
         self.condition = bind_references(condition, child.schema)
 
     @property
@@ -62,8 +80,11 @@ class TpuFilterExec(TpuExec):
         return f"TpuFilterExec [{self.condition!r}]"
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        offset = 0
         for b in self.children[0].execute_partition(p):
-            pred = self.condition.eval(EvalContext.for_batch(b))
+            ctx = EvalContext.for_batch(b, p, offset)
+            offset += b.num_rows
+            (pred,) = evaluate([self.condition], ctx, self.ansi)
             out = b.compact(pred.data.bool() & pred.validity)
             if out.num_rows:
                 yield out

@@ -13,6 +13,10 @@ zeroed data and invalid for a fixed-width type.  The output columns
 carry no dictionary sidecar: a column's codes would come from one
 projection and its NULL slots from another, and the coded group-by
 would group them wrongly.
+
+The projections see the partition and the rows of it before the batch,
+and run under an ANSI capture when ``ansi`` is on, as a projection
+does (``execs/basic.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from spark_rapids_tpu_torch.exprs.base import (
     EvalContext,
     Expression,
     bind_references,
+    evaluate,
 )
 
 
@@ -58,10 +63,11 @@ def _stack_fixed(parts: list[AnyColumn], dtype: T.DataType) -> Column:
 
 class TpuExpandExec(TpuExec):
     def __init__(self, projections: Sequence[Sequence[Expression]],
-                 schema: T.Schema, child: TpuExec):
+                 schema: T.Schema, child: TpuExec, ansi: bool = False):
         """``schema``: the output columns, one per expression of each
         projection."""
         super().__init__(child)
+        self.ansi = ansi
         self.projections = [[bind_references(e, child.schema) for e in p]
                             for p in projections]
         self._schema = schema
@@ -74,9 +80,13 @@ class TpuExpandExec(TpuExec):
         return (f"TpuExpandExec [{len(self.projections)} projections] "
                 f"[{', '.join(self._schema.names)}]")
 
-    def expand(self, batch: ColumnarBatch) -> ColumnarBatch:
-        ctx = EvalContext.for_batch(batch)
-        evaluated = [[e.eval(ctx) for e in p] for p in self.projections]
+    def expand(self, batch: ColumnarBatch, partition: int = 0,
+               offset: int = 0) -> ColumnarBatch:
+        ctx = EvalContext.for_batch(batch, partition, offset)
+        flat = evaluate([e for p in self.projections for e in p], ctx,
+                        self.ansi)
+        k = len(self._schema)
+        evaluated = [flat[i:i + k] for i in range(0, len(flat), k)]
         cols: list[AnyColumn] = []
         for ci, f in enumerate(self._schema.fields):
             parts = [ev[ci] for ev in evaluated]
@@ -91,5 +101,8 @@ class TpuExpandExec(TpuExec):
                              self._schema, batch.device)
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        offset = 0
         for batch in self.children[0].execute_partition(p):
-            yield self.expand(batch)
+            out = self.expand(batch, p, offset)
+            offset += batch.num_rows
+            yield out

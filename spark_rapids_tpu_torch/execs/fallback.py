@@ -18,7 +18,9 @@ the exec keeps its child's partitions.  Any other node drains its
 children, runs once, and makes one partition.  ``metrics`` counts the
 rows and batches each way (``toHostRows``, ``toHostBatches``,
 ``toDeviceRows``, ``toDeviceBatches``) and the engine's time
-(``cpuTime``, ns).
+(``cpuTime``, ns).  With ``ansi`` (the session's
+``spark.rapids.tpu.sql.ansi.enabled``) the engine raises ``AnsiError``
+where the JAX CPU engine does.
 """
 
 from __future__ import annotations
@@ -48,9 +50,10 @@ class CpuFallbackExec(TpuExec):
 
     def __init__(self, plan: L.LogicalPlan, reasons: Iterable[str],
                  children: Sequence[TpuExec], device: torch.device,
-                 batch_rows: int, runtime: TaskRuntime):
+                 batch_rows: int, runtime: TaskRuntime, ansi: bool = False):
         super().__init__(*children)
         self.plan = plan
+        self.ansi = ansi
         self.reasons = sorted(reasons)
         self.device = torch.device(device)
         self.batch_rows = batch_rows
@@ -94,7 +97,7 @@ class CpuFallbackExec(TpuExec):
         plan = copy.copy(self.plan)
         plan.children = [L.InMemoryRelation(t) for t in children]
         t0 = time.perf_counter_ns()
-        out = execute_cpu(plan)
+        out = execute_cpu(plan, ansi=self.ansi)
         self.metrics.add("cpuTime", time.perf_counter_ns() - t0)
         return out
 

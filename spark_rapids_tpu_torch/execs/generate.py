@@ -14,6 +14,9 @@ not generated.  The output is the child's columns the plan reads above
 (the planner's ``keep``: the array itself, read by the generator only,
 is not repeated a row per element, as Spark's Generate drops its
 unrequired child columns), then ``pos`` (posexplode), then the element.
+The generator's array expression sees the partition and the rows of it
+before the batch, under an ANSI capture when ``ansi`` is on, as a
+projection does (``execs/basic.py``).
 """
 
 from __future__ import annotations
@@ -26,15 +29,20 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, null_column
 from spark_rapids_tpu_torch.columnar.column import Column, ListColumn
 from spark_rapids_tpu_torch.execs.base import TpuExec
-from spark_rapids_tpu_torch.exprs.base import EvalContext, bind_references
+from spark_rapids_tpu_torch.exprs.base import (
+    EvalContext,
+    bind_references,
+    evaluate,
+)
 
 
 class TpuGenerateExec(TpuExec):
     def __init__(self, generator, out_name: str, child: TpuExec,
-                 keep: Optional[Sequence[str]] = None):
+                 keep: Optional[Sequence[str]] = None, ansi: bool = False):
         """``generator``: an ``Explode`` over the child's columns by
         name; ``keep``: the child's columns to repeat (None: all)."""
         super().__init__(child)
+        self.ansi = ansi
         self.generator = generator.with_children(
             [bind_references(generator.child, child.schema)])
         cs = child.schema
@@ -53,9 +61,11 @@ class TpuGenerateExec(TpuExec):
     def node_desc(self) -> str:
         return f"TpuGenerateExec [{self.generator.name}]"
 
-    def _generate(self, batch: ColumnarBatch) -> ColumnarBatch:
+    def _generate(self, batch: ColumnarBatch, partition: int = 0,
+                  offset: int = 0) -> ColumnarBatch:
         gen = self.generator
-        lc = gen.child.eval(EvalContext.for_batch(batch))
+        (lc,) = evaluate([gen.child], EvalContext.for_batch(
+            batch, partition, offset), self.ansi)
         assert isinstance(lc, ListColumn), type(lc).__name__
         dev = batch.device
         lens = lc.lengths().to(torch.int64)
@@ -79,5 +89,8 @@ class TpuGenerateExec(TpuExec):
         return ColumnarBatch(cols, total, self._schema, dev)
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        offset = 0
         for batch in self.children[0].execute_partition(p):
-            yield self._generate(batch)
+            out = self._generate(batch, p, offset)
+            offset += batch.num_rows
+            yield out

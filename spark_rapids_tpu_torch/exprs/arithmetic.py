@@ -1,7 +1,6 @@
 """Arithmetic with Spark SQL semantics.
 
-Counterpart of ``spark_rapids_tpu/exprs/arithmetic.py`` without its
-ANSI error polling:
+Counterpart of ``spark_rapids_tpu/exprs/arithmetic.py``:
 
 - Add / Subtract / Multiply over the numeric common type, NULL in,
   NULL out; integers wrap in their own width (TINYINT in 8 bits,
@@ -21,6 +20,13 @@ ANSI error polling:
   itself, as Java's negation and ``Math.abs`` do);
 - Least / Greatest over any number of arguments, skipping NULLs, NaN
   the greatest double.
+
+With an ANSI capture open (``exprs/base.py``), integral Add, Subtract
+and Multiply report the rows whose result overflowed ("long overflow"
+for LONG, "integer overflow" for the narrower types: Java's
+``Math.addExact`` wording), and the divide family (``_DivByZeroAnsi``)
+the rows with a zero divisor ("Division by zero"); a row with a NULL
+operand never reports.  The results themselves are those of ANSI off.
 
 Java's integer ``/`` and ``%`` truncate toward zero and give the
 remainder the dividend's sign.  ``torch.remainder`` (and Python's
@@ -45,6 +51,8 @@ from spark_rapids_tpu_torch.columnar.column import AnyColumn, Column
 from spark_rapids_tpu_torch.exprs.base import (
     EvalContext,
     Expression,
+    ansi_active,
+    ansi_report,
     broadcast_validity,
 )
 
@@ -66,12 +74,24 @@ class BinaryArithmetic(Expression):
         lc = self.left.eval(ctx)
         rc = self.right.eval(ctx)
         phys = T.to_torch_dtype(self.dtype)
-        data, valid = self.compute(lc.data.to(phys), rc.data.to(phys),
-                                   broadcast_validity(lc, rc))
+        ld, rd = lc.data.to(phys), rc.data.to(phys)
+        pre_valid = broadcast_validity(lc, rc)
+        data, valid = self.compute(ld, rd, pre_valid)
+        if ansi_active():
+            self._ansi_check(ld, rd, data, pre_valid)
         return Column(data, valid, self.dtype)
+
+    def _ansi_check(self, ld, rd, data, valid) -> None:
+        """Report the rows whose result ANSI mode rejects; ``valid`` is
+        the validity before ``compute``."""
 
     def compute(self, ld, rd, valid):
         raise NotImplementedError
+
+
+def _overflow_message(data: torch.Tensor) -> str:
+    return "long overflow" if data.dtype == torch.int64 \
+        else "integer overflow"
 
 
 def result_numeric_type(left: T.DataType,
@@ -134,10 +154,24 @@ class Add(_DecimalAddSub):
     def compute(self, ld, rd, valid):
         return ld + rd, valid
 
+    def _ansi_check(self, ld, rd, data, valid) -> None:
+        if data.is_floating_point():
+            return
+        # two operands of one sign whose sum has the other overflowed
+        ansi_report(valid & ((ld >= 0) == (rd >= 0))
+                    & ((data >= 0) != (ld >= 0)), _overflow_message(data))
+
 
 class Subtract(_DecimalAddSub):
     def compute(self, ld, rd, valid):
         return ld - rd, valid
+
+    def _ansi_check(self, ld, rd, data, valid) -> None:
+        if data.is_floating_point():
+            return
+        # operands of opposite signs whose difference flips sign
+        ansi_report(valid & ((ld >= 0) != (rd >= 0))
+                    & ((data >= 0) != (ld >= 0)), _overflow_message(data))
 
 
 class Multiply(BinaryArithmetic):
@@ -156,8 +190,30 @@ class Multiply(BinaryArithmetic):
     def compute(self, ld, rd, valid):
         return ld * rd, valid
 
+    def _ansi_check(self, ld, rd, data, valid) -> None:
+        if data.is_floating_point():
+            return
+        # Math.multiplyExact's check: the product does not divide back
+        # to the left operand, or MIN_VALUE * -1
+        nonzero = rd != 0
+        back = _java_divmod(data, torch.where(nonzero, rd,
+                                              torch.ones_like(rd)))[0]
+        lo = torch.iinfo(data.dtype).min
+        ansi_report(valid & ((nonzero & (back != ld))
+                             | ((ld == lo) & (rd == -1))),
+                    _overflow_message(data))
 
-class Divide(BinaryArithmetic):
+
+class _DivByZeroAnsi(BinaryArithmetic):
+    """The divide family's ANSI check: a zero divisor where both
+    operands are valid (Spark gates on the divisor alone and so differs
+    on (NULL, 0), as the JAX package does)."""
+
+    def _ansi_check(self, ld, rd, data, valid) -> None:
+        ansi_report(valid & (rd == 0), "Division by zero")
+
+
+class Divide(_DivByZeroAnsi):
     """Double division; x / 0 -> NULL (Spark non-ANSI)."""
 
     @property
@@ -212,7 +268,7 @@ def _safe_divisor(rd: torch.Tensor, valid: torch.Tensor):
     return torch.where(zero, torch.ones_like(rd), rd), valid & ~zero
 
 
-class IntegralDivide(BinaryArithmetic):
+class IntegralDivide(_DivByZeroAnsi):
     """``a div b``: LONG, truncated toward zero; NULL on a zero
     divisor.  Integer operands divide in int64 (no double round trip:
     large longs would lose digits)."""
@@ -233,7 +289,7 @@ class IntegralDivide(BinaryArithmetic):
         return _java_divmod(ld, safe)[0], valid
 
 
-class Remainder(BinaryArithmetic):
+class Remainder(_DivByZeroAnsi):
     """``a % b`` with Java's sign (the dividend's); NULL on a zero
     divisor."""
 
@@ -248,7 +304,7 @@ class Remainder(BinaryArithmetic):
         return _java_divmod(ld, safe)[1], valid
 
 
-class Pmod(BinaryArithmetic):
+class Pmod(_DivByZeroAnsi):
     """Spark's pmod: ``r = a % n; if (r < 0) (r + n) % n else r`` with
     Java's ``%``, so pmod(-7, -3) is -1; NULL on a zero divisor."""
 

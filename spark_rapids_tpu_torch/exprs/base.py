@@ -4,13 +4,31 @@ Counterpart of ``spark_rapids_tpu/exprs/base.py``.  ``eval`` runs
 eagerly on the batch's tensors and returns a Column/StringColumn of the
 batch's row count; SQL NULLs travel in the validity tensor.  Batches
 hold live rows only, so there is no row mask to apply.
+
+``EvalContext`` carries the partition context the partition-aware
+expressions read (``exprs/nondeterministic.py``): the partition the exec
+runs (``partition_index``) and the rows of that partition it evaluated
+before this batch (``row_offset``), both 0 where that context means
+nothing (sort, join and aggregate keys, where the planner forbids those
+expressions).  The JAX package sets them in a thread-local while it
+traces a fused pipeline; here the exec passes them.
+
+ANSI mode (``spark.rapids.tpu.sql.ansi.enabled``): an expression whose
+result would overflow or is invalid reports a per-row flag
+(``ansi_report``) while a capture is open (``ansi_capture``), and the
+exec that opened it polls the batch's flags once (``poll_ansi``: one
+``.item()`` sync a batch), raising ``AnsiError`` with the JAX message.
+The Project, Filter, Expand and Generate execs open a capture only when
+the key is on, so with it off no expression reports and no exec syncs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime as _dt
 import decimal
+import threading
 from typing import Any, Optional, Sequence
 
 import torch
@@ -29,13 +47,115 @@ _EPOCH_UTC = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
 
 @dataclasses.dataclass
 class EvalContext:
-    """The input batch an expression tree evaluates over."""
+    """The input batch an expression tree evaluates over, with its
+    partition and the partition's rows before it."""
 
     batch: ColumnarBatch
+    partition_index: int = 0
+    row_offset: int = 0
 
     @staticmethod
-    def for_batch(batch: ColumnarBatch) -> "EvalContext":
-        return EvalContext(batch)
+    def for_batch(batch: ColumnarBatch, partition_index: int = 0,
+                  row_offset: int = 0) -> "EvalContext":
+        return EvalContext(batch, partition_index, row_offset)
+
+
+# ---------------------------------------------------------------------- #
+# ANSI mode
+# ---------------------------------------------------------------------- #
+
+
+class AnsiError(RuntimeError):
+    """org.apache.spark.SparkArithmeticException analog."""
+
+
+def ansi_enabled(conf) -> bool:
+    """Whether ``conf`` (a session's ``TorchConf``) turns ANSI mode on."""
+    from spark_rapids_tpu_torch.config import ANSI_ENABLED
+
+    return bool(conf.get(ANSI_ENABLED))
+
+
+_ANSI_CAPTURE = threading.local()
+_ANSI_MESSAGES: dict[int, str] = {}
+_ANSI_CODES: dict[str, int] = {}
+_ansi_lock = threading.Lock()
+#: device syncs ANSI polling has made, process-wide (``ansi_polls``)
+_POLLS = [0]
+
+
+def ansi_code(message: str) -> int:
+    """A stable small int code for an error message."""
+    with _ansi_lock:
+        code = _ANSI_CODES.get(message)
+        if code is None:
+            code = _ANSI_CODES[message] = len(_ANSI_CODES) + 1
+            _ANSI_MESSAGES[code] = message
+        return code
+
+
+@contextlib.contextmanager
+def ansi_capture():
+    """Scope an ANSI flag accumulator around one batch's evaluation;
+    yields the list ``ansi_report`` appends (code, any-flag) pairs to."""
+    flags: list = []
+    prev = getattr(_ANSI_CAPTURE, "v", None)
+    _ANSI_CAPTURE.v = flags
+    try:
+        yield flags
+    finally:
+        _ANSI_CAPTURE.v = prev
+
+
+def ansi_active() -> bool:
+    """True while a capture is open (execs open one only with ANSI mode
+    on, so expressions check this, not the conf)."""
+    return getattr(_ANSI_CAPTURE, "v", None) is not None
+
+
+def ansi_report(flag: torch.Tensor, message: str) -> None:
+    """Record a per-row error condition: its ``any()`` stays a device
+    bool until the exec polls."""
+    cap = getattr(_ANSI_CAPTURE, "v", None)
+    if cap is not None:
+        cap.append((ansi_code(message), flag.any()))
+
+
+def poll_ansi(flags: list) -> None:
+    """The captured flags folded into one error code on the device and
+    read back with one sync (none when nothing reported); raises
+    ``AnsiError`` for a nonzero code."""
+    if not flags:
+        return
+    codes = torch.stack([torch.where(f, code, 0) for code, f in flags])
+    with _ansi_lock:
+        _POLLS[0] += 1
+    raise_if_ansi_error(int(codes.max().item()))
+
+
+def ansi_polls() -> int:
+    """Device syncs ``poll_ansi`` has made in this process."""
+    return _POLLS[0]
+
+
+def raise_if_ansi_error(err: int) -> None:
+    code = int(err)
+    if code:
+        raise AnsiError(
+            _ANSI_MESSAGES.get(code, f"ANSI error {code}")
+            + ". If necessary set spark.rapids.tpu.sql.ansi.enabled "
+            "to false to bypass this error.")
+
+
+def evaluate(exprs, ctx: EvalContext, ansi: bool) -> list:
+    """Each expression over ``ctx``; with ``ansi`` under one capture,
+    polled once after the last."""
+    if not ansi:
+        return [e.eval(ctx) for e in exprs]
+    with ansi_capture() as flags:
+        out = [e.eval(ctx) for e in exprs]
+    poll_ansi(flags)
+    return out
 
 
 class Expression:

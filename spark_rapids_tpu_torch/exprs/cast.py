@@ -24,10 +24,16 @@ Counterpart of ``spark_rapids_tpu/exprs/cast.py``, its whole matrix
   UNION's widening needs), DATE to STRING (``yyyy-MM-dd``, years
   0-9999).
 
-STRING to DOUBLE / DATE / TIMESTAMP, DOUBLE to STRING, decimal
-narrowing and ANSI error polling are not ported; ``check_supported``
-raises TypeError for them, and the planner runs the node on the CPU
-engine (q37's ``cast('2000-02-01' as date)`` filter of date_dim).
+With an ANSI capture open (``exprs/base.py``) a cast reports what
+ANSI mode rejects, with the JAX messages: a malformed STRING to an
+integral type ("invalid input syntax"), a FLOAT / DOUBLE to an integral
+type that is NaN or out of its range, and an integral narrowing that
+loses the value ("value out of range"); NULL rows never report.
+
+STRING to DOUBLE / DATE / TIMESTAMP, DOUBLE to STRING and decimal
+narrowing lie outside the JAX matrix; ``check_supported`` raises
+TypeError for them, and the planner runs the node on the CPU engine
+(q37's ``cast('2000-02-01' as date)`` filter of date_dim).
 """
 
 from __future__ import annotations
@@ -43,7 +49,12 @@ from spark_rapids_tpu_torch.columnar.column import (
     Column,
     StringColumn,
 )
-from spark_rapids_tpu_torch.exprs.base import EvalContext, Expression
+from spark_rapids_tpu_torch.exprs.base import (
+    EvalContext,
+    Expression,
+    ansi_active,
+    ansi_report,
+)
 from spark_rapids_tpu_torch.exprs.datetime import US_PER_DAY, US_PER_SECOND
 
 _INTEGRAL = (T.ByteType, T.ShortType, T.IntegerType, T.LongType)
@@ -126,14 +137,38 @@ class Cast(Expression):
         if isinstance(src, T.NullType):
             return null_column(dst, len(c), c.validity.device)
         if isinstance(src, T.StringType):
-            return _parse_integral(c, dst)
+            out = _parse_integral(c, dst)
+            if ansi_active():
+                ansi_report(c.validity & ~out.validity,
+                            f"invalid input syntax for type {dst.name} "
+                            "(ANSI cast)")
+            return out
         if isinstance(dst, T.StringType):
             if isinstance(src, T.BooleanType):
                 return _bool_to_string(c)
             if isinstance(src, T.DateType):
                 return _date_to_string(c)
             return _integral_to_string(c)
-        return cast_column(c, src, dst)
+        out = cast_column(c, src, dst)
+        if ansi_active() and isinstance(dst, _INTEGRAL) \
+                and isinstance(src, _NUMERIC):
+            _ansi_range_check(c, out, dst)
+        return out
+
+
+def _ansi_range_check(c: Column, out: Column, dst: T.DataType) -> None:
+    """ANSI: a floating value that is NaN or whose truncation leaves the
+    integral type, or an integral one the narrowing changed."""
+    msg = f"value out of range for {dst.name} (ANSI cast overflow)"
+    d = c.data
+    if d.is_floating_point():
+        info = torch.iinfo(T.to_torch_dtype(dst))
+        f = d.to(torch.float64)
+        t = torch.trunc(f)
+        ansi_report(c.validity & (torch.isnan(f) | (t > float(info.max))
+                                  | (t < float(info.min))), msg)
+    elif out.data.element_size() < d.element_size():
+        ansi_report(c.validity & (out.data.to(d.dtype) != d), msg)
 
 
 def cast_column(c: Column, src: T.DataType, dst: T.DataType) -> Column:

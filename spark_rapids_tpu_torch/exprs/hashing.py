@@ -23,17 +23,33 @@ versions in ``ops/kernels.py``.  On a CUDA batch a key tuple is hashed
 by the hand-written K1 kernel, one launch per batch
 (``kernels.hash_columns``), whose 32-bit hash values travel as int32 bit
 patterns.
+
+``md5(string)`` (``Md5``, the JAX package's K7, a jnp program there,
+not a Pallas kernel) is plain torch over the same int64 lanes masked to
+32 bits: each row's bytes padded as MD5 pads them (0x80, zeros, the
+64-bit little-endian bit length at the end of the row's last block),
+read as little-endian words, every block of the widest row run for
+every row (a row folds a block into its state only while the block is
+one of its own), 64 rounds a block, and the digest's 16 bytes
+written as 32 lowercase hex characters.  NULL in, NULL out.  In eager
+torch that is about a dozen elementwise launches a round, some 800 a
+64-byte block (``PERF.md``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.column import AnyColumn, Column
+from spark_rapids_tpu_torch.columnar.column import (
+    AnyColumn,
+    Column,
+    StringColumn,
+)
 from spark_rapids_tpu_torch.exprs.base import EvalContext, Expression
 from spark_rapids_tpu_torch.ops import kernels
 
@@ -211,3 +227,95 @@ def partition_ids(cols: Sequence[AnyColumn], num_rows: int,
     """Spark hash partitioning: pmod(hash(keys), n) -> int64 in [0, n)."""
     return kernels.hash_columns(cols, num_rows, device,
                                 num_partitions=num_partitions)
+
+
+# --------------------------------------------------------------------- #
+# MD5
+# --------------------------------------------------------------------- #
+
+_MD5_K = tuple(int(abs(np.sin(i + 1)) * (1 << 32)) & MASK32
+               for i in range(64))
+_MD5_S = (7, 12, 17, 22) * 4 + (5, 9, 14, 20) * 4 \
+    + (4, 11, 16, 23) * 4 + (6, 10, 15, 21) * 4
+_MD5_G = tuple(i if i < 16 else (5 * i + 1) % 16 if i < 32
+               else (3 * i + 5) % 16 if i < 48 else (7 * i) % 16
+               for i in range(64))
+_MD5_INIT = (0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476)
+_HEX = b"0123456789abcdef"
+
+
+def md5_string_bytes(chars: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """Each row's MD5 over its first ``lengths`` bytes of ``chars``:
+    (N, 32) uint8 lowercase hex."""
+    n, w = chars.shape
+    dev = chars.device
+    blocks = (w + 9 + 63) // 64
+    length = lengths.to(torch.int64)
+    msg = torch.nn.functional.pad(chars, (0, blocks * 64 - w)) \
+        .to(torch.int64)
+    cols = torch.arange(blocks * 64, device=dev)[None, :]
+    msg = torch.where(cols < length[:, None], msg, 0)
+    msg = torch.where(cols == length[:, None], 0x80, msg)
+    row_blocks = (length + 9 + 63) // 64
+    at = (row_blocks * 64 - 8)[:, None]
+    bitlen = (length * 8)[:, None]
+    for k in range(8):
+        msg = torch.where(cols == at + k, (bitlen >> (8 * k)) & 0xFF, msg)
+    b = msg.view(n, blocks, 16, 4)
+    words = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) \
+        | (b[..., 3] << 24)
+    k_t = torch.tensor(_MD5_K, dtype=torch.int64, device=dev)
+    g_t = torch.tensor(_MD5_G, dtype=torch.int64, device=dev)
+    state = [torch.full((n,), v, dtype=torch.int64, device=dev)
+             for v in _MD5_INIT]
+    for blk in range(blocks):
+        mk = words[:, blk, :][:, g_t] + k_t  # each round's word + K
+        a, bb, c, d = state
+        for i in range(64):
+            if i < 16:
+                f = d ^ (bb & (c ^ d))
+            elif i < 32:
+                f = c ^ (d & (bb ^ c))
+            elif i < 48:
+                f = bb ^ c ^ d
+            else:
+                f = c ^ (bb | (d ^ MASK32))
+            t = (a + f + mk[:, i]) & MASK32
+            s_ = _MD5_S[i]
+            a, d, c = d, c, bb
+            bb = (bb + (((t << s_) & MASK32) | (t >> (32 - s_)))) & MASK32
+        active = blk < row_blocks
+        state = [torch.where(active, (s0 + v) & MASK32, s0)
+                 for s0, v in zip(state, (a, bb, c, d))]
+    digest = torch.stack(state, dim=1)  # (N, 4) little-endian words
+    dbytes = torch.stack([(digest >> (8 * k)) & 0xFF for k in range(4)],
+                         dim=2).reshape(n, 16)
+    lut = torch.tensor(list(_HEX), dtype=torch.uint8, device=dev)
+    return torch.stack([lut[dbytes >> 4], lut[dbytes & 0xF]],
+                       dim=2).reshape(n, 32)
+
+
+@dataclasses.dataclass(repr=False)
+class Md5(Expression):
+    """md5(string): the lowercase hex digest of the UTF-8 bytes."""
+
+    child: Expression
+
+    @property
+    def dtype(self) -> T.DataType:
+        return T.STRING
+
+    @property
+    def nullable(self) -> bool:
+        return self.child.nullable
+
+    def eval(self, ctx: EvalContext) -> AnyColumn:
+        c = self.child.eval(ctx)
+        if not isinstance(c, StringColumn):
+            raise TypeError(f"md5 needs a STRING input, got {c.dtype}")
+        valid = c.validity
+        hexed = md5_string_bytes(c.chars, c.lengths)
+        return StringColumn(hexed * valid[:, None].to(torch.uint8),
+                            torch.where(valid, 32, 0).to(torch.int32),
+                            valid)

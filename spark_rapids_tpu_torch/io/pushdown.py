@@ -16,7 +16,12 @@ it is decoded:
   application point 1 of ``plan/runtime_filter.py``.
 
 Pruning is conservative: a group goes only when the statistics prove
-that no row of it can pass.  Hive partition pruning
+that no row of it can pass.  A scan takes only ``pushable_condition``
+of a Filter: nothing of a nondeterministic condition (its rows must
+reach the device Filter in their places, as Spark keeps such a Filter
+above the scan), and, of any other, the conjuncts the planner does not
+keep on the device (those reading the hidden input-file columns, and
+with ANSI on those that could raise).  Hive partition pruning
 (``partition_may_match``) is not ported: the port reads no partitioned
 directories.
 """
@@ -25,8 +30,9 @@ from __future__ import annotations
 
 import datetime
 import decimal
+import functools
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exprs import base as B
@@ -37,6 +43,26 @@ def split_conjuncts(e: B.Expression) -> list[B.Expression]:
     if isinstance(e, P.And):
         return split_conjuncts(e.left) + split_conjuncts(e.right)
     return [e]
+
+
+def pushable_condition(condition: B.Expression,
+                       keep_on_device: Callable[[B.Expression], bool]
+                       ) -> Optional[B.Expression]:
+    """The part of a Filter's condition a scan may take for footer
+    pruning and the host prefilter: None for a nondeterministic
+    condition, else the AND of the conjuncts ``keep_on_device`` does not
+    keep (None when it keeps them all)."""
+    from spark_rapids_tpu_torch.exprs.nondeterministic import (
+        tree_is_partition_aware,
+    )
+
+    if tree_is_partition_aware(condition):
+        return None
+    conjuncts = split_conjuncts(condition)
+    kept = [c for c in conjuncts if not keep_on_device(c)]
+    if len(kept) == len(conjuncts):
+        return condition
+    return functools.reduce(P.And, kept) if kept else None
 
 
 def _col_name(e: B.Expression, schema: T.Schema) -> Optional[str]:

@@ -42,6 +42,15 @@ A file is read in four steps, each the JAX scan's:
 Each file's footer is checked against the datetime rebase policy
 (``io/rebase.py``) when it is opened, before pruning.
 
+A scan whose logical node carries the hidden input-file columns
+(``plan/logical.py::Scan(input_files=True)``, asked for by the
+planner's ``_rewrite_input_file_exprs``) appends them to each decoded
+table of a file, before the host prefilter: the file's path (as a
+one-entry dictionary column), 0 and the file's size in bytes.  The
+pushed condition never reads them (the planner keeps such conjuncts on
+the device Filter), so footer pruning and the native decoder see the
+file's own columns only.
+
 The conf keys (``scan.fastDecode``, ``scan.hostPrefilter``,
 ``scan.maxReadBatchSizeBytes``: the most bytes a row group's needed
 columns may decode to on the fast path, 128 MiB, and
@@ -84,6 +93,7 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Sequence
 
+import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 import pyarrow.parquet as pq
@@ -104,6 +114,11 @@ from spark_rapids_tpu_torch.execs.base import (
     TpuExec,
 )
 from spark_rapids_tpu_torch.exprs.base import Expression, bind_references
+from spark_rapids_tpu_torch.exprs.nondeterministic import (
+    INPUT_FILE_FIELDS,
+    InputFileBlockLength,
+    InputFileName,
+)
 from spark_rapids_tpu_torch.io import fastpar
 from spark_rapids_tpu_torch.io.pa_filter import (
     compile_filter,
@@ -121,6 +136,18 @@ from spark_rapids_tpu_torch.parallel.pipeline import prefetch
 SCAN_COUNTERS = ("numOutputRows", "rowGroupsPruned", "hostFilteredRows",
                  "rfPrunedRows", "rfRowGroupsPruned", "fastDecodedFiles",
                  "standardDecodedFiles")
+#: the hidden input-file columns' names
+HIDDEN_COLUMNS = frozenset(f.name for f in INPUT_FILE_FIELDS)
+
+
+def input_file_column(name: str, path: str, n: int) -> pa.Array:
+    """A hidden input-file column of ``n`` rows of the file ``path``."""
+    if name == InputFileName.HIDDEN:
+        return pa.DictionaryArray.from_arrays(
+            pa.array(np.zeros(n, np.int32)), pa.array([path]))
+    value = os.path.getsize(path) \
+        if name == InputFileBlockLength.HIDDEN else 0
+    return pa.array(np.full(n, value, np.int64))
 
 
 def group_files(paths: Sequence[str], target: int) -> list[list[int]]:
@@ -296,7 +323,7 @@ class ParquetScanExec(TpuExec):
         return kept
 
     def _fast_tables(self, f: pq.ParquetFile, fi: int, keep: list,
-                     rfs: list) -> Optional[tuple]:
+                     rfs: list, file_schema: T.Schema) -> Optional[tuple]:
         """The native decoder's tables of the kept row groups, whether
         it applied the whole pushed condition, and whether it applied
         every runtime filter, to every row; None when the file is
@@ -304,8 +331,8 @@ class ParquetScanExec(TpuExec):
         conjuncts = self._conjuncts if self._prefilter_on else None
         counters: dict = {}
         tables = fastpar.read_file(
-            self.paths[fi], keep, self._read_schema.names, conjuncts,
-            self._read_schema, pqfile=f,
+            self.paths[fi], keep, file_schema.names, conjuncts,
+            file_schema, pqfile=f,
             max_decoded_bytes=self.max_decoded_bytes,
             runtime_filters=rfs or None, counters=counters)
         if tables is None:
@@ -326,16 +353,20 @@ class ParquetScanExec(TpuExec):
         at most ``batch_rows`` rows."""
         names = self._read_schema.names
         out_names = self._schema.names
-        strings = [f.name for f in self._read_schema.fields
+        hidden = [n for n in names if n in HIDDEN_COLUMNS]
+        file_schema = T.Schema([f for f in self._read_schema.fields
+                                if f.name not in HIDDEN_COLUMNS])
+        names = file_schema.names
+        strings = [f.name for f in file_schema.fields
                    if isinstance(f.dtype, T.StringType)]
         t0 = time.perf_counter_ns()
         f = pq.ParquetFile(self.paths[fi], read_dictionary=strings)
-        check_rebase(self.paths[fi], f.metadata, self._read_schema,
+        check_rebase(self.paths[fi], f.metadata, file_schema,
                      self.rebase_mode)
         keep = self._keep_row_groups(f, rfs)
         tables, filter_done, rf_done = None, False, False
         if keep and self.fast_decode:
-            fast = self._fast_tables(f, fi, keep, rfs)
+            fast = self._fast_tables(f, fi, keep, rfs, file_schema)
             if fast is not None:
                 tables, filter_done, rf_done = fast
         if keep:
@@ -347,9 +378,12 @@ class ParquetScanExec(TpuExec):
             tables = f.iter_batches(batch_size=self.batch_rows,
                                     columns=names, row_groups=keep)
         for tbl in tables:
+            for name in hidden:
+                tbl = tbl.append_column(name, input_file_column(
+                    name, self.paths[fi], tbl.num_rows))
             tbl = self._host_prefilter(tbl, [] if rf_done else rfs,
                                        filter_done)
-            if out_names != names:
+            if out_names != self._read_schema.names:
                 tbl = tbl.select(out_names)
             for off in range(0, tbl.num_rows, self.batch_rows):
                 part = tbl.slice(off, self.batch_rows)

@@ -35,6 +35,7 @@ from spark_rapids_tpu_torch.exprs.base import (
     bind_references,
     output_field,
 )
+from spark_rapids_tpu_torch.exprs.nondeterministic import INPUT_FILE_FIELDS
 
 
 class LogicalPlan:
@@ -85,14 +86,23 @@ def row_width_bytes(schema: T.Schema) -> int:
 
 
 class Scan(LogicalPlan):
-    """Parquet files of one schema (the first file's)."""
+    """Parquet files of one schema (the first file's).  With
+    ``input_files`` the schema ends with the hidden input-file columns
+    (``exprs/nondeterministic.py::INPUT_FILE_FIELDS``: each row's file
+    path, block start and block length), which the planner's
+    ``_rewrite_input_file_exprs`` asks for."""
 
-    def __init__(self, paths: Sequence[str]):
+    def __init__(self, paths: Sequence[str], input_files: bool = False):
         if not paths:
             raise ValueError("read_parquet needs at least one path")
         self.children = []
         self.paths = list(paths)
-        self._schema = schema_from_arrow(pq.read_schema(self.paths[0]))
+        self.input_files = input_files
+        fields = list(schema_from_arrow(pq.read_schema(self.paths[0]))
+                      .fields)
+        if input_files:
+            fields += INPUT_FILE_FIELDS
+        self._schema = T.Schema(fields)
         self._est_rows: Optional[int] = None
 
     @property

@@ -60,7 +60,26 @@ the kept positions where its own lowering kept more.
 - Before lowering, ``_rewrite_scalar_subqueries`` (the JAX planner's
   prepass of that name) runs each ScalarSubquery of a Filter or Project
   once, through this planner on the session's device, and splices its
-  value in as a Literal.
+  value in as a Literal.  Before it, as in JAX, ``_rewrite_split_
+  extracts`` turns ``split(s, d)[i]`` (a plain literal delimiter, a
+  literal index >= 0) into ``SplitPart``, and ``_rewrite_input_file_
+  exprs`` turns ``input_file_name()`` / ``input_file_block_start()`` /
+  ``input_file_block_length()`` in a Project or Filter over a chain of
+  Projects and Filters down to a Parquet scan into the hidden columns
+  that scan appends (a Filter's output drops them again); elsewhere
+  they stay and run on the CPU engine.  Neither prepass mutates the
+  caller's plan.
+- Partition-aware expressions (``exprs/nondeterministic.py``) get their
+  partition context only in Project, Filter, Expand and Generate: one
+  in an aggregate, a sort, a window or a join is tagged for the CPU
+  engine, and so, with ``spark.rapids.tpu.sql.ansi.enabled``, is an
+  expression there that could raise (ANSI flags are polled by those
+  four execs only), with the reasons of JAX ``_forbid_partition_aware``
+  and ``_forbid_ansi_risky`` (``PlanMeta._check_keyed``).  A Filter pushes into its scan
+  only ``io/pushdown.py::pushable_condition``: nothing when the
+  condition is nondeterministic, and never a conjunct reading a hidden
+  input-file column or, with ANSI on, one that could raise; such a
+  Filter is never elided.
 
 The planner hands the scans, exchanges and coalesces one
 ``TaskRuntime``: the session's task semaphore and upload stream, and
@@ -136,25 +155,35 @@ from spark_rapids_tpu_torch.execs.window import TpuWindowExec
 from spark_rapids_tpu_torch.exprs import aggregates as AG
 from spark_rapids_tpu_torch.exprs import arithmetic as A
 from spark_rapids_tpu_torch.exprs import base as B
+from spark_rapids_tpu_torch.exprs import bitwise as BW
 from spark_rapids_tpu_torch.exprs import collections as COLL
 from spark_rapids_tpu_torch.exprs import complex as CX
 from spark_rapids_tpu_torch.exprs import datetime as DT
 from spark_rapids_tpu_torch.exprs import decimal as DEC
 from spark_rapids_tpu_torch.exprs import math as M
+from spark_rapids_tpu_torch.exprs import nondeterministic as ND
 from spark_rapids_tpu_torch.exprs import predicates as P
 from spark_rapids_tpu_torch.exprs import strings as S
 from spark_rapids_tpu_torch.exprs.base import (
+    Alias,
     BoundReference,
+    ColumnReference,
     Expression,
     Literal,
+    ansi_enabled,
     bind_references,
 )
 from spark_rapids_tpu_torch.exprs.cast import Cast
-from spark_rapids_tpu_torch.exprs.hashing import Murmur3Hash
+from spark_rapids_tpu_torch.exprs.hashing import Md5, Murmur3Hash
 from spark_rapids_tpu_torch.exprs.subquery import ScalarSubquery, scalar_value
 from spark_rapids_tpu_torch.io.pa_filter import compile_filter
+from spark_rapids_tpu_torch.io.pushdown import pushable_condition
 from spark_rapids_tpu_torch.io.rebase import REBASE_MODE_READ
-from spark_rapids_tpu_torch.io.scan import ArrowSourceExec, ParquetScanExec
+from spark_rapids_tpu_torch.io.scan import (
+    HIDDEN_COLUMNS,
+    ArrowSourceExec,
+    ParquetScanExec,
+)
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.ops.partition import (
     HashPartitioning,
@@ -209,6 +238,7 @@ for _sig, _classes in (
     (_NUMERIC, (P.IsNaN,)),
     (_LOGIC, (P.And, P.Or, P.Not)),
     (TS.ExprSig(TS.COMMON + TS.NULLSIG), (Murmur3Hash,)),
+    (TS.ExprSig(TS.STRING + TS.NULLSIG), (Md5,)),
     (TS.ExprSig(TS.DECIMAL + TS.NULLSIG),
      (DEC.PromotePrecision, DEC.CheckOverflow, DEC.UnscaledValue)),
     (TS.ExprSig(TS.INTEGRAL + TS.DECIMAL + TS.NULLSIG), (DEC.MakeDecimal,)),
@@ -221,6 +251,9 @@ for _sig, _classes in (
     (TS.ExprSig(TS.TypeSig.of("float", "double") + TS.NULLSIG,
                 "NaN semantics need floating inputs"),
      (M.NaNvl, M.NormalizeNaNAndZero)),
+    (TS.ExprSig(TS.INTEGRAL + TS.NULLSIG),
+     (BW.BitwiseAnd, BW.BitwiseOr, BW.BitwiseXor, BW.BitwiseNot,
+      BW.ShiftLeft, BW.ShiftRight, BW.ShiftRightUnsigned)),
     (_DT, (DT.Year, DT.Month, DT.DayOfMonth, DT.DayOfWeek, DT.WeekDay,
            DT.DayOfYear, DT.Quarter, DT.LastDay, DT.Hour, DT.Minute,
            DT.Second, DT.DateAdd, DT.DateSub, DT.AddMonths, DT.DateDiff,
@@ -230,7 +263,10 @@ for _sig, _classes in (
      (DT.FromUnixTime,)),
     (_STR, (S.Length, S.Upper, S.Lower, S.StartsWith, S.EndsWith,
             S.Contains, S.Like, S.Substring, S.StringTrim,
-            S.StringTrimLeft, S.StringTrimRight, S.Concat)),
+            S.StringTrimLeft, S.StringTrimRight, S.Concat,
+            S.StringReplace, S.RegExpReplace, S.StringLPad, S.StringRPad,
+            S.StringLocate, S.SubstringIndex, S.InitCap, S.ConcatWs,
+            S.StringSplit, S.SplitPart, S.GetJsonObject)),
     (TS.ExprSig(TS.ALL, "the cast pairs in check_supported"), (Cast,)),
     (TS.ExprSig(TS.ALL, "array input required"),
      (COLL.Size, COLL.GetArrayItem, COLL.ArrayContains)),
@@ -240,6 +276,11 @@ for _sig, _classes in (
                 "key/value on device (check_supported)"),
      (CX.GetStructField, CX.CreateNamedStruct, CX.GetMapValue,
       CX.ElementAt)),
+    (TS.ExprSig(TS.ALL, "no inputs"),
+     (ND.SparkPartitionID, ND.MonotonicallyIncreasingID, ND.Rand)),
+    (TS.ExprSig(TS.ALL, "rewritten to hidden scan columns above file "
+                "scans; other positions fall back (Spark default values)"),
+     ND.INPUT_FILE_EXPRS),
 ):
     for _cls in _classes:
         register_expr(_cls, _sig)
@@ -389,6 +430,21 @@ class PlanMeta:
     def _check(self, e: Expression, schema: T.Schema) -> None:
         _check_expr(bind_references(e, schema), self.conf, self.reasons)
 
+    def _check_keyed(self, e: Expression, schema: T.Schema,
+                     where: str) -> None:
+        """``_check`` for an expression outside project / filter /
+        expand / generate, where partition context and ANSI polling are
+        missing (``where`` names the position in the reason)."""
+        self._check(e, schema)
+        if ND.tree_is_partition_aware(e):
+            self.will_not_work(
+                f"nondeterministic expression as {where} is only "
+                "supported in project/filter on the GPU")
+        if ansi_enabled(self.conf) and _tree_has_ansi_risk(e):
+            self.will_not_work(
+                f"ANSI-checked expression as {where} only runs on the GPU "
+                "inside project/filter — CPU fallback")
+
     def _tag_exprs(self) -> None:  # noqa: C901 - one branch a node
         p = self.plan
         cs = p.children[0].schema if p.children else None
@@ -414,21 +470,21 @@ class PlanMeta:
                     "collect_list/collect_set beside other aggregates "
                     "(the collect exec computes collects only)")
             for g in p.groups:
-                self._check(g, cs)
+                self._check_keyed(g, cs, "grouping key")
             for na in p.aggs:
                 fn = na.fn.bind(cs) if isinstance(na.fn, SUPPORTED_AGGS) \
                     else na.fn
                 _check_agg(fn, self.reasons)
                 for e in na.fn.inputs():
-                    self._check(e, cs)
+                    self._check_keyed(e, cs, "aggregate input")
         elif isinstance(p, L.Sort):
             for k in p.keys:
-                self._check(k.expr, cs)
+                self._check_keyed(k.expr, cs, "sort key")
         elif isinstance(p, L.Window):
             for we, _ in p.window_exprs:
                 for e in (list(we.fn.inputs()) + list(we.spec.partition_by)
                           + [k.expr for k in we.spec.order_by]):
-                    self._check(e, cs)
+                    self._check_keyed(e, cs, "window input")
                 try:
                     we.bind(cs).check_supported()
                 except (NotImplementedError, TypeError) as exc:
@@ -436,16 +492,22 @@ class PlanMeta:
         elif isinstance(p, L.Join):
             ls, rs = (c.schema for c in p.children)
             for k in p.left_keys:
-                self._check(k, ls)
+                self._check_keyed(k, ls, "join key")
             for k in p.right_keys:
-                self._check(k, rs)
+                self._check_keyed(k, rs, "join key")
             if p.condition is not None:
                 if p.join_type != "inner":
                     self.will_not_work(
                         f"{p.join_type} join with a residual condition")
                 else:
-                    self._check(p.condition, T.Schema(
-                        list(ls.fields) + list(rs.fields)))
+                    both = T.Schema(list(ls.fields) + list(rs.fields))
+                    self._check(p.condition, both)
+                    if ansi_enabled(self.conf) \
+                            and _tree_has_ansi_risk(p.condition):
+                        self.will_not_work(
+                            "ANSI-checked expression as join condition "
+                            "only runs on the GPU inside project/filter — "
+                            "CPU fallback")
             if not p.left_keys and p.join_type not in ("cross", "inner"):
                 self.will_not_work(f"{p.join_type} join without keys")
 
@@ -491,6 +553,8 @@ class Planner:
     def plan_with_meta(self, plan: L.LogicalPlan
                        ) -> tuple[TpuExec, PlanMeta]:
         """The physical plan and the tagged logical tree it came from."""
+        plan = _rewrite_split_extracts(plan)
+        plan = _rewrite_input_file_exprs(plan)
         plan = self._rewrite_scalar_subqueries(plan)
         meta = PlanMeta(plan, self.conf)
         meta.tag()
@@ -534,11 +598,13 @@ class Planner:
     def _lower(self, p: L.LogicalPlan, required: Optional[set]) -> TpuExec:
         """``required``: column names the parent reads (None = all)."""
         meta = self._tags.get(id(p))
+        ansi = ansi_enabled(self.conf)
         if meta is not None and not meta.can_replace:
             # the CPU engine reads its children's whole schemas
             return CpuFallbackExec(
                 p, meta.reasons, [self._lower(c, None) for c in p.children],
-                self.device, self.conf.get(C.BATCH_ROWS), self.runtime)
+                self.device, self.conf.get(C.BATCH_ROWS), self.runtime,
+                ansi=ansi)
         if isinstance(p, L.Scan):
             return ParquetScanExec(
                 p.paths, p.schema, self.device,
@@ -564,7 +630,7 @@ class Planner:
             return TpuExpandExec(
                 [[proj[i] for i in keep] for proj in p.projections],
                 T.Schema([p.schema.fields[i] for i in keep]),
-                self._lower(p.children[0], need))
+                self._lower(p.children[0], need), ansi=ansi)
         if isinstance(p, L.Union):
             return self._plan_union(p, required)
         if isinstance(p, L.Generate):
@@ -572,22 +638,26 @@ class Planner:
             keep = None if required is None else required - made
             need = None if keep is None else keep | p.unbound.references()
             return TpuGenerateExec(p.unbound, p.out_name,
-                                   self._lower(p.children[0], need), keep)
+                                   self._lower(p.children[0], need), keep,
+                                   ansi=ansi)
         if isinstance(p, L.Filter):
             elide = self._can_elide_device_filter(p)
             need = None if required is None \
                 else required | p.condition.references()
             child = self._lower(p.children[0], required if elide else need)
             if isinstance(child, ParquetScanExec):
-                child.push_filter(p.condition, exact=elide)
+                pushed = self._pushable(p.condition)
+                if pushed is not None:
+                    child.push_filter(pushed, exact=elide)
                 if elide:
                     return child
-            return TpuFilterExec(p.condition, child)
+            return TpuFilterExec(p.condition, child, ansi=ansi)
         if isinstance(p, L.Project):
             need = set().union(*(e.references() for e in p.exprs))
             if any(_by_position(e) for e in p.exprs):
                 need = None  # ordinals of the unpruned child
-            return TpuProjectExec(p.exprs, self._lower(p.children[0], need))
+            return TpuProjectExec(p.exprs, self._lower(p.children[0], need),
+                                  ansi=ansi)
         if isinstance(p, L.Aggregate):
             need = set().union(*(e.references() for e in p.groups),
                                *(e.references() for na in p.aggs
@@ -634,17 +704,29 @@ class Planner:
         raise NotImplementedError(
             f"{type(p).__name__} is not lowered by spark_rapids_tpu_torch")
 
+    def _pushable(self, condition: Expression) -> Optional[Expression]:
+        """What of a Filter's condition its scan may take
+        (``io/pushdown.py::pushable_condition``)."""
+        ansi = ansi_enabled(self.conf)
+        return pushable_condition(condition, lambda c: bool(
+            c.references() & HIDDEN_COLUMNS)
+            or (ansi and _tree_has_ansi_risk(c)))
+
     def _can_elide_device_filter(self, p: L.Filter) -> bool:
         """Whether the Filter over a Parquet scan can go: the prefilter
         is on and its compiled form covers the whole condition, which
-        reads at least one column (JAX ``_can_elide_device_filter``)."""
+        reads at least one column, is deterministic, reads no hidden
+        input-file column, and ANSI is off (JAX
+        ``_can_elide_device_filter``)."""
         child = p.children[0]
         meta = self._tags.get(id(child))
         if not (isinstance(child, L.Scan)
                 and (meta is None or meta.can_replace)
                 and self.conf.get(C.ELIDE_DEVICE_FILTER)
                 and self.conf.get(C.HOST_PREFILTER)
-                and p.condition.references()):
+                and p.condition.references()
+                and not ansi_enabled(self.conf)
+                and self._pushable(p.condition) is p.condition):
             return False
         return compile_filter(
             bind_references(p.condition, child.schema)) is not None
@@ -902,3 +984,117 @@ def _hash_satisfies(exec_: TpuExec,
                 and pe.ordinal == jk.ordinal and pe.dtype == jk.dtype):
             return None
     return part
+
+
+def _tree_has_ansi_risk(e: Expression) -> bool:
+    """Whether the tree holds an expression whose ANSI checks only the
+    Project / Filter / Expand / Generate execs poll: integral Add /
+    Subtract / Multiply, the divide family, a Cast."""
+    if isinstance(e, (Cast, A.Add, A.Subtract, A.Multiply, A.Divide,
+                      A.IntegralDivide, A.Remainder, A.Pmod)):
+        return True
+    return any(_tree_has_ansi_risk(c) for c in e.children)
+
+
+def _map_node_exprs(plan: L.LogicalPlan, children: list, fn
+                    ) -> L.LogicalPlan:
+    """``plan`` over ``children`` with ``fn`` applied to a Project's or a
+    Filter's expressions; a shallow copy when anything changed."""
+    out = copy.copy(plan)
+    out.children = children
+    changed = any(a is not b for a, b in zip(children, plan.children))
+    if isinstance(plan, L.Project):
+        exprs = [fn(e) for e in plan.exprs]
+        if any(a is not b for a, b in zip(exprs, plan.exprs)):
+            out.exprs, changed = exprs, True
+    elif isinstance(plan, L.Filter):
+        cond = fn(plan.condition)
+        if cond is not plan.condition:
+            out.condition, changed = cond, True
+    return out if changed else plan
+
+
+def _rewrite_split_extracts(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """JAX's prepass of that name: ``split(s, d)[i]`` (GetArrayItem over
+    a StringSplit with a plain literal delimiter, no limit and a literal
+    index >= 0) becomes ``SplitPart``; any other split stays, and its
+    ``check_supported`` sends it to the CPU engine."""
+
+    def xform(e: Expression) -> Expression:
+        if isinstance(e, COLL.GetArrayItem) \
+                and isinstance(e.child, S.StringSplit) \
+                and isinstance(e.index, Literal) \
+                and e.index.value is not None and int(e.index.value) >= 0:
+            sp = e.child
+            if isinstance(sp.delim, Literal) and sp.delim.value \
+                    and not any(ch in S.StringSplit._META
+                                for ch in sp.delim.value) \
+                    and sp.limit == -1:
+                return S.SplitPart(sp.child, sp.delim, int(e.index.value))
+        return e
+
+    def rw(e: Expression) -> Expression:
+        return e.transform_up(xform) if _has(e, COLL.GetArrayItem) else e
+
+    children = [_rewrite_split_extracts(c) for c in plan.children]
+    return _map_node_exprs(plan, children, rw)
+
+
+def _has(e: Expression, cls) -> bool:
+    return isinstance(e, cls) or any(_has(c, cls) for c in e.children)
+
+
+def _rewrite_input_file_exprs(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """JAX's prepass of that name: an input-file expression in a Project
+    or a Filter whose child is a chain of Projects and Filters down to a
+    Parquet scan reads the hidden column the scan then appends (the
+    chain passes the three hidden columns up; a rewritten Filter is
+    projected back to its own columns).  Any other position keeps the
+    expression, whose ``check_supported`` sends it to the CPU engine."""
+
+    def node_exprs(p):
+        if isinstance(p, L.Project):
+            return p.exprs
+        if isinstance(p, L.Filter):
+            return [p.condition]
+        return []
+
+    def augment(p: L.LogicalPlan) -> Optional[L.LogicalPlan]:
+        if isinstance(p, L.Scan):
+            return p if p.input_files else L.Scan(p.paths, input_files=True)
+        if isinstance(p, L.Project):
+            child = augment(p.children[0])
+            if child is None:
+                return None
+            made = set(p.schema.names)
+            return L.Project(list(p.exprs) + [
+                ColumnReference(f.name) for f in ND.INPUT_FILE_FIELDS
+                if f.name not in made], child)
+        if isinstance(p, L.Filter):
+            child = augment(p.children[0])
+            return None if child is None else L.Filter(p.condition, child)
+        return None
+
+    def replace(e: Expression) -> Expression:
+        if isinstance(e, ND.InputFileName):
+            return Alias(ColumnReference(e.HIDDEN), e.name)
+        return e
+
+    def walk(p: L.LogicalPlan) -> L.LogicalPlan:
+        children = [walk(c) for c in p.children]
+        if any(a is not b for a, b in zip(children, p.children)):
+            p = copy.copy(p)
+            p.children = children
+        if not any(_has(e, ND.InputFileName) for e in node_exprs(p)):
+            return p
+        child = augment(p.children[0])
+        if child is None:
+            return p
+        if isinstance(p, L.Project):
+            return L.Project([e.transform_up(replace) for e in p.exprs],
+                             child)
+        kept = L.Filter(p.condition.transform_up(replace), child)
+        return L.Project([ColumnReference(n)
+                          for n in p.children[0].schema.names], kept)
+
+    return walk(plan)

@@ -9,7 +9,12 @@ collect``, with ``col``, ``lit``, ``sum_``, ``avg``, ``count``,
 ``last``, ``collect_list`` and ``collect_set``, the array functions
 ``array``, ``array_size``, ``get_item``, ``array_contains`` and
 ``named_struct``, and ``Expression.get_field / element_at /
-get_map_value``.  ``GroupedData.pivot(col, values)`` expands each
+get_map_value``, and the long tail of the JAX helpers: ``rand``,
+``monotonically_increasing_id``, ``spark_partition_id``, ``nanvl``,
+``replace_``, ``regexp_replace``, ``lpad``, ``rpad``, ``locate``,
+``substring_index``, ``initcap`` and ``concat_ws`` (``Md5``, the bitwise
+classes and ``InputFileName`` are built as classes, as the JAX
+package's tests build them).  ``GroupedData.pivot(col, values)`` expands each
 aggregate into one masked aggregate per listed value (JAX
 ``expand_pivot_aggs``).  ``select`` takes one top-level generator,
 ``explode``, ``explode_outer``, ``posexplode`` or ``posexplode_outer``:
@@ -98,6 +103,22 @@ from spark_rapids_tpu_torch.exprs.collections import (
 )
 from spark_rapids_tpu_torch.exprs.complex import CreateNamedStruct
 from spark_rapids_tpu_torch.exprs.datetime import DateFormatClass, FromUnixTime
+from spark_rapids_tpu_torch.exprs.math import NaNvl
+from spark_rapids_tpu_torch.exprs.nondeterministic import (
+    MonotonicallyIncreasingID,
+    Rand,
+    SparkPartitionID,
+)
+from spark_rapids_tpu_torch.exprs.strings import (
+    ConcatWs,
+    InitCap,
+    RegExpReplace,
+    StringLocate,
+    StringLPad,
+    StringReplace,
+    StringRPad,
+    SubstringIndex,
+)
 from spark_rapids_tpu_torch.exprs.window import WindowExpression
 from spark_rapids_tpu_torch.execs import retry as _retry
 from spark_rapids_tpu_torch.memory import device_manager
@@ -113,7 +134,10 @@ __all__ = ["TorchSession", "DataFrame", "col", "lit", "sum_", "avg",
            "first", "last", "from_unixtime", "date_format",
            "collect_list", "collect_set", "explode", "explode_outer",
            "posexplode", "posexplode_outer", "array", "array_size",
-           "get_item", "array_contains", "named_struct"]
+           "get_item", "array_contains", "named_struct", "rand",
+           "monotonically_increasing_id", "spark_partition_id", "nanvl",
+           "replace_", "regexp_replace", "lpad", "rpad", "locate",
+           "substring_index", "initcap", "concat_ws"]
 
 AggLike = Union[NamedAgg, AggregateFunction, tuple]
 
@@ -208,6 +232,54 @@ def from_unixtime(e, fmt: str = "yyyy-MM-dd HH:mm:ss") -> FromUnixTime:
 
 def date_format(e, fmt: str = "yyyy-MM-dd") -> DateFormatClass:
     return DateFormatClass(_column(e), fmt)
+
+
+def rand(seed: int = 0) -> Rand:
+    return Rand(seed)
+
+
+def monotonically_increasing_id() -> MonotonicallyIncreasingID:
+    return MonotonicallyIncreasingID()
+
+
+def spark_partition_id() -> SparkPartitionID:
+    return SparkPartitionID()
+
+
+def nanvl(a, b) -> NaNvl:
+    return NaNvl(_column(a), _column(b))
+
+
+def replace_(e, search: str, replacement: str) -> StringReplace:
+    return StringReplace(_column(e), lit(search), lit(replacement))
+
+
+def regexp_replace(e, pattern: str, replacement: str) -> RegExpReplace:
+    return RegExpReplace(_column(e), lit(pattern), lit(replacement))
+
+
+def lpad(e, length: int, pad: str = " ") -> StringLPad:
+    return StringLPad(_column(e), lit(length), lit(pad))
+
+
+def rpad(e, length: int, pad: str = " ") -> StringRPad:
+    return StringRPad(_column(e), lit(length), lit(pad))
+
+
+def locate(substr: str, e, start: int = 1) -> StringLocate:
+    return StringLocate(lit(substr), _column(e), lit(start))
+
+
+def substring_index(e, delim: str, count: int) -> SubstringIndex:
+    return SubstringIndex(_column(e), lit(delim), lit(count))
+
+
+def initcap(e) -> InitCap:
+    return InitCap(_column(e))
+
+
+def concat_ws(sep: str, *exprs) -> ConcatWs:
+    return ConcatWs(lit(sep), *[_column(e) for e in exprs])
 
 
 def _coerce_union_member(plan: L.LogicalPlan,

@@ -89,7 +89,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "spark_rapids_tpu_torch.exprs.collections",
             "spark_rapids_tpu_torch.execs.generate",
             "spark_rapids_tpu_torch.ops.collect",
-            "spark_rapids_tpu_torch.execs.collect_agg"} <= set(mods)
+            "spark_rapids_tpu_torch.execs.collect_agg",
+            # the expression long tail's
+            "spark_rapids_tpu_torch.exprs.bitwise",
+            "spark_rapids_tpu_torch.exprs.nondeterministic"} <= set(mods)
 
 
 def test_port_sources_name_no_jax_import():
