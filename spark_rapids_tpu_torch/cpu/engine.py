@@ -45,6 +45,13 @@ pyarrow's defaults, Spark's are implemented here explicitly:
   + - *, a zero divisor, a malformed STRING cast to an integral type and
   an out-of-range cast to one raise ``AnsiError`` with the JAX messages.
 
+- ``Cached`` keeps its own table in the slot (``cpu_table``), made
+  once; ``MapInArrow``, ``GroupedPandas`` and ``CoGroupedPandas`` run
+  the workers' wrappers (``python_worker/wrappers.py``) in-process over
+  whole tables; an opaque UDF runs row by row with NULLs as ``None``, a
+  torch UDF on CPU tensors of its inputs' values (made by the UDF's own
+  ``TorchScalarUDF.eval_numpy``: this module imports no torch).
+
 ``execute_cpu(plan)`` runs every logical node of ``plan/logical.py``;
 ``cpu_eval(e, table)`` evaluates every expression class of ``exprs/``
 over a table whose columns are the expression's input schema.
@@ -86,6 +93,7 @@ from spark_rapids_tpu_torch.exprs.cast import Cast, cast_supported
 from spark_rapids_tpu_torch.exprs.hashing import Md5, Murmur3Hash
 from spark_rapids_tpu_torch.exprs.subquery import ScalarSubquery
 from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.udf.exprs import OpaquePythonUDF, TorchScalarUDF
 
 _PC_UNARY = {
     M.Sqrt: pc.sqrt, M.Exp: pc.exp, M.Sin: pc.sin, M.Cos: pc.cos,
@@ -251,6 +259,8 @@ def _as_engine_type(a: pa.Array, at: pa.DataType) -> pa.Array:
 def _dispatch(e, table, n):  # noqa: C901 - a dispatcher is a big switch
     if isinstance(e, B.Alias):
         return cpu_eval(e.child, table)
+    if isinstance(e, (TorchScalarUDF, OpaquePythonUDF)):
+        return _python_udf(e, table, n)
     if isinstance(e, B.BoundReference):
         return _column(table, e.ordinal)
     if isinstance(e, B.ColumnReference):
@@ -500,18 +510,42 @@ def _dispatch_nested(e, table, n):  # noqa: C901 - one branch a class
     return _pick(arr.values, starts + pos, ok, at)
 
 
+def _python_udf(e, table, n) -> pa.Array:
+    """An opaque UDF row by row, NULLs passed as ``None`` (Spark's
+    Python UDFs see them); a torch UDF over the inputs' values (NULL
+    slots 0) through its ``eval_numpy``, NULL where an input is, as on
+    the device."""
+    at = T.to_arrow_type(e.dtype)
+    if isinstance(e, OpaquePythonUDF):
+        cols = [cpu_eval(a, table).to_pylist() for a in e.args]
+        out = [e.fn(*vals) for vals in zip(*cols)] if cols \
+            else [e.fn() for _ in range(n)]
+        return pa.array(out, at)
+    datas, valid = [], np.ones(n, bool)
+    for a in e.args:
+        v, ok = _np_vals(cpu_eval(a, table), T.to_arrow_type(a.dtype))
+        datas.append(v)
+        valid &= ok
+    return _from_np(e.eval_numpy(datas, n), valid, at)
+
+
 def _decimal_arith(e, table) -> pa.Array:
     """Decimal + - * with exact integers: each operand's unscaled value
     at the result's scale (a product at the sum of the scales, rounded
     HALF_UP to the result's), NULL where the result passes its
     precision (Spark's nullOnOverflow), as the JAX CPU engine does with
-    Python decimals."""
+    Python decimals.  An integral operand is its decimal
+    (``T.INTEGRAL_DECIMAL_DIGITS`` digits, scale 0)."""
     dt = e.dtype
-    l = cpu_eval(e.left, table)
-    r = cpu_eval(e.right, table)
-    ls, rs = e.left.dtype.scale, e.right.dtype.scale
-    lv, lok = _unscaled(l, ls)
-    rv, rok = _unscaled(r, rs)
+
+    def operand(x):
+        a = cpu_eval(x, table)
+        if isinstance(x.dtype, T.DecimalType):
+            return (*_unscaled(a, x.dtype.scale), x.dtype.scale)
+        return (*_np_vals(a, pa.int64()), 0)
+
+    lv, lok, ls = operand(e.left)
+    rv, rok, rs = operand(e.right)
     lv, rv = lv.astype(object), rv.astype(object)
     if isinstance(e, A.Multiply):
         out, scale = lv * rv, ls + rs
@@ -624,10 +658,15 @@ def _in(e, table, n):
         for v in vals:
             if isinstance(dt, T.DecimalType):
                 d = _decimal.Decimal(v).scaleb(dt.scale)
-                if d != d.to_integral_value():
+                if d != d.to_integral_value() or abs(d) >= 2 ** 63:
                     continue
             keys.append(B.physical_value(v, dt))
         vals, vtype = keys, pa.int64()
+    elif pa.types.is_integer(c.type) and any(
+            isinstance(v, _decimal.Decimal) for v in vals):
+        # exact: a decimal with a fraction matches no integer
+        vals = [int(v) for v in vals if v == int(v) and abs(v) < 2 ** 63]
+        c, vtype = c.cast(pa.int64()), pa.int64()
     elif pa.types.is_decimal(c.type):  # against doubles
         c = c.cast(pa.float64())
         vtype = pa.float64()
@@ -1161,7 +1200,8 @@ def _cast(e: Cast, table, n):
         return _nulls(n, at)
     if isinstance(src, (T.DecimalType, T.TimestampType)) or isinstance(
             dst, (T.DecimalType, T.TimestampType)):
-        if not cast_supported(src, dst):  # as the JAX engines refuse
+        if not (cast_supported(src, dst) or _cpu_only_cast(src, dst)):
+            # as both JAX engines refuse
             raise NotImplementedError(f"CPU engine: cast {src} -> {dst}")
     if isinstance(src, T.StringType):  # each distinct text parsed once
         enc = c.dictionary_encode()
@@ -1184,7 +1224,9 @@ def _cast(e: Cast, table, n):
         if bad.any():
             _ansi_raise(f"value out of range for {dst.name} (ANSI cast "
                         "overflow)")
-    if isinstance(dst, T.StringType):
+    if isinstance(src, T.TimestampType):
+        return _cast_timestamp(c, dst, at)
+    if isinstance(dst, T.StringType):  # a decimal prints its scale
         return pc.cast(c, pa.string())
     if isinstance(dst, T.BooleanType):
         return pc.not_equal(c, pa.scalar(0).cast(c.type))
@@ -1194,22 +1236,46 @@ def _cast(e: Cast, table, n):
         v, ok = _unscaled(c, src.scale)
         if isinstance(dst, T.DecimalType):  # widening: exact
             return _from_unscaled(v * 10 ** (dst.scale - src.scale), ok, dst)
+        if isinstance(dst, T.TimestampType):  # seconds, as Spark
+            return _from_micros(_wrap_long(
+                _scaled_exact(v, 6 - src.scale)), ok)
+        if isinstance(dst, (T.IntegralType, T.DateType)):
+            # Java's truncation toward zero, then the low bits; a DATE
+            # takes the day number, as both JAX engines do
+            whole = _scaled_exact(v, -src.scale).astype(np.int64)
+            if isinstance(dst, T.DateType):
+                return _dates(whole, ok)
+            return _from_np(whole.astype(at.to_pandas_dtype()), ok, at)
         return _from_np((v / 10.0 ** src.scale).astype(
             at.to_pandas_dtype()), ok, at)
     if isinstance(dst, T.DecimalType):  # from an integral type
         v, ok = _np_vals(c, pa.int64())
         return _from_unscaled(v * 10 ** dst.scale, ok, dst)
-    if isinstance(src, T.TimestampType):
-        v, ok = _micros(c)
-        if isinstance(dst, T.DateType):
-            return _dates(np.floor_divide(v, _US_PER_DAY), ok)
-        return _from_np(np.floor_divide(v, 1_000_000), ok, pa.int64())
     if isinstance(dst, T.TimestampType):
         if isinstance(src, T.DateType):
             v, ok = _days(c)
             return _from_micros(v.astype(np.int64) * _US_PER_DAY, ok)
-        v, ok = _np_vals(c, pa.int64())  # LONG seconds
-        return _from_micros(v * 1_000_000, ok)
+        if isinstance(src, T.FractionalType):
+            # Spark's doubleToTimestamp: NaN and infinities are NULL,
+            # the rest (seconds * 10^6).toLong
+            v, ok = _np_vals(c, pa.float64())
+            ok = ok & np.isfinite(v)
+            with np.errstate(invalid="ignore", over="ignore"):
+                us = _saturating_long(np.trunc(np.where(ok, v, 0.0)
+                                               * 1e6), np.int64)
+            return _from_micros(us, ok)
+        v, ok = _np_vals(c, pa.int64())  # integral seconds, saturated
+        lim = np.iinfo(np.int64).max // 1_000_000
+        us = np.where(v > lim, np.iinfo(np.int64).max,
+                      np.where(v < -lim, np.iinfo(np.int64).min,
+                               np.clip(v, -lim, lim) * 1_000_000))
+        return _from_micros(us, ok)
+    if isinstance(dst, T.DateType):  # a number is a day number (JAX)
+        if isinstance(src, T.FractionalType):
+            v, ok = _np_vals(c, pa.float64())
+            return _dates(_saturating_long(np.trunc(v), np.int32), ok)
+        v, ok = _np_vals(c, pa.int64())
+        return _dates(v.astype(np.int32), ok)  # the low 32 bits
     npdt = at.to_pandas_dtype()
     if isinstance(src, T.FractionalType) and isinstance(
             dst, T.IntegralType):
@@ -1218,6 +1284,58 @@ def _cast(e: Cast, table, n):
     v, ok = _np_vals(c, c.type)
     with np.errstate(over="ignore"):
         return _from_np(v.astype(npdt), ok, at)  # integers keep low bits
+
+
+def _cpu_only_cast(src, dst) -> bool:
+    """The DECIMAL and TIMESTAMP casts outside the device matrix that
+    this engine runs, as the JAX CPU engine does: a DECIMAL to a STRING,
+    an integral type, a DATE or a TIMESTAMP; a TIMESTAMP to a STRING, a
+    BOOLEAN or a number; a number to a TIMESTAMP."""
+    num = (T.IntegralType, T.FractionalType)
+    if isinstance(src, T.DecimalType):
+        return isinstance(dst, (T.StringType, T.IntegralType, T.DateType,
+                                T.TimestampType))
+    if isinstance(src, T.TimestampType):
+        return isinstance(dst, (T.StringType, T.BooleanType) + num)
+    return isinstance(dst, T.TimestampType) and isinstance(src, num)
+
+
+def _scaled_exact(v: np.ndarray, exp: int) -> np.ndarray:
+    """``v * 10^exp`` as Python integers, truncated toward zero when
+    ``exp`` is negative (Java's BigDecimal.longValue before its wrap)."""
+    v = v.astype(object)
+    if exp >= 0:
+        return v * 10 ** exp
+    p = 10 ** -exp
+    return np.array([abs(x) // p * (1 if x >= 0 else -1) for x in v],
+                    object)
+
+
+def _wrap_long(v: np.ndarray) -> np.ndarray:
+    """Python integers to int64 by their low 64 bits."""
+    return np.array([(int(x) + 2 ** 63) % 2 ** 64 - 2 ** 63 for x in v],
+                    np.int64)
+
+
+def _cast_timestamp(c: pa.Array, dst, at) -> pa.Array:
+    """A TIMESTAMP cast as Spark casts it: to a number its seconds
+    (floored for an integral type, with the fraction for a floating
+    one), to a BOOLEAN whether it is not the epoch, to a DATE its UTC
+    day, to a STRING ``yyyy-MM-dd HH:mm:ss`` with the fraction's digits
+    up to its last non-zero one."""
+    v, ok = _micros(c)
+    if isinstance(dst, T.DateType):
+        return _dates(np.floor_divide(v, _US_PER_DAY), ok)
+    if isinstance(dst, T.BooleanType):
+        return _from_np(v != 0, ok, pa.bool_())
+    if isinstance(dst, T.IntegralType):
+        secs = np.floor_divide(v, 1_000_000)
+        return _from_np(secs.astype(at.to_pandas_dtype()), ok, at)
+    if isinstance(dst, T.FractionalType):
+        return _from_np((v / 1e6).astype(at.to_pandas_dtype()), ok, at)
+    text = np.datetime_as_string(v.astype("datetime64[us]"), unit="us")
+    out = [t.replace("T", " ").rstrip("0").rstrip(".") for t in text]
+    return pa.array(out, pa.string(), mask=~ok)
 
 
 _INT_RE = re.compile(r"^([+-]?)([0-9]*)(?:\.([0-9]*))?$")
@@ -1239,7 +1357,7 @@ def _cast_from_string(c: pa.Array, dst, at) -> pa.Array:
                 continue
             iv = int((m.group(1) or "") + (m.group(2) or "0"))
             out.append(iv if info.min <= iv <= info.max else None)
-    elif isinstance(dst, T.DoubleType):
+    elif isinstance(dst, T.FractionalType):  # parsed as a double
         for v in texts:
             try:
                 out.append(None if v is None else float(v.strip(_CAST_WS)))
@@ -1426,6 +1544,9 @@ _INNER_NODES = (L.Project, L.Filter, L.Expand, L.Aggregate, L.Sort,
 def _run(plan: L.LogicalPlan, need: Optional[set]) -> pa.Table:
     if isinstance(plan, (L.InMemoryRelation, L.Scan, L.RangeRel)):
         return _leaf(plan, need)
+    if isinstance(plan, (L.Cached, L.MapInArrow, L.GroupedPandas,
+                         L.CoGroupedPandas)):
+        return _python_node(plan)
     if not isinstance(plan, _INNER_NODES):
         raise NotImplementedError(f"CPU engine: {type(plan).__name__}")
     child = plan.children[0]
@@ -1485,6 +1606,50 @@ def _run(plan: L.LogicalPlan, need: Optional[set]) -> pa.Table:
             + [k.expr for k in we.spec.order_by]))
         return _window(plan, _run(child, _union(
             None if need is None else need - made, reads)))
+
+
+def _python_node(plan) -> pa.Table:
+    """Cached (the slot's own CPU table, made once) and the Python nodes,
+    run in-process over their whole children through the workers'
+    wrappers (``python_worker/wrappers.py``), cast to the declared
+    schema."""
+    import functools
+
+    from spark_rapids_tpu_torch.python_worker import wrappers as PW
+
+    if isinstance(plan, L.Cached):
+        with plan.slot.lock:
+            if plan.slot.cpu_table is not None:
+                return plan.slot.cpu_table
+        t = _run(plan.children[0], None)
+        with plan.slot.lock:
+            if plan.slot.cpu_table is None:
+                plan.slot.cpu_table = t
+            return plan.slot.cpu_table
+    aschema = arrow_schema(plan.schema)
+    kids = [_run(c, None) for c in plan.children]
+    if isinstance(plan, L.MapInArrow):
+        fn = functools.partial(PW._map_in_pandas_wrapper, fn=plan.fn,
+                               aschema=aschema) if plan.pandas else plan.fn
+    elif isinstance(plan, L.CoGroupedPandas):
+        lt, rt = kids
+        kids = [PW.cogroup_table(lt, rt)]
+        fn = functools.partial(
+            PW._cogroup_wrapper, fn=plan.fn, left_keys=plan.left_key_names,
+            right_keys=plan.right_key_names, aschema=aschema,
+            n_left_cols=lt.num_columns, left_names=lt.column_names,
+            right_names=rt.column_names)
+    else:
+        wrapper, arg = {
+            "flatmap": (PW._grouped_apply_wrapper, "fn"),
+            "agg": (PW._grouped_agg_wrapper, "aggs"),
+            "window": (PW._window_in_pandas_wrapper, "fns")}[plan.kind]
+        fn = functools.partial(wrapper, key_names=plan.key_names,
+                               aschema=aschema, **{arg: plan.payload})
+    out = fn(kids[0])
+    if isinstance(out, pa.RecordBatch):
+        out = pa.Table.from_batches([out])
+    return out.cast(aschema)
 
 
 def _leaf(plan, need: Optional[set]) -> pa.Table:
@@ -1599,6 +1764,16 @@ def _side(t: pa.Table, tag: str, keys: list) -> tuple[pa.Table, list]:
                                 names=names), live
 
 
+def _integral_key(a: pa.Array, dt) -> pa.Array:
+    """A join key beside a DECIMAL / integral pair as int64: a decimal
+    by its integer value where it has no fraction, else NULL."""
+    if not isinstance(dt, T.DecimalType):
+        return a.cast(pa.int64())
+    v, ok = _unscaled(a, dt.scale)
+    f = 10 ** dt.scale
+    return _from_np(np.floor_divide(v, f), ok & (v % f == 0), pa.int64())
+
+
 def _join(plan: L.Join, need: Optional[set]) -> pa.Table:
     lp, rp = plan.children
     cond = set() if plan.condition is None else _reads([plan.condition])
@@ -1622,9 +1797,13 @@ def _join(plan: L.Join, need: Optional[set]) -> pa.Table:
         for le, re_ in zip(plan.left_keys, plan.right_keys):
             a = cpu_eval(bind_references(le, lp.schema), left)
             b = cpu_eval(bind_references(re_, rp.schema), right)
-            if a.type != b.type:  # compare in the keys' common type
-                ct = T.to_arrow_type(T.common_type(
-                    T.from_arrow_type(a.type), T.from_arrow_type(b.type)))
+            ta, tb = T.from_arrow_type(a.type), T.from_arrow_type(b.type)
+            if T.decimal_beside_integral(ta, tb):
+                # a DECIMAL equals an integer only when it has no
+                # fraction: its integer value, else a NULL key
+                a, b = _integral_key(a, ta), _integral_key(b, tb)
+            elif a.type != b.type:  # compare in the keys' common type
+                ct = T.to_arrow_type(T.common_type(ta, tb))
                 a, b = a.cast(ct), b.cast(ct)
             lk.append(a)
             rk.append(b)

@@ -102,6 +102,20 @@ def _string_cmp(lc: StringColumn, rc: StringColumn):
     return lt, same_bytes & (lc.lengths == rc.lengths)
 
 
+def decimal_integral_cmp(dec: torch.Tensor, scale: int, ints: torch.Tensor):
+    """(lt, eq) of DECIMAL unscaled values at ``scale`` against integers
+    of a type with no common decimal type (a LONG beside a scale, a
+    DECIMAL(p, s) with p - s + 10 > 18 beside an INT), exactly: the
+    integer scaled by 10^scale, and an integer too large for that
+    compared by its sign (no DECIMAL of 18 digits reaches it)."""
+    f = 10 ** scale
+    lim = (2 ** 63 - 1) // f
+    ints = ints.long()
+    big = (ints > lim) | (ints < -lim)
+    scaled = torch.where(big, torch.zeros_like(ints), ints) * f
+    return torch.where(big, ints > 0, dec < scaled), ~big & (dec == scaled)
+
+
 def _ordered_cmp(ld: torch.Tensor, rd: torch.Tensor):
     """(lt, eq) under Spark's total order."""
     if ld.is_floating_point():
@@ -123,7 +137,13 @@ class BinaryComparison(Expression):
         if isinstance(lc, StringColumn) or isinstance(rc, StringColumn):
             return _string_cmp(_as_type(lc, T.STRING),
                                _as_type(rc, T.STRING))
-        ct = T.common_type(self.left.dtype, self.right.dtype)
+        ltype, rtype = self.left.dtype, self.right.dtype
+        if T.decimal_beside_integral(ltype, rtype):
+            if isinstance(ltype, T.DecimalType):
+                return decimal_integral_cmp(lc.data, ltype.scale, rc.data)
+            lt, eq = decimal_integral_cmp(rc.data, rtype.scale, lc.data)
+            return ~(lt | eq), eq
+        ct = T.common_type(ltype, rtype)
         if ct is None:  # a DATE against an integer: its day number
             phys = T.to_torch_dtype(self.left.dtype)
             return _ordered_cmp(lc.data.to(phys), rc.data.to(phys))
@@ -293,9 +313,8 @@ class In(Expression):
         for v in self.values:
             if v is None:
                 continue
-            lit = Literal.of(v)
             if isinstance(c, StringColumn):
-                _, eq = _string_cmp(c, lit.eval(ctx))
+                _, eq = _string_cmp(c, Literal.of(v).eval(ctx))
             elif isinstance(self.child.dtype, (T.DateType, T.TimestampType)):
                 # a DATE compares as its day number, a TIMESTAMP as its
                 # microseconds, the literal too
@@ -306,8 +325,14 @@ class In(Expression):
                 # no row
                 d = decimal.Decimal(v).scaleb(self.child.dtype.scale)
                 eq = c.data == int(d) if d == d.to_integral_value() \
-                    else torch.zeros_like(match)
+                    and abs(d) < 2 ** 63 else torch.zeros_like(match)
+            elif isinstance(self.child.dtype, T.IntegralType) \
+                    and isinstance(v, decimal.Decimal):
+                # exact: a value with a fraction matches no integer
+                eq = c.data == int(v) if v == v.to_integral_value() \
+                    and abs(v) < 2 ** 63 else torch.zeros_like(match)
             else:
+                lit = Literal.of(v)
                 ct = T.common_type(self.child.dtype, lit.dtype)
                 if ct is None:
                     raise TypeError(f"{v!r} does not compare with "

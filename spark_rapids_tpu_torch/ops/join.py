@@ -33,7 +33,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     concat_batches,
     null_batch,
 )
-from spark_rapids_tpu_torch.columnar.column import AnyColumn
+from spark_rapids_tpu_torch.columnar.column import AnyColumn, Column
 from spark_rapids_tpu_torch.exprs.cast import cast_column
 from spark_rapids_tpu_torch.ops.sort import (
     column_sort_keys,
@@ -43,8 +43,11 @@ from spark_rapids_tpu_torch.ops.sort import (
 
 
 def key_type(a: T.DataType, b: T.DataType) -> T.DataType:
-    """The type two join keys compare in (Spark's implicit widening);
-    TypeError when they do not compare."""
+    """The type two join keys compare in (Spark's implicit widening; a
+    DECIMAL beside an integral type with no common DECIMAL compares as
+    a LONG, ``_widen``); TypeError when they do not compare."""
+    if T.decimal_beside_integral(a, b):
+        return T.LONG
     ct = T.common_type(a, b)
     if ct is None:
         raise TypeError(f"join keys of types {a} and {b} do not compare")
@@ -53,9 +56,16 @@ def key_type(a: T.DataType, b: T.DataType) -> T.DataType:
 
 def _widen(col: AnyColumn, dtype: T.DataType) -> AnyColumn:
     """A key in the type it compares in, converted as a cast converts it
-    (a DECIMAL rescaled, a DATE made a TIMESTAMP)."""
+    (a DECIMAL rescaled, a DATE made a TIMESTAMP).  A DECIMAL key that
+    compares as a LONG is its integer value, NULL where it has a
+    fraction: such a key equals no integer."""
     if col.dtype == dtype:
         return col
+    if isinstance(col.dtype, T.DecimalType) and isinstance(dtype, T.LongType):
+        f = 10 ** col.dtype.scale
+        whole = torch.remainder(col.data, f) == 0
+        return Column(torch.div(col.data, f, rounding_mode="floor"),
+                      col.validity & whole, T.LONG)
     return cast_column(col, col.dtype, dtype)
 
 

@@ -1,6 +1,7 @@
 """Logical plan nodes: Scan, InMemoryRelation, RangeRel, Filter,
 Project, Aggregate, Expand, Generate, Join, Window, Sort, Limit and
-Union.
+Union; ``Cached`` with its ``CacheSlot`` (``DataFrame.cache``), and the
+Python nodes ``MapInArrow``, ``GroupedPandas`` and ``CoGroupedPandas``.
 
 Counterpart of the matching nodes of ``spark_rapids_tpu/plan/logical.py``.
 Nodes keep their expressions by column name; the planner binds them to
@@ -13,13 +14,15 @@ child passes the child's bound on (a filter can only shrink), a grand
 aggregate makes one row, a LIMIT at most its n, a join at most the sum
 of its sides (the JAX estimate), an Expand its child's rows times its
 projections, a Union the sum of its members, and a Generate nothing
-(no bound: nothing bounds an array's length).  Bytes are rows times
+(no bound: nothing bounds an array's length), nor a Python function
+that may make rows (MapInArrow, apply_in_pandas, a cogroup).  Bytes are rows times
 ``row_width_bytes`` of the node's schema.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional, Sequence
 
 import pyarrow as pa
@@ -314,7 +317,8 @@ class Join(LogicalPlan):
         for lk, rk in zip(self.left_keys, self.right_keys):
             lt = bind_references(lk, left.schema).dtype
             rt = bind_references(rk, right.schema).dtype
-            if T.common_type(lt, rt) is None:
+            if T.common_type(lt, rt) is None \
+                    and not T.decimal_beside_integral(lt, rt):
                 raise TypeError(f"join keys {lk.name} ({lt}) and "
                                 f"{rk.name} ({rt}) do not compare")
         self._schema = joined_schema(left.schema, right.schema, join_type)
@@ -424,3 +428,144 @@ class Union(LogicalPlan):
     def estimated_rows(self) -> Optional[int]:
         rows = [c.estimated_rows() for c in self.children]
         return None if None in rows else sum(rows)
+
+
+class CacheSlot:
+    """What ``df.cache()`` shares between the plans that read it: filled
+    once, by the first device run that drains the cached subtree, with
+    a list per partition of buffer-store handles; every later plan over
+    the slot serves those batches and never runs the subtree.  The CPU
+    engine keeps its own materialization, ``cpu_table``.  ``publish``
+    keeps the first of two racing fills and closes the other's."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        #: a list per partition of ``SpillableBatch`` handles; None
+        #: until a run publishes
+        self.parts: Optional[list] = None
+        self.cpu_table: Optional[pa.Table] = None
+
+    @property
+    def filled(self) -> bool:
+        return self.parts is not None
+
+    def publish(self, parts: list) -> None:
+        with self.lock:
+            if self.parts is None:
+                self.parts, parts = parts, []
+        for handles in parts:  # lost the race: drop ours
+            for h in handles:
+                h.close()
+
+    def clear(self) -> None:
+        """Close every stored batch (``DataFrame.unpersist``)."""
+        with self.lock:
+            parts, self.parts = self.parts, None
+            self.cpu_table = None
+        for handles in parts or ():
+            for h in handles:
+                h.close()
+
+
+class Cached(LogicalPlan):
+    """``df.cache()``: its child's rows, materialized once in the slot."""
+
+    def __init__(self, child: LogicalPlan, slot: Optional[CacheSlot] = None):
+        self.children = [child]
+        self.slot = slot or CacheSlot()
+
+    @property
+    def schema(self) -> T.Schema:
+        return self.children[0].schema
+
+    def node_desc(self) -> str:
+        state = "cached" if self.slot.filled else "materializing"
+        return f"Cached [{state}]"
+
+
+class MapInArrow(LogicalPlan):
+    """``fn`` over each batch of the child as a pyarrow Table (``pandas``:
+    as a pandas DataFrame, ``mapInPandas``), in the Python worker pool;
+    ``schema`` is the declared output both engines cast results to."""
+
+    def __init__(self, fn, schema: T.Schema, child: LogicalPlan,
+                 pandas: bool = False):
+        self.children = [child]
+        self.fn = fn
+        self._schema = schema
+        self.pandas = pandas
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    def estimated_rows(self) -> Optional[int]:
+        return None  # a Python function may make rows
+
+    def node_desc(self) -> str:
+        kind = "MapInPandas" if self.pandas else "MapInArrow"
+        return f"{kind} [{getattr(self.fn, '__name__', 'fn')}]"
+
+
+class GroupedPandas(LogicalPlan):
+    """The grouped pandas functions, ``kind`` one of ``flatmap``
+    (``apply_in_pandas``: ``payload`` the user's function), ``agg``
+    (``agg_in_pandas``) and ``window`` (``transform_in_pandas``), whose
+    ``payload`` is [(output name, fn(Series) -> scalar, input column)].
+    Each group must be whole in one partition: the planner hash-exchanges
+    the child on ``key_names``."""
+
+    KINDS = ("flatmap", "agg", "window")
+
+    def __init__(self, key_names: Sequence[str], payload, schema: T.Schema,
+                 kind: str, child: LogicalPlan):
+        if kind not in self.KINDS:
+            raise ValueError(f"unknown grouped pandas kind {kind!r}")
+        self.children = [child]
+        self.key_names = list(key_names)
+        self.payload = payload
+        self.kind = kind
+        self._schema = schema
+        for k in self.key_names:
+            child.schema.index_of(k)  # raises on an unknown key
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    def estimated_rows(self) -> Optional[int]:
+        return None if self.kind == "flatmap" \
+            else self.children[0].estimated_rows()
+
+    def node_desc(self) -> str:
+        return f"GroupedPandas[{self.kind}] keys={self.key_names}"
+
+
+class CoGroupedPandas(LogicalPlan):
+    """``cogroup(...).apply_in_pandas``: ``fn(left group, right group)``
+    for every key either side holds, each side hash-exchanged on its
+    keys."""
+
+    def __init__(self, left_keys: Sequence[str], right_keys: Sequence[str],
+                 fn, schema: T.Schema, left: LogicalPlan,
+                 right: LogicalPlan):
+        if len(left_keys) != len(right_keys):
+            raise ValueError(f"{len(left_keys)} left keys against "
+                             f"{len(right_keys)} right keys")
+        self.children = [left, right]
+        self.left_key_names = list(left_keys)
+        self.right_key_names = list(right_keys)
+        self.fn = fn
+        self._schema = schema
+        for k in self.left_key_names:
+            left.schema.index_of(k)
+        for k in self.right_key_names:
+            right.schema.index_of(k)
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    def node_desc(self) -> str:
+        return (f"CoGroupedPandas [{getattr(self.fn, '__name__', 'fn')}] "
+                f"keys={self.left_key_names}")

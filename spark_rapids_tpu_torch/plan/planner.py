@@ -2,7 +2,8 @@
 
 Counterpart of ``spark_rapids_tpu/plan/planner.py`` for Scan,
 InMemoryRelation, RangeRel, Filter, Project, Aggregate, Expand,
-Generate, Join, Window, Sort, Limit and Union.  Scan and in-memory
+Generate, Join, Window, Sort, Limit, Union, Cached, MapInArrow,
+GroupedPandas and CoGroupedPandas.  Scan and in-memory
 columns are pruned to what the plan above reads: an Expand keeps only
 the columns read above it and needs what their expressions read in
 every projection; a Generate repeats only the child columns read above
@@ -57,6 +58,21 @@ the kept positions where its own lowering kept more.
   collect or global limit.
 - Only a hash distribution satisfies a join, an aggregate or a window:
   a range exchange's does not (``_hash_satisfies``).
+- ``Cached`` lowers to ``execs/cache.py::TpuCacheExec`` over its whole
+  child, whatever the plan above reads, so its slot serves every later
+  plan; a Filter above it is no Filter over a scan, so nothing pushes
+  into, elides over or runtime-filters the scan under a cache.
+- The Python nodes (JAX ``planner.py``'s branches) lower to
+  ``execs/python_exec.py`` over their whole children: ``MapInArrow`` to
+  ``TpuMapInArrowExec`` / ``TpuMapInPandasExec``; ``GroupedPandas`` over
+  a hash exchange on its keys when its child has several partitions not
+  already distributed so (a keyless one coalesces them);
+  ``CoGroupedPandas`` over an exchange of each side into
+  ``sql.shuffle.partitions``.  Their exchanges launch K1.  A declared
+  output type with no device layout keeps the node on the CPU engine.
+- ``TorchScalarUDF`` (``udf/exprs.py``) is registered as the JAX
+  ``JaxScalarUDF`` is; ``OpaquePythonUDF`` is not, so a node holding
+  one runs on the CPU engine.
 - Before lowering, ``_rewrite_scalar_subqueries`` (the JAX planner's
   prepass of that name) runs each ScalarSubquery of a Filter or Project
   once, through this planner on the session's device, and splices its
@@ -121,9 +137,11 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
 from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
+from spark_rapids_tpu_torch.execs.cache import TpuCacheExec
 from spark_rapids_tpu_torch.execs.coalesce import plan_coalesce
 from spark_rapids_tpu_torch.execs.collect_agg import TpuCollectAggExec
 from spark_rapids_tpu_torch.execs.retry import RetryPolicy
+from spark_rapids_tpu_torch.execs import python_exec as PX
 from spark_rapids_tpu_torch.execs.basic import (
     TpuFilterExec,
     TpuProjectExec,
@@ -193,7 +211,9 @@ from spark_rapids_tpu_torch.parallel.pipeline import prefetch, stage_depth
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan import typesig as TS
 from spark_rapids_tpu_torch.plan.runtime_filter import inject_runtime_filters
+from spark_rapids_tpu_torch.python_worker import PYTHON_WORKERS
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
+from spark_rapids_tpu_torch.udf.exprs import TorchScalarUDF
 
 
 # ---------------------------------------------------------------------- #
@@ -206,9 +226,11 @@ SUPPORTED_EXPRS: dict[type, str] = {}
 EXPR_SIGS: dict[type, TS.ExprSig] = {}
 
 
-def register_expr(cls: type, sig: TS.ExprSig) -> None:
+def register_expr(cls: type, sig: TS.ExprSig, key_name: str = "") -> None:
+    """``cls`` on the GPU under its switch (the JAX key of
+    ``key_name``, else of its own name) with its input signature."""
     SUPPORTED_EXPRS[cls] = C.register(
-        f"spark.rapids.tpu.sql.expression.{cls.__name__}", True)
+        f"spark.rapids.tpu.sql.expression.{key_name or cls.__name__}", True)
     EXPR_SIGS[cls] = sig
 
 
@@ -284,6 +306,13 @@ for _sig, _classes in (
 ):
     for _cls in _classes:
         register_expr(_cls, _sig)
+# a torch UDF runs in the exec like a built-in, under the switch of its
+# JAX counterpart; an opaque Python UDF stays unregistered, so its node
+# runs on the CPU engine
+register_expr(TorchScalarUDF, TS.ExprSig(
+    TS.NUMERIC + TS.BOOLEAN + TS.DATETIME + TS.NULLSIG,
+    "user columnar function over fixed-width device arrays"),
+    key_name="JaxScalarUDF")
 
 #: the aggregates the device group-by computes
 SUPPORTED_AGGS = (AG.Sum, AG.Count, AG.CountStar, AG.Min, AG.Max,
@@ -318,8 +347,12 @@ EXEC_SWITCHES: dict[type, str] = {
         "ParquetRelation" if cls is L.Scan else cls.__name__), True)
     for cls in (L.Scan, L.InMemoryRelation, L.RangeRel, L.Project,
                 L.Filter, L.Aggregate, L.Expand, L.Generate, L.Join, L.Window,
-                L.Sort, L.Limit, L.Union)
+                L.Sort, L.Limit, L.Union, L.MapInArrow, L.GroupedPandas,
+                L.CoGroupedPandas, L.Cached)
 }
+
+#: nodes whose output is what a Python function returns
+_PYTHON_NODES = (L.MapInArrow, L.GroupedPandas, L.CoGroupedPandas)
 
 
 def _check_expr(e: Expression, conf: C.TorchConf, reasons: set) -> None:
@@ -489,6 +522,9 @@ class PlanMeta:
                     we.bind(cs).check_supported()
                 except (NotImplementedError, TypeError) as exc:
                     self.will_not_work(str(exc))
+        elif isinstance(p, _PYTHON_NODES) \
+                and not schema_device_representable(p.schema):
+            self.will_not_work("declared output type has no device layout")
         elif isinstance(p, L.Join):
             ls, rs = (c.schema for c in p.children)
             for k in p.left_keys:
@@ -633,6 +669,13 @@ class Planner:
                 self._lower(p.children[0], need), ansi=ansi)
         if isinstance(p, L.Union):
             return self._plan_union(p, required)
+        if isinstance(p, L.Cached):
+            # the whole child, whatever this plan reads: the slot serves
+            # every later plan
+            return TpuCacheExec(p.slot, self._lower(p.children[0], None),
+                                self.runtime)
+        if isinstance(p, _PYTHON_NODES):
+            return self._plan_python(p)
         if isinstance(p, L.Generate):
             made = {p.out_name, "pos"} if p.generator.pos else {p.out_name}
             keep = None if required is None else required - made
@@ -762,6 +805,41 @@ class Planner:
             partitioning, child, self.manager,
             self.conf.get(C.SORT_SAMPLES_PER_BATCH), self.runtime,
             self.conf.get(C.BATCH_ROWS))
+
+    def _plan_python(self, p: L.LogicalPlan) -> TpuExec:
+        """A Python node (JAX ``planner.py``'s MapInArrow, GroupedPandas
+        and CoGroupedPandas branches) over its whole children: a grouped
+        one over a hash exchange on its keys when its child has several
+        partitions not already distributed so (a keyless one coalesces
+        them), a cogroup over an exchange of each side."""
+        kw = dict(device=self.device, runtime=self.runtime,
+                  max_workers=self.conf.get(PYTHON_WORKERS))
+        kids = [self._lower(c, None) for c in p.children]
+        if isinstance(p, L.MapInArrow):
+            cls = PX.TpuMapInPandasExec if p.pandas else PX.TpuMapInArrowExec
+            return cls(p.fn, p.schema, kids[0], **kw)
+        n = self.conf.get(C.SHUFFLE_PARTITIONS)
+        if isinstance(p, L.CoGroupedPandas):
+            sides = [self._exchange(HashPartitioning(
+                [ColumnReference(k) for k in keys], n), kid)
+                for kid, keys in ((kids[0], p.left_key_names),
+                                  (kids[1], p.right_key_names))]
+            return PX.TpuFlatMapCoGroupsInPandasExec(
+                p.left_key_names, p.right_key_names, p.fn, p.schema,
+                *sides, **kw)
+        source = kids[0]
+        if source.num_partitions > 1 and p.key_names:
+            bound = [bind_references(ColumnReference(k), source.schema)
+                     for k in p.key_names]
+            if _hash_satisfies(source, bound) is None:
+                source = self._exchange(HashPartitioning(
+                    [ColumnReference(k) for k in p.key_names], n), source)
+        elif source.num_partitions > 1:
+            source = TpuCoalescePartitionsExec(source, self.runtime)
+        cls = {"flatmap": PX.TpuFlatMapGroupsInPandasExec,
+               "agg": PX.TpuAggregateInPandasExec,
+               "window": PX.TpuWindowInPandasExec}[p.kind]
+        return cls(p.key_names, p.payload, p.schema, source, **kw)
 
     def _plan_collect(self, p: L.Aggregate, child: TpuExec) -> TpuExec:
         """All-collect aggregates (JAX ``_plan_aggregate``'s collect

@@ -35,6 +35,14 @@ cast, or raises TypeError.  ``grouping()`` / ``grouping_id()``, and
 ``count_distinct`` beside other aggregates or over grouping sets, are
 not in the JAX package and not here.
 
+``DataFrame.cache`` / ``persist`` / ``unpersist`` (``plan/logical.py::
+Cached``, ``execs/cache.py``), ``map_in_arrow`` and ``map_in_pandas``,
+and on ``GroupedData`` ``apply_in_pandas``, ``agg_in_pandas``,
+``transform_in_pandas`` and ``cogroup(...).apply_in_pandas`` run user
+Python in the worker pool (``python_worker``); ``udf`` and
+``torch_udf`` are in ``udf/``, and ``explain()`` ends with each torch or
+opaque UDF's tier.
+
 A session runs on one device, ``cuda`` unless the caller asks for the
 CPU.  Asking for CUDA on a host without it raises: the CPU engine that
 runs the nodes the planner tags off the GPU is part of the plan, not a
@@ -63,6 +71,7 @@ import torch
 
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.arrow import schema_from_arrow
 from spark_rapids_tpu_torch.config import TorchConf
 from spark_rapids_tpu_torch.execs.base import TpuExec
 from spark_rapids_tpu_torch.execs.sort import SortKey
@@ -89,7 +98,6 @@ from spark_rapids_tpu_torch.exprs.base import (
     Expression,
     Literal,
     _column,
-    _expr,
     col,
     lit,
 )
@@ -127,6 +135,7 @@ from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.planner import Planner, collect_exec
 from spark_rapids_tpu_torch.plan.runtime_filter import render_runtime_filters
 from spark_rapids_tpu_torch.robustness import faults
+from spark_rapids_tpu_torch.udf.exprs import OpaquePythonUDF, TorchScalarUDF
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 
 __all__ = ["TorchSession", "DataFrame", "col", "lit", "sum_", "avg",
@@ -352,6 +361,32 @@ def _extract_generator(plan: L.LogicalPlan, exprs: list[Expression]
     return plan
 
 
+def render_udfs(plan: L.LogicalPlan) -> list[str]:
+    """explain() lines: the tier of each torch or opaque UDF in the plan
+    (a compiled UDF is a tree of built-in expressions)."""
+    lines: list[str] = []
+
+    def walk_expr(e: Expression) -> None:
+        if isinstance(e, (TorchScalarUDF, OpaquePythonUDF)):
+            line = f"udf {e.fn_name}: tier {e.tier}"
+            if line not in lines:
+                lines.append(line)
+        for c in e.children:
+            walk_expr(c)
+
+    def walk(p: L.LogicalPlan) -> None:
+        if isinstance(p, L.Project):
+            for e in p.exprs:
+                walk_expr(e)
+        elif isinstance(p, L.Filter):
+            walk_expr(p.condition)
+        for c in p.children:
+            walk(c)
+
+    walk(plan)
+    return lines
+
+
 class TorchSession:
     def __init__(self, conf: Optional[Union[TorchConf, dict]] = None,
                  device: Union[str, torch.device] = "cuda"):
@@ -400,9 +435,32 @@ class TorchSession:
         return DataFrame(L.RangeRel(start, end, step), self)
 
 
+def _engine_schema(schema: Union[pa.Schema, T.Schema]) -> T.Schema:
+    return schema_from_arrow(schema) if isinstance(schema, pa.Schema) \
+        else schema
+
+
+class _CoGrouped:
+    """``a.group_by(...).cogroup(b.group_by(...))``."""
+
+    def __init__(self, left: "GroupedData", right: "GroupedData"):
+        self._left = left
+        self._right = right
+
+    def apply_in_pandas(self, fn, schema) -> "DataFrame":
+        """``fn(left group frame, right group frame) -> frame`` for every
+        key either side holds (Spark's cogroup().applyInPandas)."""
+        return DataFrame(L.CoGroupedPandas(
+            self._left._key_names(), self._right._key_names(), fn,
+            _engine_schema(schema), self._left._df._plan,
+            self._right._df._plan), self._left._df._session)
+
+
 class GroupedData:
     """A grouped frame; ``grouping_sets`` (each the set of key names it
-    keeps) makes an Expand-based aggregate of every set."""
+    keeps) makes an Expand-based aggregate of every set.  Its pandas
+    methods (``apply_in_pandas``, ``agg_in_pandas``,
+    ``transform_in_pandas``, ``cogroup``) take plain column keys."""
 
     def __init__(self, df: "DataFrame", keys: list[Expression],
                  grouping_sets: Optional[list[frozenset]] = None):
@@ -444,6 +502,49 @@ class GroupedData:
             return self._agg_grouping_sets(named)
         return DataFrame(L.Aggregate(self._keys, named, self._df._plan),
                          self._df._session)
+
+    def _key_names(self) -> list[str]:
+        names = []
+        for k in self._keys:
+            if isinstance(k, ColumnReference):
+                names.append(k.col_name)
+            elif isinstance(k, Alias):
+                names.append(k.out_name)
+            else:
+                raise ValueError("grouped pandas UDFs need plain column keys")
+        return names
+
+    def cogroup(self, other: "GroupedData") -> _CoGrouped:
+        return _CoGrouped(self, other)
+
+    def apply_in_pandas(self, fn, schema) -> "DataFrame":
+        """``fn(pandas frame of a group) -> frame`` of ``schema`` (Spark's
+        applyInPandas)."""
+        return DataFrame(L.GroupedPandas(
+            self._key_names(), fn, _engine_schema(schema), "flatmap",
+            self._df._plan), self._df._session)
+
+    def agg_in_pandas(self, *aggs) -> "DataFrame":
+        """Pandas aggregates, each (output name, fn(Series) -> scalar,
+        input column): the group keys, then a DOUBLE a function."""
+        key_names = self._key_names()
+        child = self._df._plan.schema
+        fields = [child.field(k) for k in key_names] + [
+            T.Field(name, T.DOUBLE, True) for name, _fn, _c in aggs]
+        return DataFrame(L.GroupedPandas(
+            key_names, list(aggs), T.Schema(fields), "agg", self._df._plan),
+            self._df._session)
+
+    def transform_in_pandas(self, *fns) -> "DataFrame":
+        """Pandas window functions over unbounded frames, each (output
+        name, fn(Series) -> scalar, input column): the scalar is given to
+        every row of its group, as a DOUBLE after the child's columns."""
+        child = self._df._plan.schema
+        fields = list(child.fields) + [T.Field(name, T.DOUBLE, True)
+                                       for name, _fn, _c in fns]
+        return DataFrame(L.GroupedPandas(
+            self._key_names(), list(fns), T.Schema(fields), "window",
+            self._df._plan), self._df._session)
 
     def _agg_distinct(self, named: list[NamedAgg]) -> "DataFrame":
         """count(DISTINCT x) as two aggregates: group by (keys, x) to
@@ -537,7 +638,7 @@ class DataFrame:
                              if n != name], e.alias(name))
 
     def group_by(self, *keys) -> GroupedData:
-        return GroupedData(self, [_expr(k) for k in keys])
+        return GroupedData(self, [_column(k) for k in keys])
 
     def rollup(self, *keys: str) -> GroupedData:
         """GROUP BY ROLLUP: (a, b, c) -> the sets (a, b, c), (a, b), (a)
@@ -575,8 +676,8 @@ class DataFrame:
             lk = [ColumnReference(n) for n in names]
             rk = [ColumnReference(n) for n in names]
         else:
-            lk = [_expr(e) for e in (left_on or [])]
-            rk = [_expr(e) for e in (right_on or [])]
+            lk = [_column(e) for e in (left_on or [])]
+            rk = [_column(e) for e in (right_on or [])]
         return DataFrame(L.Join(self._plan, other._plan, lk, rk, how,
                                 condition), self._session)
 
@@ -604,12 +705,42 @@ class DataFrame:
         """Sort by ``keys`` (expressions or SortKeys); ``desc`` sorts
         descending with NULLs last, as Spark does."""
         sks = [k if isinstance(k, SortKey)
-               else SortKey(_expr(k), descending=desc, nulls_last=desc)
+               else SortKey(_column(k), descending=desc, nulls_last=desc)
                for k in keys]
         return DataFrame(L.Sort(sks, self._plan), self._session)
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(L.Limit(n, self._plan), self._session)
+
+    def cache(self) -> "DataFrame":
+        """Materialize this frame once (Spark's ``df.cache()``): the first
+        device collect that drains it stores its batches in the session's
+        buffer store, and later collects of it, or of frames made from it
+        after this call, read them instead of running it again."""
+        if not isinstance(self._plan, L.Cached):
+            self._plan = L.Cached(self._plan)
+        return self
+
+    persist = cache
+
+    def unpersist(self) -> "DataFrame":
+        """Drop the cached batches: their store entries close."""
+        if isinstance(self._plan, L.Cached):
+            self._plan.slot.clear()
+        return self
+
+    def map_in_arrow(self, fn, schema) -> "DataFrame":
+        """``fn(pa.Table) -> pa.Table`` over each batch, in the Python
+        worker pool; ``schema`` (pyarrow or the port's) is the declared
+        output, and ``fn`` must pickle (a module-level function)."""
+        return DataFrame(L.MapInArrow(fn, _engine_schema(schema),
+                                      self._plan), self._session)
+
+    def map_in_pandas(self, fn, schema) -> "DataFrame":
+        """``fn(pandas.DataFrame) -> pandas.DataFrame`` over each batch, in
+        the worker pool (Spark's mapInPandas)."""
+        return DataFrame(L.MapInArrow(fn, _engine_schema(schema), self._plan,
+                                      pandas=True), self._session)
 
     def _planner(self) -> Planner:
         s = self._session
@@ -626,7 +757,8 @@ class DataFrame:
         one."""
         plan, meta = self._planner().plan_with_meta(self._plan)
         return "\n".join([meta.explain().rstrip("\n"), plan.tree_string(),
-                          *render_runtime_filters(plan)])
+                          *render_runtime_filters(plan),
+                          *render_udfs(self._plan)])
 
     def collect(self) -> pa.Table:
         """Run the query on the session's device; the result as Arrow.

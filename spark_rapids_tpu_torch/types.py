@@ -415,3 +415,12 @@ def common_type(a: DataType, b: DataType) -> Optional[DataType]:
     if {ta, tb} == {DateType, TimestampType}:
         return TIMESTAMP  # the date side at midnight UTC
     return None
+
+
+def decimal_beside_integral(a: DataType, b: DataType) -> bool:
+    """A DECIMAL and an integral type with no common DECIMAL of at most
+    18 digits (a LONG beside any scale): they compare exactly all the
+    same (Spark widens both to a DECIMAL of up to 38 digits)."""
+    return common_type(a, b) is None and any(
+        isinstance(x, DecimalType) and isinstance(y, IntegralType)
+        for x, y in ((a, b), (b, a)))

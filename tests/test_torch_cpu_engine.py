@@ -70,6 +70,7 @@ from spark_rapids_tpu_torch.exprs.cast import Cast
 from spark_rapids_tpu_torch.exprs.hashing import Murmur3Hash
 from spark_rapids_tpu_torch import session as SES
 from test_torch_q1 import _significant
+import torch_python_fns as PF
 
 JAX = types.SimpleNamespace(
     session=TpuSession, col=JB.ColumnReference, lit=JB.Literal.of,
@@ -302,6 +303,7 @@ def _nodes(ns, paths):
     dim = s.create_dataframe(pa.table({
         "k2": pa.array([0, 1, 2, 2, 3, None, 9], pa.int64()),
         "name": ["zero", "one", "two", "deux", "three", "none", "nine"]}))
+    kw = g.select(c("k"), c("w"))
     W = ns.WX.Window
     spec = W.partition_by("k").order_by("w")
     aggs = [(F.sum_(c("w")), "sw"), (F.sum_(c("j")), "sj"),
@@ -360,14 +362,26 @@ def _nodes(ns, paths):
             dim.select(c("k2"), c("name"))),
         "generate": g.select(c("k"), c("s"), F.posexplode_outer(F.array(
             c("k"), c("j")))),
+        "cached": g.where(c("x") > lit(0)).cache(),
+        "map_in_arrow": kw.map_in_arrow(PF.double_w, kw.schema),
+        "grouped_pandas": kw.group_by(c("k")).agg_in_pandas(
+            ("m", PF.mean, "w")),
+        "cogrouped_pandas": kw.group_by(c("k")).cogroup(dim.group_by(
+            c("k2"))).apply_in_pandas(PF.count_sides, COUNT_SIDES),
     }
+
+
+#: count_sides' declared output
+COUNT_SIDES = pa.schema([("k", pa.int64()), ("nl", pa.int64()),
+                         ("nr", pa.int64())])
 
 
 NODES = ["scan", "in_memory", "range", "filter", "project",
          "aggregate_grouped", "aggregate_double_key", "aggregate_grand",
          "expand", "join_inner", "join_left_outer", "join_right_outer",
          "join_full_outer", "join_semi", "join_anti", "join_inner_condition",
-         "join_cross", "window", "sort", "limit", "union", "generate"]
+         "join_cross", "window", "sort", "limit", "union", "generate",
+         "cached", "map_in_arrow", "grouped_pandas", "cogrouped_pandas"]
 ORDERED = {"sort", "limit"}
 
 

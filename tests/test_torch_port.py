@@ -92,7 +92,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "spark_rapids_tpu_torch.execs.collect_agg",
             # the expression long tail's
             "spark_rapids_tpu_torch.exprs.bitwise",
-            "spark_rapids_tpu_torch.exprs.nondeterministic"} <= set(mods)
+            "spark_rapids_tpu_torch.exprs.nondeterministic",
+            # the cache's, the Python execs' with the worker child, the
+            # UDF tiers'
+            "spark_rapids_tpu_torch.execs.cache",
+            "spark_rapids_tpu_torch.execs.python_exec",
+            "spark_rapids_tpu_torch.python_worker",
+            "spark_rapids_tpu_torch.python_worker.worker",
+            "spark_rapids_tpu_torch.python_worker.wrappers",
+            "spark_rapids_tpu_torch.udf",
+            "spark_rapids_tpu_torch.udf.compiler",
+            "spark_rapids_tpu_torch.udf.exprs"} <= set(mods)
 
 
 def test_port_sources_name_no_jax_import():

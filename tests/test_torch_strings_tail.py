@@ -17,7 +17,10 @@ compared as they are) and through both CPU engines.
 
 ``test_every_jax_expression_class_has_a_port_namesake`` holds that
 every class of each ``spark_rapids_tpu/exprs/*.py`` has a class of the
-same name in the port's module of the same name, with no exception.
+same name in the port's module of the same name, with no exception;
+``test_every_jax_exec_class_has_a_port_namesake`` that every exec class
+of JAX ``execs/*.py`` and ``io/*.py`` has a namesake in the port or is
+listed with the ROADMAP.md item that brings it.
 """
 
 import ast
@@ -414,6 +417,57 @@ def test_every_jax_expression_class_has_a_port_namesake(module):
     port_path = os.path.join(PORT_EXPRS, module)
     got = _classes(port_path) if os.path.exists(port_path) else set()
     assert not want - got, f"{module}: not in the port: {sorted(want - got)}"
+
+
+JAX_PKG = os.path.dirname(JAX_EXPRS)
+PORT_PKG = os.path.dirname(PORT_EXPRS)
+
+#: the JAX exec classes the port does not have yet, each with the
+#: ROADMAP.md item that brings it
+EXECS_TO_PORT = {
+    "TpuAdaptiveJoinExec": "item 7 (the adaptive join)",
+    "CoalescedShuffleReaderExec": "item 7 (the adaptive join)",
+    "TpuTakeOrderedAndProjectExec": "item 7 (the rest of A3 and A4)",
+    "TpuBatchSourceExec": "item 9 (the throughput layers)",
+    "FusableExec": "item 9 (the fused chains)",
+    "TpuCollectiveHashAggregateExec": "item 10 (multi-GPU)",
+    "TpuCollectiveHashJoinExec": "item 10 (multi-GPU)",
+    "TpuCollectiveSortExec": "item 10 (multi-GPU)",
+    "CsvScanExec": "item 11 (read_csv)",
+    "OrcScanExec": "item 11 (read_orc)",
+    "FileWriteExec": "item 11 (the writers)",
+    "ParquetWriteExec": "item 11 (the writers)",
+    "CsvWriteExec": "item 11 (the writers)",
+    "OrcWriteExec": "item 11 (the writers)",
+}
+
+
+def _exec_classes(path: str) -> set:
+    return {c for c in _classes(path) if c.endswith("Exec")}
+
+
+def _port_exec_classes() -> set:
+    out: set = set()
+    for root, _dirs, files in os.walk(PORT_PKG):
+        out |= {c for f in files if f.endswith(".py")
+                for c in _exec_classes(os.path.join(root, f))}
+    return out
+
+
+@pytest.mark.parametrize("module", sorted(
+    os.path.join(d, f) for d in ("execs", "io")
+    for f in os.listdir(os.path.join(JAX_PKG, d))
+    if f.endswith(".py") and f != "__init__.py"))
+def test_every_jax_exec_class_has_a_port_namesake(module):
+    """Each exec class of JAX ``execs/*.py`` and ``io/*.py`` is a class
+    of the port, or listed with the item that ports it (and a listed one
+    the port has fails too: the list stays true)."""
+    want = _exec_classes(os.path.join(JAX_PKG, module))
+    missing = want - _port_exec_classes()
+    assert missing == {c for c in want if c in EXECS_TO_PORT}, (
+        f"{module}: not in the port and not listed: "
+        f"{sorted(missing - set(EXECS_TO_PORT))}; listed but ported: "
+        f"{sorted(set(EXECS_TO_PORT) & want - missing)}")
 
 
 @pytest.mark.parametrize("k", range(len(_tail_exprs(PORT))))
