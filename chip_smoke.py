@@ -43,12 +43,16 @@ Phases, one JSON line each:
            per non-empty map batch of its three exchanges (counted as
            each exchange's child feeds it in the warm-up run) and
            hash_string never.  Its orders side is too large to
-           broadcast, so it plans a partition-wise shuffled join.  It
-           runs first with the runtime filter off (the earlier slices'
-           plan and launches), then with it on, as users get it: a
-           filter from the orders keys, built under the orders side's
-           exchange, on the lineitem scan, which adds two hash_columns
-           launches per batch it folds and two for its range table;
+           broadcast, so with the adaptive key off it plans a
+           partition-wise shuffled join.  It runs first with the runtime
+           filter off (the earlier slices' plan and launches), then with
+           it on: a filter from the orders keys, built under the orders
+           side's exchange, on the lineitem scan, which adds two
+           hash_columns launches per batch it folds and two for its
+           range table; then ``q3_adaptive``, the plan users get (the
+           default keys): an adaptive join over the two exchanges, the
+           filter's map stage first, one profiled run, counted and
+           timed, its decision, its rows and its K1 launches;
   q67      TPC-DS q67 (sales per store and item, ranked within each store
            by a rank() window, the top 10 of each store ORDER BY store,
            rank, item) over 6 x 2^20 generated store_sales rows in six
@@ -94,9 +98,11 @@ Phases, one JSON line each:
            derived from them (~10 % of the sales rows, the spec's SF1
            ratio; each return copies the keys of a sale) with the ten
            reasons, the same way: store_sales LEFT OUTER JOIN
-           store_returns, too large to broadcast, plans a partition-wise
-           shuffled join (a hash exchange on each side's (LONG, LONG)
-           key), and the one reason row broadcasts; no runtime filter;
+           store_returns, too large to broadcast, plans with the
+           adaptive key off a partition-wise shuffled join (a hash
+           exchange on each side's (LONG, LONG) key; the default's
+           adaptive join is the adaptive phase's aqe_coalesce), and the
+           one reason row broadcasts; no runtime filter;
            the 100 rows held against a pyarrow left outer join /
            filter / CASE / group_by / sort (customers exact, sums within
            REL_TOL, rows whose sums tie may trade places); hash_columns
@@ -134,7 +140,9 @@ Phases, one JSON line each:
            no store, so it gives 0 rows and, its store join's build side
            empty, launches nothing (one run, no profile); the variant
            asks for the state most stores are in, and its 100 rows are
-           held against pyarrow;
+           held against pyarrow; both with the adaptive key off, and the
+           variant once more under the default keys
+           (``variant_adaptive``: an adaptive join, its decision);
   agg_family
            store_sales in (ticket, item) order (a range exchange and a
            sort of each partition) grouped by store with min, max, first
@@ -188,9 +196,11 @@ Phases, one JSON line each:
            pyarrow's value_counts; size, get_item, element_at and
            array_contains over the baskets against pyarrow's count,
            min, max and membership), ``baskets_joined`` (the baskets
-           joined to customer with the broadcast threshold off: both
-           sides hash-exchanged, the arrays gathered, parked and
-           concatenated), ``q43_pivot`` (q43's join as a pivot of seven
+           joined to customer with the broadcast threshold off and the
+           adaptive key off: both sides hash-exchanged, the arrays
+           gathered, parked and concatenated; ``baskets_joined_adaptive``
+           the same under the default keys: an adaptive join, its
+           decision), ``q43_pivot`` (q43's join as a pivot of seven
            masked sums, equal to the sql phase's q43 text rows) and
            ``nested_scan`` (the files written again with a struct and a
            map column, filtered on a struct field, a map value
@@ -249,6 +259,31 @@ Phases, one JSON line each:
            pyarrow or numpy with a profiled run and one counted run;
            ``python`` with the compute processes nvidia-smi lists while
            a worker pool is live (one: the children see no card);
+  adaptive adaptive execution (``adaptive_phase``) over the same six
+           store_sales files and q93's store_returns: ``aqe_broadcast``
+           (store_sales JOIN the returns of q93's reason, four columns,
+           by (item, ticket), summed by customer: estimated over the
+           broadcast threshold, measured under it, so a runtime
+           broadcast of the right side; the runtime filter prunes the
+           store_sales scan, its build's map stage first; the store's
+           device bytes back after the query), ``aqe_coalesce`` (q93 as
+           written: the left outer join on coalesced reduce groups) and
+           ``aqe_skew`` (half the tickets' item made one hot key, JOIN
+           item, money summed in cents by category, broadcast off: the
+           hot reduce partition split into block-wise slices, each read
+           without a second map stage and holding rows): each one
+           profiled run, counted and timed, its decision and counters,
+           its rows against pyarrow, and ADAPTIVE_PAIRS pairs with the
+           adaptive key on and off in alternating order, the same rows
+           both ways (bit for bit; q93's DOUBLE sums, which coalescing
+           adds in another order, within REL_TOL); ``round_robin`` (the
+           six files dealt into 8 partitions: sizes within a map batch
+           a partition of each other, the rows the files', no K1) and
+           ``take_ordered`` (TpuTakeOrderedAndProjectExec: the top 100
+           by ss_net_paid, two columns, pyarrow's, ties free); an
+           ``adaptive_query`` line a workload, then ``adaptive``.  The
+           sql, channel and concurrency lines carry each adaptive
+           join's decision;
   channels the 29 catalog and web TPC-DS texts the JAX sweep runs
            correctly (``tpcds_queries.CATALOG_WEB``) the same way, over
            those 13 tables and the 11 channel tables at SF1's rows
@@ -322,10 +357,11 @@ Phases, one JSON line each:
            pooled run won, and one profiled run of each side (device
            busy, idle share, kernel count: the profiler sees the pool
            threads' kernels);
-  main     hash_columns at the calls q1, q3 (filter off and on), q67,
+  main     hash_columns at the calls q1, q3 (filter off and on, and
+           adaptive), q67,
            q3ds, q93, the star queries, q67_rollup, q5, q27, agg_family,
-           the sql, types and channel texts, the nested and long_tail
-           queries and the fallback phase made,
+           the sql, types and channel texts, the nested, long_tail,
+           python and adaptive queries and the fallback phase made,
            and the ``new_types`` mix at 6 x 2^20 rows (the
            largest call of
            each key signature and seed in each phase: the filters'
@@ -1770,7 +1806,9 @@ def q93_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB):
     sr_path, reason_path = tpcds.write_q93_tables(star["dir"], ss_paths)
     gen_s = time.perf_counter() - t0
     star["q93_paths"] = (sr_path, reason_path)
-    session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
+    # the static plan; the adaptive phase's aqe_coalesce is the default's
+    session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES, ADAPTIVE: False},
+                           device="cuda")
 
     def q93_df():
         return tpcds.q93_dataframe(session, ss_paths, sr_path, reason_path)
@@ -1798,6 +1836,7 @@ def q93_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB):
         "sr_return_quantity"])
     ref, joined_rows, reason_rows = reference_q93(
         pa, pc, sales, returns, pq.read_table(reason_path), tpcds.Q93_REASON)
+    star["q93_ref"] = ref
     calls: list = []
     rec = run_query(torch, q93_df, kernels, lambda t: compare_ranked(
         t, ref, 100, ("ss_customer_sk",), "sumsales", "act_sum"), calls,
@@ -2236,7 +2275,10 @@ def q27_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
     dd_path, ss_paths, item_path = star["paths"]
     states = star["store"]["s_state"].to_pylist()
     state = max(sorted(set(states)), key=states.count)
-    session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
+    # the static plans; the variant's adaptive sibling runs the default
+    session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES, ADAPTIVE: False},
+                           device="cuda")
+    default = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
     records, calls = {}, []
     for name, st in (("text", tpcds.Q27_STATES), ("variant", (state,))):
         def q27_df(st=st):
@@ -2263,6 +2305,15 @@ def q27_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
                        rec if name == "variant" else {"per_run": 0})
         records[name] = {"states": list(st),
                          "plan": plan.tree_string().splitlines(), **rec}
+        if name == "variant":
+            records["variant_adaptive"] = adaptive_sibling(
+                torch, kernels, "q27 variant (adaptive)",
+                lambda: tpcds.q27_dataframe(
+                    default, dd_path, ss_paths, item_path,
+                    star["store_path"], star["cdemo_path"], states=st),
+                lambda t, ref=ref: compare_rows(t, ref, 2),
+                [BCAST_RIGHT] * 3 + [["TpuAdaptiveJoinExec", "inner",
+                                      "right"]], calls, must_prune=True)
     emit("q27", cdemo_rows=pq.read_metadata(star["cdemo_path"]).num_rows,
          store_states=states,
          dimensions_datagen_s=star["dimensions_datagen_s"],
@@ -2569,13 +2620,15 @@ def sql_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
                 star["q43_text_rows"] = t
                 return base(t)
         calls: list = []
+        ran: dict = {}
         rec = run_query(torch, text_df, kernels, check, calls, scans=False,
                         timed=SQL_TIMED_RUNS, counted=True,
-                        single=SQL_SINGLE_RUN)
+                        single=SQL_SINGLE_RUN, kept=ran)
         check_launches(name, rec, rec)
         records[name] = {"checked_against": versus,
                          **({} if twin is not None else cut),
                          "joins": join_strategies(plan),
+                         "adaptive": adaptive_decisions(ran.get("plan")),
                          "hash_columns_calls": sorted(
                              {(n, signature(cols), seed, parts)
                               for cols, n, seed, parts in calls}), **rec}
@@ -3120,7 +3173,11 @@ def nested_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
     _dd, ss_paths, _item = star["paths"]
     conf = {TTB: Q3DS_TASK_TARGET_BYTES}
     session = TorchSession(conf, device="cuda")
+    # baskets_joined's static plan; baskets_joined_adaptive the default's
     unbroadcast = TorchSession(
+        {**conf, "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes": -1,
+         ADAPTIVE: False}, device="cuda")
+    unbroadcast_adaptive = TorchSession(
         {**conf, "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes": -1},
         device="cuda")
     t0 = time.perf_counter()
@@ -3170,10 +3227,10 @@ def nested_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
         extra["exploded_rows"] = sum(got.values())
         return 0.0
 
-    def joined():
-        cust = unbroadcast.read_parquet(*store_tables["customer"]).select(
+    def joined(s=unbroadcast):
+        cust = s.read_parquet(*store_tables["customer"]).select(
             col("c_customer_sk"))
-        return baskets(unbroadcast).join(
+        return baskets(s).join(
             cust, left_on=[col("ss_customer_sk")],
             right_on=[col("c_customer_sk")])
 
@@ -3287,6 +3344,17 @@ def nested_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
             key = (signature(call[0]), call[2], call[3])
             if key not in largest or call[1] > largest[key][1]:
                 largest[key] = call
+    calls = []
+    records["baskets_joined_adaptive"] = adaptive_sibling(
+        torch, kernels, "baskets_joined (adaptive)",
+        lambda: joined(unbroadcast_adaptive), check_joined,
+        [["TpuAdaptiveJoinExec", "inner", "right"]], calls)
+    emit("nested_query", name="baskets_joined_adaptive",
+         **records["baskets_joined_adaptive"])
+    for call in calls:
+        key = (signature(call[0]), call[2], call[3])
+        if key not in largest or call[1] > largest[key][1]:
+            largest[key] = call
     one = nested_paths[0]
     back = session.read_parquet(one).select(
         col("ss_pricing"), col("ss_extras")).collect()
@@ -4565,6 +4633,415 @@ def sample_projection_check(pa, sample_projection, rand_uniform, ss_paths,
     return {"rows": len(ids), "of": total, "sd": sd}
 
 
+#: the adaptive phase: on / off pairs a workload, in alternating order
+ADAPTIVE_PAIRS = 3
+#: the adaptive key (execs/adaptive.py); checks of a static join shape
+#: set it off for their plan, and their sibling runs the default
+ADAPTIVE = "spark.rapids.tpu.sql.adaptive.enabled"
+ADAPTIVE_METRICS = ("adaptiveBroadcasts", "coalescedPartitions",
+                    "skewSplits")
+
+
+def adaptive_decisions(plan) -> list:
+    """Each adaptive join of a plan that ran: its type, decision and
+    counters, and its readers' lines and the rows each skew slice
+    read."""
+    if plan is None:
+        return []
+    return [{"join_type": n.join_type, "decision": n.decision,
+             **{k: n.metrics[k] for k in ADAPTIVE_METRICS},
+             "readers": [r.node_desc() for r in n.readers()],
+             "slice_rows": [r.slice_rows() for r in n.readers()]}
+            for n in plan.walk() if type(n).__name__ == "TpuAdaptiveJoinExec"]
+
+
+def adaptive_nodes_fresh(name: str, plan) -> list:
+    """The plan's adaptive joins, each over two hash exchanges and
+    undecided (planning ran no map stage)."""
+    nodes = [n for n in plan.walk()
+             if type(n).__name__ == "TpuAdaptiveJoinExec"]
+    for n in nodes:
+        kids = [type(c).__name__ for c in n.children]
+        if kids != ["TpuShuffleExchangeExec"] * 2 or \
+                n.decision != "undecided" or any(
+                    c.metrics["mapBatches"] for c in n.children):
+            raise AssertionError(f"{name}: adaptive join over {kids}, "
+                                 f"{n.decision} before its run")
+    return nodes
+
+
+def adaptive_sibling(torch, kernels, name: str, make_df, check,
+                     want_joins: list, calls: list,
+                     must_prune: bool = False) -> dict:
+    """The default plan of a workload whose own check pins the static
+    join (``ADAPTIVE`` off): its joins as ``want_joins`` (the adaptive
+    node named TpuAdaptiveJoinExec, the static plan's build side), each
+    adaptive join over two fresh exchanges, one profiled run that is
+    counted and timed, the result held by ``check``, K1 as planned,
+    and the decisions taken.  ``must_prune``: its runtime filter prunes
+    rows (its build side's map stage ran before the probe side's
+    scan)."""
+    plan = make_df().physical_plan()
+    joins = join_strategies(plan)
+    if joins != want_joins:
+        raise AssertionError(f"{name} joins {joins}, expected {want_joins}")
+    if not adaptive_nodes_fresh(name, plan):
+        raise AssertionError(f"{name}: no adaptive join under the default")
+    kept: dict = {}
+    rec = run_query(torch, make_df, kernels, check, calls, scans=False,
+                    timed=0, counted=True, single=True, kept=kept)
+    check_launches(name, rec, rec)
+    decisions = adaptive_decisions(kept["plan"])
+    if any(d["decision"] == "undecided" for d in decisions):
+        raise AssertionError(f"{name}: {decisions}")
+    filtered = [n for n in kept["plan"].walk()
+                if getattr(n, "runtime_filters", None)]
+    pruned = sum(n.metrics["rfPrunedRows"] for n in filtered)
+    if must_prune and not pruned:
+        raise AssertionError(f"{name}: its runtime filter pruned nothing")
+    return {"joins": joins, "adaptive": decisions, "rf_pruned_rows": pruned,
+            **rec}
+
+
+def exact_pairs(torch, name: str, make_df, sessions: dict, same) -> dict:
+    """ADAPTIVE_PAIRS runs of ``make_df(session)`` with the adaptive key
+    on and off in alternating order after a warm-up of each: every
+    result ``same`` as the first key-on one (``same(a, b)`` raises or
+    returns the largest relative float difference); both sides'
+    walls."""
+    def run(side):
+        t0 = time.perf_counter()
+        table = make_df(sessions[side]).collect()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, table
+
+    _, want = run("on")
+    run("off")
+    walls: dict = {"on": [], "off": []}
+    worst = 0.0
+    for i in range(ADAPTIVE_PAIRS):
+        for side in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            wall, table = run(side)
+            walls[side].append(wall)
+            worst = max(worst, same(table, want))
+    ladder_quiet(f"adaptive {name}", sessions.values())
+    return {"on_wall_s": walls["on"], "off_wall_s": walls["off"],
+            "on_median_s": statistics.median(walls["on"]),
+            "off_median_s": statistics.median(walls["off"]),
+            "on_off_max_rel_diff": worst}
+
+
+def bit_for_bit(key_cols: list):
+    """``same`` for ``exact_pairs``: the rows in key order equal by
+    ``pyarrow.Table.equals``."""
+    def same(got, want) -> float:
+        order = [(k, "ascending") for k in key_cols]
+        if not got.sort_by(order).equals(want.sort_by(order)):
+            raise AssertionError("a result differs from the first "
+                                 "key-on run")
+        return 0.0
+    return same
+
+
+def cents(pa, pc, arr):
+    """A money column as LONG cents, as the adaptive workloads compute
+    them on the card (x * 100 + 0.5, truncated)."""
+    return pc.cast(pc.add(pc.multiply(arr, 100.0), 0.5), pa.int64(),
+                   safe=False)
+
+
+def adaptive_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds,
+                   TTB) -> tuple:
+    """Adaptive execution on the card, over q3ds's six store_sales files
+    and q93's store_returns, no new data.  Each of ``aqe_broadcast``,
+    ``aqe_coalesce`` and ``aqe_skew``: the plan (an adaptive join over
+    two fresh exchanges, undecided before the run), one profiled run
+    that is counted and timed (device busy, idle share, kernel count;
+    K1 against the planned map batches), the rows against a pyarrow
+    reference made here, the decision and its counters, then
+    ADAPTIVE_PAIRS pairs with the adaptive key on and off in
+    alternating order, the same rows both ways.  Then ``round_robin``
+    (the six files into 8 partitions: balanced within a map batch a
+    partition, the rows those of the files, no K1) and
+    ``take_ordered`` (TpuTakeOrderedAndProjectExec, 100 rows by
+    ss_net_paid descending, two columns: pyarrow's top 100, ties
+    free).  Emits an ``adaptive_query`` line a workload, then
+    ``adaptive``; returns the records and the hash_columns calls."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.arrow import to_arrow
+    from spark_rapids_tpu_torch.execs.exchange import TpuShuffleExchangeExec
+    from spark_rapids_tpu_torch.execs.sort import (
+        SortKey,
+        TpuTakeOrderedAndProjectExec,
+    )
+    from spark_rapids_tpu_torch.exprs import arithmetic as A
+    from spark_rapids_tpu_torch.exprs.cast import Cast
+    from spark_rapids_tpu_torch.exprs.predicates import CaseWhen
+    from spark_rapids_tpu_torch.ops.partition import RoundRobinPartitioning
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+    from spark_rapids_tpu_torch.session import col, count, lit, sum_
+
+    _dd, ss_paths, item_path = star["paths"]
+    sr_path, reason_path = star["q93_paths"]
+    base = {TTB: Q3DS_TASK_TARGET_BYTES}
+    t0 = time.perf_counter()
+    reason = pq.read_table(reason_path)
+    reason_sk = reason.filter(pc.equal(reason["r_reason_desc"],
+                                       tpcds.Q93_REASON))["r_reason_sk"][
+        0].as_py()
+    sales = pa.concat_tables([pq.read_table(p, columns=[
+        "ss_item_sk", "ss_ticket_number", "ss_customer_sk", "ss_quantity",
+        "ss_net_paid", "ss_ext_sales_price", "ss_list_price"])
+        for p in ss_paths])
+    returns = pq.read_table(sr_path, columns=[
+        "sr_item_sk", "sr_ticket_number", "sr_reason_sk",
+        "sr_return_quantity"])
+    item = pq.read_table(item_path, columns=["i_item_sk", "i_category"])
+    hot = item["i_item_sk"][0].as_py()
+
+    # aqe_broadcast: the returns of q93's reason, joined on (item,
+    # ticket), summed by customer
+    kept_returns = returns.filter(pc.equal(returns["sr_reason_sk"],
+                                           reason_sk))
+    j = sales.join(kept_returns, keys=["ss_item_sk", "ss_ticket_number"],
+                   right_keys=["sr_item_sk", "sr_ticket_number"],
+                   join_type="inner")
+    g = j.group_by(["ss_customer_sk"]).aggregate([
+        ("ss_quantity", "sum"), ("sr_return_quantity", "sum"),
+        ("ss_item_sk", "count")])
+    ref_bcast = {(r["ss_customer_sk"],): {
+        "qty": r["ss_quantity_sum"], "returned": r["sr_return_quantity_sum"],
+        "n": r["ss_item_sk_count"]} for r in g.to_pylist()}
+
+    # aqe_skew: half the tickets' item made one hot key
+    even = pc.fill_null(pc.equal(pc.bit_wise_and(
+        sales["ss_ticket_number"], 1), 0), False)
+    skewed = pa.table({
+        "item_key": pc.if_else(even, pa.scalar(hot, pa.int64()),
+                               sales["ss_item_sk"]),
+        "paid": cents(pa, pc, sales["ss_net_paid"]),
+        "qty": sales["ss_quantity"],
+        "ext": cents(pa, pc, sales["ss_ext_sales_price"]),
+        "list": cents(pa, pc, sales["ss_list_price"])})
+    sj = skewed.join(item, keys=["item_key"], right_keys=["i_item_sk"],
+                     join_type="inner")
+    g = sj.group_by(["i_category"]).aggregate([
+        ("paid", "sum"), ("qty", "sum"), ("ext", "sum"), ("list", "sum"),
+        ("item_key", "count")])
+    ref_skew = {(r["i_category"],): {
+        "paid": r["paid_sum"], "qty": r["qty_sum"], "ext": r["ext_sum"],
+        "list": r["list_sum"], "n": r["item_key_count"]}
+        for r in g.to_pylist()}
+    hot_rows = int(pc.sum(even).as_py())
+    ref_s = time.perf_counter() - t0
+
+    def broadcast_df(s):
+        rt = s.read_parquet(sr_path).where(
+            col("sr_reason_sk").eq(lit(reason_sk))).select(
+            col("sr_item_sk"), col("sr_ticket_number"), col("sr_reason_sk"),
+            col("sr_return_quantity"))
+        return s.read_parquet(*ss_paths).join(
+            rt, left_on=[col("ss_item_sk"), col("ss_ticket_number")],
+            right_on=[col("sr_item_sk"), col("sr_ticket_number")]).group_by(
+            col("ss_customer_sk")).agg(
+            (sum_(col("ss_quantity")), "qty"),
+            (sum_(col("sr_return_quantity")), "returned"),
+            (count(col("ss_item_sk")), "n"))
+
+    def coalesce_df(s):
+        return tpcds.q93_dataframe(s, ss_paths, sr_path, reason_path)
+
+    def to_cents(name):
+        return Cast(col(name) * lit(100.0) + lit(0.5), T.LONG)
+
+    def skew_df(s):
+        key = CaseWhen(((A.Remainder(col("ss_ticket_number"), lit(2)).eq(
+            lit(0)), lit(hot)),), col("ss_item_sk"))
+        facts = s.read_parquet(*ss_paths).select(
+            key.alias("item_key"), to_cents("ss_net_paid").alias("paid"),
+            col("ss_quantity"), to_cents("ss_ext_sales_price").alias("ext"),
+            to_cents("ss_list_price").alias("list"))
+        items = s.read_parquet(item_path).select(col("i_item_sk"),
+                                                 col("i_category"))
+        return facts.join(items, left_on=[col("item_key")],
+                          right_on=[col("i_item_sk")]).group_by(
+            col("i_category")).agg(
+            (sum_(col("paid")), "paid"), (sum_(col("ss_quantity")), "qty"),
+            (sum_(col("ext")), "ext"), (sum_(col("list")), "list"),
+            (count(col("item_key")), "n"))
+
+    def q93_same(got, want) -> float:
+        return compare_ranked(got, want.to_pylist(), 100,
+                              ("ss_customer_sk",), "sumsales", "sumsales")
+
+    skew_keys = {"spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes": 1}
+    adaptive_inner = ["TpuAdaptiveJoinExec", "inner", "right"]
+    workloads = (
+        ("aqe_broadcast", broadcast_df, {},
+         lambda t: compare(t, ref_bcast, 1), bit_for_bit(["ss_customer_sk"]),
+         "broadcast[right ", [adaptive_inner]),
+        ("aqe_coalesce", coalesce_df, {},
+         lambda t: compare_ranked(t, star["q93_ref"], 100,
+                                  ("ss_customer_sk",), "sumsales",
+                                  "act_sum"), q93_same, "shuffled[",
+         [BCAST_RIGHT, ["TpuAdaptiveJoinExec", "left_outer", "right"]]),
+        ("aqe_skew", skew_df, skew_keys, lambda t: compare(t, ref_skew, 1),
+         bit_for_bit(["i_category"]), "shuffled[skew: ", [adaptive_inner]))
+    records, calls = {}, []
+    for name, make, keys, check, same, want_decision, want_joins \
+            in workloads:
+        on = TorchSession({**base, **keys}, device="cuda")
+        off = TorchSession({**base, **keys, ADAPTIVE: False}, device="cuda")
+        plan = make(on).physical_plan()
+        joins = join_strategies(plan)
+        if len(adaptive_nodes_fresh(name, plan)) != 1 or joins != want_joins:
+            raise AssertionError(f"{name} plans {joins}, expected "
+                                 f"{want_joins}")
+        if any(type(n).__name__ == "TpuAdaptiveJoinExec"
+               for n in make(off).physical_plan().walk()):
+            raise AssertionError(f"{name}: an adaptive join with the key off")
+        explained = make(on).explain()
+        if "strategy=undecided" not in explained:
+            raise AssertionError(f"{name}: explain() shows no undecided "
+                                 f"adaptive join")
+        device_before = on.store.spill_stats()["device_used"]
+        kept: dict = {}
+        rec = run_query(torch, lambda: make(on), kernels, check, calls,
+                        scans=False, timed=0, counted=True, single=True,
+                        kept=kept)
+        check_launches(name, rec, rec)
+        device_after = on.store.spill_stats()["device_used"]
+        peak = on.store.spill_stats()["peak_device_used"]
+        [dec] = adaptive_decisions(kept["plan"])
+        scans = [n for n in kept["plan"].walk()
+                 if type(n).__name__ == "ParquetScanExec"]
+        pruned = sum(n.metrics["rfPrunedRows"] for n in scans)
+        if not dec["decision"].startswith(want_decision):
+            raise AssertionError(f"{name} decided {dec}, expected "
+                                 f"{want_decision}...")
+        groups = None
+        if name == "aqe_broadcast":
+            if dec["adaptiveBroadcasts"] != 1 or pruned <= 0:
+                raise AssertionError(f"{name}: {dec}, rfPrunedRows {pruned}")
+            # the blocks and the broadcast build were in the store, and
+            # are gone once the query closed
+            if device_after != device_before or peak <= device_before:
+                raise AssertionError(
+                    f"{name}: the store holds {device_after} device bytes "
+                    f"after the query, {device_before} before it, "
+                    f"{peak} at its peak")
+        if name == "aqe_coalesce":
+            [node] = [n for n in kept["plan"].walk()
+                      if type(n).__name__ == "TpuAdaptiveJoinExec"]
+            readers = node.readers()
+            groups = len(readers[0].groups) if readers else 8
+            if dec["coalescedPartitions"] != 8 - groups:
+                raise AssertionError(f"{name}: {dec}, {groups} groups")
+        if name == "aqe_skew":
+            slices = [r for rows in dec["slice_rows"] for r in rows]
+            if dec["skewSplits"] < 2 or not slices or min(slices) <= 0:
+                raise AssertionError(f"{name}: {dec}")
+            [node] = [n for n in kept["plan"].walk()
+                      if type(n).__name__ == "TpuAdaptiveJoinExec"]
+            # one map stage a side: a batch a scan task (a file of
+            # Q3DS_ROWS_PER_FILE rows, or item), each split once
+            for ex in node.children:
+                tasks = ex.children[0].num_partitions
+                if not ex.metrics["mapBatches"] == \
+                        ex.metrics["mapBatchRuns"] == tasks:
+                    raise AssertionError(f"{name}: {dict(ex.metrics)} over "
+                                         f"{tasks} map tasks")
+        pairs = exact_pairs(torch, name, make, {"on": on, "off": off}, same)
+        records[name] = {
+            "plan": kept["plan"].tree_string().splitlines(),
+            **dec, "rf_pruned_rows": pruned,
+            "store_device_bytes": [device_before, device_after],
+            "store_peak_device_bytes": peak,
+            "groups": groups, **pairs, **rec}
+        if name == "aqe_skew":
+            records[name]["hot_rows"] = hot_rows
+        emit("adaptive_query", name=name, **records[name])
+
+    # round_robin: the six files, three columns, dealt into 8 partitions
+    s = TorchSession(base, device="cuda")
+    cols3 = ["ss_ticket_number", "ss_item_sk", "ss_net_paid"]
+    df3 = s.read_parquet(*ss_paths).select(*[col(c) for c in cols3])
+    scan = df3.physical_plan()
+    k1 = kernels.hash_columns.launches
+    t0 = time.perf_counter()
+    ex = TpuShuffleExchangeExec(RoundRobinPartitioning(8), scan,
+                                s.shuffle_manager,
+                                runtime=df3._planner().runtime,
+                                batch_rows=1 << 30)
+    parts = []
+    for p in range(8):
+        parts.append(pa.concat_tables(
+            [to_arrow(b) for b in ex.execute_partition(p)]
+            or [pa.table({c: pa.array([], sales[c].type) for c in cols3})]))
+    rr_wall = time.perf_counter() - t0
+    ex.close()
+    sizes = [t.num_rows for t in parts]
+    map_batches = ex.metrics["mapBatches"]
+    order = [(c, "ascending") for c in cols3]
+    got_rows = pa.concat_tables(parts).sort_by(order)
+    want_rows = sales.select(cols3).sort_by(order)
+    if kernels.hash_columns.launches != k1:
+        raise AssertionError("the round-robin exchange launched K1")
+    if max(sizes) - min(sizes) > map_batches or \
+            not got_rows.equals(want_rows):
+        raise AssertionError(f"round_robin sizes {sizes} over "
+                             f"{map_batches} map batches, rows equal "
+                             f"{got_rows.equals(want_rows)}")
+    records["round_robin"] = {"partition_rows": sizes,
+                              "map_batches": map_batches,
+                              "wall_s": rr_wall, "k1_launches": 0}
+    emit("adaptive_query", name="round_robin", **records["round_robin"])
+
+    # take_ordered: the top 100 by ss_net_paid, two columns projected
+    scan = s.read_parquet(*ss_paths).physical_plan()
+    top = TpuTakeOrderedAndProjectExec(
+        100, [SortKey(col("ss_net_paid"), descending=True, nulls_last=True)],
+        scan, project=[col("ss_ticket_number"), col("ss_net_paid")])
+    t0 = time.perf_counter()
+    got = pa.concat_tables([to_arrow(b) for b in top.execute()])
+    torch.cuda.synchronize()
+    to_wall = time.perf_counter() - t0
+    ranked = sales.select(["ss_ticket_number", "ss_net_paid"]).filter(
+        pc.is_valid(sales["ss_net_paid"])).sort_by(
+        [("ss_net_paid", "descending")])
+    want = ranked.slice(0, 100)
+    cut = want["ss_net_paid"][99].as_py()
+    inside = sorted((r["ss_ticket_number"], r["ss_net_paid"])
+                    for r in got.to_pylist() if r["ss_net_paid"] > cut)
+    if got.schema.names != ["ss_ticket_number", "ss_net_paid"] or \
+            got["ss_net_paid"].to_pylist() != \
+            want["ss_net_paid"].to_pylist() or inside != sorted(
+                (r["ss_ticket_number"], r["ss_net_paid"])
+                for r in want.to_pylist() if r["ss_net_paid"] > cut):
+        raise AssertionError("take_ordered differs from pyarrow's top 100")
+    tied = {(r["ss_ticket_number"], r["ss_net_paid"]) for r in
+            ranked.filter(pc.equal(ranked["ss_net_paid"], cut)).to_pylist()}
+    if any((r["ss_ticket_number"], r["ss_net_paid"]) not in tied
+           for r in got.to_pylist() if r["ss_net_paid"] == cut):
+        raise AssertionError("take_ordered kept a row tied at the cut "
+                             "that the files do not hold")
+    records["take_ordered"] = {"rows": got.num_rows, "wall_s": to_wall,
+                               "cut": cut}
+    emit("adaptive_query", name="take_ordered", **records["take_ordered"])
+    emit("adaptive", reference_s=ref_s, reason_sk=reason_sk, hot_item=hot,
+         summary={name: {k: r[k] for k in (
+             "decision", *ADAPTIVE_METRICS, "on_median_s", "off_median_s",
+             "device_busy_s", "device_idle_share", "device_kernel_count",
+             "launches", "planned_map_batches")}
+             for name, r in records.items() if "decision" in r})
+    largest: dict = {}
+    for call in calls:
+        key = (signature(call[0]), call[2], call[3])
+        if key not in largest or call[1] > largest[key][1]:
+            largest[key] = call
+    return records, list(largest.values())
+
+
 #: catalog and web texts: timed runs after the warm-up (1 until the
 #: types phase came, to keep the run within the 717 s it took before on
 #: an H100 80GB HBM3 at 700 W: 0 makes the profiled run the warm-up and
@@ -4773,9 +5250,10 @@ def channels_phase(torch, pa, pc, pq, star, kernels, tpcds, TTB,
             check, versus = (lambda t: 0.0), \
                 "cpu/engine over the first file of each fact table"
         calls: list = []
+        ran: dict = {}
         rec = run_query(torch, text_df, kernels, check, calls, scans=False,
                         timed=CHANNEL_TIMED_RUNS, fallback=len(cpu_nodes),
-                        counted=True, single=CHANNEL_SINGLE_RUN)
+                        counted=True, single=CHANNEL_SINGLE_RUN, kept=ran)
         check_launches(name, rec, rec)
         if base == "q37":
             plan = text_df().physical_plan()
@@ -4797,6 +5275,7 @@ def channels_phase(torch, pa, pc, pq, star, kernels, tpcds, TTB,
             cut["transitions"] = moved
         records[name] = {"checked_against": versus, **cut,
                          "joins": join_strategies(plan),
+                         "adaptive": adaptive_decisions(ran.get("plan")),
                          "cpu_nodes": cpu_nodes,
                          "hash_columns_calls": sorted(
                              {(n, signature(cols), seed, parts)
@@ -5006,8 +5485,16 @@ def concurrency_phase(torch, kernels, TorchSession, SERIAL,
                         f"{want_launches}")
             won += walls["pooled"][-1] < walls["serial"][-1]
         ladder_quiet(f"concurrency {name}", sessions.values())
+        ran = {side: {"counter": kernels.hash_columns}
+               for side in ("serial", "pooled")}
         prof = {side: profiled_run(torch, lambda side=side: make(
-            sessions[side])) for side in ("serial", "pooled")}
+            sessions[side]), ran[side]) for side in ("serial", "pooled")}
+        decided = {side: adaptive_decisions(ran[side]["plan"])
+                   for side in ran}
+        if [d["decision"] for d in decided["serial"]] != \
+                [d["decision"] for d in decided["pooled"]]:
+            raise AssertionError(f"{name}: serial and pooled runs decided "
+                                 f"{decided}")
         counts = {side: prof[side].pop("kernel_counts") for side in prof}
         diff = {k: counts["pooled"].get(k, 0) - counts["serial"].get(k, 0)
                 for k in set(counts["serial"]) | set(counts["pooled"])}
@@ -5022,6 +5509,7 @@ def concurrency_phase(torch, kernels, TorchSession, SERIAL,
             "serial_median_s": statistics.median(walls["serial"]),
             "pooled_median_s": statistics.median(walls["pooled"]),
             "pooled_won": won,
+            "adaptive": decided["pooled"],
             "serial_profiled": prof["serial"],
             "pooled_profiled": prof["pooled"],
             "kernel_count_pooled_minus_serial": diff}
@@ -5458,15 +5946,27 @@ def main() -> int:
 
         q3_runs = {}
         for rf_on in (False, True):
+            # the static partition-wise plan; q3_adaptive is the default's
             q3_runs[rf_on] = q3_phase(
                 torch, kernels, RF, tpch, TorchSession({
-                    TTB: TASK_TARGET_BYTES, RF_ENABLED: rf_on},
-                    device="cuda"), li_paths, orders_path, ref3, rf_on)
+                    TTB: TASK_TARGET_BYTES, RF_ENABLED: rf_on,
+                    ADAPTIVE: False}, device="cuda"), li_paths, orders_path,
+                ref3, rf_on)
         q3, q3_calls = q3_runs[False]
         q3_rf, q3_rf_calls = q3_runs[True]
         emit("q3", rows_in=lineitem.num_rows, orders_in=orders.num_rows,
              groups=len(ref3), datagen_s=gen3_s, **q3)
         emit("q3_rf_on", rf_off_median_s=q3["median_s"], **q3_rf)
+        q3a_session = TorchSession({TTB: TASK_TARGET_BYTES}, device="cuda")
+        q3_adaptive = adaptive_sibling(
+            torch, kernels, "q3_adaptive",
+            lambda: tpch.q3_dataframe(q3a_session, li_paths, orders_path),
+            lambda t: compare_ranked(
+                t, ref3, 10, ("l_orderkey", "o_orderdate", "o_shippriority"),
+                "revenue", "rev_sum"),
+            [["TpuAdaptiveJoinExec", "inner", "right"]], q3_rf_calls,
+            must_prune=True)
+        emit("q3_adaptive", **q3_adaptive)
         del lineitem, orders
 
         q67_dir = os.path.join(data_dir, "q67")
@@ -5532,6 +6032,8 @@ def main() -> int:
             store_tables)
         python, python_k1, python_calls = python_phase(
             torch, pa, pc, pq, star, kernels, TorchSession, TTB)
+        adaptive, adaptive_calls = adaptive_phase(
+            torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB)
         channels, channel_calls = channels_phase(
             torch, pa, pc, pq, star, kernels, tpcds, TTB, store_tables)
         fallback, fallback_calls = fallback_phase(
@@ -5580,16 +6082,17 @@ def main() -> int:
         "q27": q27_calls, "agg_family": family_calls, "sql": sql_calls,
         "types": types_calls, "nested": nested_calls,
         "long_tail": long_tail_calls, "python": python_calls,
-        "channels": channel_calls,
+        "adaptive": adaptive_calls, "channels": channel_calls,
         "fallback": fallback_calls, "new_types_mix": [new_types_mix]})
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
-    runs = (q6, q1, q3, q3_rf, q67, q3ds, q3ds_off, q93, *star_runs.values(),
-            q67r, q5, *q27_runs.values(), *family.values(), *sql.values(),
-            *types.values(), *nested.values(), *long_tail.values(),
-            *python.values(), *channels.values(),
-            *fallback.values())
+    runs = (q6, q1, q3, q3_rf, q3_adaptive, q67, q3ds, q3ds_off, q93,
+            *star_runs.values(), q67r, q5, *q27_runs.values(),
+            *family.values(), *sql.values(), *types.values(),
+            *nested.values(), *long_tail.values(), *python.values(),
+            *(r for r in adaptive.values() if "launches" in r),
+            *channels.values(), *fallback.values())
     summary = [{
         "name": "hash_columns", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
@@ -5602,11 +6105,12 @@ def main() -> int:
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
         "library_ms": None,
-        "shape": "the largest of q1's, q3's (filter off and on), q67's, "
+        "shape": "the largest of q1's, q3's (filter off and on, and "
+                 "adaptive), q67's, "
                  "q3ds's, q93's, q42/q52/q55's, q67_rollup's, q5's, q27's, "
                  "agg_family's, the sql, types and channel texts', the "
-                 "nested, long-tail and python queries' and the fallback "
-                 "phase's calls, and "
+                 "nested, long-tail, python and adaptive queries' and the "
+                 "fallback phase's calls, and "
                  "the new_types mix at "
                  "6 x 2^20 rows; ms is the device's own time per "
                  "launch; launches include the memory phase's split runs",

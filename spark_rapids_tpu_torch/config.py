@@ -28,6 +28,19 @@ SORT_RANGE_EXCHANGE = "spark.rapids.tpu.sql.sort.rangeExchange"
 SORT_SAMPLES_PER_BATCH = "spark.rapids.tpu.sql.sort.samplesPerBatch"
 #: largest estimated build side (bytes) a join broadcasts; -1 disables
 BROADCAST_THRESHOLD = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
+#: decide a partition-wise join's strategy, and group its reduce
+#: partitions, from the bytes its two map stages measured
+#: (``execs/adaptive.py``; the spark.sql.adaptive.enabled analog)
+ADAPTIVE_ENABLED = "spark.rapids.tpu.sql.adaptive.enabled"
+#: bytes a reduce task aims at once adjacent partitions are coalesced
+ADVISORY_PARTITION_BYTES = \
+    "spark.rapids.tpu.sql.adaptive.advisoryPartitionSizeBytes"
+#: a reduce partition is skewed when its bytes pass this multiple of the
+#: median partition's ...
+SKEW_FACTOR = "spark.rapids.tpu.sql.adaptive.skewJoin.skewedPartitionFactor"
+#: ... and these bytes
+SKEW_THRESHOLD_BYTES = \
+    "spark.rapids.tpu.sql.adaptive.skewJoin.skewedPartitionThresholdBytes"
 #: runtime join filters (plan/runtime_filter.py): a Bloom filter and the
 #: min/max of an eligible join's build keys, applied in the probe scan
 RF_ENABLED = "spark.rapids.tpu.sql.runtimeFilter.enabled"
@@ -110,6 +123,10 @@ DEFAULTS: dict[str, Any] = {
     SORT_RANGE_EXCHANGE: True,
     SORT_SAMPLES_PER_BATCH: 128,
     BROADCAST_THRESHOLD: 10 << 20,
+    ADAPTIVE_ENABLED: True,
+    ADVISORY_PARTITION_BYTES: 64 << 20,
+    SKEW_FACTOR: 5.0,
+    SKEW_THRESHOLD_BYTES: 64 << 20,
     RF_ENABLED: True,
     TASK_THREADS: 4,
     DECODE_THREADS: 4,

@@ -100,21 +100,36 @@ class Metrics(Mapping):
     def __init__(self, *names: str):
         self._lock = threading.Lock()
         self._values = dict.fromkeys(names, 0)
+        #: name -> the Metrics of another exec that counts it
+        self._adopted: dict[str, "Metrics"] = {}
 
     def add(self, name: str, n) -> None:
         with self._lock:
             self._values[name] += n
 
+    def adopt(self, other: Mapping) -> None:
+        """Read ``other``'s counters, those this one lacks, through this
+        one too: live, as the exec that owns them goes on counting."""
+        with self._lock:
+            for name in other:
+                if name not in self._values:
+                    self._adopted[name] = other
+
     def __getitem__(self, name: str):
         with self._lock:
-            return self._values[name]
+            if name not in self._values and name in self._adopted:
+                source = self._adopted[name]
+            else:
+                return self._values[name]
+        return source[name]
 
     def __iter__(self):
         with self._lock:
-            return iter(list(self._values))
+            return iter(list(self._values) + list(self._adopted))
 
     def __len__(self) -> int:
-        return len(self._values)
+        with self._lock:
+            return len(self._values) + len(self._adopted)
 
     def __repr__(self) -> str:
         with self._lock:

@@ -32,6 +32,9 @@ one K1 launch each).
 
 - Hash partitioning: each map batch's key tuple is hashed to partition
   ids (murmur3-pmod) by one K1 launch.
+- Round-robin and single partitioning: no K1.  A round-robin map task
+  starts its rows at partition ``task % n``, as the JAX exchange does,
+  so the output stays balanced when every task holds one batch.
 - Range partitioning: bounds must exist before any batch is split, and
   they come from a sample of the whole input, so the map stage makes
   two passes, each on the pool (``_run_range_map_stage`` there).  Pass
@@ -44,6 +47,15 @@ one K1 launch each).
   map task, batch index), so the bounds do not depend on which thread
   ran first; the sorted output does not depend on them at all.  No K1
   launch.
+
+The map stage doubles as a query stage for the adaptive join
+(``execs/adaptive.py``): ``materialize_stats`` runs it and returns each
+reduce partition's (bytes, rows), ``block_counts`` its blocks, and
+``execute_partition_keep`` reads a partition, or one block-wise slice of
+it, without releasing it; the blocks go at ``close()``.  A slice takes
+the blocks whose place in map-task order is ``i`` modulo ``k`` and
+concatenates only those, so every slice of a partition of ``k`` or more
+blocks holds rows.
 
 ``TpuCoalescePartitionsExec`` (``execs/coalesce.py`` there) pulls every
 child partition into one, the "exchange" of a grand aggregate: on the
@@ -87,6 +99,8 @@ from spark_rapids_tpu_torch.memory.store import (
 from spark_rapids_tpu_torch.ops.partition import (
     HashPartitioning,
     RangePartitioning,
+    RoundRobinPartitioning,
+    SinglePartitioning,
     split_batch,
 )
 from spark_rapids_tpu_torch.ops.range_partition import choose_bounds
@@ -96,9 +110,13 @@ from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 RANGE_SAMPLE_SEED = 0x52414E47
 
 
+#: the partitionings an exchange takes
+Partitioning = Union[HashPartitioning, RangePartitioning,
+                     RoundRobinPartitioning, SinglePartitioning]
+
+
 class TpuShuffleExchangeExec(TpuExec):
-    def __init__(self, partitioning: Union[HashPartitioning,
-                                           RangePartitioning],
+    def __init__(self, partitioning: Partitioning,
                  child: TpuExec, manager: ShuffleManager,
                  samples_per_batch: int = 128,
                  runtime: Optional[TaskRuntime] = None,
@@ -133,8 +151,7 @@ class TpuShuffleExchangeExec(TpuExec):
         return self.partitioning.num_partitions
 
     @property
-    def output_partitioning(self) -> Union[HashPartitioning,
-                                           RangePartitioning]:
+    def output_partitioning(self) -> Partitioning:
         return self.partitioning
 
     def node_desc(self) -> str:
@@ -148,7 +165,7 @@ class TpuShuffleExchangeExec(TpuExec):
 
     def _park(self, blocks: list, rid: int, sub: ColumnarBatch) -> None:
         blocks.append((rid, self.runtime.store.register(
-            sub, SpillPriorities.OUTPUT_FOR_SHUFFLE)))
+            sub, SpillPriorities.OUTPUT_FOR_SHUFFLE), sub.num_rows))
 
     def _map_task(self, shuffle_id: int, child_part: int) -> None:
         with_task_retries(lambda: self._map_task_attempt(shuffle_id,
@@ -161,19 +178,23 @@ class TpuShuffleExchangeExec(TpuExec):
         published only when the attempt commits, so a failed attempt
         leaves none behind."""
         sem, task = self.runtime.semaphore, object()
-        blocks: list[tuple[int, SpillableBatch]] = []
+        blocks: list[tuple[int, SpillableBatch, int]] = []
         batches = runs = 0
+        part = self.partitioning
+        if isinstance(part, RoundRobinPartitioning):
+            part = RoundRobinPartitioning(part.num_partitions,
+                                          child_part % part.num_partitions)
 
         def run(batch: ColumnarBatch):
             nonlocal runs
             n0 = len(blocks)
             runs += 1
             try:
-                for rid, sub in self._blocks(
-                        batch, self.partitioning.partition_ids(batch)):
+                for rid, sub in self._blocks(batch,
+                                             part.partition_ids(batch)):
                     self._park(blocks, rid, sub)
             except BaseException:
-                for _rid, h in blocks[n0:]:
+                for _rid, h, _n in blocks[n0:]:
                     h.close()
                 del blocks[n0:]
                 raise
@@ -189,7 +210,7 @@ class TpuShuffleExchangeExec(TpuExec):
                         pass
             self.manager.commit_task(shuffle_id, child_part, blocks)
         except BaseException:
-            for _rid, h in blocks:
+            for _rid, h, _n in blocks:
                 h.close()
             raise
         finally:
@@ -259,7 +280,7 @@ class TpuShuffleExchangeExec(TpuExec):
 
         def attempt() -> None:
             task = object()
-            blocks: list[tuple[int, SpillableBatch]] = []
+            blocks: list[tuple[int, SpillableBatch, int]] = []
             sem.acquire_if_necessary(task)
             try:
                 batch = h.get()
@@ -272,7 +293,7 @@ class TpuShuffleExchangeExec(TpuExec):
                     h.unpin()
                 self.manager.commit_task(shuffle_id, i, blocks)
             except BaseException:
-                for _rid, bh in blocks:
+                for _rid, bh, _n in blocks:
                     bh.close()
                 raise
             finally:
@@ -303,19 +324,33 @@ class TpuShuffleExchangeExec(TpuExec):
         return run_with_oom_retry(lambda: concat_batches(blocks),
                                   "exchange.read", policy=self.runtime.retry)
 
-    def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
-        """Partition ``p``'s blocks as batches of up to ``batch_rows``
-        rows.  Read to its end, the partition is released, so a query's
-        shuffle data leaves the store as its reduce side reads it; a
-        second read of it (a test's, never a query's) maps again."""
+    def materialize_stats(self) -> list[tuple[int, int]]:
+        """Run the map stage (once) and return each reduce partition's
+        (bytes, rows): the query stage the adaptive join decides on."""
+        sid = self._ensure_map_stage()
+        return self.manager.partition_stats(sid, self.num_partitions)
+
+    def block_counts(self) -> list[int]:
+        """Each reduce partition's committed blocks."""
+        sid = self._ensure_map_stage()
+        return self.manager.block_counts(sid, self.num_partitions)
+
+    def _map_stage_for_read(self, p: int) -> int:
+        """The shuffle to read ``p`` from; a partition already released
+        (read twice: a test's, never a query's) maps again."""
         with self._map_lock:
             if p in self._released:
                 self.manager.unregister(self._shuffle_id)
                 self._shuffle_id = None
-        sid = self._ensure_map_stage()
+        return self._ensure_map_stage()
+
+    def _read(self, blocks: Iterator[ColumnarBatch]
+              ) -> Iterator[ColumnarBatch]:
+        """A partition's blocks as batches of up to ``batch_rows``
+        rows."""
         pending: list[ColumnarBatch] = []
         rows = 0
-        for block in self.manager.read(sid, p):
+        for block in blocks:
             if pending and rows + block.num_rows > self.batch_rows:
                 yield self._concat(pending)
                 pending, rows = [], 0
@@ -323,10 +358,29 @@ class TpuShuffleExchangeExec(TpuExec):
             rows += block.num_rows
         if pending:
             yield self._concat(pending)
+
+    def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        """Partition ``p``'s blocks as batches of up to ``batch_rows``
+        rows.  Read to its end, the partition is released, so a query's
+        shuffle data leaves the store as its reduce side reads it."""
+        sid = self._map_stage_for_read(p)
+        yield from self._read(self.manager.read(sid, p))
         with self._map_lock:
             if sid == self._shuffle_id:
                 self.manager.release(sid, p)
                 self._released.add(p)
+
+    def execute_partition_keep(self, p: int, slice_index: int = 0,
+                               slice_count: int = 1
+                               ) -> Iterator[ColumnarBatch]:
+        """Slice ``slice_index`` of ``slice_count`` of partition ``p``
+        (the blocks whose place in map-task order is ``slice_index``
+        modulo ``slice_count``), concatenated as ``execute_partition``
+        does, leaving the blocks registered: a reader that visits the
+        partition again finds them, and the map stage runs once."""
+        sid = self._map_stage_for_read(p)
+        yield from self._read(self.manager.read_keep(sid, p, slice_index,
+                                                     slice_count))
 
     def close(self) -> None:
         """Drop this exchange's blocks."""

@@ -1,11 +1,11 @@
 """Sort and top-n execs.
 
-Counterparts of ``TpuSortExec`` and ``TpuTopNExec`` in
-``spark_rapids_tpu/execs/sort.py``.  Sort keys are expressions: they
-are evaluated per batch and sorted by ``ops/sort.py``.  A sort of one
-partition (``scope="global"``) sorts its input; below a range exchange
-(``scope="partition"``) each partition is sorted alone, and partition
-order is then the total order.
+Counterparts of ``TpuSortExec``, ``TpuTopNExec`` and
+``TpuTakeOrderedAndProjectExec`` in ``spark_rapids_tpu/execs/sort.py``.
+Sort keys are expressions: they are evaluated per batch and sorted by
+``ops/sort.py``.  A sort of one partition (``scope="global"``) sorts its
+input; below a range exchange (``scope="partition"``) each partition is
+sorted alone, and partition order is then the total order.
 
 Up to ``sql.sort.singleBatchRows`` rows a partition sorts as one batch.
 Above it the sort is the JAX exec's out-of-core sample-split sort (the
@@ -43,6 +43,7 @@ from spark_rapids_tpu_torch.exprs.base import (
     EvalContext,
     Expression,
     bind_references,
+    output_field,
 )
 from spark_rapids_tpu_torch.memory.store import (
     SpillableBatch,
@@ -390,3 +391,50 @@ class TpuTopNExec(_SortMixin):
         pending = [b for b in pending if b.num_rows]
         if pending:
             yield self._final(concat_batches(pending))
+
+
+class TpuTakeOrderedAndProjectExec(_SortMixin):
+    """ORDER BY ... LIMIT n with an optional projection of the result:
+    a running top n (each batch concatenated to it, sorted, cut to n
+    rows), then the projection over the n rows.  No planner path builds
+    it, in the JAX package either: ``_maybe_topn`` plans
+    ``TpuTopNExec``."""
+
+    def __init__(self, n: int, keys: Sequence[SortKey], child: TpuExec,
+                 project: Optional[Sequence[Expression]] = None):
+        super().__init__(child)
+        if n < 0:
+            raise ValueError(f"take-ordered of {n} rows")
+        self.n = n
+        self._bind(keys, child)
+        self.project = None if project is None else [
+            bind_references(e, child.schema) for e in project]
+        self._schema = child.schema if project is None else T.Schema(
+            [output_field(e, i) for i, e in enumerate(self.project)])
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    @property
+    def num_partitions(self) -> int:
+        return 1
+
+    def node_desc(self) -> str:
+        return (f"TpuTakeOrderedAndProjectExec n={self.n} "
+                f"[{describe_keys(self.keys)}]")
+
+    def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        if p != 0:
+            return
+        top: Optional[ColumnarBatch] = None
+        for b in self.children[0].execute():
+            merged = b if top is None else concat_batches([top, b])
+            top = self._sorted(merged).slice_prefix(self.n)
+        if top is None:
+            return
+        if self.project is not None:
+            ctx = EvalContext.for_batch(top)
+            top = ColumnarBatch([e.eval(ctx) for e in self.project],
+                                top.num_rows, self._schema, top.device)
+        yield top

@@ -6,6 +6,9 @@ with one stable sort and slices out one batch per destination.  Hash
 partitioning is murmur3-pmod, so a row lands on the partition Spark's
 CPU would send it to.  Range partitioning sends a row to the bucket of
 sampled bounds its sort keys fall in, so partition order is sort order.
+Round-robin partitioning deals rows out in turn from a start partition,
+and single partitioning sends every row to partition 0: neither hashes,
+so neither launches K1.
 """
 
 from __future__ import annotations
@@ -85,6 +88,43 @@ class RangePartitioning:
         ks = ", ".join(f"{k.expr.name}{' DESC' if k.descending else ''}"
                        for k in self.keys)
         return f"rangepartitioning({ks}, {self.num_partitions})"
+
+
+@dataclasses.dataclass
+class RoundRobinPartitioning:
+    """Row ``i`` of a batch goes to ``(i + start) % num_partitions``; the
+    exchange gives each map task its own start."""
+
+    num_partitions: int
+    start: int = 0
+
+    def bind(self, schema: T.Schema) -> "RoundRobinPartitioning":
+        return self
+
+    def partition_ids(self, batch: ColumnarBatch) -> torch.Tensor:
+        idx = torch.arange(batch.num_rows, dtype=torch.int64,
+                           device=batch.device)
+        return (idx + self.start) % self.num_partitions
+
+    def describe(self) -> str:
+        return f"roundrobin({self.num_partitions})"
+
+
+@dataclasses.dataclass
+class SinglePartitioning:
+    """Every row to partition 0."""
+
+    num_partitions: int = 1
+
+    def bind(self, schema: T.Schema) -> "SinglePartitioning":
+        return self
+
+    def partition_ids(self, batch: ColumnarBatch) -> torch.Tensor:
+        return torch.zeros(batch.num_rows, dtype=torch.int64,
+                           device=batch.device)
+
+    def describe(self) -> str:
+        return "single"
 
 
 def split_batch(batch: ColumnarBatch, pids: torch.Tensor,

@@ -31,7 +31,11 @@ the kept positions where its own lowering kept more.
   either, takes a hash exchange on each side's keys (unless the side is
   already distributed so) under a partition-wise join.  Only identical
   key types hash alike, so other joins, and keyless ones, run as one
-  wide join.  Adaptive and collective joins are not ported.
+  wide join.  When both sides take a fresh exchange and
+  ``sql.adaptive.enabled`` is on (the default), the join is a
+  ``TpuAdaptiveJoinExec`` over the two exchanges (JAX
+  ``planner.py:972-990``): its strategy waits for their measured map
+  output (``execs/adaptive.py``).  Collective joins are not ported.
 - A Filter over a Parquet scan, both lowered to the GPU, pushes its
   condition into the scan (JAX ``_maybe_push_filter``): footer pruning
   and the host prefilter (``io/scan.py``).  With
@@ -135,6 +139,7 @@ import torch
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
+from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
 from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
 from spark_rapids_tpu_torch.execs.cache import TpuCacheExec
@@ -962,6 +967,15 @@ class Planner:
             left = self._exchange(HashPartitioning(p.left_keys, n), left)
         if rsat is None:
             right = self._exchange(HashPartitioning(p.right_keys, n), right)
+        if self.conf.get(C.ADAPTIVE_ENABLED) and lsat is None \
+                and rsat is None:
+            # both sides are fresh exchanges: the strategy and the reduce
+            # grouping wait for their measured map output (a reused
+            # distribution is fixed by the stage that made it)
+            return TpuAdaptiveJoinExec(p.left_keys, p.right_keys,
+                                       p.join_type, left, right, chunk,
+                                       p.condition, runtime=rt,
+                                       conf=self.conf)
         return TpuShuffledHashJoinExec(p.left_keys, p.right_keys,
                                        p.join_type, left, right, chunk,
                                        p.condition, partition_wise=True,

@@ -25,8 +25,11 @@ has:
 
 Point 2, the dictionary LUT inside the JAX package's native decoder
 (``io/fastpar.py``), has no counterpart: the port has no such decoder.
-There is no adaptive join in the port either, so the JAX pass's
-``TpuAdaptiveJoinExec`` branches are gone.
+A ``TpuAdaptiveJoinExec`` (``execs/adaptive.py``) gets a filter as its
+static partition-wise plan would: built right, below the right
+exchange; and the pass sets its ``rf_build_first`` to "right", so it
+runs the right map stage first and the filter is published before the
+left side scans.
 
 Soundness: a filter only drops probe rows whose key provably (min/max)
 or certainly (a Bloom "no") matches no build key.  For inner and
@@ -324,6 +327,9 @@ def _probe_scan_targets(node, ordinal: int) -> list:
     execs that keep their child's schema, so the key's ordinal holds at
     every hop.  Any other exec ends that branch (no target, never a
     wrong one)."""
+    from spark_rapids_tpu_torch.execs.adaptive import (
+        CoalescedShuffleReaderExec,
+    )
     from spark_rapids_tpu_torch.execs.basic import TpuFilterExec
     from spark_rapids_tpu_torch.execs.exchange import (
         TpuCoalescePartitionsExec,
@@ -333,7 +339,8 @@ def _probe_scan_targets(node, ordinal: int) -> list:
     from spark_rapids_tpu_torch.io.scan import ParquetScanExec
 
     passthrough = (TpuShuffleExchangeExec, TpuFilterExec,
-                   TpuCoalescePartitionsExec, TpuRuntimeFilterBuildExec)
+                   TpuCoalescePartitionsExec, CoalescedShuffleReaderExec,
+                   TpuRuntimeFilterBuildExec)
     out = []
     stack = [node]
     while stack:
@@ -372,6 +379,7 @@ def inject_runtime_filters(root, conf: C.TorchConf) -> list[RuntimeFilter]:
     probe-side scan they reach.  Returns the filters."""
     if not conf.get(C.RF_ENABLED):
         return []
+    from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
     from spark_rapids_tpu_torch.execs.exchange import TpuShuffleExchangeExec
     from spark_rapids_tpu_torch.execs.join import (
         TpuRuntimeFilterBuildExec,
@@ -381,16 +389,22 @@ def inject_runtime_filters(root, conf: C.TorchConf) -> list[RuntimeFilter]:
 
     filters: list[RuntimeFilter] = []
     for node in list(root.walk()):
-        if not isinstance(node, _HashJoinBase) or node.condition is not None:
+        if isinstance(node, TpuAdaptiveJoinExec):
+            # its static plan builds right for every eligible type (only
+            # right_outer builds left, and it is not eligible)
+            build_is_right = True
+        elif isinstance(node, _HashJoinBase) and node.condition is None:
+            build_is_right = node.build_is_right
+        else:
             continue
         jt = node.join_type
         if jt not in ELIGIBLE_JOIN_TYPES:
             continue
         pairs = _eligible_key_pairs(node.left_keys, node.right_keys,
-                                    node.build_is_right)
+                                    build_is_right)
         if not pairs:
             continue
-        build_idx = 1 if node.build_is_right else 0
+        build_idx = 1 if build_is_right else 0
         build_child = node.children[build_idx]
         probe_child = node.children[1 - build_idx]
         # never act on an unknown estimate
@@ -420,6 +434,8 @@ def inject_runtime_filters(root, conf: C.TorchConf) -> list[RuntimeFilter]:
         else:
             node.children[build_idx] = TpuRuntimeFilterBuildExec(
                 build_child, entries)
+        if isinstance(node, TpuAdaptiveJoinExec):
+            node.rf_build_first = "right"
     return filters
 
 

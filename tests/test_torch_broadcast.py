@@ -25,6 +25,7 @@ from spark_rapids_tpu_torch.execs.join import (
 
 TTB = "spark.rapids.tpu.sql.scan.taskTargetBytes"
 BCAST = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
+ADAPTIVE = "spark.rapids.tpu.sql.adaptive.enabled"
 
 
 @pytest.fixture(scope="module")
@@ -78,6 +79,18 @@ def _port(files, how, conf=None, small_left=False, keyed=True,
     return df.physical_plan(), _rows(df.collect())
 
 
+def _port_run(files, how, conf=None, condition=None):
+    """The plan after its run (its adaptive decision taken), and the
+    rows."""
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+
+    s = TorchSession({TTB: 1, **(conf or {})}, device="cpu")
+    left, right = _frames(s, files, False)
+    plan = left.join(right, how=how, condition=condition,
+                     **_keys(col, False)).physical_plan()
+    return plan, _rows(collect_exec(plan, s.conf))
+
+
 @pytest.mark.parametrize("how,side", [
     ("inner", "right"), ("inner", "left"), ("left_outer", "right"),
     ("left_semi", "right"), ("left_anti", "right"), ("right_outer", "left")])
@@ -112,7 +125,8 @@ def test_broadcast_build_side_is_collected_once(files):
 
 
 def test_full_outer_never_broadcasts(files):
-    plan, got = _port(files, "full_outer")
+    # the static plan; the adaptive join's case is the test below
+    plan, got = _port(files, "full_outer", {ADAPTIVE: False})
     assert isinstance(plan, TpuShuffledHashJoinExec) and plan.partition_wise
     assert got == _jax(files, "full_outer")
     with pytest.raises(ValueError):
@@ -120,10 +134,23 @@ def test_full_outer_never_broadcasts(files):
                                  plan.children[0], plan.children[1], 100)
 
 
+def test_full_outer_never_broadcasts_at_runtime(files):
+    """Under the adaptive join (the default) a full outer join stays
+    shuffled whatever its measured bytes: no side may build."""
+    from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
+
+    plan, got = _port_run(files, "full_outer", {BCAST: 1 << 30})
+    assert isinstance(plan, TpuAdaptiveJoinExec)
+    assert plan.decision.startswith("shuffled"), plan.decision
+    assert plan.metrics["adaptiveBroadcasts"] == 0
+    assert got == _jax(files, "full_outer")
+
+
 @pytest.mark.parametrize("bcast", [10 << 20, -1],
                          ids=["broadcast", "partition_wise"])
 def test_residual_condition_on_an_inner_join(files, bcast):
-    plan, got = _port(files, "inner", {BCAST: bcast},
+    # the static plans; the adaptive join's case is the test below
+    plan, got = _port(files, "inner", {BCAST: bcast, ADAPTIVE: False},
                       condition=col("l_v") > col("r_v"))
     assert isinstance(plan, TpuBroadcastHashJoinExec if bcast > 0
                       else TpuShuffledHashJoinExec)
@@ -133,6 +160,20 @@ def test_residual_condition_on_an_inner_join(files, bcast):
     want = _jax(files, "inner", condition=jcol("l_v") > jcol("r_v"))
     unconditioned = _jax(files, "inner")
     assert 0 < len(want) < len(unconditioned) and got == want
+
+
+def test_residual_condition_under_the_adaptive_join(files):
+    """Broadcast off: an adaptive join carrying the condition into the
+    partition-wise join it decides on."""
+    from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
+
+    plan, got = _port_run(files, "inner", {BCAST: -1},
+                          condition=col("l_v") > col("r_v"))
+    assert isinstance(plan, TpuAdaptiveJoinExec)
+    assert plan.condition is not None
+    assert plan.decision.startswith("shuffled"), plan.decision
+    want = _jax(files, "inner", condition=jcol("l_v") > jcol("r_v"))
+    assert 0 < len(want) < len(_jax(files, "inner")) and got == want
 
 
 @pytest.mark.parametrize("bcast", [10 << 20, -1], ids=["broadcast", "wide"])

@@ -44,6 +44,7 @@ TTB = "spark.rapids.tpu.sql.scan.taskTargetBytes"
 CHUNK = "spark.rapids.tpu.sql.join.outputChunkRows"
 #: -1 turns broadcast joins off: these small tables would broadcast
 BCAST = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
+ADAPTIVE = "spark.rapids.tpu.sql.adaptive.enabled"
 
 
 def _values(kind, n, rng):
@@ -266,8 +267,9 @@ JOIN_TYPES = ["inner", "left_outer", "right_outer", "full_outer",
 
 @pytest.mark.parametrize("jt", JOIN_TYPES)
 def test_partition_wise_join_through_the_session(tmp_path, jt):
+    # the static plan; the adaptive join's case is the test below
     t = _tables(tmp_path, seed=len(jt))
-    s = TorchSession({TTB: 1, BCAST: -1}, device="cpu")
+    s = TorchSession({TTB: 1, BCAST: -1, ADAPTIVE: False}, device="cpu")
     left = s.read_parquet(*t["left"][0])
     right = s.read_parquet(*t["right"][0])
     df = left.join(right, how=jt, left_on=[col("l_k0"), col("l_k1")],
@@ -276,6 +278,30 @@ def test_partition_wise_join_through_the_session(tmp_path, jt):
     assert isinstance(plan, TpuShuffledHashJoinExec) and plan.partition_wise
     assert all(isinstance(c, TpuShuffleExchangeExec) for c in plan.children)
     got = sorted(_rows(df.collect().to_pydict()), key=repr)
+    want, n = _expected(t["left"][1], t["right"][1], 2, jt)
+    assert n > 0 and got == want
+
+
+@pytest.mark.parametrize("jt", JOIN_TYPES)
+def test_adaptive_join_through_the_session(tmp_path, jt):
+    """The default plan: a TpuAdaptiveJoinExec over two exchanges, which
+    with broadcast off decides on a shuffled join and gives the same
+    rows."""
+    from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+
+    t = _tables(tmp_path, seed=len(jt))
+    s = TorchSession({TTB: 1, BCAST: -1}, device="cpu")
+    df = s.read_parquet(*t["left"][0]).join(
+        s.read_parquet(*t["right"][0]), how=jt,
+        left_on=[col("l_k0"), col("l_k1")],
+        right_on=[col("r_k0"), col("r_k1")])
+    plan = df.physical_plan()
+    assert isinstance(plan, TpuAdaptiveJoinExec)
+    assert plan.decision == "undecided"
+    assert all(isinstance(c, TpuShuffleExchangeExec) for c in plan.children)
+    got = sorted(_rows(collect_exec(plan, s.conf).to_pydict()), key=repr)
+    assert plan.decision.startswith("shuffled"), plan.decision
     want, n = _expected(t["left"][1], t["right"][1], 2, jt)
     assert n > 0 and got == want
 

@@ -50,6 +50,7 @@ from torch_quiet import quiet_ladder  # noqa: F401
 CPU = torch.device("cpu")
 TTB = "spark.rapids.tpu.sql.scan.taskTargetBytes"
 BCAST = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
+ADAPTIVE = "spark.rapids.tpu.sql.adaptive.enabled"
 
 #: the two packages' DataFrame functions under one set of names
 PORT = types.SimpleNamespace(col=PS.col, lit=B.lit, sum_=PS.sum_,
@@ -299,6 +300,47 @@ def test_struct_columns_over_several_batches():
     assert got.column("s").to_pylist() == t.column("s").to_pylist()
 
 
+def _array_join_files(tmp_path):
+    """Three files of a list table and one dimension file."""
+    lt = list_table(600, 21)
+    rng = np.random.default_rng(22)
+    rt = pa.table({"k2": pa.array(np.arange(7)),
+                   "name": pa.array([f"n{i}" for i in range(7)]),
+                   "w": pa.array(rng.random(7))})
+    lpaths = []
+    for i in range(3):
+        lpaths.append(str(tmp_path / f"l{i}.parquet"))
+        pq.write_table(lt.slice(i * 200, 200), lpaths[-1])
+    rpath = str(tmp_path / "r.parquet")
+    pq.write_table(rt, rpath)
+    return lt, lpaths, rpath
+
+
+def test_adaptive_join_carries_an_array_on_its_stream_side(tmp_path):
+    """The default plan of the test below: an adaptive join over the two
+    exchanges, decided shuffled (broadcast off), whose coalesced reader
+    concatenates the arrays; the rows are the JAX device engine's."""
+    from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
+
+    lt, lpaths, rpath = _array_join_files(tmp_path)
+    s = TorchSession({TTB: 1, BCAST: -1}, device="cpu")
+
+    def build(sess, a):
+        return sess.read_parquet(*lpaths).join(
+            sess.read_parquet(rpath), left_on=[a.col("k")],
+            right_on=[a.col("k2")]).select(a.col("k"), a.col("a"),
+                                           a.col("name"))
+
+    plan = build(s, PORT).physical_plan()
+    [join] = [n for n in plan.walk() if isinstance(n, TpuAdaptiveJoinExec)]
+    got = collect_exec(plan, s.conf)
+    assert join.decision.startswith("shuffled"), join.decision
+    assert_tables_equal(got, build(JS.TpuSession(), JAX).collect(
+        engine="tpu"))
+    assert got.num_rows == sum(1 for r in lt.to_pylist()
+                               if r["k"] is not None and 0 <= r["k"] < 7)
+
+
 def test_shuffled_join_carries_an_array_on_its_stream_side(tmp_path):
     """Arrays gathered into partitions by a hash exchange, parked in the
     store and concatenated on the reduce side of a partition-wise
@@ -314,7 +356,8 @@ def test_shuffled_join_carries_an_array_on_its_stream_side(tmp_path):
         pq.write_table(lt.slice(i * 200, 200), lpaths[-1])
     rpaths.append(str(tmp_path / "r.parquet"))
     pq.write_table(rt, rpaths[0])
-    s = TorchSession({TTB: 1, BCAST: -1}, device="cpu")
+    # the static plan; the adaptive join's is the test above
+    s = TorchSession({TTB: 1, BCAST: -1, ADAPTIVE: False}, device="cpu")
 
     def build(sess, a):
         return sess.read_parquet(*lpaths).join(

@@ -102,7 +102,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "spark_rapids_tpu_torch.python_worker.wrappers",
             "spark_rapids_tpu_torch.udf",
             "spark_rapids_tpu_torch.udf.compiler",
-            "spark_rapids_tpu_torch.udf.exprs"} <= set(mods)
+            "spark_rapids_tpu_torch.udf.exprs",
+            # adaptive execution's
+            "spark_rapids_tpu_torch.execs.adaptive"} <= set(mods)
 
 
 def test_port_sources_name_no_jax_import():

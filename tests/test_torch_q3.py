@@ -33,6 +33,7 @@ from spark_rapids_tpu_torch.ops.partition import HashPartitioning
 TTB = "spark.rapids.tpu.sql.scan.taskTargetBytes"
 #: -1 turns broadcast joins off: the orders side would broadcast
 BCAST = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
+ADAPTIVE = "spark.rapids.tpu.sql.adaptive.enabled"
 ROWS = 4096
 N_ORDERS = 2048
 N_FILES = 3
@@ -100,7 +101,9 @@ def test_q3_matches_both_jax_engines(engine, data, jax_results,
 
 
 def test_q3_plan_and_its_hashes(data, port_session, monkeypatch):
-    df = tpch.q3_dataframe(port_session, *data)
+    # the static plan; the adaptive join's is the test below
+    static = TorchSession({TTB: 1, BCAST: -1, ADAPTIVE: False}, device="cpu")
+    df = tpch.q3_dataframe(static, *data)
     plan = df.physical_plan()
     assert isinstance(plan, TpuTopNExec) and plan.n == 10
     final = plan.children[0]
@@ -160,6 +163,49 @@ def test_q3_plan_and_its_hashes(data, port_session, monkeypatch):
     # over the orders keys' range for its range table
     lanes = [(c[0], c[2], c[3]) for c in calls if c[2] != 8]
     assert lanes == [(["bigint"], 0, 42), (["bigint"], 0, 0x9747B28C)] * 2
+
+
+def test_q3_adaptive_plan_and_its_hashes(data, port_session, monkeypatch):
+    """The default plan: the join is a TpuAdaptiveJoinExec over the two
+    exchanges, the runtime filter's build under the orders exchange,
+    whose map stage runs first.  With broadcast off it decides on a
+    shuffled join over coalesced reduce groups; K1 hashes each map batch
+    of the join's exchanges once, and the aggregate's exchange once a
+    non-empty group."""
+    from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+
+    df = tpch.q3_dataframe(port_session, *data)
+    plan = df.physical_plan()
+    partial = plan.children[0].children[0].children[0]
+    assert partial.mode == "partial"
+    join = partial.children[0]
+    assert isinstance(join, TpuAdaptiveJoinExec)
+    assert join.join_type == "inner" and join.decision == "undecided"
+    assert join.rf_build_first == "right"
+    sides = join.children
+    assert [s.partitioning.exprs[0].name for s in sides] == [
+        "l_orderkey", "o_orderkey"]
+    assert isinstance(sides[1].children[0], TpuRuntimeFilterBuildExec)
+    calls = []
+    real = kernels.hash_columns
+
+    def spy(cols, num_rows, device, seed=42, num_partitions=0):
+        calls.append(([c.dtype.name for c in cols], num_partitions))
+        return real(cols, num_rows, device, seed, num_partitions)
+
+    monkeypatch.setattr(kernels, "hash_columns", spy)
+    got = collect_exec(plan, port_session.conf)
+    assert join.decision.startswith("shuffled"), join.decision
+    groups = len(join.readers()[0].groups) if join.readers() else 8
+    assert join.metrics["coalescedPartitions"] == 8 - groups
+    ex = [tuple(c) for c, parts in calls if parts == 8]
+    assert ex.count(("bigint",)) == N_FILES + 1
+    assert 0 < ex.count(("bigint", "int", "int")) <= groups
+    want = tpch.q3_dataframe(TorchSession(
+        {TTB: 1, BCAST: -1, ADAPTIVE: False}, device="cpu"), *data).collect()
+    assert_tables_equal(_significant(got), _significant(want),
+                        ignore_order=False, approx_float=True)
 
 
 def test_q3_in_one_partition_a_side_joins_wide(data, port_session):

@@ -58,6 +58,7 @@ from spark_rapids_tpu_torch.plan import runtime_filter as RF
 TTB = "spark.rapids.tpu.sql.scan.taskTargetBytes"
 BCAST = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
 CHUNK = "spark.rapids.tpu.sql.join.outputChunkRows"
+ADAPTIVE = "spark.rapids.tpu.sql.adaptive.enabled"
 SCALE, SEED, N_FILES, THRESHOLD = 0.9, 7, 3, 4096
 NAMES = ["ss_customer_sk", "sumsales"]
 CONF = {TTB: 1, BCAST: THRESHOLD}
@@ -209,7 +210,9 @@ def test_outer_join_keeps_the_unmatched_sales(engine, data, jax_side,
 
 def test_the_plan_is_a_partition_wise_outer_join_under_a_broadcast(
         data, jax_side, port_session):
-    plan = tpcds.q93_dataframe(port_session, *data).physical_plan()
+    # the static plan; the adaptive join's is the test below
+    static = TorchSession({**CONF, ADAPTIVE: False}, device="cpu")
+    plan = tpcds.q93_dataframe(static, *data).physical_plan()
     assert isinstance(plan, TpuTopNExec) and plan.n == 100
     final = plan.children[0]
     assert isinstance(final, TpuHashAggregateExec) and final.mode == "final"
@@ -237,6 +240,34 @@ def test_the_plan_is_a_partition_wise_outer_join_under_a_broadcast(
                    if isinstance(n, ParquetScanExec))
     assert not [n for n in jax_side["root"]._walk()
                 if isinstance(n, JRFBuild)]
+
+
+def test_the_outer_join_is_adaptive_under_the_default(data, port_session):
+    """The default plan: the left outer join is a TpuAdaptiveJoinExec
+    over the two (LONG, LONG) exchanges, under the reason broadcast; no
+    runtime filter.  store_returns is measured over the 4 KiB threshold,
+    so it decides on a shuffled join, and the rows are the static
+    plan's."""
+    from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+
+    plan = tpcds.q93_dataframe(port_session, *data).physical_plan()
+    [reason_join] = [n for n in plan.walk()
+                     if isinstance(n, TpuBroadcastHashJoinExec)]
+    [outer] = [n for n in plan.walk() if isinstance(n, TpuAdaptiveJoinExec)]
+    assert reason_join.children[0] is outer
+    assert outer.join_type == "left_outer" and outer.rf_build_first is None
+    for side in outer.children:
+        assert isinstance(side, TpuShuffleExchangeExec)
+        assert [e.dtype.name for e in side.partitioning.exprs] == [
+            "bigint", "bigint"]
+    assert RF.plan_runtime_filters(plan) == []
+    got = collect_exec(plan, port_session.conf)
+    assert outer.decision.startswith("shuffled"), outer.decision
+    assert outer.metrics["adaptiveBroadcasts"] == 0
+    want = tpcds.q93_dataframe(TorchSession({**CONF, ADAPTIVE: False},
+                                            device="cpu"), *data).collect()
+    assert_tables_equal(got, want, ignore_order=False, approx_float=True)
 
 
 def _map_batches(plan):
@@ -323,7 +354,8 @@ def _outer_edges(c, session, files):
 @pytest.mark.parametrize("chunk", [1 << 22, 7])
 def test_partition_wise_left_outer_join_edges(chunk, edge_files):
     conf = {TTB: 1, BCAST: -1, CHUNK: chunk}
-    port = TorchSession(conf, device="cpu")
+    # the static plan; the adaptive join's edges are the test below
+    port = TorchSession({**conf, ADAPTIVE: False}, device="cpu")
     plan = _outer_edges(col, port, edge_files).physical_plan()
     [join] = [n for n in plan.walk() if hasattr(n, "build_is_right")]
     assert isinstance(join, TpuShuffledHashJoinExec) and join.partition_wise
@@ -360,6 +392,34 @@ def test_partition_wise_left_outer_join_edges(chunk, edge_files):
         jconf._values.clear()
         jconf._values.update(saved)
         set_conf(jconf)
+
+
+@pytest.mark.parametrize("chunk", [1 << 22, 7])
+def test_adaptive_left_outer_join_edges(chunk, edge_files):
+    """The edge cases under the default adaptive join: build partitions
+    with no row, keys matching twice and never, NULL keys; coalesced
+    into few reduce groups, the same rows as pyarrow's."""
+    from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
+
+    port = TorchSession({TTB: 1, BCAST: -1, CHUNK: chunk}, device="cpu")
+    plan = _outer_edges(col, port, edge_files).physical_plan()
+    assert isinstance(plan, TpuAdaptiveJoinExec)
+    batches = list(plan.execute())
+    assert plan.decision.startswith("shuffled"), plan.decision
+    if chunk == 7:
+        assert max(b.num_rows for b in batches) <= 7
+    for node in plan.walk():
+        if hasattr(node, "close"):
+            node.close()
+    stream = pa.concat_tables([pq.read_table(p) for p in edge_files[0]])
+    build = pq.read_table(edge_files[1])
+    want = stream.join(build, ["s_item", "s_ticket"], ["b_item", "b_ticket"],
+                       join_type="left outer")
+    assert sum(b.num_rows for b in batches) == want.num_rows
+    got = _outer_edges(col, port, edge_files).collect()
+    cols = ["s_item", "s_ticket", "s_v", "b_q"]
+    assert sorted(got.select(cols).to_pylist(), key=repr) == sorted(
+        want.select(cols).to_pylist(), key=repr)
 
 
 # --------------------------------------------------------------------- #

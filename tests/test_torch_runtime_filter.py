@@ -43,6 +43,7 @@ from spark_rapids_tpu_torch.plan import runtime_filter as RF
 TTB = "spark.rapids.tpu.sql.scan.taskTargetBytes"
 BCAST = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
 RF_ON = "spark.rapids.tpu.sql.runtimeFilter.enabled"
+ADAPTIVE = "spark.rapids.tpu.sql.adaptive.enabled"
 #: kind -> (JAX type, port type, numpy dtype, value range)
 _I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
 KINDS = {"int": (JT.INT, T.INT, np.int32, 1 << 31),
@@ -313,9 +314,11 @@ def _scans_with_filters(plan):
                          ids=["int", "date", "long"])
 def test_filter_prunes_the_probe_scan_and_keeps_the_result(
         tmp_path, key_type, bcast):
+    # the static plans: the adaptive join's case is the test below
     facts, dim, lt = _fact_and_dim(tmp_path, key_type)
-    on = TorchSession({TTB: 1, BCAST: bcast}, device="cpu")
-    off = TorchSession({TTB: 1, BCAST: bcast, RF_ON: False}, device="cpu")
+    on = TorchSession({TTB: 1, BCAST: bcast, ADAPTIVE: False}, device="cpu")
+    off = TorchSession({TTB: 1, BCAST: bcast, RF_ON: False, ADAPTIVE: False},
+                       device="cpu")
     plan = _star(on, facts, dim, lt).physical_plan()
     join = plan
     assert isinstance(join, TpuBroadcastHashJoinExec if bcast > 0
@@ -339,6 +342,37 @@ def test_filter_prunes_the_probe_scan_and_keeps_the_result(
     assert _rows(_star(on, facts, dim, lt).collect()) == _rows(want)
     assert not _scans_with_filters(_star(off, facts, dim, lt)
                                    .physical_plan())
+
+
+@pytest.mark.parametrize("key_type", [pa.int32(), pa.date32(), pa.int64()],
+                         ids=["int", "date", "long"])
+def test_filter_prunes_the_probe_scan_under_the_adaptive_join(
+        tmp_path, key_type):
+    """Broadcast off, adaptive on (the default): the join is a
+    TpuAdaptiveJoinExec over two exchanges, the filter's build sits
+    under the right exchange, whose map stage runs first, and the probe
+    scan is pruned as under the static partition-wise join."""
+    from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
+    from spark_rapids_tpu_torch.execs.exchange import TpuShuffleExchangeExec
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+
+    facts, dim, lt = _fact_and_dim(tmp_path, key_type)
+    on = TorchSession({TTB: 1, BCAST: -1}, device="cpu")
+    off = TorchSession({TTB: 1, BCAST: -1, RF_ON: False}, device="cpu")
+    plan = _star(on, facts, dim, lt).physical_plan()
+    assert isinstance(plan, TpuAdaptiveJoinExec)
+    assert plan.rf_build_first == "right"
+    assert all(isinstance(c, TpuShuffleExchangeExec) for c in plan.children)
+    [build] = [n for n in plan.walk()
+               if isinstance(n, TpuRuntimeFilterBuildExec)]
+    assert plan.children[1].children[0] is build
+    [scan] = _scans_with_filters(plan)
+    got = collect_exec(plan, on.conf)
+    # the measured build side (a few dozen keys) broadcasts at runtime
+    # only under a threshold; -1 keeps the join shuffled
+    assert plan.decision.startswith("shuffled"), plan.decision
+    assert scan.metrics["rfPrunedRows"] > 4000
+    assert _rows(got) == _rows(_star(off, facts, dim, lt).collect())
 
 
 def test_empty_build_side_prunes_every_row_group(tmp_path):
