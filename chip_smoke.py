@@ -182,9 +182,10 @@ Phases, one JSON line each:
            TIMESTAMP, TINYINT, SMALLINT and FLOAT column beside the
            DECIMAL one in two queries whose exchanges hash a key of
            each new type, exactly pyarrow's; one ``types_text`` line a
-           text (a profiled run that is the warm-up, one counted run,
-           timed, K1 launches against the planned map batches), then
-           the ``types`` line;
+           text (its one run profiled, counted and timed, as the sql
+           texts', K1 launches against the planned map batches; the
+           two type queries: a profiled run that is the warm-up, one
+           counted run, timed), then the ``types`` line;
   nested   arrays, structs and maps (``nested_phase``) over q3ds's
            store_sales files, the sql phase's dimensions and 100 000
            customers: ``baskets`` (collect_list of items and
@@ -313,6 +314,27 @@ Phases, one JSON line each:
            keyless left join, each planned on the CPU engine and held
            against pyarrow.  Every other phase's plans must hold no
            CpuFallbackExec;
+  serving  the serving tier: SERVING_SESSIONS SqlSessions on the card
+           in as many threads over two tenants (t0 at priority 1, t1 at
+           4), serving.maxConcurrent 2 and queueDepth 40, over the sql
+           phase's tables.  Each pair (one session of each tenant)
+           prepares one of q3, q42, q52 and q55 with its constants made
+           :params (SERVING_TEMPLATES) and
+           executes it 4 times, 2 bindings each twice: every result
+           equal, by table_digest, to a serial uncached collect of the
+           text with the literals written in; every repeat a plan-cache
+           hit that enters plan_query 0 times (each first execution of
+           a binding once); then execute_stream equal to its collect,
+           a q93 stream cancelled from another thread after its first
+           batch (QueryCancelled; the store back to its bytes, 0
+           running, every semaphore permit free), and two tenants
+           running one text at once with serving.sharing.enabled (a
+           result-cache hit, equal digests).  Prints p50 / p99 latency
+           (and each tenant's), queries a second, the admission wait's
+           p50 / p99 (and each tenant's), the plan-cache
+           hit rate and K1's launches beside nvidia-smi's line.  Every
+           session shares the process store and task semaphore
+           (``plugin.py``), brought up at the start of the run;
   memory   the memory runtime on the card.  Spill: q93, q67_rollup and
            q72 (at its inventory cut) under memory.hbm.budgetBytes = a
            quarter of the query's unconstrained store peak and
@@ -322,7 +344,9 @@ Phases, one JSON line each:
            run's rows bit for bit, with the store's spill bytes per
            hop, restores, time inside spill and restore, its peak
            device_used gauge beside torch.cuda.max_memory_allocated,
-           and an empty leak_report.  Forced split: q93 and q1's
+           and an empty leak_report (each run on a store of its own:
+           the plugin restarts with the budget keys, then without).
+           Forced split: q93 and q1's
            grouped aggregate serially under robustness.faults.spec
            exec.batch:nth=3,times=2: splits > 0, no task retry, the
            result equal to the unconstrained run's (floats within
@@ -387,6 +411,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1182,7 +1207,9 @@ def counted_plan(df, counter) -> tuple:
                                              "folds", len(node.entries))
 
     def tally() -> dict:
-        tables = sum(rf.range_table is not None
+        # read after the drain: closing the tree set each filter
+        # pending again, and ``last`` is what it published
+        tables = sum(rf.last is not None and rf.last.range_table is not None
                      for node in builds for _k, rf in node.entries)
         reruns = sum(n.metrics["mapBatchRuns"] - n.metrics["mapBatches"]
                      for n in plan.walk()
@@ -2859,9 +2886,10 @@ def types_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
     (``reference_q7``, ``reference_q27``; within REL_TOL), and, over the
     first file, against the port's device="cpu" run, with their
     transitions' rows and batches against what the CPU engine feeds and
-    makes there.  Each text: one profiled run that is the warm-up, one
-    counted run, timed, K1's launches equal to runs x its plan's map
-    batches, folds and range tables.  (b) the
+    makes there.  Each text: one run, profiled, counted and timed at
+    once, as the sql phase's (no warm-up since PR 18), K1's launches
+    equal to runs x its plan's map batches, folds and range tables.
+    (b) the
     same rows with a TIMESTAMP, a TINYINT, a SMALLINT and a FLOAT
     column (``tpcds.write_scalar_types_sales``): TYPES_HOUR_TEXT and
     ``types_day_df``, each exactly equal to pyarrow's, K1 as planned
@@ -3004,7 +3032,7 @@ def types_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB,
         calls: list = []
         rec = run_query(torch, text_df, kernels, check, calls, scans=False,
                         timed=0, fallback=len(cpu_nodes),
-                        counted=True)
+                        counted=True, single=True)
         check_launches(name, rec, rec)
         records[name] = {"checked_against": versus, "cpu_nodes": cpu_nodes,
                          "joins": join_strategies(plan), **extra,
@@ -4240,6 +4268,9 @@ def cache_consumers(TorchSession, TTB, ss_paths, store_path) -> dict:
     cached.unpersist()
     if session.store.leak_report():
         raise AssertionError(session.store.leak_report())
+    # the spill moved the process store's counters, which the later
+    # phases hold at zero: they start on a fresh store
+    fresh_store()
     return {"rows": {n: t.num_rows for n, t in rounds[0].items()},
             "round_s": round_s, "spill": spill,
             "restores_after": restores}
@@ -5583,13 +5614,26 @@ def _timed_collect(torch, df) -> tuple:
     return table, time.perf_counter() - t0
 
 
+def fresh_store(keys=None) -> None:
+    """Restart the process plugin on the card: a new store, sized from
+    ``keys`` (the buffer store is process-wide; a session's memory keys
+    size it only when it brings the plugin up)."""
+    from spark_rapids_tpu_torch.config import TorchConf
+    from spark_rapids_tpu_torch.plugin import TorchPlugin
+
+    TorchPlugin.restart(TorchConf(keys), "cuda")
+
+
 def spill_step(torch, name: str, make) -> dict:
     """``make(conf)``: the query's DataFrame in a new session with
-    those keys over the phase's base keys."""
+    those keys over the phase's base keys.  The unconstrained run gets
+    a fresh store (its peak is this query's), the constrained one a
+    store sized by the budget keys, and a default store follows."""
     from spark_rapids_tpu_torch import config as C
     from spark_rapids_tpu_torch.execs import retry as R
 
     R.reset_retry_stats()
+    fresh_store()
     base = _fresh(torch)
     df = make({})
     want, wall = _timed_collect(torch, df)
@@ -5599,10 +5643,13 @@ def spill_step(torch, name: str, make) -> dict:
     budget = max(1, un["peak_device_used"] // MEMORY_BUDGET_DIVISOR)
     host = max(1, un["peak_device_used"] // MEMORY_HOST_DIVISOR)
     base = _fresh(torch)
-    df = make({C.HBM_BUDGET_BYTES: budget, C.HOST_SPILL_BYTES: host})
+    keys = {C.HBM_BUDGET_BYTES: budget, C.HOST_SPILL_BYTES: host}
+    fresh_store(keys)
+    df = make(keys)
     got, wall = _timed_collect(torch, df)
     st = df._session.spill_stats()
     leaks = df._session.store.leak_report()
+    fresh_store()
     if not (st["spilled_device_to_host"] and st["spilled_host_to_disk"]):
         raise AssertionError(f"{name}: no spill to host and disk: {st}")
     if leaks:
@@ -5731,6 +5778,7 @@ def ooc_sort_step(torch, pa, pc, pq, TorchSession, paths, TTB) -> dict:
     from spark_rapids_tpu_torch.execs.sort import TpuSortExec
     from spark_rapids_tpu_torch.plan.planner import collect_exec
 
+    fresh_store()  # its spill stats are its own
     s = TorchSession({TTB: TASK_TARGET_BYTES,
                       C.SORT_RANGE_EXCHANGE: False}, device="cuda")
     table = pa.concat_tables([pq.read_table(p) for p in paths])
@@ -5759,11 +5807,12 @@ def ooc_sort_step(torch, pa, pc, pq, TorchSession, paths, TTB) -> dict:
                              f"{bad}")
     if s.store.leak_report():
         raise AssertionError("the sort left store entries")
+    spill = s.spill_stats()
     m = dict(sort.metrics)
     if m["oocRows"] != table.num_rows or m["hostRows"] != table.num_rows:
         raise AssertionError(f"sort metrics {m}")
     return {"rows": got.num_rows, "keys": keys, **m, "wall_s": wall,
-            "reference_s": ref_s, "spill_stats": s.spill_stats(),
+            "reference_s": ref_s, "spill_stats": spill,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
@@ -5821,6 +5870,9 @@ def memory_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpch,
     ooc = ooc_sort_step(torch, pa, pc, pq, TorchSession, li_paths, TTB)
     emit("memory_ooc_sort", **ooc)
     R.reset_retry_stats()
+    # the split steps' spill retries and the sort moved the store's
+    # counters, which the later phases hold at zero
+    fresh_store()
     out = {"earlier_phases": quiet, "spill": {
         k: {f: v[f] for f in ("device_budget", "host_budget", "spill_stats",
                               "max_memory_allocated", "wall_s")}
@@ -5833,6 +5885,361 @@ def memory_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpch,
         "seconds": time.perf_counter() - t_phase}
     emit("memory", **out)
     return out
+
+
+#: the serving phase's templates: the port's TPC-DS texts with their
+#: constants made parameters, and two bindings each (the text's own
+#: constants first)
+SERVING_TEMPLATES = {
+    "q3": (3, (("item.i_manufact_id = 128", "item.i_manufact_id = :manufact"),
+               ("dt.d_moy = 11", "dt.d_moy = :moy")),
+           ({"manufact": 128, "moy": 11}, {"manufact": 128, "moy": 12})),
+    "q42": (42, (("item.i_manager_id = 1", "item.i_manager_id = :manager"),
+                 ("dt.d_moy = 11", "dt.d_moy = :moy"),
+                 ("dt.d_year = 2000", "dt.d_year = :year")),
+            ({"manager": 1, "moy": 11, "year": 2000},
+             {"manager": 1, "moy": 12, "year": 2001})),
+    "q52": (52, (("item.i_manager_id = 1", "item.i_manager_id = :manager"),
+                 ("dt.d_moy = 11", "dt.d_moy = :moy"),
+                 ("dt.d_year = 2000", "dt.d_year = :year")),
+            ({"manager": 1, "moy": 11, "year": 2000},
+             {"manager": 1, "moy": 12, "year": 1999})),
+    "q55": (55, (("i_manager_id = 28", "i_manager_id = :manager"),
+                 ("d_moy = 11", "d_moy = :moy"),
+                 ("d_year = 1999", "d_year = :year")),
+            ({"manager": 28, "moy": 11, "year": 1999},
+             {"manager": 28, "moy": 12, "year": 2000})),
+}
+SERVING_SESSIONS = 8
+#: (tenant, priority) of session i: i % 2
+SERVING_TENANTS = (("t0", 1), ("t1", 4))
+SERVING_MAX_CONCURRENT = 2
+SERVING_QUEUE_DEPTH = 40
+
+
+def serving_texts(QUERIES) -> dict:
+    """name -> (the template, its bindings, the text of each binding
+    with the literals written in)."""
+    out = {}
+    for name, (q, subs, bindings) in SERVING_TEMPLATES.items():
+        template = QUERIES[q]
+        for lit_, param in subs:
+            if template.count(lit_) != 1:
+                raise AssertionError(f"{name}: {lit_!r} is not in the text "
+                                     "once")
+            template = template.replace(lit_, param)
+        literal = []
+        for b in bindings:
+            text = template
+            for k, v in b.items():
+                text = text.replace(f":{k}", str(v))
+            literal.append(text)
+        out[name] = (template, bindings, literal)
+    return out
+
+
+def serving_phase(torch, pa, kernels, TTB, tables) -> dict:
+    """8 sessions on the card in 8 threads over 2 tenants (t0 at
+    priority 1, t1 at 4), admission at 2 queries at once and a queue of
+    40: each pair of sessions (one of each tenant) prepares one of q3 /
+    q42 / q52 / q55 through ``SqlSession.prepare`` and executes it 4
+    times (2 bindings, each twice).  Checked: every result equals, bit for bit, a serial
+    uncached collect of the text with the literals written in; every
+    repeat is a plan-cache hit that enters ``plan_query`` 0 times; a
+    stream equals its collect; q93, cancelled from another thread when
+    its first map task parks a block, raises QueryCancelled before its
+    map tasks have all committed and leaves the store at its bytes, 0
+    running, every permit free and no stage or pool thread, and its
+    cached tree then drains to the serial result; a second tenant's
+    first execution of a text the first tenant ran is a result-cache
+    hit, and two tenants running a text at once with no result cache
+    share dimension scans (``scan_subscribes``), all with equal
+    digests.  Emits the phase's line and returns (its record, K1
+    launches)."""
+    from spark_rapids_tpu_torch.eventlog import table_digest
+    from spark_rapids_tpu_torch.execs.base import live_pool_threads
+    from spark_rapids_tpu_torch.execs.exchange import TpuShuffleExchangeExec
+    from spark_rapids_tpu_torch.frontends.sql import SqlSession
+    from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
+    from spark_rapids_tpu_torch.parallel.pipeline import live_stage_threads
+    from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
+    from spark_rapids_tpu_torch.plan import planner as planner_mod
+    from spark_rapids_tpu_torch.serving import cancel as K
+    from spark_rapids_tpu_torch.serving import plan_cache, scheduler
+    from spark_rapids_tpu_torch.serving import work_share
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.tpcds_queries import QUERIES
+
+    t_phase = time.perf_counter()
+    base = {TTB: Q3DS_TASK_TARGET_BYTES}
+    serve = {**base, C.SERVING_MAX_CONCURRENT: SERVING_MAX_CONCURRENT,
+             C.SERVING_QUEUE_DEPTH: SERVING_QUEUE_DEPTH}
+
+    def frontend(conf, **kw):
+        fe = SqlSession(conf, device="cuda", **kw)
+        for name, paths in tables.items():
+            fe.register_parquet(name, *paths)
+        return fe
+
+    texts = serving_texts(QUERIES)
+    # the references: each binding's text with its literals, collected
+    # alone by a session outside the serving tier
+    ref_fe = frontend(base)
+    t0 = time.perf_counter()
+    want, ref_rows = {}, {}
+    for name, (_t, _b, lits) in texts.items():
+        for i, lit_ in enumerate(lits):
+            ref = ref_fe.sql(lit_).collect()
+            want[(name, i)] = table_digest(ref)
+            ref_rows[(name, i)] = ref.num_rows
+    ref_s = time.perf_counter() - t0
+
+    calls: dict = {}
+    calls_lock = threading.Lock()
+    original = planner_mod.plan_query
+
+    def counting(*a, **kw):
+        with calls_lock:
+            key = threading.get_ident()
+            calls[key] = calls.get(key, 0) + 1
+        return original(*a, **kw)
+
+    names = list(texts)
+
+    def template_of(i: int) -> str:
+        # sessions 2k and 2k + 1 run one template, one for each tenant
+        return names[(i // 2) % len(names)]
+
+    fes = [frontend(serve, tenant=SERVING_TENANTS[i % 2][0],
+                    priority=SERVING_TENANTS[i % 2][1])
+           for i in range(SERVING_SESSIONS)]
+    prepared = [fe.prepare(texts[template_of(i)][0])
+                for i, fe in enumerate(fes)]
+    records: list = []
+    errors: list = []
+    start = threading.Barrier(SERVING_SESSIONS)
+
+    def run(i: int) -> None:
+        name = template_of(i)
+        bindings = texts[name][1]
+        try:
+            start.wait()
+            for j, b in enumerate((0, 0, 1, 1)):
+                with calls_lock:
+                    before = calls.get(threading.get_ident(), 0)
+                t0 = time.perf_counter()
+                got = prepared[i].execute(params=bindings[b])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                with calls_lock:
+                    entered = calls.get(threading.get_ident(), 0) - before
+                records.append({"session": i, "template": name,
+                                "tenant": SERVING_TENANTS[i % 2][0],
+                                "binding": b, "repeat": j % 2,
+                                "wall_s": wall, "plan_query": entered,
+                                "rows": got.num_rows,
+                                "equal": table_digest(got) == want[
+                                    (name, b)]})
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append((i, repr(e)))
+
+    scheduler.reset()
+    plan_cache.reset_stats()
+    kernels.hash_columns.launches = 0
+    kernels.hash_string.launches = 0
+    planner_mod.plan_query = counting
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(SERVING_SESSIONS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+    finally:
+        planner_mod.plan_query = original
+    launches = {"hash_columns": kernels.hash_columns.launches,
+                "hash_string": kernels.hash_string.launches}
+    sched = scheduler.scheduler_stats()
+    tenant_waits = scheduler.tenant_wait_stats()
+    cache = plan_cache.stats()
+    if errors:
+        raise AssertionError(f"serving sessions failed: {errors}")
+    bad = [r for r in records if not r["equal"]]
+    if bad:
+        raise AssertionError(f"results differ from the serial collect: "
+                             f"{bad}")
+    wrong = [r for r in records if r["plan_query"] != (0 if r["repeat"]
+                                                       else 1)]
+    if wrong or cache["hits"] != len(records) // 2:
+        raise AssertionError(f"plan cache: {cache}, plan_query entries "
+                             f"{wrong}")
+    if sched["admitted"] != len(records) or sched["running"] \
+            or sched["rejected"]:
+        raise AssertionError(f"scheduler {sched}")
+    if launches["hash_columns"] < 1:
+        raise AssertionError(f"the served queries launched no K1: "
+                             f"{launches}")
+    def pct(q, rs=records):
+        walls = sorted(r["wall_s"] for r in rs)
+        return walls[min(len(walls) - 1, int(round(q * (len(walls) - 1))))]
+
+    # streaming: one template's stream equals its collect
+    pq0 = prepared[0]
+    b0 = texts[template_of(0)][1][0]
+    streamed = pa.Table.from_batches(list(pq0.execute_stream(params=b0)))
+    collected = pq0.execute(params=b0)
+    if table_digest(streamed.cast(collected.schema)) != table_digest(
+            collected) or streamed.schema != collected.schema:
+        raise AssertionError("execute_stream differs from collect")
+
+    # cancellation: q93 cancelled from another thread while its first
+    # map stage runs, at the first block a map task parks; the query
+    # must raise before its map tasks have all committed
+    store = fes[0].session.store
+    before = (store.spill_stats()["device_used"],
+              store.spill_stats()["host_used"], len(store.leak_report()))
+    q93_fe = frontend(serve, tenant="t0")
+    q93 = q93_fe.prepare(QUERIES[93])
+    map_tasks = sum(n.children[0].num_partitions
+                    for n in q93_fe.sql(QUERIES[93]).physical_plan().walk()
+                    if isinstance(n, TpuShuffleExchangeExec))
+    parked = threading.Event()
+    commits = [0]
+    park, commit = TpuShuffleExchangeExec._park, ShuffleManager.commit_task
+
+    def parking(self, *a):
+        park(self, *a)
+        parked.set()
+
+    def committing(self, *a):
+        with calls_lock:
+            commits[0] += 1
+        commit(self, *a)
+
+    def canceller():
+        if parked.wait(120):
+            q93_fe.session.cancel()
+
+    TpuShuffleExchangeExec._park = parking
+    ShuffleManager.commit_task = committing
+    th = threading.Thread(target=canceller)
+    t0 = time.perf_counter()
+    try:
+        th.start()
+        try:
+            q93.execute()
+            raise AssertionError("the cancelled q93 ran to its end")
+        except K.QueryCancelled as e:
+            reason = e.reason
+        unwind_s = time.perf_counter() - t0
+    finally:
+        TpuShuffleExchangeExec._park = park
+        ShuffleManager.commit_task = commit
+        parked.set()
+        th.join()
+    committed = commits[0]
+    after = (store.spill_stats()["device_used"],
+             store.spill_stats()["host_used"], len(store.leak_report()))
+    sched_after = scheduler.scheduler_stats()
+    usage = TpuSemaphore.get().usage()
+    threads = (live_stage_threads(), live_pool_threads())
+    if reason != "cancelled" or after != before or sched_after["running"] \
+            or usage["in_use"] or any(threads) \
+            or not 0 <= committed < map_tasks:
+        raise AssertionError(f"q93 cancel: {reason}, {committed} of "
+                             f"{map_tasks} map tasks committed, store "
+                             f"{before} -> {after}, scheduler {sched_after}, "
+                             f"semaphore {usage}, threads {threads}")
+    # the cancelled tree drains again, to the serial collect's result
+    again = table_digest(q93.execute())
+    if again != table_digest(ref_fe.sql(QUERIES[93]).collect()):
+        raise AssertionError("q93 after its cancel differs from a serial "
+                             "collect")
+    cancel = {"map_tasks": map_tasks, "committed_at_raise": committed,
+              "reason": reason, "unwind_s": unwind_s,
+              "store_before": before, "store_after": after,
+              "running": sched_after["running"], "semaphore": usage,
+              "redrain_equal": True}
+
+    # work sharing across tenants, with the result cache: t0 executes
+    # the text and stores its result; t1's first execution of it is then
+    # a hit.  Shared scans: both tenants at once with the other binding
+    # and a result cache of 0 bytes, so neither is served a result and
+    # the dimension scans are shared (store_sales carries runtime
+    # filters, which never share)
+    work_share.reset()
+    share = {**serve, C.SHARING_ENABLED: True}
+    name = names[1]
+    text, bindings, _lits = texts[name]
+    first = [frontend(share, tenant=t, priority=p).prepare(text)
+             for t, p in SERVING_TENANTS]
+    d0 = table_digest(first[0].execute(params=bindings[0]))
+    stored = work_share.stats()
+    d1 = table_digest(first[1].execute(params=bindings[0]))
+    ws_hit = work_share.stats()
+    cross_hits = ws_hit["result_hits"] - stored["result_hits"]
+    if stored["result_hits"] or cross_hits != 1 \
+            or {d0, d1} != {want[(name, 0)]}:
+        raise AssertionError(f"cross-tenant result hit: {stored} -> "
+                             f"{ws_hit}, digests {d0} {d1}")
+    scans = {**share, C.RESULT_CACHE_BUDGET: 0}
+    pair = [frontend(scans, tenant=t, priority=p).prepare(text)
+            for t, p in SERVING_TENANTS]
+    shared: dict = {}
+    go = threading.Barrier(2)
+
+    def tenant_run(i: int) -> None:
+        try:
+            go.wait()
+            shared[i] = table_digest(pair[i].execute(params=bindings[1]))
+        except BaseException as e:  # noqa: BLE001 - raised below
+            shared[i] = repr(e)
+
+    ths = [threading.Thread(target=tenant_run, args=(i,)) for i in (0, 1)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    ws = work_share.stats()
+    subscribes = ws["scan_subscribes"] - ws_hit["scan_subscribes"]
+    if subscribes < 1 or ws["result_hits"] != ws_hit["result_hits"] \
+            or set(shared.values()) != {want[(name, 1)]}:
+        raise AssertionError(f"shared scans: {ws_hit} -> {ws}, digests "
+                             f"{shared}")
+    work_share.reset()
+    out = {
+        "sessions": SERVING_SESSIONS, "tenants": dict(SERVING_TENANTS),
+        "max_concurrent": SERVING_MAX_CONCURRENT,
+        "queue_depth": SERVING_QUEUE_DEPTH,
+        "executions": len(records), "wall_s": wall,
+        "qps": len(records) / wall, "p50_ms": pct(0.5) * 1e3,
+        "p99_ms": pct(0.99) * 1e3,
+        "tenant_ms": {t: {q: pct(v, [r for r in records
+                                     if r["tenant"] == t]) * 1e3
+                          for q, v in (("p50", 0.5), ("p99", 0.99))}
+                      for t, _p in SERVING_TENANTS},
+        "admission_wait_p50_ms": sched["wait_p50_ms"],
+        "admission_wait_p99_ms": sched["wait_p99_ms"],
+        "tenant_admission": tenant_waits,
+        "plan_cache": cache, "plan_cache_hit_rate": cache["hit_rate"],
+        "k1_launches": launches,
+        "rows": {f"{n}[{b}]": r for (n, b), r in ref_rows.items()},
+        "miss_p50_ms": statistics.median(
+            r["wall_s"] for r in records if not r["repeat"]) * 1e3,
+        "hit_p50_ms": statistics.median(
+            r["wall_s"] for r in records if r["repeat"]) * 1e3,
+        "reference_s": ref_s, "stream_equals_collect": True,
+        "cancel": cancel, "sharing": {
+            "cross_tenant_result_hits": cross_hits,
+            "pair_scan_subscribes": subscribes,
+            **{k: ws[k] for k in ("result_hits", "result_misses",
+                                  "scan_subscribes", "scan_units_shared")}},
+        "nvidia_smi": nvidia_smi(),
+        "seconds": time.perf_counter() - t_phase}
+    emit("serving", **out)
+    return out, launches
 
 
 #: seconds after which the script prints every thread's stack and exits
@@ -5864,6 +6271,12 @@ def main() -> int:
     from spark_rapids_tpu_torch.plan import runtime_filter as RF
 
     dev = torch.device("cuda")
+    # the process plugin: one store (memory.fraction of the card) and
+    # one task semaphore, shared by every session below
+    from spark_rapids_tpu_torch.config import TorchConf
+    from spark_rapids_tpu_torch.plugin import TorchPlugin
+
+    TorchPlugin.get_or_create(TorchConf(), "cuda")
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit("device", kind=kind, count=torch.cuda.device_count(),
@@ -6038,6 +6451,8 @@ def main() -> int:
             torch, pa, pc, pq, star, kernels, tpcds, TTB, store_tables)
         fallback, fallback_calls = fallback_phase(
             torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB)
+        serving, serving_k1 = serving_phase(torch, pa, kernels, TTB,
+                                            store_tables)
         memory = memory_phase(torch, pa, pc, pq, star, kernels,
                               TorchSession, tpch, tpcds, TTB, paths)
         dd_path, star_ss, item_path = star["paths"]
@@ -6100,7 +6515,8 @@ def main() -> int:
         "launches": conc_launches["hash_columns"] + sum(
             q["launches"]["hash_columns"] for q in runs) + sum(
             q["launches"]["hash_columns"]
-            for q in memory["split"].values()) + python_k1,
+            for q in memory["split"].values()) + python_k1
+        + serving_k1["hash_columns"],
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
@@ -6122,7 +6538,8 @@ def main() -> int:
         "source": "spark_rapids_tpu_torch/csrc/hash_string.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:138",
         "launches": conc_launches["hash_string"] + sum(
-            q["launches"]["hash_string"] for q in runs),
+            q["launches"]["hash_string"] for q in runs)
+        + serving_k1["hash_string"],
         "max_abs_err": max(r["max_abs_err"] for r in large),
         "ms": w64["ms"], "plain_ms": w64["plain_ms"],
         "bound_ms": w64["bound_ms"], "bound_by": w64["bound_by"],

@@ -114,6 +114,49 @@ COALESCE_TARGET_BYTES = "spark.rapids.tpu.sql.coalesce.targetBytes"
 FAULTS_ENABLED = "spark.rapids.tpu.robustness.faults.enabled"
 #: its schedule: ``site:key=val,...;site2:...``
 FAULTS_SPEC = "spark.rapids.tpu.robustness.faults.spec"
+#: arm the runtime lock-order tracker (``robustness/lock_tracker.py``)
+#: for the queries run with this conf
+LOCK_TRACKER_ENABLED = "spark.rapids.tpu.robustness.lockTracker.enabled"
+
+# -- the serving tier (``serving/``, ``docs/serving.md``) ---------------- #
+#: queries executing at once under admission control (0: the tier is
+#: off and a collect runs unscheduled); clamped to the process task
+#: semaphore's permits
+SERVING_MAX_CONCURRENT = "spark.rapids.tpu.serving.maxConcurrent"
+#: queries that may wait for admission; one more is rejected
+SERVING_QUEUE_DEPTH = "spark.rapids.tpu.serving.queueDepth"
+#: weighted-fair share of a session that sets no priority
+SERVING_DEFAULT_PRIORITY = "spark.rapids.tpu.serving.defaultPriority"
+#: prepared exec trees a session's plan cache keeps (LRU)
+PLAN_CACHE_CAPACITY = "spark.rapids.tpu.serving.planCache.capacity"
+#: grant queued queries whose template is already running first
+SERVING_BATCHING = "spark.rapids.tpu.serving.batching.enabled"
+#: a query whose admission wait passes this (ms) is over budget: the JAX
+#: health rule HC009's budget, in docs/serving.md's table.  It has no
+#: effect in the port yet: no port module reads it until the health
+#: rules come (ROADMAP item 11)
+SERVING_ADMIT_WAIT_BUDGET_MS = \
+    "spark.rapids.tpu.serving.health.admitWaitBudgetMs"
+#: cross-tenant work sharing: the result cache and shared scans
+SHARING_ENABLED = "spark.rapids.tpu.serving.sharing.enabled"
+#: bytes of Arrow IPC results the result cache keeps (LRU)
+RESULT_CACHE_BUDGET = "spark.rapids.tpu.serving.resultCache.budgetBytes"
+#: shared scans under the sharing switch
+SHARING_SCANS = "spark.rapids.tpu.serving.sharing.scans"
+#: bytes of decoded host tables completed shared scans keep
+SCAN_CACHE_BUDGET = "spark.rapids.tpu.serving.sharing.scanCache.budgetBytes"
+#: every collect carries a cancel token (``serving/cancel.py``)
+CANCEL_ENABLED = "spark.rapids.tpu.serving.cancellation.enabled"
+#: per-query deadline in ms from admission on (0: none)
+DEADLINE_MS = "spark.rapids.tpu.serving.deadlineMs"
+#: consecutive failed queries that open a tenant's breaker (0: off)
+BREAKER_THRESHOLD = "spark.rapids.tpu.serving.breaker.failureThreshold"
+#: how long an open breaker quarantines before its half-open probe (ms)
+BREAKER_COOLDOWN_MS = "spark.rapids.tpu.serving.breaker.cooldownMs"
+#: breaker trips a window of queries should stay within: HC013's budget,
+#: in docs/serving.md's table; no effect in the port yet, as for
+#: SERVING_ADMIT_WAIT_BUDGET_MS
+BREAKER_MAX_TRIPS = "spark.rapids.tpu.serving.breaker.health.maxTrips"
 
 DEFAULTS: dict[str, Any] = {
     SHUFFLE_PARTITIONS: 8,
@@ -154,6 +197,22 @@ DEFAULTS: dict[str, Any] = {
     COALESCE_TARGET_BYTES: 128 << 20,
     FAULTS_ENABLED: False,
     FAULTS_SPEC: "",
+    LOCK_TRACKER_ENABLED: False,
+    SERVING_MAX_CONCURRENT: 0,
+    SERVING_QUEUE_DEPTH: 32,
+    SERVING_DEFAULT_PRIORITY: 1,
+    PLAN_CACHE_CAPACITY: 32,
+    SERVING_BATCHING: True,
+    SERVING_ADMIT_WAIT_BUDGET_MS: 250.0,
+    SHARING_ENABLED: False,
+    RESULT_CACHE_BUDGET: 256 << 20,
+    SHARING_SCANS: True,
+    SCAN_CACHE_BUDGET: 128 << 20,
+    CANCEL_ENABLED: True,
+    DEADLINE_MS: 0.0,
+    BREAKER_THRESHOLD: 0,
+    BREAKER_COOLDOWN_MS: 5000.0,
+    BREAKER_MAX_TRIPS: 0,
 }
 
 #: the keys that run a query serially: every task, file and stage one
@@ -174,7 +233,11 @@ def register(key: str, default: Any) -> str:
 
 _AT_LEAST_ONE = (TASK_THREADS, DECODE_THREADS, CONCURRENT_TASKS,
                  PIPELINE_DEPTH, SPLIT_MIN_ROWS, COALESCE_TARGET_ROWS,
-                 COALESCE_TARGET_BYTES)
+                 COALESCE_TARGET_BYTES, SERVING_DEFAULT_PRIORITY,
+                 PLAN_CACHE_CAPACITY)
+_AT_LEAST_ZERO = (SERVING_QUEUE_DEPTH, RESULT_CACHE_BUDGET,
+                  SCAN_CACHE_BUDGET, DEADLINE_MS, BREAKER_THRESHOLD,
+                  BREAKER_COOLDOWN_MS, BREAKER_MAX_TRIPS)
 
 
 class TorchConf:
@@ -191,6 +254,8 @@ class TorchConf:
         value = type(DEFAULTS[key])(value)
         if key in _AT_LEAST_ONE and value < 1:
             raise ValueError(f"{key} must be >= 1, got {value}")
+        if key in _AT_LEAST_ZERO and value < 0:
+            raise ValueError(f"{key} must be >= 0, got {value}")
         self._values[key] = value
         return self
 

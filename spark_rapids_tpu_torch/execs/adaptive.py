@@ -245,6 +245,8 @@ class TpuAdaptiveJoinExec(TpuExec):
         self._decided: Optional[TpuExec] = None
         self._decision = "undecided"
         self._lock = threading.Lock()
+        #: set by close(): the next drain decides again
+        self._redrain = False
         self.rf_build_first: Optional[str] = None
         self.metrics = Metrics("adaptiveBroadcasts", "coalescedPartitions",
                                "skewSplits")
@@ -299,8 +301,11 @@ class TpuAdaptiveJoinExec(TpuExec):
 
     def _decide(self) -> TpuExec:
         with self._lock:
-            if self._decided is not None:
+            if self._decided is not None and not self._redrain:
                 return self._decided
+            # a cached tree drained again decides again from this
+            # drain's map output: the last one's may not hold
+            self._redrain = False
             from spark_rapids_tpu_torch.plan.planner import (
                 broadcast_candidates,
             )
@@ -386,8 +391,10 @@ class TpuAdaptiveJoinExec(TpuExec):
 
     def close(self) -> None:
         """Close the decided exec (a runtime broadcast's build is a store
-        entry); the exchanges are children, closed by the walk."""
+        entry); the exchanges are children, closed by the walk.  The
+        decision stays readable, and the next drain makes a new one."""
         with self._lock:
             decided = self._decided
+            self._redrain = decided is not None
         if decided is not None and hasattr(decided, "close"):
             decided.close()

@@ -69,13 +69,28 @@ def run_tasks(fn: Callable[[int], R], n_tasks: int,
     failed before the rest were cancelled) is raised in the caller with
     its own type and traceback; tasks not yet started are cancelled;
     the pool's threads are joined before the call returns or raises.
-    Counterpart of the JAX exchange's ``_run_tasks``."""
+    The caller's cancel token is attached on the pool threads, and each
+    task starts at a checkpoint.  Counterpart of the JAX exchange's
+    ``_run_tasks``."""
+    from spark_rapids_tpu_torch.serving import cancel as _cancel
+
     if threads <= 1 or n_tasks <= 1:
-        return [fn(i) for i in range(n_tasks)]
+        out = []
+        for i in range(n_tasks):
+            _cancel.check_point()
+            out.append(fn(i))
+        return out
+    ctok = _cancel.current_token()
+
+    def run(i: int) -> R:
+        with _cancel.attach_token(ctok):
+            _cancel.check_point()
+            return fn(i)
+
     pool = ThreadPoolExecutor(max_workers=min(threads, n_tasks),
                               thread_name_prefix=POOL_THREAD_PREFIX + "task")
     try:
-        futures = [pool.submit(fn, i) for i in range(n_tasks)]
+        futures = [pool.submit(run, i) for i in range(n_tasks)]
         wait(futures, return_when=FIRST_EXCEPTION)
         for f in futures:
             f.cancel()

@@ -105,6 +105,11 @@ from spark_rapids_tpu_torch.ops.partition import (
 )
 from spark_rapids_tpu_torch.ops.range_partition import choose_bounds
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
+from spark_rapids_tpu_torch.serving.cancel import (
+    attach_token,
+    check_point,
+    current_token,
+)
 
 #: seed of the range exchange's sample positions (the JAX package's)
 RANGE_SAMPLE_SEED = 0x52414E47
@@ -202,6 +207,7 @@ class TpuShuffleExchangeExec(TpuExec):
 
         try:
             for batch in self.children[0].execute_partition(child_part):
+                check_point()
                 sem.acquire_if_necessary(task)
                 if batch.num_rows:
                     batches += 1
@@ -475,6 +481,7 @@ def drain_in_order(child: TpuExec, threads: int,
     window = _ReorderWindow(n, 2 * threads)
     parts = iter(range(n))
     parts_lock = threading.Lock()
+    ctok = current_token()
 
     def worker() -> None:
         try:
@@ -485,7 +492,8 @@ def drain_in_order(child: TpuExec, threads: int,
                     return
                 task = object()
                 try:
-                    with contextlib.closing(child.execute_partition(p)) as it:
+                    with attach_token(ctok), \
+                            contextlib.closing(child.execute_partition(p)) as it:
                         for batch in it:
                             sem.acquire_if_necessary(task)
                             if not window.put(

@@ -320,6 +320,18 @@ class TpuRuntimeFilterBuildExec(TpuExec):
         for (_k, rf), st in zip(self.entries, acc):
             RF.finalize(rf, st)
 
+    def close(self) -> None:
+        """Set the filters pending again, so that a cached plan's next
+        drain starts as a first drain does: its scans apply nothing
+        until this drain's build side has published (the last drain's
+        keys may not hold).  Each filter keeps what it published as
+        ``last``."""
+        with self._lock:
+            self._acc, self._parts_done = None, set()
+            self._published = False
+            for _k, rf in self.entries:
+                rf.reset()
+
 
 class TpuShuffledHashJoinExec(_HashJoinBase):
     """``partition_wise=False``: wide, the whole build side against every

@@ -127,8 +127,10 @@ def reset_retry_stats() -> None:
 
 def is_retryable(exc: BaseException) -> bool:
     """A device memory failure (a retry may succeed) or not (fail
-    fast)."""
-    if isinstance(exc, KernelError):
+    fast).  A cancellation is a verdict, never retried."""
+    from spark_rapids_tpu_torch.serving.cancel import QueryCancelled
+
+    if isinstance(exc, (KernelError, QueryCancelled)):
         return False
     if isinstance(exc, MemoryError):
         return True
@@ -201,6 +203,10 @@ def _retry_loop(fn: Callable[[], R], stat_key: str, action: str,
         except BaseException as e:  # noqa: BLE001 - classified below
             if not is_retryable(e) or attempt == attempts - 1:
                 raise
+            # a cancelled query burns no backoff and no re-attempt
+            from spark_rapids_tpu_torch.serving.cancel import check_point
+
+            check_point()
             caught.append(e)
             _caught(e)
             _bump(stat_key)

@@ -52,9 +52,11 @@ Output column names are the JAX frontend's, letter for letter: an
 unaliased aggregate is named for its function (``sum``), an unaliased
 computed column ``col<i>``.
 
-Left out of the port: the serving tier's ``prepare`` /
-``PreparedQuery``; the plugin registry; and the sweep harness's feature
-kill switches.  What the JAX frontend rejects, the port rejects with
+``SqlSession.prepare(text)`` returns the serving tier's
+``PreparedQuery`` (``serving/prepared.py``): each binding of its named
+parameters is parsed and lowered once, and its repeats drain the
+cached plan.  Left out of the port: the sweep harness's feature kill
+switches.  What the JAX frontend rejects, the port rejects with
 the same SqlError: ``hour()``, ``minute()``, ``date_format()``,
 ``unix_timestamp()`` and ``from_unixtime()`` as functions (the last two
 exist in the DataFrame API), a ``timestamp '...'`` literal, and an
@@ -88,6 +90,12 @@ from spark_rapids_tpu_torch.exprs import window as W
 from spark_rapids_tpu_torch.exprs.base import expr_key
 from spark_rapids_tpu_torch.exprs.subquery import ScalarSubquery
 from spark_rapids_tpu_torch.session import TorchSession, count_distinct
+
+
+def param_names(text: str) -> frozenset:
+    """The named parameters (``:name``) a template references."""
+    return frozenset(tok[1][1:] for tok in _tokenize(text)
+                     if tok[0] == "param")
 
 
 class SqlError(ValueError):
@@ -1129,8 +1137,10 @@ class SqlSession:
     DataFrame's, on the session's device: ``cuda`` unless the caller
     passes ``device="cpu"``."""
 
-    def __init__(self, conf=None, device="cuda"):
-        self.session = TorchSession(conf, device=device)
+    def __init__(self, conf=None, device="cuda", tenant: str = "default",
+                 priority=None):
+        self.session = TorchSession(conf, device=device, tenant=tenant,
+                                    priority=priority)
         self._tables: dict[str, object] = {}
 
     # -- registry -- #
@@ -1170,6 +1180,20 @@ class SqlSession:
                     + ", ".join(f":{n}" for n in unused)
                     + " — not referenced by the query")
         return self._lower(q)
+
+    def prepare(self, text: str):
+        """A ``PreparedQuery`` over ``text``, whose ``:name`` parameters
+        bind at each ``execute(params=...)``: each binding is parsed and
+        lowered once, and its repeats drain the cached plan.  A text
+        without parameters is lowered here."""
+        from spark_rapids_tpu_torch.serving.prepared import PreparedQuery
+
+        names = param_names(text)
+        pq = PreparedQuery(self.session, sql_text=text, sql_session=self,
+                           param_names=names)
+        if not names:
+            pq._resolve(None)  # validate and warm the cache now
+        return pq
 
     def _lower(self, q: dict, ctes: Optional[dict] = None):
         # CTE scope: outer names plus this statement's WITH list, each

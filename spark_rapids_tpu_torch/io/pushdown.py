@@ -228,10 +228,8 @@ def runtime_range_may_match(name: str, rf, rg_meta) -> bool:
     """False only when the row group's statistics prove that no key of
     column ``name`` falls in the filter's [min, max], or the build side
     was empty."""
-    if not rf.ready:
-        return True
-    if rf.n_keys == 0:
-        return False
+    if not rf.range_may_match(None, None):
+        return False  # the build side was empty
     st = None
     for ci in range(rg_meta.num_columns):
         col = rg_meta.column(ci)

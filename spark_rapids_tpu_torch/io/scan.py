@@ -207,6 +207,9 @@ class ParquetScanExec(TpuExec):
         self._prefilter_failed = False
         #: [(column name, RuntimeFilter)], registered by the planner
         self.runtime_filters: list = []
+        #: the conf of a session with shared scans on
+        #: (``serving/work_share.py``), set by the planner; None: off
+        self.share_conf = None
         #: the files' footer row count, from the logical scan
         #: (plan/cost.py)
         self.estimated_rows = estimated_rows
@@ -433,19 +436,118 @@ class ParquetScanExec(TpuExec):
         finally:
             decoded.close()
 
+    def task_paths(self, p: int) -> list[str]:
+        """The files of scan task ``p``."""
+        return [self.paths[fi] for fi in self._groups[p]]
+
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        """Scan task ``p``.  With shared scans on (``share_conf``) and no
+        runtime filter, a task another query is already decoding under
+        the same key is subscribed to instead of decoded again (JAX
+        ``io/scan.py``); the first arrival leads and publishes each
+        decoded table."""
         names = self._read_schema.names
         rfs = [(n, rf) for n, rf in self._ready_runtime_filters()
                if n in names]
         depth = self.runtime.stage_depth
+        share = None
+        if self.share_conf is not None and not self.runtime_filters:
+            from spark_rapids_tpu_torch import config as C
+            from spark_rapids_tpu_torch.plan.share_key import scan_share_key
+            from spark_rapids_tpu_torch.serving import work_share as _ws
+
+            skey = scan_share_key(self, p, self.share_conf)
+            if skey is not None:
+                share, leader = _ws.SCAN_REGISTRY.begin(
+                    skey, int(self.share_conf.get(C.SCAN_CACHE_BUDGET)))
+                if share is not None and not leader:
+                    yield from self._subscribe_shared(share, p, rfs)
+                    return
+        decoded = self._counted(self._decoded(p, rfs))
+        if share is not None:
+            decoded = self._publishing(decoded, share)
         units = prefetch(self._staged(prefetch(
-            self._decoded(p, rfs), depth, "scan.decode")), depth,
-            "scan.upload")
+            decoded, depth, "scan.decode")), depth, "scan.upload")
         try:
             for unit in units:
                 yield finish_upload(unit, self.metrics)
         finally:
             units.close()
+
+    @staticmethod
+    def _counted(decoded: Iterator[pa.Table]) -> Iterator[pa.Table]:
+        """Tick the sharing tier's decode counter per decoded table."""
+        from spark_rapids_tpu_torch.serving.work_share import (
+            record_scan_decode,
+        )
+
+        try:
+            for tbl in decoded:
+                record_scan_decode(tbl.num_rows)
+                yield tbl
+        finally:
+            decoded.close()
+
+    def _publishing(self, decoded: Iterator[pa.Table], share
+                    ) -> Iterator[pa.Table]:
+        """The leader's tables, each published to the shared entry as it
+        is made; the entry completes after the last, and aborts (its
+        subscribers then decode themselves) if the leader stops
+        early."""
+        from spark_rapids_tpu_torch import config as C
+        from spark_rapids_tpu_torch.serving import work_share as _ws
+
+        completed = False
+        try:
+            for tbl in decoded:
+                share.publish(tbl)
+                yield tbl
+            completed = True
+        finally:
+            decoded.close()
+            if completed:
+                share.complete()
+            else:
+                share.abort()
+            _ws.SCAN_REGISTRY.release(
+                share, int(self.share_conf.get(C.SCAN_CACHE_BUDGET)))
+
+    def _subscribe_shared(self, share, p: int, rfs: list
+                          ) -> Iterator[ColumnarBatch]:
+        """Ride another query's decode of this task: upload its tables
+        as they come (no tensor is shared); if the leader aborts, decode
+        the rest here, skipping the tables already uploaded."""
+        from spark_rapids_tpu_torch import config as C
+        from spark_rapids_tpu_torch.serving import work_share as _ws
+
+        _ws.tick("scan_subscribes")
+        consumed = 0
+
+        def upload(tbl: pa.Table) -> ColumnarBatch:
+            return finish_upload(
+                stage_upload(tbl, self.device, self._schema,
+                             self.runtime.upload_stream, self.metrics),
+                self.metrics)
+
+        try:
+            try:
+                for tbl in share.subscribe_units():
+                    _ws.tick("scan_units_shared")
+                    self.metrics.add("numOutputRows", tbl.num_rows)
+                    consumed += 1
+                    yield upload(tbl)
+                return
+            except _ws.ScanShareAborted:
+                pass
+            rest = self._counted(self._decoded(p, rfs))
+            try:
+                for tbl in itertools.islice(rest, consumed, None):
+                    yield upload(tbl)
+            finally:
+                rest.close()
+        finally:
+            _ws.SCAN_REGISTRY.release(
+                share, int(self.share_conf.get(C.SCAN_CACHE_BUDGET)))
 
 
 class ArrowSourceExec(TpuExec):

@@ -6,8 +6,10 @@ Counterpart of ``spark_rapids_tpu/memory/device_manager.py``
 - ``device_alloc_checkpoint``: the ``alloc.device`` fault seam that
   ``BufferStore.reserve`` consults before it admits a reservation, in
   place of the allocation-failure hook the allocator does not expose;
-- ``initialize(conf, device)`` sizes a session's buffer store and
-  installs it as the process store.  On CUDA the device budget is
+- ``initialize(conf, device)`` sizes the buffer store and installs it
+  as the process store: the plugin calls it once at bring-up
+  (``plugin.py``), and a test or a run that wants another budget calls
+  it again through a plugin restart.  On CUDA the device budget is
   ``memory.fraction`` of the card's memory as
   ``torch.cuda.mem_get_info`` reports it (the JAX code asks PJRT's
   ``memory_stats``), unless the conf sets ``memory.hbm.budgetBytes``

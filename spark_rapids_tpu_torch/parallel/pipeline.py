@@ -12,7 +12,12 @@ result fetch) overlaps its consumer's.  The contract is the JAX one:
   aborts the stage: the producer wakes from a blocked put, its
   generator is closed on the producer thread (its ``finally`` blocks
   run there), and the thread is joined;
-- depth <= 0 runs the generator inline.
+- depth <= 0 runs the generator inline;
+- the query's cancel token (``serving/cancel.py``) is captured where
+  the stage starts and attached on the producer thread; the channel's
+  waits are bounded and check it, and the producer checks it before
+  each put, so a cancelled query unwinds from either side (JAX
+  ``_Chan.put`` / ``pop`` and the producer loop).
 
 The JAX module's thread-local conf hop is not needed: the port's conf
 belongs to its session, and the planner hands each exec what it reads.
@@ -31,6 +36,8 @@ from collections import deque
 from typing import Iterable, Iterator, Optional
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch.robustness.lock_tracker import tracked_lock
+from spark_rapids_tpu_torch.serving import cancel as _cancel
 
 #: name prefix of every stage's producer thread
 STAGE_THREAD_PREFIX = "srt-pipe-"
@@ -73,7 +80,7 @@ class StageMetrics:
 
 
 _STAGES: dict[str, StageMetrics] = {}
-_STAGES_LOCK = threading.Lock()
+_STAGES_LOCK = tracked_lock("pipeline.stages")
 
 
 def _stage_metrics(name: str) -> StageMetrics:
@@ -126,12 +133,16 @@ class _Chan:
         self.error: Optional[BaseException] = None
 
     def put(self, item, m: StageMetrics) -> bool:
-        """False once the consumer aborted: the producer stops."""
+        """False once the consumer aborted: the producer stops.  The
+        wait for room is bounded and checks the query's token."""
         with self.not_full:
             if len(self.buf) >= self.depth and not self.aborted:
                 t0 = time.perf_counter_ns()
+                tok = _cancel.current_token()
                 while len(self.buf) >= self.depth and not self.aborted:
-                    self.not_full.wait()
+                    self.not_full.wait(_cancel.poll_timeout(tok))
+                    if tok is not None:
+                        tok.check()
                 with m._lock:
                     m.producer_wait_ns += time.perf_counter_ns() - t0
             if self.aborted:
@@ -155,8 +166,14 @@ class _Chan:
                 m.samples += 1
             if not self.buf and not self.done:
                 t0 = time.perf_counter_ns()
+                tok = _cancel.current_token()
                 while not self.buf and not self.done:
-                    self.not_empty.wait()
+                    # bounded and token-checked: a cancelled consumer
+                    # raises here, and prefetch's finally then aborts
+                    # the stage and joins the producer
+                    self.not_empty.wait(_cancel.poll_timeout(tok))
+                    if tok is not None:
+                        tok.check()
                 with m._lock:
                     m.consumer_wait_ns += time.perf_counter_ns() - t0
             if self.buf:
@@ -186,14 +203,17 @@ def prefetch(gen: Iterable, depth: int, stage: str = "stage") -> Iterator:
     with m._lock:
         m.depth = max(m.depth, depth)
     chan = _Chan(depth)
+    ctok = _cancel.current_token()
 
     def produce() -> None:
         err: Optional[BaseException] = None
         try:
             try:
-                for item in gen:
-                    if not chan.put(item, m):
-                        return
+                with _cancel.attach_token(ctok):
+                    for item in gen:
+                        _cancel.check_point()
+                        if not chan.put(item, m):
+                            return
             except BaseException as e:  # noqa: BLE001 - raised at consumer
                 err = e
         finally:

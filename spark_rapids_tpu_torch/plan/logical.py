@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 import threading
+import weakref
 from typing import Optional, Sequence
 
 import pyarrow as pa
@@ -126,6 +127,14 @@ class Scan(LogicalPlan):
         return f"Scan {[os.path.basename(p) for p in self.paths]}"
 
 
+_DIGESTS_COMPUTED = 0
+
+
+def digests_computed() -> int:
+    """How many in-memory tables ``content_digest`` has hashed."""
+    return _DIGESTS_COMPUTED
+
+
 class InMemoryRelation(LogicalPlan):
     """A host Arrow table (``TorchSession.create_dataframe``)."""
 
@@ -133,6 +142,19 @@ class InMemoryRelation(LogicalPlan):
         self.children = []
         self.table = table
         self._schema = schema_from_arrow(table.schema)
+        self._content_digest: Optional[str] = None
+
+    def content_digest(self) -> str:
+        """The table's content digest (``eventlog.table_digest``), hashed
+        once per relation: Arrow tables are immutable, and the serving
+        tier's plan keys would otherwise hash it at every prepare."""
+        global _DIGESTS_COMPUTED
+        if self._content_digest is None:
+            from spark_rapids_tpu_torch.eventlog import table_digest
+
+            _DIGESTS_COMPUTED += 1
+            self._content_digest = table_digest(self.table)
+        return self._content_digest
 
     @property
     def schema(self) -> T.Schema:
@@ -430,20 +452,33 @@ class Union(LogicalPlan):
         return None if None in rows else sum(rows)
 
 
+def _close_parts(held: dict) -> None:
+    for handles in held.pop("parts", None) or ():
+        for h in handles:
+            h.close()
+
+
 class CacheSlot:
     """What ``df.cache()`` shares between the plans that read it: filled
     once, by the first device run that drains the cached subtree, with
     a list per partition of buffer-store handles; every later plan over
     the slot serves those batches and never runs the subtree.  The CPU
     engine keeps its own materialization, ``cpu_table``.  ``publish``
-    keeps the first of two racing fills and closes the other's."""
+    keeps the first of two racing fills and closes the other's.  The
+    store is the process's, shared by every session, so a slot that no
+    plan reaches any more closes its batches when it is collected."""
 
     def __init__(self):
         self.lock = threading.Lock()
-        #: a list per partition of ``SpillableBatch`` handles; None
-        #: until a run publishes
-        self.parts: Optional[list] = None
+        #: "parts": a list per partition of ``SpillableBatch`` handles;
+        #: None until a run publishes
+        self._held: dict = {"parts": None}
         self.cpu_table: Optional[pa.Table] = None
+        weakref.finalize(self, _close_parts, self._held)
+
+    @property
+    def parts(self) -> Optional[list]:
+        return self._held.get("parts")
 
     @property
     def filled(self) -> bool:
@@ -451,8 +486,8 @@ class CacheSlot:
 
     def publish(self, parts: list) -> None:
         with self.lock:
-            if self.parts is None:
-                self.parts, parts = parts, []
+            if self._held.get("parts") is None:
+                self._held["parts"], parts = parts, []
         for handles in parts:  # lost the race: drop ours
             for h in handles:
                 h.close()
@@ -460,7 +495,7 @@ class CacheSlot:
     def clear(self) -> None:
         """Close every stored batch (``DataFrame.unpersist``)."""
         with self.lock:
-            parts, self.parts = self.parts, None
+            parts, self._held["parts"] = self._held.get("parts"), None
             self.cpu_table = None
         for handles in parts or ():
             for h in handles:

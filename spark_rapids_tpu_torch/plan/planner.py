@@ -131,7 +131,7 @@ each node ``*`` (GPU) or ``!`` (CPU) with the reasons.
 from __future__ import annotations
 
 import copy
-from typing import Optional
+from typing import Iterator, Optional
 
 import pyarrow as pa
 import torch
@@ -139,6 +139,7 @@ import torch
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
+from spark_rapids_tpu_torch.serving.cancel import check_point
 from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
 from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
@@ -569,8 +570,9 @@ class PlanMeta:
 
 class Planner:
     """Lowers logical plans for one session: its conf, device, shuffle
-    manager, task semaphore (None: one sized by the conf) and upload
-    stream (None: uploads on the consumer's stream)."""
+    manager, task semaphore (None: the process semaphore), upload
+    stream (None: uploads on the consumer's stream) and buffer store
+    (None: the process store, read when an exec parks a batch)."""
 
     def __init__(self, conf: C.TorchConf, device: torch.device,
                  manager: ShuffleManager,
@@ -580,7 +582,7 @@ class Planner:
         self.device = device
         self.manager = manager
         self.runtime = TaskRuntime(
-            semaphore or TpuSemaphore(conf.get(C.CONCURRENT_TASKS)),
+            semaphore or TpuSemaphore.get(conf),
             task_threads=conf.get(C.TASK_THREADS),
             decode_threads=conf.get(C.DECODE_THREADS),
             stage_depth=stage_depth(conf), upload_stream=upload_stream,
@@ -647,7 +649,7 @@ class Planner:
                 self.device, self.conf.get(C.BATCH_ROWS), self.runtime,
                 ansi=ansi)
         if isinstance(p, L.Scan):
-            return ParquetScanExec(
+            scan = ParquetScanExec(
                 p.paths, p.schema, self.device,
                 self.conf.get(C.TASK_TARGET_BYTES),
                 self.conf.get(C.BATCH_ROWS), _leaf_columns(p.schema, required),
@@ -656,6 +658,10 @@ class Planner:
                 host_prefilter=self.conf.get(C.HOST_PREFILTER),
                 max_decoded_bytes=self.conf.get(C.MAX_READ_BATCH_BYTES),
                 rebase_mode=self.conf.get(REBASE_MODE_READ))
+            if self.conf.get(C.SHARING_ENABLED) \
+                    and self.conf.get(C.SHARING_SCANS):
+                scan.share_conf = self.conf
+            return scan
         if isinstance(p, L.InMemoryRelation):
             return ArrowSourceExec(p.table, p.schema, self.device,
                                    self.conf.get(C.BATCH_ROWS),
@@ -1000,18 +1006,54 @@ def _demote_unrepresentable_boundaries(meta: PlanMeta) -> None:
                     changed = True
 
 
+def plan_query(plan: L.LogicalPlan, planner: "Planner"
+               ) -> tuple[TpuExec, PlanMeta]:
+    """Lower a logical plan: the one place a collect, a stream or a
+    prepared template's first execution plans (a prepared template's
+    later executions never come here)."""
+    return planner.plan_with_meta(plan)
+
+
+def close_tree(exec_: TpuExec) -> None:
+    """Close every node of a physical plan: it releases what the drain
+    held and leaves the tree ready to drain again."""
+    for node in exec_.walk():
+        if hasattr(node, "close"):
+            node.close()
+
+
+def _checked(batches: Iterator) -> Iterator:
+    """The drain loop's cancellation checkpoint: a cancelled query
+    raises here, on the consumer's thread, before each batch."""
+    for b in batches:
+        check_point()
+        yield b
+
+
 def collect_exec(exec_: TpuExec, conf: C.TorchConf) -> pa.Table:
     """Run a physical plan to an Arrow table, fetching batches on a
     ``result.fetch`` stage; the stage and the exec tree are closed on
     every exit."""
     fetch = prefetch(exec_.execute(), stage_depth(conf), "result.fetch")
     try:
-        return batches_to_arrow(fetch, exec_.schema)
+        return batches_to_arrow(_checked(fetch), exec_.schema)
     finally:
         fetch.close()
-        for node in exec_.walk():
-            if hasattr(node, "close"):
-                node.close()
+        close_tree(exec_)
+
+
+def stream_exec(exec_: TpuExec, conf: C.TorchConf) -> Iterator[pa.Table]:
+    """Run a physical plan and yield each batch as an Arrow table as the
+    ``serve.stream.fetch`` stage yields it (the stage runs at most its
+    depth ahead of the consumer); the stage and the tree are closed on
+    every exit, a consumer's early close too."""
+    fetch = prefetch(exec_.execute(), stage_depth(conf), "serve.stream.fetch")
+    try:
+        for batch in _checked(fetch):
+            yield batches_to_arrow(iter([batch]), exec_.schema)
+    finally:
+        fetch.close()
+        close_tree(exec_)
 
 
 def _has_subquery(e: Expression) -> bool:

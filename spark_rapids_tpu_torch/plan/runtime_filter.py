@@ -60,7 +60,7 @@ from __future__ import annotations
 import math
 import threading
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -121,6 +121,15 @@ _NEXT_ID = [0]
 _ID_LOCK = threading.Lock()
 
 
+class _Published(NamedTuple):
+    min_val: int
+    max_val: int
+    n_keys: int
+    bloom_words: np.ndarray
+    build_ms: float
+    range_table: Optional[np.ndarray]
+
+
 class RuntimeFilter:
     """One filter on one join key: pending until its build exec
     publishes it.  A scan never waits for it: a filter that is not
@@ -138,65 +147,82 @@ class RuntimeFilter:
         self.n_hashes = n_hashes
         self.build_desc = build_desc
         self.is64 = isinstance(dtype, _SUPPORTED_64)
-        self._ready = threading.Event()
-        self.min_val: Optional[int] = None
-        self.max_val: Optional[int] = None
-        self.bloom_words: Optional[np.ndarray] = None  # uint32[n_bits/32]
-        self.n_keys = 0
-        self.build_ms = 0.0
-        #: bool[max - min + 3]: the Bloom's answers over [min, max]
-        #: between two False ends (``LUT_MAX_SPAN``), or None
-        self.range_table: Optional[np.ndarray] = None
+        #: the published state, replaced as one object, so a scan that
+        #: read it keeps a whole one while a reset or publish goes on
+        self._pub: Optional[_Published] = None
+        #: what the last drain published, kept for explain() and the
+        #: tests once close() has set the filter pending again
+        self.last: Optional[_Published] = None
 
     @property
     def ready(self) -> bool:
-        return self._ready.is_set()
+        return self._pub is not None
+
+    min_val = property(lambda self: self._field("min_val"))
+    max_val = property(lambda self: self._field("max_val"))
+    n_keys = property(lambda self: self._field("n_keys", 0))
+    #: uint32[n_bits/32]
+    bloom_words = property(lambda self: self._field("bloom_words"))
+    build_ms = property(lambda self: self._field("build_ms", 0.0))
+    #: bool[max - min + 3]: the Bloom's answers over [min, max] between
+    #: two False ends (``LUT_MAX_SPAN``), or None
+    range_table = property(lambda self: self._field("range_table"))
+
+    def _field(self, name: str, default=None):
+        pub = self._pub
+        return default if pub is None else getattr(pub, name)
+
+    def reset(self) -> None:
+        """Pending again: the build exec's close() calls it after a
+        drain, so a cached plan's next drain starts as a first drain
+        does, and its scans apply nothing until the build side has
+        published this drain's keys (the last drain's may not hold)."""
+        self._pub = None
 
     def publish(self, min_val: int, max_val: int, n_keys: int,
                 bloom_words: np.ndarray, build_ms: float,
                 range_table: Optional[np.ndarray] = None) -> None:
-        self.min_val = int(min_val)
-        self.max_val = int(max_val)
-        self.n_keys = int(n_keys)
-        self.bloom_words = bloom_words
-        self.build_ms = build_ms
-        self.range_table = range_table
-        self._ready.set()
+        self._pub = self.last = _Published(
+            int(min_val), int(max_val), int(n_keys), bloom_words, build_ms,
+            range_table)
 
     def range_may_match(self, lo, hi) -> bool:
         """Could a key in [lo, hi] pass this filter's min/max?  Unknown
         bounds keep the row group."""
-        if not self.ready:
+        pub = self._pub
+        if pub is None:
             return True
-        if self.n_keys == 0:
+        if pub.n_keys == 0:
             return False  # an empty build side matches nothing
         if lo is None or hi is None:
             return True
-        return not (hi < self.min_val or lo > self.max_val)
+        return not (hi < pub.min_val or lo > pub.max_val)
 
     def probe_host(self, values, validity=None) -> np.ndarray:
         """bool[n] keep-mask for int64 key values; NULL slots (validity
         False) are dropped, since a NULL key never equi-matches."""
         values = np.asarray(values, np.int64)
-        if not self.ready:
+        pub = self._pub
+        if pub is None:
             return np.ones(len(values), bool)
-        if self.n_keys == 0:
+        if pub.n_keys == 0:
             return np.zeros(len(values), bool)
-        if self.range_table is not None:
+        if pub.range_table is not None:
             # a key's offset from min - 1 lands in [1, max - min + 1]
             # exactly when the key is in range (int64 wrapping is a
             # bijection); any other offset clips onto a False end
-            mask = np.take(self.range_table, values - (self.min_val - 1),
+            mask = np.take(pub.range_table, values - (pub.min_val - 1),
                            mode="clip")
         else:
-            mask = (values >= self.min_val) & (values <= self.max_val)
+            mask = (values >= pub.min_val) & (values <= pub.max_val)
             rows = np.flatnonzero(mask)
-            mask[rows] = self._bloom_mask(values[rows])
+            mask[rows] = self._bloom_mask(values[rows], pub.bloom_words)
         if validity is not None:
             mask &= np.asarray(validity, bool)
         return mask
 
-    def _bloom_mask(self, values: np.ndarray) -> np.ndarray:
+    def _bloom_mask(self, values: np.ndarray,
+                    bloom_words: np.ndarray) -> np.ndarray:
         """bool[n]: may each key be in the Bloom filter?"""
         if self.is64:
             h1 = hashing.np_hash_int64_blocks(values, BLOOM_SEED1)
@@ -209,13 +235,19 @@ class RuntimeFilter:
         mask = np.ones(len(values), bool)
         for i in range(self.n_hashes):
             idx = (h1 + np.uint32(i) * h2) & m_mask
-            bit = (self.bloom_words[idx >> np.uint32(5)]
+            bit = (bloom_words[idx >> np.uint32(5)]
                    >> (idx & np.uint32(31))) & np.uint32(1)
             mask &= bit.astype(bool)
         return mask
 
     def describe(self) -> str:
-        state = f"ready n={self.n_keys}" if self.ready else "pending"
+        pub = self._pub
+        if pub is not None:
+            state = f"ready n={pub.n_keys}"
+        elif self.last is not None:
+            state = f"pending, last drain n={self.last.n_keys}"
+        else:
+            state = "pending"
         return (f"rf#{self.rf_id} key={self.key_name} (minmax+bloom"
                 f"[{self.n_bits}b x{self.n_hashes}], {self.join_type}, "
                 f"{state})")

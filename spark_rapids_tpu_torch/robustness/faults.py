@@ -1,13 +1,17 @@
 """Deterministic fault injection at the memory runtime's seams.
 
-Counterpart of ``spark_rapids_tpu/robustness/faults.py`` for the two
+Counterpart of ``spark_rapids_tpu/robustness/faults.py`` for the three
 sites this port has:
 
 - ``alloc.device``: ``memory/device_manager.device_alloc_checkpoint``,
   which ``BufferStore.reserve`` calls before it admits a device
   reservation;
 - ``exec.batch``: ``execs/retry.with_split_retry``, once per attempt of
-  a guarded batch in the join, aggregate, sort and exchange loops.
+  a guarded batch in the join, aggregate, sort and exchange loops;
+- ``cancel.check``: ``serving/cancel.check_point``, once per
+  cooperative cancellation checkpoint while a query's token is
+  attached; an injected hit cancels that token, so a schedule drives
+  the real unwind.
 
 They let the CPU tests force what a card does under pressure: a
 retryable failure at an exact call, which the store's spill-and-retry
@@ -33,7 +37,7 @@ from typing import Iterator, Optional
 from spark_rapids_tpu_torch import config as C
 
 #: the ported sites (parse_spec refuses any other)
-SITES = ("alloc.device", "exec.batch")
+SITES = ("alloc.device", "exec.batch", "cancel.check")
 
 #: default error text per site: each carries a marker that
 #: ``execs/retry.is_retryable`` classifies as retryable
@@ -42,6 +46,10 @@ _DEFAULT_MARKERS = {
         "RESOURCE_EXHAUSTED: injected device allocation failure",
     "exec.batch":
         "RESOURCE_EXHAUSTED: injected batch processing fault",
+    # no retryable marker: check_point turns the hit into a real token
+    # cancel, which fails fast through the ladder like a user's
+    "cancel.check":
+        "injected cancellation at a cancel.check checkpoint",
 }
 
 

@@ -46,25 +46,37 @@ opaque UDF's tier.
 A session runs on one device, ``cuda`` unless the caller asks for the
 CPU.  Asking for CUDA on a host without it raises: the CPU engine that
 runs the nodes the planner tags off the GPU is part of the plan, not a
-device.  It owns its shuffle manager, its task semaphore (sized by
-``sql.concurrentTpuTasks`` when it is made), its buffer store (made by
-``memory/device_manager.initialize`` and installed as the process
-store: on CUDA its device budget is ``memory.fraction`` of the card
-unless ``memory.hbm.budgetBytes`` is set; its disk tier under
-``memory.spill.dir`` or a temporary directory) and, on CUDA, the side
-stream its scans upload on.  ``spill_stats()`` and ``retry_stats()``
+device.  It owns its shuffle manager and, on CUDA, the side stream its
+scans upload on.  The buffer store and the task semaphore are the
+process's (``plugin.py``): the first session brings the plugin up,
+which sizes the store from that session's conf and device (on CUDA
+``memory.fraction`` of the card unless ``memory.hbm.budgetBytes`` is
+set; its disk tier under ``memory.spill.dir`` or a temporary
+directory) and makes the semaphore; later sessions use them, and each
+query aligns the semaphore's permits with its conf
+(``TpuSemaphore.sync_conf``).  ``spill_stats()`` and ``retry_stats()``
 read the store's and the OOM ladder's counters; after a ``collect``
 the store holds none of the query's batches.  A conf with
 ``robustness.faults.enabled`` arms its fault schedule for each query.
 ``collect`` runs the plan on a ``result.fetch`` stage and converts each
-batch as it comes, as the JAX package's ``stream_exec`` does.  ``config.SERIAL`` holds the keys that
-run a query serially.
+batch as it comes, as the JAX package's ``stream_exec`` does.
+``config.SERIAL`` holds the keys that run a query serially.
+
+The serving tier (``serving/``): ``TorchSession(conf, device, tenant=,
+priority=)`` names the admission queue its queries join and their
+weighted-fair share; every ``collect`` passes admission (one conf read
+while ``serving.maxConcurrent`` is 0), carries a cancel token
+(``cancel(query_id)``), and with ``serving.sharing.enabled`` consults
+the cross-tenant result cache.  ``prepare(df)`` returns a
+``PreparedQuery`` over the session's plan cache (``plan_cache``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
-from typing import Optional, Sequence, Union
+import threading
+from typing import Iterator, Optional, Sequence, Union
 
 import pyarrow as pa
 import torch
@@ -129,12 +141,18 @@ from spark_rapids_tpu_torch.exprs.strings import (
 )
 from spark_rapids_tpu_torch.exprs.window import WindowExpression
 from spark_rapids_tpu_torch.execs import retry as _retry
-from spark_rapids_tpu_torch.memory import device_manager
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
+from spark_rapids_tpu_torch.memory.store import get_store
 from spark_rapids_tpu_torch.plan import logical as L
-from spark_rapids_tpu_torch.plan.planner import Planner, collect_exec
+from spark_rapids_tpu_torch.plan import planner as _planner
+from spark_rapids_tpu_torch.plan.planner import Planner
 from spark_rapids_tpu_torch.plan.runtime_filter import render_runtime_filters
+from spark_rapids_tpu_torch.plugin import TorchPlugin
 from spark_rapids_tpu_torch.robustness import faults
+from spark_rapids_tpu_torch.robustness import lock_tracker as _locks
+from spark_rapids_tpu_torch.serving import cancel as _cancel
+from spark_rapids_tpu_torch.serving import update_serving_context
+from spark_rapids_tpu_torch.serving.scheduler import admission
 from spark_rapids_tpu_torch.udf.exprs import OpaquePythonUDF, TorchScalarUDF
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 
@@ -387,9 +405,20 @@ def render_udfs(plan: L.LogicalPlan) -> list[str]:
     return lines
 
 
+#: query ids, process-wide (``TorchSession.cancel(query_id)``)
+_QUERY_IDS = itertools.count(1)
+_QUERY_IDS_LOCK = threading.Lock()
+
+
+def _next_query_id() -> int:
+    with _QUERY_IDS_LOCK:
+        return next(_QUERY_IDS)
+
+
 class TorchSession:
     def __init__(self, conf: Optional[Union[TorchConf, dict]] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 tenant: str = "default", priority: Optional[int] = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -400,14 +429,69 @@ class TorchSession:
             raise ValueError(f"unsupported device {device}")
         self.device = device
         self.conf = conf if isinstance(conf, TorchConf) else TorchConf(conf)
+        self.plugin = TorchPlugin.get_or_create(self.conf, device)
         self.shuffle_manager = ShuffleManager()
-        self.semaphore = TpuSemaphore(self.conf.get(C.CONCURRENT_TASKS))
         self.upload_stream = torch.cuda.Stream(device) \
             if device.type == "cuda" else None
-        self.store = device_manager.initialize(self.conf, device)
+        #: the admission queue this session's queries join, and their
+        #: weighted-fair share (None: ``serving.defaultPriority``)
+        self.tenant = tenant
+        self.priority = priority
+        self._plan_cache = None  # made by the first prepare
+        self._plan_cache_lock = threading.Lock()
+        #: the cancel tokens of this session's queries in flight
+        self._tokens = _cancel.TokenSet()
+
+    @property
+    def store(self):
+        """The process buffer store (the live plugin's)."""
+        return get_store()
+
+    @property
+    def semaphore(self) -> TpuSemaphore:
+        """The process task semaphore."""
+        return TpuSemaphore.get(self.conf)
+
+    @property
+    def plan_cache(self):
+        """This session's prepared-plan cache (an LRU of lowered exec
+        trees, ``serving.planCache.capacity``), made on first use."""
+        with self._plan_cache_lock:
+            if self._plan_cache is None:
+                from spark_rapids_tpu_torch.serving.plan_cache import (
+                    PlanCache,
+                )
+
+                self._plan_cache = PlanCache(
+                    self.conf.get(C.PLAN_CACHE_CAPACITY))
+            return self._plan_cache
+
+    def prepare(self, df: "DataFrame"):
+        """Lower a DataFrame template once into the plan cache; the
+        returned ``PreparedQuery``'s ``execute`` / ``execute_stream``
+        drain the cached tree.  SQL text with ``:name`` parameters
+        prepares through ``frontends.sql.SqlSession.prepare``."""
+        from spark_rapids_tpu_torch.serving.prepared import PreparedQuery
+
+        if not isinstance(df, DataFrame):
+            raise TypeError("TorchSession.prepare takes a DataFrame; for "
+                            "SQL text use frontends.sql.SqlSession.prepare")
+        pq = PreparedQuery(self, df=df)
+        pq._resolve(None)  # pay the lowering now
+        return pq
+
+    def cancel(self, query_id: Optional[int] = None,
+               reason: str = "cancelled") -> int:
+        """Cancel this session's queries in flight (all, or the one with
+        ``query_id``): each raises ``QueryCancelled`` at its next
+        checkpoint and unwinds (admission slot, permits, store entries
+        released).  How many were newly cancelled.  A query still
+        waiting for admission has no id yet; only the cancel-all form
+        reaches it."""
+        return self._tokens.cancel(query_id, reason)
 
     def spill_stats(self) -> dict:
-        """The session store's gauges and spill totals
+        """The process store's gauges and spill totals
         (``BufferStore.spill_stats``)."""
         return self.store.spill_stats()
 
@@ -745,7 +829,7 @@ class DataFrame:
     def _planner(self) -> Planner:
         s = self._session
         return Planner(s.conf, s.device, s.shuffle_manager, s.semaphore,
-                       s.upload_stream, s.store)
+                       s.upload_stream)
 
     def physical_plan(self) -> TpuExec:
         return self._planner().plan(self._plan)
@@ -764,6 +848,147 @@ class DataFrame:
         """Run the query on the session's device; the result as Arrow.
         The stage and the exec tree are closed on every exit, which
         releases the query's store entries."""
+        return self._collect()
+
+    def _begin(self, token_sink):
+        """A new query's cancel token, tracked by the session (and by
+        ``token_sink``, a prepared template's set)."""
+        tok = _cancel.begin(self._session.conf, tenant=self._session.tenant)
+        self._session._tokens.add(tok)
+        if token_sink is not None:
+            token_sink.add(tok)
+        return tok
+
+    def _end(self, tok, token_sink) -> None:
+        self._session._tokens.discard(tok)
+        if token_sink is not None:
+            token_sink.discard(tok)
+        _cancel.end(tok)
+
+    @contextlib.contextmanager
+    def _admitted(self, tok, serving_facts, attach: bool = True):
+        """The admission scope of one query (JAX ``_collect_tpu``'s):
+        the token attached (not for a stream, whose token is attached
+        around each pull and never across a yield), admitted through
+        the scheduler under the session's tenant and priority, the
+        serving facts deposited."""
+        s = self._session
+        facts = dict(serving_facts) if serving_facts else {}
+        group = facts.pop("admission_group", None)
+        with _cancel.attach_token(tok) if tok is not None and attach \
+                else contextlib.nullcontext(), \
+                admission(s.conf, tenant=s.tenant, priority=s.priority,
+                          group=group, token=tok):
+            if facts:
+                update_serving_context(**facts)
+            yield
+
+    def _start_query(self, tok) -> None:
+        """The query boundary: the process semaphore and lock tracker
+        follow the session's conf; the token gets the query's id."""
         conf = self._session.conf
-        with faults.query_scope(conf):
-            return collect_exec(self.physical_plan(), conf)
+        TpuSemaphore.sync_conf(conf)
+        _locks.sync_conf(conf)
+        if tok is not None:
+            tok.query_id = _next_query_id()
+
+    def _collect(self, exec_: Optional[TpuExec] = None, drain_lock=None,
+                 serving_facts=None, token_sink=None) -> pa.Table:
+        """collect, or a prepared template's execution over its cached
+        ``exec_`` (planning skipped).  ``drain_lock`` (the cache entry's)
+        is taken inside admission; with ``serving.sharing.enabled`` the
+        result cache is consulted inside admission, before it."""
+        from spark_rapids_tpu_torch.serving import work_share as _ws
+
+        conf = self._session.conf
+        tok = self._begin(token_sink)
+        try:
+            with self._admitted(tok, serving_facts):
+                sharing = conf.get(C.SHARING_ENABLED)
+                if sharing:
+                    cached, verdict = _ws.lookup_result(self._plan, conf)
+                    if verdict is not None:
+                        update_serving_context(result_cache=verdict)
+                    if cached is not None:
+                        return cached
+                with drain_lock if drain_lock is not None \
+                        else contextlib.nullcontext():
+                    self._start_query(tok)
+                    with faults.query_scope(conf):
+                        if exec_ is None:
+                            exec_, _meta = _planner.plan_query(
+                                self._plan, self._planner())
+                        out = _planner.collect_exec(exec_, conf)
+                if sharing:
+                    _ws.offer_result(self._plan, conf, out)
+                return out
+        except _cancel.QueryCancelled as e:
+            _cancel.tick_outcome(e.reason)
+            raise
+        finally:
+            self._end(tok, token_sink)
+
+    def _stream(self, exec_: Optional[TpuExec] = None,
+                batch_rows: Optional[int] = None, drain_lock=None,
+                serving_facts=None, token_sink=None
+                ) -> Iterator[pa.RecordBatch]:
+        """The result as Arrow record batches, each as the fetch stage
+        yields it (re-chunked to ``batch_rows``): backpressure is the
+        stage's depth.  The admission slot and ``drain_lock`` are held
+        until the stream is drained or closed.  The token is attached
+        around each pull, not across the yields, and a checkpoint runs
+        before each (JAX ``_stream_tpu_cancellable``)."""
+        from spark_rapids_tpu_torch.serving import work_share as _ws
+
+        conf = self._session.conf
+        tok = self._begin(token_sink)
+        attach = (lambda: _cancel.attach_token(tok)) if tok is not None \
+            else contextlib.nullcontext
+        try:
+            with self._admitted(tok, serving_facts, attach=False), \
+                    drain_lock if drain_lock is not None \
+                    else contextlib.nullcontext():
+                acc: Optional[list] = None
+                if conf.get(C.SHARING_ENABLED):
+                    cached, verdict = _ws.lookup_result(self._plan, conf)
+                    if verdict is not None:
+                        update_serving_context(result_cache=verdict)
+                    if cached is not None:
+                        yield from cached.to_batches(max_chunksize=batch_rows)
+                        return
+                    acc, cap = [], conf.get(C.RESULT_CACHE_BUDGET) // 4
+                self._start_query(tok)
+                with faults.query_scope(conf):
+                    with attach():
+                        if exec_ is None:
+                            exec_, _meta = _planner.plan_query(
+                                self._plan, self._planner())
+                    gen = _planner.stream_exec(exec_, conf)
+                    try:
+                        while True:
+                            with attach():
+                                _cancel.check_point()
+                                tbl = next(gen, None)
+                            if tbl is None:
+                                break
+                            if acc is not None:
+                                acc.append(tbl)
+                                if sum(t.nbytes for t in acc) > cap:
+                                    acc = None  # past the one-result cap
+                            for i, rb in enumerate(tbl.to_batches(
+                                    max_chunksize=batch_rows)):
+                                if i:  # a checkpoint a frame
+                                    with attach():
+                                        _cancel.check_point()
+                                yield rb
+                    finally:
+                        with attach():
+                            gen.close()
+                if acc:
+                    _ws.offer_result(self._plan, conf,
+                                     pa.concat_tables(acc))
+        except _cancel.QueryCancelled as e:
+            _cancel.tick_outcome(e.reason)
+            raise
+        finally:
+            self._end(tok, token_sink)

@@ -30,6 +30,7 @@ from spark_rapids_tpu.session import count_star as jcount_star
 from spark_rapids_tpu.session import sum_ as jsum
 
 from differential import assert_tables_equal
+from torch_plugin import fresh_plugin  # noqa: F401
 from spark_rapids_tpu_torch import TorchSession, col, count_star, sum_
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.execs.cache import TpuCacheExec

@@ -503,5 +503,93 @@ def test_f5_decimal_arithmetic_with_an_integral_operand(sessions, case):
     assert isinstance(got.schema.field("o").type, pa.Decimal128Type)
 
 
+# ---------------------------------------------------------------------- #
+# F6: a new TorchSession closed every other session's store
+# ---------------------------------------------------------------------- #
+
+def _f6_table(n: int = 3000) -> pa.Table:
+    rng = np.random.default_rng(66)
+    return pa.table({"k": pa.array(rng.integers(0, 40, n), pa.int64()),
+                     "v": pa.array(rng.integers(-500, 500, n), pa.int64())})
+
+
+def _f6_jax(t: pa.Table) -> pa.Table:
+    return TpuSession().create_dataframe(t).group_by(jcol("k")).agg(
+        (jsum(jcol("v")), "s")).collect(engine="tpu")
+
+
+def test_f6_a_cached_frame_survives_another_sessions_creation():
+    """Session A caches a frame and aggregates it; making session B
+    leaves A's store entries where they were, and A's next collect over
+    the cached frame equals the JAX package's result (it raised
+    KeyError when every TorchSession installed a new store)."""
+    t = _f6_table()
+    a = TorchSession(device="cpu")
+    before = len(a.store._entries)
+    cached = a.create_dataframe(t).cache()
+    agg = cached.group_by(col("k")).agg((sum_(col("v")), "s"))
+    first = agg.collect()
+    entries = len(a.store._entries)
+    assert entries > before and cached._plan.slot.filled
+    b = TorchSession(device="cpu")
+    assert len(a.store._entries) == entries
+    again = agg.collect()
+    assert again.equals(first)
+    assert_tables_equal(again, _f6_jax(t))
+    assert b.store is a.store and b.semaphore is a.semaphore
+    cached.unpersist()
+    assert len(a.store._entries) == before
+
+
+def test_f6_a_collect_while_another_session_is_made():
+    """Session B is made in the middle of A's collect, between the map
+    stage that parks A's exchange blocks in the store and the reduce
+    tasks that read them (a UDF of A's projection makes B): A's result
+    equals the JAX package's."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.udf import torch_udf
+
+    made = []
+
+    @torch_udf(T.LONG)
+    def make_a_session(v):
+        if not made:
+            made.append(TorchSession(device="cpu"))
+        return v
+
+    t = _f6_table()
+    a = TorchSession({**C.SERIAL, C.BATCH_ROWS: 512}, device="cpu")
+    df = a.create_dataframe(t).group_by(col("k")).agg(
+        (sum_(col("v")), "s0")).select(
+        col("k"), make_a_session(col("s0")).alias("s"))
+    got = df.collect()
+    assert made and made[0].store is a.store
+    assert_tables_equal(got, _f6_jax(t))
+    assert a.store.leak_report() == []
+
+
+def test_f6_one_semaphore_with_the_jax_owner_rules():
+    """Every session shares the process semaphore; a conf asking for a
+    non-default size resizes it and owns it, a conf carrying the
+    default never moves it back, and the owner does."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
+
+    TpuSemaphore.reset()
+    a = TorchSession(device="cpu")
+    owner = C.TorchConf({C.CONCURRENT_TASKS: 5})
+    b = TorchSession(owner, device="cpu")
+    sem = a.semaphore
+    assert b.semaphore is sem and sem.permits == 2
+    TpuSemaphore.sync_conf(owner)
+    assert sem.permits == 5
+    TpuSemaphore.sync_conf(a.conf)
+    assert TpuSemaphore.get() is sem and sem.permits == 5
+    owner.set(C.CONCURRENT_TASKS, 2)
+    TpuSemaphore.sync_conf(owner)
+    assert sem.permits == 2
+    TpuSemaphore.reset()
+
+
 # the OOM ladder and the spill store stay quiet on these tests
 from torch_quiet import quiet_ladder  # noqa: E402,F401

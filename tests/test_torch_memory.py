@@ -28,6 +28,7 @@ from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.columnar import serde
 from spark_rapids_tpu_torch.columnar.arrow import from_arrow, to_arrow
 from spark_rapids_tpu_torch.memory import device_manager
+from torch_plugin import fresh_plugin, sized_plugin  # noqa: F401
 from spark_rapids_tpu_torch.memory.store import (
     BufferStore,
     SpillPriorities,
@@ -355,18 +356,20 @@ def test_session_store_is_empty_after_collect(tmp_path):
     base = {C.BATCH_ROWS: 128, C.SHUFFLE_PARTITIONS: 3}
 
     def run(conf):
-        s = TorchSession(conf, device="cpu")
-        df = s.create_dataframe(t).group_by(col("k")).agg(
-            (sum_(col("v")), "s"))
-        return s, df.collect()
+        # the store is the process's: size it from this conf
+        with sized_plugin(conf):
+            s = TorchSession(conf, device="cpu")
+            df = s.create_dataframe(t).group_by(col("k")).agg(
+                (sum_(col("v")), "s"))
+            got = df.collect()
+            return s.spill_stats(), s.store.leak_report(), got
 
-    _, want = run(base)
-    s, got = run({**base, C.HBM_BUDGET_BYTES: 1, C.HOST_SPILL_BYTES: 1,
-                  C.SPILL_DIR: str(tmp_path)})
+    _, _, want = run(base)
+    st, leaks, got = run({**base, C.HBM_BUDGET_BYTES: 1,
+                          C.HOST_SPILL_BYTES: 1, C.SPILL_DIR: str(tmp_path)})
     assert got.equals(want)
-    st = s.spill_stats()
     assert st["spilled_device_to_host"] > 0 and st["spilled_host_to_disk"] > 0
-    assert s.store.leak_report() == []
+    assert leaks == []
     assert not list(tmp_path.glob("spill-*"))
 
 
@@ -432,16 +435,18 @@ def test_nested_queries_spill_and_equal_the_unconstrained_run(tmp_path):
             C.TASK_TARGET_BYTES: 1}
 
     def run(conf):
-        s = TorchSession(conf, device="cpu")
-        df = s.read_parquet(*paths).select(
-            col("k"), col("s"), explode(col("a")).alias("x")).group_by(
-            col("k")).agg((collect_list(col("x")), "xs"))
-        return s, df.collect().sort_by("k")
+        with sized_plugin(conf):
+            s = TorchSession(conf, device="cpu")
+            df = s.read_parquet(*paths).select(
+                col("k"), col("s"), explode(col("a")).alias("x")).group_by(
+                col("k")).agg((collect_list(col("x")), "xs"))
+            got = df.collect().sort_by("k")
+            return s.spill_stats(), s.store.leak_report(), got
 
-    _, want = run(base)
-    s, got = run({**base, C.HBM_BUDGET_BYTES: 1, C.HOST_SPILL_BYTES: 1,
-                  C.SPILL_DIR: str(tmp_path / "spill")})
+    _, _, want = run(base)
+    st, leaks, got = run({**base, C.HBM_BUDGET_BYTES: 1,
+                          C.HOST_SPILL_BYTES: 1,
+                          C.SPILL_DIR: str(tmp_path / "spill")})
     assert got.equals(want)
-    st = s.spill_stats()
     assert st["spilled_device_to_host"] > 0 and st["spilled_host_to_disk"] > 0
-    assert s.store.leak_report() == []
+    assert leaks == []

@@ -26,6 +26,7 @@ from spark_rapids_tpu_torch import TorchSession, col
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.execs.sort import SortKey, TpuSortExec
 from spark_rapids_tpu_torch.plan.planner import collect_exec
+from torch_plugin import fresh_plugin, sized_plugin  # noqa: F401
 
 OOC = {C.SORT_SINGLE_BATCH_ROWS: 500, C.BATCH_ROWS: 700,
        C.SORT_MAX_BUCKETS: 8, C.SORT_RANGE_EXCHANGE: False}
@@ -107,10 +108,11 @@ def test_ooc_equals_the_one_batch_sort_with_ties(mixed):
 
 def test_ooc_sort_under_a_shrunk_budget_spills(mixed, tmp_path):
     keys = [("a", False), ("b", False)]
-    got, sorts, s = _port(mixed, keys, {
-        **OOC, C.HBM_BUDGET_BYTES: 30_000, C.HOST_SPILL_BYTES: 60_000,
-        C.SPILL_DIR: str(tmp_path)})
-    st = s.spill_stats()
+    conf = {**OOC, C.HBM_BUDGET_BYTES: 30_000, C.HOST_SPILL_BYTES: 60_000,
+            C.SPILL_DIR: str(tmp_path)}
+    with sized_plugin(conf):  # the process store, sized by this conf
+        got, sorts, s = _port(mixed, keys, conf)
+        st = s.spill_stats()
     assert st["spilled_device_to_host"] > 0 and st["spilled_host_to_disk"] > 0
     assert not list(tmp_path.glob("spill-*"))
     assert_tables_equal(got, _jax(mixed, keys)["tpu"], ignore_order=False)

@@ -104,7 +104,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "spark_rapids_tpu_torch.udf.compiler",
             "spark_rapids_tpu_torch.udf.exprs",
             # adaptive execution's
-            "spark_rapids_tpu_torch.execs.adaptive"} <= set(mods)
+            "spark_rapids_tpu_torch.execs.adaptive",
+            # the serving tier's, the plugin's and their copies
+            "spark_rapids_tpu_torch.plugin",
+            "spark_rapids_tpu_torch.eventlog",
+            "spark_rapids_tpu_torch.plan.share_key",
+            "spark_rapids_tpu_torch.robustness.lock_tracker",
+            "spark_rapids_tpu_torch.serving",
+            "spark_rapids_tpu_torch.serving.scheduler",
+            "spark_rapids_tpu_torch.serving.cancel",
+            "spark_rapids_tpu_torch.serving.plan_cache",
+            "spark_rapids_tpu_torch.serving.prepared",
+            "spark_rapids_tpu_torch.serving.work_share"} <= set(mods)
 
 
 def test_port_sources_name_no_jax_import():

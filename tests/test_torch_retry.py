@@ -51,6 +51,7 @@ from spark_rapids_tpu_torch.ops.partition import HashPartitioning
 from spark_rapids_tpu_torch.plan.planner import collect_exec
 from spark_rapids_tpu_torch.robustness import faults
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
+from torch_plugin import fresh_plugin, sized_plugin  # noqa: F401
 
 CPU = torch.device("cpu")
 SPLIT_SPEC = "exec.batch:nth=3,times=2"
@@ -444,18 +445,20 @@ def test_forced_spill_equals_the_unconstrained_run(files, jax_results,
                                                    unconstrained, tmp_path,
                                                    name):
     q, extra = QUERIES[name]
-    s = TorchSession({**BASE, **extra, C.HBM_BUDGET_BYTES: 1,
-                      C.HOST_SPILL_BYTES: 2048, C.SPILL_DIR: str(tmp_path)},
-                     device="cpu")
-    df = q(s, files, PORT)
-    assert ("TpuBroadcastHashJoinExec" if name == "broadcast_join"
-            else "TpuShuffleExchangeExec") in _plan_names(df)
-    got = df.collect()
+    conf = {**BASE, **extra, C.HBM_BUDGET_BYTES: 1,
+            C.HOST_SPILL_BYTES: 2048, C.SPILL_DIR: str(tmp_path)}
+    with sized_plugin(conf):  # the process store, sized by this conf
+        s = TorchSession(conf, device="cpu")
+        df = q(s, files, PORT)
+        assert ("TpuBroadcastHashJoinExec" if name == "broadcast_join"
+                else "TpuShuffleExchangeExec") in _plan_names(df)
+        got = df.collect()
+        st = s.spill_stats()
+        leaks = s.store.leak_report()
     assert _sorted_rows(got) == _sorted_rows(unconstrained[name])
-    st = s.spill_stats()
     assert st["spilled_device_to_host"] > 0 and st["spilled_host_to_disk"] > 0
     assert st["restores"] > 0
-    assert s.store.leak_report() == []
+    assert leaks == []
     assert not list(tmp_path.glob("spill-*"))
     assert R.retry_stats() == dict.fromkeys(R.retry_stats(), 0)
     for engine, want in jax_results[name].items():
