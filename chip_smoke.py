@@ -79,6 +79,31 @@ Phases, one JSON line each:
            non-empty map batch of the aggregate's exchange plus twice per
            non-empty batch the filter folds plus twice per filter
            published with a range table, and hash_string never;
+  trace    the observability and dispatch layer (trace/, ledger,
+           telemetry, the program cache, deferred readbacks) on q3 (the
+           static partition-wise plan, filter on) and q3ds (filter on)
+           at the sizes above: A. each query untraced (a counted run),
+           then with tracing, the device ledger and telemetry on (its
+           session's conf), the results bit for bit equal to each other
+           and held against the pyarrow references; B. the span and
+           event names the JAX package records for them present, every
+           span of a pool, stage or reaper thread carrying the query's
+           id, and each name's count and total ms; C. the Chrome trace
+           (TorchSession.export_trace) parsed, its event count; D. the
+           union of the ledger's event windows at most the query's
+           wall, the kernel.hash_columns program's dispatches equal to
+           the K1 launches of that run, its window ms (an upper bound
+           of its device time) beside torch.profiler's
+           hash_columns_kernel time of the same run; E. the readbacks
+           per tag (stage_snapshot) beside the planned map batches, and
+           the syncs torch.cuda.set_sync_debug_mode("warn") reports
+           outside device_read* in one q3 run, with their top sites (a
+           finding, not a check); F. TRACE_PAIRS off/on pairs of walls
+           in alternating order, and whether Event.synchronize (the
+           settle worker's and the reaper's wait) releases the GIL: a
+           spin loop's iterations beside a thread waiting on an event,
+           at least half those alone; G. no telemetry, settle or
+           reaper thread after disable();
   scan_host
            the scan's host path (io/scan.py, io/fastpar.py) on q6, q1
            and q3ds at the sizes above, with scan.fastDecode on (the
@@ -1658,6 +1683,271 @@ def q3ds_phase(torch, pc, star, kernels, RF, TorchSession, tpcds, TTB,
          rf_off_device_idle_share=off["device_idle_share"],
          rf_off_profiled_wall_s=off["profiled_wall_s"], **on)
     return on, off, calls_on
+
+
+#: off / on pairs of walls in the trace phase, each pair's order
+#: alternating (off, on), (on, off)
+TRACE_PAIRS = 5
+#: the span and event names the JAX package records on q3 and q3ds (a
+#: pool's stage names folded to ``*``), which the trace phase requires
+TRACE_NAMES = ("query.plan", "query.tag", "query.lower", "query.execute",
+               "query.fetch.batch", "exchange.task", "pipe.readback",
+               "rf.build", "rf.apply", "shuffle.block.send",
+               "shuffle.block.recv", "metric.settle.*", "exec.*",
+               "pipe.*.run", "pipe.*.enqueue", "pipe.*.dequeue")
+#: threads whose spans must carry the query's id
+TRACE_POOL_PREFIXES = ("srt-pool-", "srt-pipe-", "srt-metric-reaper")
+#: threads the observability layer starts, gone after disable()
+TRACE_THREADS = ("srt-telemetry", "srt-ledger-settle", "srt-metric-reaper")
+
+
+def trace_name(name: str) -> str:
+    """A span name with its exec or stage folded to ``*``."""
+    for pre in ("exec.", "metric.settle."):
+        if name.startswith(pre):
+            return pre + "*"
+    if name.startswith("pipe.") and name != "pipe.readback":
+        return "pipe.*." + name.rsplit(".", 1)[1]
+    return name
+
+
+def sync_sites(torch, make_df) -> dict:
+    """One run under torch.cuda.set_sync_debug_mode("warn"): the syncs
+    it reports, those outside the readback helpers (device_read*, the
+    ledger's settle worker, the metric reaper) apart, with their top
+    Python sites."""
+    import collections
+    import warnings
+
+    sanctioned = ("parallel/pipeline.py", "trace/ledger.py",
+                  "execs/base.py")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            make_df().collect()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    outside = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in syncs
+        if not any(s in w.filename.replace(os.sep, "/")
+                   for s in sanctioned))
+    return {"syncs": len(syncs), "outside_device_read": sum(outside.values()),
+            "top_sites": outside.most_common(8)}
+
+
+def gil_check(torch) -> dict:
+    """Whether ``Event.synchronize`` (the ledger's settle worker, the
+    metric reaper) releases the GIL: a Python loop on this thread counts
+    its iterations while another thread waits on an event behind
+    ``torch.cuda._sleep``, and again while nothing waits."""
+    def spin(seconds: float) -> int:
+        n, end = 0, time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            n += 1
+        return n
+
+    cycles = int(2e9 * 0.3)  # ~0.3 s at ~2 GHz
+    torch.cuda._sleep(cycles)
+    ev = torch.cuda.Event()
+    ev.record()
+    waiter = threading.Thread(target=ev.synchronize)
+    waiter.start()
+    busy = spin(0.1)
+    waiter.join()
+    torch.cuda.synchronize()
+    alone = spin(0.1)
+    return {"spins_while_waiting": busy, "spins_alone": alone,
+            "ratio": busy / alone}
+
+
+def trace_phase(torch, pc, kernels, TorchSession, tpch, tpcds, TTB,
+                li_paths, orders_path, ref3, star) -> dict:
+    """The observability layer on the main path (checks A-G of the
+    module docstring); emits the phase's line."""
+    import json as _json
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch import trace
+    from spark_rapids_tpu_torch.execs.base import REAPER
+    from spark_rapids_tpu_torch.parallel import pipeline as P
+    from spark_rapids_tpu_torch.trace import ledger, telemetry
+
+    on_keys = {C.TRACE_ENABLED: True, C.LEDGER_ENABLED: True,
+               C.TELEMETRY_ENABLED: True, C.TELEMETRY_HZ: 20.0}
+    dd_path, ss_paths, item_path = star["paths"]
+    ref_ds = reference_star(
+        pc, star, lambda d: pc.equal(d["d_moy"], 11),
+        lambda i: pc.equal(i["i_manufact_id"], 128),
+        ["d_year", "i_brand_id", "i_brand"], {},
+        [("d_year", False), ("sum", True), ("i_brand_id", False)])
+    queries = {
+        "q3": ({TTB: TASK_TARGET_BYTES, ADAPTIVE: False},
+               lambda s: tpch.q3_dataframe(s, li_paths, orders_path),
+               lambda t: compare_ranked(
+                   t, ref3, 10, ("l_orderkey", "o_orderdate",
+                                 "o_shippriority"), "revenue", "rev_sum")),
+        "q3ds": ({TTB: Q3DS_TASK_TARGET_BYTES},
+                 lambda s: tpcds.q3_dataframe(s, dd_path, ss_paths,
+                                              item_path),
+                 lambda t: compare_ranked(
+                     t, ref_ds, 100, ("d_year", "i_brand_id", "i_brand"),
+                     "sum_agg", "sum")),
+    }
+
+    def all_off() -> None:
+        trace.disable()
+        ledger.disable()
+        telemetry.stop()
+        REAPER.flush()
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    for name, (keys, make, check) in queries.items():
+        off_s = TorchSession(keys, device="cuda")
+        on_s = TorchSession({**keys, **on_keys}, device="cuda")
+        all_off()  # the on session's build turned them on
+        # A: untraced, counted (the planned map batches for E)
+        off_result, planned = counted_run(lambda: make(off_s),
+                                          kernels.hash_columns)
+        # the on run: a conf-driven capture, profiled for D
+        trace.clear()
+        ledger.reset_stats()
+        P.reset_stage_counters()
+        kernels.hash_columns.launches = 0
+        before = ledger.snapshot()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            on_result = make(on_s).collect()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernels.hash_columns.launches
+        ledger.LEDGER.flush(60)
+        REAPER.flush()
+        programs = ledger.delta(before, ledger.snapshot())
+        events = trace.snapshot()
+        stages = P.stage_snapshot()
+        samples = telemetry.SAMPLER.samples
+        if not on_result.equals(off_result):
+            raise AssertionError(f"trace {name}: traced result differs "
+                                 f"from the untraced one")
+        err = check(on_result)
+        # B: names, query ids, per-name stats
+        qids = {e.attrs.get("query_id") for e in events
+                if e.name == "query.execute"}
+        if len(qids) != 1:
+            raise AssertionError(f"trace {name}: query ids {qids}")
+        qid = qids.pop()
+        names = {trace_name(e.name) for e in events}
+        missing = [n for n in TRACE_NAMES if n not in names
+                   and not (name == "q3ds" and n in (
+                       "exchange.task", "shuffle.block.send",
+                       "shuffle.block.recv"))]
+        if missing:
+            raise AssertionError(f"trace {name}: no {missing} among "
+                                 f"{sorted(names)}")
+        unattributed = sorted({e.name for e in events if e.ph != "C"
+                               and e.thread_name.startswith(
+                                   TRACE_POOL_PREFIXES)
+                               and e.attrs.get("query_id") != qid})
+        if unattributed:
+            raise AssertionError(f"trace {name}: pool-thread spans "
+                                 f"without query {qid}: {unattributed}")
+        per_name: dict = {}
+        for e in events:
+            n, ms = per_name.get(e.name, (0, 0.0))
+            per_name[e.name] = (n + 1, ms + e.dur_ns / 1e6)
+        # C: the Chrome trace
+        with tempfile.TemporaryDirectory() as tmp:
+            path = on_s.export_trace(os.path.join(tmp, "trace.json"))
+            with open(path) as f:
+                doc = _json.load(f)
+        n_chrome = len(doc["traceEvents"])
+        counters = sum(1 for ev in doc["traceEvents"] if ev["ph"] == "C")
+        # D: the ledger against the wall and the profiler
+        totals = ledger.summarize(programs)["totals"]
+        window_ms = totals["window_ms"]
+        if not 0 < window_ms <= wall_ms:
+            raise AssertionError(f"trace {name}: ledger windows "
+                                 f"{window_ms} ms against a wall of "
+                                 f"{wall_ms} ms")
+        k1 = [p for p in programs.values()
+              if p["tag"] == "kernel.hash_columns"]
+        k1_dispatches = sum(p["dispatches"] for p in k1)
+        if k1_dispatches != launches or launches == 0:
+            raise AssertionError(f"trace {name}: kernel.hash_columns "
+                                 f"dispatched {k1_dispatches}, K1 "
+                                 f"launched {launches}")
+        prof_k1_ms = sum(
+            e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and "hash_columns_kernel" in e.name()) / 1e6
+        prof_busy_ms = sum(
+            e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA) / 1e6
+        # E: readbacks per tag, and the syncs outside them
+        readbacks = {k: v["readbacks"] for k, v in stages.items()
+                     if v["readbacks"] or v["async_readbacks"]}
+        syncs = sync_sites(torch, lambda: make(off_s)) if name == "q3" \
+            else None
+        # F: off / on walls, alternating
+        walls = {"off": [], "on": []}
+        for i in range(TRACE_PAIRS):
+            for mode in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                if mode == "off":
+                    all_off()
+                sess = off_s if mode == "off" else on_s
+                t0 = time.perf_counter()
+                got = make(sess).collect()
+                torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+                if not got.equals(off_result):
+                    raise AssertionError(f"trace {name}: {mode} run "
+                                         f"{i} differs")
+        all_off()
+        # G: nothing of the layer left running
+        deadline = time.monotonic() + 2.0
+        while True:
+            left = sorted(t.name for t in threading.enumerate()
+                          if t.name.startswith(TRACE_THREADS))
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        if left or P.live_stage_threads():
+            raise AssertionError(f"trace {name}: threads left {left}, "
+                                 f"stage threads {P.live_stage_threads()}")
+        out[name] = {
+            "max_rel_err": err, "query_id": qid, "wall_ms": wall_ms,
+            "events": len(events), "names": sorted(names),
+            "span_stats": {k: [n, round(ms, 3)]
+                           for k, (n, ms) in sorted(per_name.items())},
+            "chrome_events": n_chrome, "counter_events": counters,
+            "telemetry_samples": samples,
+            "ledger_window_ms": window_ms,
+            "ledger_dispatch_ms": totals["dispatch_ms"],
+            "ledger_programs": totals["programs"],
+            "ledger_top": totals["top"],
+            "k1_launches": launches, "k1_dispatches": k1_dispatches,
+            "k1_ledger_window_ms": sum(p["window_ms"] for p in k1),
+            "k1_profiler_ms": prof_k1_ms, "profiler_busy_ms": prof_busy_ms,
+            "readbacks": readbacks,
+            "planned_map_batches": planned["planned_map_batches"],
+            "planned_filter_folds": planned["planned_filter_folds"],
+            "sync_debug": syncs,
+            "off_s": walls["off"], "on_s": walls["on"],
+            "off_median_s": statistics.median(walls["off"]),
+            "on_median_s": statistics.median(walls["on"])}
+    out["gil"] = gil_check(torch)
+    if out["gil"]["ratio"] < 0.5:
+        raise AssertionError(f"trace: Event.synchronize holds the GIL: "
+                             f"{out['gil']}")
+    emit("trace", seconds=time.perf_counter() - t_phase, **out)
+    return out
 
 
 #: fastDecode on / off pairs of the scan_host phase, each pair's order
@@ -6417,6 +6707,8 @@ def main() -> int:
         q3ds, q3ds_off, q3ds_calls = q3ds_phase(torch, pc, star, kernels,
                                                 RF, TorchSession, tpcds, TTB,
                                                 RF_ENABLED)
+        trace_phase(torch, pc, kernels, TorchSession, tpch, tpcds, TTB,
+                    li_paths, orders_path, ref3, star)
         scan_host_phase(torch, pc, TorchSession, tpch, tpcds, TTB, paths,
                         ref6, ref1, star)
         q93, q93_calls = q93_phase(torch, pa, pc, pq, star, kernels,

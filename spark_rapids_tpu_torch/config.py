@@ -158,6 +158,27 @@ BREAKER_COOLDOWN_MS = "spark.rapids.tpu.serving.breaker.cooldownMs"
 #: SERVING_ADMIT_WAIT_BUDGET_MS
 BREAKER_MAX_TRIPS = "spark.rapids.tpu.serving.breaker.health.maxTrips"
 
+# -- observability (``trace/``, ``execs/base.py::MetricTimer``) ----------- #
+#: record spans and events to per-thread rings (``trace/__init__.py``)
+TRACE_ENABLED = "spark.rapids.tpu.trace.enabled"
+#: events each thread's ring holds; the oldest are evicted past it
+TRACE_BUFFER_SIZE = "spark.rapids.tpu.trace.bufferSize"
+#: count each program's dispatches and bracket each with a pair of CUDA
+#: events (``trace/ledger.py``)
+LEDGER_ENABLED = "spark.rapids.tpu.trace.ledger.enabled"
+#: the card's memory rate (bytes/s): the roofline's denominator
+LEDGER_HBM_BYTES_PER_S = "spark.rapids.tpu.trace.ledger.hbmBytesPerSec"
+#: the card's peak operation rate (ops/s)
+LEDGER_PEAK_FLOPS = "spark.rapids.tpu.trace.ledger.peakFlopsPerSec"
+#: the gauge sampler thread (``trace/telemetry.py``)
+TELEMETRY_ENABLED = "spark.rapids.tpu.telemetry.enabled"
+#: its samples a second
+TELEMETRY_HZ = "spark.rapids.tpu.telemetry.hz"
+#: while tracing or the ledger is on, an exec's ``totalTime`` waits for
+#: the device work of its timed region (a CUDA event, waited on by the
+#: metric reaper); otherwise it is host time
+METRICS_DEVICE_SYNC = "spark.rapids.tpu.sql.metrics.deviceSync"
+
 DEFAULTS: dict[str, Any] = {
     SHUFFLE_PARTITIONS: 8,
     TASK_TARGET_BYTES: 512 << 20,
@@ -213,6 +234,16 @@ DEFAULTS: dict[str, Any] = {
     BREAKER_THRESHOLD: 0,
     BREAKER_COOLDOWN_MS: 5000.0,
     BREAKER_MAX_TRIPS: 0,
+    TRACE_ENABLED: False,
+    TRACE_BUFFER_SIZE: 65536,
+    LEDGER_ENABLED: False,
+    # NVIDIA H100 80GB HBM3 (SXM) at 700 W: 3.35 TB/s of HBM3, and the
+    # 67 TFLOP/s of FP32 vector work PERF.md's bound of K1 uses
+    LEDGER_HBM_BYTES_PER_S: 3.35e12,
+    LEDGER_PEAK_FLOPS: 67e12,
+    TELEMETRY_ENABLED: False,
+    TELEMETRY_HZ: 4.0,
+    METRICS_DEVICE_SYNC: True,
 }
 
 #: the keys that run a query serially: every task, file and stage one
@@ -256,6 +287,12 @@ class TorchConf:
             raise ValueError(f"{key} must be >= 1, got {value}")
         if key in _AT_LEAST_ZERO and value < 0:
             raise ValueError(f"{key} must be >= 0, got {value}")
+        if key == TRACE_BUFFER_SIZE and value < 16:
+            raise ValueError(f"{key} must be >= 16, got {value}")
+        if key == TELEMETRY_HZ and not 0.1 <= value <= 1000:
+            raise ValueError(f"{key} must be in [0.1, 1000], got {value}")
+        if key in (LEDGER_HBM_BYTES_PER_S, LEDGER_PEAK_FLOPS) and value <= 0:
+            raise ValueError(f"{key} must be > 0, got {value}")
         self._values[key] = value
         return self
 

@@ -36,6 +36,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     empty_batch,
 )
 from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
+from spark_rapids_tpu_torch.execs.jit_cache import exprs_key
 from spark_rapids_tpu_torch.execs.retry import (
     run_with_oom_retry,
     with_split_retry,
@@ -219,6 +220,23 @@ class TpuHashAggregateExec(TpuExec):
         return partial.with_columns([e.eval(ctx) for e in self.final_exprs],
                                     self._schema)
 
+    def _programs(self):
+        """(update, merge, finalize) through the program cache, keyed by
+        what each reads of the exec."""
+        return (
+            None if self.mode == "final" else self.program(
+                "agg.update", lambda: (
+                    exprs_key(self.input_exprs), self.n_keys,
+                    repr(self.update_input_schema),
+                    repr(self._update_specs()), repr(self.partial_schema)),
+                self._update_batch),
+            self.program("agg.merge", lambda: (
+                self.n_keys, repr(self.merge_specs),
+                repr(self.partial_schema)), self._merge),
+            self.program("agg.final", lambda: (
+                exprs_key(self.final_exprs), repr(self._schema)),
+                self._finalize))
+
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         if self.mode == "complete":
             source = self.children[0].execute()
@@ -229,6 +247,7 @@ class TpuHashAggregateExec(TpuExec):
         store, policy = self.runtime.store, self.runtime.retry
         pending: list[SpillableBatch] = []
         rows = 0
+        update_batch, merge, finalize = self._programs()
 
         def park(part: ColumnarBatch) -> None:
             nonlocal rows
@@ -268,10 +287,10 @@ class TpuHashAggregateExec(TpuExec):
             n0, r0 = len(pending), rows
             try:
                 park(batch if self.mode == "final"
-                     else self._update_batch(batch))
+                     else update_batch(batch))
                 if len(pending) > 1 and rows >= self.goal_rows:
                     commit(run_with_oom_retry(
-                        lambda: self._merge(drain()), "agg.merge",
+                        lambda: merge(drain()), "agg.merge",
                         policy=policy))
             except BaseException:
                 for h in pending[n0:]:
@@ -283,9 +302,11 @@ class TpuHashAggregateExec(TpuExec):
 
         try:
             for batch in source:
-                for _ in with_split_retry(update, batch, "agg.update",
-                                          policy):
-                    pass
+                with self.timer() as t:
+                    for _ in with_split_retry(update, batch, "agg.update",
+                                              policy):
+                        pass
+                    t.observe(batch)
             if not pending:
                 if self.n_keys > 0 or not emit_empty_default:
                     return  # grouped aggregate of empty input: no rows
@@ -293,18 +314,20 @@ class TpuHashAggregateExec(TpuExec):
                 src_schema = (self.partial_schema if self.mode == "final"
                               else self.children[0].schema)
                 eb = empty_batch(src_schema, self.leaf_device())
-                park(eb if self.mode == "final" else self._update_batch(eb))
+                park(eb if self.mode == "final" else update_batch(eb))
             single = len(pending) == 1
 
             def finish() -> ColumnarBatch:
                 out = drain()
                 if not single or self.mode == "final":
-                    out = self._merge(out)
+                    out = merge(out)
                 if self.mode != "partial":
-                    out = self._finalize(out)
+                    out = finalize(out)
                 return out
 
-            out = run_with_oom_retry(finish, "agg.drain", policy=policy)
+            with self.timer() as t:
+                out = t.observe(run_with_oom_retry(finish, "agg.drain",
+                                                   policy=policy))
             commit(None)
         finally:
             for h in pending:

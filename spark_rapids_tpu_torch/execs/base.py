@@ -11,22 +11,38 @@ an exec holds between uses go through the session's buffer store, and
 its stream loops run under the OOM ladder (``execs/retry.py``), both
 reached through ``TaskRuntime.retry``.  No fusion, speculation or
 buffer donation in this port.
+
+Each exec's ``total_time`` (the JAX ``totalTime``) is timed by
+:class:`MetricTimer` around its per-batch work.  While tracing or the
+ledger is on, on CUDA, the timed region records an event at its end
+and the metric reaper thread waits on it off the critical path, so the
+time is device-settled (``spark.rapids.tpu.sql.metrics.deviceSync``,
+synced at each query boundary); otherwise, or on the CPU, it is the
+host's.  The region is also an
+``exec.<op>`` trace span, and the reaper adds a ``metric.settle.<name>``
+span.  ``run_tasks`` carries the submitting thread's trace context to
+its pool threads.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
+from collections import deque
 from collections.abc import Mapping
 from concurrent.futures import FIRST_EXCEPTION, ThreadPoolExecutor, wait
 from typing import Callable, Iterator, Optional, TypeVar
 
 import torch
 
+from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.execs.retry import DEFAULT_POLICY, RetryPolicy
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
+from spark_rapids_tpu_torch.trace import ledger as _ledger
 
 R = TypeVar("R")
 
@@ -49,6 +65,12 @@ class TaskRuntime:
     stage_depth: int = 0
     upload_stream: Optional[object] = None
     retry: RetryPolicy = DEFAULT_POLICY
+
+    @property
+    def lookahead(self) -> int:
+        """Items a pipelined stream loop dispatches ahead of its
+        readback (``parallel/pipeline.py::readback_lookahead``)."""
+        return max(0, self.stage_depth - 1)
 
     @property
     def store(self):
@@ -81,9 +103,10 @@ def run_tasks(fn: Callable[[int], R], n_tasks: int,
             out.append(fn(i))
         return out
     ctok = _cancel.current_token()
+    tctx = _trace.current_context()
 
     def run(i: int) -> R:
-        with _cancel.attach_token(ctok):
+        with _cancel.attach_token(ctok), _trace.attach_context(tctx):
             _cancel.check_point()
             return fn(i)
 
@@ -106,6 +129,165 @@ def live_pool_threads() -> int:
     """Pool threads alive now: 0 once a query has unwound."""
     return sum(1 for t in threading.enumerate()
                if t.name.startswith(POOL_THREAD_PREFIX))
+
+
+# -- device-settled timing ------------------------------------------ #
+
+_DEVICE_SYNC = [bool(C.DEFAULTS[C.METRICS_DEVICE_SYNC])]
+
+
+def sync_metrics_conf(conf: C.TorchConf) -> None:
+    """Align :class:`MetricTimer` with a session's
+    ``sql.metrics.deviceSync`` at a query boundary (process-wide, last
+    writer wins, as the semaphore's permits)."""
+    _DEVICE_SYNC[0] = bool(conf.get(C.METRICS_DEVICE_SYNC))
+
+
+class TimeMetric:
+    """One named time counter (ns), added to from several threads."""
+
+    __slots__ = ("name", "value", "_lock")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value = 0
+        self._lock = threading.Lock()
+
+    def add(self, ns: int) -> None:
+        with self._lock:
+            self.value += ns
+
+    def __repr__(self) -> str:
+        return f"TimeMetric({self.name}={self.value})"
+
+
+#: name of the metric reaper's thread
+REAPER_THREAD = "srt-metric-reaper"
+
+
+class _MetricReaper:
+    """Waits on each timed region's end event off the critical path,
+    then adds the region's elapsed time to its metric (a region on the
+    CPU has no event: its time is added as it comes, as the JAX reaper
+    does for an output that is already ready).  The thread is
+    started by a submit and exits once it has found no work for
+    ``LINGER_S``, so none stays behind an idle process.  A failed event
+    is kept and raised by the next :meth:`submit` or :meth:`flush`."""
+
+    LINGER_S = 0.25
+
+    def __init__(self) -> None:
+        self._q: deque = deque()
+        self._cv = threading.Condition()
+        self._running = False
+        self._unfinished = 0
+        self.errors: list[BaseException] = []
+
+    def submit(self, metric: TimeMetric, t0: int, event) -> None:
+        if self.errors:  # a failed event surfaces on the path
+            raise self.errors.pop(0)
+        ctx = _trace.current_context() if _trace.TRACER.enabled else None
+        with self._cv:
+            self._q.append((metric, t0, event, ctx))
+            self._unfinished += 1
+            if not self._running:
+                self._running = True
+                threading.Thread(target=self._run, name=REAPER_THREAD,
+                                 daemon=True).start()
+            self._cv.notify_all()
+
+    def flush(self) -> None:
+        """Wait until every submitted region is timed; raise what the
+        thread met."""
+        with self._cv:
+            while self._unfinished:
+                self._cv.wait()
+        if self.errors:
+            err = self.errors[0]
+            self.errors = []
+            raise err
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                if not self._q:
+                    self._cv.wait(self.LINGER_S)
+                if not self._q:
+                    self._running = False
+                    return
+                metric, t0, event, ctx = self._q.popleft()
+            try:
+                w0 = time.perf_counter_ns()
+                if event is not None:
+                    event.synchronize()
+                now = time.perf_counter_ns()
+                metric.add(now - t0)
+                if _trace.TRACER.enabled:
+                    with _trace.attach_context(ctx):
+                        _trace.record_complete(
+                            f"metric.settle.{metric.name}", w0, now - w0,
+                            metric=metric.name)
+            except Exception as e:  # noqa: BLE001 - raised by flush()
+                self.errors.append(e)
+            finally:
+                with self._cv:
+                    self._unfinished -= 1
+                    self._cv.notify_all()
+
+
+REAPER = _MetricReaper()
+
+
+class MetricTimer:
+    """Context manager adding a region's elapsed time to a metric (JAX
+    ``MetricTimer``, the NVTX-with-metric pattern).  ``observe(out)``
+    registers the region's output: with ``deviceSync`` on and tracing
+    or the ledger on, the reaper adds the time, and when the output
+    lives on a CUDA device the region's end is an event recorded on the
+    current stream that the reaper waits on first.  Otherwise the time
+    is the host's, added as the region ends: with every observability
+    key off a region records no event and wakes no thread.  With ``op``
+    set and tracing on, the region is also an ``exec.<op>`` span (its
+    host side)."""
+
+    __slots__ = ("metric", "op", "_device", "t0")
+
+    def __init__(self, metric: Optional[TimeMetric],
+                 op: Optional[str] = None):
+        self.metric = metric
+        self.op = op
+        self._device = None
+
+    def observe(self, out):
+        """Register the region's output; returns it."""
+        dev = getattr(out, "device", None)
+        if isinstance(dev, torch.device):
+            self._device = dev
+        return out
+
+    def __enter__(self) -> "MetricTimer":
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.op is not None and _trace.TRACER.enabled:
+            _trace.record_complete(f"exec.{self.op}", self.t0,
+                                   time.perf_counter_ns() - self.t0,
+                                   op=self.op)
+        if self.metric is None:
+            return False
+        if self._device is not None and exc[0] is None \
+                and _DEVICE_SYNC[0] \
+                and (_trace.TRACER.enabled or _ledger.LEDGER.enabled):
+            ev = None  # a CPU tensor's work is done when the call returns
+            if self._device.type == "cuda":
+                # blocking: the reaper sleeps in its wait, no core spins
+                ev = torch.cuda.Event(blocking=True)
+                ev.record(torch.cuda.current_stream(self._device))
+            REAPER.submit(self.metric, self.t0, ev)
+        else:
+            self.metric.add(time.perf_counter_ns() - self.t0)
+        return False
 
 
 class Metrics(Mapping):
@@ -201,3 +383,32 @@ class TpuExec:
         yield self
         for c in self.children:
             yield from c.walk()
+
+    @property
+    def total_time(self) -> TimeMetric:
+        """The exec's ``totalTime`` (ns, device-settled on CUDA), made
+        on first use."""
+        m = self.__dict__.get("_total_time")
+        if m is None:
+            m = self.__dict__.setdefault("_total_time",
+                                         TimeMetric("totalTime"))
+        return m
+
+    def program(self, tag: str, key: Callable[[], tuple],
+                fn: Callable) -> Callable:
+        """``fn``, this exec's per-batch device program.  With the
+        ledger off it is ``fn`` itself and ``key`` is not called.  On,
+        ``fn`` dispatches under the ledger entry of the structural key
+        ``(tag, *key())`` (``execs/jit_cache.py``), which execs of an
+        equal key share; ``key()`` must hold everything ``fn`` reads of
+        the exec."""
+        if not _ledger.LEDGER.enabled:
+            return fn
+        from spark_rapids_tpu_torch.execs.jit_cache import cached_program
+
+        return cached_program((tag,) + tuple(key()), fn, op=self.name)
+
+    def timer(self) -> MetricTimer:
+        """A :class:`MetricTimer` on ``total_time``, recording an
+        ``exec.<name>`` span."""
+        return MetricTimer(self.total_time, op=self.name)

@@ -31,6 +31,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import Column
 from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.execs.jit_cache import exprs_key
 from spark_rapids_tpu_torch.exprs.base import (
     EvalContext,
     Expression,
@@ -56,13 +57,21 @@ class TpuProjectExec(TpuExec):
     def node_desc(self) -> str:
         return f"TpuProjectExec [{', '.join(e.name for e in self.exprs)}]"
 
+    def _project(self, b: ColumnarBatch, ctx: EvalContext) -> ColumnarBatch:
+        return b.with_columns(evaluate(self.exprs, ctx, self.ansi),
+                              self._schema)
+
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         offset = 0
+        run = self.program("project", lambda: (
+            exprs_key(self.exprs), repr(self._schema), self.ansi),
+            self._project)
         for b in self.children[0].execute_partition(p):
             ctx = EvalContext.for_batch(b, p, offset)
             offset += b.num_rows
-            yield b.with_columns(evaluate(self.exprs, ctx, self.ansi),
-                                 self._schema)
+            with self.timer() as t:
+                out = t.observe(run(b, ctx))
+            yield out
 
 
 class TpuFilterExec(TpuExec):
@@ -79,13 +88,19 @@ class TpuFilterExec(TpuExec):
     def node_desc(self) -> str:
         return f"TpuFilterExec [{self.condition!r}]"
 
+    def _filter(self, b: ColumnarBatch, ctx: EvalContext) -> ColumnarBatch:
+        (pred,) = evaluate([self.condition], ctx, self.ansi)
+        return b.compact(pred.data.bool() & pred.validity)
+
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         offset = 0
+        run = self.program("filter", lambda: (
+            exprs_key([self.condition]), self.ansi), self._filter)
         for b in self.children[0].execute_partition(p):
             ctx = EvalContext.for_batch(b, p, offset)
             offset += b.num_rows
-            (pred,) = evaluate([self.condition], ctx, self.ansi)
-            out = b.compact(pred.data.bool() & pred.validity)
+            with self.timer() as t:
+                out = t.observe(run(b, ctx))
             if out.num_rows:
                 yield out
 

@@ -74,6 +74,7 @@ from typing import Iterator, Optional, Union
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnarBatch,
@@ -86,9 +87,10 @@ from spark_rapids_tpu_torch.execs.base import (
     TpuExec,
     run_tasks,
 )
+from spark_rapids_tpu_torch.execs.jit_cache import exprs_key
 from spark_rapids_tpu_torch.execs.retry import (
+    guarded_pipeline,
     run_with_oom_retry,
-    with_split_retry,
     with_task_retries,
 )
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
@@ -102,8 +104,11 @@ from spark_rapids_tpu_torch.ops.partition import (
     RoundRobinPartitioning,
     SinglePartitioning,
     split_batch,
+    split_batch_dispatch,
+    split_batch_finish,
 )
 from spark_rapids_tpu_torch.ops.range_partition import choose_bounds
+from spark_rapids_tpu_torch.parallel.pipeline import device_read, pipelined
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 from spark_rapids_tpu_torch.serving.cancel import (
     attach_token,
@@ -173,31 +178,59 @@ class TpuShuffleExchangeExec(TpuExec):
             sub, SpillPriorities.OUTPUT_FOR_SHUFFLE), sub.num_rows))
 
     def _map_task(self, shuffle_id: int, child_part: int) -> None:
-        with_task_retries(lambda: self._map_task_attempt(shuffle_id,
-                                                         child_part),
-                          f"map task {child_part}", self.runtime.retry)
+        with _trace.span("exchange.task", task=child_part):
+            with_task_retries(lambda: self._map_task_attempt(shuffle_id,
+                                                             child_part),
+                              f"map task {child_part}", self.runtime.retry)
+
+    @staticmethod
+    def _split_dispatch(part, batch: ColumnarBatch, n_parts: int):
+        """The map program: partition ids (K1 for a hash exchange) and
+        the rows grouped by them, with their counts still on the
+        device; (batch, None) for one partition."""
+        pids = part.partition_ids(batch)
+        if n_parts == 1:
+            return batch, None
+        return split_batch_dispatch(batch, pids, n_parts)
 
     def _map_task_attempt(self, shuffle_id: int, child_part: int) -> None:
-        """One attempt of a map task.  Each batch is a unit of the split
-        ladder; its blocks are parked in the store as they are made and
-        published only when the attempt commits, so a failed attempt
-        leaves none behind."""
+        """One attempt of a map task, a pipelined loop (JAX
+        ``_map_task``): batch k+1's ids and grouping are dispatched
+        before batch k's counts are read back (``exchange.split``).
+        Each batch is a unit of the split ladder; its blocks are parked
+        in the store as they are made and published only when the
+        attempt commits, so a failed attempt leaves none behind."""
         sem, task = self.runtime.semaphore, object()
         blocks: list[tuple[int, SpillableBatch, int]] = []
         batches = runs = 0
+        n_parts = self.num_partitions
         part = self.partitioning
         if isinstance(part, RoundRobinPartitioning):
             part = RoundRobinPartitioning(part.num_partitions,
                                           child_part % part.num_partitions)
+        # the key names the partitioning's expressions: each exchange
+        # of a query is its own program
+        split = self.program("exchange.split", lambda: (
+            n_parts, type(part).__name__,
+            exprs_key(getattr(part, "exprs", ()))), self._split_dispatch)
 
-        def run(batch: ColumnarBatch):
+        def dispatch(batch: ColumnarBatch):
             nonlocal runs
-            n0 = len(blocks)
             runs += 1
+            with self.timer() as t:
+                return t.observe(split(part, batch, n_parts))
+
+        def retire(entry):
+            grouped, counts = entry
+            n0 = len(blocks)
             try:
-                for rid, sub in self._blocks(batch,
-                                             part.partition_ids(batch)):
-                    self._park(blocks, rid, sub)
+                with self.timer():
+                    subs = [grouped] if counts is None else \
+                        split_batch_finish(grouped, device_read(
+                            counts, tag="exchange.split"))
+                    for rid, sub in enumerate(subs):
+                        if sub.num_rows:
+                            self._park(blocks, rid, sub)
             except BaseException:
                 for _rid, h, _n in blocks[n0:]:
                     h.close()
@@ -205,15 +238,21 @@ class TpuShuffleExchangeExec(TpuExec):
                 raise
             return ()
 
-        try:
+        def source():
+            nonlocal batches
             for batch in self.children[0].execute_partition(child_part):
                 check_point()
                 sem.acquire_if_necessary(task)
                 if batch.num_rows:
                     batches += 1
-                    for _ in with_split_retry(run, batch, "exchange.map",
-                                              self.runtime.retry):
-                        pass
+                    yield batch
+
+        dispatch_guarded, retire_guarded = guarded_pipeline(
+            dispatch, retire, "exchange.map", self.runtime.retry)
+        try:
+            for _ in pipelined(source(), dispatch_guarded, retire_guarded,
+                               self.runtime.lookahead, tag="exchange.map"):
+                pass
             self.manager.commit_task(shuffle_id, child_part, blocks)
         except BaseException:
             for _rid, h, _n in blocks:

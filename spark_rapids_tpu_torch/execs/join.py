@@ -4,11 +4,14 @@ Counterpart of ``spark_rapids_tpu/execs/join.py``: the build side is
 collected into one batch (each build batch waits in the buffer store at
 ``JOIN_BUILD`` priority until the side is drained, then they are
 concatenated), then every stream batch probes it through
-``ops/join.py``.  Each stream batch costs one host sync, for its pair
-count; its output then comes in chunks of at most
+``ops/join.py``.  Each stream batch costs one readback, of its pair
+count (``device_read_int``, tag ``join.probe``), and the stream loop is
+pipelined (``parallel/pipeline.py::pipelined``): batch k+1's pairing is
+dispatched before batch k's count is read.  Its output then comes in
+chunks of at most
 ``spark.rapids.tpu.sql.join.outputChunkRows`` rows, so a skewed key
 cannot build one unbounded batch.  Each stream batch is a unit of the
-OOM ladder (``execs/retry.with_split_retry``): a retryable failure
+OOM ladder (``execs/retry.guarded_pipeline``): a retryable failure
 before its first chunk re-runs it, then bisects it; after a chunk has
 gone downstream it raises.
 
@@ -58,9 +61,10 @@ from spark_rapids_tpu_torch.columnar.batch import (
     null_batch,
 )
 from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
+from spark_rapids_tpu_torch.execs.jit_cache import exprs_key
 from spark_rapids_tpu_torch.execs.retry import (
+    guarded_pipeline,
     run_with_oom_retry,
-    with_split_retry,
 )
 from spark_rapids_tpu_torch.exprs.base import (
     EvalContext,
@@ -76,6 +80,10 @@ from spark_rapids_tpu_torch.ops.join import (
     expand_pairs,
     gather_joined,
     join_state,
+)
+from spark_rapids_tpu_torch.parallel.pipeline import (
+    device_read_int,
+    pipelined,
 )
 from spark_rapids_tpu_torch.plan import runtime_filter as RF
 
@@ -207,14 +215,23 @@ class _HashJoinBase(TpuExec):
             "left_outer", "right_outer", "full_outer") else "inner" \
             if self.join_type == "cross" else self.join_type
         matched_b: Optional[torch.Tensor] = None
+        probe = self.program("join.probe", lambda: (
+            jt, exprs_key(build_keys), exprs_key(stream_keys)),
+            self._probe)
 
-        def run(stream: ColumnarBatch) -> Iterator[ColumnarBatch]:
-            """One stream batch's output chunks; the ladder re-runs it
+        def dispatch(stream: ColumnarBatch):
+            """The pairing state of one stream batch (device work, no
+            sync)."""
+            with self.timer() as t:
+                return stream, t.observe(probe(bkc, stream, stream_keys, jt))
+
+        def retire(entry) -> Iterator[ColumnarBatch]:
+            """One stream batch's output chunks, after the one readback
+            of its pair count (``join.probe``); the ladder re-runs it
             (or its halves) until a chunk is out.  OR-ing the matched
             build rows again is harmless."""
             nonlocal matched_b
-            sctx = EvalContext.for_batch(stream)
-            st = join_state(bkc, [k.eval(sctx) for k in stream_keys], jt)
+            stream, st = entry
             if self.join_type == "full_outer":
                 matched_b = st.matched_b if matched_b is None \
                     else matched_b | st.matched_b
@@ -225,25 +242,33 @@ class _HashJoinBase(TpuExec):
                 if out.num_rows:
                     yield out
                 return
-            total = int(st.total)  # the one host sync of this batch
+            total = device_read_int(st.total, tag="join.probe")
             step = min(total, self.chunk_rows)
             for off in range(0, total, step or 1):
-                s_idx, b_idx, live, matched = expand_pairs(
-                    st, min(step, total - off), off)
-                out = gather_joined(build, stream, s_idx, b_idx, live,
-                                    matched, self._schema,
-                                    stream_first=self.build_is_right)
-                if self.condition is not None:
-                    out = self._apply_condition(out)
+                with self.timer() as t:
+                    s_idx, b_idx, live, matched = expand_pairs(
+                        st, min(step, total - off), off)
+                    out = gather_joined(build, stream, s_idx, b_idx, live,
+                                        matched, self._schema,
+                                        stream_first=self.build_is_right)
+                    if self.condition is not None:
+                        out = self._apply_condition(out)
+                    t.observe(out)
                 if out.num_rows:
                     yield out
 
-        for stream in stream_batches:
-            if stream.num_rows:
-                yield from with_split_retry(run, stream, "join.stream",
-                                            self.runtime.retry)
+        dispatch_guarded, retire_guarded = guarded_pipeline(
+            dispatch, retire, "join.stream", self.runtime.retry)
+        yield from pipelined(
+            (b for b in stream_batches if b.num_rows), dispatch_guarded,
+            retire_guarded, self.runtime.lookahead, tag="join.stream")
         if self.join_type == "full_outer":
             yield from self._emit_unmatched_build(build, matched_b)
+
+    @staticmethod
+    def _probe(bkc, stream: ColumnarBatch, stream_keys, jt: str):
+        sctx = EvalContext.for_batch(stream)
+        return join_state(bkc, [k.eval(sctx) for k in stream_keys], jt)
 
     def _emit_unmatched_build(self, build: ColumnarBatch,
                               matched_b: Optional[torch.Tensor]

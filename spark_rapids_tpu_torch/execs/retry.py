@@ -273,7 +273,10 @@ def bisect_batch(batch: ColumnarBatch
 def with_split_retry(run: Callable, batch: ColumnarBatch,
                      desc: str = "batch",
                      policy: RetryPolicy = DEFAULT_POLICY,
-                     _depth: int = 0) -> Iterator:
+                     _depth: int = 0,
+                     first_attempt: Optional[Callable] = None,
+                     initial_error: Optional[BaseException] = None
+                     ) -> Iterator:
     """The batch ladder (a generator).  ``run(batch)`` processes one
     input batch and returns an iterable of output chunks (empty for a
     sink); it must roll back its own partial effects when it raises.
@@ -281,21 +284,40 @@ def with_split_retry(run: Callable, batch: ColumnarBatch,
     on the second, bisect and recurse on the halves, down to
     ``minSplitRows``; at the floor retry up to ``maxFailures``, then
     re-raise.  Once a chunk has been yielded a re-run would duplicate
-    it, so the ladder re-raises."""
+    it, so the ladder re-raises.
+
+    ``first_attempt`` lets a pipelined caller hand in attempt zero over
+    the state it already dispatched: if it fails, that state is dropped
+    and the retries run ``run`` from the input batch (at the split size
+    after a bisect); its ``exec.batch`` fault seam fired at dispatch
+    (``guarded_pipeline``), so attempt zero does not fire it again.
+    ``initial_error`` seeds the ladder with a failure that happened at
+    dispatch time (JAX ``with_split_retry``)."""
     caught: list[BaseException] = []
     failures = 0
     action = "spill_retry"
+    if initial_error is not None:
+        caught.append(initial_error)
+        _caught(initial_error)
+        failures = 1
+        _bump("spill_retries")
+        _release_pressure(policy)
+        _sleep_backoff(policy.backoff_s, 0)
     while True:
         emitted = False
         try:
-            _faults.fault_point("exec.batch", desc=desc)
-            it = run(batch)
+            if first_attempt is None:
+                _faults.fault_point("exec.batch", desc=desc)
+            it = first_attempt() if first_attempt is not None \
+                else run(batch)
+            first_attempt = None
             if it is not None:
                 for out in it:
                     emitted = True
                     yield out
             break
         except BaseException as e:  # noqa: BLE001 - classified below
+            first_attempt = None
             if not is_retryable(e) or emitted:
                 raise
             failures += 1
@@ -323,6 +345,40 @@ def with_split_retry(run: Callable, batch: ColumnarBatch,
             _sleep_backoff(policy.backoff_s, failures - 1)
     if caught:
         _note_recovered_all(caught, f"{action}:{desc}")
+
+
+def guarded_pipeline(dispatch: Callable, retire: Callable, desc: str,
+                     policy: RetryPolicy = DEFAULT_POLICY):
+    """Put a ``parallel/pipeline.pipelined`` loop under the split ladder
+    (JAX ``guarded_pipeline``): returns (dispatch_guarded,
+    retire_guarded).  A retryable failure at dispatch is carried into
+    the ladder as its first failure; a failure at retire drops the
+    in-flight state and re-dispatches from the input batch (at the split
+    size after a bisect).  ``retire`` must roll back its own partial
+    effects when it raises.  The ``exec.batch`` fault
+    seam of attempt zero fires at dispatch, before any device work, as
+    it fires before each re-run."""
+    def dispatch_guarded(batch):
+        try:
+            _faults.fault_point("exec.batch", desc=desc)
+            return ("ok", dispatch(batch), batch, None)
+        except BaseException as e:  # noqa: BLE001 - classified below
+            if not is_retryable(e):
+                raise
+            return ("failed", None, batch, e)
+
+    def rerun(b):
+        return retire(dispatch(b))
+
+    def retire_guarded(tagged):
+        kind, entry, batch, err = tagged
+        if kind == "ok":
+            return with_split_retry(rerun, batch, desc, policy,
+                                    first_attempt=lambda: retire(entry))
+        return with_split_retry(rerun, batch, desc, policy,
+                                initial_error=err)
+
+    return dispatch_guarded, retire_guarded
 
 
 def _split_spillable(batch: ColumnarBatch, policy: RetryPolicy

@@ -38,6 +38,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 )
 from spark_rapids_tpu_torch.columnar.column import Column, StringColumn
 from spark_rapids_tpu_torch.execs.base import Metrics, TaskRuntime, TpuExec
+from spark_rapids_tpu_torch.execs.jit_cache import exprs_key
 from spark_rapids_tpu_torch.execs.retry import with_split_retry
 from spark_rapids_tpu_torch.exprs.base import (
     EvalContext,
@@ -51,11 +52,13 @@ from spark_rapids_tpu_torch.memory.store import (
     batch_to_host,
     host_to_batch,
 )
+from spark_rapids_tpu_torch.ops.partition import id_counts
 from spark_rapids_tpu_torch.ops.range_partition import (
     bucket_ids,
     choose_bounds,
 )
 from spark_rapids_tpu_torch.ops.sort import SortOrder, sort_permutation
+from spark_rapids_tpu_torch.parallel.pipeline import device_read
 
 #: primary key types a top-n can threshold (fixed width)
 TOPN_PRIMARY_TYPES = (T.BooleanType, T.IntegralType, T.FractionalType,
@@ -98,6 +101,11 @@ class _SortMixin(TpuExec):
         orders = [SortOrder(i, k.descending, k.nulls_last)
                   for i, k in enumerate(self.keys)]
         return batch.gather(sort_permutation(keys, orders))
+
+    def _keys_key(self) -> tuple:
+        """The structural key of the sort keys (directions included)."""
+        return tuple((exprs_key([k.expr]), k.descending, k.nulls_last)
+                     for k in self.keys)
 
 
 def _plain(c):
@@ -243,7 +251,11 @@ class TpuSortExec(_SortMixin):
                 for h in handles:
                     h.close()
                 handles.clear()
-                yield self._sort_aug(big)
+                sort = self.program("sort", lambda: (
+                    self._keys_key(), repr(self.schema)), self._sort_aug)
+                with self.timer() as t:
+                    out = t.observe(sort(big))
+                yield out
                 return
             yield from self._merge_buckets(handles, total, samples, depth)
         finally:
@@ -272,7 +284,8 @@ class TpuSortExec(_SortMixin):
                 aug = handles[0].get()
                 pids = bucket_ids(self._keys_of(aug), bounds, self.key_orders)
                 grouped = aug.gather(torch.sort(pids, stable=True).indices)
-                counts = torch.bincount(pids, minlength=n_parts).cpu().numpy()
+                counts = device_read(id_counts(pids, n_parts),
+                                     tag="sort.ooc.split")
                 host = batch_to_host(grouped)
                 del aug, grouped
                 handles.pop(0).close()
@@ -379,18 +392,27 @@ class TpuTopNExec(_SortMixin):
             return
         pending: list[ColumnarBatch] = []
         rows = 0
+        def key():
+            return (self.n, self._keys_key())
+
+        candidates = self.program("topn.candidates", key, self._candidates)
+        final = self.program("topn.final", key, self._final)
         for batch in self.children[0].execute():
             if batch.num_rows == 0:
                 continue
-            cand = self._candidates(batch)
+            with self.timer() as t:
+                cand = t.observe(candidates(batch))
             pending.append(cand)
             rows += cand.num_rows
             if rows > self.reduce_rows and len(pending) > 1:
-                pending = [self._final(concat_batches(pending))]
+                with self.timer() as t:
+                    pending = [t.observe(final(concat_batches(pending)))]
                 rows = pending[0].num_rows
         pending = [b for b in pending if b.num_rows]
         if pending:
-            yield self._final(concat_batches(pending))
+            with self.timer() as t:
+                out = t.observe(final(concat_batches(pending)))
+            yield out
 
 
 class TpuTakeOrderedAndProjectExec(_SortMixin):

@@ -34,6 +34,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 )
 from spark_rapids_tpu_torch.columnar.column import AnyColumn, Column
 from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
+from spark_rapids_tpu_torch.execs.jit_cache import exprs_key
 from spark_rapids_tpu_torch.execs.sort import describe_keys
 from spark_rapids_tpu_torch.exprs.aggregates import (
     Average,
@@ -221,7 +222,13 @@ class TpuWindowExec(TpuExec):
         finally:
             for h in handles:
                 h.close()
-        yield self._window_batch(batch)
+        run = self.program("window", lambda: (
+            exprs_key([we for we, _ in self.named]),
+            tuple(n for _, n in self.named), repr(self.schema)),
+            self._window_batch)
+        with self.timer() as t:
+            out = t.observe(run(batch))
+        yield out
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         if self.partitioned:

@@ -86,6 +86,7 @@ rows, each uploaded to the session's device through the same
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import time
@@ -99,6 +100,7 @@ import pyarrow.compute as pc
 import pyarrow.parquet as pq
 import torch
 
+from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import (
     UPLOAD_METRICS,
@@ -285,13 +287,14 @@ class ParquetScanExec(TpuExec):
         rows whose key no build key can match, before upload.  A column
         the probe cannot model is skipped."""
         keep = None
-        for name, rf in rfs:
-            m = runtime_filter_column_mask(tbl.column(name), rf)
-            if m is not None:
-                keep = m if keep is None else keep & m
-        if keep is None or keep.all():
-            return tbl
-        kept = tbl.filter(pa.array(keep))
+        with _trace.span("rf.apply", scan=self.name, rows=tbl.num_rows):
+            for name, rf in rfs:
+                m = runtime_filter_column_mask(tbl.column(name), rf)
+                if m is not None:
+                    keep = m if keep is None else keep & m
+            if keep is None or keep.all():
+                return tbl
+            kept = tbl.filter(pa.array(keep))
         self.metrics.add("rfPrunedRows", tbl.num_rows - kept.num_rows)
         return kept
 
@@ -333,11 +336,14 @@ class ParquetScanExec(TpuExec):
         outside its scope."""
         conjuncts = self._conjuncts if self._prefilter_on else None
         counters: dict = {}
-        tables = fastpar.read_file(
-            self.paths[fi], keep, file_schema.names, conjuncts,
-            file_schema, pqfile=f,
-            max_decoded_bytes=self.max_decoded_bytes,
-            runtime_filters=rfs or None, counters=counters)
+        # the native decoder applies the runtime filters as it decodes
+        with _trace.span("rf.apply", scan=self.name, fast=True) if rfs \
+                else contextlib.nullcontext():
+            tables = fastpar.read_file(
+                self.paths[fi], keep, file_schema.names, conjuncts,
+                file_schema, pqfile=f,
+                max_decoded_bytes=self.max_decoded_bytes,
+                runtime_filters=rfs or None, counters=counters)
         if tables is None:
             return None
         rf_pruned = counters.get("rf_pruned", 0)

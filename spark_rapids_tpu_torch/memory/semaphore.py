@@ -58,6 +58,17 @@ class TpuSemaphore:
             return cls._instance
 
     @classmethod
+    def usage_now(cls) -> dict:
+        """The process semaphore's permits and permits in use, without
+        making one (zeros before the first)."""
+        with cls._lock:
+            inst = cls._instance
+        if inst is None:
+            return {"permits": 0, "in_use": 0}
+        u = inst.usage()
+        return {"permits": u["permits"], "in_use": u["in_use"]}
+
+    @classmethod
     def reset(cls) -> None:
         """Drop the process semaphore and its owner (tests, a plugin
         restart); the next ``get`` makes a new one."""

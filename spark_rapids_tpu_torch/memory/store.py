@@ -53,6 +53,7 @@ from typing import Optional
 import torch
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import (
@@ -386,10 +387,12 @@ class BufferStore:
                 return e.batch
             t0 = time.perf_counter_ns()
             try:
-                arrays = e.host if e.tier == StorageTier.HOST \
-                    else self._read_disk(e)
-                self.reserve(e.nbytes)
-                batch = host_to_batch(arrays, e.schema, e.device)
+                with _trace.span("spill.restore", tier=e.tier.name,
+                                 bytes=e.nbytes, buffer=e.buffer_id):
+                    arrays = e.host if e.tier == StorageTier.HOST \
+                        else self._read_disk(e)
+                    self.reserve(e.nbytes)
+                    batch = host_to_batch(arrays, e.schema, e.device)
             except BaseException:
                 e.pins = max(0, e.pins - 1)  # a failed acquire keeps no pin
                 raise
@@ -502,7 +505,9 @@ class BufferStore:
         if e is None:
             return False
         t0 = time.perf_counter_ns()
-        arrays = batch_to_host(e.batch)
+        with _trace.span("spill.device_to_host", tier="DEVICE",
+                         bytes=e.nbytes, buffer=e.buffer_id):
+            arrays = batch_to_host(e.batch)
         e.batch, e.host, e.tier = None, arrays, StorageTier.HOST
         self.device_used -= e.nbytes
         self.host_used += host_bytes(arrays)
@@ -522,7 +527,9 @@ class BufferStore:
         t0 = time.perf_counter_ns()
         path = os.path.join(self._dir(), f"spill-{e.buffer_id}.tpub")
         hb = host_bytes(e.host)
-        write_spill_file(path, _to_numpy(e.host), self._codec)
+        with _trace.span("spill.host_to_disk", tier="HOST", bytes=hb,
+                         buffer=e.buffer_id):
+            write_spill_file(path, _to_numpy(e.host), self._codec)
         e.host, e.path, e.tier = None, path, StorageTier.DISK
         e.disk_bytes = hb
         self.host_used -= hb

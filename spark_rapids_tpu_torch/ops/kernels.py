@@ -33,6 +33,7 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import AnyColumn, StringColumn
+from spark_rapids_tpu_torch.trace.ledger import LEDGER
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -234,11 +235,21 @@ def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 class _LaunchCounter:
     """``launches``: kernel launches so far.  Pool threads launch at
-    once, so the increment is locked; assigning 0 resets it."""
+    once, so the increment is locked; assigning 0 resets it.  Each
+    launch (on the CPU, each run of the plain version in its place)
+    dispatches through the device ledger (``trace/ledger.py``) under
+    the program key ``(PROGRAM,)``: the ledger counts and times K1's
+    dispatches, one a launch, and a call with no rows dispatches
+    nothing."""
+
+    #: the wrapper's program key tag in the ledger
+    PROGRAM = "kernel"
 
     def __init__(self):
         self.launches = 0
         self._launch_lock = threading.Lock()
+        self._dispatch = LEDGER.wrap((self.PROGRAM,), self._kernel,
+                                     op="K1")
 
     def _launched(self) -> None:
         with self._launch_lock:
@@ -252,6 +263,8 @@ class HashString(_LaunchCounter):
     the kernel reads no byte past W whatever they hold.  ``launches``
     counts kernel launches."""
 
+    PROGRAM = "kernel.hash_string"
+
     def __call__(self, chars: torch.Tensor, lengths: torch.Tensor,
                  seeds: torch.Tensor) -> torch.Tensor:
         if chars.dtype != torch.uint8 or chars.dim() != 2:
@@ -261,13 +274,18 @@ class HashString(_LaunchCounter):
         _check_tensor("chars", chars, torch.uint8, (n, width), chars.device)
         _check_tensor("lengths", lengths, torch.int32, (n,), chars.device)
         _check_tensor("seeds", seeds, torch.int32, (n,), chars.device)
+        if chars.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"hash_string has no kernel for {chars.device}")
+        if n == 0:
+            return torch.empty(0, dtype=torch.int32, device=chars.device)
+        return self._dispatch(chars, lengths, seeds)
+
+    def _kernel(self, chars: torch.Tensor, lengths: torch.Tensor,
+                seeds: torch.Tensor) -> torch.Tensor:
         if chars.device.type == "cpu":
             return hash_string_bytes_reference(chars, lengths, seeds)
-        if chars.device.type != "cuda":
-            raise ValueError(f"hash_string has no kernel for {chars.device}")
+        n, width = chars.shape
         out = torch.empty(n, dtype=torch.int32, device=chars.device)
-        if n == 0:
-            return out
         geo = tile_geometry([(STRING_TAG, width)], n)
         lib = _hash_lib()
         with torch.cuda.device(chars.device):
@@ -395,6 +413,8 @@ class HashColumns(_LaunchCounter):
     runs ``hash_columns_reference``.  ``launches`` counts kernel
     launches."""
 
+    PROGRAM = "kernel.hash_columns"
+
     def __call__(self, cols: Sequence[AnyColumn], num_rows: int,
                  device, seed: int = DEFAULT_SEED,
                  num_partitions: int = 0) -> torch.Tensor:
@@ -416,18 +436,22 @@ class HashColumns(_LaunchCounter):
                   for i in range(0, len(cols), MAX_COLUMNS)] or [[]]
         for i, chunk in enumerate(chunks):
             parts = num_partitions if i == len(chunks) - 1 else 0
-            if device.type == "cpu":
-                seeds = hash_columns_reference(chunk, seeds, parts)
+            if num_rows == 0 and device.type == "cuda":
+                seeds = torch.empty(0, dtype=torch.int64 if parts else
+                                    torch.int32, device=device)
             else:
-                seeds = self._launch(chunk, seeds, num_rows, parts, device)
+                seeds = self._dispatch(chunk, seeds, num_rows, parts,
+                                       device)
         return seeds
 
-    def _launch(self, cols, seeds, n: int, num_partitions: int,
+    def _kernel(self, cols, seeds, n: int, num_partitions: int,
                 device: torch.device) -> torch.Tensor:
+        """One launch over at most MAX_COLUMNS columns (the plain
+        version on the CPU)."""
+        if device.type == "cpu":
+            return hash_columns_reference(cols, seeds, num_partitions)
         out = torch.empty(n, dtype=torch.int64 if num_partitions else
                           torch.int32, device=device)
-        if n == 0:
-            return out
         tags = [(STRING_TAG, c.width) if isinstance(c, StringColumn)
                 else (_FIXED_TAGS[type(c.dtype)][0], 0) for c in cols]
         geo = tile_geometry(tags, n)

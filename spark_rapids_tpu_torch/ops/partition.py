@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -127,17 +128,43 @@ class SinglePartitioning:
         return "single"
 
 
-def split_batch(batch: ColumnarBatch, pids: torch.Tensor,
-                n_parts: int) -> list[ColumnarBatch]:
-    """Group rows by partition id (stable) and slice one batch per
-    partition; one sizing sync for the per-partition counts."""
-    if n_parts == 1:
-        return [batch]
+def split_batch_dispatch(batch: ColumnarBatch, pids: torch.Tensor,
+                         n_parts: int) -> tuple[ColumnarBatch, torch.Tensor]:
+    """Device half of ``split_batch``, no sync: the rows grouped by
+    partition id (stable) and the per-partition counts, on the device.
+    The sizing readback is the caller's, so a pipelined map loop can
+    dispatch batch k+1 while batch k's counts are read."""
     order = torch.sort(pids, stable=True).indices
-    grouped = batch.gather(order)
-    counts = torch.bincount(pids, minlength=n_parts).tolist()
+    return batch.gather(order), id_counts(pids, n_parts)
+
+
+def id_counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows per id in [0, n), on the device and without a sync
+    (``torch.bincount`` reads the ids' extremes back to size its
+    output)."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device) \
+        .scatter_add_(0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
+
+
+def split_batch_finish(grouped: ColumnarBatch, counts) -> list[ColumnarBatch]:
+    """Slice one batch per partition once the counts are on the host
+    (any host array-like, as ``device_read`` returns)."""
     out, off = [], 0
-    for cnt in counts:
+    for cnt in np.asarray(counts).tolist():
         out.append(grouped.slice(off, off + cnt))
         off += cnt
     return out
+
+
+def split_batch(batch: ColumnarBatch, pids: torch.Tensor,
+                n_parts: int) -> list[ColumnarBatch]:
+    """Group rows by partition id (stable) and slice one batch per
+    partition; one sizing readback (``exchange.split``) for the
+    per-partition counts."""
+    if n_parts == 1:
+        return [batch]
+    from spark_rapids_tpu_torch.parallel.pipeline import device_read
+
+    grouped, counts = split_batch_dispatch(batch, pids, n_parts)
+    return split_batch_finish(grouped,
+                              device_read(counts, tag="exchange.split"))

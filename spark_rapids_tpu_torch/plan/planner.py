@@ -137,6 +137,7 @@ import pyarrow as pa
 import torch
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
 from spark_rapids_tpu_torch.serving.cancel import check_point
@@ -595,20 +596,25 @@ class Planner:
 
     def plan_with_meta(self, plan: L.LogicalPlan
                        ) -> tuple[TpuExec, PlanMeta]:
-        """The physical plan and the tagged logical tree it came from."""
-        plan = _rewrite_split_extracts(plan)
-        plan = _rewrite_input_file_exprs(plan)
-        plan = self._rewrite_scalar_subqueries(plan)
-        meta = PlanMeta(plan, self.conf)
-        meta.tag()
-        _demote_unrepresentable_boundaries(meta)
-        saved, self._tags = self._tags, {id(m.plan): m for m in meta.walk()}
-        try:
-            root = self._lower(plan, None)
-        finally:
-            self._tags = saved
-        inject_runtime_filters(root, self.conf)
-        plan_coalesce(root, self.conf)
+        """The physical plan and the tagged logical tree it came from
+        (``query.tag`` and ``query.lower`` spans, as the JAX
+        ``plan_query`` records)."""
+        with _trace.span("query.tag"):
+            plan = _rewrite_split_extracts(plan)
+            plan = _rewrite_input_file_exprs(plan)
+            plan = self._rewrite_scalar_subqueries(plan)
+            meta = PlanMeta(plan, self.conf)
+            meta.tag()
+            _demote_unrepresentable_boundaries(meta)
+        with _trace.span("query.lower"):
+            saved, self._tags = self._tags, {id(m.plan): m
+                                             for m in meta.walk()}
+            try:
+                root = self._lower(plan, None)
+            finally:
+                self._tags = saved
+            inject_runtime_filters(root, self.conf)
+            plan_coalesce(root, self.conf)
         return root, meta
 
     def _rewrite_scalar_subqueries(self, plan: L.LogicalPlan
@@ -1030,13 +1036,23 @@ def _checked(batches: Iterator) -> Iterator:
         yield b
 
 
+def _fetched(batch, schema: T.Schema) -> pa.Table:
+    """One result batch as Arrow (a ``query.fetch.batch`` span)."""
+    if _trace.TRACER.enabled:
+        with _trace.span("query.fetch.batch"):
+            return batches_to_arrow(iter([batch]), schema)
+    return batches_to_arrow(iter([batch]), schema)
+
+
 def collect_exec(exec_: TpuExec, conf: C.TorchConf) -> pa.Table:
     """Run a physical plan to an Arrow table, fetching batches on a
     ``result.fetch`` stage; the stage and the exec tree are closed on
     every exit."""
     fetch = prefetch(exec_.execute(), stage_depth(conf), "result.fetch")
     try:
-        return batches_to_arrow(_checked(fetch), exec_.schema)
+        tables = [_fetched(b, exec_.schema) for b in _checked(fetch)]
+        return pa.concat_tables(tables) if tables \
+            else batches_to_arrow([], exec_.schema)
     finally:
         fetch.close()
         close_tree(exec_)
@@ -1050,7 +1066,7 @@ def stream_exec(exec_: TpuExec, conf: C.TorchConf) -> Iterator[pa.Table]:
     fetch = prefetch(exec_.execute(), stage_depth(conf), "serve.stream.fetch")
     try:
         for batch in _checked(fetch):
-            yield batches_to_arrow(iter([batch]), exec_.schema)
+            yield _fetched(batch, exec_.schema)
     finally:
         fetch.close()
         close_tree(exec_)

@@ -337,16 +337,23 @@ def finalize(rf: RuntimeFilter, state: tuple) -> None:
     table when [min, max] is narrow (a second read), and publish.
     ``build_ms`` is this step's wall time, the synchronous cost the
     filter puts on the build's critical path."""
+    from spark_rapids_tpu_torch import trace as _trace
+    from spark_rapids_tpu_torch.parallel.pipeline import device_read
+
     bits, lo, hi, count = state
     t0 = time.perf_counter()
-    host = torch.cat([lo.view(1), hi.view(1), count.view(1),
-                      device_pack_bits(bits)]).cpu().numpy()
-    lo, hi, n_keys = (int(v) for v in host[:3])
-    table = None
-    if n_keys and hi - lo < LUT_MAX_SPAN and lo > _INT64_MIN:
-        table = device_range_table(bits, lo, hi, rf.dtype, rf.n_hashes)
-    build_ms = (time.perf_counter() - t0) * 1e3
-    rf.publish(lo, hi, n_keys, host[3:].astype(np.uint32), build_ms, table)
+    with _trace.span("rf.build", rf=rf.rf_id, key=rf.key_name):
+        host = device_read(torch.cat([lo.view(1), hi.view(1),
+                                      count.view(1),
+                                      device_pack_bits(bits)]),
+                           tag="rf.build")
+        lo, hi, n_keys = (int(v) for v in host[:3])
+        table = None
+        if n_keys and hi - lo < LUT_MAX_SPAN and lo > _INT64_MIN:
+            table = device_range_table(bits, lo, hi, rf.dtype, rf.n_hashes)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        rf.publish(lo, hi, n_keys, host[3:].astype(np.uint32), build_ms,
+                   table)
 
 
 # --------------------------------------------------------------------- #

@@ -22,7 +22,9 @@ on pool threads.  A session whose conf sets
 ``spark.rapids.tpu.robustness.faults.enabled`` arms its schedule for
 each of its queries (``query_scope``); ``install(spec, forced=True)``
 arms it for whatever runs until ``disarm()``.  Disarmed, a fault point
-is one global read.
+is one global read.  With tracing on, an injection records a
+``fault.inject`` event and a credited recovery a ``fault.recovered``
+one, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import zlib
 from typing import Iterator, Optional
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import trace as _tr
 
 #: the ported sites (parse_spec refuses any other)
 SITES = ("alloc.device", "exec.batch", "cancel.check")
@@ -191,6 +194,8 @@ def fault_point(site: str, **ctx) -> None:
     if latency:
         time.sleep(latency)
     if fire:
+        if _tr.TRACER.enabled:
+            _tr.event("fault.inject", site=site, call=call_no, **ctx)
         raise InjectedFault(site, f"{st.marker} (site={site}, "
                                   f"call #{call_no})")
 
@@ -217,6 +222,8 @@ def note_recovered(exc: BaseException, action: str = "") -> None:
     if st is not None:
         with st.lock:
             st.recovered += 1
+        if _tr.TRACER.enabled:
+            _tr.event("fault.recovered", site=inj.site, action=action)
 
 
 def fault_stats() -> dict[str, dict]:

@@ -18,9 +18,10 @@ Counterpart of ``spark_rapids_tpu/serving/`` (``docs/serving.md``):
 
 The keys are in ``config.py`` (``spark.rapids.tpu.serving.*``).  With
 ``serving.maxConcurrent`` at its default of 0 admission is off: a
-collect reads that one key and runs unscheduled.  The JAX tier's trace
-spans, event-log record, ops plane, persisted plans and mesh serving
-are not ported.
+collect reads that one key and runs unscheduled.  The tier records the
+JAX tier's trace spans and events (``serve.admit``, ``cancel.*``,
+``breaker.*``, ``serve.result_cache_hit``); its event-log record, ops
+plane, persisted plans and mesh serving are not ported.
 
 This module holds the per-query serving context: the facts admission
 and the plan cache learn about the query in flight (tenant, priority,

@@ -31,8 +31,10 @@ failure takes: the admission entry and slot released, pipeline
 producers closed and joined, exec trees closed (shuffle blocks and
 parked batches freed), semaphore permits given back, shared-scan
 leaderships aborted.  ``serving.cancellation.enabled`` off makes
-:func:`begin` one conf read returning None.  The JAX module's trace
-events are not ported.
+:func:`begin` one conf read returning None.  With tracing on, a cancel
+records ``cancel.request``, the checkpoint that raises
+``cancel.unwind``, and the breaker ``breaker.trip`` /
+``breaker.quarantined``, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import time
 from typing import Iterator, Optional
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import trace as _tr
 from spark_rapids_tpu_torch.robustness.lock_tracker import tracked_lock
 from spark_rapids_tpu_torch.serving.scheduler import AdmissionRejected
 
@@ -105,6 +108,9 @@ class CancelToken:
                 return False
             self.reason = reason
             self.detail = detail
+        if _tr.TRACER.enabled:
+            _tr.event("cancel.request", reason=reason,
+                      query_id=self.query_id, tenant=self.tenant)
         return True
 
     @property
@@ -131,6 +137,9 @@ class CancelToken:
                                "(serving.deadlineMs) exceeded")
             r = self.reason
         if r is not None:
+            if _tr.TRACER.enabled:
+                _tr.event("cancel.unwind", reason=r,
+                          query_id=self.query_id)
             raise QueryCancelled(r, self.detail, self.query_id)
 
 
@@ -351,6 +360,8 @@ def breaker_admit(conf, tenant: str) -> None:
     if quarantine:
         with _STATS_MU:
             _STATS["quarantined"] += 1
+        if _tr.TRACER.enabled:
+            _tr.event("breaker.quarantined", tenant=tenant)
         raise TenantQuarantined(
             f"tenant {tenant!r} is quarantined (circuit breaker "
             f"open after repeated failures; retry in "
@@ -409,6 +420,8 @@ def breaker_result(conf, tenant: str, ok: bool) -> None:
     if tripped:
         with _STATS_MU:
             _STATS["breaker_trips"] += 1
+        if _tr.TRACER.enabled:
+            _tr.event("breaker.trip", tenant=tenant)
 
 
 def breaker_state(tenant: str) -> str:

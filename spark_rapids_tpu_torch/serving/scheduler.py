@@ -27,8 +27,9 @@ grants a queued query whose template group is already running first.
 The scheduler is one per process; :func:`get_scheduler` applies the
 admitting conf's ``maxConcurrent`` / ``queueDepth`` /
 ``defaultPriority`` / batching when they differ from the live values
-(last writer wins, as in JAX); :func:`reset` drops it for tests.  The
-JAX module's trace span and mesh budget are not ported.
+(last writer wins, as in JAX); :func:`reset` drops it for tests.  Each
+admission records a ``serve.admit`` span of its wait.  The JAX
+module's mesh budget is not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from contextlib import contextmanager
 from typing import Optional
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import trace as _tr
 from spark_rapids_tpu_torch.robustness.lock_tracker import tracked_lock
 from spark_rapids_tpu_torch.serving import (
     clear_serving_context,
@@ -255,6 +257,11 @@ class QueryScheduler:
             ring.append(wait_ms)
             self._tenant_admitted[tenant] = \
                 self._tenant_admitted.get(tenant, 0) + 1
+        if _tr.TRACER.enabled:
+            # the admission wait as a span on the timeline (zero-length
+            # for an immediate grant)
+            _tr.record_complete("serve.admit", t0, dt_ns,
+                                tenant=tenant, priority=prio)
         update_serving_context(tenant=tenant, priority=prio,
                                admit_wait_ms=round(wait_ms, 3))
         return entry
@@ -337,6 +344,17 @@ def get_scheduler(conf: C.TorchConf) -> QueryScheduler:
             s.batching = want_batch
             s._pump_locked()
     return s
+
+
+def queue_gauges() -> dict:
+    """Admission occupancy now (running, waiting), without making a
+    scheduler: the telemetry sampler's gauge."""
+    with _LOCK:
+        s = _SCHED
+    if s is None:
+        return {"running": 0, "waiting": 0}
+    with s._cv:
+        return {"running": s._running, "waiting": len(s._waiting)}
 
 
 def scheduler_stats() -> dict:

@@ -491,6 +491,18 @@ class ScanShareRegistry:
         with self._mu:
             return len(self._entries)
 
+    def inflight(self) -> int:
+        """Entries whose leader has not finished decoding (each read
+        under its own lock, as ``complete`` / ``abort`` flip it)."""
+        with self._mu:
+            entries = list(self._entries.values())
+        n = 0
+        for e in entries:
+            with e._cv:
+                if not e._done:
+                    n += 1
+        return n
+
     def reset(self) -> None:
         with self._mu:
             entries = list(self._entries.values())

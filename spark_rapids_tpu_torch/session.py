@@ -69,6 +69,17 @@ while ``serving.maxConcurrent`` is 0), carries a cancel token
 (``cancel(query_id)``), and with ``serving.sharing.enabled`` consults
 the cross-tenant result cache.  ``prepare(df)`` returns a
 ``PreparedQuery`` over the session's plan cache (``plan_cache``).
+
+Observability (``trace/``): the session syncs the tracer, the device
+ledger, the telemetry sampler and ``MetricTimer``'s device sync with
+its conf when it is built and at each query
+(``sync_observability``).  Each query runs under a
+``trace_context(query_id=...)`` with ``query.plan`` and
+``query.execute`` spans (a stream's execute span covers its whole
+drain), a result served from the cache records
+``serve.result_cache_hit`` and a query cancelled before it started
+``cancel.shed``; ``export_trace(path)`` writes the trace as Chrome
+JSON.
 """
 
 from __future__ import annotations
@@ -76,16 +87,18 @@ from __future__ import annotations
 import contextlib
 import itertools
 import threading
+import time
 from typing import Iterator, Optional, Sequence, Union
 
 import pyarrow as pa
 import torch
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import schema_from_arrow
 from spark_rapids_tpu_torch.config import TorchConf
-from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.execs.base import TpuExec, sync_metrics_conf
 from spark_rapids_tpu_torch.execs.sort import SortKey
 from spark_rapids_tpu_torch.exprs.aggregates import (
     AggregateFunction,
@@ -155,6 +168,8 @@ from spark_rapids_tpu_torch.serving import update_serving_context
 from spark_rapids_tpu_torch.serving.scheduler import admission
 from spark_rapids_tpu_torch.udf.exprs import OpaquePythonUDF, TorchScalarUDF
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
+from spark_rapids_tpu_torch.trace import ledger as _ledger
+from spark_rapids_tpu_torch.trace import telemetry as _telemetry
 
 __all__ = ["TorchSession", "DataFrame", "col", "lit", "sum_", "avg",
            "count", "count_star", "count_distinct", "min_", "max_",
@@ -415,6 +430,18 @@ def _next_query_id() -> int:
         return next(_QUERY_IDS)
 
 
+def sync_observability(conf: TorchConf) -> None:
+    """Align the process tracer, ledger, telemetry sampler and
+    ``MetricTimer``'s device sync with ``conf`` (at session build and
+    at each query boundary), under the JAX ownership rule: a
+    programmatic ``enable()`` / ``start()`` is not overridden, and only
+    the conf that turned one on turns it off."""
+    _trace.sync_conf(conf)
+    _ledger.sync_conf(conf)
+    _telemetry.sync_conf(conf)
+    sync_metrics_conf(conf)
+
+
 class TorchSession:
     def __init__(self, conf: Optional[Union[TorchConf, dict]] = None,
                  device: Union[str, torch.device] = "cuda",
@@ -441,6 +468,7 @@ class TorchSession:
         self._plan_cache_lock = threading.Lock()
         #: the cancel tokens of this session's queries in flight
         self._tokens = _cancel.TokenSet()
+        sync_observability(self.conf)
 
     @property
     def store(self):
@@ -489,6 +517,16 @@ class TorchSession:
         waiting for admission has no id yet; only the cancel-all form
         reaches it."""
         return self._tokens.cancel(query_id, reason)
+
+    @staticmethod
+    def export_trace(path: str) -> str:
+        """Write the process's collected trace as Chrome Trace Format
+        JSON (Perfetto, chrome://tracing); the path.  Run queries with
+        ``spark.rapids.tpu.trace.enabled`` first (JAX
+        ``TpuSession.export_trace``)."""
+        from spark_rapids_tpu_torch.trace.export import export_chrome_trace
+
+        return export_chrome_trace(path)
 
     def spill_stats(self) -> dict:
         """The process store's gauges and spill totals
@@ -883,14 +921,37 @@ class DataFrame:
                 update_serving_context(**facts)
             yield
 
-    def _start_query(self, tok) -> None:
-        """The query boundary: the process semaphore and lock tracker
-        follow the session's conf; the token gets the query's id."""
+    def _start_query(self, tok) -> int:
+        """The query boundary: the process semaphore, lock tracker and
+        observability follow the session's conf; the query's id (its
+        token's too)."""
         conf = self._session.conf
         TpuSemaphore.sync_conf(conf)
         _locks.sync_conf(conf)
+        sync_observability(conf)
+        qid = _next_query_id()
         if tok is not None:
-            tok.query_id = _next_query_id()
+            tok.query_id = qid
+        return qid
+
+    @staticmethod
+    def _shed(e: "_cancel.QueryCancelled") -> None:
+        """A query cancelled before it started (JAX ``cancel.shed``)."""
+        if _trace.TRACER.enabled:
+            qid = _next_query_id()
+            with _trace.trace_context(query_id=qid):
+                _trace.event("cancel.shed", query_id=qid, reason=e.reason)
+
+    @staticmethod
+    def _result_cache_hit(out: pa.Table) -> pa.Table:
+        """A collect served by the result cache: no exec tree, one
+        ``serve.result_cache_hit`` event under a query id of its own."""
+        if _trace.TRACER.enabled:
+            qid = _next_query_id()
+            with _trace.trace_context(query_id=qid):
+                _trace.event("serve.result_cache_hit", query_id=qid,
+                             rows=out.num_rows)
+        return out
 
     def _collect(self, exec_: Optional[TpuExec] = None, drain_lock=None,
                  serving_facts=None, token_sink=None) -> pa.Table:
@@ -902,6 +963,7 @@ class DataFrame:
 
         conf = self._session.conf
         tok = self._begin(token_sink)
+        started = False
         try:
             with self._admitted(tok, serving_facts):
                 sharing = conf.get(C.SHARING_ENABLED)
@@ -910,20 +972,26 @@ class DataFrame:
                     if verdict is not None:
                         update_serving_context(result_cache=verdict)
                     if cached is not None:
-                        return cached
+                        return self._result_cache_hit(cached)
                 with drain_lock if drain_lock is not None \
                         else contextlib.nullcontext():
-                    self._start_query(tok)
-                    with faults.query_scope(conf):
+                    qid = self._start_query(tok)
+                    started = True
+                    with faults.query_scope(conf), \
+                            _trace.trace_context(query_id=qid):
                         if exec_ is None:
-                            exec_, _meta = _planner.plan_query(
-                                self._plan, self._planner())
-                        out = _planner.collect_exec(exec_, conf)
+                            with _trace.span("query.plan"):
+                                exec_, _meta = _planner.plan_query(
+                                    self._plan, self._planner())
+                        with _trace.span("query.execute"):
+                            out = _planner.collect_exec(exec_, conf)
                 if sharing:
                     _ws.offer_result(self._plan, conf, out)
                 return out
         except _cancel.QueryCancelled as e:
             _cancel.tick_outcome(e.reason)
+            if not started:
+                self._shed(e)
             raise
         finally:
             self._end(tok, token_sink)
@@ -942,8 +1010,18 @@ class DataFrame:
 
         conf = self._session.conf
         tok = self._begin(token_sink)
-        attach = (lambda: _cancel.attach_token(tok)) if tok is not None \
-            else contextlib.nullcontext
+        tctx: dict = {}
+
+        @contextlib.contextmanager
+        def attach():
+            """The token and the query's trace context, around each pull
+            (never across a yield)."""
+            with _cancel.attach_token(tok) if tok is not None \
+                    else contextlib.nullcontext(), \
+                    _trace.attach_context(tctx or None):
+                yield
+
+        started = False
         try:
             with self._admitted(tok, serving_facts, attach=False), \
                     drain_lock if drain_lock is not None \
@@ -954,15 +1032,20 @@ class DataFrame:
                     if verdict is not None:
                         update_serving_context(result_cache=verdict)
                     if cached is not None:
-                        yield from cached.to_batches(max_chunksize=batch_rows)
+                        yield from self._result_cache_hit(
+                            cached).to_batches(max_chunksize=batch_rows)
                         return
                     acc, cap = [], conf.get(C.RESULT_CACHE_BUDGET) // 4
-                self._start_query(tok)
+                qid = self._start_query(tok)
+                started = True
+                tctx["query_id"] = qid
+                t0_ns = time.perf_counter_ns()
                 with faults.query_scope(conf):
                     with attach():
                         if exec_ is None:
-                            exec_, _meta = _planner.plan_query(
-                                self._plan, self._planner())
+                            with _trace.span("query.plan"):
+                                exec_, _meta = _planner.plan_query(
+                                    self._plan, self._planner())
                     gen = _planner.stream_exec(exec_, conf)
                     try:
                         while True:
@@ -984,11 +1067,20 @@ class DataFrame:
                     finally:
                         with attach():
                             gen.close()
+                # fully drained: the execute span covers the whole drain
+                # (JAX records a streamed query's the same way)
+                if _trace.TRACER.enabled:
+                    _trace.record_complete(
+                        "query.execute", t0_ns,
+                        time.perf_counter_ns() - t0_ns, query_id=qid,
+                        streamed=True)
                 if acc:
                     _ws.offer_result(self._plan, conf,
                                      pa.concat_tables(acc))
         except _cancel.QueryCancelled as e:
             _cancel.tick_outcome(e.reason)
+            if not started:
+                self._shed(e)
             raise
         finally:
             self._end(tok, token_sink)

@@ -29,6 +29,7 @@ from __future__ import annotations
 import threading
 from typing import Iterator
 
+from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.memory.store import SpillableBatch
 
@@ -57,6 +58,11 @@ class ShuffleManager:
         rows) triples at once; a task commits once, and only a task that
         ran to its end commits (a failed attempt closes its own
         blocks)."""
+        if blocks and _trace.TRACER.enabled:
+            _trace.event("shuffle.block.send", shuffle=shuffle_id,
+                         blocks=len(blocks),
+                         bytes=sum(h.nbytes for _r, h, _n in blocks),
+                         rows=sum(n for _r, _h, n in blocks))
         with self._lock:
             parts = self._blocks[shuffle_id]
             stats = self._stats[shuffle_id]
@@ -96,7 +102,12 @@ class ShuffleManager:
         them)."""
         handles = self._handles(shuffle_id, reduce_id)
         for h in handles[slice_index::slice_count]:
-            b = h.get()
+            if _trace.TRACER.enabled:
+                with _trace.span("shuffle.block.recv", shuffle=shuffle_id,
+                                 reduce=reduce_id, bytes=h.nbytes):
+                    b = h.get()
+            else:
+                b = h.get()
             try:
                 yield b
             finally:

@@ -1,5 +1,6 @@
-"""The port's pipeline stage (``parallel/pipeline.py``) and task
-semaphore (``memory/semaphore.py``) on the CPU.
+"""The port's pipeline stage and deferred readbacks
+(``parallel/pipeline.py``) and task semaphore (``memory/semaphore.py``)
+on the CPU.
 
 Each stage case runs the same generators through the JAX package's
 ``parallel.pipeline.prefetch`` and the port's ``prefetch`` and requires
@@ -10,6 +11,14 @@ idempotence per task, a release waking a waiter, and the nested
 exchange (an aggregate over a partition-wise join over two exchanges)
 finishing with one permit and four task threads.  Every wait has a
 timeout (there is no pytest-timeout here).
+
+The readback cases run seeded item lists through the JAX package's
+``pipelined`` and the port's at depths 0-3 and require the same
+(dispatch | readback) sequence from ``trace_events`` and the same
+outputs; ``device_read_many`` and ``ReadbackFuture`` read what a plain
+read does; ``guarded_pipeline`` re-dispatches under an injected
+``exec.batch`` fault and gives the unfaulted result; q3 pooled equals
+serial, bit for bit, with its readbacks counted under their tags.
 """
 
 from __future__ import annotations
@@ -18,9 +27,11 @@ import sys
 import threading
 import time
 
+import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+import torch
 
 from spark_rapids_tpu.parallel import pipeline as JP
 from spark_rapids_tpu_torch import TorchSession, col, sum_
@@ -230,6 +241,148 @@ def test_nested_exchange_finishes_with_one_permit(tmp_path):
     assert rows == [{"v": float(i), "sw": 100.0 * i} for i in range(4)]
     assert s.semaphore.usage()["in_use"] == 0
     assert P.live_stage_threads() == 0 and live_pool_threads() == 0
+
+
+# --------------------------------------------------------------------- #
+# Deferred readbacks
+# --------------------------------------------------------------------- #
+
+
+def _run_pipelined(mod, array, items, depth):
+    """``mod.pipelined`` over ``items`` whose dispatch makes a device
+    value and whose retire reads it back; (trace events, outputs)."""
+    def dispatch(x):
+        return array(x) * 3
+
+    def retire(state):
+        return [int(mod.device_read(state, tag="t.pipe"))]
+
+    with mod.trace_events() as events:
+        out = list(mod.pipelined(iter(items), dispatch, retire, depth=depth,
+                                 tag="t.pipe"))
+    return events, out
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 3])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pipelined_order_matches_jax(depth, seed):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    items = [int(v) for v in rng.integers(0, 1000, int(rng.integers(0, 9)))]
+    jev, jout = _run_pipelined(JP, jnp.asarray, items, depth)
+    pev, pout = _run_pipelined(P, torch.tensor, items, depth)
+    assert pev == jev
+    assert pout == jout == [3 * v for v in items]
+    if depth and len(items) > depth:
+        # item k+1 is dispatched before item k retires
+        assert pev[:depth + 1] == [("dispatch", "t.pipe")] * (depth + 1)
+
+
+def test_device_read_many_reads_what_plain_reads_read():
+    xs = [torch.tensor(3), torch.tensor([1, 2, 3]), 7,
+          torch.tensor(2.5, dtype=torch.float64),
+          torch.tensor([[4, 5]], dtype=torch.int32), torch.tensor(True)]
+    P.reset_stage_counters()
+    got = P.device_read_many(xs, tag="t.many")
+    assert len(got) == len(xs)
+    for g, x in zip(got, xs):
+        want = x.numpy() if isinstance(x, torch.Tensor) else x
+        assert np.array_equal(g, want) and np.shape(g) == np.shape(want)
+    assert P.stage_snapshot("t.many")["t.many"]["readbacks"] == 1
+    assert P.device_read_many([1, 2.0], tag="t.host") == [1, 2.0]
+    assert "t.host" not in P.stage_snapshot()
+
+
+def test_readback_future_reads_what_a_plain_read_reads():
+    P.reset_stage_counters()
+    x = torch.arange(10, dtype=torch.int64) * 7
+    fut = P.device_read_async(x, tag="t.async")
+    assert fut.done()
+    assert np.array_equal(fut.result(), x.numpy())
+    assert np.array_equal(fut.result(), P.device_read(x))
+    st = P.stage_snapshot("t.async")["t.async"]
+    assert (st["async_readbacks"], st["readbacks"]) == (1, 0)
+    assert P.device_read_async(5).result() == 5
+    assert P.device_read_int(torch.tensor(41)) == 41
+
+
+def test_guarded_pipeline_redispatches_under_an_injected_fault():
+    """exec.batch faults at calls 2-4: batches 2 and 3 fail at their
+    dispatch (item k+1 is dispatched before item k retires), so each
+    retires into the ladder; batch 2's re-run fails again and is
+    bisected.  The same rows out as without faults."""
+    from spark_rapids_tpu_torch.columnar.arrow import from_arrow
+    from spark_rapids_tpu_torch.execs import retry as R
+    from spark_rapids_tpu_torch.memory.store import BufferStore
+    from spark_rapids_tpu_torch.robustness import faults
+
+    rng = np.random.default_rng(4)
+    batches = [from_arrow(pa.table({"v": rng.integers(0, 100, 64)}),
+                          torch.device("cpu")) for _ in range(4)]
+    policy = R.RetryPolicy(backoff_s=0.0, min_split_rows=4,
+                           store=BufferStore())
+    dispatched = []
+
+    def dispatch(b):
+        dispatched.append(b.num_rows)
+        return b, b.columns[0].data.sum()
+
+    def retire(entry):
+        b, total = entry
+        return [(b.num_rows, P.device_read_int(total, tag="t.guard"))]
+
+    def run():
+        d, r = R.guarded_pipeline(dispatch, retire, "t.guard", policy)
+        return list(P.pipelined(iter(batches), d, r, depth=1))
+
+    want = run()
+    n_clean = len(dispatched)
+    R.reset_retry_stats()
+    faults.install("exec.batch:nth=2,times=3", forced=True)
+    try:
+        got = run()
+        stats = faults.fault_stats()
+    finally:
+        faults.disarm()
+    st = R.retry_stats()
+    # the ladder's counters are this test's own: zeroed once read, so
+    # the module's quiet-ladder check holds for every other test
+    R.reset_retry_stats()
+    assert stats["exec.batch"]["injected"] == 3
+    assert st["spill_retries"] == 2 and st["splits"] == 1, st
+    assert sum(n for n, _ in got) == sum(n for n, _ in want) == 256
+    assert sum(t for _, t in got) == sum(t for _, t in want)
+    assert len(got) == len(want) + 1  # the bisected batch's two halves
+    # the faulted dispatches never ran; batch 2 ran as its two halves
+    assert len(dispatched) - n_clean == n_clean + 1
+
+
+def test_q3_pooled_equals_serial_with_readbacks_counted(tmp_path):
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+
+    li = tpch.make_lineitem(str(tmp_path), n_files=3, with_orderkey=True,
+                            n_orders=1024, rows_per_file=2048)
+    orders = tpch.make_orders(str(tmp_path), n_orders=1024)
+    runs = {}
+    for mode, extra in (("serial", C.SERIAL), ("pooled", {})):
+        s = TorchSession({C.TASK_TARGET_BYTES: 1, C.BROADCAST_THRESHOLD: -1,
+                          **extra}, device="cpu")
+        plan = tpch.q3_dataframe(s, li, orders).physical_plan()
+        P.reset_stage_counters()
+        out = collect_exec(plan, s.conf)
+        snap = P.stage_snapshot()
+        hashed = sum(n.metrics["mapBatches"] for n in plan.walk()
+                     if isinstance(n, TpuShuffleExchangeExec)
+                     and n.num_partitions > 1)
+        runs[mode] = (out, {k: v["readbacks"] for k, v in snap.items()
+                            if v["readbacks"]}, hashed)
+    (serial, sr, sh), (pooled, pr, ph) = runs["serial"], runs["pooled"]
+    assert pooled.equals(serial) and serial.num_rows == 10
+    assert sr == pr
+    assert sr["exchange.split"] == sh == ph > 0
+    assert sr["join.probe"] > 0 and sr["rf.build"] == 1
 
 
 # the OOM ladder and the spill store stay quiet on these tests

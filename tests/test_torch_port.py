@@ -766,5 +766,59 @@ def test_build_paths_live_in_the_package():
         "hash_string-")
 
 
+@pytest.mark.cuda
+def test_readbacks_on_the_card(cuda):
+    """``device_read_async`` copies into pinned memory behind an event;
+    ``device_read_many`` reads mixed dtypes and shapes."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.parallel import pipeline as P
+
+    x = torch.arange(1 << 20, device=cuda)
+    fut = P.device_read_async(x, tag="t.cuda")
+    got = fut.result()
+    assert fut.done() and np.array_equal(got, x.cpu().numpy())
+    many = P.device_read_many([x[:3], x.sum(), x[5].to(torch.int32)])
+    assert [v.tolist() for v in many] == [[0, 1, 2], int(x.sum()), 5]
+
+
+@pytest.mark.cuda
+def test_ledger_busy_is_at_most_the_wall_on_the_card(cuda, tmp_path):
+    """The device ledger on q3: the union of its CUDA-event windows is
+    within the query's wall, and K1's program dispatched once a
+    launch."""
+    import time
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch import tpch
+    from spark_rapids_tpu_torch.trace import ledger as PL
+
+    li = tpch.make_lineitem(str(tmp_path), n_files=3, with_orderkey=True,
+                            n_orders=2048, rows_per_file=4096)
+    orders = tpch.make_orders(str(tmp_path), n_orders=2048)
+    s = TorchSession({C.TASK_TARGET_BYTES: 1, C.BROADCAST_THRESHOLD: -1},
+                     device="cuda")
+    df = tpch.q3_dataframe(s, li, orders)
+    want = df.collect()
+    PL.enable()
+    try:
+        before = PL.snapshot()
+        kernels.hash_columns.launches = 0
+        t0 = time.perf_counter()
+        got = df.collect()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        PL.LEDGER.flush(60)
+        progs = PL.delta(before, PL.snapshot())
+    finally:
+        PL.disable()
+    assert got.equals(want)
+    windows = PL.summarize(progs)["totals"]["window_ms"]
+    assert 0 < windows <= wall_ms
+    k1 = sum(p["dispatches"] for p in progs.values()
+             if p["tag"] == "kernel.hash_columns")
+    assert k1 == kernels.hash_columns.launches > 0
+
+
 # the OOM ladder and the spill store stay quiet on these tests
 from torch_quiet import quiet_ladder  # noqa: E402,F401
