@@ -133,6 +133,38 @@ Phases, one JSON line each:
            REL_TOL, rows whose sums tie may trade places); hash_columns
            must launch once per non-empty map batch of its three
            exchanges and hash_string never;
+  speculation
+           the speculative output sizing (parallel/speculation.py) on
+           q3 (the static partition-wise plan), q1 and q93 at the sizes
+           above, each with sql.speculation.enabled on (the default,
+           predictors reset before its first run) and off:
+           A. every run's result equal to the first off run's (bit for
+           bit, or keys exact and floats within REL_TOL, said which)
+           and held against the query's pyarrow reference; B. per tag
+           (join.probe, agg.size, exchange.split) and run: the loop's
+           dispatches, blocking, async and late readbacks (a late one
+           had not landed when asked for), hits, overflows, warm-up
+           syncs, the joins' declined dispatches (past the in-flight
+           budget) and continuation chunks, and each join exec's hits
+           and overflows; after the first on run (the warm-up prefix)
+           no blocking join.probe read but late ones, none declined,
+           and every join exec speculated; each loop's dispatch half under
+           torch.cuda.set_sync_debug_mode("error") in a serial run
+           (any sync raises); C. the syncs outside device_read* of one
+           q3 run on and off, per site; D. q3 under a forced undershoot
+           (testForceCapacity SPEC_UNDER: overflows, same rows) and at
+           the chunk ceiling (no overflow; the join's own output has
+           the off run's rows and no NULL key: no dead row); E. the
+           kill switch (adaptive.minHitRate 0.99, window 2, the forced
+           undershoot) convicting join.probe, whose next run reads
+           blocking with the same rows, disabled_total() >= 1; F. the
+           device ledger's live_capacity_ratio of the speculated
+           programs (join.expand, agg.update) on q3, below 1 on and
+           exactly 1 off; G. K1's launches equal on and off in every
+           pair, its calls held against its plain version in ``main``;
+           H. SPEC_PAIRS on / off pairs of walls in alternating order,
+           and one profiled run of each side (device busy, idle share,
+           kernels, the kernel counts that differ);
   star     TPC-DS q42, q52 and q55 (the star join under other filters
            and STRING group keys) once each over the same tables, not
            profiled: two broadcast joins and the runtime filter on the
@@ -1711,11 +1743,11 @@ def trace_name(name: str) -> str:
     return name
 
 
-def sync_sites(torch, make_df) -> dict:
+def sync_sites(torch, make_df, top=8) -> dict:
     """One run under torch.cuda.set_sync_debug_mode("warn"): the syncs
     it reports, those outside the readback helpers (device_read*, the
-    ledger's settle worker, the metric reaper) apart, with their top
-    Python sites."""
+    ledger's settle worker, the metric reaper) apart, with their
+    ``top`` Python sites (None: every site)."""
     import collections
     import warnings
 
@@ -1735,7 +1767,7 @@ def sync_sites(torch, make_df) -> dict:
         if not any(s in w.filename.replace(os.sep, "/")
                    for s in sanctioned))
     return {"syncs": len(syncs), "outside_device_read": sum(outside.values()),
-            "top_sites": outside.most_common(8)}
+            "top_sites": outside.most_common(top)}
 
 
 def gil_check(torch) -> dict:
@@ -2168,6 +2200,336 @@ def q93_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB):
          outer_join_rows=joined_rows, reason_rows=reason_rows,
          groups=len(ref), **out)
     return out, calls
+
+
+#: on / off pairs of the speculation phase, each pair's order alternating
+SPEC_PAIRS = 3
+#: the speculation phase's forced undershoot: a capacity far below a
+#: stream batch's pairs
+SPEC_UNDER = 8
+#: each sizing tag and the pipelined loop whose dispatches it sizes
+SPEC_LOOPS = {"join.probe": "join.stream", "agg.size": "agg.update",
+              "exchange.split": "exchange.map"}
+#: the programs a speculated dispatch runs at a capacity above its rows
+SPEC_PROGRAMS = ("join.expand", "agg.update")
+
+
+def spec_same(pa, got, want, keys: tuple) -> dict:
+    """A speculation-on result against the off one: bit for bit, or the
+    rows in ``keys`` order with every non-float column equal and floats
+    within REL_TOL."""
+    if got.equals(want):
+        return {"bitwise": True, "max_rel_diff": 0.0}
+    order = [(k, "ascending") for k in keys]
+    a, b = got.sort_by(order), want.sort_by(order)
+    if a.num_rows != b.num_rows or a.schema != b.schema:
+        raise AssertionError(f"speculation: {a.num_rows} rows against "
+                             f"{b.num_rows}")
+    worst = 0.0
+    for name in a.schema.names:
+        x, y = a[name].to_pylist(), b[name].to_pylist()
+        if not pa.types.is_floating(a.schema.field(name).type):
+            if x != y:
+                raise AssertionError(f"speculation: column {name} differs")
+            continue
+        for u, v in zip(x, y):
+            if (u is None) != (v is None):
+                raise AssertionError(f"speculation: {name} NULLs differ")
+            if u is not None:
+                worst = max(worst, abs(u - v) / max(abs(v), 1e-300))
+    if worst > REL_TOL:
+        raise AssertionError(f"speculation: floats differ by {worst}")
+    return {"bitwise": False, "max_rel_diff": worst}
+
+
+def spec_run(torch, kernels, make, session) -> dict:
+    """One run with its sizing counted: per tag, the loop's dispatches,
+    blocking / async / late readbacks (``stage_snapshot``), hits,
+    overflows, warm-up syncs and declined dispatches
+    (``speculation.stats`` deltas), and the joins' continuation chunks;
+    each sizing join exec's hits and overflows; K1's launches; the
+    wall."""
+    from spark_rapids_tpu_torch.parallel import pipeline as P
+    from spark_rapids_tpu_torch.parallel import speculation as SP
+
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+
+    P.reset_stage_counters()
+    before = SP.stats()
+    launches = kernels.hash_columns.launches
+    with P.trace_events() as events:
+        t0 = time.perf_counter()
+        plan = make(session).physical_plan()
+        table = collect_exec(plan, session.conf)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    after, stages = SP.stats(), P.stage_snapshot()
+    continued = sum(n.metrics["specContinuationChunks"]
+                    for n in plan.walk()
+                    if "specContinuationChunks" in getattr(n, "metrics", {}))
+    tags = {}
+    for tag, loop in SPEC_LOOPS.items():
+        st = stages.get(tag, {})
+        a, b = after.get(tag, {}), before.get(tag, {})
+        tags[tag] = {
+            "dispatches": sum(1 for k, t in events
+                              if k == "dispatch" and t == loop),
+            "blocking": st.get("readbacks", 0),
+            "async": st.get("async_readbacks", 0),
+            "late": st.get("late_readbacks", 0),
+            **{k: a.get(k, 0) - b.get(k, 0)
+               for k in ("hits", "overflows", "synced", "declined")}}
+    tags["join.probe"]["continuation_chunks"] = continued
+    joins = [{"join": n.node_desc()[:80], "hits": n.metrics["specHits"],
+              "overflows": n.metrics["specOverflows"]}
+             for n in plan.walk()
+             if "specContinuationChunks" in getattr(n, "metrics", {})
+             and n.join_type not in ("left_semi", "left_anti")]
+    return {"table": table, "wall_s": wall, "tags": tags, "joins": joins,
+            "k1": kernels.hash_columns.launches - launches}
+
+
+def strict_dispatch_run(torch, make, session) -> dict:
+    """One run in which every dispatch half of the three speculated
+    loops runs under torch.cuda.set_sync_debug_mode("error"), so a sync
+    in one raises; the run is serial (no other thread syncs meanwhile).
+    Returns the dispatches checked per loop."""
+    from spark_rapids_tpu_torch.execs import aggregate, exchange, join
+    from spark_rapids_tpu_torch.parallel import pipeline as P
+
+    checked: dict = {}
+
+    def strict(items, dispatch, retire, depth=None, tag=None):
+        def guarded(item):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch(item)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                checked[tag] = checked.get(tag, 0) + 1
+        return P.pipelined(items, guarded, retire, depth, tag)
+
+    saved = {m: m.pipelined for m in (aggregate, exchange, join)}
+    for m in saved:
+        m.pipelined = strict
+    try:
+        make(session).collect()
+        torch.cuda.synchronize()
+    finally:
+        for m, f in saved.items():
+            m.pipelined = f
+    return checked
+
+
+def spec_ratio(programs: dict) -> dict:
+    """live / capacity rows of the speculated programs in a ledger
+    delta."""
+    live = sum(p["live_rows"] for p in programs.values()
+               if p["tag"] in SPEC_PROGRAMS)
+    cap = sum(p["capacity_rows"] for p in programs.values()
+              if p["tag"] in SPEC_PROGRAMS)
+    return {"live_rows": live, "capacity_rows": cap,
+            "live_capacity_ratio": live / cap if cap else None}
+
+
+def speculation_phase(torch, pa, pc, kernels, TorchSession, tpch, tpcds,
+                      TTB, paths, ref1, li_paths, orders_path, ref3,
+                      star) -> tuple:
+    """Checks A-H of the module docstring's ``speculation`` entry; emits
+    the phase's line.  Returns (its record, the K1 launches it made,
+    its hash_columns calls)."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.execs.base import REAPER
+    from spark_rapids_tpu_torch.parallel import speculation as SP
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+    from spark_rapids_tpu_torch.trace import ledger
+
+    t_phase = time.perf_counter()
+    launches0 = kernels.hash_columns.launches
+    _, ss_paths, _ = star["paths"]
+    sr_path, reason_path = star["q93_paths"]
+    q3_keys = {TTB: TASK_TARGET_BYTES, ADAPTIVE: False}
+    # q3 last: checks D-F run on its warm predictors
+    queries = {
+        "q1": ({TTB: TASK_TARGET_BYTES},
+               lambda s: tpch.q1_dataframe(s, paths),
+               lambda t: compare(t, ref1, 2),
+               ("l_returnflag", "l_linestatus")),
+        "q93": ({TTB: Q3DS_TASK_TARGET_BYTES, ADAPTIVE: False},
+                lambda s: tpcds.q93_dataframe(s, ss_paths, sr_path,
+                                              reason_path),
+                lambda t: compare_ranked(
+                    t, star["q93_ref"], 100, ("ss_customer_sk",),
+                    "sumsales", "act_sum"),
+                ("ss_customer_sk",)),
+        "q3": (q3_keys,
+               lambda s: tpch.q3_dataframe(s, li_paths, orders_path),
+               lambda t: compare_ranked(
+                   t, ref3, 10, ("l_orderkey", "o_orderdate",
+                                 "o_shippriority"), "revenue", "rev_sum"),
+               ("l_orderkey",)),
+    }
+    off = {C.SPECULATION_ENABLED: False}
+    out: dict = {}
+    calls: list = []
+    for name, (keys, make, check, order) in queries.items():
+        on_s = TorchSession(keys, device="cuda")
+        off_s = TorchSession({**keys, **off}, device="cuda")
+        SP.reset_predictors()
+        SP.reset_stats()
+        original = kernels.hash_columns
+        kernels.hash_columns = RecordingHashColumns(original, calls)
+        try:
+            first_on = spec_run(torch, kernels, make, on_s)
+        finally:
+            kernels.hash_columns = original
+        first_off = spec_run(torch, kernels, make, off_s)
+        want = first_off["table"]
+        same = [spec_same(pa, first_on["table"], want, order)]
+        err = max(check(first_on["table"]), check(want))
+        runs = {"on": [], "off": []}
+        for i in range(SPEC_PAIRS):
+            for side in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                r = spec_run(torch, kernels, make,
+                             on_s if side == "on" else off_s)
+                same.append(spec_same(pa, r["table"], want, order))
+                del r["table"]
+                runs[side].append(r)
+        if len({r["k1"] for r in runs["on"] + runs["off"]}
+               | {first_on["k1"], first_off["k1"]}) != 1:
+            raise AssertionError(f"speculation {name}: K1 launches differ "
+                                 f"on and off")
+        for r in runs["off"] + [first_off]:
+            if any(t["async"] or t["hits"] or t["overflows"]
+                   for t in r["tags"].values()):
+                raise AssertionError(f"speculation {name}: an off run "
+                                     f"speculated: {r['tags']}")
+        for r in runs["on"]:
+            # past the warm-up a count blocks only when it had not
+            # landed (late, counted apart); no chunk is declined, and
+            # each join exec speculated (one join's hits cannot cover
+            # another's blocking reads)
+            probe = r["tags"]["join.probe"]
+            if probe["blocking"] != probe["late"] or probe["synced"] \
+                    or probe["declined"]:
+                raise AssertionError(f"speculation {name}: a steady-state "
+                                     f"join.probe read blocked: {probe}")
+            idle = [j for j in r["joins"] if not j["hits"] + j["overflows"]]
+            if idle or (name != "q1" and not r["joins"]):
+                raise AssertionError(f"speculation {name}: a join did not "
+                                     f"speculate: {r['joins']}")
+        del first_on["table"], first_off["table"]
+        prof = {side: profiled_run(torch, lambda s=s: make(s))
+                for side, s in (("on", on_s), ("off", off_s))}
+        counts = {side: prof[side].pop("kernel_counts") for side in prof}
+        diff = {k: counts["on"].get(k, 0) - counts["off"].get(k, 0)
+                for k in set(counts["on"]) | set(counts["off"])}
+        prof["kernel_count_on_minus_off"] = sorted(
+            ((k[:60], v) for k, v in diff.items() if v),
+            key=lambda kv: -abs(kv[1]))[:12]
+        strict = strict_dispatch_run(torch, make, TorchSession(
+            {**keys, **C.SERIAL}, device="cuda"))
+        out[name] = {
+            "max_rel_err": err, "same": same,
+            "first_on": first_on, "first_off": first_off,
+            "on": runs["on"], "off": runs["off"],
+            "on_wall_s": [r["wall_s"] for r in runs["on"]],
+            "off_wall_s": [r["wall_s"] for r in runs["off"]],
+            "on_median_s": statistics.median(
+                r["wall_s"] for r in runs["on"]),
+            "off_median_s": statistics.median(
+                r["wall_s"] for r in runs["off"]),
+            "profiled": prof, "strict_dispatches": strict}
+    make3, check3 = queries["q3"][1], queries["q3"][2]
+    want3 = make3(TorchSession({**q3_keys, **off}, device="cuda")).collect()
+    # C: the syncs outside device_read*, per site
+    out["q3_syncs"] = {
+        side: sync_sites(torch, lambda side=side: make3(TorchSession(
+            {**q3_keys, **(off if side == "off" else {})}, device="cuda")),
+            top=None) for side in ("on", "off")}
+
+    def join_rows(keys) -> dict:
+        """q3's join output alone: its rows and NULL order keys."""
+        s = TorchSession(keys, device="cuda")
+        plan = make3(s).physical_plan()
+        j = next(n for n in plan.walk()
+                 if type(n).__name__.endswith("HashJoinExec"))
+        t = collect_exec(j, s.conf)
+        return {"rows": t.num_rows,
+                "null_keys": t["l_orderkey"].null_count}
+
+    # D: forced undershoot and overshoot
+    forced = {}
+    for label, cap in (("under", SPEC_UNDER),
+                       ("over", C.DEFAULTS[C.JOIN_OUTPUT_CHUNK_ROWS])):
+        keys = {**q3_keys, C.SPECULATION_TEST_FORCE_CAPACITY: cap}
+        r = spec_run(torch, kernels, make3, TorchSession(keys,
+                                                         device="cuda"))
+        r["same"] = spec_same(pa, r.pop("table"), want3, ("l_orderkey",))
+        probe = r["tags"]["join.probe"]
+        if label == "under" and not probe["overflows"]:
+            raise AssertionError(f"speculation: no overflow at {cap}: "
+                                 f"{r['tags']}")
+        if label == "over" and (probe["overflows"] or not probe["hits"]):
+            raise AssertionError(f"speculation: forced {cap}: {probe}")
+        r["join"] = join_rows(keys)
+        forced[label] = r
+    forced["off_join"] = join_rows({**q3_keys, **off})
+    if forced["over"]["join"] != forced["off_join"] \
+            or forced["off_join"]["null_keys"]:
+        raise AssertionError(f"speculation: dead rows at the ceiling: "
+                             f"{forced['over']['join']} against "
+                             f"{forced['off_join']}")
+    out["forced"] = forced
+    # E: the kill switch
+    SP.reset_stats()
+    total0 = SP.disabled_total()
+    kill_s = TorchSession({**q3_keys, C.SPECULATION_TEST_FORCE_CAPACITY:
+                           SPEC_UNDER, C.SPECULATION_MIN_HIT_RATE: 0.99,
+                           C.SPECULATION_WINDOW: 2}, device="cuda")
+    convicting = spec_run(torch, kernels, make3, kill_s)
+    convicted = SP.disabled_tags()
+    after = spec_run(torch, kernels, make3, kill_s)
+    kill = {"disabled_tags": convicted,
+            "disabled_total": SP.disabled_total() - total0,
+            "convicting_run": convicting["tags"],
+            "next_run": after["tags"],
+            "same": [spec_same(pa, convicting.pop("table"), want3,
+                               ("l_orderkey",)),
+                     spec_same(pa, after.pop("table"), want3,
+                               ("l_orderkey",))]}
+    probe = after["tags"]["join.probe"]
+    if "join.probe" not in convicted or kill["disabled_total"] < 1 \
+            or probe["async"] or probe["blocking"] != probe["dispatches"]:
+        raise AssertionError(f"speculation: the kill switch {kill}")
+    SP.reset_stats()
+    out["kill_switch"] = kill
+    # F: the ledger's occupancy of the speculated programs
+    occupancy = {}
+    for side in ("on", "off"):
+        s = TorchSession({**q3_keys, **(off if side == "off" else {})},
+                         device="cuda")
+        ledger.enable()
+        try:
+            before = ledger.snapshot()
+            got = make3(s).collect()
+            torch.cuda.synchronize()
+            ledger.LEDGER.flush(60)
+            occupancy[side] = spec_ratio(ledger.delta(before,
+                                                      ledger.snapshot()))
+        finally:
+            ledger.disable()
+            REAPER.flush()
+        spec_same(pa, got, want3, ("l_orderkey",))
+    if not (occupancy["on"]["live_capacity_ratio"] or 1) < 1 \
+            or occupancy["off"]["live_capacity_ratio"] != 1.0:
+        raise AssertionError(f"speculation: occupancy {occupancy}")
+    out["occupancy"] = occupancy
+    out["stats"] = SP.stats()
+    launches = kernels.hash_columns.launches - launches0
+    emit("speculation", seconds=time.perf_counter() - t_phase,
+         k1_launches=launches, **out)
+    return out, launches, calls
 
 
 #: query -> (DataFrame name, (year, manager), group keys, output names of
@@ -6713,6 +7075,9 @@ def main() -> int:
                         ref6, ref1, star)
         q93, q93_calls = q93_phase(torch, pa, pc, pq, star, kernels,
                                    TorchSession, tpcds, TTB)
+        _spec, spec_k1, spec_calls = speculation_phase(
+            torch, pa, pc, kernels, TorchSession, tpch, tpcds, TTB, paths,
+            ref1, li_paths, orders_path, ref3, star)
         star_runs, star_calls = star_phase(torch, pc, star, kernels,
                                            TorchSession, tpcds, TTB)
         dimension_tables(pq, star, tpcds)
@@ -6790,7 +7155,8 @@ def main() -> int:
         "types": types_calls, "nested": nested_calls,
         "long_tail": long_tail_calls, "python": python_calls,
         "adaptive": adaptive_calls, "channels": channel_calls,
-        "fallback": fallback_calls, "new_types_mix": [new_types_mix]})
+        "fallback": fallback_calls, "speculation": spec_calls,
+        "new_types_mix": [new_types_mix]})
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
@@ -6808,7 +7174,7 @@ def main() -> int:
             q["launches"]["hash_columns"] for q in runs) + sum(
             q["launches"]["hash_columns"]
             for q in memory["split"].values()) + python_k1
-        + serving_k1["hash_columns"],
+        + serving_k1["hash_columns"] + spec_k1,
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
@@ -6817,11 +7183,12 @@ def main() -> int:
                  "adaptive), q67's, "
                  "q3ds's, q93's, q42/q52/q55's, q67_rollup's, q5's, q27's, "
                  "agg_family's, the sql, types and channel texts', the "
-                 "nested, long-tail, python and adaptive queries' and the "
-                 "fallback phase's calls, and "
+                 "nested, long-tail, python and adaptive queries', the "
+                 "fallback phase's and the speculation phase's calls, and "
                  "the new_types mix at "
                  "6 x 2^20 rows; ms is the device's own time per "
-                 "launch; launches include the memory phase's split runs",
+                 "launch; launches include the memory phase's split runs "
+                 "and the speculation phase's runs",
         "concurrency_launches": conc_launches["hash_columns"],
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,

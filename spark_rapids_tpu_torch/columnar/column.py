@@ -265,3 +265,19 @@ class StructColumn:
 
 
 AnyColumn = Union[Column, StringColumn, ListColumn, MapColumn, StructColumn]
+
+
+#: the smallest capacity bucket (the JAX package's ``MIN_CAPACITY``)
+MIN_CAPACITY = 8
+
+
+def pad_capacity(n: int) -> int:
+    """A row count rounded up to its capacity bucket, the next power of
+    two and at least ``MIN_CAPACITY``: the JAX package's
+    ``pad_capacity`` under its default ``pow2`` policy (the port has no
+    other).  Port batches hold their live rows: only the speculation's
+    predictor buckets counts (``parallel/speculation.py``)."""
+    c = MIN_CAPACITY
+    while c < n:
+        c <<= 1
+    return c

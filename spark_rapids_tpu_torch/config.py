@@ -71,6 +71,27 @@ PIPELINE_ENABLED = "spark.rapids.tpu.sql.pipeline.enabled"
 #: items each such stage may hold ahead of its consumer
 PIPELINE_DEPTH = "spark.rapids.tpu.sql.pipeline.depth"
 
+# -- speculative output sizing (``parallel/speculation.py``) ------------- #
+#: dispatch a join's expansion, and run an aggregate's update, at a
+#: predicted output capacity, and read the true count back
+#: asynchronously instead of blocking on it; an exchange's split counts
+#: ride asynchronous readbacks too
+SPECULATION_ENABLED = "spark.rapids.tpu.sql.speculation.enabled"
+#: multiplier on the predicted count before it is bucketed
+SPECULATION_SAFETY_FACTOR = "spark.rapids.tpu.sql.speculation.safetyFactor"
+#: observed batches per program key before its predictor speculates
+SPECULATION_WARMUP_BATCHES = \
+    "spark.rapids.tpu.sql.speculation.warmupBatches"
+#: test aid: > 0 makes a warmed predictor return this capacity's bucket
+SPECULATION_TEST_FORCE_CAPACITY = \
+    "spark.rapids.tpu.sql.speculation.testForceCapacity"
+#: the kill switch: a tag whose hit rate over the window falls below
+#: this is disabled (0.0: never)
+SPECULATION_MIN_HIT_RATE = \
+    "spark.rapids.tpu.sql.speculation.adaptive.minHitRate"
+#: outcomes per tag the kill switch judges over
+SPECULATION_WINDOW = "spark.rapids.tpu.sql.speculation.adaptive.window"
+
 #: ANSI SQL mode (the spark.sql.ansi.enabled analog): overflow in
 #: Add/Subtract/Multiply and invalid/overflowing casts RAISE instead of
 #: wrapping/NULLing (ref: GpuCast.scala:166 ANSI matrix; CheckOverflow)
@@ -202,6 +223,12 @@ DEFAULTS: dict[str, Any] = {
     PIPELINE_ENABLED: True,
     PIPELINE_DEPTH: 2,
     ANSI_ENABLED: False,
+    SPECULATION_ENABLED: True,
+    SPECULATION_SAFETY_FACTOR: 1.5,
+    SPECULATION_WARMUP_BATCHES: 1,
+    SPECULATION_TEST_FORCE_CAPACITY: 0,
+    SPECULATION_MIN_HIT_RATE: 0.0,
+    SPECULATION_WINDOW: 16,
     HBM_BUDGET_BYTES: 12 << 30,
     HOST_SPILL_BYTES: 1 << 30,
     SPILL_DIR: "",
@@ -265,10 +292,12 @@ def register(key: str, default: Any) -> str:
 _AT_LEAST_ONE = (TASK_THREADS, DECODE_THREADS, CONCURRENT_TASKS,
                  PIPELINE_DEPTH, SPLIT_MIN_ROWS, COALESCE_TARGET_ROWS,
                  COALESCE_TARGET_BYTES, SERVING_DEFAULT_PRIORITY,
-                 PLAN_CACHE_CAPACITY)
+                 PLAN_CACHE_CAPACITY, SPECULATION_WARMUP_BATCHES,
+                 SPECULATION_SAFETY_FACTOR)
 _AT_LEAST_ZERO = (SERVING_QUEUE_DEPTH, RESULT_CACHE_BUDGET,
                   SCAN_CACHE_BUDGET, DEADLINE_MS, BREAKER_THRESHOLD,
-                  BREAKER_COOLDOWN_MS, BREAKER_MAX_TRIPS)
+                  BREAKER_COOLDOWN_MS, BREAKER_MAX_TRIPS,
+                  SPECULATION_TEST_FORCE_CAPACITY)
 
 
 class TorchConf:
@@ -287,6 +316,10 @@ class TorchConf:
             raise ValueError(f"{key} must be >= 1, got {value}")
         if key in _AT_LEAST_ZERO and value < 0:
             raise ValueError(f"{key} must be >= 0, got {value}")
+        if key == SPECULATION_MIN_HIT_RATE and not 0.0 <= value <= 1.0:
+            raise ValueError(f"{key} must be in [0, 1], got {value}")
+        if key == SPECULATION_WINDOW and value < 2:
+            raise ValueError(f"{key} must be >= 2, got {value}")
         if key == TRACE_BUFFER_SIZE and value < 16:
             raise ValueError(f"{key} must be >= 16, got {value}")
         if key == TELEMETRY_HZ and not 0.1 <= value <= 1000:

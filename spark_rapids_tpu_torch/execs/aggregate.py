@@ -9,18 +9,44 @@ Counterpart of ``TpuHashAggregateExec`` in
   partition (the exchange made partitions key-disjoint);
 - ``complete``: the whole aggregation in one partition.
 
-Each input batch runs the update aggregation as a unit of the OOM
-ladder (``execs/retry.with_split_retry``).  Its partial waits in the
-buffer store at ``AGGREGATE_PARTIAL`` priority; once the waiting
-partials hold ``goal_rows`` rows (``sql.batchSizeRows``) they are
-merged into one, and at the partition's end the rest are concatenated,
-merged and finalized, each step a restartable closure under
-``run_with_oom_retry`` that drops the partials it merged only once the
-result is parked (the JAX exec's ``merge_and_park``).  The merge points
-depend on the partials' rows alone, so a run that spills adds in the
-same order as one that does not.  Partials keep their batches' order,
+The update loop is pipelined (``parallel/pipeline.py::pipelined``,
+tag ``agg.update``): batch k+1's update is dispatched before batch k's
+partial is parked, and each input batch is a unit of the OOM ladder
+(``execs/retry.guarded_pipeline``).  A partial waits in the buffer
+store at ``AGGREGATE_PARTIAL`` priority; once the waiting partials
+hold ``goal_rows`` rows (``sql.batchSizeRows``) they are merged into
+one, and at the partition's end the rest are concatenated, merged and
+finalized, each step a restartable closure under ``run_with_oom_retry``
+that drops the partials it merged only once the result is parked (the
+JAX exec's ``merge_and_park``).  Partials keep their batches' order,
 and a final aggregate reads its exchange's blocks in map-task order, so
 first / last pick the same row on every run, pooled or serial.
+
+Speculative sizing (``parallel/speculation.py``, tag ``agg.size``; on
+by default, for a grouped partial or complete aggregate): the update
+runs in its sync-free form
+(``ops/groupby.py::groupby_aggregate_at_capacity``), a partial at the
+batch's rows with its group count on the device.  Past the predictor's
+warm-up the dispatch half starts the asynchronous read of that count
+(``device_read_async``); the retire half, one batch behind, resolves
+it (free once its copy has landed; a read that still had to wait is
+counted as late), copies the partial's groups out (a cut by
+``slice_prefix`` would be a view that keeps the capacity's storage
+alive, while the store counts only the rows it sees) and parks them.
+A warm-up partial reads its count blocking.  So the waiting partials
+hold their groups alone, and the merge points, with them the order a
+floating sum adds in, are those of a run with speculation off, pooled
+or serial, spilled or not.  The predictor's
+observation and the hit or overflow (``specHits`` / ``specOverflows``:
+whether the estimate covered the count, which feeds the kill switch)
+are recorded once the retire has parked the partial, so an attempt
+that fails observes nothing and no count is observed twice.
+
+The JAX exec also keeps small partials unsized and concatenates them
+with a traced count on the device (``_DEFER_SYNC_CAP``), so that XLA
+compiles one program for any count.  The port needs no such path: in
+steady state its retire reads no count that has not arrived, and
+PyTorch compiles nothing.
 """
 
 from __future__ import annotations
@@ -35,11 +61,11 @@ from spark_rapids_tpu_torch.columnar.batch import (
     concat_batches,
     empty_batch,
 )
-from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
+from spark_rapids_tpu_torch.execs.base import Metrics, TaskRuntime, TpuExec
 from spark_rapids_tpu_torch.execs.jit_cache import exprs_key
 from spark_rapids_tpu_torch.execs.retry import (
+    guarded_pipeline,
     run_with_oom_retry,
-    with_split_retry,
 )
 from spark_rapids_tpu_torch.exprs.aggregates import NamedAgg
 from spark_rapids_tpu_torch.exprs.base import (
@@ -58,8 +84,16 @@ from spark_rapids_tpu_torch.ops.groupby import (
     GROUPBY_OPS,
     AggSpec,
     groupby_aggregate,
+    groupby_aggregate_at_capacity,
     reduce_aggregate,
 )
+from spark_rapids_tpu_torch.parallel import speculation as SP
+from spark_rapids_tpu_torch.parallel.pipeline import (
+    device_read_async,
+    device_read_int,
+    pipelined,
+)
+from spark_rapids_tpu_torch.trace import ledger as _ledger
 
 
 #: the ops that return one of the group's values
@@ -78,6 +112,8 @@ class TpuHashAggregateExec(TpuExec):
         super().__init__(child)
         self.runtime = runtime or TaskRuntime.serial()
         self.goal_rows = goal_rows
+        #: speculated partials, by whether the estimate covered them
+        self.metrics = Metrics("specHits", "specOverflows")
         if mode not in ("partial", "final", "complete"):
             raise ValueError(f"unknown aggregate mode {mode!r}")
         self.mode = mode
@@ -187,7 +223,9 @@ class TpuHashAggregateExec(TpuExec):
             io += n_in
         return specs
 
-    def _update_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
+    def _update_input(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """The update's input: keys (float keys normalized) ++ the
+        aggregates' inputs."""
         ctx = EvalContext.for_batch(batch)
         cols = [e.eval(ctx) for e in self.input_exprs]
         # Spark normalizes float grouping keys: -0.0 groups AS 0.0 and
@@ -201,12 +239,22 @@ class TpuHashAggregateExec(TpuExec):
                 d = torch.where(torch.isnan(d),
                                 torch.full_like(d, float("nan")), d)
                 cols[i] = type(c)(d, c.validity, c.dtype)
-        proj = batch.with_columns(cols, self.update_input_schema)
+        return batch.with_columns(cols, self.update_input_schema)
+
+    def _update_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
+        proj = self._update_input(batch)
         specs = self._update_specs()
         if self.n_keys == 0:
             return reduce_aggregate(proj, specs, self.partial_schema)
         return groupby_aggregate(proj, list(range(self.n_keys)), specs,
                                  self.partial_schema)
+
+    def _update_at_capacity(self, batch: ColumnarBatch):
+        """The grouped update with no sync: (the partial at capacity,
+        its device group count)."""
+        return groupby_aggregate_at_capacity(
+            self._update_input(batch), list(range(self.n_keys)),
+            self._update_specs(), self.partial_schema)
 
     def _merge(self, partial: ColumnarBatch) -> ColumnarBatch:
         if self.n_keys == 0:
@@ -220,16 +268,17 @@ class TpuHashAggregateExec(TpuExec):
         return partial.with_columns([e.eval(ctx) for e in self.final_exprs],
                                     self._schema)
 
+    def _update_key(self) -> tuple:
+        return (exprs_key(self.input_exprs), self.n_keys,
+                repr(self.update_input_schema), repr(self._update_specs()),
+                repr(self.partial_schema))
+
     def _programs(self):
         """(update, merge, finalize) through the program cache, keyed by
         what each reads of the exec."""
         return (
             None if self.mode == "final" else self.program(
-                "agg.update", lambda: (
-                    exprs_key(self.input_exprs), self.n_keys,
-                    repr(self.update_input_schema),
-                    repr(self._update_specs()), repr(self.partial_schema)),
-                self._update_batch),
+                "agg.update", self._update_key, self._update_batch),
             self.program("agg.merge", lambda: (
                 self.n_keys, repr(self.merge_specs),
                 repr(self.partial_schema)), self._merge),
@@ -245,9 +294,18 @@ class TpuHashAggregateExec(TpuExec):
             source = self.children[0].execute_partition(p)
             emit_empty_default = p == 0
         store, policy = self.runtime.store, self.runtime.retry
+        spec = self.runtime.speculation
         pending: list[SpillableBatch] = []
         rows = 0
         update_batch, merge, finalize = self._programs()
+        pred = None
+        if self.mode != "final" and self.n_keys > 0 and spec.enabled \
+                and SP.tag_enabled("agg.size"):
+            key = ("agg.update",) + self._update_key()
+            pred = SP.predictor(key + ("sizing",))
+            cap_key = key + ("capacity",)
+            update_cap = self.program(cap_key[0], lambda: cap_key[1:],
+                                      self._update_at_capacity)
 
         def park(part: ColumnarBatch) -> None:
             nonlocal rows
@@ -282,31 +340,70 @@ class TpuHashAggregateExec(TpuExec):
             pending[:] = merged
             rows = 0 if out is None else out.num_rows
 
-        def update(batch: ColumnarBatch):
+        def dispatch(batch: ColumnarBatch):
+            """One batch's update (device work; no sync past the
+            predictor's warm-up): (partial, None), or (partial at
+            capacity, (count, estimate or None))."""
+            if self.mode == "final":
+                return batch, None
+            with self.timer() as t:
+                if pred is None:
+                    return t.observe(update_batch(batch)), None
+                est = pred.predict(spec, cap_ceiling=batch.num_rows)
+                _ledger.defer_occupancy()
+                part, count = t.observe(update_cap(batch))
+            if est is None:
+                return part, (count, None)
+            return part, (device_read_async(count, tag="agg.size"), est)
+
+        def retire(entry):
+            """Cut a speculated partial to its groups and park it,
+            merging once the waiting ones reach ``goal_rows``; on
+            failure, roll back what this batch parked."""
             nonlocal rows
+            part, sized = entry
             n0, r0 = len(pending), rows
             try:
-                park(batch if self.mode == "final"
-                     else update_batch(batch))
-                if len(pending) > 1 and rows >= self.goal_rows:
-                    commit(run_with_oom_retry(
-                        lambda: merge(drain()), "agg.merge",
-                        policy=policy))
+                with self.timer():
+                    if sized is not None:
+                        fut, est = sized
+                        cap = part.num_rows
+                        n = (device_read_int(fut, tag="agg.size")
+                             if est is None else int(fut.result()))
+                        # a copy of the groups, not a view: the store
+                        # counts what a parked partial holds
+                        part = part.slice_prefix(n) if n == cap else \
+                            part.gather(torch.arange(n, device=part.device))
+                    park(part)
+                    if len(pending) > 1 and rows >= self.goal_rows:
+                        commit(run_with_oom_retry(
+                            lambda: merge(drain()), "agg.merge",
+                            policy=policy))
             except BaseException:
                 for h in pending[n0:]:
                     h.close()
                 del pending[n0:]
                 rows = r0
                 raise
+            if sized is not None:
+                pred.observe(n)
+                _ledger.note_program_occupancy(cap_key, n, cap)
+                if est is None:
+                    SP.record_sync("agg.size")
+                elif n <= est:
+                    self.metrics.add("specHits", 1)
+                    SP.record_hit("agg.size", est, n, spec)
+                else:
+                    self.metrics.add("specOverflows", 1)
+                    SP.record_overflow("agg.size", est, n, spec)
             return ()
 
         try:
-            for batch in source:
-                with self.timer() as t:
-                    for _ in with_split_retry(update, batch, "agg.update",
-                                              policy):
-                        pass
-                    t.observe(batch)
+            dispatch_guarded, retire_guarded = guarded_pipeline(
+                dispatch, retire, "agg.update", policy)
+            for _ in pipelined(source, dispatch_guarded, retire_guarded,
+                               self.runtime.lookahead, tag="agg.update"):
+                pass
             if not pending:
                 if self.n_keys > 0 or not emit_empty_default:
                     return  # grouped aggregate of empty input: no rows

@@ -9,8 +9,10 @@ per-partition code may therefore run on several threads at once, and
 what one partition writes that another reads is locked.  The batches
 an exec holds between uses go through the session's buffer store, and
 its stream loops run under the OOM ladder (``execs/retry.py``), both
-reached through ``TaskRuntime.retry``.  No fusion, speculation or
-buffer donation in this port.
+reached through ``TaskRuntime.retry``.  The join, aggregate and
+exchange loops size their output speculatively under
+``TaskRuntime.speculation`` (``parallel/speculation.py``).  No fusion
+or buffer donation in this port.
 
 Each exec's ``total_time`` (the JAX ``totalTime``) is timed by
 :class:`MetricTimer` around its per-batch work.  While tracing or the
@@ -42,6 +44,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.execs.retry import DEFAULT_POLICY, RetryPolicy
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
+from spark_rapids_tpu_torch.parallel.speculation import SpeculationPolicy
 from spark_rapids_tpu_torch.trace import ledger as _ledger
 
 R = TypeVar("R")
@@ -57,7 +60,8 @@ class TaskRuntime:
     the pool sizes and stage depth read from its conf
     (``sql.taskThreads``, ``sql.scan.decodeThreads``,
     ``sql.pipeline.*``), the CUDA stream its scans upload on (None
-    on the CPU), and its retry policy with its buffer store."""
+    on the CPU), its retry policy with its buffer store, and its
+    speculation keys."""
 
     semaphore: TpuSemaphore
     task_threads: int = 1
@@ -65,6 +69,7 @@ class TaskRuntime:
     stage_depth: int = 0
     upload_stream: Optional[object] = None
     retry: RetryPolicy = DEFAULT_POLICY
+    speculation: SpeculationPolicy = SpeculationPolicy()
 
     @property
     def lookahead(self) -> int:

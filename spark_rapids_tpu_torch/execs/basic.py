@@ -1,7 +1,10 @@
-"""Projection, filter, range and union execs.
+"""Batch source, projection, filter, range and union execs.
 
-Counterparts of ``TpuProjectExec``, ``TpuFilterExec``, ``TpuRangeExec``
-and ``TpuUnionExec`` in ``spark_rapids_tpu/execs/basic.py``.  A filter
+Counterparts of ``TpuBatchSourceExec``, ``TpuProjectExec``,
+``TpuFilterExec``, ``TpuRangeExec`` and ``TpuUnionExec`` in
+``spark_rapids_tpu/execs/basic.py``.  A batch source is a leaf over
+batches already on the device (one partition), which tests put under
+an exec to feed it exactly the batches they made.  A filter
 compacts its batches: a row whose condition is NULL or false is
 dropped.  A range makes one batch of up to ``batch_rows`` ids per
 partition on its device.  A union's partitions are its members', one
@@ -39,6 +42,31 @@ from spark_rapids_tpu_torch.exprs.base import (
     evaluate,
     output_field,
 )
+
+
+class TpuBatchSourceExec(TpuExec):
+    """A leaf over ready batches of one schema: one partition, the
+    batches in order, on ``device`` (the first batch's when None)."""
+
+    def __init__(self, batches: Sequence[ColumnarBatch], schema: T.Schema,
+                 device=None):
+        super().__init__()
+        self._batches = list(batches)
+        self._schema = schema
+        if device is None:
+            device = self._batches[0].device if self._batches else "cpu"
+        self.device = torch.device(device)
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    @property
+    def num_partitions(self) -> int:
+        return 1
+
+    def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
+        yield from self._batches
 
 
 class TpuProjectExec(TpuExec):

@@ -30,6 +30,19 @@ exchange; ``metrics`` counts the batches of committed attempts
 (``mapBatches``) and the ladder's runs over them (``mapBatchRuns``:
 one K1 launch each).
 
+A map batch's split needs its per-partition counts on the host (tag
+``exchange.split``).  With speculative sizing on
+(``parallel/speculation.py``, the default) they ride an asynchronous
+read (``device_read_async``) and the batch waits, grouped, in a deque
+of at most ``stage_depth + 1`` entries: the head is finished (sliced
+and parked) as soon as its read has landed, the head past the bound is
+finished blocking, and at the task's end every entry is finished
+before ``commit_task``.  The bound is there because a grouped batch in
+flight is device memory the store cannot see yet.  Each finish is a
+retry transaction of its own (``run_with_oom_retry``) that rolls back
+only its own slices.  Off, the counts are read blocking in the
+retire half, one batch behind the dispatch.
+
 - Hash partitioning: each map batch's key tuple is hashed to partition
   ids (murmur3-pmod) by one K1 launch.
 - Round-robin and single partitioning: no K1.  A round-robin map task
@@ -108,7 +121,11 @@ from spark_rapids_tpu_torch.ops.partition import (
     split_batch_finish,
 )
 from spark_rapids_tpu_torch.ops.range_partition import choose_bounds
-from spark_rapids_tpu_torch.parallel.pipeline import device_read, pipelined
+from spark_rapids_tpu_torch.parallel.pipeline import (
+    device_read,
+    device_read_async,
+    pipelined,
+)
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
 from spark_rapids_tpu_torch.serving.cancel import (
     attach_token,
@@ -196,10 +213,11 @@ class TpuShuffleExchangeExec(TpuExec):
     def _map_task_attempt(self, shuffle_id: int, child_part: int) -> None:
         """One attempt of a map task, a pipelined loop (JAX
         ``_map_task``): batch k+1's ids and grouping are dispatched
-        before batch k's counts are read back (``exchange.split``).
-        Each batch is a unit of the split ladder; its blocks are parked
-        in the store as they are made and published only when the
-        attempt commits, so a failed attempt leaves none behind."""
+        before batch k's counts are read back (``exchange.split``;
+        asynchronously under speculation, the module docstring).  Each
+        batch is a unit of the split ladder; its blocks are parked in
+        the store as they are made and published only when the attempt
+        commits, so a failed attempt leaves none behind."""
         sem, task = self.runtime.semaphore, object()
         blocks: list[tuple[int, SpillableBatch, int]] = []
         batches = runs = 0
@@ -213,6 +231,37 @@ class TpuShuffleExchangeExec(TpuExec):
         split = self.program("exchange.split", lambda: (
             n_parts, type(part).__name__,
             exprs_key(getattr(part, "exprs", ()))), self._split_dispatch)
+        spec_on = self.runtime.speculation.enabled
+        #: (grouped batch, count future) waiting for its counts
+        inflight: deque = deque()
+        max_inflight = self.runtime.stage_depth + 1
+
+        def park_all(grouped: ColumnarBatch, counts) -> None:
+            """Slice a grouped batch by its host counts and park the
+            non-empty slices; on failure, close what this call
+            parked."""
+            n0 = len(blocks)
+            try:
+                subs = [grouped] if counts is None else \
+                    split_batch_finish(grouped, counts)
+                for rid, sub in enumerate(subs):
+                    if sub.num_rows:
+                        self._park(blocks, rid, sub)
+            except BaseException:
+                for _rid, h, _n in blocks[n0:]:
+                    h.close()
+                del blocks[n0:]
+                raise
+
+        def finish(item) -> None:
+            """Park one in-flight batch once its counts are here: a
+            retry transaction of its own (a re-run reads the resolved
+            future again for free)."""
+            grouped, fut = item
+            with self.timer():
+                run_with_oom_retry(lambda: park_all(grouped, fut.result()),
+                                   "exchange.finish",
+                                   policy=self.runtime.retry)
 
         def dispatch(batch: ColumnarBatch):
             nonlocal runs
@@ -222,21 +271,24 @@ class TpuShuffleExchangeExec(TpuExec):
 
         def retire(entry):
             grouped, counts = entry
-            n0 = len(blocks)
-            try:
+            if counts is None:
                 with self.timer():
-                    subs = [grouped] if counts is None else \
-                        split_batch_finish(grouped, device_read(
-                            counts, tag="exchange.split"))
-                    for rid, sub in enumerate(subs):
-                        if sub.num_rows:
-                            self._park(blocks, rid, sub)
-            except BaseException:
-                for _rid, h, _n in blocks[n0:]:
-                    h.close()
-                del blocks[n0:]
-                raise
+                    park_all(grouped, None)
+            elif spec_on:
+                inflight.append((grouped, device_read_async(
+                    counts, tag="exchange.split")))
+            else:
+                with self.timer():
+                    park_all(grouped, device_read(counts,
+                                                  tag="exchange.split"))
             return ()
+
+        def finish_arrived() -> None:
+            """Outside the ladder: finish the head while its counts have
+            arrived, or while the deque is past its bound."""
+            while inflight and (inflight[0][1].done()
+                                or len(inflight) > max_inflight):
+                finish(inflight.popleft())
 
         def source():
             nonlocal batches
@@ -248,13 +300,17 @@ class TpuShuffleExchangeExec(TpuExec):
                     yield batch
 
         dispatch_guarded, retire_guarded = guarded_pipeline(
-            dispatch, retire, "exchange.map", self.runtime.retry)
+            dispatch, retire, "exchange.map", self.runtime.retry,
+            after=finish_arrived if spec_on else None)
         try:
             for _ in pipelined(source(), dispatch_guarded, retire_guarded,
                                self.runtime.lookahead, tag="exchange.map"):
                 pass
+            while inflight:
+                finish(inflight.popleft())
             self.manager.commit_task(shuffle_id, child_part, blocks)
         except BaseException:
+            inflight.clear()
             for _rid, h, _n in blocks:
                 h.close()
             raise

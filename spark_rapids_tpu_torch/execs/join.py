@@ -4,16 +4,44 @@ Counterpart of ``spark_rapids_tpu/execs/join.py``: the build side is
 collected into one batch (each build batch waits in the buffer store at
 ``JOIN_BUILD`` priority until the side is drained, then they are
 concatenated), then every stream batch probes it through
-``ops/join.py``.  Each stream batch costs one readback, of its pair
-count (``device_read_int``, tag ``join.probe``), and the stream loop is
-pipelined (``parallel/pipeline.py::pipelined``): batch k+1's pairing is
-dispatched before batch k's count is read.  Its output then comes in
-chunks of at most
+``ops/join.py``.  The stream loop is pipelined
+(``parallel/pipeline.py::pipelined``): batch k+1 is dispatched before
+batch k retires.  Its output comes in chunks of at most
 ``spark.rapids.tpu.sql.join.outputChunkRows`` rows, so a skewed key
-cannot build one unbounded batch.  Each stream batch is a unit of the
-OOM ladder (``execs/retry.guarded_pipeline``): a retryable failure
-before its first chunk re-runs it, then bisects it; after a chunk has
-gone downstream it raises.
+cannot build one unbounded batch.
+
+The pair count sizes the output (tag ``join.probe``).  With speculative
+sizing on (``parallel/speculation.py``, the default), a warmed
+predictor's bucket sizes the first chunk: the dispatch half runs the
+probe, the expansion and the gather at that capacity with no sync, and
+starts the count's asynchronous read (``device_read_async``).  The
+retire half then reconciles: on a hit the chunk is cut to the count by
+``slice_prefix`` (views); on an undershoot the pairs from ``offset=cap``
+continue it, and nothing dispatched is redone.
+The continuation keeps the blocking path's chunk boundaries (the JAX
+exec emits the speculated chunk on its own and continues from ``cap``):
+the first chunk is completed to ``min(pairs, outputChunkRows)`` rows
+(one copy of the speculated rows, on an undershoot only), so every
+operator downstream sees the same batches whether a batch hit,
+overflowed or was not speculated, and a floating sum above the join
+adds in the same order on every run, pooled or serial.  A residual
+condition filters each chunk after that.  Warm-up
+batches, a tag the kill switch has convicted and speculation off read
+the count blocking (``device_read_int``) in the retire half, as before.
+A speculated chunk is device memory the store does not see, made a
+batch ahead: from its dispatch to its retire it holds its bytes (from
+the two sides' shapes) in ``speculation.MAX_INFLIGHT_BYTES``, a budget
+shared by every join in the process; a dispatch that would pass it
+reads its count blocking instead (``declined`` in
+``speculation.stats()``).  The predictor observes each count, and the
+hit or overflow is recorded (``specHits`` / ``specOverflows``), once
+the batch's retire has succeeded.  Semi and anti joins size nothing.
+
+Each stream batch is a unit of the OOM ladder
+(``execs/retry.guarded_pipeline``): a retryable failure before its
+first chunk re-runs it (a speculated chunk is dropped and the re-run
+dispatches again), then bisects it; after a chunk has gone downstream
+it raises.
 
 Three strategies, chosen by the planner:
 
@@ -37,9 +65,7 @@ joins are equi-joins on a constant key, so every pair shares one
 group.  An inner join's residual condition filters each output chunk.
 A condition or a missing key on any other join type raises
 NotImplementedError: the planner tags such a join and runs it on the
-CPU engine (``plan/planner.py``), as the JAX planner does.  The JAX
-exec's speculative sizing, pipelining and program cache are not
-ported.
+CPU engine (``plan/planner.py``), as the JAX planner does.
 
 ``TpuRuntimeFilterBuildExec`` passes its child's batches through and
 folds their join keys into a runtime filter on the device
@@ -60,7 +86,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     empty_batch,
     null_batch,
 )
-from spark_rapids_tpu_torch.execs.base import TaskRuntime, TpuExec
+from spark_rapids_tpu_torch.execs.base import Metrics, TaskRuntime, TpuExec
 from spark_rapids_tpu_torch.execs.jit_cache import exprs_key
 from spark_rapids_tpu_torch.execs.retry import (
     guarded_pipeline,
@@ -75,17 +101,21 @@ from spark_rapids_tpu_torch.exprs.base import (
 from spark_rapids_tpu_torch.memory.store import (
     SpillableBatch,
     SpillPriorities,
+    batch_device_bytes,
 )
 from spark_rapids_tpu_torch.ops.join import (
     expand_pairs,
     gather_joined,
     join_state,
 )
+from spark_rapids_tpu_torch.parallel import speculation as SP
 from spark_rapids_tpu_torch.parallel.pipeline import (
+    device_read_async,
     device_read_int,
     pipelined,
 )
 from spark_rapids_tpu_torch.plan import runtime_filter as RF
+from spark_rapids_tpu_torch.trace import ledger as _ledger
 
 JOIN_TYPES = ("inner", "left_outer", "right_outer", "full_outer",
               "left_semi", "left_anti", "cross")
@@ -152,6 +182,10 @@ class _HashJoinBase(TpuExec):
         else:
             self.build_is_right = join_type != "right_outer"
         self._schema = joined_schema(left.schema, right.schema, join_type)
+        #: stream batches whose first chunk was speculated, by outcome,
+        #: and the expansions that continued an undershoot
+        self.metrics = Metrics("specHits", "specOverflows",
+                               "specContinuationChunks")
 
     @property
     def schema(self) -> T.Schema:
@@ -215,23 +249,69 @@ class _HashJoinBase(TpuExec):
             "left_outer", "right_outer", "full_outer") else "inner" \
             if self.join_type == "cross" else self.join_type
         matched_b: Optional[torch.Tensor] = None
-        probe = self.program("join.probe", lambda: (
-            jt, exprs_key(build_keys), exprs_key(stream_keys)),
-            self._probe)
+        probe_key = (jt, exprs_key(build_keys), exprs_key(stream_keys))
+        probe = self.program("join.probe", lambda: probe_key, self._probe)
+        expand_key = ("join.expand", self.build_is_right,
+                      repr(self._schema))
+        expand = self.program(expand_key[0], lambda: expand_key[1:],
+                              self._expand)
+        policy = self.runtime.speculation
+        sizes_output = self.join_type not in ("left_semi", "left_anti")
+        pred = SP.predictor(("join.probe",) + probe_key + ("sizing",)) \
+            if sizes_output and policy.enabled \
+            and SP.tag_enabled("join.probe") else None
+        build_row_bytes = batch_device_bytes(build) / max(build.num_rows, 1)
+        #: bytes of this loop's speculated chunks dispatched and not yet
+        #: retired, held in the in-flight budget
+        held = [0]
 
         def dispatch(stream: ColumnarBatch):
-            """The pairing state of one stream batch (device work, no
-            sync)."""
+            """The pairing state of one stream batch and, past the
+            predictor's warm-up and within the in-flight budget, its
+            first chunk at the speculated capacity with its count's read
+            started (device work, no sync)."""
             with self.timer() as t:
-                return stream, t.observe(probe(bkc, stream, stream_keys, jt))
+                st = t.observe(probe(bkc, stream, stream_keys, jt))
+                # the JAX exec clamps to the chunk's bucket; here no chunk
+                # passes outputChunkRows
+                cap = pred.predict(policy, cap_ceiling=self.chunk_rows) \
+                    if pred is not None else None
+                if cap is None:
+                    return stream, st, None, None, None, 0, False
+                # the chunk's bytes from the two sides' shapes, no sync
+                nbytes = int(cap * (build_row_bytes + batch_device_bytes(
+                    stream) / stream.num_rows))
+                if not SP.reserve_inflight(nbytes):
+                    return stream, st, None, None, None, 0, True
+                held[0] += nbytes
+                try:
+                    _ledger.defer_occupancy()
+                    chunk = t.observe(expand(build, stream, st, cap, 0))
+                except BaseException:
+                    SP.release_inflight(nbytes)
+                    held[0] -= nbytes
+                    raise
+            return (stream, st, cap, chunk,
+                    device_read_async(st.total, tag="join.probe"), nbytes,
+                    False)
+
+        def emit(out: ColumnarBatch) -> Optional[ColumnarBatch]:
+            if self.condition is not None:
+                with self.timer() as t:
+                    out = t.observe(self._apply_condition(out))
+            return out if out.num_rows else None
 
         def retire(entry) -> Iterator[ColumnarBatch]:
-            """One stream batch's output chunks, after the one readback
-            of its pair count (``join.probe``); the ladder re-runs it
-            (or its halves) until a chunk is out.  OR-ing the matched
-            build rows again is harmless."""
+            """One stream batch's output chunks: the speculated chunk
+            reconciled with its count, then any continuation; or, with
+            no speculation, the blocking read of the count and the
+            chunks.  The ladder re-runs it (or its halves) until a chunk
+            is out.  OR-ing the matched build rows again is harmless."""
             nonlocal matched_b
-            stream, st = entry
+            stream, st, cap, chunk, fut, nbytes, declined = entry
+            if nbytes:  # the chunk leaves the budget as it goes out
+                SP.release_inflight(nbytes)
+                held[0] -= nbytes
             if self.join_type == "full_outer":
                 matched_b = st.matched_b if matched_b is None \
                     else matched_b | st.matched_b
@@ -242,28 +322,70 @@ class _HashJoinBase(TpuExec):
                 if out.num_rows:
                     yield out
                 return
-            total = device_read_int(st.total, tag="join.probe")
-            step = min(total, self.chunk_rows)
-            for off in range(0, total, step or 1):
-                with self.timer() as t:
-                    s_idx, b_idx, live, matched = expand_pairs(
-                        st, min(step, total - off), off)
-                    out = gather_joined(build, stream, s_idx, b_idx, live,
-                                        matched, self._schema,
-                                        stream_first=self.build_is_right)
-                    if self.condition is not None:
-                        out = self._apply_condition(out)
-                    t.observe(out)
-                if out.num_rows:
+            with self.timer():
+                total = int(fut.result()) if fut is not None \
+                    else device_read_int(st.total, tag="join.probe")
+            start = 0
+            if chunk is not None:
+                live = min(total, cap)
+                _ledger.note_program_occupancy(expand_key, live, cap)
+                out = chunk.slice_prefix(live)
+                # the first chunk ends where the blocking path's does
+                start = min(total, self.chunk_rows)
+                if start > cap:  # an undershoot: the rest of that chunk
+                    with self.timer() as t:
+                        _ledger.note_occupancy(start - cap, start - cap)
+                        rest = expand(build, stream, st, start - cap, cap)
+                        out = t.observe(concat_batches([out, rest]))
+                out = emit(out)
+                if out is not None:
                     yield out
+            step = min(total - start, self.chunk_rows)
+            for off in range(start, total, step or 1):
+                rows = min(step, total - off)
+                with self.timer() as t:
+                    _ledger.note_occupancy(rows, rows)
+                    out = t.observe(expand(build, stream, st, rows, off))
+                out = emit(out)
+                if out is not None:
+                    yield out
+            # once the batch is out: a failed attempt observes nothing
+            if pred is None:
+                return
+            pred.observe(total)
+            if chunk is None:
+                (SP.record_declined if declined else SP.record_sync)(
+                    "join.probe")
+            elif total <= cap:
+                self.metrics.add("specHits", 1)
+                SP.record_hit("join.probe", cap, total, policy)
+            else:
+                self.metrics.add("specOverflows", 1)
+                self.metrics.add("specContinuationChunks",
+                                 (start > cap)
+                                 + len(range(start, total, step or 1)))
+                SP.record_overflow("join.probe", cap, total, policy)
 
         dispatch_guarded, retire_guarded = guarded_pipeline(
             dispatch, retire, "join.stream", self.runtime.retry)
-        yield from pipelined(
-            (b for b in stream_batches if b.num_rows), dispatch_guarded,
-            retire_guarded, self.runtime.lookahead, tag="join.stream")
+        try:
+            yield from pipelined(
+                (b for b in stream_batches if b.num_rows), dispatch_guarded,
+                retire_guarded, self.runtime.lookahead, tag="join.stream")
+        finally:
+            # the entries a closed or failed loop never retired
+            SP.release_inflight(held[0])
         if self.join_type == "full_outer":
             yield from self._emit_unmatched_build(build, matched_b)
+
+    def _expand(self, build: ColumnarBatch, stream: ColumnarBatch, st,
+                rows: int, offset: int) -> ColumnarBatch:
+        """Output pairs [offset, offset + rows) as a batch of ``rows``
+        rows: past the pair count they are dead (NULL) rows, which the
+        retire half cuts off."""
+        s_idx, b_idx, live, matched = expand_pairs(st, rows, offset)
+        return gather_joined(build, stream, s_idx, b_idx, live, matched,
+                             self._schema, stream_first=self.build_is_right)
 
     @staticmethod
     def _probe(bkc, stream: ColumnarBatch, stream_keys, jt: str):

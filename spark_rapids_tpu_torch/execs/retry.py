@@ -348,7 +348,8 @@ def with_split_retry(run: Callable, batch: ColumnarBatch,
 
 
 def guarded_pipeline(dispatch: Callable, retire: Callable, desc: str,
-                     policy: RetryPolicy = DEFAULT_POLICY):
+                     policy: RetryPolicy = DEFAULT_POLICY,
+                     after: Optional[Callable[[], None]] = None):
     """Put a ``parallel/pipeline.pipelined`` loop under the split ladder
     (JAX ``guarded_pipeline``): returns (dispatch_guarded,
     retire_guarded).  A retryable failure at dispatch is carried into
@@ -357,7 +358,19 @@ def guarded_pipeline(dispatch: Callable, retire: Callable, desc: str,
     size after a bisect).  ``retire`` must roll back its own partial
     effects when it raises.  The ``exec.batch`` fault
     seam of attempt zero fires at dispatch, before any device work, as
-    it fires before each re-run."""
+    it fires before each re-run.
+
+    A speculated dispatch (``parallel/speculation.py``) is attempt
+    zero like any other: if its retire fails, its chunk at the
+    speculated capacity is dropped with it, and the re-run dispatches
+    again from the input batch through the live predictor.  A loop's
+    bookkeeping of a count (the predictor's observation, the hit or
+    overflow) runs once its retire has succeeded, so a failed attempt
+    observes nothing and no count is observed twice.  ``after``, when
+    given, runs once per input batch after its ladder unit completes:
+    the exchange's finish of split counts that have arrived, work kept
+    outside the ladder because each finish is a retry transaction of
+    its own."""
     def dispatch_guarded(batch):
         try:
             _faults.fault_point("exec.batch", desc=desc)
@@ -373,10 +386,19 @@ def guarded_pipeline(dispatch: Callable, retire: Callable, desc: str,
     def retire_guarded(tagged):
         kind, entry, batch, err = tagged
         if kind == "ok":
-            return with_split_retry(rerun, batch, desc, policy,
-                                    first_attempt=lambda: retire(entry))
-        return with_split_retry(rerun, batch, desc, policy,
-                                initial_error=err)
+            gen = with_split_retry(rerun, batch, desc, policy,
+                                   first_attempt=lambda: retire(entry))
+        else:
+            gen = with_split_retry(rerun, batch, desc, policy,
+                                   initial_error=err)
+        if after is None:
+            return gen
+
+        def with_after():
+            yield from gen
+            after()
+
+        return with_after()
 
     return dispatch_guarded, retire_guarded
 

@@ -30,6 +30,15 @@ them over strings on its CPU engine, and the aggregate exec raises.
 
 Aggregations are (update, merge) op pairs as Spark's aggregate modes
 use them (``GROUPBY_OPS``).  Output batches hold one row per group.
+
+``groupby_aggregate_at_capacity`` is the sync-free form the aggregate's
+update loop runs under speculative sizing (``parallel/speculation.py``):
+its output has a row per possible group (the batch's rows; on the coded
+path at most the code domain), the live groups first and then dead ones
+of size 0, with the group count on the device.  ``nonzero_static``
+replaces ``nonzero``, and no count is read back; the exec cuts the
+partial to its live rows by ``slice_prefix`` once the count has
+arrived.
 """
 
 from __future__ import annotations
@@ -166,8 +175,9 @@ def _extremum(op: str, vcol: Column, valid: torch.Tensor,
     """min / max of each group's valid rows, in Spark's float order."""
     data = vcol.data
     if data.is_floating_point():
-        inf = torch.tensor(float("inf") if op == "min" else float("-inf"),
-                           dtype=data.dtype, device=data.device)
+        # a fill, not a copy of a host scalar (which synchronizes)
+        inf = torch.full((), float("inf") if op == "min" else float("-inf"),
+                         dtype=data.dtype, device=data.device)
         isnan = valid & torch.isnan(data)
         keep = valid & ~isnan if op == "min" else valid
         out = groups.float_reduce(torch.where(keep, data, inf), op)
@@ -237,6 +247,18 @@ def _eval_agg(spec: AggSpec, batch: ColumnarBatch, groups: Groups) -> Column:
     return Column(sums, nvalid > 0, out_dtype)
 
 
+def _coded_segments(key_cols: Sequence[AnyColumn], ks: list[int],
+                    n_rows: int, dev) -> tuple[torch.Tensor, int]:
+    """(each row's combined code, the code domain's size)."""
+    n_seg = 1
+    seg = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    for kc, k in zip(key_cols, ks):
+        pid = torch.where(kc.validity, kc.codes.long().clamp(0, k - 1), k)
+        seg = seg * (k + 1) + pid
+        n_seg *= k + 1
+    return seg, n_seg
+
+
 def _coded_groupby(batch: ColumnarBatch, key_ordinals: Sequence[int],
                    ks: list[int], aggs: Sequence[AggSpec],
                    out_schema: T.Schema) -> ColumnarBatch:
@@ -245,12 +267,7 @@ def _coded_groupby(batch: ColumnarBatch, key_ordinals: Sequence[int],
     order."""
     dev = batch.device
     key_cols = [batch.columns[o] for o in key_ordinals]
-    n_seg = 1
-    seg = torch.zeros(batch.num_rows, dtype=torch.int64, device=dev)
-    for kc, k in zip(key_cols, ks):
-        pid = torch.where(kc.validity, kc.codes.long().clamp(0, k - 1), k)
-        seg = seg * (k + 1) + pid
-        n_seg *= k + 1
+    seg, n_seg = _coded_segments(key_cols, ks, batch.num_rows, dev)
     occupancy = torch.zeros(n_seg, dtype=torch.int64, device=dev)
     occupancy.index_add_(0, seg, torch.ones_like(seg))
     occupied = torch.nonzero(occupancy).squeeze(1)  # segment ids, ascending
@@ -258,8 +275,15 @@ def _coded_groupby(batch: ColumnarBatch, key_ordinals: Sequence[int],
     remap = torch.zeros(n_seg, dtype=torch.int64, device=dev)
     remap[occupied] = torch.arange(n_groups, device=dev)
     gid = remap[seg]
+    out = _coded_keys(key_cols, ks, occupied)
+    groups = Groups(gid, n_groups, occupancy[occupied])
+    out += [_eval_agg(spec, batch, groups) for spec in aggs]
+    return ColumnarBatch(out, n_groups, out_schema, dev)
 
-    # decode each group's segment id back into per-key dictionary ids
+
+def _coded_keys(key_cols: Sequence[AnyColumn], ks: list[int],
+                occupied: torch.Tensor) -> list[AnyColumn]:
+    """Each group's key values, decoded from its combined code."""
     key_ids: list[torch.Tensor] = []
     sid = occupied
     for k in reversed(ks):
@@ -277,9 +301,7 @@ def _coded_groupby(batch: ColumnarBatch, key_ordinals: Sequence[int],
             out.append(StringColumn(chars, lengths, valid))
         else:
             out.append(Column(kc.dict_values[safe], valid, kc.dtype))
-    groups = Groups(gid, n_groups, occupancy[occupied])
-    out += [_eval_agg(spec, batch, groups) for spec in aggs]
-    return ColumnarBatch(out, n_groups, out_schema, dev)
+    return out
 
 
 def groupby_aggregate(batch: ColumnarBatch, key_ordinals: Sequence[int],
@@ -314,6 +336,60 @@ def groupby_aggregate(batch: ColumnarBatch, key_ordinals: Sequence[int],
     groups = Groups(gid, n_groups, sizes, perm)
     out += [_eval_agg(spec, batch, groups) for spec in aggs]
     return ColumnarBatch(out, n_groups, out_schema, batch.device)
+
+
+def groupby_aggregate_at_capacity(batch: ColumnarBatch,
+                                  key_ordinals: Sequence[int],
+                                  aggs: Sequence[AggSpec],
+                                  out_schema: T.Schema
+                                  ) -> tuple[ColumnarBatch, torch.Tensor]:
+    """``groupby_aggregate`` with no host sync: (the output at capacity,
+    its group count as a 0-d int64 device tensor).  The capacity is the
+    batch's rows (a group-by never has more groups), or on the coded
+    path ``min(code domain, rows)``.  Rows past the count are dead
+    groups of size 0: no aggregate reads a live row into them, and the
+    caller drops them with ``slice_prefix(count)``.  The live groups,
+    and their order, are ``groupby_aggregate``'s."""
+    dev = batch.device
+    n = batch.num_rows
+    if n == 0:
+        return empty_batch(out_schema, dev), torch.zeros(
+            (), dtype=torch.int64, device=dev)
+    key_cols = [batch.columns[o] for o in key_ordinals]
+    ks = _coded_key_domains(key_cols)
+    if ks is not None:
+        seg, n_seg = _coded_segments(key_cols, ks, n, dev)
+        cap = min(n_seg, n)
+        # slot n_seg stays empty: the dead groups' fill
+        occupancy = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+        occupancy.index_add_(0, seg, torch.ones_like(seg))
+        occupied = torch.nonzero_static(occupancy[:n_seg], size=cap,
+                                         fill_value=n_seg).squeeze(1)
+        n_groups = (occupancy[:n_seg] > 0).sum()
+        remap = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+        remap[occupied] = torch.arange(cap, device=dev)
+        out = _coded_keys(key_cols, ks, occupied.clamp(max=n_seg - 1))
+        groups = Groups(remap[seg], cap, occupancy[occupied])
+    else:
+        keys = [k for kc in key_cols
+                for k in column_sort_keys(kc, grouping=True)]
+        perm = lexsort(keys)
+        differs = group_starts(keys, perm)
+        seg = torch.cumsum(differs.long(), 0) - 1
+        # the dead groups start at n: their sizes come out 0
+        start_pos = torch.nonzero_static(differs, size=n,
+                                         fill_value=n).squeeze(1)
+        n_groups = differs.sum()
+        gid = torch.empty_like(seg)
+        gid[perm] = seg
+        sizes = torch.diff(start_pos, append=torch.full(
+            (1,), n, dtype=start_pos.dtype, device=dev))
+        starts = perm[start_pos.clamp(max=n - 1)]
+        out = [dataclasses.replace(kc.gather(starts), codes=None)
+               for kc in key_cols]
+        groups = Groups(gid, n, sizes, perm)
+    out += [_eval_agg(spec, batch, groups) for spec in aggs]
+    return ColumnarBatch(out, groups.n, out_schema, dev), n_groups
 
 
 def reduce_aggregate(batch: ColumnarBatch, aggs: Sequence[AggSpec],

@@ -41,10 +41,17 @@ The readbacks are the sanctioned syncs of a stream loop:
   work.
 
 With a ``tag``, each readback counts in that stage's
-``StageMetrics.readbacks`` (``async_readbacks`` for the async form) and
+``StageMetrics.readbacks`` (``async_readbacks`` for the async form,
+and ``late_readbacks`` too when its result had to wait) and
 records a ``pipe.readback`` span; :func:`trace_events` captures the
-(dispatch | readback, tag) sequence for tests.  On a CPU tensor each
-reads directly.
+(dispatch | readback, tag) sequence for tests, with the speculation's
+outcomes.  On a CPU tensor each reads directly.
+
+``device_read_async`` is what the speculative sizing
+(``parallel/speculation.py``) reads its counts with.  The JAX module
+runs a harvester thread that resolves futures within a grace window;
+here the future is an event, so ``result()`` costs nothing once the
+copy has landed and no thread is needed.
 """
 
 from __future__ import annotations
@@ -89,7 +96,7 @@ class StageMetrics:
 
     __slots__ = ("name", "depth", "items", "occupancy_sum", "samples",
                  "producer_wait_ns", "consumer_wait_ns", "readbacks",
-                 "async_readbacks", "_lock")
+                 "async_readbacks", "late_readbacks", "_lock")
 
     def __init__(self, name: str):
         self.name = name
@@ -101,6 +108,9 @@ class StageMetrics:
         self.consumer_wait_ns = 0
         self.readbacks = 0
         self.async_readbacks = 0
+        #: async readbacks whose copy had not landed when their result
+        #: was asked for (each also counts in ``readbacks``)
+        self.late_readbacks = 0
         self._lock = threading.Lock()
 
     def snapshot(self) -> dict:
@@ -113,7 +123,8 @@ class StageMetrics:
                     "producer_wait_s": self.producer_wait_ns / 1e9,
                     "consumer_wait_s": self.consumer_wait_ns / 1e9,
                     "readbacks": self.readbacks,
-                    "async_readbacks": self.async_readbacks}
+                    "async_readbacks": self.async_readbacks,
+                    "late_readbacks": self.late_readbacks}
 
 
 _STAGES: dict[str, StageMetrics] = {}
@@ -304,9 +315,12 @@ _TRACE_LOCK = threading.Lock()
 
 @contextmanager
 def trace_events():
-    """Capture ("dispatch" | "readback" | "readback_async", tag) events
-    from :func:`pipelined` and the readbacks: the test hook showing
-    that item k+1's dispatch precedes item k's readback."""
+    """Capture ("dispatch" | "readback" | "readback_async" | "spec_hit"
+    | "spec_overflow" | "spec_disabled", tag) events from
+    :func:`pipelined`, the readbacks and the speculation's outcomes
+    (``parallel/speculation.py``): the test hook showing that item
+    k+1's dispatch precedes item k's readback, and which sizing reads
+    blocked."""
     global _TRACE
     events: list[tuple[str, Optional[str]]] = []
     with _TRACE_LOCK:
@@ -430,6 +444,7 @@ class ReadbackFuture:
         if not ev.query():
             _trace("readback", self._tag)
             _count(self._tag)
+            _count(self._tag, "late_readbacks")
             if _tr.TRACER.enabled:
                 with _tr.span("pipe.readback", tag=self._tag or "",
                               blocking=True):

@@ -215,6 +215,7 @@ from spark_rapids_tpu_torch.ops.partition import (
     RangePartitioning,
 )
 from spark_rapids_tpu_torch.parallel.pipeline import prefetch, stage_depth
+from spark_rapids_tpu_torch.parallel.speculation import SpeculationPolicy
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan import typesig as TS
 from spark_rapids_tpu_torch.plan.runtime_filter import inject_runtime_filters
@@ -587,7 +588,8 @@ class Planner:
             task_threads=conf.get(C.TASK_THREADS),
             decode_threads=conf.get(C.DECODE_THREADS),
             stage_depth=stage_depth(conf), upload_stream=upload_stream,
-            retry=RetryPolicy.from_conf(conf, store))
+            retry=RetryPolicy.from_conf(conf, store),
+            speculation=SpeculationPolicy.from_conf(conf))
         #: id(logical node) -> its meta, while a plan is lowered
         self._tags: dict[int, PlanMeta] = {}
 

@@ -41,9 +41,18 @@ measure.  What differs is how a dispatch is timed and costed:
 - the peaks are the card's (``trace.ledger.hbmBytesPerSec`` /
   ``peakFlopsPerSec``, ``config.py``), taken from a session's conf by
   :func:`sync_conf`.
-- occupancy: a port batch holds exactly its live rows (no padded
-  capacity), so :func:`note_occupancy` keeps its API and every
-  dispatch's live/capacity ratio is 1.0.
+- occupancy: a port batch holds exactly its live rows outside the
+  stream loops of the speculative sizing (``parallel/speculation.py``),
+  and a dispatch over such batches has a live/capacity ratio of 1.0.
+  Capacity exceeds live rows in the speculated programs: a join's
+  expansion at its predicted bucket (``join.expand``: the pairs of the
+  chunk over the bucket) and an aggregate's update at the batch's rows
+  (``agg.update``: the groups over the rows).  Their counts are known
+  only after the dispatch, so such a dispatch calls
+  :func:`defer_occupancy` first and the exec adds ``(live, capacity)``
+  by :func:`note_program_occupancy` once the count is read.
+  :func:`note_occupancy` (the JAX API) states the pair before a
+  dispatch.
 - buffer donation has no PyTorch analog, so ``donated`` is always
   False.
 
@@ -124,10 +133,8 @@ _OCC_TLS = threading.local()
 
 def note_occupancy(live_rows: Any, capacity_rows: Any) -> None:
     """Record the live/capacity row counts for the NEXT dispatch on
-    this thread (the JAX API).  Port batches hold exactly their live
-    rows, so callers have nothing to say that :func:`observe_occupancy`
-    does not already see; kept so a caller written against the JAX
-    ledger runs unchanged."""
+    this thread (the JAX API); without it the dispatch scans its batch
+    arguments (:func:`observe_occupancy`)."""
     if not LEDGER.enabled:
         return
     try:
@@ -136,6 +143,27 @@ def note_occupancy(live_rows: Any, capacity_rows: Any) -> None:
         return
     if cap > 0:
         _OCC_TLS.occ = (live, cap)
+
+
+def defer_occupancy() -> None:
+    """The NEXT dispatch on this thread records no occupancy: its
+    live rows are a device count, noted later by
+    :func:`note_program_occupancy`."""
+    if LEDGER.enabled:
+        _OCC_TLS.occ = (0, 0)
+
+
+def note_program_occupancy(key: Any, live_rows: int,
+                           capacity_rows: int) -> None:
+    """Add ``(live_rows, capacity_rows)`` to the program of structural
+    ``key`` (the key its dispatch went under), once a speculated
+    dispatch's count is known.  Off, nothing."""
+    if not LEDGER.enabled or capacity_rows <= 0:
+        return
+    e, _ = LEDGER.lookup(key, None)
+    with e.lock:
+        e.live_rows += int(live_rows)
+        e.capacity_rows += int(capacity_rows)
 
 
 def _walk_tensors(obj: Any, budget: int = 256):

@@ -330,7 +330,10 @@ def test_program_cache_does_not_keep_an_exec_alive():
 
 
 def test_ledger_on_the_cpu_counts_dispatches_and_no_device_time(q1_paths):
-    s = TorchSession({TTB: 1, C.BROADCAST_THRESHOLD: -1}, device="cpu")
+    # speculation off: every program then runs at its live rows (ratio
+    # 1.0); tests/test_torch_speculation.py holds the speculated ratio
+    s = TorchSession({TTB: 1, C.BROADCAST_THRESHOLD: -1,
+                      C.SPECULATION_ENABLED: False}, device="cpu")
     df = tpch.q3_dataframe(s, *q1_paths["q3"])
     want = df.collect()
     PL.enable()

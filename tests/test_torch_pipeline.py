@@ -358,7 +358,15 @@ def test_guarded_pipeline_redispatches_under_an_injected_fault():
     assert len(dispatched) - n_clean == n_clean + 1
 
 
-def test_q3_pooled_equals_serial_with_readbacks_counted(tmp_path):
+@pytest.mark.parametrize("speculation", [False, True],
+                         ids=["speculation_off", "speculation_on"])
+def test_q3_pooled_equals_serial_with_readbacks_counted(tmp_path,
+                                                        speculation):
+    """Off, every sizing read blocks: one ``exchange.split`` readback
+    per hashed map batch and one ``join.probe`` per stream batch.  On
+    (the default), the split counts are all asynchronous, and
+    ``join.probe`` blocks only for the predictor's warm-up batches."""
+    from spark_rapids_tpu_torch.parallel import speculation as SP
     from spark_rapids_tpu_torch import tpch
     from spark_rapids_tpu_torch.plan.planner import collect_exec
 
@@ -368,21 +376,41 @@ def test_q3_pooled_equals_serial_with_readbacks_counted(tmp_path):
     runs = {}
     for mode, extra in (("serial", C.SERIAL), ("pooled", {})):
         s = TorchSession({C.TASK_TARGET_BYTES: 1, C.BROADCAST_THRESHOLD: -1,
-                          **extra}, device="cpu")
+                          C.SPECULATION_ENABLED: speculation, **extra},
+                         device="cpu")
         plan = tpch.q3_dataframe(s, li, orders).physical_plan()
         P.reset_stage_counters()
+        SP.reset_predictors()
+        SP.reset_stats()
         out = collect_exec(plan, s.conf)
         snap = P.stage_snapshot()
         hashed = sum(n.metrics["mapBatches"] for n in plan.walk()
                      if isinstance(n, TpuShuffleExchangeExec)
                      and n.num_partitions > 1)
         runs[mode] = (out, {k: v["readbacks"] for k, v in snap.items()
-                            if v["readbacks"]}, hashed)
-    (serial, sr, sh), (pooled, pr, ph) = runs["serial"], runs["pooled"]
+                            if v["readbacks"]},
+                      {k: v["async_readbacks"] for k, v in snap.items()
+                       if v["async_readbacks"]}, hashed, SP.stats())
+    (serial, sr, sa, sh, ss), (pooled, pr, pa_, ph, ps) = \
+        runs["serial"], runs["pooled"]
     assert pooled.equals(serial) and serial.num_rows == 10
-    assert sr == pr
-    assert sr["exchange.split"] == sh == ph > 0
-    assert sr["join.probe"] > 0 and sr["rf.build"] == 1
+    if not speculation:
+        assert sr == pr
+        assert sr["exchange.split"] == sh == ph > 0
+        assert sr["join.probe"] > 0 and sr["rf.build"] == 1
+        assert sa == pa_ == {} and ss == ps == {}
+        return
+    for blocking, async_, hashed_, st in ((sr, sa, sh, ss),
+                                          (pr, pa_, ph, ps)):
+        assert "exchange.split" not in blocking
+        assert async_["exchange.split"] == hashed_ > 0
+        # the warm-up batches block, the rest speculate
+        probe = st["join.probe"]
+        assert blocking["join.probe"] == probe["synced"] >= 1
+        assert async_["join.probe"] == probe["hits"] + probe["overflows"] > 0
+        assert blocking["rf.build"] == 1
+        assert async_["agg.size"] > 0
+    assert sh == ph
 
 
 # the OOM ladder and the spill store stay quiet on these tests

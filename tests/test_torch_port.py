@@ -495,9 +495,11 @@ def test_q3_on_the_card_launches_k1_per_map_batch(cuda, tmp_path):
     orders = tpch.make_orders(str(tmp_path), n_orders=2048)
     # the shuffled shape, with no runtime filter: these orders would
     # broadcast, and their keys would add two filter lanes
+    # (and the static plan: an adaptive join may broadcast at run time)
     ttb = {"spark.rapids.tpu.sql.scan.taskTargetBytes": 1,
            "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes": -1,
-           "spark.rapids.tpu.sql.runtimeFilter.enabled": False}
+           "spark.rapids.tpu.sql.runtimeFilter.enabled": False,
+           "spark.rapids.tpu.sql.adaptive.enabled": False}
     session = TorchSession(ttb)
     planned = _map_batches(tpch.q3_dataframe(session, paths,
                                              orders).physical_plan())
@@ -609,9 +611,11 @@ def test_q93_outer_join_on_the_card(cuda, tmp_path):
     _, ss, _ = tpcds.write_q3_tables(str(tmp_path), n_files=2,
                                      rows_per_file=1 << 15)
     sr, reason = tpcds.write_q93_tables(str(tmp_path), ss)
-    # store_returns (~6 500 rows) shuffles, the reason row broadcasts
+    # store_returns (~6 500 rows) shuffles, the reason row broadcasts;
+    # the static plan (adaptive off) is the partition-wise join
     conf = {"spark.rapids.tpu.sql.scan.taskTargetBytes": 1,
-            "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes": 4096}
+            "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes": 4096,
+            "spark.rapids.tpu.sql.adaptive.enabled": False}
     plan = tpcds.q93_dataframe(TorchSession(conf), ss, sr,
                                reason).physical_plan()
     [outer] = [n for n in plan.walk()

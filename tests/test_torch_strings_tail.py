@@ -425,7 +425,6 @@ PORT_PKG = os.path.dirname(PORT_EXPRS)
 #: the JAX exec classes the port does not have yet, each with the
 #: ROADMAP.md item that brings it
 EXECS_TO_PORT = {
-    "TpuBatchSourceExec": "item 9 (the throughput layers)",
     "FusableExec": "item 9 (the fused chains)",
     "TpuCollectiveHashAggregateExec": "item 10 (multi-GPU)",
     "TpuCollectiveHashJoinExec": "item 10 (multi-GPU)",

@@ -289,7 +289,12 @@ def data(tmp_path_factory):
 #: query -> (keys, port DataFrame, JAX DataFrame); q3 with broadcast off
 #: plans its partition-wise join in both packages
 QUERIES = {
-    "q1": ({TTB: 1}, tpch.q1_dataframe, bench.q1_dataframe),
+    # q1 with speculation off: on, its warm second run reads no count
+    # blocking, so it records no pipe.readback span (the JAX run's come
+    # from its drain's batched read); tests/test_torch_speculation.py
+    # holds the speculated run's names
+    "q1": ({TTB: 1, C.SPECULATION_ENABLED: False}, tpch.q1_dataframe,
+           bench.q1_dataframe),
     "q3": ({TTB: 1, C.BROADCAST_THRESHOLD: -1}, tpch.q3_dataframe,
            bench.q3_dataframe),
     "q3ds": ({TTB: 1}, tpcds.q3_dataframe, _jax_q3ds),
