@@ -119,6 +119,35 @@ Phases, one JSON line each:
            and store_sales file on the fast path when it is on, and no
            TpuFilterExec in q6's plan (the scan applies its condition
            on the host, exactly);
+  wire     the scan's wire path (columnar/transfer.py: the host
+           encode, every component in one pinned buffer and one copy,
+           the device decode; columnar/compression/: the array codecs)
+           on q6, q1 and q3ds at the sizes above, on three upload paths:
+           sql.scan.packedUpload off, on, and on with
+           sql.wireCompression.enabled (default codecs), one line each
+           (``wire_<query>``): A. each path's rows bit for bit the plain
+           path's (floats by their bits, rows in a canonical order) and
+           held against the query's reference; each codec alone on q1
+           the same; B. per path the batches, bytes and copies per batch
+           (upload_stats: one copy a wire batch), the plan's component
+           kinds (bias8/16/32, dict, scaled, raw, null, sdict, sraw) and
+           the codec chooser's picks and ratios; C. the scans' host
+           split of one kept run (decode, encode, pin, host copy, copy
+           enqueue, upload wait), the wire.decode program's dispatches
+           (one a batch) and event-window ms a batch from the device
+           ledger, and the fact scan's first batch decoded alone under
+           torch.profiler (kernels, their device ms); D. WIRE_ROUNDS
+           rounds of walls, the order rotating; F. K1's launches equal
+           on the three paths, its calls held against its plain version
+           in ``main``.  ``wire_spill`` (E): q3's exchange blocks (the
+           static plan) under a plugin brought up with
+           memory.spill.compressHostTier and spill.compression.codec
+           zlib, spilled to host frames (stored bytes below raw), then to
+           disk (TPUB frames naming zlib), read back through the plan:
+           the rows bit for bit an unspilled run's.  ``wire``: the
+           medians wire / plain and compressed / plain per query, and
+           whether the wire path was no slower on all three (what sets
+           packedUpload's port default);
   q93      TPC-DS q93 over the same store_sales files and a store_returns
            derived from them (~10 % of the sales rows, the spec's SF1
            ratio; each return copies the keys of a sale) with the ten
@@ -2098,6 +2127,366 @@ def scan_host_phase(torch, pc, TorchSession, tpch, tpcds, TTB, paths,
     return out
 
 
+
+#: off / on / compressed rounds of the wire phase's walls, each round's
+#: order rotating (plain, wire, compressed), (compressed, plain, wire) ...
+WIRE_ROUNDS = 3
+#: the wire phase's upload paths: sql.scan.packedUpload off, on, and on
+#: with sql.wireCompression.enabled under its default codec list
+WIRE_PATHS = ("plain", "wire", "compressed")
+#: the array codecs, each also run alone on q1
+WIRE_CODECS = ("bitpack", "delta", "rle")
+#: the scan's host split the wire phase prints (ns timers)
+WIRE_SPLIT = ("decodeTime", "encodeTime", "pinTime", "hostCopyTime",
+              "copyEnqueueTime", "uploadWaitTime")
+
+
+def wire_keys(C, path: str, codecs: str = None) -> dict:
+    keys = {C.PACKED_UPLOAD: path != "plain",
+            C.WIRE_COMPRESSION: path == "compressed"}
+    if codecs is not None:
+        keys[C.WIRE_CODECS] = codecs
+    return keys
+
+
+def sorted_bits(np, pa, table) -> list:
+    """A result's rows in a canonical order, floats as their bits: two
+    paths' results agree bit for bit when these lists are equal."""
+    cols = []
+    for c in table.columns:
+        c = c.combine_chunks() if hasattr(c, "combine_chunks") else c
+        if pa.types.is_floating(c.type):
+            vals = c.fill_null(0.0).to_numpy(zero_copy_only=False)
+            valid = c.is_valid().to_numpy(zero_copy_only=False)
+            cols.append([int(b) if ok else None for b, ok in
+                         zip(vals.astype(np.float64).view(np.int64), valid)])
+        else:
+            cols.append(c.to_pylist())
+    return sorted(zip(*cols), key=repr)
+
+
+def plan_kinds(encode, tally: dict):
+    """``encode`` (``transfer.encode_for_device``) tallying each plan
+    entry's kind (bias8 / bias16 / bias32, dict, scaled, raw, null,
+    sdict, sraw)."""
+    import numpy as np
+
+    def tallied(arrays, schema, n, wire_cfg=None, use_native=True):
+        comps, plan = encode(arrays, schema, n, wire_cfg, use_native)
+        for e in plan[3]:
+            kind = e[0] if e[0] != "fixed" else e[1]
+            if kind == "bias":
+                ref = e[2]
+                dt = np.dtype(ref[4] if ref[0] == "comp"
+                              else comps[ref[1]].dtype)
+                kind = f"bias{8 * dt.itemsize}"
+            tally[kind] = tally.get(kind, 0) + 1
+        return comps, plan
+
+    return tallied
+
+
+def decode_profile(torch, arrow, transfer, table, schema, wire) -> dict:
+    """One batch's wire decode alone on the card: staged and copied
+    first, then ``finish_upload`` under torch.profiler: its kernels, their
+    device time, and the host time of the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    arrow.finish_upload(arrow.stage_upload(table, dev, schema, wire=wire))
+    unit = arrow.stage_upload(table, dev, schema, wire=wire)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        arrow.finish_upload(unit)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    n, ns = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA \
+                and not e.name().startswith("Memcpy"):
+            n += 1
+            ns += e.duration_ns()
+    return {"rows": table.num_rows, "kernels": n, "kernel_ms": ns / 1e6,
+            "call_ms": host_s * 1e3, "wire_bytes": int(unit.wire[0].numel())}
+
+
+def wire_phase(torch, pa, pc, pq, kernels, TorchSession, tpch, tpcds,
+               TTB, paths, ref6, ref1, star, li_paths, orders_path) -> tuple:
+    """The wire path (columnar/transfer.py, columnar/compression/) on q6,
+    q1 and q3ds at full width, on the three upload paths: A. each path's
+    rows bit for bit the plain path's and held against the query's
+    reference, and each codec alone on q1 the same; B. per path the
+    batches, wire and plain bytes and copies (upload_stats), the plan's
+    component kinds and the codec chooser's picks and ratios; C. the
+    scans' host split of one kept run, the wire.decode program's
+    dispatches and event-window ms per batch from the device ledger, and
+    one batch's decode alone under the profiler; D. WIRE_ROUNDS rounds
+    of walls; F. K1's launches equal on the three paths.  Returns the
+    phase's record, its K1 launches and its hash_columns calls."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.columnar import arrow
+    from spark_rapids_tpu_torch.columnar import compression as WC
+    from spark_rapids_tpu_torch.columnar import transfer
+    from spark_rapids_tpu_torch.execs.base import REAPER
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+    from spark_rapids_tpu_torch.trace import ledger
+
+    dd_path, ss_paths, item_path = star["paths"]
+    ref3ds = reference_star(
+        pc, star, lambda d: pc.equal(d["d_moy"], 11),
+        lambda i: pc.equal(i["i_manufact_id"], 128),
+        ["d_year", "i_brand_id", "i_brand"], {},
+        [("d_year", False), ("sum", True), ("i_brand_id", False)])
+    queries = {
+        "q6": ({TTB: TASK_TARGET_BYTES},
+               lambda s: tpch.q6_dataframe(s, paths),
+               lambda t: compare(t, ref6, 0), paths[0]),
+        "q1": ({TTB: TASK_TARGET_BYTES},
+               lambda s: tpch.q1_dataframe(s, paths),
+               lambda t: compare(t, ref1, 2), paths[0]),
+        "q3ds": ({TTB: Q3DS_TASK_TARGET_BYTES},
+                 lambda s: tpcds.q3_dataframe(s, dd_path, ss_paths,
+                                              item_path),
+                 lambda t: compare_ranked(
+                     t, ref3ds, 100, ("d_year", "i_brand_id", "i_brand"),
+                     "sum_agg", "sum"), ss_paths[0]),
+    }
+    calls: list = []
+    k1_total = 0
+    original = kernels.hash_columns
+    out = {}
+    for name, (conf, make, check, fact) in queries.items():
+        sessions = {p: TorchSession({**conf, **wire_keys(C, p)},
+                                    device="cuda") for p in WIRE_PATHS}
+        rec: dict = {}
+        worst = 0.0
+        first = None
+        for path, session in sessions.items():
+            make(session).collect()  # warm-up: the runtime filter built
+            tally: dict = {}
+            transfer.reset_upload_stats()
+            WC.reset_stats()
+            original.launches = 0
+            kernels.hash_string.launches = 0
+            kernels.hash_columns = RecordingHashColumns(original, calls)
+            encode = transfer.encode_for_device
+            transfer.encode_for_device = plan_kinds(encode, tally)
+            try:
+                plan = make(session).physical_plan()
+                result = collect_exec(plan, session.conf)
+                torch.cuda.synchronize()
+            finally:
+                kernels.hash_columns = original
+                transfer.encode_for_device = encode
+            k1 = {"hash_columns": original.launches,
+                  "hash_string": kernels.hash_string.launches}
+            k1_total += k1["hash_columns"]
+            worst = max(worst, check(result))
+            bits = sorted_bits(np, pa, result)
+            if first is None:
+                first = bits
+            elif bits != first:
+                raise AssertionError(f"wire {name}: the {path} path's rows "
+                                     "differ from the plain path's")
+            st = transfer.upload_stats()
+            scans = [n for n in plan.walk() if not n.children]
+            split = {k: sum(n.metrics[k] for n in scans) / 1e9
+                     for k in WIRE_SPLIT}
+            encoded = sum(n.metrics["encodedBatches"] for n in scans)
+            plain = sum(n.metrics["plainBatches"] for n in scans)
+            if path == "plain":
+                if st["batches"] or encoded or not plain:
+                    raise AssertionError(f"wire {name}: plain path {st}")
+            else:
+                if st["plain_batches"] or plain or not encoded \
+                        or st["copies"] != st["batches"]:
+                    raise AssertionError(
+                        f"wire {name}: the {path} path took another: {st}, "
+                        f"{encoded} encoded, {plain} plain batches")
+            batches = st["batches"] + st["plain_batches"]
+            rec[path] = {
+                "rows": result.num_rows, "k1": k1,
+                "upload": st, "batches": batches,
+                "bytes_per_batch": (st["wire_bytes"] + st["plain_bytes"])
+                / max(batches, 1),
+                "copies_per_batch": (st["copies"] + st["plain_copies"])
+                / max(batches, 1),
+                "kinds": tally, "codecs": WC.stats(),
+                "host_split_s": split}
+            if rec[path]["k1"] != rec["plain"]["k1"]:
+                raise AssertionError(f"wire {name}: K1 launched "
+                                     f"{rec[path]['k1']} on {path}, "
+                                     f"{rec['plain']['k1']} plain")
+        for path in ("wire", "compressed"):
+            rec[path]["bytes_vs_plain"] = (rec[path]["bytes_per_batch"]
+                                           / rec["plain"]["bytes_per_batch"])
+        # C: the decode program in the device ledger, and one batch alone
+        ledger.enable()
+        try:
+            before = ledger.snapshot()
+            make(sessions["compressed"]).collect()
+            torch.cuda.synchronize()
+            ledger.LEDGER.flush(60)
+            progs = ledger.delta(before, ledger.snapshot())
+        finally:
+            ledger.disable()
+            REAPER.flush()
+        dec = [p for p in progs.values() if p.get("op") == "WireDecode"]
+        n_dec = sum(p["dispatches"] for p in dec)
+        rec["ledger_wire_decode"] = {
+            "programs": len(dec), "dispatches": n_dec,
+            "window_ms_per_batch": sum(p["window_ms"] for p in dec)
+            / max(n_dec, 1),
+            "dispatch_ms_per_batch": sum(p["dispatch_ms"] for p in dec)
+            / max(n_dec, 1)}
+        if n_dec != rec["compressed"]["upload"]["batches"]:
+            raise AssertionError(f"wire {name}: {n_dec} WireDecode "
+                                 "dispatches, batches "
+                                 f"{rec['compressed']['upload']['batches']}")
+        # the fact scan's first batch, read as the scan reads it
+        scan = next(n for n in make(sessions["wire"]).physical_plan().walk()
+                    if not n.children and fact in getattr(n, "paths", ()))
+        strings = [f.name for f in scan.schema.fields
+                   if type(f.dtype).__name__ == "StringType"]
+        table = pq.ParquetFile(fact, read_dictionary=strings).read(
+            columns=scan.schema.names)
+        table = table.slice(0, min(table.num_rows, scan.batch_rows))
+        rec["decode_alone"] = {
+            path: decode_profile(torch, arrow, transfer, table, scan.schema,
+                                 transfer.WirePolicy.from_conf(
+                                     sessions[path].conf))
+            for path in ("wire", "compressed")}
+        # D: the walls, each round's order rotated
+        walls = {p: [] for p in WIRE_PATHS}
+        for i in range(WIRE_ROUNDS):
+            order = WIRE_PATHS[i % 3:] + WIRE_PATHS[:i % 3]
+            for path in order:
+                t0 = time.perf_counter()
+                result = make(sessions[path]).collect()
+                torch.cuda.synchronize()
+                walls[path].append(time.perf_counter() - t0)
+                worst = max(worst, check(result))
+        for path in WIRE_PATHS:
+            rec[path]["wall_s"] = walls[path]
+            rec[path]["median_s"] = statistics.median(walls[path])
+        rec["max_rel_err"] = worst
+        if name == "q1":
+            rec["codec_alone"] = {}
+            for codec in WIRE_CODECS:
+                s = TorchSession({**conf, **wire_keys(C, "compressed",
+                                                      codec)},
+                                 device="cuda")
+                WC.reset_stats()
+                original.launches = 0
+                result = make(s).collect()
+                torch.cuda.synchronize()
+                k1_total += original.launches
+                if sorted_bits(np, pa, result) != first:
+                    raise AssertionError(f"wire q1: {codec} alone differs")
+                check(result)
+                rec["codec_alone"][codec] = WC.stats()
+        emit(f"wire_{name}", **rec)
+        out[name] = rec
+    out["spill"], spill_k1 = wire_spill(torch, np, pa, kernels, TorchSession,
+                                        tpch, TTB, calls, li_paths,
+                                        orders_path)
+    k1_total += spill_k1
+    emit("wire_spill", **out["spill"])
+    slower = {q: out[q]["wire"]["median_s"] / out[q]["plain"]["median_s"]
+              for q in queries}
+    out["verdict"] = {
+        "wire_over_plain_median": slower,
+        "compressed_over_plain_median": {
+            q: out[q]["compressed"]["median_s"] / out[q]["plain"]["median_s"]
+            for q in queries},
+        "packed_upload_default": all(r <= 1.0 for r in slower.values()),
+        "port_default": C.DEFAULTS[C.PACKED_UPLOAD]}
+    emit("wire", **out["verdict"], k1_launches=k1_total)
+    return out, k1_total, calls
+
+
+def wire_spill(torch, np, pa, kernels, TorchSession, tpch, TTB,
+               calls: list, li_paths, orders_path) -> tuple:
+    """E. the spill codecs on a q3 run's exchange blocks (the static
+    partition-wise plan, filter off): the process store brought up with
+    memory.spill.compressHostTier and spill.compression.codec=zlib; the
+    blocks spilled by spill_all_unpinned to host frames, then each on to
+    disk; the rows, read back through every block, equal to an unspilled
+    run's bit for bit.  The store's other entries (the broadcast build
+    the map stage parked) spill with the blocks.  The plugin comes back
+    with the default keys."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.config import TorchConf
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+    from spark_rapids_tpu_torch.plugin import TorchPlugin
+
+    keys = {C.SPILL_CODEC: "zlib", C.SPILL_COMPRESS_HOST: True}
+    plugin = TorchPlugin.restart(TorchConf(keys), "cuda")
+    original = kernels.hash_columns
+    original.launches = 0
+    kernels.hash_columns = RecordingHashColumns(original, calls)
+    try:
+        session = TorchSession({TTB: TASK_TARGET_BYTES, C.RF_ENABLED: False,
+                                ADAPTIVE: False, **keys}, device="cuda")
+        make = lambda: tpch.q3_dataframe(session, li_paths,  # noqa: E731
+                                         orders_path)
+        want = sorted_bits(np, pa, make().collect())
+        store = plugin.store
+        plan = make().physical_plan()
+        exchanges = [n for n in plan.walk()
+                     if type(n).__name__ == "TpuShuffleExchangeExec"]
+        for ex in exchanges:
+            ex.materialize_stats()
+        blocks = sum(sum(ex.block_counts()) for ex in exchanges)
+        torch.cuda.synchronize()
+        before = store.spill_stats()
+        t0 = time.perf_counter()
+        spilled = store.spill_all_unpinned()
+        to_host_s = time.perf_counter() - t0
+        on_host = store.spill_stats()
+        t0 = time.perf_counter()
+        with store._lock:
+            while store._spill_one_host_locked():
+                pass
+        to_disk_s = time.perf_counter() - t0
+        on_disk = store.spill_stats()
+        frames = [e.path for e in store._entries.values() if e.path]
+        with open(frames[0], "rb") as f:
+            head = f.read(4096)
+        t0 = time.perf_counter()
+        got = collect_exec(plan, session.conf)
+        torch.cuda.synchronize()
+        back_s = time.perf_counter() - t0
+        after = store.spill_stats()
+    finally:
+        kernels.hash_columns = original
+        TorchPlugin.restart(TorchConf(), "cuda")
+    rec = {"exchanges": len(exchanges), "blocks": blocks,
+           "entries_spilled": spilled,
+           "host_stored_bytes": on_host["host_used"],
+           "host_raw_bytes": on_host["host_raw_bytes"],
+           "host_ratio": on_host["host_raw_bytes"]
+           / max(on_host["host_used"], 1),
+           "disk_bytes": on_disk["disk_used"], "frames": len(frames),
+           "frame_magic": head[:4].decode("latin-1"),
+           "frame_codec_zlib": b'"codec": "zlib"' in head,
+           "restores": after["restores"] - before["restores"],
+           "to_host_s": to_host_s, "to_disk_s": to_disk_s,
+           "read_back_s": back_s, "rows": got.num_rows,
+           "k1_launches": original.launches}
+    if not (blocks and on_host["host_used"] < on_host["host_raw_bytes"]
+            and frames and len(frames) == spilled >= blocks
+            and rec["frame_magic"] == "TPUB" and rec["frame_codec_zlib"]
+            and rec["restores"] >= blocks):
+        raise AssertionError(f"wire_spill: {rec}")
+    if sorted_bits(np, pa, got) != want:
+        raise AssertionError("wire_spill: the rows read back from the "
+                             "spilled blocks differ from an unspilled run")
+    return rec, original.launches
 
 def star_tables(pa, pq, data_dir, tpcds) -> dict:
     """q3ds's tables (the whole calendar, 18 000 items, six store_sales
@@ -7073,6 +7462,9 @@ def main() -> int:
                     li_paths, orders_path, ref3, star)
         scan_host_phase(torch, pc, TorchSession, tpch, tpcds, TTB, paths,
                         ref6, ref1, star)
+        _wire, wire_k1, wire_calls = wire_phase(
+            torch, pa, pc, pq, kernels, TorchSession, tpch, tpcds, TTB, paths,
+            ref6, ref1, star, li_paths, orders_path)
         q93, q93_calls = q93_phase(torch, pa, pc, pq, star, kernels,
                                    TorchSession, tpcds, TTB)
         _spec, spec_k1, spec_calls = speculation_phase(
@@ -7156,7 +7548,7 @@ def main() -> int:
         "long_tail": long_tail_calls, "python": python_calls,
         "adaptive": adaptive_calls, "channels": channel_calls,
         "fallback": fallback_calls, "speculation": spec_calls,
-        "new_types_mix": [new_types_mix]})
+        "wire": wire_calls, "new_types_mix": [new_types_mix]})
     k1_main = k1_at_main_path(torch, kernels, q1_calls)
     emit("main", hash_columns=at_main, hash_string=k1_main)
     w64 = next(r for r in large if r["w"] == 64)
@@ -7174,7 +7566,7 @@ def main() -> int:
             q["launches"]["hash_columns"] for q in runs) + sum(
             q["launches"]["hash_columns"]
             for q in memory["split"].values()) + python_k1
-        + serving_k1["hash_columns"] + spec_k1,
+        + serving_k1["hash_columns"] + spec_k1 + wire_k1,
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
@@ -7184,11 +7576,11 @@ def main() -> int:
                  "q3ds's, q93's, q42/q52/q55's, q67_rollup's, q5's, q27's, "
                  "agg_family's, the sql, types and channel texts', the "
                  "nested, long-tail, python and adaptive queries', the "
-                 "fallback phase's and the speculation phase's calls, and "
-                 "the new_types mix at "
+                 "fallback phase's, the speculation phase's and the wire "
+                 "phase's calls, and the new_types mix at "
                  "6 x 2^20 rows; ms is the device's own time per "
                  "launch; launches include the memory phase's split runs "
-                 "and the speculation phase's runs",
+                 "and the speculation and wire phases' runs",
         "concurrency_launches": conc_launches["hash_columns"],
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,

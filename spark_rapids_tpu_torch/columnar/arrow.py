@@ -25,6 +25,19 @@ first on a stage thread of its own (``io/scan.py``):
 Each part's host time, and whether the copy was still running when the
 consumer took it, can go to a scan's metrics.
 
+With a ``transfer.WirePolicy`` (``sql.scan.packedUpload`` on) a batch
+whose schema has a wire form takes the wire path instead
+(``columnar/transfer.py``): ``stage_upload`` encodes it
+(``encodeTime``), packs every component into one pinned buffer
+(``pinTime``, ``hostCopyTime``) and enqueues one copy of it
+(``copyEnqueueTime``); ``finish_upload`` waits for that copy, records
+the one device buffer on the consumer's stream and decodes the columns
+there from views of it.  ``wireBytes`` counts the staged bytes, and
+``encodedBatches`` / ``plainBatches`` the batches on each path; the
+choice is the schema's, made before any copy.  Nothing falls back: a
+failed encode, copy or decode raises (the copy behind the
+``transfer.upload`` fault seam's one retry).
+
 An array, map or struct column uploads in Arrow's own layout, in the
 same pass: the row validity, the offsets rebased to 0 (a sliced array's
 offsets are absolute into its whole child) and each child column's
@@ -64,7 +77,9 @@ from spark_rapids_tpu_torch.columnar.column import (
 #: the host time of each part of an upload, and the count of batches
 #: whose copy was still running when the consumer took them
 UPLOAD_METRICS = ("convertTime", "hostCopyTime", "pinTime",
-                  "copyEnqueueTime", "uploadWaitTime", "uploadPending")
+                  "copyEnqueueTime", "uploadWaitTime", "uploadPending",
+                  "encodeTime", "wireBytes", "encodedBatches",
+                  "plainBatches")
 
 
 def _numpy_dtype(dt: T.DataType) -> np.dtype:
@@ -179,6 +194,7 @@ class _Filler:
         at = 0
         for arr in chunks:
             m = len(arr)
+            arr = _without_dictionary_nulls(arr)
             t0 = time.perf_counter_ns()
             dst, ok = vnp[at:at + m], mnp[at:at + m]
             nulls = self.validity(arr, ok)
@@ -259,7 +275,8 @@ class _Filler:
         if not isinstance(dtype, T.StringType):
             return "fixed", self.fixed(chunks, dtype)
         t0 = time.perf_counter_ns()
-        arr = chunks[0] if len(chunks) == 1 else pa.concat_arrays(chunks)
+        arr = _without_dictionary_nulls(
+            chunks[0] if len(chunks) == 1 else pa.concat_arrays(chunks))
         self._lap("convertTime", t0)
         valid, vnp = self.empty((len(arr),), np.bool_)
         nulls = self.validity(arr, vnp)
@@ -278,6 +295,14 @@ class _Filler:
         self._lap("hostCopyTime", t0)
         return "dict", {"codes": codes, "valid": valid,
                         "dchars": d["chars"], "dlens": d["lengths"]}
+
+
+def _without_dictionary_nulls(arr: pa.Array) -> pa.Array:
+    """A dictionary array whose dictionary holds a NULL, cast to its
+    value type: its row NULLs are not in its own validity bitmap."""
+    if pa.types.is_dictionary(arr.type) and arr.dictionary.null_count:
+        return arr.cast(arr.type.value_type)
+    return arr
 
 
 def _gather(dictionary: np.ndarray, codes: np.ndarray,
@@ -400,70 +425,136 @@ class _Timer:
 @dataclasses.dataclass
 class UploadUnit:
     """One batch whose copies to the device are enqueued: its columns'
-    tensors, and the event recorded after the copies (None when the
-    copies went on the consumer's stream or to the CPU)."""
+    tensors, or on the wire path the one device buffer with its layout
+    and plan (``wire``), and the event recorded after the copies (None
+    when the copies went on the consumer's stream or to the CPU)."""
 
     columns: list[tuple[str, T.DataType, dict]]
     num_rows: int
     schema: T.Schema
     device: torch.device
     event: Optional[object] = None
+    wire: Optional[tuple] = None
+
+
+@contextlib.contextmanager
+def _copy_context(device: torch.device, stream):
+    """The device and stream the copies to ``device`` are issued on."""
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device), (
+            torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext()):
+        yield
+
+
+def _record_event(device: torch.device, stream):
+    if device.type != "cuda" or stream is None:
+        return None
+    event = torch.cuda.Event()
+    event.record(stream)
+    return event
 
 
 def stage_upload(table, device: torch.device,
                  schema: T.Schema | None = None, stream=None,
-                 metrics=None) -> UploadUnit:
+                 metrics=None, wire=None) -> UploadUnit:
     """The first half of an upload (module docstring): a pyarrow Table
     or RecordBatch to device tensors whose copies are enqueued on
     ``stream`` (a ``torch.cuda.Stream``; None: the current stream).
     ``metrics`` (an ``execs.base.Metrics`` with ``UPLOAD_METRICS``, or
-    None) takes each part's host time."""
+    None) takes each part's host time.  ``wire``: a
+    ``transfer.WirePolicy`` (the wire path where the schema has a wire
+    form), or None (the plain path)."""
+    from spark_rapids_tpu_torch.columnar import transfer
+
     device = torch.device(device)
     schema = schema or schema_from_arrow(table.schema)
-    filler = _Filler(pinned=device.type == "cuda")
     names = table.column_names
     # by position where the table's names line up (a join's output may
     # name two columns alike), else by name
-    cols = [(*filler.column(table.column(
-        i if names[i:i + 1] == [f.name] else f.name), f.dtype), f.dtype)
-            for i, f in enumerate(schema.fields)]
+    columns = [table.column(i if names[i:i + 1] == [f.name] else f.name)
+               for i, f in enumerate(schema.fields)]
+    if wire is not None and table.num_rows and transfer.takes_schema(schema):
+        return _stage_wire(columns, table.num_rows, device, schema, stream,
+                           metrics, wire)
+    filler = _Filler(pinned=device.type == "cuda")
+    cols = [(*filler.column(c, f.dtype), f.dtype)
+            for c, f in zip(columns, schema.fields)]
     if metrics is not None:
         for name, ns in filler.ns.items():
             metrics.add(name, ns)
+        metrics.add("plainBatches", 1)
+    host = [t for _k, ts, _d in cols for t in _tensors(ts)]
+    transfer.note_plain_upload(sum(t.numel() * t.element_size()
+                                   for t in host), len(host))
     if device.type != "cuda":
         cols = [(kind, dtype, _map_tensors(ts, lambda t: t.to(device)))
                 for kind, ts, dtype in cols]
         return UploadUnit(cols, table.num_rows, schema, device)
     timer = _Timer(metrics)
-    event = None
-    with torch.cuda.device(device), (
-            torch.cuda.stream(stream) if stream is not None
-            else contextlib.nullcontext()):
+    with _copy_context(device, stream):
         cols = [(kind, dtype, _map_tensors(
             ts, lambda t: t.to(device, non_blocking=True)))
                 for kind, ts, dtype in cols]
-        if stream is not None:
-            event = torch.cuda.Event()
-            event.record(stream)
+        event = _record_event(device, stream)
     timer.lap("copyEnqueueTime")
     return UploadUnit(cols, table.num_rows, schema, device, event)
 
 
+def _stage_wire(columns: list, n: int, device: torch.device,
+                schema: T.Schema, stream, metrics, wire) -> UploadUnit:
+    """The wire path's first half: encode, stage every component in one
+    host buffer, enqueue its one copy."""
+    from spark_rapids_tpu_torch.columnar import transfer
+
+    timer = _Timer(metrics)
+    comps, plan = transfer.encode_for_device(columns, schema, n,
+                                             wire.codecs)
+    timer.lap("encodeTime")
+    total, lay = transfer.layout(comps)
+    buf = torch.empty(max(total, 1), dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    timer.lap("pinTime")
+    transfer.fill(buf, comps, lay)
+    timer.lap("hostCopyTime")
+    dev_buf = transfer.upload_staged(buf, device, len(comps), stream)
+    with _copy_context(device, stream):
+        event = _record_event(device, stream)
+    timer.lap("copyEnqueueTime")
+    if metrics is not None:
+        metrics.add("wireBytes", int(buf.numel()))
+        metrics.add("encodedBatches", 1)
+    return UploadUnit([], n, schema, device, event, (dev_buf, lay, plan))
+
+
 def finish_upload(unit: UploadUnit, metrics=None) -> ColumnarBatch:
     """The second half of an upload: the current stream waits for the
-    copies, holds their tensors, and assembles the batch."""
+    copies, holds their tensors (the wire path's one buffer: its
+    columns are views of it or made from it), and assembles the batch,
+    on the wire path by the device decode."""
     if unit.event is not None:
         timer = _Timer(metrics)
         pending = not unit.event.query()
         cur = torch.cuda.current_stream(unit.device)
         cur.wait_event(unit.event)
+        if unit.wire is not None:
+            unit.wire[0].record_stream(cur)
         for _kind, _dtype, ts in unit.columns:
             for t in _tensors(ts):
                 t.record_stream(cur)
         timer.lap("uploadWaitTime")
         if metrics is not None:
             metrics.add("uploadPending", int(pending))
-    cols = [_assemble(kind, dtype, ts) for kind, dtype, ts in unit.columns]
+    if unit.wire is not None:
+        from spark_rapids_tpu_torch.columnar import transfer
+
+        buf, lay, plan = unit.wire
+        cols = transfer.decode_on_device(buf, lay, plan, unit.schema)
+    else:
+        cols = [_assemble(kind, dtype, ts)
+                for kind, dtype, ts in unit.columns]
     return ColumnarBatch(cols, unit.num_rows, unit.schema, unit.device)
 
 
@@ -473,10 +564,10 @@ def schema_from_arrow(schema: pa.Schema) -> T.Schema:
 
 
 def from_arrow(table, device: torch.device,
-               schema: T.Schema | None = None) -> ColumnarBatch:
+               schema: T.Schema | None = None, wire=None) -> ColumnarBatch:
     """A pyarrow Table or RecordBatch -> one device batch, on the
-    current stream."""
-    return finish_upload(stage_upload(table, device, schema))
+    current stream; ``wire`` as ``stage_upload`` takes it."""
+    return finish_upload(stage_upload(table, device, schema, wire=wire))
 
 
 def from_numpy_columns(data: dict, schema: T.Schema,

@@ -1,12 +1,15 @@
-"""The disk tier's frame: a dict of host arrays <-> one byte string.
+"""The spill tiers' frame: a dict of host arrays <-> one byte string.
 
 Counterpart of ``spark_rapids_tpu/columnar/serde.py``, byte for byte:
 ``TPUB`` | version 1 and a reserved zero (two little-endian uint16) |
 the JSON header's length (uint32) | the header (``{"cols": [{"name",
 "dtype", "shape", "nbytes"}, ...], "codec": ...}``) | the arrays' raw
-bytes, concatenated in the header's order.  A frame either package
-writes, the other reads.  Only the ``none`` codec is ported: the byte
-codecs come with the wire codecs (ROADMAP item 9).
+bytes, concatenated in the header's order, then compressed by the
+codec.  The codec comes from the shared registry's byte codecs
+(``columnar/compression/``: ``none``, ``zlib`` at level 1, as in the
+JAX package), which also counts raw against stored bytes per codec; an
+unknown name raises ``ValueError``, as the JAX registry does.  A frame
+either package writes, the other reads.
 """
 
 from __future__ import annotations
@@ -16,24 +19,16 @@ import struct
 
 import numpy as np
 
+from spark_rapids_tpu_torch.columnar import compression as WC
 from spark_rapids_tpu_torch.memory.device_manager import HostBufferPool
 
 _MAGIC = b"TPUB"
 _VERSION = 1
-CODECS = ("none",)
-
-
-def _check_codec(codec: str) -> None:
-    if codec not in CODECS:
-        raise NotImplementedError(
-            f"spill codec {codec!r} is not ported to spark_rapids_tpu_torch "
-            "(only 'none'; the byte codecs are ROADMAP item 9, the wire "
-            "codecs)")
 
 
 def serialize_arrays(arrays: dict, codec: str = "none") -> bytes:
     """Host arrays (name -> numpy array) -> one frame."""
-    _check_codec(codec)
+    bytes_codec = WC.get_bytes_codec(codec)
     header, items, total = [], [], 0
     for name, a in arrays.items():
         a = np.ascontiguousarray(a)
@@ -51,6 +46,8 @@ def serialize_arrays(arrays: dict, codec: str = "none") -> bytes:
         off += a.nbytes
     body = bytes(flat[:total])
     pool.give(staging)
+    body = bytes_codec.compress_bytes(body)
+    WC.record_compress(codec, total, len(body))
     hjson = json.dumps({"cols": header, "codec": codec}).encode()
     return b"".join([_MAGIC, struct.pack("<HH", _VERSION, 0),
                      struct.pack("<I", len(hjson)), hjson, body])
@@ -66,8 +63,12 @@ def deserialize_arrays(data) -> dict:
         raise ValueError(f"unsupported batch version {version}")
     (hlen,) = struct.unpack("<I", data[8:12])
     meta = json.loads(bytes(data[12:12 + hlen]).decode())
-    _check_codec(meta["codec"])
     body = memoryview(data)[12 + hlen:]
+    if meta["codec"] != "none":
+        # a bytearray keeps the arrays writable, as the caller asked
+        body = bytearray(WC.get_bytes_codec(meta["codec"])
+                         .decompress_bytes(body))
+    WC.record_decompress(meta["codec"])
     out, off = {}, 0
     for c in meta["cols"]:
         dt = np.dtype(c["dtype"])

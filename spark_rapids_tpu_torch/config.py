@@ -54,6 +54,19 @@ DECODE_THREADS = "spark.rapids.tpu.sql.scan.decodeThreads"
 #: Off by default, unlike the JAX package's key: pyarrow's reader
 #: decoded faster on an H100 host (PERF.md)
 FAST_DECODE = "spark.rapids.tpu.sql.scan.fastDecode"
+#: upload each scanned batch in the wire form (``columnar/transfer.py``):
+#: integers bias-packed, low-cardinality floats and strings as
+#: dictionaries, two-decimal doubles as int32 cents, every component in
+#: one pinned buffer and one copy, decoded on the device.  Off (one
+#: copy per decoded column tensor) by default, unlike the JAX package's
+#: key: on an H100 host the encode cost more wall than the copies it
+#: saved (PERF.md)
+PACKED_UPLOAD = "spark.rapids.tpu.sql.scan.packedUpload"
+#: route the wire components through the codec chooser
+#: (``columnar/compression/``) and decompress them on the device
+WIRE_COMPRESSION = "spark.rapids.tpu.sql.wireCompression.enabled"
+#: the array codecs the chooser may pick from, comma-separated
+WIRE_CODECS = "spark.rapids.tpu.sql.wireCompression.codecs"
 #: evaluate the Filter pushed into a scan on the host before upload
 HOST_PREFILTER = "spark.rapids.tpu.sql.scan.hostPrefilter"
 #: drop the device Filter over a scan when the prefilter applies all of
@@ -108,8 +121,12 @@ HOST_SPILL_BYTES = "spark.rapids.tpu.memory.host.spillStorageSize"
 SPILL_DIR = "spark.rapids.tpu.memory.spill.dir"
 #: share of the card's memory given to the store's device budget
 MEMORY_FRACTION = "spark.rapids.tpu.memory.fraction"
-#: codec of the disk tier's frames; only "none" is ported
+#: byte codec of the spill frames (``none`` or ``zlib``)
 SPILL_CODEC = "spark.rapids.tpu.memory.spill.compression.codec"
+#: hold a spilled batch on the host as one frame under that codec (the
+#: host budget counts the frame's bytes; a host -> disk spill writes it
+#: as it is)
+SPILL_COMPRESS_HOST = "spark.rapids.tpu.memory.spill.compressHostTier"
 #: attempts of a task, or of one batch at one size, before its failure
 #: propagates
 TASK_MAX_FAILURES = "spark.rapids.tpu.task.maxFailures"
@@ -216,6 +233,9 @@ DEFAULTS: dict[str, Any] = {
     TASK_THREADS: 4,
     DECODE_THREADS: 4,
     FAST_DECODE: False,
+    PACKED_UPLOAD: False,
+    WIRE_COMPRESSION: False,
+    WIRE_CODECS: "bitpack,delta,rle",
     HOST_PREFILTER: True,
     ELIDE_DEVICE_FILTER: True,
     MAX_READ_BATCH_BYTES: 128 << 20,
@@ -234,6 +254,7 @@ DEFAULTS: dict[str, Any] = {
     SPILL_DIR: "",
     MEMORY_FRACTION: 0.8,
     SPILL_CODEC: "none",
+    SPILL_COMPRESS_HOST: False,
     TASK_MAX_FAILURES: 3,
     RETRY_BACKOFF_S: 0.2,
     SPLIT_RETRY_ENABLED: True,

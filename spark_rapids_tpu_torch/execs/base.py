@@ -60,8 +60,9 @@ class TaskRuntime:
     the pool sizes and stage depth read from its conf
     (``sql.taskThreads``, ``sql.scan.decodeThreads``,
     ``sql.pipeline.*``), the CUDA stream its scans upload on (None
-    on the CPU), its retry policy with its buffer store, and its
-    speculation keys."""
+    on the CPU), its retry policy with its buffer store, its
+    speculation keys, and how its scans upload
+    (``columnar/transfer.py::WirePolicy``; None: the plain path)."""
 
     semaphore: TpuSemaphore
     task_threads: int = 1
@@ -70,6 +71,7 @@ class TaskRuntime:
     upload_stream: Optional[object] = None
     retry: RetryPolicy = DEFAULT_POLICY
     speculation: SpeculationPolicy = SpeculationPolicy()
+    wire: Optional[object] = None
 
     @property
     def lookahead(self) -> int:

@@ -37,7 +37,12 @@ A file is read in four steps, each the JAX scan's:
    evaluation failure raises) and emits only its output columns;
 4. each decoded table is cut into batches of at most ``batch_rows``
    (the size the memory runtime expects; a batch the filters emptied is
-   not emitted) and uploaded (``columnar/arrow.py::stage_upload``).
+   not emitted) and uploaded (``columnar/arrow.py::stage_upload``): with
+   ``sql.scan.packedUpload`` on, on the wire path
+   (``columnar/transfer.py``), whose encode runs after every filter
+   above, so only the kept rows of the output columns are encoded, as in
+   JAX; the planner hands the scan that choice and the codecs with its
+   ``TaskRuntime`` (``wire``), read on the session's thread.
 
 Each file's footer is checked against the datetime rebase policy
 (``io/rebase.py``) when it is opened, before pruning.
@@ -76,7 +81,9 @@ nothing).
 rows emitted (``numOutputRows``, after every filter), the counters
 above, and the host time of each part of a task: ``decodeTime``
 (opening files, decode, pruning and the host filters, summed over the
-decode threads) and ``columnar/arrow.py``'s ``UPLOAD_METRICS``.
+decode threads) and ``columnar/arrow.py``'s ``UPLOAD_METRICS`` (the
+wire path's ``encodeTime``, ``wireBytes`` and the batches on each
+path among them).
 
 ``ArrowSourceExec`` (``io/scan.py`` there) serves a host Arrow table
 (``TorchSession.create_dataframe``): a partition per ``batch_rows``
@@ -438,7 +445,8 @@ class ParquetScanExec(TpuExec):
         try:
             for rb in decoded:
                 yield stage_upload(rb, self.device, self._schema,
-                                   self.runtime.upload_stream, self.metrics)
+                                   self.runtime.upload_stream, self.metrics,
+                                   self.runtime.wire)
         finally:
             decoded.close()
 
@@ -532,7 +540,8 @@ class ParquetScanExec(TpuExec):
         def upload(tbl: pa.Table) -> ColumnarBatch:
             return finish_upload(
                 stage_upload(tbl, self.device, self._schema,
-                             self.runtime.upload_stream, self.metrics),
+                             self.runtime.upload_stream, self.metrics,
+                             self.runtime.wire),
                 self.metrics)
 
         try:
@@ -593,4 +602,4 @@ class ArrowSourceExec(TpuExec):
         self.metrics.add("numOutputRows", chunk.num_rows)
         yield finish_upload(stage_upload(
             chunk, self.device, self._schema, self.runtime.upload_stream,
-            self.metrics), self.metrics)
+            self.metrics, self.runtime.wire), self.metrics)

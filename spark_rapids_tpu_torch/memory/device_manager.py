@@ -57,7 +57,8 @@ def initialize(conf: C.TorchConf, device: torch.device):
     store = BufferStore(device_budget=device_budget(conf, device),
                         host_budget=conf.get(C.HOST_SPILL_BYTES),
                         spill_dir=conf.get(C.SPILL_DIR) or None,
-                        codec=conf.get(C.SPILL_CODEC))
+                        codec=conf.get(C.SPILL_CODEC),
+                        compress_host=conf.get(C.SPILL_COMPRESS_HOST))
     reset_store(store)
     return store
 

@@ -21,8 +21,16 @@ page-locked on CUDA.  The copies are queued on the current stream, so
 they run after every kernel that made the batch (the scan's side-stream
 uploads are already ordered before their consumers), and the store
 waits for them before it drops the device tensors or writes the host
-copy to disk.  HOST -> DISK writes the ``columnar/serde.py`` frame to
+copy to disk.  HOST -> DISK writes the ``columnar/serde.py`` frame, under
+``memory.spill.compression.codec`` (``none`` or ``zlib``), to
 ``spill-<id>.tpub`` under ``memory.spill.dir`` or a temporary directory.
+With ``memory.spill.compressHostTier`` (and a codec other than
+``none``) a DEVICE -> HOST spill holds the batch as that one frame
+(``_HostFrame``, JAX ``memory/store.py:316-345``): the host budget
+counts the frame's bytes, a HOST -> DISK spill writes the frame as it
+is, and a restore decompresses it.  ``spill_stats()`` gives the host
+tier's stored bytes (``host_used``) beside the raw bytes they hold
+(``host_raw_bytes``).
 A restore uploads on the consumer's current stream and re-registers the
 bytes at DEVICE.  Entries are keyed by batch, so a spill only moves
 bytes: a run that spills gives the bits of one that does not.
@@ -199,6 +207,32 @@ def _to_numpy(arrays: dict) -> dict:
     return {k: t.numpy() for k, t in arrays.items()}
 
 
+class _HostFrame:
+    """A HOST entry held as one compressed serde frame (the
+    compressed host tier)."""
+
+    __slots__ = ("frame",)
+
+    def __init__(self, frame: bytes):
+        self.frame = frame
+
+
+def _host_arrays(held) -> dict:
+    """A HOST entry's host tensors (a frame decompressed)."""
+    if isinstance(held, _HostFrame):
+        from spark_rapids_tpu_torch.columnar.serde import deserialize_arrays
+
+        return _from_numpy(deserialize_arrays(bytearray(held.frame)))
+    return held
+
+
+def _host_bytes(held) -> int:
+    """The bytes a HOST entry holds (a frame: its length)."""
+    if isinstance(held, _HostFrame):
+        return len(held.frame)
+    return host_bytes(held)
+
+
 def _from_numpy(arrays: dict) -> dict:
     return {k: torch.from_numpy(a) for k, a in arrays.items()}
 
@@ -219,6 +253,8 @@ class _Entry:
     pins: int = 0
     #: host bytes parked on disk (what disk_used gives back)
     disk_bytes: int = 0
+    #: raw bytes of the batch held at HOST (host_raw_bytes' share)
+    host_raw: int = 0
 
     @property
     def pinned(self) -> bool:
@@ -286,16 +322,18 @@ class SpillableBatch:
 class BufferStore:
     def __init__(self, device_budget: Optional[int] = None,
                  host_budget: Optional[int] = None,
-                 spill_dir: Optional[str] = None, codec: str = "none"):
+                 spill_dir: Optional[str] = None, codec: str = "none",
+                 compress_host: bool = False):
         self.device_budget = C.DEFAULTS[C.HBM_BUDGET_BYTES] \
             if device_budget is None else device_budget
         self.host_budget = C.DEFAULTS[C.HOST_SPILL_BYTES] \
             if host_budget is None else host_budget
         self._spill_dir = spill_dir or None
-        from spark_rapids_tpu_torch.columnar.serde import _check_codec
+        from spark_rapids_tpu_torch.columnar import compression as WC
 
-        _check_codec(codec)
+        WC.get_bytes_codec(codec)  # an unknown codec raises here
         self._codec = codec
+        self._host_compress = compress_host and codec != "none"
         self._tmpdir: Optional[tempfile.TemporaryDirectory] = None
         self._entries: dict[int, _Entry] = {}  # guard: _lock
         self._next_id = 0  # guard: _lock
@@ -303,6 +341,7 @@ class BufferStore:
         # guard: _lock, every counter below
         self.device_used = 0
         self.host_used = 0
+        self.host_raw_bytes = 0
         self.disk_used = 0
         self.peak_device_used = 0
         self.spilled_device_to_host = 0
@@ -314,12 +353,14 @@ class BufferStore:
 
     def spill_stats(self) -> dict[str, int]:
         """One consistent read of the gauges (``*_used``, the peak of
-        ``device_used``) and the monotonic totals (bytes spilled per
+        ``device_used``, the raw bytes the host tier holds) and the
+        monotonic totals (bytes spilled per
         hop, restores, restored bytes, ns inside spill and restore)."""
         with self._lock:
             return {
                 "device_used": self.device_used,
                 "host_used": self.host_used,
+                "host_raw_bytes": self.host_raw_bytes,
                 "disk_used": self.disk_used,
                 "peak_device_used": self.peak_device_used,
                 "spilled_device_to_host": self.spilled_device_to_host,
@@ -365,8 +406,10 @@ class BufferStore:
             nbytes = host_bytes(arrays)
             self._entries[bid] = _Entry(bid, priority, nbytes,
                                         StorageTier.HOST, None, arrays, None,
-                                        schema, torch.device(device))
+                                        schema, torch.device(device),
+                                        host_raw=nbytes)
             self.host_used += nbytes
+            self.host_raw_bytes += nbytes
             while self.host_used > self.host_budget:
                 if not self._spill_one_host_locked():
                     break
@@ -389,15 +432,15 @@ class BufferStore:
             try:
                 with _trace.span("spill.restore", tier=e.tier.name,
                                  bytes=e.nbytes, buffer=e.buffer_id):
-                    arrays = e.host if e.tier == StorageTier.HOST \
-                        else self._read_disk(e)
+                    arrays = _host_arrays(e.host) \
+                        if e.tier == StorageTier.HOST else self._read_disk(e)
                     self.reserve(e.nbytes)
                     batch = host_to_batch(arrays, e.schema, e.device)
             except BaseException:
                 e.pins = max(0, e.pins - 1)  # a failed acquire keeps no pin
                 raise
             if e.tier == StorageTier.HOST:
-                self.host_used -= host_bytes(e.host)
+                self._leave_host(e)
             else:
                 # unlinked only once the upload is done: a failure above
                 # must not lose the only copy
@@ -420,7 +463,7 @@ class BufferStore:
             e.pins += 1
             try:
                 if e.tier == StorageTier.HOST:
-                    return e.host
+                    return _host_arrays(e.host)
                 if e.tier == StorageTier.DISK:
                     return self._read_disk(e)
                 return batch_to_host(e.batch)
@@ -436,7 +479,7 @@ class BufferStore:
             if e.tier == StorageTier.DEVICE:
                 self.device_used -= e.nbytes
             elif e.tier == StorageTier.HOST:
-                self.host_used -= host_bytes(e.host)
+                self._leave_host(e)
             else:
                 _unlink(e.path)
                 self.disk_used -= e.disk_bytes
@@ -508,9 +551,19 @@ class BufferStore:
         with _trace.span("spill.device_to_host", tier="DEVICE",
                          bytes=e.nbytes, buffer=e.buffer_id):
             arrays = batch_to_host(e.batch)
-        e.batch, e.host, e.tier = None, arrays, StorageTier.HOST
+            held = arrays
+            if self._host_compress:
+                from spark_rapids_tpu_torch.columnar.serde import (
+                    serialize_arrays,
+                )
+
+                held = _HostFrame(serialize_arrays(_to_numpy(arrays),
+                                                   self._codec))
+        e.batch, e.host, e.tier = None, held, StorageTier.HOST
+        e.host_raw = host_bytes(arrays)
         self.device_used -= e.nbytes
-        self.host_used += host_bytes(arrays)
+        self.host_used += _host_bytes(held)
+        self.host_raw_bytes += e.host_raw
         self.spilled_device_to_host += e.nbytes
         self.spill_ns += time.perf_counter_ns() - t0
         while self.host_used > self.host_budget:
@@ -526,17 +579,29 @@ class BufferStore:
             return False
         t0 = time.perf_counter_ns()
         path = os.path.join(self._dir(), f"spill-{e.buffer_id}.tpub")
-        hb = host_bytes(e.host)
+        hb = _host_bytes(e.host)
         with _trace.span("spill.host_to_disk", tier="HOST", bytes=hb,
                          buffer=e.buffer_id):
-            write_spill_file(path, _to_numpy(e.host), self._codec)
+            if isinstance(e.host, _HostFrame):
+                # the host tier holds the frame already: written as is
+                with open(path, "wb") as f:
+                    f.write(e.host.frame)
+            else:
+                write_spill_file(path, _to_numpy(e.host), self._codec)
+        self._leave_host(e)
         e.host, e.path, e.tier = None, path, StorageTier.DISK
         e.disk_bytes = hb
-        self.host_used -= hb
         self.disk_used += hb
         self.spilled_host_to_disk += hb
         self.spill_ns += time.perf_counter_ns() - t0
         return True
+
+    def _leave_host(self, e: _Entry) -> None:
+        """Give back a HOST entry's bytes (it is restored, removed or
+        moves to disk)."""
+        self.host_used -= _host_bytes(e.host)
+        self.host_raw_bytes -= e.host_raw
+        e.host_raw = 0
 
     def _dir(self) -> str:
         if self._spill_dir:

@@ -11,7 +11,10 @@ codes, PLAIN fixed-width values, definition levels) and split a string
 dictionary page, each in one call, where the JAX decoder works page by
 page and value by value in Python; and ``gather_codes``, the upload's
 gather of a dictionary-encoded fixed-width column
-(``columnar/arrow.py``).  The source is compiled with
+(``columnar/arrow.py``); and the wire encoder's host passes
+(``columnar/transfer.py``, copies of the JAX file's): ``chars_fill``,
+``minmax_i64`` / ``minmax_i32``, ``bias_encode8/16_i64/_i32`` and
+``scaled_check_encode``.  The source is compiled with
 ``g++ -O3 -shared -fPIC -std=c++17`` at first use into
 ``spark_rapids_tpu_torch/_build/``, keyed by a hash of the source and
 flags; the compiler writes a temporary name that ``os.replace`` moves
@@ -22,8 +25,8 @@ Unlike the JAX ``load()``, which returns None and lets its callers fall
 back to numpy, a failed build or load raises ``HostCodecError``: a
 missing compiler must not change the decode path unseen.  The plain
 versions (``fastpar._rle_decode_numpy``, ``pyarrow.Codec("snappy")``,
-``fastpar._parse_page_header``) stay for the tests to hold the C++
-against.
+``fastpar._parse_page_header``, and ``transfer.py``'s numpy forms of
+the encoder's passes) stay for the tests to hold the C++ against.
 """
 
 from __future__ import annotations
@@ -109,5 +112,21 @@ def load() -> ctypes.CDLL:
             lib.gather_codes.argtypes = [c.c_void_p, c.c_int64, c.c_int64,
                                          c.c_void_p, c.c_int64, c.c_void_p]
             lib.gather_codes.restype = c.c_int
+            lib.chars_fill.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p,
+                                       c.c_int64, c.c_int64, c.c_void_p]
+            lib.chars_fill.restype = None
+            for name in ("minmax_i64", "minmax_i32"):
+                fn = getattr(lib, name)
+                fn.argtypes = [c.c_void_p, c.c_int64, c.c_void_p,
+                               c.c_void_p]
+                fn.restype = None
+            for name in ("bias_encode8_i64", "bias_encode16_i64",
+                         "bias_encode8_i32", "bias_encode16_i32"):
+                fn = getattr(lib, name)
+                fn.argtypes = [c.c_void_p, c.c_int64, c.c_int64, c.c_void_p]
+                fn.restype = None
+            lib.scaled_check_encode.argtypes = [c.c_void_p, c.c_int64,
+                                                c.c_void_p]
+            lib.scaled_check_encode.restype = c.c_int
             _lib = lib
         return _lib

@@ -1,13 +1,17 @@
-// Host codec of the Parquet decoder (io/fastpar.py).
+// Host codec of the Parquet decoder (io/fastpar.py) and the wire
+// encoder (columnar/transfer.py).
 //
 // The byte-crunching steps of decoding a column chunk on the host:
 // snappy (the public block format), the Parquet RLE/bit-packed hybrid
 // that carries dictionary codes and definition levels, and the walk
-// over a chunk's page headers (the thrift compact protocol).  Plain C
+// over a chunk's page headers (the thrift compact protocol); and the
+// wire encoder's passes: the fixed-width chars matrix, the min/max
+// scan and bias packs of integers, and the int32-cents check.  Plain C
 // ABI, loaded with ctypes (native/__init__.py); a ctypes call releases
 // the GIL, so the scan's decode pool runs these in parallel.  Each
 // function is single-threaded: parallelism comes from files.
 
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -559,6 +563,97 @@ int gather_codes(const uint8_t* dict, int64_t n_dict, int64_t width,
                   return 0; }
         default: return -1;
     }
+}
+
+// ---------------------------------------------------------------- //
+// The wire encoder's host passes (columnar/transfer.py), copies of
+// the JAX package's native/hostcodec.cpp: each one pass, no numpy
+// temporaries.  The numpy forms stay beside them in transfer.py.
+// ---------------------------------------------------------------- //
+
+// ragged bytes -> zero-padded fixed-width matrix.  offsets has n+1
+// entries into raw; lens[i] <= w must hold (the caller clamps); out is
+// n*w bytes, zeroed by the caller.
+void chars_fill(const uint8_t* raw, const int64_t* offsets,
+                const int32_t* lens, int64_t n, int64_t w,
+                uint8_t* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        int64_t len = lens[i];
+        if (len > 0) {
+            std::memcpy(out + i * w, raw + offsets[i],
+                        static_cast<size_t>(len));
+        }
+    }
+}
+
+void minmax_i64(const int64_t* v, int64_t n, int64_t* out_min,
+                int64_t* out_max) {
+    int64_t mn = v[0], mx = v[0];
+    for (int64_t i = 1; i < n; ++i) {
+        int64_t x = v[i];
+        if (x < mn) mn = x;
+        if (x > mx) mx = x;
+    }
+    *out_min = mn;
+    *out_max = mx;
+}
+
+void minmax_i32(const int32_t* v, int64_t n, int64_t* out_min,
+                int64_t* out_max) {
+    int32_t mn = v[0], mx = v[0];
+    for (int64_t i = 1; i < n; ++i) {
+        int32_t x = v[i];
+        if (x < mn) mn = x;
+        if (x > mx) mx = x;
+    }
+    *out_min = mn;
+    *out_max = mx;
+}
+
+void bias_encode8_i64(const int64_t* v, int64_t n, int64_t base,
+                      uint8_t* out) {
+    for (int64_t i = 0; i < n; ++i)
+        out[i] = static_cast<uint8_t>(v[i] - base);
+}
+
+void bias_encode16_i64(const int64_t* v, int64_t n, int64_t base,
+                       uint16_t* out) {
+    for (int64_t i = 0; i < n; ++i)
+        out[i] = static_cast<uint16_t>(v[i] - base);
+}
+
+void bias_encode8_i32(const int32_t* v, int64_t n, int64_t base,
+                      uint8_t* out) {
+    for (int64_t i = 0; i < n; ++i)
+        out[i] = static_cast<uint8_t>(static_cast<int64_t>(v[i]) - base);
+}
+
+void bias_encode16_i32(const int32_t* v, int64_t n, int64_t base,
+                       uint16_t* out) {
+    for (int64_t i = 0; i < n; ++i)
+        out[i] = static_cast<uint16_t>(static_cast<int64_t>(v[i]) - base);
+}
+
+// 2-decimal money check+encode: out[i] = (int32) round(v[i] * 100)
+// when EVERY value reconstructs bit-exactly as out[i] / 100.0 (a true
+// IEEE division, as the device decode does it).  Returns 1 on success,
+// 0 (out undefined) otherwise.
+int scaled_check_encode(const double* v, int64_t n, int32_t* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        double x = v[i];
+        if (!std::isfinite(x)) return 0;
+        double s = std::nearbyint(x * 100.0);
+        if (s < -2147483648.0 || s > 2147483647.0) return 0;
+        int32_t c = static_cast<int32_t>(s);
+        double r = static_cast<double>(c) / 100.0;
+        // bit comparison: catches -0.0 vs 0.0 and every rounding case
+        uint64_t rb, xb;
+        std::memcpy(&rb, &r, 8);
+        std::memcpy(&xb, &x, 8);
+        if (rb != xb) return 0;
+        out[i] = c;
+    }
+    return 1;
 }
 
 }  // extern "C"

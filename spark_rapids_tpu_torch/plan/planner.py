@@ -103,8 +103,10 @@ the kept positions where its own lowering kept more.
 
 The planner hands the scans, exchanges and coalesces one
 ``TaskRuntime``: the session's task semaphore and upload stream, and
-``sql.taskThreads``, ``sql.scan.decodeThreads`` and the stage depth
-from its conf.
+``sql.taskThreads``, ``sql.scan.decodeThreads``, the stage depth and
+the upload path (``sql.scan.packedUpload`` and
+``sql.wireCompression.*``: ``columnar/transfer.py::WirePolicy``) from
+its conf.
 
 Before lowering, the plan is tagged, as the JAX planner tags it
 (``PlanMeta``): each node whose exec switch
@@ -140,6 +142,7 @@ from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
+from spark_rapids_tpu_torch.columnar.transfer import WirePolicy
 from spark_rapids_tpu_torch.serving.cancel import check_point
 from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
 from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
@@ -589,7 +592,8 @@ class Planner:
             decode_threads=conf.get(C.DECODE_THREADS),
             stage_depth=stage_depth(conf), upload_stream=upload_stream,
             retry=RetryPolicy.from_conf(conf, store),
-            speculation=SpeculationPolicy.from_conf(conf))
+            speculation=SpeculationPolicy.from_conf(conf),
+            wire=WirePolicy.from_conf(conf))
         #: id(logical node) -> its meta, while a plan is lowered
         self._tags: dict[int, PlanMeta] = {}
 

@@ -1,11 +1,14 @@
 """Deterministic fault injection at the memory runtime's seams.
 
-Counterpart of ``spark_rapids_tpu/robustness/faults.py`` for the three
+Counterpart of ``spark_rapids_tpu/robustness/faults.py`` for the four
 sites this port has:
 
 - ``alloc.device``: ``memory/device_manager.device_alloc_checkpoint``,
   which ``BufferStore.reserve`` calls before it admits a device
   reservation;
+- ``transfer.upload``: ``columnar/transfer.py::upload_staged``, in front
+  of the wire path's one copy of a batch; a retryable failure spills
+  what the store can and re-issues the copy from the staged buffer;
 - ``exec.batch``: ``execs/retry.with_split_retry``, once per attempt of
   a guarded batch in the join, aggregate, sort and exchange loops;
 - ``cancel.check``: ``serving/cancel.check_point``, once per
@@ -40,13 +43,15 @@ from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch import trace as _tr
 
 #: the ported sites (parse_spec refuses any other)
-SITES = ("alloc.device", "exec.batch", "cancel.check")
+SITES = ("alloc.device", "transfer.upload", "exec.batch", "cancel.check")
 
 #: default error text per site: each carries a marker that
 #: ``execs/retry.is_retryable`` classifies as retryable
 _DEFAULT_MARKERS = {
     "alloc.device":
         "RESOURCE_EXHAUSTED: injected device allocation failure",
+    "transfer.upload":
+        "UNAVAILABLE: injected H2D transfer fault",
     "exec.batch":
         "RESOURCE_EXHAUSTED: injected batch processing fault",
     # no retryable marker: check_point turns the hit into a real token

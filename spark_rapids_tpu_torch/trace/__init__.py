@@ -20,6 +20,20 @@ evicted), without a lock; the ring of a finished thread stays readable
 by :func:`snapshot`.  With tracing off an instrumented site costs one
 attribute read (``TRACER.enabled``).
 
+The names recorded are the JAX package's:
+``query.plan`` / ``.tag`` / ``.lower`` / ``.execute`` /
+``.fetch.batch``, ``exec.<op>``, ``metric.settle.<op>``,
+``exchange.task``, ``pipe.<stage>.run`` / ``.enqueue`` / ``.dequeue``
+/ ``.wait_full`` / ``.wait_empty``, ``pipe.readback``, ``rf.build``,
+``rf.apply``, ``spill.device_to_host`` / ``.host_to_disk`` /
+``.restore``, ``shuffle.block.send`` / ``.recv``, ``wire.compress`` (a
+component through the codec chooser, ``columnar/transfer.py``) and
+``wire.decompress`` (a compressed batch's decode),
+``speculation.hit`` / ``.overflow`` / ``.disabled``, ``jit.cache_miss``,
+``fault.inject`` / ``.recovered``, and the serving tier's
+``serve.*``, ``cancel.*`` and ``breaker.*``.  The device ledger keys
+the wire decode ``("wire.decode", ...)``, op ``WireDecode``.
+
 Export is in :mod:`spark_rapids_tpu_torch.trace.export` (Chrome Trace
 JSON, ``TorchSession.export_trace``); the per-program device time is in
 :mod:`.ledger`, the gauge sampler in :mod:`.telemetry`.  The port's

@@ -292,13 +292,21 @@ def test_serde_frames_equal_both_ways():
 
 
 def test_serde_refuses_byte_codecs():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serde.serialize_arrays(_frame_arrays(), "zlib")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serde.deserialize_arrays(
-            jserde.serialize_arrays(_frame_arrays(), "zlib"))
-    with pytest.raises(NotImplementedError):
-        BufferStore(codec="zlib")
+    """The byte codecs the registry lacks, or that have no byte form,
+    raise as in the JAX registry (``zlib`` is ported:
+    tests/test_torch_wire_compression.py)."""
+    for name in ("lz4", "bitpack"):
+        with pytest.raises(ValueError, match=name):
+            serde.serialize_arrays(_frame_arrays(), name)
+        with pytest.raises(ValueError, match=name):
+            jserde.serialize_arrays(_frame_arrays(), name)
+        with pytest.raises(ValueError, match=name):
+            BufferStore(codec=name)
+    frame = bytearray(serde.serialize_arrays(_frame_arrays(), "zlib"))
+    at = frame.index(b'"codec": "zlib"')
+    frame[at:at + 15] = b'"codec": "zzzz"'
+    with pytest.raises(ValueError, match="zzzz"):
+        serde.deserialize_arrays(bytes(frame))
 
 
 def test_keys_default_as_in_the_jax_package():

@@ -54,9 +54,9 @@ from spark_rapids_tpu_torch.serving import work_share as ws
 from spark_rapids_tpu_torch.trace import export as PX
 
 TTB = C.TASK_TARGET_BYTES
-#: span and event prefixes of JAX layers the port has not ported (the
-#: wire codecs, speculation): the only JAX names a port run lacks
-UNPORTED = ("wire.", "speculation.")
+#: span and event prefixes of JAX layers the port has not ported: none
+#: since the wire codecs and speculation came
+UNPORTED = ()
 #: names whose presence depends on timing or on the program cache's
 #: state, in either package: a stage wait that did not happen, a
 #: runtime filter not yet published when a scan decoded, a cache miss
@@ -283,7 +283,8 @@ def data(tmp_path_factory):
         p = str(d / f"store_sales-{i}.parquet")
         pq.write_table(ss.slice(i * per, per), p)
         ssp.append(p)
-    return {"q1": (q1,), "q3": (li, orders), "q3ds": (dd, ssp, item)}
+    return {"q1": (q1,), "q3": (li, orders), "q3_wire": (li, orders),
+            "q3ds": (dd, ssp, item)}
 
 
 #: query -> (keys, port DataFrame, JAX DataFrame); q3 with broadcast off
@@ -298,6 +299,11 @@ QUERIES = {
     "q3": ({TTB: 1, C.BROADCAST_THRESHOLD: -1}, tpch.q3_dataframe,
            bench.q3_dataframe),
     "q3ds": ({TTB: 1}, tpcds.q3_dataframe, _jax_q3ds),
+    # the wire path with compression: the wire.compress and
+    # wire.decompress spans (the JAX package's default upload is packed)
+    "q3_wire": ({TTB: 1, C.BROADCAST_THRESHOLD: -1, C.PACKED_UPLOAD: True,
+                 C.WIRE_COMPRESSION: True}, tpch.q3_dataframe,
+                bench.q3_dataframe),
 }
 
 
@@ -379,6 +385,8 @@ def test_traced_query_matches_untraced_jax_names_and_ids(query, data,
     assert pool and all(e.attrs.get("query_id") == qid for e in pool)
     if query != "q1":
         assert "rf.apply" in names and "rf.build" in names
+    if query == "q3_wire":
+        assert {"wire.compress", "wire.decompress"} <= names & jax_names
 
 
 # --------------------------------------------------------------------- #
