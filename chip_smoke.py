@@ -162,6 +162,26 @@ Phases, one JSON line each:
            REL_TOL, rows whose sums tie may trade places); hash_columns
            must launch once per non-empty map batch of its three
            exchanges and hash_string never;
+  formats  the file formats (``formats_phase``) over q3ds's store_sales
+           and q6's lineitem: A. the store_sales columns q3ds and q93
+           read (6 x 2^20 rows) written as ORC by df.write.orc (one
+           file a scan task), q3ds over the ORC directory equal to
+           q3ds over the Parquet files by pyarrow.Table.equals; B. one
+           file (2^20 rows) through write.csv and read_csv(schema=),
+           equal to the Parquet file; C. sum(ss_net_paid) and count(*)
+           by store and date (a sale with no customer booked to no
+           store, so the NULL directory has rows) through K1's exchange,
+           written partition_by("ss_store_sk") as Parquet with the split
+           on the card and again by the host loop (host_split):
+           directories and rows equal to pyarrow.dataset's Hive write of
+           the pyarrow reference (dates and counts exact, sums within
+           REL_TOL), then read back with ss_store_sk = 1 and IS NULL,
+           each keeping its directory's files only (filesPruned); D.
+           tpch.q6_substrait() and q1_substrait() through
+           SubstraitFrontend equal to the DataFrames by Table.equals,
+           with the same K1 launches; every part's launches equal its
+           planned map batches; files, bytes, writeTime, splitTime and
+           the walls;
   speculation
            the speculative output sizing (parallel/speculation.py) on
            q3 (the static partition-wise plan), q1 and q93 at the sizes
@@ -1747,8 +1767,9 @@ def q3ds_phase(torch, pc, star, kernels, RF, TorchSession, tpcds, TTB,
 
 
 #: off / on pairs of walls in the trace phase, each pair's order
-#: alternating (off, on), (on, off)
-TRACE_PAIRS = 5
+#: alternating (off, on), (on, off) (5 until the formats phase needed
+#: the run's time)
+TRACE_PAIRS = 3
 #: the span and event names the JAX package records on q3 and q3ds (a
 #: pool's stage names folded to ``*``), which the trace phase requires
 TRACE_NAMES = ("query.plan", "query.tag", "query.lower", "query.execute",
@@ -2130,7 +2151,8 @@ def scan_host_phase(torch, pc, TorchSession, tpch, tpcds, TTB, paths,
 
 #: off / on / compressed rounds of the wire phase's walls, each round's
 #: order rotating (plain, wire, compressed), (compressed, plain, wire) ...
-WIRE_ROUNDS = 3
+#: (3 until the formats phase needed the run's time)
+WIRE_ROUNDS = 2
 #: the wire phase's upload paths: sql.scan.packedUpload off, on, and on
 #: with sql.wireCompression.enabled under its default codec list
 WIRE_PATHS = ("plain", "wire", "compressed")
@@ -2591,8 +2613,295 @@ def q93_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB):
     return out, calls
 
 
+#: the store_sales columns the formats phase writes as ORC: those q3ds
+#: and q93 read
+FORMATS_COLUMNS = ("ss_sold_date_sk", "ss_item_sk", "ss_customer_sk",
+                   "ss_ticket_number", "ss_quantity", "ss_sales_price",
+                   "ss_ext_sales_price")
+#: the store whose directory the formats phase's first pruned read keeps
+FORMATS_STORE = 1
+
+
+def timed_launches(torch, counter, fn) -> tuple:
+    """(``fn()``, its wall in s, the K1 launches it made)."""
+    before = counter.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, counter.launches - before
+
+
+def hive_rows(pq, root: str) -> dict:
+    """Relative partition directory -> its data files' rows, by file
+    name order (each file read alone: ``pq.read_table`` would take the
+    directory's ``key=value`` for a partition of its own)."""
+    out: dict = {}
+    for d, _dirs, names in os.walk(root):
+        files = sorted(n for n in names if n.endswith(".parquet"))
+        if files:
+            out[os.path.relpath(d, root)] = [
+                r for n in files
+                for r in pq.ParquetFile(os.path.join(d, n)).read()
+                .to_pylist()]
+    return out
+
+
+def same_store_rows(got: list, want: list, where: str) -> float:
+    """One store's (date, net_paid, sales) rows against the reference's:
+    dates and counts exact, sums within REL_TOL; the largest relative
+    error."""
+    ref = {r["ss_sold_date_sk"]: r for r in want}
+    if len(got) != len(ref):
+        raise AssertionError(f"{where}: {len(got)} rows, reference has "
+                             f"{len(ref)}")
+    worst = 0.0
+    for r in got:
+        w = ref.get(r["ss_sold_date_sk"])
+        if w is None or r["sales"] != w["sales"]:
+            raise AssertionError(f"{where}: row {r} against {w}")
+        rel = abs(r["net_paid"] - w["net_paid"]) / max(abs(w["net_paid"]),
+                                                       1e-300)
+        worst = max(worst, rel)
+        if rel > REL_TOL:
+            raise AssertionError(f"{where}: {r} vs {w} (rel {rel:.3e})")
+    return worst
+
+
+def formats_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpch,
+                  tpcds, TTB, li_paths) -> tuple:
+    """The file formats on the card (module docstring): A. store_sales'
+    FORMATS_COLUMNS written as ORC with ``df.write.orc`` and q3ds over
+    the ORC directory equal to q3ds over the Parquet files bit for bit;
+    B. one store_sales file through ``write.csv`` and ``read_csv``
+    equal to the Parquet file; C. a grouped aggregate (net paid and
+    sales by store and date, through K1's exchange) written with
+    ``partition_by("ss_store_sk")``, split on the card and by the plain
+    host loop, both trees equal to ``pyarrow.dataset``'s Hive write of
+    the pyarrow reference, then read back with each pruned filter; D.
+    TPC-H q6 and q1 as Substrait plans over lineitem, equal to the
+    DataFrames bit for bit with the same K1 launches.  Each part's
+    launches equal its planned map batches (the card-split write's those
+    its host-loop twin's counted plan planned: the plans are alike).
+    Emits the phase's line; returns its record and its K1 launches."""
+    import pyarrow.dataset as ds
+
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.arrow import schema_from_arrow
+    from spark_rapids_tpu_torch.exprs.base import Literal
+    from spark_rapids_tpu_torch.exprs.predicates import If
+    from spark_rapids_tpu_torch.frontends.substrait import SubstraitFrontend
+    from spark_rapids_tpu_torch.io.scan import OrcScanExec, ParquetScanExec
+    from spark_rapids_tpu_torch.io.write import ParquetWriteExec
+    from spark_rapids_tpu_torch.plan.planner import collect_exec
+    from spark_rapids_tpu_torch.session import col, count_star, lit, sum_
+
+    t_phase = time.perf_counter()
+    counter = kernels.hash_columns
+    dd_path, ss_paths, item_path = star["paths"]
+    root = os.path.join(star["dir"], "formats")
+    os.makedirs(root)
+    session = TorchSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
+    launches = 0
+
+    def stats(st) -> dict:
+        return {"files": st.num_files, "rows": st.num_rows,
+                "bytes": st.num_bytes, "partitions": st.partitions,
+                "writeTime_ms": st.write_time_ns / 1e6,
+                "splitTime_ms": st.split_time_ns / 1e6}
+
+    # A. ORC round trip, q3ds on both formats
+    names = [n for n in pq.read_schema(ss_paths[0]).names
+             if n in FORMATS_COLUMNS]
+    orc_dir = os.path.join(root, "store_sales_orc")
+    st, wall, n = timed_launches(torch, counter, lambda: session.read_parquet(
+        *ss_paths, columns=names).write.orc(orc_dir))
+    rows_in = sum(pq.read_metadata(p).num_rows for p in ss_paths)
+    if (st.num_rows, st.num_files, n) != (rows_in, len(ss_paths), 0):
+        raise AssertionError(f"ORC write: {st}, {n} K1 launches")
+    orc = {"write_wall_s": wall, **stats(st)}
+    q3 = {}
+    for fmt, where in (("parquet", ss_paths), ("orc", [orc_dir])):
+        def q3ds_df(fmt=fmt, where=where):
+            return tpcds.q3_dataframe(session, dd_path, where, item_path,
+                                      fmt=fmt)
+
+        plan = q3ds_df().physical_plan()
+        fact = [n for n in plan.walk()
+                if getattr(n, "runtime_filters", None)]
+        cls = OrcScanExec if fmt == "orc" else ParquetScanExec
+        if len(fact) != 1 or type(fact[0]) is not cls:
+            raise AssertionError(f"q3ds over {fmt}: runtime-filtered "
+                                 f"scans {fact}")
+        (result, tally), wall, n = timed_launches(
+            torch, counter, lambda: counted_run(q3ds_df, counter))
+        if n != tally["per_run"]:
+            raise AssertionError(f"q3ds over {fmt} launched {n}, "
+                                 f"planned {tally}")
+        launches += n
+        q3[fmt] = {"wall_s": wall, "launches": n, "rows": result.num_rows,
+                   "table": result, "tasks": fact[0].num_partitions}
+    if not q3["orc"].pop("table").equals(q3["parquet"].pop("table")):
+        raise AssertionError("q3ds over ORC differs from q3ds over Parquet")
+    orc["q3ds"] = q3
+
+    # B. CSV round trip of one file
+    csv_dir = os.path.join(root, "store_sales_csv")
+    st, wall_w, _ = timed_launches(torch, counter, lambda: session
+                                   .read_parquet(ss_paths[0])
+                                   .write.csv(csv_dir))
+    schema = schema_from_arrow(pq.read_schema(ss_paths[0]))
+    back, wall_r, _ = timed_launches(torch, counter, lambda: session
+                                     .read_csv(csv_dir, schema=schema)
+                                     .collect())
+    want = pq.read_table(ss_paths[0])
+    if not back.equals(want):
+        bad = [c for c in want.column_names
+               if not back.column(c).equals(want.column(c))]
+        raise AssertionError(f"CSV round trip differs in {bad}")
+    csv = {"write_wall_s": wall_w, "read_wall_s": wall_r,
+           "rows": back.num_rows, **stats(st)}
+
+    # C. the partitioned write, split on the card and on the host
+    def agg_df():
+        # the generator draws no NULL store; a sale with no customer is
+        # booked to no store, so the NULL directory has rows
+        store = If(col("ss_customer_sk").is_null(), Literal.of(None, T.LONG),
+                   col("ss_store_sk"))
+        return (session.read_parquet(*ss_paths)
+                .select(store.alias("ss_store_sk"), col("ss_sold_date_sk"),
+                        col("ss_net_paid"))
+                .group_by(col("ss_store_sk"), col("ss_sold_date_sk"))
+                .agg((sum_(col("ss_net_paid")), "net_paid"),
+                     (count_star(), "sales")))
+
+    t = pa.concat_tables([pq.read_table(p, columns=[
+        "ss_store_sk", "ss_sold_date_sk", "ss_net_paid", "ss_customer_sk"])
+        for p in ss_paths])
+    store = pc.if_else(pc.is_null(t["ss_customer_sk"]),
+                       pa.scalar(None, pa.int64()), t["ss_store_sk"])
+    g = pa.table({"ss_store_sk": store,
+                  "ss_sold_date_sk": t["ss_sold_date_sk"],
+                  "ss_net_paid": t["ss_net_paid"]}).group_by(
+        ["ss_store_sk", "ss_sold_date_sk"]).aggregate(
+        [("ss_net_paid", "sum"), ([], "count_all")])
+    ref = pa.table({"ss_sold_date_sk": g["ss_sold_date_sk"],
+                    "net_paid": g["ss_net_paid_sum"],
+                    "sales": g["count_all"], "ss_store_sk": g["ss_store_sk"]})
+    ref_dir = os.path.join(root, "reference")
+    ds.write_dataset(ref, ref_dir, format="parquet",
+                     partitioning=ds.partitioning(
+                         pa.schema([("ss_store_sk", pa.int64())]),
+                         flavor="hive"))
+    ref_tree = hive_rows(pq, ref_dir)
+    if "ss_store_sk=__HIVE_DEFAULT_PARTITION__" not in ref_tree:
+        raise AssertionError(f"no NULL store directory: {sorted(ref_tree)}")
+    part = {}
+    trees = {}
+    planned = None
+    for mode in ("host", "card"):
+        out_dir = os.path.join(root, f"by_store_{mode}")
+        df = agg_df()
+        if mode == "host":
+            # counted: its planned map batches are the card write's too
+            plan, tally = counted_plan(df, counter)
+            make = ParquetWriteExec(out_dir, plan, ["ss_store_sk"],
+                                    runtime=df._planner().runtime,
+                                    host_split=True).run
+        else:
+            def make(df=df, out_dir=out_dir):
+                return df.write.partition_by("ss_store_sk").parquet(out_dir)
+        st, wall, n = timed_launches(torch, counter, make)
+        if planned is None:
+            planned = tally()["per_run"]
+        launches += n
+        if n != planned:
+            raise AssertionError(f"partitioned write ({mode} split) "
+                                 f"launched {n}, planned {planned}")
+        trees[mode] = hive_rows(pq, out_dir)
+        if set(trees[mode]) != set(ref_tree):
+            raise AssertionError(f"{mode} split directories "
+                                 f"{sorted(trees[mode])} against "
+                                 f"{sorted(ref_tree)}")
+        worst = max(same_store_rows(trees[mode][d], ref_tree[d], d)
+                    for d in ref_tree)
+        part[mode] = {"wall_s": wall, "launches": n, "planned": planned,
+                      "max_rel_err": worst, **stats(st)}
+    if {d: sorted(r, key=repr) for d, r in trees["card"].items()} != \
+            {d: sorted(r, key=repr) for d, r in trees["host"].items()}:
+        raise AssertionError("the card split and the host loop wrote "
+                             "other rows")
+    card_dir = os.path.join(root, "by_store_card")
+    files = {d: sum(1 for n in os.listdir(os.path.join(card_dir, d))
+                    if n.endswith(".parquet")) for d in trees["card"]}
+    pruned = {}
+    for key, cond in ((FORMATS_STORE, col("ss_store_sk").eq(
+            lit(FORMATS_STORE))), (None, col("ss_store_sk").is_null())):
+        d = "ss_store_sk=" + ("__HIVE_DEFAULT_PARTITION__" if key is None
+                              else str(key))
+        df = session.read_parquet(card_dir).where(cond)
+        plan = df.physical_plan()
+        got, wall, _ = timed_launches(torch, counter,
+                                      lambda: collect_exec(plan, session.conf))
+        scan = next(n for n in plan.walk()
+                    if isinstance(n, ParquetScanExec))
+        want_pruned = sum(files.values()) - files[d]
+        if scan.metrics["filesPruned"] != want_pruned:
+            raise AssertionError(f"read of {d} pruned "
+                                 f"{scan.metrics['filesPruned']} files, "
+                                 f"expected {want_pruned}")
+        rows = got.to_pylist()
+        if any(r["ss_store_sk"] != key for r in rows):
+            raise AssertionError(f"read of {d} kept another store")
+        pruned[d] = {"wall_s": wall, "rows": len(rows),
+                     "files_pruned": want_pruned, "files_read": files[d],
+                     "max_rel_err": same_store_rows(rows, ref_tree[d], d)}
+
+    # D. Substrait q6 and q1 against the DataFrames
+    li_keys = {TTB: TASK_TARGET_BYTES}
+    fe = SubstraitFrontend(li_keys, device="cuda")
+    fe.register_table("lineitem", li_paths)
+    li_session = TorchSession(li_keys, device="cuda")
+    substrait = {}
+    for name, keys in (("q6", []), ("q1", ["l_returnflag", "l_linestatus"])):
+        got = {}
+        for how, make_df in (
+                ("substrait", lambda name=name: fe.dataframe(
+                    getattr(tpch, f"{name}_substrait")())),
+                ("dataframe", lambda name=name: getattr(
+                    tpch, f"{name}_dataframe")(li_session, li_paths))):
+            (result, tally), wall, n = timed_launches(
+                torch, counter, lambda: counted_run(make_df, counter))
+            if n != tally["per_run"]:
+                raise AssertionError(f"{name} ({how}) launched {n}, "
+                                     f"planned {tally}")
+            launches += n
+            order = [(k, "ascending") for k in keys]
+            got[how] = (result.sort_by(order) if order else result, wall, n)
+        if not got["substrait"][0].equals(got["dataframe"][0]):
+            raise AssertionError(f"Substrait {name} differs from the "
+                                 f"DataFrame's")
+        if got["substrait"][2] != got["dataframe"][2]:
+            raise AssertionError(f"Substrait {name} launched "
+                                 f"{got['substrait'][2]}, the DataFrame "
+                                 f"{got['dataframe'][2]}")
+        substrait[name] = {"rows": got["substrait"][0].num_rows,
+                           "launches": got["substrait"][2],
+                           "wall_s": got["substrait"][1],
+                           "dataframe_wall_s": got["dataframe"][1]}
+    rec = {"seconds": time.perf_counter() - t_phase, "rows_in": rows_in,
+           "orc": orc, "csv": csv, "partitioned": part,
+           "split_card_ms": part["card"]["splitTime_ms"],
+           "split_host_ms": part["host"]["splitTime_ms"],
+           "pruned_reads": pruned, "substrait": substrait,
+           "hash_columns_launches": launches}
+    emit("formats", **rec)
+    return rec, launches
+
+
 #: on / off pairs of the speculation phase, each pair's order alternating
-SPEC_PAIRS = 3
+#: (3 until the formats phase needed the run's time)
+SPEC_PAIRS = 2
 #: the speculation phase's forced undershoot: a capacity far below a
 #: stream batch's pairs
 SPEC_UNDER = 8
@@ -5706,7 +6015,8 @@ def sample_projection_check(pa, sample_projection, rand_uniform, ss_paths,
 
 
 #: the adaptive phase: on / off pairs a workload, in alternating order
-ADAPTIVE_PAIRS = 3
+#: (3 until the formats phase needed the run's time)
+ADAPTIVE_PAIRS = 2
 #: the adaptive key (execs/adaptive.py); checks of a static join shape
 #: set it off for their plan, and their sibling runs the default
 ADAPTIVE = "spark.rapids.tpu.sql.adaptive.enabled"
@@ -7467,6 +7777,9 @@ def main() -> int:
             ref6, ref1, star, li_paths, orders_path)
         q93, q93_calls = q93_phase(torch, pa, pc, pq, star, kernels,
                                    TorchSession, tpcds, TTB)
+        _formats, formats_k1 = formats_phase(
+            torch, pa, pc, pq, star, kernels, TorchSession, tpch, tpcds,
+            TTB, paths)
         _spec, spec_k1, spec_calls = speculation_phase(
             torch, pa, pc, kernels, TorchSession, tpch, tpcds, TTB, paths,
             ref1, li_paths, orders_path, ref3, star)
@@ -7566,7 +7879,7 @@ def main() -> int:
             q["launches"]["hash_columns"] for q in runs) + sum(
             q["launches"]["hash_columns"]
             for q in memory["split"].values()) + python_k1
-        + serving_k1["hash_columns"] + spec_k1 + wire_k1,
+        + serving_k1["hash_columns"] + spec_k1 + wire_k1 + formats_k1,
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
@@ -7580,7 +7893,8 @@ def main() -> int:
                  "phase's calls, and the new_types mix at "
                  "6 x 2^20 rows; ms is the device's own time per "
                  "launch; launches include the memory phase's split runs "
-                 "and the speculation and wire phases' runs",
+                 "and the speculation, wire and formats phases' runs",
+        "formats_launches": formats_k1,
         "concurrency_launches": conc_launches["hash_columns"],
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,

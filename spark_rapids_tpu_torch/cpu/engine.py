@@ -1542,7 +1542,7 @@ _INNER_NODES = (L.Project, L.Filter, L.Expand, L.Aggregate, L.Sort,
 
 
 def _run(plan: L.LogicalPlan, need: Optional[set]) -> pa.Table:
-    if isinstance(plan, (L.InMemoryRelation, L.Scan, L.RangeRel)):
+    if isinstance(plan, (L.InMemoryRelation, L.FileRelation, L.RangeRel)):
         return _leaf(plan, need)
     if isinstance(plan, (L.Cached, L.MapInArrow, L.GroupedPandas,
                          L.CoGroupedPandas)):
@@ -1659,10 +1659,9 @@ def _leaf(plan, need: Optional[set]) -> pa.Table:
         total = max(0, -(-(plan.end - plan.start) // plan.step))
         t = pa.table({"id": plan.start + np.arange(total, dtype=np.int64)
                       * plan.step})
-    elif isinstance(plan, L.Scan):
-        hidden = {f.name for f in ND.INPUT_FILE_FIELDS}
-        t = pa.concat_tables(_scan_file(p, names, hidden)
-                             for p in plan.paths)
+    elif isinstance(plan, L.FileRelation):
+        t = pa.concat_tables(_scan_file(plan, fi, names)
+                             for fi in range(len(plan.paths)))
     else:
         t = plan.table.select(names)
     cols = dict(zip(names, t.columns))
@@ -1671,13 +1670,48 @@ def _leaf(plan, need: Optional[set]) -> pa.Table:
                      plan.schema, t.num_rows)
 
 
-def _scan_file(path: str, names: list, hidden: set) -> pa.Table:
-    """One file's columns ``names``: the hidden input-file ones are the
-    file's path, 0 and its size."""
-    t = pq.read_table(path, columns=[c for c in names if c not in hidden])
+def _read_file(plan, path: str, columns: list) -> pa.Table:
+    """One file's ``columns`` (file columns only); its rows even for
+    none (JAX ``_read_scan_file``)."""
+    if isinstance(plan, L.OrcRelation):
+        import pyarrow.orc as paorc
+
+        f = paorc.ORCFile(path)
+        if not columns:
+            # ORC's read(columns=[]) loses the row count: read one
+            return f.read(columns=f.schema.names[:1]).select([])
+        return f.read(columns=columns)
+    if isinstance(plan, L.CsvRelation):
+        import pyarrow.csv as pacsv
+
+        types = {f.name: T.to_arrow_type(f.dtype) for f in plan.file_fields}
+        t = pacsv.read_csv(path, convert_options=pacsv.ConvertOptions(
+            column_types=types))
+        return t.select(columns)
+    # the file alone: read_table would parse a key=value directory too
+    return pq.ParquetFile(path).read(columns=columns)
+
+
+def _scan_file(plan, fi: int, names: list) -> pa.Table:
+    """File ``fi``'s columns ``names``: its partition values (JAX
+    ``_scan_cpu``), and the hidden input-file columns: the file's path,
+    0 and its size."""
+    from spark_rapids_tpu_torch.io.pushdown import typed_partition_value
+
+    path = plan.paths[fi]
+    parts = {f.name: f for f in plan.partition_fields}
+    hidden = {f.name for f in ND.INPUT_FILE_FIELDS}
+    t = _read_file(plan, path, [c for c in names
+                                if c not in hidden and c not in parts])
     n = t.num_rows
+    pv = plan.partition_values[fi] if fi < len(plan.partition_values) \
+        else {}
     for c in names:
-        if c == ND.InputFileName.HIDDEN:
+        if c in parts:
+            t = t.append_column(c, pa.array(
+                [typed_partition_value(pv, parts[c])] * n,
+                T.to_arrow_type(parts[c].dtype)))
+        elif c == ND.InputFileName.HIDDEN:
             t = t.append_column(c, pa.array([path] * n, pa.string()))
         elif c in hidden:
             v = os.path.getsize(path) \

@@ -1,5 +1,6 @@
 """Frontends: plan surfaces lowered onto the port's DataFrame API.
 
-``sql`` runs SQL text (``SqlSession``).  The JAX package's plugin
-registry and its Substrait frontend are not ported.
+``sql`` runs SQL text (``SqlSession``); ``substrait`` runs Substrait
+plans (``SubstraitFrontend``), and registers itself with the plugin as
+``substrait``.
 """

@@ -21,9 +21,11 @@ of a Filter: nothing of a nondeterministic condition (its rows must
 reach the device Filter in their places, as Spark keeps such a Filter
 above the scan), and, of any other, the conjuncts the planner does not
 keep on the device (those reading the hidden input-file columns, and
-with ANSI on those that could raise).  Hive partition pruning
-(``partition_may_match``) is not ported: the port reads no partitioned
-directories.
+with ANSI on those that could raise).
+
+Hive partition pruning (``partition_may_match``): a file's partition
+values are exact, so a conjunct they violate drops the whole file
+before it is opened; a NULL value fails every comparison.
 """
 
 from __future__ import annotations
@@ -242,3 +244,40 @@ def runtime_range_may_match(name: str, rf, rg_meta) -> bool:
     if lo is None or hi is None:
         return True
     return rf.range_may_match(lo, hi)
+
+
+def partition_may_match(conjuncts: Sequence[B.Expression],
+                        schema: T.Schema, part_values: dict,
+                        part_fields: Sequence[T.Field]) -> bool:
+    """False when the file's partition values (``part_values``, by
+    name, as strings; None for NULL) violate a conjunct: IS NULL, IS
+    NOT NULL, or a comparison of a partition column with a literal
+    (JAX ``partition_may_match``)."""
+    typed = {f.name: typed_partition_value(part_values, f)
+             for f in part_fields}
+    for conj in conjuncts:
+        if isinstance(conj, (P.IsNull, P.IsNotNull)):
+            name = _col_name(conj.child, schema)
+            if name in typed and (typed[name] is None) \
+                    != isinstance(conj, P.IsNull):
+                return False
+            continue
+        norm = _as_col_op_lit(conj, schema)
+        if norm is None or norm[0] not in typed:
+            continue
+        name, op, v = norm
+        pv = typed[name]
+        if pv is None:
+            return False  # a comparison is never true of a NULL
+        if not _range_may_match(op, v, pv, pv):
+            return False
+    return True
+
+
+def typed_partition_value(part_values: dict, f: T.Field):
+    """The value of partition field ``f`` in a file's ``part_values``
+    (strings by name): an int for a LONG field, a str, or None."""
+    v = part_values.get(f.name)
+    if v is not None and isinstance(f.dtype, T.LongType):
+        v = int(v)
+    return v

@@ -1,6 +1,7 @@
-"""Multi-file Parquet scan, and the in-memory source.
+"""Multi-file Parquet, ORC and CSV scans, and the in-memory source.
 
-Counterpart of ``ParquetScanExec`` in ``spark_rapids_tpu/io/scan.py``.
+Counterpart of ``ParquetScanExec``, ``OrcScanExec`` and ``CsvScanExec``
+in ``spark_rapids_tpu/io/scan.py``.
 Files group into scan tasks (the exec's partitions) by the same rule as
 there, ``_group_files``: files pack into one task until the next would
 push it past ``scan.taskTargetBytes`` (default 512 MiB), so both
@@ -9,6 +10,9 @@ plan reads are decoded.
 
 A file is read in four steps, each the JAX scan's:
 
+0. Hive partition pruning: a file whose partition values violate a
+   pushed conjunct (``io/pushdown.py::partition_may_match``) is not
+   opened (``filesPruned``);
 1. row-group pruning on the footers: the conjuncts of the Filter the
    planner pushed into the scan (``pushed_filter``; ``io/pushdown.py::
    row_group_may_match``, ``rowGroupsPruned``), then the runtime join
@@ -47,14 +51,20 @@ A file is read in four steps, each the JAX scan's:
 Each file's footer is checked against the datetime rebase policy
 (``io/rebase.py``) when it is opened, before pruning.
 
-A scan whose logical node carries the hidden input-file columns
-(``plan/logical.py::Scan(input_files=True)``, asked for by the
-planner's ``_rewrite_input_file_exprs``) appends them to each decoded
-table of a file, before the host prefilter: the file's path (as a
-one-entry dictionary column), 0 and the file's size in bytes.  The
-pushed condition never reads them (the planner keeps such conjuncts on
-the device Filter), so footer pruning and the native decoder see the
-file's own columns only.
+Each decoded table of a file gets the file's partition and hidden
+columns appended before the host prefilter, in the schema's order
+(file columns, partition columns, then the hidden input-file columns a
+relation built ``with_input_files`` carries, asked for by the
+planner's ``_rewrite_input_file_exprs``): a partition value repeated
+(a STRING as a one-entry dictionary column, NULL as nulls), the file's
+path (as a one-entry dictionary column), 0 and the file's size in
+bytes.  A read of partition or hidden columns alone counts the rows of
+the kept row groups (ORC: of the file) and decodes nothing.  The
+pushed condition never reads the hidden columns (the planner keeps
+such conjuncts on the device Filter); footer pruning never prunes on a
+partition column (it has no statistics), and the native decoder takes
+only the conjuncts over the file's own columns (the prefilter then
+applies the whole condition).
 
 The conf keys (``scan.fastDecode``, ``scan.hostPrefilter``,
 ``scan.maxReadBatchSizeBytes``: the most bytes a row group's needed
@@ -63,7 +73,9 @@ columns may decode to on the fast path, 128 MiB, and
 planner on the session's thread and handed to the exec, as the JAX
 ``execute_partition`` warns they must be.  The JAX package's
 accumulation across row groups and ``_harmonize_dicts`` serve its wire
-encoder and are not ported, nor is Hive partition pruning.
+encoder and are not ported (an ORC file's stripes are joined up to
+``batch_rows``, ``OrcScanExec``).  ORC and CSV decode with pyarrow; a
+CSV file is a scan task of its own, read whole.
 
 A scan task runs as the JAX one does (``_local_units`` there): its
 files decode on a pool of ``scan.decodeThreads`` threads, at most that
@@ -122,7 +134,11 @@ from spark_rapids_tpu_torch.execs.base import (
     TaskRuntime,
     TpuExec,
 )
-from spark_rapids_tpu_torch.exprs.base import Expression, bind_references
+from spark_rapids_tpu_torch.exprs.base import (
+    BoundReference,
+    Expression,
+    bind_references,
+)
 from spark_rapids_tpu_torch.exprs.nondeterministic import (
     INPUT_FILE_FIELDS,
     InputFileBlockLength,
@@ -134,15 +150,18 @@ from spark_rapids_tpu_torch.io.pa_filter import (
     runtime_filter_column_mask,
 )
 from spark_rapids_tpu_torch.io.pushdown import (
+    partition_may_match,
     row_group_may_match,
     runtime_range_may_match,
     split_conjuncts,
+    typed_partition_value,
 )
 from spark_rapids_tpu_torch.io.rebase import check_rebase
 from spark_rapids_tpu_torch.parallel.pipeline import prefetch
 
 #: the scan's counters, besides the host split
-SCAN_COUNTERS = ("numOutputRows", "rowGroupsPruned", "hostFilteredRows",
+SCAN_COUNTERS = ("numOutputRows", "filesPruned", "rowGroupsPruned",
+                 "hostFilteredRows",
                  "rfPrunedRows", "rfRowGroupsPruned", "fastDecodedFiles",
                  "standardDecodedFiles")
 #: the hidden input-file columns' names
@@ -179,6 +198,24 @@ def group_files(paths: Sequence[str], target: int) -> list[list[int]]:
     return groups or [[]]
 
 
+def partition_column(f: T.Field, v, n: int) -> pa.Array:
+    """``n`` rows of the partition value ``v`` (None: NULL) of field
+    ``f``; a STRING value as a one-entry dictionary column."""
+    if isinstance(f.dtype, T.StringType):
+        if v is None:
+            return pa.nulls(n, pa.string())
+        return pa.DictionaryArray.from_arrays(
+            pa.array(np.zeros(n, np.int32)), pa.array([str(v)]))
+    if v is None:
+        return pa.nulls(n, pa.int64())
+    return pa.array(np.full(n, v, np.int64))
+
+
+def _row_counts(n: int) -> list[pa.Table]:
+    """``n`` rows of no column."""
+    return [pa.table({"_": pa.nulls(n)}).drop(["_"])] if n else []
+
+
 class ParquetScanExec(TpuExec):
     def __init__(self, paths: Sequence[str], schema: T.Schema,
                  device: torch.device, task_target_bytes: int,
@@ -187,7 +224,9 @@ class ParquetScanExec(TpuExec):
                  runtime: Optional[TaskRuntime] = None,
                  fast_decode: bool = False, host_prefilter: bool = True,
                  max_decoded_bytes: int = 128 << 20,
-                 rebase_mode: str = "EXCEPTION"):
+                 rebase_mode: str = "EXCEPTION",
+                 partition_values: Sequence[dict] = (),
+                 partition_fields: Sequence[T.Field] = ()):
         super().__init__()
         self.runtime = runtime or TaskRuntime.serial()
         self.paths = list(paths)
@@ -205,6 +244,10 @@ class ParquetScanExec(TpuExec):
         self.host_prefilter = host_prefilter
         self.max_decoded_bytes = max_decoded_bytes
         self.rebase_mode = rebase_mode
+        #: each file's Hive partition values (strings by name), and the
+        #: partition columns of ``schema``
+        self.partition_values = list(partition_values)
+        self.partition_fields = list(partition_fields)
         #: the condition of the Filter above, pushed by the planner
         self.pushed_filter: Optional[Expression] = None
         #: the planner elided that Filter: the prefilter must be exact
@@ -224,6 +267,11 @@ class ParquetScanExec(TpuExec):
         self.estimated_rows = estimated_rows
         self.metrics = Metrics(*SCAN_COUNTERS, "decodeTime",
                                *UPLOAD_METRICS)
+
+    @property
+    def _tail_names(self) -> set:
+        """The columns a file does not hold: partition and hidden."""
+        return HIDDEN_COLUMNS | {f.name for f in self.partition_fields}
 
     def push_filter(self, condition: Expression, exact: bool = False) -> None:
         """Take the condition of the Filter above (unbound, by name).
@@ -263,7 +311,10 @@ class ParquetScanExec(TpuExec):
                      self.metrics["standardDecodedFiles"])
         if fast or std:
             decoded = f" [files decoded: {fast} fast, {std} standard]"
-        return (f"ParquetScanExec [{len(self.paths)} files, "
+        pruned = self.metrics["filesPruned"]
+        if pruned:
+            decoded += f" [files pruned: {pruned}]"
+        return (f"{self.name} [{len(self.paths)} files, "
                 f"{len(self._groups)} tasks]{pushed}{decoded} "
                 f"[{', '.join(self._schema.names)}]")
 
@@ -341,14 +392,18 @@ class ParquetScanExec(TpuExec):
         it applied the whole pushed condition, and whether it applied
         every runtime filter, to every row; None when the file is
         outside its scope."""
-        conjuncts = self._conjuncts if self._prefilter_on else None
+        conjuncts = None
+        if self._prefilter_on:
+            # only the conjuncts over the file's own columns
+            conjuncts = [c for c in self._conjuncts
+                         if not self._reads_tail(c)]
         counters: dict = {}
         # the native decoder applies the runtime filters as it decodes
         with _trace.span("rf.apply", scan=self.name, fast=True) if rfs \
                 else contextlib.nullcontext():
             tables = fastpar.read_file(
                 self.paths[fi], keep, file_schema.names, conjuncts,
-                file_schema, pqfile=f,
+                self._read_schema, pqfile=f,
                 max_decoded_bytes=self.max_decoded_bytes,
                 runtime_filters=rfs or None, counters=counters)
         if tables is None:
@@ -361,45 +416,98 @@ class ParquetScanExec(TpuExec):
                              rows - sum(t.num_rows for t in tables)
                              - rf_pruned)
         return (tables, bool(conjuncts)
+                and len(conjuncts) == len(self._conjuncts)
                 and counters.get("filter_complete", False),
                 bool(rfs) and counters.get("rf_complete", False))
 
-    def _file_batches(self, fi: int, rfs: list) -> Iterator[pa.Table]:
-        """One file's batches: pruned, decoded, prefiltered, and cut to
-        at most ``batch_rows`` rows."""
-        names = self._read_schema.names
-        out_names = self._schema.names
-        hidden = [n for n in names if n in HIDDEN_COLUMNS]
-        file_schema = T.Schema([f for f in self._read_schema.fields
-                                if f.name not in HIDDEN_COLUMNS])
-        names = file_schema.names
+    def _reads_tail(self, e: Expression) -> bool:
+        """Whether bound ``e`` reads a partition or hidden column."""
+        tail = self._tail_names
+        stack = [e]
+        while stack:
+            x = stack.pop()
+            if isinstance(x, BoundReference) \
+                    and self._read_schema.fields[x.ordinal].name in tail:
+                return True
+            stack.extend(x.children)
+        return False
+
+    def _file_may_match(self, fi: int) -> bool:
+        """Hive partition pruning: whether file ``fi``'s partition values
+        may pass the pushed conjuncts (``filesPruned`` counts the
+        rest)."""
+        if self._conjuncts is None or not self.partition_fields:
+            return True
+        pv = self.partition_values[fi] \
+            if fi < len(self.partition_values) else {}
+        if partition_may_match(self._conjuncts, self._read_schema, pv,
+                               self.partition_fields):
+            return True
+        self.metrics.add("filesPruned", 1)
+        return False
+
+    def _tail_column(self, name: str, fi: int, n: int) -> pa.Array:
+        """``n`` rows of file ``fi``'s partition or hidden column."""
+        f = next((f for f in self.partition_fields if f.name == name), None)
+        if f is None:
+            return input_file_column(name, self.paths[fi], n)
+        pv = self.partition_values[fi] \
+            if fi < len(self.partition_values) else {}
+        return partition_column(f, typed_partition_value(pv, f), n)
+
+    def _decode_file(self, fi: int, rfs: list, file_schema: T.Schema):
+        """(file ``fi``'s decoded tables of ``file_schema``'s columns,
+        whether the pushed condition was applied to them whole, whether
+        the runtime filters were): pruned on the footers, then decoded
+        by the native decoder or pyarrow."""
         strings = [f.name for f in file_schema.fields
                    if isinstance(f.dtype, T.StringType)]
-        t0 = time.perf_counter_ns()
         f = pq.ParquetFile(self.paths[fi], read_dictionary=strings)
         check_rebase(self.paths[fi], f.metadata, file_schema,
                      self.rebase_mode)
         keep = self._keep_row_groups(f, rfs)
-        tables, filter_done, rf_done = None, False, False
-        if keep and self.fast_decode:
+        if not keep:
+            return [], False, False
+        if not file_schema.fields:
+            # partition and hidden columns only: the rows are all it needs
+            return _row_counts(sum(f.metadata.row_group(g).num_rows
+                                   for g in keep)), False, False
+        if self.fast_decode:
             fast = self._fast_tables(f, fi, keep, rfs, file_schema)
             if fast is not None:
-                tables, filter_done, rf_done = fast
-        if keep:
-            self.metrics.add("fastDecodedFiles" if tables is not None
-                             else "standardDecodedFiles", 1)
-        if not keep:
-            tables = []
-        elif tables is None:
-            tables = f.iter_batches(batch_size=self.batch_rows,
-                                    columns=names, row_groups=keep)
+                self.metrics.add("fastDecodedFiles", 1)
+                return fast
+        self.metrics.add("standardDecodedFiles", 1)
+        return f.iter_batches(batch_size=self.batch_rows,
+                              columns=file_schema.names,
+                              row_groups=keep), False, False
+
+    def _file_batches(self, fi: int, rfs: list) -> Iterator[pa.Table]:
+        """One file's batches: pruned, decoded, its partition and hidden
+        columns appended, prefiltered, and cut to at most
+        ``batch_rows`` rows."""
+        names = self._read_schema.names
+        out_names = self._schema.names
+        tail = self._tail_names
+        file_schema = T.Schema([f for f in self._read_schema.fields
+                                if f.name not in tail])
+        t0 = time.perf_counter_ns()
+        if not self._file_may_match(fi):
+            return
+        tables, filter_done, rf_done = self._decode_file(fi, rfs,
+                                                         file_schema)
         for tbl in tables:
-            for name in hidden:
-                tbl = tbl.append_column(name, input_file_column(
-                    name, self.paths[fi], tbl.num_rows))
+            if tbl.column_names != names:
+                have = dict(zip(tbl.column_names, tbl.columns))
+                make = pa.Table.from_arrays if isinstance(tbl, pa.Table) \
+                    else pa.RecordBatch.from_arrays
+                tbl = make(
+                    [have[n] if n in have
+                     else self._tail_column(n, fi, tbl.num_rows)
+                     for n in names], names)
             tbl = self._host_prefilter(tbl, [] if rf_done else rfs,
                                        filter_done)
-            if out_names != self._read_schema.names:
+            if out_names != names:
                 tbl = tbl.select(out_names)
             for off in range(0, tbl.num_rows, self.batch_rows):
                 part = tbl.slice(off, self.batch_rows)
@@ -453,6 +561,11 @@ class ParquetScanExec(TpuExec):
     def task_paths(self, p: int) -> list[str]:
         """The files of scan task ``p``."""
         return [self.paths[fi] for fi in self._groups[p]]
+
+    def task_partition_values(self, p: int) -> list[dict]:
+        """The Hive partition values of scan task ``p``'s files."""
+        return [self.partition_values[fi] for fi in self._groups[p]
+                if fi < len(self.partition_values)]
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         """Scan task ``p``.  With shared scans on (``share_conf``) and no
@@ -563,6 +676,66 @@ class ParquetScanExec(TpuExec):
         finally:
             _ws.SCAN_REGISTRY.release(
                 share, int(self.share_conf.get(C.SCAN_CACHE_BUDGET)))
+
+
+class OrcScanExec(ParquetScanExec):
+    """ORC files (JAX ``OrcScanExec``): stripes play the part of row
+    groups.  Task grouping, partition pruning, the host prefilter, the
+    runtime filters' probe, the upload and shared scans are the Parquet
+    exec's; pyarrow exposes no stripe statistics, so nothing is pruned
+    on them, and pyarrow decodes every stripe.  A file's consecutive
+    stripes are joined until they hold ``batch_rows`` rows (the JAX
+    scan accumulates them on the host too), so a file the writer split
+    into stripes makes the batches its Parquet twin of one row group
+    makes."""
+
+    def _decode_file(self, fi: int, rfs: list, file_schema: T.Schema):
+        import pyarrow.orc as paorc
+
+        f = paorc.ORCFile(self.paths[fi])
+        self.metrics.add("standardDecodedFiles", 1)
+        if not file_schema.fields:
+            return _row_counts(f.nrows), False, False
+        return self._stripes(f, file_schema.names), False, False
+
+    def _stripes(self, f, names: list) -> Iterator[pa.Table]:
+        pending: list = []
+        rows = 0
+        for si in range(f.nstripes):
+            rb = f.read_stripe(si, columns=names)
+            pending.append(rb)
+            rows += rb.num_rows
+            if rows >= self.batch_rows:
+                yield pa.Table.from_batches(pending)
+                pending, rows = [], 0
+        if pending:
+            yield pa.Table.from_batches(pending)
+
+
+class CsvScanExec(ParquetScanExec):
+    """CSV files with a header line (JAX ``CsvScanExec``): one scan task
+    a file, each read whole by pyarrow with the relation's column types
+    (``file_fields``).  Partition pruning, the host prefilter, the
+    runtime filters' probe and the upload are the Parquet exec's."""
+
+    def __init__(self, paths: Sequence[str], schema: T.Schema,
+                 file_fields: Sequence[T.Field], *args, **kwargs):
+        super().__init__(paths, schema, *args, **kwargs)
+        self._groups = [[i] for i in range(len(self.paths))] or [[]]
+        self.file_fields = list(file_fields)
+
+    def _decode_file(self, fi: int, rfs: list, file_schema: T.Schema):
+        import pyarrow.csv as pacsv
+
+        types = {f.name: T.to_arrow_type(f.dtype) for f in self.file_fields}
+        names = file_schema.names
+        tbl = pacsv.read_csv(self.paths[fi], convert_options=(
+            pacsv.ConvertOptions(column_types=types,
+                                 include_columns=names or None)))
+        self.metrics.add("standardDecodedFiles", 1)
+        if not names:
+            return _row_counts(tbl.num_rows), False, False
+        return [tbl.select(names)], False, False
 
 
 class ArrowSourceExec(TpuExec):

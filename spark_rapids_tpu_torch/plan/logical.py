@@ -1,15 +1,18 @@
-"""Logical plan nodes: Scan, InMemoryRelation, RangeRel, Filter,
-Project, Aggregate, Expand, Generate, Join, Window, Sort, Limit and
-Union; ``Cached`` with its ``CacheSlot`` (``DataFrame.cache``), and the
-Python nodes ``MapInArrow``, ``GroupedPandas`` and ``CoGroupedPandas``.
+"""Logical plan nodes: the file relations (``Scan``, which is JAX's
+``ParquetRelation``, ``OrcRelation`` and ``CsvRelation``, each over
+files or Hive-partitioned directories), InMemoryRelation, RangeRel,
+Filter, Project, Aggregate, Expand, Generate, Join, Window, Sort, Limit
+and Union; ``Cached`` with its ``CacheSlot`` (``DataFrame.cache``), and
+the Python nodes ``MapInArrow``, ``GroupedPandas`` and
+``CoGroupedPandas``.
 
 Counterpart of the matching nodes of ``spark_rapids_tpu/plan/logical.py``.
 Nodes keep their expressions by column name; the planner binds them to
 the physical child, after it has pruned the scan's columns.
 
 Every node estimates an upper bound on its rows and bytes, as there,
-for the planner's broadcast choice: a scan counts its files' footer
-rows, an in-memory table its rows, a range its values, a node with one
+for the planner's broadcast choice: a Parquet or ORC scan counts its
+files' own row counts (a CSV scan none), an in-memory table its rows, a range its values, a node with one
 child passes the child's bound on (a filter can only shrink), a grand
 aggregate makes one row, a LIMIT at most its n, a join at most the sum
 of its sides (the JAX estimate), an Expand its child's rows times its
@@ -21,7 +24,9 @@ that may make rows (MapInArrow, apply_in_pandas, a cogroup).  Bytes are rows tim
 
 from __future__ import annotations
 
+import copy
 import os
+import re
 import threading
 import weakref
 from typing import Optional, Sequence
@@ -89,42 +94,218 @@ def row_width_bytes(schema: T.Schema) -> int:
     return max(sum(_value_bytes(f.dtype) + 1 for f in schema.fields), 1)
 
 
-class Scan(LogicalPlan):
-    """Parquet files of one schema (the first file's).  With
-    ``input_files`` the schema ends with the hidden input-file columns
-    (``exprs/nondeterministic.py::INPUT_FILE_FIELDS``: each row's file
-    path, block start and block length), which the planner's
-    ``_rewrite_input_file_exprs`` asks for."""
+def expand_scan_paths(paths: Sequence[str], ext: str
+                      ) -> tuple[list[str], list[dict], list[str]]:
+    """Files, each file's Hive partition values and the partition
+    column names, of ``paths`` (JAX ``expand_scan_paths``).  A file path
+    is taken as it is; a directory is walked in sorted order, its
+    ``key=value`` segments read as the partition values of the files
+    under them (``__HIVE_DEFAULT_PARTITION__`` is NULL, ``%XX`` escapes
+    are undone), a subdirectory of another shape skipped, and of its
+    files only those ending in ``ext`` and not starting with ``_`` or
+    ``.`` (``_SUCCESS``, hidden files) are read."""
+    files: list[str] = []
+    values: list[dict] = []
+    part_cols: list[str] = []
+    for p in paths:
+        if not os.path.isdir(p):
+            files.append(p)
+            values.append({})
+            continue
+        for root, dirs, names in sorted(os.walk(p)):
+            dirs.sort()
+            rel = os.path.relpath(root, p)
+            pv: Optional[dict] = {}
+            if rel != ".":
+                for seg in rel.split(os.sep):
+                    if "=" not in seg:
+                        pv = None
+                        break
+                    k, _, v = seg.partition("=")
+                    pv[k] = None if v == HIVE_DEFAULT_PARTITION \
+                        else _unescape_part(v)
+                if pv is None:
+                    continue
+            for name in sorted(names):
+                if name.startswith(("_", ".")) or not name.endswith(ext):
+                    continue
+                files.append(os.path.join(root, name))
+                values.append(dict(pv))
+                for k in pv:
+                    if k not in part_cols:
+                        part_cols.append(k)
+    return files, values, part_cols
 
-    def __init__(self, paths: Sequence[str], input_files: bool = False):
+
+#: the directory name of a NULL partition value
+HIVE_DEFAULT_PARTITION = "__HIVE_DEFAULT_PARTITION__"
+
+
+def _unescape_part(v: str) -> str:
+    return re.sub("%([0-9A-Fa-f]{2})",
+                  lambda m: chr(int(m.group(1), 16)), v)
+
+
+def infer_partition_fields(part_cols: Sequence[str],
+                           values: Sequence[dict]) -> list[T.Field]:
+    """Each partition column's field: LONG when every non-NULL value
+    parses as an integer, else STRING (JAX ``infer_partition_fields``,
+    the common part of Spark's partition type inference)."""
+    fields = []
+    for c in part_cols:
+        dtype: T.DataType = T.LONG
+        for pv in values:
+            v = pv.get(c)
+            if v is None:
+                continue
+            try:
+                int(v)
+            except (TypeError, ValueError):
+                dtype = T.STRING
+                break
+        fields.append(T.Field(c, dtype, True))
+    return fields
+
+
+class FileRelation:
+    """Files of one format and one schema (the first file's), read
+    from file paths or from directories with Hive partition discovery
+    (JAX ``_FileRelation``); a mixin of the three file relations, each
+    a ``LogicalPlan``.  The schema is the file columns, then the
+    partition columns (Spark's layout), then, with ``input_files``, the
+    hidden input-file columns (``exprs/nondeterministic.py::
+    INPUT_FILE_FIELDS``: each row's file path, block start and block
+    length), which the planner's ``_rewrite_input_file_exprs`` asks for.
+    ``columns`` projects over the file and partition columns alike:
+    ``self.columns`` keeps the file columns of it (None: all)."""
+
+    EXT = ""
+
+    def __init__(self, paths: Sequence[str],
+                 columns: Optional[Sequence[str]] = None,
+                 input_files: bool = False):
         if not paths:
-            raise ValueError("read_parquet needs at least one path")
+            raise ValueError(f"{self.name} needs at least one path")
         self.children = []
-        self.paths = list(paths)
+        self.paths, self.partition_values, part_cols = expand_scan_paths(
+            list(paths), self.EXT)
+        if not self.paths:
+            raise FileNotFoundError(f"no {self.EXT} files under "
+                                    f"{list(paths)}")
+        self.partition_fields = infer_partition_fields(
+            part_cols, self.partition_values)
+        file_fields = list(self._file_schema(self.paths[0]).fields)
+        self.columns: Optional[list[str]] = None
+        if columns is not None:
+            part_names = {f.name for f in self.partition_fields}
+            by_name = {f.name: f for f in file_fields}
+            self.columns = [c for c in columns if c not in part_names]
+            file_fields = [by_name[c] for c in self.columns]
+            self.partition_fields = [f for f in self.partition_fields
+                                     if f.name in set(columns)]
+        self.file_fields = file_fields
         self.input_files = input_files
-        fields = list(schema_from_arrow(pq.read_schema(self.paths[0]))
-                      .fields)
-        if input_files:
-            fields += INPUT_FILE_FIELDS
-        self._schema = T.Schema(fields)
+        self._set_schema()
         self._est_rows: Optional[int] = None
+
+    def _set_schema(self) -> None:
+        self._schema = T.Schema(
+            self.file_fields + self.partition_fields
+            + (list(INPUT_FILE_FIELDS) if self.input_files else []))
+
+    def with_input_files(self) -> "FileRelation":
+        """A copy whose schema ends with the hidden input-file columns;
+        the paths are not walked again."""
+        if self.input_files:
+            return self
+        out = copy.copy(self)
+        out.input_files = True
+        out._set_schema()
+        return out
+
+    def _file_schema(self, path: str) -> T.Schema:
+        raise NotImplementedError
+
+    def _file_rows(self, path: str) -> int:
+        raise NotImplementedError
 
     @property
     def schema(self) -> T.Schema:
         return self._schema
 
     def estimated_rows(self) -> Optional[int]:
-        """The files' footer row counts, read once, on demand."""
+        """The files' own row counts, read once, on demand."""
         if self._est_rows is None:
             try:
-                self._est_rows = sum(pq.read_metadata(p).num_rows
-                                     for p in self.paths)
-            except OSError:
+                self._est_rows = sum(self._file_rows(p) for p in self.paths)
+            except (OSError, NotImplementedError, pa.ArrowException):
                 return None
         return self._est_rows
 
     def node_desc(self) -> str:
-        return f"Scan {[os.path.basename(p) for p in self.paths]}"
+        parts = "" if not self.partition_fields else \
+            f" partitioned by {[f.name for f in self.partition_fields]}"
+        return (f"{self.name} {[os.path.basename(p) for p in self.paths]}"
+                f"{parts}")
+
+
+class Scan(FileRelation, LogicalPlan):
+    """Parquet files: JAX's ``ParquetRelation`` (its exec switch keeps
+    that name)."""
+
+    EXT = ".parquet"
+
+    def _file_schema(self, path: str) -> T.Schema:
+        return schema_from_arrow(pq.read_schema(path))
+
+    def _file_rows(self, path: str) -> int:
+        return pq.read_metadata(path).num_rows
+
+
+ParquetRelation = Scan
+
+
+class OrcRelation(FileRelation, LogicalPlan):
+    """ORC files (JAX ``OrcRelation``): pyarrow's ORC reader decodes a
+    stripe at a time on the host, and the scan uploads stripes as the
+    Parquet scan uploads row groups."""
+
+    EXT = ".orc"
+
+    def _file_schema(self, path: str) -> T.Schema:
+        import pyarrow.orc as paorc
+
+        return schema_from_arrow(paorc.ORCFile(path).schema)
+
+    def _file_rows(self, path: str) -> int:
+        import pyarrow.orc as paorc
+
+        return paorc.ORCFile(path).nrows
+
+
+class CsvRelation(FileRelation, LogicalPlan):
+    """CSV files with a header line (JAX ``CsvRelation``): the columns
+    of ``schema``, else the types pyarrow infers from the first file;
+    every file is cast to them.  No row estimate."""
+
+    EXT = ".csv"
+
+    def __init__(self, paths: Sequence[str],
+                 schema: Optional[T.Schema] = None,
+                 input_files: bool = False):
+        self._given = schema
+        super().__init__(paths, None, input_files)
+
+    @property
+    def file_schema(self) -> T.Schema:
+        return T.Schema(self.file_fields)
+
+    def _file_schema(self, path: str) -> T.Schema:
+        if self._given is not None:
+            return self._given
+        import pyarrow.csv as pacsv
+
+        return schema_from_arrow(pacsv.read_csv(path).schema)
 
 
 _DIGESTS_COMPUTED = 0

@@ -1,7 +1,8 @@
 """Logical -> physical lowering.
 
-Counterpart of ``spark_rapids_tpu/plan/planner.py`` for Scan,
-InMemoryRelation, RangeRel, Filter, Project, Aggregate, Expand,
+Counterpart of ``spark_rapids_tpu/plan/planner.py`` for the file
+relations (Scan, the Parquet one, OrcRelation and CsvRelation: their
+scan execs get each file's Hive partition values), InMemoryRelation, RangeRel, Filter, Project, Aggregate, Expand,
 Generate, Join, Window, Sort, Limit, Union, Cached, MapInArrow,
 GroupedPandas and CoGroupedPandas.  Scan and in-memory
 columns are pruned to what the plan above reads: an Expand keeps only
@@ -36,7 +37,7 @@ the kept positions where its own lowering kept more.
   ``TpuAdaptiveJoinExec`` over the two exchanges (JAX
   ``planner.py:972-990``): its strategy waits for their measured map
   output (``execs/adaptive.py``).  Collective joins are not ported.
-- A Filter over a Parquet scan, both lowered to the GPU, pushes its
+- A Filter over a file scan, both lowered to the GPU, pushes its
   condition into the scan (JAX ``_maybe_push_filter``): footer pruning
   and the host prefilter (``io/scan.py``).  With
   ``scan.elideDeviceFilter`` and ``scan.hostPrefilter`` on and a
@@ -44,8 +45,11 @@ the kept positions where its own lowering kept more.
   elided (JAX ``_can_elide_device_filter``): the scan reads what the
   parent needs and the condition's columns, filters exactly and emits
   only what the parent needs (the JAX ``null_upload_cols``
-  placeholders are not needed: the port binds by name).  A Filter the
-  tags keep on the CPU engine pushes nothing.
+  placeholders are not needed: the port binds by name; a partition
+  column the condition reads is appended before the prefilter, as the
+  JAX rule keeps partition columns).  The pushed conjuncts also prune
+  whole files on their Hive partition values.  A Filter the tags keep
+  on the CPU engine pushes nothing.
 - Once the plan is lowered, ``inject_runtime_filters`` adds a runtime
   join filter to each eligible join (``plan/runtime_filter.py``).
 - A window with partition keys over several input partitions lowers
@@ -85,7 +89,7 @@ the kept positions where its own lowering kept more.
   literal index >= 0) into ``SplitPart``, and ``_rewrite_input_file_
   exprs`` turns ``input_file_name()`` / ``input_file_block_start()`` /
   ``input_file_block_length()`` in a Project or Filter over a chain of
-  Projects and Filters down to a Parquet scan into the hidden columns
+  Projects and Filters down to a file scan into the hidden columns
   that scan appends (a Filter's output drops them again); elsewhere
   they stay and run on the CPU engine.  Neither prepass mutates the
   caller's plan.
@@ -210,6 +214,8 @@ from spark_rapids_tpu_torch.io.rebase import REBASE_MODE_READ
 from spark_rapids_tpu_torch.io.scan import (
     HIDDEN_COLUMNS,
     ArrowSourceExec,
+    CsvScanExec,
+    OrcScanExec,
     ParquetScanExec,
 )
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
@@ -356,7 +362,8 @@ AGG_SIGS: dict[type, TS.ExprSig] = {
 EXEC_SWITCHES: dict[type, str] = {
     cls: C.register("spark.rapids.tpu.sql.exec." + (
         "ParquetRelation" if cls is L.Scan else cls.__name__), True)
-    for cls in (L.Scan, L.InMemoryRelation, L.RangeRel, L.Project,
+    for cls in (L.Scan, L.OrcRelation, L.CsvRelation, L.InMemoryRelation,
+                L.RangeRel, L.Project,
                 L.Filter, L.Aggregate, L.Expand, L.Generate, L.Join, L.Window,
                 L.Sort, L.Limit, L.Union, L.MapInArrow, L.GroupedPandas,
                 L.CoGroupedPandas, L.Cached)
@@ -660,20 +667,8 @@ class Planner:
                 p, meta.reasons, [self._lower(c, None) for c in p.children],
                 self.device, self.conf.get(C.BATCH_ROWS), self.runtime,
                 ansi=ansi)
-        if isinstance(p, L.Scan):
-            scan = ParquetScanExec(
-                p.paths, p.schema, self.device,
-                self.conf.get(C.TASK_TARGET_BYTES),
-                self.conf.get(C.BATCH_ROWS), _leaf_columns(p.schema, required),
-                p.estimated_rows(), self.runtime,
-                fast_decode=self.conf.get(C.FAST_DECODE),
-                host_prefilter=self.conf.get(C.HOST_PREFILTER),
-                max_decoded_bytes=self.conf.get(C.MAX_READ_BATCH_BYTES),
-                rebase_mode=self.conf.get(REBASE_MODE_READ))
-            if self.conf.get(C.SHARING_ENABLED) \
-                    and self.conf.get(C.SHARING_SCANS):
-                scan.share_conf = self.conf
-            return scan
+        if isinstance(p, L.FileRelation):
+            return self._plan_scan(p, required)
         if isinstance(p, L.InMemoryRelation):
             return ArrowSourceExec(p.table, p.schema, self.device,
                                    self.conf.get(C.BATCH_ROWS),
@@ -770,6 +765,31 @@ class Planner:
         raise NotImplementedError(
             f"{type(p).__name__} is not lowered by spark_rapids_tpu_torch")
 
+    def _plan_scan(self, p: L.FileRelation, required: Optional[set]
+                   ) -> ParquetScanExec:
+        """A file relation's scan exec (JAX ``convert_meta``'s three
+        relation branches), reading the columns ``required``."""
+        args = (p.paths, p.schema)
+        if isinstance(p, L.CsvRelation):
+            cls, args = CsvScanExec, args + (p.file_fields,)
+        else:
+            cls = OrcScanExec if isinstance(p, L.OrcRelation) \
+                else ParquetScanExec
+        scan = cls(
+            *args, self.device, self.conf.get(C.TASK_TARGET_BYTES),
+            self.conf.get(C.BATCH_ROWS), _leaf_columns(p.schema, required),
+            p.estimated_rows(), self.runtime,
+            fast_decode=self.conf.get(C.FAST_DECODE),
+            host_prefilter=self.conf.get(C.HOST_PREFILTER),
+            max_decoded_bytes=self.conf.get(C.MAX_READ_BATCH_BYTES),
+            rebase_mode=self.conf.get(REBASE_MODE_READ),
+            partition_values=p.partition_values,
+            partition_fields=p.partition_fields)
+        if self.conf.get(C.SHARING_ENABLED) \
+                and self.conf.get(C.SHARING_SCANS):
+            scan.share_conf = self.conf
+        return scan
+
     def _pushable(self, condition: Expression) -> Optional[Expression]:
         """What of a Filter's condition its scan may take
         (``io/pushdown.py::pushable_condition``)."""
@@ -779,14 +799,14 @@ class Planner:
             or (ansi and _tree_has_ansi_risk(c)))
 
     def _can_elide_device_filter(self, p: L.Filter) -> bool:
-        """Whether the Filter over a Parquet scan can go: the prefilter
+        """Whether the Filter over a file scan can go: the prefilter
         is on and its compiled form covers the whole condition, which
         reads at least one column, is deterministic, reads no hidden
         input-file column, and ANSI is off (JAX
         ``_can_elide_device_filter``)."""
         child = p.children[0]
         meta = self._tags.get(id(child))
-        if not (isinstance(child, L.Scan)
+        if not (isinstance(child, L.FileRelation)
                 and (meta is None or meta.can_replace)
                 and self.conf.get(C.ELIDE_DEVICE_FILTER)
                 and self.conf.get(C.HOST_PREFILTER)
@@ -1203,7 +1223,7 @@ def _has(e: Expression, cls) -> bool:
 def _rewrite_input_file_exprs(plan: L.LogicalPlan) -> L.LogicalPlan:
     """JAX's prepass of that name: an input-file expression in a Project
     or a Filter whose child is a chain of Projects and Filters down to a
-    Parquet scan reads the hidden column the scan then appends (the
+    file scan reads the hidden column the scan then appends (the
     chain passes the three hidden columns up; a rewritten Filter is
     projected back to its own columns).  Any other position keeps the
     expression, whose ``check_supported`` sends it to the CPU engine."""
@@ -1216,8 +1236,8 @@ def _rewrite_input_file_exprs(plan: L.LogicalPlan) -> L.LogicalPlan:
         return []
 
     def augment(p: L.LogicalPlan) -> Optional[L.LogicalPlan]:
-        if isinstance(p, L.Scan):
-            return p if p.input_files else L.Scan(p.paths, input_files=True)
+        if isinstance(p, L.FileRelation):
+            return p.with_input_files()
         if isinstance(p, L.Project):
             child = augment(p.children[0])
             if child is None:

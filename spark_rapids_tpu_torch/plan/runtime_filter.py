@@ -7,14 +7,17 @@ both sides, the probe key a plain column), the build side's key column
 folds into a Bloom filter and a [min, max] range **on the device** as
 its batches stream through ``TpuRuntimeFilterBuildExec``
 (``execs/join.py``).  Once the build side has drained, the filter is
-read back and published; the probe side's Parquet scan then applies it
+read back and published; the probe side's file scan (Parquet, ORC or
+CSV: ``io/scan.py``; the key may be a file column or a Hive partition
+column, JAX ``_probe_scan_targets``) then applies it
 **on the host**, where the port spends most of its time (decode and
 upload), at the two of the JAX package's three points a pyarrow scan
 has:
 
-1. row-group pruning: the filter's [min, max] against each row group's
-   footer statistics (``io/pushdown.py``): a pruned row group is never
-   decoded;
+1. row-group pruning: the filter's [min, max] against each Parquet
+   row group's footer statistics (``io/pushdown.py``): a pruned row
+   group is never decoded (a partition column has no statistics, an
+   ORC or CSV file none the scan reads: point 3 alone);
 3. a post-decode row mask (``io/pa_filter.py``): rows whose key cannot
    match are dropped before they are uploaded; a dictionary column
    probes its dictionary once.  A filter whose [min, max] is narrow

@@ -19,8 +19,10 @@ Counterpart of ``spark_rapids_tpu/plan/share_key.py``
   so a changed input invalidates it (in-memory tables need none: their
   digest is in the key).
 - :func:`scan_share_key`: the in-flight dedup key of one scan task:
-  the files (with their stat triples), the columns read, the batch
-  rows, the pushed filter's structural key and the prefilter mode,
+  the exec's class, the files (with their stat triples), the columns
+  read, the batch rows, the files' Hive partition values and the
+  partition fields, the pushed filter's structural key and the
+  prefilter mode,
   crossed with the conf fingerprint.  Two scans with one key produce
   the same unit stream, so the second may ride the first's decode.
 """
@@ -46,7 +48,7 @@ def plan_source_digests(plan: L.LogicalPlan) -> list[tuple]:
     out: list[tuple] = []
 
     def walk(p: L.LogicalPlan) -> None:
-        if isinstance(p, L.Scan):
+        if isinstance(p, L.FileRelation):
             for path in p.paths:
                 out.append(_source_stat(path))
         for c in p.children:
@@ -58,7 +60,8 @@ def plan_source_digests(plan: L.LogicalPlan) -> list[tuple]:
 
 #: logical nodes whose result is a pure function of (inputs, conf)
 _PURE_NODES = (
-    L.InMemoryRelation, L.Scan, L.RangeRel, L.Project, L.Filter,
+    L.InMemoryRelation, L.Scan, L.OrcRelation, L.CsvRelation, L.RangeRel,
+    L.Project, L.Filter,
     L.Aggregate, L.Sort, L.Limit, L.Join, L.Union, L.Window, L.Expand,
     L.Generate,
 )
@@ -144,7 +147,7 @@ def plan_share_key(plan: L.LogicalPlan, conf) -> Optional[str]:
 
 
 def scan_share_key(scan, task: int, conf) -> Optional[str]:
-    """The in-flight dedup key of one ``ParquetScanExec`` task (module
+    """The in-flight dedup key of one file scan task (module
     docstring).  None when its unit stream is not provably the same
     across queries: a runtime filter applies (its publication time is
     the query's), or the pushed filter has no structural key."""
@@ -161,6 +164,11 @@ def scan_share_key(scan, task: int, conf) -> Optional[str]:
         return None
     parts.append(repr(scan.columns))
     parts.append(repr(scan.batch_rows))
+    # two directories never share a scan: each file's partition values
+    values = getattr(scan, "task_partition_values", None)
+    parts.append(repr(values(task) if values is not None else []))
+    parts.append(repr([(f.name, f.dtype.name)
+                       for f in getattr(scan, "partition_fields", ())]))
     parts.append(repr(bool(getattr(scan, "input_files", False))))
     pushed = getattr(scan, "pushed_filter", None)
     if pushed is not None:

@@ -19,8 +19,11 @@ no such case.  The one exception is a ``cpu`` session beside a
 whose device tier then holds its host tensors as well.
 
 Frontend adapters: ``register_frontend(name, factory)`` and
-``frontend(name)``; ``native`` makes a ``TorchSession`` and ``sql`` a
-``frontends.sql.SqlSession``, each from the plugin's conf and device.
+``frontend(name)``; ``native`` makes a ``TorchSession``, ``sql`` a
+``frontends.sql.SqlSession`` and ``substrait`` (registered when
+``frontends/substrait.py`` is imported, which ``frontend`` does on the
+first ask) a ``SubstraitFrontend``, each from the plugin's conf and
+device.
 The JAX plugin's network shuffle bring-up is not ported.
 """
 
@@ -56,6 +59,18 @@ def register_frontend(name: str, factory: Callable) -> None:
 
 
 def frontend(name: str = "native") -> Callable:
+    """The factory registered as ``name``.  A frontend module of this
+    package that registers itself on import (``frontends/substrait.py``)
+    is imported on the first ask."""
+    with _lock:
+        fe = _SHIMS.get(name)
+    if fe is None and name.isidentifier():
+        import importlib
+
+        try:
+            importlib.import_module(f"{__package__}.frontends.{name}")
+        except ModuleNotFoundError:
+            pass
     with _lock:
         try:
             return _SHIMS[name]

@@ -80,6 +80,17 @@ drain), a result served from the cache records
 ``serve.result_cache_hit`` and a query cancelled before it started
 ``cancel.shed``; ``export_trace(path)`` writes the trace as Chrome
 JSON.
+
+Files (``plan/logical.py``'s file relations, ``io/scan.py``,
+``io/write.py``): ``read_parquet(*paths, columns=)``, ``read_orc(*paths,
+columns=)`` and ``read_csv(*paths, schema=)`` take files or directories,
+whose Hive ``key=value`` directories become trailing partition columns;
+``df.write.mode(m).partition_by(*cols).compression(c)
+.parquet / csv / orc(path)`` (and ``write_parquet / write_csv /
+write_orc(path, mode=, partition_by=)``) plans the query as ``collect``
+does, under admission and a cancel token, and runs its
+``FileWriteExec``; it returns the ``WriteStats`` (None when mode
+``ignore`` skipped the write).
 """
 
 from __future__ import annotations
@@ -539,8 +550,22 @@ class TorchSession:
         (``execs/retry.retry_stats``)."""
         return _retry.retry_stats()
 
-    def read_parquet(self, *paths: str) -> "DataFrame":
-        return DataFrame(L.Scan(list(paths)), self)
+    def read_parquet(self, *paths: str,
+                     columns: Optional[Sequence[str]] = None) -> "DataFrame":
+        """Parquet files or directories of them (Hive partitions become
+        trailing columns); ``columns`` projects over both kinds."""
+        return DataFrame(L.Scan(list(paths), columns), self)
+
+    def read_orc(self, *paths: str,
+                 columns: Optional[Sequence[str]] = None) -> "DataFrame":
+        """ORC files or directories, as ``read_parquet``."""
+        return DataFrame(L.OrcRelation(list(paths), columns), self)
+
+    def read_csv(self, *paths: str,
+                 schema: Optional[T.Schema] = None) -> "DataFrame":
+        """CSV files with a header line, or directories of them, cast to
+        ``schema`` (None: the types pyarrow infers from the first)."""
+        return DataFrame(L.CsvRelation(list(paths), schema), self)
 
     def create_dataframe(self, data: Union[pa.Table, dict]) -> "DataFrame":
         """A host Arrow table (or a dict of columns) as a DataFrame; its
@@ -864,6 +889,46 @@ class DataFrame:
         return DataFrame(L.MapInArrow(fn, _engine_schema(schema), self._plan,
                                       pandas=True), self._session)
 
+    @property
+    def write(self) -> "DataFrameWriter":
+        """``df.write.mode('overwrite').partition_by('k').parquet(path)``."""
+        return DataFrameWriter(self)
+
+    def write_parquet(self, path: str, mode: str = "error",
+                      partition_by: Sequence[str] = ()):
+        return self.write.mode(mode).partition_by(*partition_by).parquet(path)
+
+    def write_csv(self, path: str, mode: str = "error",
+                  partition_by: Sequence[str] = ()):
+        return self.write.mode(mode).partition_by(*partition_by).csv(path)
+
+    def write_orc(self, path: str, mode: str = "error",
+                  partition_by: Sequence[str] = ()):
+        return self.write.mode(mode).partition_by(*partition_by).orc(path)
+
+    def _run_command(self, make_exec):
+        """Plan the query, wrap its tree in ``make_exec(tree, runtime)``
+        and ``run()`` that, under the same admission, cancel token,
+        fault scope and query id a ``collect`` takes."""
+        conf = self._session.conf
+        tok = self._begin(None)
+        try:
+            with self._admitted(tok, None):
+                qid = self._start_query(tok)
+                with faults.query_scope(conf), \
+                        _trace.trace_context(query_id=qid):
+                    planner = self._planner()
+                    with _trace.span("query.plan"):
+                        tree, _meta = _planner.plan_query(self._plan,
+                                                          planner)
+                    with _trace.span("query.execute"):
+                        return make_exec(tree, planner.runtime).run()
+        except _cancel.QueryCancelled as e:
+            _cancel.tick_outcome(e.reason)
+            raise
+        finally:
+            self._end(tok, None)
+
     def _planner(self) -> Planner:
         s = self._session
         return Planner(s.conf, s.device, s.shuffle_manager, s.semaphore,
@@ -1084,3 +1149,52 @@ class DataFrame:
             raise
         finally:
             self._end(tok, token_sink)
+
+
+class DataFrameWriter:
+    """A write's settings (JAX ``DataFrameWriter``): ``mode`` (``error``,
+    ``overwrite``, ``append``, ``ignore``), ``partition_by`` and
+    ``compression`` (Parquet's and ORC's codec, ``snappy`` by default),
+    then ``parquet``, ``csv`` or ``orc`` runs the write and returns its
+    ``WriteStats``."""
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+        self._mode = "error"
+        self._partition_by: list[str] = []
+        self._compression = "snappy"
+
+    def mode(self, m: str) -> "DataFrameWriter":
+        self._mode = m
+        return self
+
+    def partition_by(self, *cols: str) -> "DataFrameWriter":
+        self._partition_by.extend(cols)
+        return self
+
+    def compression(self, c: str) -> "DataFrameWriter":
+        self._compression = c
+        return self
+
+    def parquet(self, path: str):
+        from spark_rapids_tpu_torch.io.write import ParquetWriteExec
+
+        return self._run(ParquetWriteExec, path)
+
+    def csv(self, path: str):
+        from spark_rapids_tpu_torch.io.write import CsvWriteExec
+
+        return self._run(CsvWriteExec, path)
+
+    def orc(self, path: str):
+        from spark_rapids_tpu_torch.io.write import OrcWriteExec
+
+        return self._run(OrcWriteExec, path)
+
+    def _run(self, exec_cls, path: str):
+        from spark_rapids_tpu_torch.io.write import prepare_target
+
+        if not prepare_target(path, self._mode):
+            return None
+        return self._df._run_command(lambda tree, runtime: exec_cls(
+            path, tree, self._partition_by, self._compression, runtime))

@@ -528,15 +528,17 @@ def write_q3_tables(dirpath: str, n_files: int = 6,
 
 
 def _star_join(session, date_dim_path: str, store_sales_paths,
-               item_path: str, date_cond, item_cond, item_cols: list[str]):
+               item_path: str, date_cond, item_cond, item_cols: list[str],
+               fmt: str = "parquet"):
     """date_dim JOIN store_sales JOIN item in the texts' FROM order.  The
     dimension sides are narrow projections of the rows ``date_cond`` and
     ``item_cond`` keep (so each estimates small enough to broadcast);
     the fact side stays a bare scan, so the runtime filter on
-    ``ss_sold_date_sk`` reaches it."""
+    ``ss_sold_date_sk`` reaches it.  ``fmt``: the store_sales files'
+    format, ``parquet`` or ``orc`` (files or directories)."""
     dt_ = (session.read_parquet(date_dim_path).where(date_cond)
            .select(col("d_date_sk"), col("d_year")))
-    ss = session.read_parquet(*store_sales_paths)
+    ss = getattr(session, f"read_{fmt}")(*store_sales_paths)
     it = (session.read_parquet(item_path).where(item_cond)
           .select(col("i_item_sk"), *[col(c) for c in item_cols]))
     return (dt_.join(ss, left_on=[col("d_date_sk")],
@@ -550,13 +552,14 @@ def _november(year: int):
 
 
 def q3_dataframe(session, date_dim_path: str, store_sales_paths,
-                 item_path: str):
+                 item_path: str, fmt: str = "parquet"):
     """TPC-DS q3: November sales of manufacturer 128's brands by year,
-    ordered by year, sales descending and brand, the first 100 rows."""
+    ordered by year, sales descending and brand, the first 100 rows
+    (``fmt``: store_sales' file format)."""
     return (_star_join(session, date_dim_path, store_sales_paths, item_path,
                        col("d_moy").eq(lit(11)),
                        col("i_manufact_id").eq(lit(128)),
-                       ["i_brand_id", "i_brand"])
+                       ["i_brand_id", "i_brand"], fmt)
             .group_by(col("d_year"), col("i_brand_id"), col("i_brand"))
             .agg((sum_(col("ss_ext_sales_price")), "sum_agg"))
             .order_by(SortKey(col("d_year")),

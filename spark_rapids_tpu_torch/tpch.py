@@ -4,7 +4,11 @@ The port's own copy of ``bench.py``'s ``make_lineitem`` (same seed 42,
 columns, distributions, draw order and row-group layout),
 ``make_orders`` (seed 7), ``q1_dataframe``, ``q6_dataframe`` and
 ``q3_dataframe``.  6 files of 2^20 rows is about TPC-H SF1 lineitem;
-2^20 orders is about SF1's 1.5 M.
+2^20 orders is about SF1's 1.5 M.  ``q6_substrait`` and
+``q1_substrait`` are q6 and q1 as Substrait plans over a table named
+``lineitem`` of ``make_lineitem(with_q1_cols=True)``'s columns, for
+``frontends/substrait.py``: the same expressions as the DataFrames',
+q1's ``count_order`` a count of ``l_quantity`` (never NULL here).
 """
 
 from __future__ import annotations
@@ -115,3 +119,77 @@ def q3_dataframe(session, li_paths, orders_path):
             .agg((sum_(rev), "revenue"))
             .order_by(col("revenue"), desc=True)
             .limit(10))
+
+
+def _sel(i: int) -> dict:
+    return {"selection": {"directReference": {"structField": {"field": i}}}}
+
+
+def _fn(anchor: int, *args) -> dict:
+    return {"scalarFunction": {"functionReference": anchor,
+                               "arguments": [{"value": a} for a in args]}}
+
+
+def _plan(fns: list[str], names: list[str], rel: dict) -> dict:
+    return {"extensions": [{"extensionFunction": {"functionAnchor": i,
+                                                  "name": n}}
+                           for i, n in enumerate(fns, start=1)],
+            "relations": [{"root": {"names": names, "input": rel}}]}
+
+
+#: lineitem's columns as ``make_lineitem(with_q1_cols=True)`` writes them
+_QTY, _PRICE, _DISC, _SHIP, _TAX, _FLAG, _STATUS = range(7)
+_READ = {"read": {"namedTable": {"names": ["lineitem"]}}}
+
+
+def q6_substrait() -> dict:
+    """q6: filter, ``l_extendedprice * l_discount``, its sum."""
+    gte, lt, lte, and_, mul, sum_fn = range(1, 7)
+    cond = _fn(and_,
+               _fn(gte, _sel(_SHIP), {"literal": {"i32": 8766}}),
+               _fn(lt, _sel(_SHIP), {"literal": {"i32": 9131}}),
+               _fn(gte, _sel(_DISC), {"literal": {"fp64": 0.05}}),
+               _fn(lte, _sel(_DISC), {"literal": {"fp64": 0.07}}),
+               _fn(lt, _sel(_QTY), {"literal": {"fp64": 24.0}}))
+    return _plan(
+        ["gte:i32_i32", "lt:i32_i32", "lte:fp64_fp64", "and:bool",
+         "multiply:fp64_fp64", "sum:fp64"], ["revenue"],
+        {"aggregate": {
+            "input": {"project": {
+                "common": {"emit": {"outputMapping": [7]}},
+                "input": {"filter": {"input": _READ, "condition": cond}},
+                "expressions": [_fn(mul, _sel(_PRICE), _sel(_DISC))]}},
+            "groupings": [],
+            "measures": [{"measure": {"functionReference": sum_fn,
+                                      "arguments": [{"value": _sel(0)}]}}],
+        }})
+
+
+def q1_substrait() -> dict:
+    """q1: the ship-date filter, the discounted price and the charge,
+    then eight measures by (``l_returnflag``, ``l_linestatus``)."""
+    lte, mul, sub, add, sum_fn, avg_fn, count_fn = range(1, 8)
+    one = {"literal": {"fp64": 1.0}}
+    disc_price = _fn(mul, _sel(_PRICE), _fn(sub, one, _sel(_DISC)))
+    charge = _fn(mul, disc_price, _fn(add, one, _sel(_TAX)))
+    # the project's output: the 7 columns, disc_price (7), charge (8)
+    emit = [_FLAG, _STATUS, _QTY, _PRICE, 7, 8, _DISC]
+    measures = [(sum_fn, 2), (sum_fn, 3), (sum_fn, 4), (sum_fn, 5),
+                (avg_fn, 2), (avg_fn, 3), (avg_fn, 6), (count_fn, 2)]
+    return _plan(
+        ["lte:i32_i32", "multiply:fp64_fp64", "subtract:fp64_fp64",
+         "add:fp64_fp64", "sum:fp64", "avg:fp64", "count:any"],
+        ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
+         "sum_disc_price", "sum_charge", "avg_qty", "avg_price", "avg_disc",
+         "count_order"],
+        {"aggregate": {
+            "input": {"project": {
+                "common": {"emit": {"outputMapping": emit}},
+                "input": {"filter": {"input": _READ, "condition": _fn(
+                    lte, _sel(_SHIP), {"literal": {"i32": 10471}})}},
+                "expressions": [disc_price, charge]}},
+            "groupings": [{"groupingExpressions": [_sel(0), _sel(1)]}],
+            "measures": [{"measure": {"functionReference": f,
+                                      "arguments": [{"value": _sel(i)}]}}
+                         for f, i in measures],
+        }})

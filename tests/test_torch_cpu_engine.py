@@ -29,6 +29,8 @@ is checked against the unpruned plan's result.
 
 import types
 
+import os
+
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -294,6 +296,25 @@ def files(tmp_path_factory):
     return paths
 
 
+def _twins(paths, ext: str) -> list:
+    """ORC or CSV copies of the Parquet files ``paths`` (columns k, v,
+    s and x), written beside them once."""
+    import pyarrow.csv as pacsv
+    import pyarrow.orc as paorc
+
+    out = []
+    for p in paths:
+        twin = p[:-len(".parquet")] + ext
+        if not os.path.exists(twin):
+            t = pq.read_table(p, columns=["k", "v", "s", "x"])
+            if ext == ".orc":
+                paorc.write_table(t, twin)
+            else:
+                pacsv.write_csv(t, twin)
+        out.append(twin)
+    return out
+
+
 def _nodes(ns, paths):
     """node -> a DataFrame over that node (and the ones under it)."""
     F, c, lit = ns.F, ns.col, ns.lit
@@ -368,6 +389,12 @@ def _nodes(ns, paths):
             ("m", PF.mean, "w")),
         "cogrouped_pandas": kw.group_by(c("k")).cogroup(dim.group_by(
             c("k2"))).apply_in_pandas(PF.count_sides, COUNT_SIDES),
+        "orc_scan": s.read_orc(*_twins(paths, ".orc")).where(
+            c("x") > lit(0)),
+        "csv_scan": s.read_csv(*_twins(paths, ".csv"), schema=ns.T.Schema(
+            [ns.T.Field("k", ns.T.LONG), ns.T.Field("v", ns.T.DOUBLE),
+             ns.T.Field("s", ns.T.STRING), ns.T.Field("x", ns.T.LONG)])
+        ).select(c("k"), c("s"), c("x")),
     }
 
 
@@ -381,7 +408,8 @@ NODES = ["scan", "in_memory", "range", "filter", "project",
          "expand", "join_inner", "join_left_outer", "join_right_outer",
          "join_full_outer", "join_semi", "join_anti", "join_inner_condition",
          "join_cross", "window", "sort", "limit", "union", "generate",
-         "cached", "map_in_arrow", "grouped_pandas", "cogrouped_pandas"]
+         "cached", "map_in_arrow", "grouped_pandas", "cogrouped_pandas",
+         "orc_scan", "csv_scan"]
 ORDERED = {"sort", "limit"}
 
 

@@ -767,8 +767,12 @@ def test_plugin_frontends_share_the_process_store():
     assert isinstance(fe, SqlSession)
     assert fe.session.store is native.store
     assert fe.session.semaphore is native.semaphore
+    # the Substrait frontend registers itself on its first ask
+    sub = plugin.session("substrait")
+    assert sub.session.store is native.store
+    assert sub.session.semaphore is native.semaphore
     with pytest.raises(KeyError, match="no frontend"):
-        plugin.session("substrait")
+        plugin.session("no_such_frontend")
 
 
 def test_a_session_on_another_device_than_the_plugin_raises():

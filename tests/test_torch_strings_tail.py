@@ -429,12 +429,6 @@ EXECS_TO_PORT = {
     "TpuCollectiveHashAggregateExec": "item 10 (multi-GPU)",
     "TpuCollectiveHashJoinExec": "item 10 (multi-GPU)",
     "TpuCollectiveSortExec": "item 10 (multi-GPU)",
-    "CsvScanExec": "item 11 (read_csv)",
-    "OrcScanExec": "item 11 (read_orc)",
-    "FileWriteExec": "item 11 (the writers)",
-    "ParquetWriteExec": "item 11 (the writers)",
-    "CsvWriteExec": "item 11 (the writers)",
-    "OrcWriteExec": "item 11 (the writers)",
 }
 
 
