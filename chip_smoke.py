@@ -182,6 +182,22 @@ Phases, one JSON line each:
            with the same K1 launches; every part's launches equal its
            planned map batches; files, bytes, writeTime, splitTime and
            the walls;
+  ops      the query history, the event log, the connect server and the
+           ops plane (``ops_phase``): a ConnectServer in this process
+           (event log on, gzip; ops plane on an ephemeral port; the
+           device ledger on) takes q1 and q6 as Substrait plans and
+           q3ds as its SQL text from a client process that imports no
+           torch and no engine module (its sys.modules is printed); the
+           results equal the q1, q6 and q3ds references; while q1 runs,
+           /queries shows it and two /metrics scrapes see no counter
+           fall; tools/history reads the log: one record a query with
+           its connect section, K1's ledger dispatches in each equal to
+           its planned launches (q1 6, q6 0, q3ds its text's counted
+           run), no error health finding; explain("analyze") of TPC-H
+           q3 (its root 10 rows), a prepared q3 executed twice (each
+           record's root 10 rows), and q3 with the event log on and off
+           in OPS_PAIRS alternating pairs, with nvidia-smi's name and
+           power limit;
   speculation
            the speculative output sizing (parallel/speculation.py) on
            q3 (the static partition-wise plan), q1 and q93 at the sizes
@@ -1767,9 +1783,9 @@ def q3ds_phase(torch, pc, star, kernels, RF, TorchSession, tpcds, TTB,
 
 
 #: off / on pairs of walls in the trace phase, each pair's order
-#: alternating (off, on), (on, off) (5 until the formats phase needed
-#: the run's time)
-TRACE_PAIRS = 3
+#: alternating (off, on), (on, off) (5 until the formats phase, 3 until
+#: the ops phase needed the run's time)
+TRACE_PAIRS = 2
 #: the span and event names the JAX package records on q3 and q3ds (a
 #: pool's stage names folded to ``*``), which the trace phase requires
 TRACE_NAMES = ("query.plan", "query.tag", "query.lower", "query.execute",
@@ -2033,8 +2049,9 @@ def trace_phase(torch, pc, kernels, TorchSession, tpch, tpcds, TTB,
 
 
 #: fastDecode on / off pairs of the scan_host phase, each pair's order
-#: alternating (on, off), (off, on)
-SCAN_HOST_PAIRS = 2
+#: alternating (on, off), (off, on) (2 until the ops phase needed the
+#: run's time)
+SCAN_HOST_PAIRS = 1
 def scan_counts(plan) -> list:
     """Every Parquet scan of ``plan``: its files, output columns,
     whether its Filter was elided, and its counters, with the rows it
@@ -2897,6 +2914,301 @@ def formats_phase(torch, pa, pc, pq, star, kernels, TorchSession, tpch,
            "hash_columns_launches": launches}
     emit("formats", **rec)
     return rec, launches
+
+
+#: the engine-free client of the ops phase, run as its own process:
+#: argv = host, port, the plans' JSON file, the result directory.  It
+#: sends q1 and q6 as Substrait plans and q3ds as SQL text, writes each
+#: result as an Arrow IPC file, and prints the modules it imported that
+#: a client must not (torch, JAX, an engine module of the port).
+OPS_CLIENT = r"""
+import json, os, sys, time
+from spark_rapids_tpu_torch.connect.client import ConnectClient
+import pyarrow as pa
+host, port, plans_path, out_dir = sys.argv[1:5]
+plans = json.load(open(plans_path))
+walls = {}
+with ConnectClient(host, int(port), tenant="ops") as cli:
+    for name in ("q1", "q6", "q3ds"):
+        t0 = time.perf_counter()
+        if name == "q3ds":
+            t = cli.execute_sql(plans[name])
+        else:
+            t = cli.execute_plan(plans[name])
+        walls[name] = time.perf_counter() - t0
+        with pa.OSFile(os.path.join(out_dir, name + ".arrow"), "wb") as f:
+            with pa.ipc.new_file(f, t.schema) as w:
+                w.write_table(t)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "torch", "jax", "spark_rapids_tpu") or (
+    m.startswith("spark_rapids_tpu_torch.")
+    and m.split(".")[1] not in ("connect",)))
+print(json.dumps({"walls_s": walls, "forbidden_modules": bad,
+                  "modules": len(sys.modules)}))
+"""
+
+#: the history / event-log on and off pairs of q3 in the ops phase
+OPS_PAIRS = 2
+
+
+def ops_scraper(url: str, stop, found: dict) -> None:
+    """Poll ``/queries`` until a query is in flight, then read it
+    (``/queries/<id>``) and scrape ``/metrics`` twice; keeps the first
+    such observation in ``found``."""
+    import urllib.error
+    import urllib.request
+
+    def get(path):
+        return urllib.request.urlopen(url + path, timeout=10).read().decode()
+
+    while not stop.is_set():
+        live = json.loads(get("/queries"))
+        if not live:
+            continue
+        qid = live[0]["query_id"]
+        m1, m2 = get("/metrics"), get("/metrics")
+        try:
+            detail = json.loads(get(f"/queries/{qid}"))
+        except urllib.error.HTTPError:
+            detail = None  # it finished between the reads
+        found.update(live=live, metrics=(m1, m2), detail=detail)
+        return
+
+
+def ops_phase(torch, pa, pc, kernels, TorchSession, tpch, tpcds, TTB,
+              paths, ref6, ref1, star, li_paths, orders_path, ref3) -> tuple:
+    """The query history, the event log, the wire front door and the ops
+    plane on the card.  A ``ConnectServer`` on 127.0.0.1 in this process
+    (the event log on, gzip; the ops plane on an ephemeral port; the
+    device ledger on for the wire queries) takes q1 and q6 as Substrait
+    plans (the formats phase's) and q3ds as its SQL text from a client
+    process that imports no torch and no engine module; each result is
+    held against its reference.  While q1 runs, ``/queries`` shows it
+    and two ``/metrics`` scrapes show no counter falling.  The log, read
+    back by ``tools/history``, holds one record a query with its
+    ``connect`` section, K1's dispatches in each record's ledger section
+    equal its planned launches (q1 6, q6 0, q3ds its counted run's), and
+    ``health_check`` finds no error.  Then ``explain("analyze")`` of
+    TPC-H q3 (its root's rows are the result's 10), a prepared q3
+    executed twice (each record's root 10 rows), and q3 with the event
+    log on and off in OPS_PAIRS alternating pairs, the walls beside the
+    card's name and power limit.  Emits the phase's line; returns its
+    record and its K1 launches."""
+    import urllib.request
+
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch import obs
+    from spark_rapids_tpu_torch.connect.server import ConnectServer
+    from spark_rapids_tpu_torch.eventlog.reader import read_log_all
+    from spark_rapids_tpu_torch.frontends.sql import SqlSession
+    from spark_rapids_tpu_torch.obs import metrics as om
+    from spark_rapids_tpu_torch.tools import history as H
+    from spark_rapids_tpu_torch.tools.profiling import QueryHistory
+    from spark_rapids_tpu_torch.tpcds_queries import QUERIES
+    from spark_rapids_tpu_torch.trace import ledger
+
+    t_phase = time.perf_counter()
+    counter = kernels.hash_columns
+    k1_before = counter.launches
+    dd_path, ss_paths, item_path = star["paths"]
+    root = os.path.join(star["dir"], "ops")
+    log_dir = os.path.join(root, "wire_log")
+    os.makedirs(os.path.join(root, "results"))
+    q3ds_text = QUERIES[3]
+    names3 = {"i_brand_id": "brand_id", "i_brand": "brand"}
+    ref3ds = reference_star(
+        pc, star, lambda d: pc.equal(d["d_moy"], 11),
+        lambda i: pc.equal(i["i_manufact_id"], 128),
+        ["d_year", "i_brand_id", "i_brand"], names3,
+        [("d_year", False), ("sum", True), ("brand_id", False)])
+
+    # q3ds's planned K1 launches: the text's counted run in process
+    fe = SqlSession({TTB: Q3DS_TASK_TARGET_BYTES}, device="cuda")
+    for name, where in (("date_dim", [dd_path]), ("store_sales", ss_paths),
+                        ("item", [item_path])):
+        fe.register_parquet(name, *where)
+    local3ds, tally = counted_run(lambda: fe.sql(q3ds_text), counter)
+    planned = {"q1": len(paths), "q6": 0, "q3ds": tally["per_run"]}
+
+    # the server, the plane, the client process
+    server = ConnectServer(conf={
+        TTB: TASK_TARGET_BYTES, C.EVENTLOG_ENABLED: True,
+        C.EVENTLOG_DIR: log_dir, C.EVENTLOG_COMPRESS: True,
+        C.OBS_ENABLED: True, C.OBS_PORT: 0}, device="cuda")
+    server.register_table("lineitem", paths)
+    server.register_table("date_dim", dd_path)
+    server.register_table("store_sales", ss_paths)
+    server.register_table("item", item_path)
+    plans_path = os.path.join(root, "plans.json")
+    with open(plans_path, "w") as f:
+        json.dump({"q1": tpch.q1_substrait(), "q6": tpch.q6_substrait(),
+                   "q3ds": q3ds_text}, f)
+    ledger.enable()
+    # on before the first request, so that the scraper knows its port
+    obs.start(port=0)
+    server.start()
+    found: dict = {}
+    stop = threading.Event()
+    try:
+        host, port = server.address
+        url = f"http://127.0.0.1:{obs.plane().port}"
+        scraper = threading.Thread(target=ops_scraper,
+                                   args=(url, stop, found), daemon=True)
+        scraper.start()
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        k1_wire = counter.launches
+        t0 = time.perf_counter()
+        client = subprocess.run(
+            [sys.executable, "-c", OPS_CLIENT, host, str(port), plans_path,
+             os.path.join(root, "results")], capture_output=True, text=True,
+            timeout=600, env=env, cwd=root)
+        client_s = time.perf_counter() - t0
+        k1_wire = counter.launches - k1_wire
+        stop.set()
+        scraper.join()
+        if client.returncode != 0:
+            raise AssertionError(f"the ops client failed: {client.stderr}")
+        client_out = json.loads(client.stdout.strip().splitlines()[-1])
+        if client_out["forbidden_modules"]:
+            raise AssertionError(f"the client imported "
+                                 f"{client_out['forbidden_modules']}")
+        QueryHistory.shutdown_worker()  # every record appended
+    finally:
+        stop.set()
+        server.shutdown()
+        ledger.disable()
+        obs.stop()
+    if obs.is_enabled() or any(t.name.startswith("srt-obs")
+                               for t in threading.enumerate()):
+        raise AssertionError("the ops plane outlived its phase")
+
+    # the results against their references
+    def result(name):
+        with pa.memory_map(os.path.join(root, "results",
+                                        name + ".arrow")) as f:
+            return pa.ipc.open_file(f).read_all()
+
+    errs = {"q1": compare(result("q1"), ref1, 2),
+            "q6": compare(result("q6"), ref6, 0),
+            "q3ds": compare_ranked(result("q3ds"), ref3ds, 100,
+                                   ("d_year", "brand_id", "brand"),
+                                   "sum_agg", "sum")}
+    if not result("q3ds").equals(local3ds):
+        raise AssertionError("q3ds over the wire differs from the same "
+                             "text run in process")
+
+    # the live view
+    if not found:
+        raise AssertionError("no scrape saw a query in flight")
+    detail = found["detail"]
+    if detail is not None and "l_returnflag" not in (detail["plan"] or ""):
+        raise AssertionError(f"the first query in flight was not q1: "
+                             f"{detail['plan']}")
+    m1, m2 = (om.parse_openmetrics(m) for m in found["metrics"])
+    falls = [(n, om.scrape_value(m1, n), om.scrape_value(m2, n))
+             for n, fam in m1.items() if fam["type"] == "counter"
+             and (om.scrape_value(m2, n) or 0) < (om.scrape_value(m1, n)
+                                                  or 0)]
+    if falls or om.scrape_value(m1, "tpu_queries_in_flight") != 1:
+        raise AssertionError(f"scrapes during q1: in flight "
+                             f"{om.scrape_value(m1, 'tpu_queries_in_flight')}"
+                             f", counters falling {falls}")
+
+    # the log, read back
+    files = sorted(os.listdir(log_dir))
+    apps = [H.load_application(os.path.join(log_dir, f)) for f in files]
+    queries = [q for a in apps for q in a.queries]
+    if len(queries) != 3:
+        raise AssertionError(f"{len(queries)} query records in {files}")
+    by_name = {}
+    # the client sends them in this order, one after another
+    for name, q in zip(("q1", "q6", "q3ds"),
+                       sorted(queries, key=lambda q: q.query_id)):
+        k1 = sum(p.get("dispatches", 0) for p in
+                 ((q.programs or {}).get("programs") or {}).values()
+                 if p.get("tag") == counter.PROGRAM)
+        conn = q.raw.get("connect") or {}
+        by_name[name] = {"rows": q.rows, "k1": k1, "wall_s": q.wall_s,
+                         "engine": q.engine,
+                         "root_rows": q.operators.metrics["numOutputRows"],
+                         "connect": conn}
+        if not conn.get("peer", "").startswith("127.0.0.1:") \
+                or conn.get("wire_bytes", 0) <= 0:
+            raise AssertionError(f"{name}'s record has no connect section: "
+                                 f"{conn}")
+        if k1 != planned[name]:
+            raise AssertionError(f"{name}'s record counts {k1} K1 "
+                                 f"launches, planned {planned[name]}")
+        if q.rows != result(name).num_rows != q.operators.metrics[
+                "numOutputRows"]:
+            raise AssertionError(f"{name}'s record: {q.rows} rows")
+    if "i_manufact_id" not in max(queries, key=lambda q: q.query_id).plan:
+        raise AssertionError("the last record is not q3ds's")
+    if k1_wire != sum(planned.values()):
+        raise AssertionError(f"the wire queries launched {k1_wire}, "
+                             f"planned {planned}")
+    findings = [f for a in apps for f in H.health_check(a)]
+    if any(f.severity == "error" for f in findings):
+        raise AssertionError(f"health: {[f.render() for f in findings]}")
+    header = read_log_all(os.path.join(log_dir, files[0]))[0]
+
+    # explain("analyze") and a prepared q3 executed twice, the log on
+    q3_log = os.path.join(root, "q3_log")
+    on = TorchSession({TTB: TASK_TARGET_BYTES, C.EVENTLOG_ENABLED: True,
+                       C.EVENTLOG_DIR: q3_log}, device="cuda")
+
+    def q3_of(session):
+        return tpch.q3_dataframe(session, li_paths, orders_path)
+
+    def ranked(t):
+        return compare_ranked(t, ref3, 10, ("l_orderkey", "o_orderdate",
+                                            "o_shippriority"), "revenue",
+                              "rev_sum")
+
+    analyzed = q3_of(on).explain("analyze")
+    root_line = analyzed.splitlines()[1]
+    if " rows=10 " not in root_line:
+        raise AssertionError(f"explain('analyze') root: {root_line}")
+    prepared = on.prepare(q3_of(on))
+    prepared_rows = []
+    for _ in range(2):
+        errs["q3_prepared"] = ranked(prepared.execute())
+        prepared_rows.append(on.history.events[-1].root.metrics[
+            "numOutputRows"])
+    _, q3_recs = read_log_all(on.event_log_path)[:2]
+    rec_rows = [r["operators"]["metrics"]["numOutputRows"]
+                for r in q3_recs]
+    if prepared_rows != [10, 10] or rec_rows != [10, 10, 10]:
+        raise AssertionError(f"prepared q3 recorded {prepared_rows}, the "
+                             f"log {rec_rows}")
+
+    # q3 with the log on and off, in alternating pairs
+    off = TorchSession({TTB: TASK_TARGET_BYTES}, device="cuda")
+    walls = {"on": [], "off": []}
+    for i in range(OPS_PAIRS):
+        for which in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            session = on if which == "on" else off
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = q3_of(session).collect()
+            torch.cuda.synchronize()
+            walls[which].append(time.perf_counter() - t0)
+            ranked(out)
+    _ = on.history.events
+    rec = {"seconds": time.perf_counter() - t_phase,
+           "client_s": client_s, "client": client_out,
+           "wire_k1": k1_wire,
+           "planned_k1": planned, "records": by_name,
+           "log_files": files, "log_env": header["env"] if header else None,
+           "health": [f.render() for f in findings],
+           "in_flight": found["live"], "detail_plan_hash":
+           detail["plan_hash"] if detail else None,
+           "metric_families": len(m1), "max_rel_err": errs,
+           "analyze": analyzed.splitlines(), "prepared_rows": prepared_rows,
+           "q3_walls_s": walls, "nvidia_smi": nvidia_smi(),
+           "hash_columns_launches": counter.launches - k1_before}
+    emit("ops", **rec)
+    return rec, rec["hash_columns_launches"]
 
 
 #: on / off pairs of the speculation phase, each pair's order alternating
@@ -7780,6 +8092,9 @@ def main() -> int:
         _formats, formats_k1 = formats_phase(
             torch, pa, pc, pq, star, kernels, TorchSession, tpch, tpcds,
             TTB, paths)
+        _ops, ops_k1 = ops_phase(torch, pa, pc, kernels, TorchSession, tpch,
+                                 tpcds, TTB, paths, ref6, ref1, star,
+                                 li_paths, orders_path, ref3)
         _spec, spec_k1, spec_calls = speculation_phase(
             torch, pa, pc, kernels, TorchSession, tpch, tpcds, TTB, paths,
             ref1, li_paths, orders_path, ref3, star)
@@ -7879,7 +8194,8 @@ def main() -> int:
             q["launches"]["hash_columns"] for q in runs) + sum(
             q["launches"]["hash_columns"]
             for q in memory["split"].values()) + python_k1
-        + serving_k1["hash_columns"] + spec_k1 + wire_k1 + formats_k1,
+        + serving_k1["hash_columns"] + spec_k1 + wire_k1 + formats_k1
+        + ops_k1,
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
@@ -7893,8 +8209,9 @@ def main() -> int:
                  "phase's calls, and the new_types mix at "
                  "6 x 2^20 rows; ms is the device's own time per "
                  "launch; launches include the memory phase's split runs "
-                 "and the speculation, wire and formats phases' runs",
+                 "and the speculation, wire, formats and ops phases' runs",
         "formats_launches": formats_k1,
+        "ops_launches": ops_k1,
         "concurrency_launches": conc_launches["hash_columns"],
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,

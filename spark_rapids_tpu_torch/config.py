@@ -169,10 +169,8 @@ SERVING_DEFAULT_PRIORITY = "spark.rapids.tpu.serving.defaultPriority"
 PLAN_CACHE_CAPACITY = "spark.rapids.tpu.serving.planCache.capacity"
 #: grant queued queries whose template is already running first
 SERVING_BATCHING = "spark.rapids.tpu.serving.batching.enabled"
-#: a query whose admission wait passes this (ms) is over budget: the JAX
-#: health rule HC009's budget, in docs/serving.md's table.  It has no
-#: effect in the port yet: no port module reads it until the health
-#: rules come (ROADMAP item 11)
+#: a query whose admission wait passes this (ms) is over budget: health
+#: rule HC009's budget (``tools/history.py``)
 SERVING_ADMIT_WAIT_BUDGET_MS = \
     "spark.rapids.tpu.serving.health.admitWaitBudgetMs"
 #: cross-tenant work sharing: the result cache and shared scans
@@ -191,9 +189,8 @@ DEADLINE_MS = "spark.rapids.tpu.serving.deadlineMs"
 BREAKER_THRESHOLD = "spark.rapids.tpu.serving.breaker.failureThreshold"
 #: how long an open breaker quarantines before its half-open probe (ms)
 BREAKER_COOLDOWN_MS = "spark.rapids.tpu.serving.breaker.cooldownMs"
-#: breaker trips a window of queries should stay within: HC013's budget,
-#: in docs/serving.md's table; no effect in the port yet, as for
-#: SERVING_ADMIT_WAIT_BUDGET_MS
+#: breaker trips a window of queries should stay within: health rule
+#: HC013's budget
 BREAKER_MAX_TRIPS = "spark.rapids.tpu.serving.breaker.health.maxTrips"
 
 # -- observability (``trace/``, ``execs/base.py::MetricTimer``) ----------- #
@@ -216,6 +213,52 @@ TELEMETRY_HZ = "spark.rapids.tpu.telemetry.hz"
 #: the device work of its timed region (a CUDA event, waited on by the
 #: metric reaper); otherwise it is host time
 METRICS_DEVICE_SYNC = "spark.rapids.tpu.sql.metrics.deviceSync"
+#: every ``telemetry.eventLogEvery``-th sample is appended to each
+#: attached session's event log as a ``telemetry`` record
+TELEMETRY_LOG_EVERY = "spark.rapids.tpu.telemetry.eventLogEvery"
+
+# -- query history and event log (``tools/profiling.py``, ``eventlog/``) -- #
+#: collected queries a session's ``history`` ring keeps
+HISTORY_CAPACITY = "spark.rapids.tpu.sql.queryHistory.capacity"
+#: append one JSONL record a query to a file of the session's
+EVENTLOG_ENABLED = "spark.rapids.tpu.eventLog.enabled"
+#: the directory of the event-log files (one a session)
+EVENTLOG_DIR = "spark.rapids.tpu.eventLog.dir"
+#: gzip the file, one member an append
+EVENTLOG_COMPRESS = "spark.rapids.tpu.eventLog.compress"
+#: with tracing on, export each query's Chrome trace beside the log
+EVENTLOG_TRACE_SIDECAR = "spark.rapids.tpu.eventLog.traceSidecar"
+#: the health rules' budgets (``tools/history.py``): HC011, HC012, HC014
+#: and HC015 (HC009's and HC013's are the serving keys above)
+LEDGER_ROOFLINE_FLOOR = "spark.rapids.tpu.trace.ledger.health.rooflineFloor"
+LEDGER_OCCUPANCY_FLOOR = \
+    "spark.rapids.tpu.trace.ledger.health.occupancyFloor"
+RESULT_MIN_HIT_RATE = "spark.rapids.tpu.serving.resultCache.health.minHitRate"
+LOCK_HOLD_BUDGET_MS = "spark.rapids.tpu.robustness.lockTracker.holdBudgetMs"
+
+# -- the connect front door (``connect/``) ------------------------------- #
+#: the largest wire frame either end accepts, checked before allocating
+CONNECT_MAX_FRAME_BYTES = "spark.rapids.tpu.connect.maxFrameBytes"
+#: rows a response frame holds at most (0: as the fetch stage yields)
+CONNECT_BATCH_ROWS = "spark.rapids.tpu.connect.batchRows"
+#: the server's SO_SNDBUF (0: the OS default)
+CONNECT_SEND_BUFFER_BYTES = "spark.rapids.tpu.connect.sendBufferBytes"
+#: a connection's socket timeout (s)
+CONNECT_SOCKET_TIMEOUT_S = "spark.rapids.tpu.connect.socketTimeoutSeconds"
+
+# -- the live ops plane (``obs/``) -------------------------------------- #
+#: serve /metrics, /queries and /slo, keep the in-flight registry and run
+#: the SLO watchdog
+OBS_ENABLED = "spark.rapids.tpu.obs.enabled"
+#: the endpoint's port (0: ephemeral) and bind address
+OBS_PORT = "spark.rapids.tpu.obs.port"
+OBS_HOST = "spark.rapids.tpu.obs.host"
+#: per-tenant p99 budgets (ms) of the watchdog (0: no objective)
+SLO_WALL_BUDGET_MS = "spark.rapids.tpu.obs.slo.wallBudgetMs"
+SLO_ADMIT_BUDGET_MS = "spark.rapids.tpu.obs.slo.admitWaitBudgetMs"
+#: the watchdog's rolling window (s) and evaluation period (ms)
+SLO_WINDOW_S = "spark.rapids.tpu.obs.slo.windowSeconds"
+SLO_INTERVAL_MS = "spark.rapids.tpu.obs.slo.checkIntervalMs"
 
 DEFAULTS: dict[str, Any] = {
     SHUFFLE_PARTITIONS: 8,
@@ -292,6 +335,27 @@ DEFAULTS: dict[str, Any] = {
     TELEMETRY_ENABLED: False,
     TELEMETRY_HZ: 4.0,
     METRICS_DEVICE_SYNC: True,
+    TELEMETRY_LOG_EVERY: 4,
+    HISTORY_CAPACITY: 100,
+    EVENTLOG_ENABLED: False,
+    EVENTLOG_DIR: "/tmp/spark_rapids_tpu_eventlog",
+    EVENTLOG_COMPRESS: False,
+    EVENTLOG_TRACE_SIDECAR: False,
+    LEDGER_ROOFLINE_FLOOR: 0.001,
+    LEDGER_OCCUPANCY_FLOOR: 0.5,
+    RESULT_MIN_HIT_RATE: 0.25,
+    LOCK_HOLD_BUDGET_MS: 250.0,
+    CONNECT_MAX_FRAME_BYTES: 64 << 20,
+    CONNECT_BATCH_ROWS: 0,
+    CONNECT_SEND_BUFFER_BYTES: 0,
+    CONNECT_SOCKET_TIMEOUT_S: 120.0,
+    OBS_ENABLED: False,
+    OBS_PORT: 0,
+    OBS_HOST: "127.0.0.1",
+    SLO_WALL_BUDGET_MS: 0.0,
+    SLO_ADMIT_BUDGET_MS: 0.0,
+    SLO_WINDOW_S: 60.0,
+    SLO_INTERVAL_MS: 1000.0,
 }
 
 #: the keys that run a query serially: every task, file and stage one
@@ -314,11 +378,14 @@ _AT_LEAST_ONE = (TASK_THREADS, DECODE_THREADS, CONCURRENT_TASKS,
                  PIPELINE_DEPTH, SPLIT_MIN_ROWS, COALESCE_TARGET_ROWS,
                  COALESCE_TARGET_BYTES, SERVING_DEFAULT_PRIORITY,
                  PLAN_CACHE_CAPACITY, SPECULATION_WARMUP_BATCHES,
-                 SPECULATION_SAFETY_FACTOR)
+                 SPECULATION_SAFETY_FACTOR, TELEMETRY_LOG_EVERY,
+                 HISTORY_CAPACITY)
 _AT_LEAST_ZERO = (SERVING_QUEUE_DEPTH, RESULT_CACHE_BUDGET,
                   SCAN_CACHE_BUDGET, DEADLINE_MS, BREAKER_THRESHOLD,
                   BREAKER_COOLDOWN_MS, BREAKER_MAX_TRIPS,
-                  SPECULATION_TEST_FORCE_CAPACITY)
+                  SPECULATION_TEST_FORCE_CAPACITY, CONNECT_BATCH_ROWS,
+                  CONNECT_SEND_BUFFER_BYTES, SLO_WALL_BUDGET_MS,
+                  SLO_ADMIT_BUDGET_MS)
 
 
 class TorchConf:
@@ -332,6 +399,10 @@ class TorchConf:
     def set(self, key: str, value: Any) -> "TorchConf":
         if key not in DEFAULTS:
             raise KeyError(f"unknown conf key {key!r}")
+        if isinstance(DEFAULTS[key], bool) and isinstance(value, str):
+            if value.strip().lower() not in ("true", "false", "1", "0"):
+                raise ValueError(f"{key} takes true or false, got {value!r}")
+            value = value.strip().lower() in ("true", "1")
         value = type(DEFAULTS[key])(value)
         if key in _AT_LEAST_ONE and value < 1:
             raise ValueError(f"{key} must be >= 1, got {value}")
@@ -347,6 +418,14 @@ class TorchConf:
             raise ValueError(f"{key} must be in [0.1, 1000], got {value}")
         if key in (LEDGER_HBM_BYTES_PER_S, LEDGER_PEAK_FLOPS) and value <= 0:
             raise ValueError(f"{key} must be > 0, got {value}")
+        if key == CONNECT_MAX_FRAME_BYTES and value < 1024:
+            raise ValueError(f"{key} must be >= 1024, got {value}")
+        if key in (CONNECT_SOCKET_TIMEOUT_S, SLO_WINDOW_S) and value <= 0:
+            raise ValueError(f"{key} must be > 0, got {value}")
+        if key == OBS_PORT and not 0 <= value <= 65535:
+            raise ValueError(f"{key} must be in [0, 65535], got {value}")
+        if key == SLO_INTERVAL_MS and value < 10:
+            raise ValueError(f"{key} must be >= 10, got {value}")
         self._values[key] = value
         return self
 

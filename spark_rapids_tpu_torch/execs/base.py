@@ -24,11 +24,20 @@ host's.  The region is also an
 ``exec.<op>`` trace span, and the reaper adds a ``metric.settle.<name>``
 span.  ``run_tasks`` carries the submitting thread's trace context to
 its pool threads.
+
+Every exec counts the batches it yields and their rows
+(``output_counts``: the JAX ``numOutputRows`` and ``numOutputBatches``,
+which ``metric_values`` reports with ``totalTime`` and the exec's own
+counters): each ``execute`` and ``execute_partition`` a subclass defines
+is wrapped to count, once, the batches it hands its caller (a nested
+call of the same exec on the same thread, as ``super()`` makes, does
+not count them again).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 import time
 from collections import deque
@@ -297,6 +306,75 @@ class MetricTimer:
         return False
 
 
+class OutputCounts:
+    """An exec's output rows and batches, added to from several
+    threads."""
+
+    __slots__ = ("rows", "batches", "_lock")
+
+    def __init__(self) -> None:
+        self.rows = 0
+        self.batches = 0
+        self._lock = threading.Lock()
+
+    def add(self, rows: int) -> None:
+        with self._lock:
+            self.rows += rows
+            self.batches += 1
+
+
+#: per thread, the ids of the execs whose counting wrapper is advancing
+#: its body there (a nested wrapper of the same exec does not count)
+_COUNTING = threading.local()
+
+
+def _counted(node: "TpuExec", src) -> Iterator[ColumnarBatch]:
+    key = id(node)
+    it = iter(src)
+    try:
+        while True:
+            # the advancing thread's set: a generator may move between
+            # threads (a stage thread drains what another made)
+            active = _COUNTING.__dict__.setdefault("ids", set())
+            mine = key not in active
+            if mine:
+                active.add(key)
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                if mine:
+                    active.discard(key)
+            if mine:
+                node.output_counts.add(batch.num_rows)
+            yield batch
+    finally:
+        close = getattr(src, "close", None)
+        if close is not None:
+            close()
+
+
+def _counting(fn: Callable) -> Callable:
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        return _counted(self, fn(self, *args, **kwargs))
+
+    wrapper.counts_output = True
+    return wrapper
+
+
+def metric_values(node: "TpuExec") -> dict:
+    """An exec's metrics as numbers: ``numOutputRows``,
+    ``numOutputBatches``, ``totalTime`` (ns), then its own counters."""
+    out = node.output_counts
+    values = {"numOutputRows": out.rows, "numOutputBatches": out.batches,
+              "totalTime": node.total_time.value}
+    for name, v in (getattr(node, "metrics", None) or {}).items():
+        values.setdefault(name, v)
+    return values
+
+
 class Metrics(Mapping):
     """An exec's named counters, each update atomic: tasks on several
     threads add to them at once.  Reads as a mapping."""
@@ -343,6 +421,13 @@ class Metrics(Mapping):
 class TpuExec:
     def __init__(self, *children: "TpuExec"):
         self.children: list[TpuExec] = list(children)
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        for name in ("execute", "execute_partition"):
+            fn = cls.__dict__.get(name)
+            if fn is not None and not getattr(fn, "counts_output", False):
+                setattr(cls, name, _counting(fn))
 
     @property
     def schema(self) -> T.Schema:
@@ -399,6 +484,15 @@ class TpuExec:
         if m is None:
             m = self.__dict__.setdefault("_total_time",
                                          TimeMetric("totalTime"))
+        return m
+
+    @property
+    def output_counts(self) -> OutputCounts:
+        """The rows and batches this exec has yielded, made on first
+        use."""
+        m = self.__dict__.get("_output_counts")
+        if m is None:
+            m = self.__dict__.setdefault("_output_counts", OutputCounts())
         return m
 
     def program(self, tag: str, key: Callable[[], tuple],

@@ -1138,9 +1138,11 @@ class SqlSession:
     passes ``device="cpu"``."""
 
     def __init__(self, conf=None, device="cuda", tenant: str = "default",
-                 priority=None):
-        self.session = TorchSession(conf, device=device, tenant=tenant,
-                                    priority=priority)
+                 priority=None, session=None):
+        #: ``session`` given: its tables and queries run there (the
+        #: other arguments are its own)
+        self.session = session if session is not None else TorchSession(
+            conf, device=device, tenant=tenant, priority=priority)
         self._tables: dict[str, object] = {}
 
     # -- registry -- #

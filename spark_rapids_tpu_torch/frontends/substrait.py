@@ -120,10 +120,12 @@ class SubstraitFrontend:
     Made through the plugin too:
     ``TorchPlugin.get_or_create(conf, device).session("substrait")``."""
 
-    def __init__(self, conf=None, device="cuda"):
+    def __init__(self, conf=None, device="cuda", session=None):
         from spark_rapids_tpu_torch.session import TorchSession
 
-        self.session = TorchSession(conf, device=device)
+        #: ``session`` given: the plans run there
+        self.session = session if session is not None \
+            else TorchSession(conf, device=device)
         self._tables: dict[str, L.LogicalPlan] = {}
 
     def register_table(self, name: str, source) -> None:

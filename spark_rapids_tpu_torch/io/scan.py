@@ -158,6 +158,7 @@ from spark_rapids_tpu_torch.io.pushdown import (
 )
 from spark_rapids_tpu_torch.io.rebase import check_rebase
 from spark_rapids_tpu_torch.parallel.pipeline import prefetch
+from spark_rapids_tpu_torch.plan import runtime_filter as _rf
 
 #: the scan's counters, besides the host split
 SCAN_COUNTERS = ("numOutputRows", "filesPruned", "rowGroupsPruned",
@@ -338,6 +339,7 @@ class ParquetScanExec(TpuExec):
                     if all(runtime_range_may_match(n, rf, md.row_group(g))
                            for n, rf in rfs)]
             self.metrics.add("rfRowGroupsPruned", before - len(keep))
+            _rf.record("row_groups_pruned", before - len(keep))
         return keep
 
     def _apply_runtime_filters(self, tbl, rfs: list):
@@ -354,6 +356,7 @@ class ParquetScanExec(TpuExec):
                 return tbl
             kept = tbl.filter(pa.array(keep))
         self.metrics.add("rfPrunedRows", tbl.num_rows - kept.num_rows)
+        _rf.record("pruned_rows", tbl.num_rows - kept.num_rows)
         return kept
 
     def _host_prefilter(self, tbl, rfs: list, filter_done: bool = False):
@@ -410,6 +413,7 @@ class ParquetScanExec(TpuExec):
             return None
         rf_pruned = counters.get("rf_pruned", 0)
         self.metrics.add("rfPrunedRows", rf_pruned)
+        _rf.record("pruned_rows", rf_pruned)
         if conjuncts:
             rows = sum(f.metadata.row_group(g).num_rows for g in keep)
             self.metrics.add("hostFilteredRows",

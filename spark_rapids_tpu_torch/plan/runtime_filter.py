@@ -117,6 +117,35 @@ def bloom_params(n_est: int, fpp: float) -> tuple[int, int]:
 
 
 # --------------------------------------------------------------------- #
+# Process-wide counters (JAX ``stats()``): what the event log and
+# ``explain("analyze")`` report as a query's runtime-filter activity
+# --------------------------------------------------------------------- #
+
+_STATS_LOCK = threading.Lock()
+_STATS = {"filters_built": 0, "build_rows": 0, "build_ms": 0.0,
+          "pruned_rows": 0, "row_groups_pruned": 0}
+
+
+def stats() -> dict:
+    """Filters built, their keys and build ms, and the rows and row
+    groups the scans pruned with them, process-wide and cumulative."""
+    with _STATS_LOCK:
+        return dict(_STATS)
+
+
+def reset_stats() -> None:
+    with _STATS_LOCK:
+        for k in _STATS:
+            _STATS[k] = 0.0 if k == "build_ms" else 0
+
+
+def record(key: str, v) -> None:
+    if v:
+        with _STATS_LOCK:
+            _STATS[key] += v
+
+
+# --------------------------------------------------------------------- #
 # The filter
 # --------------------------------------------------------------------- #
 
@@ -188,6 +217,9 @@ class RuntimeFilter:
         self._pub = self.last = _Published(
             int(min_val), int(max_val), int(n_keys), bloom_words, build_ms,
             range_table)
+        record("filters_built", 1)
+        record("build_rows", int(n_keys))
+        record("build_ms", build_ms)
 
     def range_may_match(self, lo, hi) -> bool:
         """Could a key in [lo, hi] pass this filter's min/max?  Unknown

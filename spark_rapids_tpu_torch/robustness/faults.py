@@ -238,6 +238,14 @@ def fault_stats() -> dict[str, dict]:
     return {st.site: st.snapshot() for st in states}
 
 
+def injected_total() -> int:
+    return sum(s["injected"] for s in fault_stats().values())
+
+
+def recovered_total() -> int:
+    return sum(s["recovered"] for s in fault_stats().values())
+
+
 def reset_stats() -> None:
     """Zero every site's counters; the schedule stays armed."""
     with _LOCK:

@@ -69,6 +69,10 @@ class QueryCancelled(RuntimeError):
         self.reason = reason
         self.detail = detail
         self.query_id = query_id
+        #: the query's history / event-log record is written (a
+        #: mid-flight unwind records its partial metrics; one shed
+        #: before it started is recorded by the session's handler)
+        self.recorded = False
 
 
 class TenantQuarantined(AdmissionRejected):
@@ -141,6 +145,19 @@ class CancelToken:
                 _tr.event("cancel.unwind", reason=r,
                           query_id=self.query_id)
             raise QueryCancelled(r, self.detail, self.query_id)
+
+
+def describe_token(tok: CancelToken) -> dict:
+    """A token's state as JSON (the ops plane's ``/queries`` column)."""
+    return {
+        "tenant": tok.tenant,
+        "query_id": tok.query_id,
+        "reason": tok.reason,
+        "detail": tok.detail or None,
+        "deadline_remaining_s": (
+            round(tok.remaining_s(), 3)
+            if tok.deadline_ns is not None else None),
+    }
 
 
 class TokenSet:

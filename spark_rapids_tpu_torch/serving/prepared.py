@@ -124,24 +124,33 @@ class PreparedQuery:
         self.last_plan_hash = entry.plan_hash
         return entry, hit
 
-    def _facts(self, hit: bool) -> dict:
-        return {"plan_cache": "hit" if hit else "miss",
-                "admission_group": self._group_key(self._session.conf)}
+    def _facts(self, hit: bool, extra_facts: Optional[dict]) -> dict:
+        """The serving facts deposited inside admission; an ingress
+        layer's ``extra_facts`` (the connect server's ``connect``
+        section) ride along."""
+        facts = {"plan_cache": "hit" if hit else "miss",
+                 "admission_group": self._group_key(self._session.conf)}
+        if extra_facts:
+            facts.update(extra_facts)
+        return facts
 
     # -- execution --------------------------------------------------- #
 
-    def execute(self, params: Optional[dict] = None) -> pa.Table:
+    def execute(self, params: Optional[dict] = None,
+                extra_facts: Optional[dict] = None) -> pa.Table:
         """Run the template (binding ``params`` for SQL) and return the
         whole result.  The entry's drain lock is taken inside admission:
         taking it here would deadlock against an admitted query that
         executes this template nested."""
         entry, hit = self._resolve(params)
         return entry.df._collect(
-            exec_=entry.exec_, drain_lock=entry.lock,
-            serving_facts=self._facts(hit), token_sink=self._inflight)
+            exec_=entry.exec_, meta=entry.meta, drain_lock=entry.lock,
+            serving_facts=self._facts(hit, extra_facts),
+            token_sink=self._inflight)[0]
 
     def execute_stream(self, params: Optional[dict] = None,
-                       batch_rows: Optional[int] = None
+                       batch_rows: Optional[int] = None,
+                       extra_facts: Optional[dict] = None
                        ) -> Iterator[pa.RecordBatch]:
         """Run the template and yield the result as Arrow record batches
         (re-chunked to at most ``batch_rows``).  The admission slot and
@@ -149,8 +158,9 @@ class PreparedQuery:
         closed: close an abandoned stream."""
         entry, hit = self._resolve(params)
         yield from entry.df._stream(
-            exec_=entry.exec_, batch_rows=batch_rows,
-            drain_lock=entry.lock, serving_facts=self._facts(hit),
+            exec_=entry.exec_, meta=entry.meta, batch_rows=batch_rows,
+            drain_lock=entry.lock,
+            serving_facts=self._facts(hit, extra_facts),
             token_sink=self._inflight)
 
     def cancel(self, reason: str = "cancelled") -> int:

@@ -81,6 +81,21 @@ drain), a result served from the cache records
 ``cancel.shed``; ``export_trace(path)`` writes the trace as Chrome
 JSON.
 
+The query history and the event log (``tools/profiling.py``,
+``eventlog/``): every query a session runs (a collect, a stream drained
+to its end, a prepared execution, a result served from the cache, a
+query cancelled) is recorded in ``session.history`` with its plan's
+text and a snapshot of its operators' settled metrics, taken on the
+query's thread once the metric reaper has settled them (a cached tree
+drained again records the execution's own deltas).  With
+``eventLog.enabled`` each is also a JSONL record in the session's file
+(``event_log_path``), written by the history's worker.
+``explain("analyze")`` runs the query and renders its operators'
+settled metrics with the jit-cache, retry, fault, runtime-filter and
+plan-cache footers (and the ledger's, with the ledger on).  With
+``obs.enabled`` (``obs/``) each query in flight is listed under the ops
+plane's ``/queries`` and its wall feeds the SLO watchdog.
+
 Files (``plan/logical.py``'s file relations, ``io/scan.py``,
 ``io/write.py``): ``read_parquet(*paths, columns=)``, ``read_orc(*paths,
 columns=)`` and ``read_csv(*paths, schema=)`` take files or directories,
@@ -105,10 +120,18 @@ import pyarrow as pa
 import torch
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import obs as _obs
 from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import schema_from_arrow
 from spark_rapids_tpu_torch.config import TorchConf
+from spark_rapids_tpu_torch.eventlog import (
+    conf_fingerprint,
+    maybe_writer,
+    plan_fingerprint,
+    render_plan_report,
+    table_digest,
+)
 from spark_rapids_tpu_torch.execs.base import TpuExec, sync_metrics_conf
 from spark_rapids_tpu_torch.execs.sort import SortKey
 from spark_rapids_tpu_torch.exprs.aggregates import (
@@ -179,6 +202,12 @@ from spark_rapids_tpu_torch.serving import update_serving_context
 from spark_rapids_tpu_torch.serving.scheduler import admission
 from spark_rapids_tpu_torch.udf.exprs import OpaquePythonUDF, TorchScalarUDF
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
+from spark_rapids_tpu_torch.tools.profiling import (
+    QueryHistory,
+    next_query_id,
+    render_analyze,
+    snapshot_exec,
+)
 from spark_rapids_tpu_torch.trace import ledger as _ledger
 from spark_rapids_tpu_torch.trace import telemetry as _telemetry
 
@@ -431,26 +460,76 @@ def render_udfs(plan: L.LogicalPlan) -> list[str]:
     return lines
 
 
-#: query ids, process-wide (``TorchSession.cancel(query_id)``)
-_QUERY_IDS = itertools.count(1)
-_QUERY_IDS_LOCK = threading.Lock()
-
-
-def _next_query_id() -> int:
-    with _QUERY_IDS_LOCK:
-        return next(_QUERY_IDS)
-
-
-def sync_observability(conf: TorchConf) -> None:
-    """Align the process tracer, ledger, telemetry sampler and
-    ``MetricTimer``'s device sync with ``conf`` (at session build and
-    at each query boundary), under the JAX ownership rule: a
+def sync_observability(conf: TorchConf, writer=None) -> None:
+    """Align the process tracer, ledger, telemetry sampler, ops plane
+    and ``MetricTimer``'s device sync with ``conf`` (at session build
+    and at each query boundary), under the JAX ownership rule: a
     programmatic ``enable()`` / ``start()`` is not overridden, and only
-    the conf that turned one on turns it off."""
+    the conf that turned one on turns it off.  ``writer``, the
+    session's event log, is attached to the sampler and the
+    watchdog."""
     _trace.sync_conf(conf)
     _ledger.sync_conf(conf)
-    _telemetry.sync_conf(conf)
+    _telemetry.sync_conf(conf, writer=writer)
+    _obs.sync_conf(conf, writer=writer)
     sync_metrics_conf(conf)
+
+
+class _QueryRecord:
+    """One query's prologue (its id, the ops plane's entry, the event
+    log's counters before it, its clocks) and its epilogue
+    (:meth:`record`)."""
+
+    def __init__(self, session: "TorchSession", qid: int, tok):
+        self.qid = qid
+        self.conf_hash = conf_fingerprint(session.conf)
+        if _obs.REGISTRY.enabled:
+            _obs.REGISTRY.begin(qid, tenant=session.tenant, token=tok,
+                                conf_hash=self.conf_hash)
+        self.elog = session._eventlog
+        self.pre = self.elog.query_begin() if self.elog is not None \
+            else None
+        self.start_ts = time.time()
+        self.t0 = time.perf_counter()
+        self.t0_ns = time.perf_counter_ns()
+
+    def annotate(self, meta, tok=None) -> None:
+        """The plan, once planning rendered it, on the ops plane."""
+        if _obs.REGISTRY.enabled and meta is not None:
+            text = meta.explain()
+            _obs.REGISTRY.annotate(self.qid, plan=text,
+                                   plan_hash=plan_fingerprint(text),
+                                   token=tok)
+
+    def record(self, session: "TorchSession", explain: str, exec_tree,
+               engine: str, plan_text=None,
+               result: Optional[pa.Table] = None,
+               rows: Optional[int] = None, baseline=None) -> None:
+        """The epilogue, on the query's thread: leave the ops plane
+        (feeding the watchdog), take the event log's end-of-query
+        counters, and record the history event (``exec_tree``'s
+        settled metrics less ``baseline``).  The log record, with
+        ``plan_text()`` (default ``explain``) and ``result``'s digest,
+        is appended by the history's worker."""
+        _obs.REGISTRY.finish(self.qid, engine=engine)
+        on_event = None
+        elog = self.elog
+        if elog is not None:
+            post = elog.query_end(self.pre)
+            n = result.num_rows if result is not None else rows
+
+            def on_event(ev):
+                elog.log_query(
+                    ev, post, plan_text() if plan_text else explain,
+                    engine, result_digest=table_digest(result)
+                    if result is not None else None, rows=n)
+
+        session.history.record(
+            explain, exec_tree, time.perf_counter() - self.t0,
+            query_id=self.qid, start_ts=self.start_ts, end_ts=time.time(),
+            start_ns=self.t0_ns, end_ns=time.perf_counter_ns(),
+            conf_hash=self.conf_hash, on_event=on_event,
+            baseline=baseline)
 
 
 class TorchSession:
@@ -479,7 +558,19 @@ class TorchSession:
         self._plan_cache_lock = threading.Lock()
         #: the cancel tokens of this session's queries in flight
         self._tokens = _cancel.TokenSet()
-        sync_observability(self.conf)
+        #: recent queries (``tools/profiling.QueryHistory``)
+        self.history = QueryHistory(self.conf.get(C.HISTORY_CAPACITY))
+        #: the event-log writer, None with ``eventLog.enabled`` off
+        self._eventlog = maybe_writer(self.conf)
+        sync_observability(self.conf, self._eventlog)
+
+    @property
+    def event_log_path(self) -> Optional[str]:
+        """This session's event-log file (None with the log off).  Its
+        records are appended by the history's worker: read
+        ``history.events`` first and the file is complete."""
+        return self._eventlog.path if self._eventlog is not None \
+            else None
 
     @property
     def store(self):
@@ -937,21 +1028,64 @@ class DataFrame:
     def physical_plan(self) -> TpuExec:
         return self._planner().plan(self._plan)
 
-    def explain(self) -> str:
-        """The tagged logical tree (``*`` on the GPU, ``!`` on the CPU
-        engine with its reasons), then the physical plan and a line for
-        each runtime filter's build site and each scan that applies
-        one."""
+    def explain(self, mode: str = "simple") -> str:
+        """``simple``: the tagged logical tree (``*`` on the GPU, ``!``
+        on the CPU engine with its reasons), then the physical plan and
+        a line for each runtime filter's build site and each scan that
+        applies one.  ``analyze``: run the query, then the plan with
+        each operator's settled metrics and the query's footers
+        (``tools/profiling.render_analyze``)."""
+        if mode.lower() == "analyze":
+            return self._explain_analyze()
+        if mode.lower() != "simple":
+            raise ValueError(f"explain mode {mode!r}: simple or analyze")
         plan, meta = self._planner().plan_with_meta(self._plan)
         return "\n".join([meta.explain().rstrip("\n"), plan.tree_string(),
                           *render_runtime_filters(plan),
                           *render_udfs(self._plan)])
 
+    def _explain_analyze(self) -> str:
+        """EXPLAIN ANALYZE: the counters around one collect, as deltas
+        (process-wide: a concurrent query's activity may show), and its
+        history event, found by its id."""
+        from spark_rapids_tpu_torch.execs.jit_cache import cache_stats
+        from spark_rapids_tpu_torch.plan import runtime_filter as _rf
+        from spark_rapids_tpu_torch.serving import plan_cache as _pc
+
+        jit0, retry0 = cache_stats(), _retry.retry_stats()
+        faults0, rf0, pc0 = faults.recovered_total(), _rf.stats(), \
+            _pc.stats()
+        # synced now, not at the query's start, so that the snapshot
+        # before it sees a ledger its conf turns on
+        _ledger.sync_conf(self._session.conf)
+        led0 = _ledger.snapshot() if _ledger.LEDGER.enabled else None
+        _out, qid = self._collect()
+        jit1, retry1, rf1, pc1 = cache_stats(), _retry.retry_stats(), \
+            _rf.stats(), _pc.stats()
+        cs = {k: jit1[k] - jit0[k] for k in ("hits", "misses")}
+        counters = {
+            "retry": {k: max(0, retry1[k] - retry0[k]) for k in retry1},
+            "faults_recovered": max(0, faults.recovered_total() - faults0),
+            "rf": {k: max(0, rf1[k] - rf0[k]) for k in rf1},
+            "plan_cache": {k: max(0, pc1[k] - pc0[k])
+                           for k in ("hits", "misses", "evictions")},
+        }
+        led = None
+        if led0 is not None and _ledger.LEDGER.enabled:
+            _ledger.LEDGER.flush(timeout=2.0)
+            led = _ledger.summarize(_ledger.delta(led0, _ledger.snapshot()))
+        events = self._session.history.events
+        ev = next((e for e in reversed(events) if e.query_id == qid),
+                  events[-1])
+        trace_events = _trace.snapshot() if _trace.is_enabled() else None
+        return render_analyze(ev, trace_events, cache_stats=cs,
+                              counters=counters, ledger=led)
+
     def collect(self) -> pa.Table:
         """Run the query on the session's device; the result as Arrow.
         The stage and the exec tree are closed on every exit, which
         releases the query's store entries."""
-        return self._collect()
+        return self._collect()[0]
 
     def _begin(self, token_sink):
         """A new query's cancel token, tracked by the session (and by
@@ -990,45 +1124,83 @@ class DataFrame:
         """The query boundary: the process semaphore, lock tracker and
         observability follow the session's conf; the query's id (its
         token's too)."""
-        conf = self._session.conf
-        TpuSemaphore.sync_conf(conf)
-        _locks.sync_conf(conf)
-        sync_observability(conf)
-        qid = _next_query_id()
+        s = self._session
+        TpuSemaphore.sync_conf(s.conf)
+        _locks.sync_conf(s.conf)
+        sync_observability(s.conf, s._eventlog)
+        qid = next_query_id()
         if tok is not None:
             tok.query_id = qid
         return qid
 
-    @staticmethod
-    def _shed(e: "_cancel.QueryCancelled") -> None:
-        """A query cancelled before it started (JAX ``cancel.shed``)."""
-        if _trace.TRACER.enabled:
-            qid = _next_query_id()
-            with _trace.trace_context(query_id=qid):
-                _trace.event("cancel.shed", query_id=qid, reason=e.reason)
+    def _begin_query(self, tok) -> _QueryRecord:
+        """:meth:`_start_query` and the record's prologue."""
+        return _QueryRecord(self._session, self._start_query(tok), tok)
 
-    @staticmethod
-    def _result_cache_hit(out: pa.Table) -> pa.Table:
-        """A collect served by the result cache: no exec tree, one
-        ``serve.result_cache_hit`` event under a query id of its own."""
-        if _trace.TRACER.enabled:
-            qid = _next_query_id()
-            with _trace.trace_context(query_id=qid):
-                _trace.event("serve.result_cache_hit", query_id=qid,
+    def _record_cancelled(self, e: "_cancel.QueryCancelled",
+                          serving_facts=None) -> None:
+        """Count a cancellation once, and record a query that unwound
+        before it ran (shed in the admission queue): its record has no
+        operator and the wire front door's ``connect`` facts, which
+        admission never deposited."""
+        _cancel.tick_outcome(e.reason)
+        if e.recorded:
+            return
+        from spark_rapids_tpu_torch.serving import (
+            clear_serving_context,
+            current_serving_context,
+        )
+
+        q = self._begin_query(None)
+        if e.query_id is None:
+            e.query_id = q.qid
+        expl = (f"CancelledBeforeExecution [{e.reason}: shed in the "
+                f"admission queue; no operator ran]\n")
+        connect = (serving_facts or {}).get("connect")
+        prev = current_serving_context() if connect else None
+        if connect:
+            update_serving_context(connect=connect)
+        try:
+            with _trace.trace_context(query_id=q.qid):
+                if _trace.TRACER.enabled:
+                    _trace.event("cancel.shed", query_id=q.qid,
+                                 reason=e.reason)
+            q.record(self._session, expl, None, e.reason)
+        finally:
+            if connect:
+                clear_serving_context()
+                if prev:
+                    update_serving_context(**prev)
+        e.recorded = True
+
+    def _result_cache_hit(self, out: pa.Table, meta, tok
+                          ) -> tuple[pa.Table, int]:
+        """A query served by the result cache: no exec tree, one
+        ``serve.result_cache_hit`` event and a record of its own (the
+        placeholder operator, the digest and rows of ``out``)."""
+        q = self._begin_query(tok)
+        expl = meta.explain() if meta is not None else (
+            "ResultCacheHit [plan not lowered: served from the "
+            "cross-tenant result cache]\n")
+        with _trace.trace_context(query_id=q.qid):
+            if _trace.TRACER.enabled:
+                _trace.event("serve.result_cache_hit", query_id=q.qid,
                              rows=out.num_rows)
-        return out
+        q.record(self._session, expl, None, "tpu", result=out)
+        return out, q.qid
 
-    def _collect(self, exec_: Optional[TpuExec] = None, drain_lock=None,
-                 serving_facts=None, token_sink=None) -> pa.Table:
+    def _collect(self, exec_: Optional[TpuExec] = None, meta=None,
+                 drain_lock=None, serving_facts=None, token_sink=None
+                 ) -> tuple[pa.Table, int]:
         """collect, or a prepared template's execution over its cached
-        ``exec_`` (planning skipped).  ``drain_lock`` (the cache entry's)
-        is taken inside admission; with ``serving.sharing.enabled`` the
-        result cache is consulted inside admission, before it."""
+        ``exec_`` and ``meta`` (planning skipped); the result and the
+        query's id.  ``drain_lock`` (the cache entry's) is taken inside
+        admission; with ``serving.sharing.enabled`` the result cache is
+        consulted inside admission, before it."""
         from spark_rapids_tpu_torch.serving import work_share as _ws
 
         conf = self._session.conf
         tok = self._begin(token_sink)
-        started = False
         try:
             with self._admitted(tok, serving_facts):
                 sharing = conf.get(C.SHARING_ENABLED)
@@ -1037,31 +1209,56 @@ class DataFrame:
                     if verdict is not None:
                         update_serving_context(result_cache=verdict)
                     if cached is not None:
-                        return self._result_cache_hit(cached)
+                        return self._result_cache_hit(cached, meta, tok)
                 with drain_lock if drain_lock is not None \
                         else contextlib.nullcontext():
-                    qid = self._start_query(tok)
-                    started = True
-                    with faults.query_scope(conf), \
-                            _trace.trace_context(query_id=qid):
-                        if exec_ is None:
-                            with _trace.span("query.plan"):
-                                exec_, _meta = _planner.plan_query(
-                                    self._plan, self._planner())
-                        with _trace.span("query.execute"):
-                            out = _planner.collect_exec(exec_, conf)
+                    out, qid = self._collect_admitted(tok, exec_, meta)
                 if sharing:
                     _ws.offer_result(self._plan, conf, out)
-                return out
+                return out, qid
         except _cancel.QueryCancelled as e:
-            _cancel.tick_outcome(e.reason)
-            if not started:
-                self._shed(e)
+            self._record_cancelled(e, serving_facts)
             raise
         finally:
             self._end(tok, token_sink)
 
-    def _stream(self, exec_: Optional[TpuExec] = None,
+    def _collect_admitted(self, tok, exec_, meta) -> tuple[pa.Table, int]:
+        """The admitted query: plan unless the tree is given (a cached
+        tree's settled metrics are the baseline of its record), run,
+        record, all under the fault scope."""
+        conf = self._session.conf
+        q = self._begin_query(tok)
+        try:
+            baseline = snapshot_exec(exec_) if exec_ is not None else None
+            with faults.query_scope(conf), \
+                    _trace.trace_context(query_id=q.qid):
+                if exec_ is None:
+                    with _trace.span("query.plan"):
+                        exec_, meta = _planner.plan_query(
+                            self._plan, self._planner())
+                q.annotate(meta, tok)
+                expl = _explain_text(exec_, meta)
+                try:
+                    with _trace.span("query.execute"):
+                        out = _planner.collect_exec(exec_, conf)
+                except _cancel.QueryCancelled as e:
+                    # the unwind closed the tree: the record keeps its
+                    # partial metrics
+                    if e.query_id is None:
+                        e.query_id = q.qid
+                    expl += f"\n[query unwound: {e.reason}]"
+                    q.record(self._session, expl, exec_, e.reason,
+                             baseline=baseline)
+                    e.recorded = True
+                    raise
+                q.record(self._session, expl, exec_, "tpu",
+                         plan_text=lambda: _plan_text(exec_, meta),
+                         result=out, baseline=baseline)
+            return out, q.qid
+        finally:
+            _obs.REGISTRY.drop(q.qid)
+
+    def _stream(self, exec_: Optional[TpuExec] = None, meta=None,
                 batch_rows: Optional[int] = None, drain_lock=None,
                 serving_facts=None, token_sink=None
                 ) -> Iterator[pa.RecordBatch]:
@@ -1070,7 +1267,9 @@ class DataFrame:
         stage's depth.  The admission slot and ``drain_lock`` are held
         until the stream is drained or closed.  The token is attached
         around each pull, not across the yields, and a checkpoint runs
-        before each (JAX ``_stream_tpu_cancellable``)."""
+        before each (JAX ``_stream_tpu_cancellable``).  A stream drained
+        to its end is recorded (its rows, no digest); one closed early
+        is not."""
         from spark_rapids_tpu_torch.serving import work_share as _ws
 
         conf = self._session.conf
@@ -1086,7 +1285,7 @@ class DataFrame:
                     _trace.attach_context(tctx or None):
                 yield
 
-        started = False
+        q: Optional[_QueryRecord] = None
         try:
             with self._admitted(tok, serving_facts, attach=False), \
                     drain_lock if drain_lock is not None \
@@ -1097,20 +1296,23 @@ class DataFrame:
                     if verdict is not None:
                         update_serving_context(result_cache=verdict)
                     if cached is not None:
-                        yield from self._result_cache_hit(
-                            cached).to_batches(max_chunksize=batch_rows)
+                        out, _qid = self._result_cache_hit(cached, meta, tok)
+                        yield from out.to_batches(max_chunksize=batch_rows)
                         return
                     acc, cap = [], conf.get(C.RESULT_CACHE_BUDGET) // 4
-                qid = self._start_query(tok)
-                started = True
-                tctx["query_id"] = qid
-                t0_ns = time.perf_counter_ns()
+                q = self._begin_query(tok)
+                tctx["query_id"] = q.qid
+                baseline = snapshot_exec(exec_) if exec_ is not None \
+                    else None
+                rows = 0
                 with faults.query_scope(conf):
                     with attach():
                         if exec_ is None:
                             with _trace.span("query.plan"):
-                                exec_, _meta = _planner.plan_query(
+                                exec_, meta = _planner.plan_query(
                                     self._plan, self._planner())
+                    q.annotate(meta, tok)
+                    expl = _explain_text(exec_, meta)
                     gen = _planner.stream_exec(exec_, conf)
                     try:
                         while True:
@@ -1119,6 +1321,8 @@ class DataFrame:
                                 tbl = next(gen, None)
                             if tbl is None:
                                 break
+                            rows += tbl.num_rows
+                            _obs.REGISTRY.note_batch(q.qid, tbl.num_rows)
                             if acc is not None:
                                 acc.append(tbl)
                                 if sum(t.nbytes for t in acc) > cap:
@@ -1129,26 +1333,54 @@ class DataFrame:
                                     with attach():
                                         _cancel.check_point()
                                 yield rb
+                    except _cancel.QueryCancelled as e:
+                        if e.query_id is None:
+                            e.query_id = q.qid
+                        with attach():
+                            gen.close()
+                            q.record(self._session,
+                                     expl + f"\n[stream unwound: {e.reason}]",
+                                     exec_, e.reason, rows=rows,
+                                     baseline=baseline)
+                        e.recorded = True
+                        raise
                     finally:
                         with attach():
                             gen.close()
-                # fully drained: the execute span covers the whole drain
-                # (JAX records a streamed query's the same way)
-                if _trace.TRACER.enabled:
-                    _trace.record_complete(
-                        "query.execute", t0_ns,
-                        time.perf_counter_ns() - t0_ns, query_id=qid,
-                        streamed=True)
+                    # fully drained: the execute span covers the whole
+                    # drain (JAX records a streamed query's the same way)
+                    if _trace.TRACER.enabled:
+                        _trace.record_complete(
+                            "query.execute", q.t0_ns,
+                            time.perf_counter_ns() - q.t0_ns,
+                            query_id=q.qid, streamed=True)
+                    with attach():
+                        q.record(self._session, expl, exec_, "tpu",
+                                 plan_text=lambda: _plan_text(exec_, meta),
+                                 rows=rows, baseline=baseline)
                 if acc:
                     _ws.offer_result(self._plan, conf,
                                      pa.concat_tables(acc))
         except _cancel.QueryCancelled as e:
-            _cancel.tick_outcome(e.reason)
-            if not started:
-                self._shed(e)
+            self._record_cancelled(e, serving_facts)
             raise
         finally:
             self._end(tok, token_sink)
+            if q is not None:
+                _obs.REGISTRY.drop(q.qid)
+
+
+def _explain_text(exec_: TpuExec, meta) -> str:
+    """A query's history text: its tagged logical tree (the physical
+    tree when no planner metadata came with a cached one)."""
+    return meta.explain() if meta is not None else exec_.tree_string()
+
+
+def _plan_text(exec_: TpuExec, meta) -> str:
+    """A query's event-log plan: ``explain()``'s report of its tree."""
+    if meta is None:
+        return exec_.tree_string()
+    return render_plan_report(exec_, meta)
 
 
 class DataFrameWriter:

@@ -19,10 +19,12 @@ starved.  This module is that view:
   Chrome-trace counter events (``ph="C"``) when the tracer is on, which
   ``trace/export.py::chrome_trace`` renders as counter tracks.
 
-The JAX module's event-log records, and their key
-``telemetry.eventLogEvery``, wait for the event log (ROADMAP item 11).
-Its ``queries.in_flight`` (the ops plane) and ``persist_cache.bytes`` (warm
-start) gauges wait for those modules.  Ownership is the tracer's: a
+Every ``telemetry.eventLogEvery``-th sample is appended as a
+``telemetry`` record to each attached session's event log (a session's
+``sync_conf`` attaches its writer, held by weak reference).
+``queries.in_flight`` is the ops plane's registry count (0 while it is
+off); ``persist_cache.bytes`` is 0, as the port has no persisted-plan
+tier.  Ownership is the tracer's: a
 programmatic :func:`start` survives :func:`sync_conf`; a conf-driven
 start is owned by its conf, and only that conf's "off" stops the
 thread.  Off (the default) no thread exists.
@@ -47,6 +49,7 @@ THREAD_NAME = "srt-telemetry"
 def sample_now() -> dict:
     """One flat gauge snapshot (host-side reads; the card's allocator
     counters are host-side too)."""
+    from spark_rapids_tpu_torch import obs as _obs
     from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
     from spark_rapids_tpu_torch.memory.store import peek_store
     from spark_rapids_tpu_torch.parallel.pipeline import (
@@ -83,7 +86,9 @@ def sample_now() -> dict:
         "cancel.active": _cancel.active_count(),
         "pipeline.stage_threads": live_stage_threads(),
         "scan.inflight": _ws.SCAN_REGISTRY.inflight(),
+        "queries.in_flight": _obs.REGISTRY.count(),
         "result_cache.bytes": _ws.RESULT_CACHE.bytes_used(),
+        "persist_cache.bytes": 0,
         "device.allocated_bytes": torch.cuda.memory_allocated()
         if cuda else 0,
         "device.reserved_bytes": torch.cuda.memory_reserved()
@@ -102,6 +107,7 @@ _COUNTER_TRACKS = (
                              ("waiting", "admission.waiting"))),
     ("telemetry.pipeline_occupancy",
      (("occupancy", "pipeline.occupancy"),)),
+    ("telemetry.queries", (("in_flight", "queries.in_flight"),)),
     ("telemetry.result_cache_bytes",
      (("bytes", "result_cache.bytes"),)),
     ("telemetry.device_bytes", (("allocated", "device.allocated_bytes"),
@@ -117,7 +123,9 @@ class TelemetrySampler:
         self.enabled = False
         self.forced = False
         self.hz = float(C.DEFAULTS[C.TELEMETRY_HZ])
+        self.log_every = int(C.DEFAULTS[C.TELEMETRY_LOG_EVERY])
         self.samples = 0
+        self._writers: list[weakref.ref] = []
         #: a failed sample stops the thread and is kept here for
         #: :meth:`stop` to raise
         self.error: Optional[BaseException] = None
@@ -127,10 +135,13 @@ class TelemetrySampler:
         self._thread: Optional[threading.Thread] = None
 
     def start(self, hz: Optional[float] = None,
+              log_every: Optional[int] = None,
               forced: bool = True) -> None:
         with self._lock:
             if hz is not None:
                 self.hz = float(hz)
+            if log_every is not None:
+                self.log_every = int(log_every)
             self.forced = self.forced or forced
             if self.enabled:
                 return
@@ -162,16 +173,40 @@ class TelemetrySampler:
             err, self.error = self.error, None
             raise err
 
+    def attach_writer(self, writer) -> None:
+        """Append every ``log_every``-th sample to ``writer``'s event
+        log (None: nothing)."""
+        if writer is None:
+            return
+        with self._lock:
+            if not any(r() is writer for r in self._writers):
+                self._writers.append(weakref.ref(writer))
+
     def _run(self, stop_evt: threading.Event) -> None:
+        n = 0
         while not stop_evt.wait(1.0 / max(self.hz, 0.1)):
             try:
                 sample = sample_now()
             except Exception as e:  # noqa: BLE001 - raised by stop()
                 self.error = e
                 return
+            n += 1
             with self._lock:
                 self.samples += 1
             self._emit_counters(sample)
+            if n % max(1, self.log_every) == 0:
+                self._emit_eventlog(sample)
+
+    def _emit_eventlog(self, sample: dict) -> None:
+        with self._lock:
+            self._writers = [r for r in self._writers if r() is not None]
+            writers = [r() for r in self._writers]
+        for w in writers:
+            if w is not None:
+                try:
+                    w.log_telemetry(sample)
+                except OSError:
+                    pass  # a full disk must not stop the sampler
 
     @staticmethod
     def _emit_counters(sample: dict) -> None:
@@ -193,27 +228,34 @@ def is_enabled() -> bool:
     return SAMPLER.enabled
 
 
-def start(hz: Optional[float] = None) -> None:
+def start(hz: Optional[float] = None,
+          log_every: Optional[int] = None) -> None:
     """Force the sampler on (tests, chip_smoke): survives sync_conf."""
-    SAMPLER.start(hz=hz, forced=True)
+    SAMPLER.start(hz=hz, log_every=log_every, forced=True)
 
 
 def stop() -> None:
     SAMPLER.stop()
 
 
-def sync_conf(conf: "C.TorchConf") -> None:
+def sync_conf(conf: "C.TorchConf", writer=None) -> None:
     """Query-boundary alignment with a session's conf (the tracer's
     ownership rule): the conf that enables the sampler owns it; another
     session's defaults-only conf cannot stop it; a forced start() wins
-    over confs."""
+    over confs.  ``writer``, the session's event log, is attached while
+    the sampler runs."""
     if SAMPLER.forced:
+        if SAMPLER.enabled:
+            SAMPLER.attach_writer(writer)
         return
     want = bool(conf.get(C.TELEMETRY_ENABLED))
     if want:
         if not SAMPLER.enabled:
-            SAMPLER.start(hz=float(conf.get(C.TELEMETRY_HZ)), forced=False)
+            SAMPLER.start(hz=float(conf.get(C.TELEMETRY_HZ)),
+                          log_every=int(conf.get(C.TELEMETRY_LOG_EVERY)),
+                          forced=False)
         SAMPLER._enabled_by = weakref.ref(conf)
+        SAMPLER.attach_writer(writer)
     elif SAMPLER.enabled and SAMPLER._enabled_by is not None \
             and SAMPLER._enabled_by() is conf:
         SAMPLER.stop()

@@ -115,7 +115,42 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "spark_rapids_tpu_torch.serving.cancel",
             "spark_rapids_tpu_torch.serving.plan_cache",
             "spark_rapids_tpu_torch.serving.prepared",
-            "spark_rapids_tpu_torch.serving.work_share"} <= set(mods)
+            "spark_rapids_tpu_torch.serving.work_share",
+            # the history, the event log, the wire front door and the
+            # ops plane
+            "spark_rapids_tpu_torch.tools",
+            "spark_rapids_tpu_torch.tools.profiling",
+            "spark_rapids_tpu_torch.tools.history",
+            "spark_rapids_tpu_torch.tools.connect_client",
+            "spark_rapids_tpu_torch.eventlog.schema",
+            "spark_rapids_tpu_torch.eventlog.reader",
+            "spark_rapids_tpu_torch.connect",
+            "spark_rapids_tpu_torch.connect.client",
+            "spark_rapids_tpu_torch.connect.server",
+            "spark_rapids_tpu_torch.obs",
+            "spark_rapids_tpu_torch.obs.metrics",
+            "spark_rapids_tpu_torch.obs.server",
+            "spark_rapids_tpu_torch.obs.slo"} <= set(mods)
+
+
+def test_connect_client_imports_no_torch():
+    """The wire client and its command import no torch, no engine
+    module and nothing of JAX: a client process stays light."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import spark_rapids_tpu_torch.connect.client\n"
+        "import spark_rapids_tpu_torch.tools.connect_client\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax', 'numpy',\n"
+        "                                    'spark_rapids_tpu')\n"
+        "             or (m.startswith('spark_rapids_tpu_torch.')\n"
+        "                 and m.split('.')[1] not in ('connect', 'tools')))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_port_sources_name_no_jax_import():
