@@ -457,6 +457,28 @@ Phases, one JSON line each:
            hit rate and K1's launches beside nvidia-smi's line.  Every
            session shares the process store and task semaphore
            (``plugin.py``), brought up at the start of the run;
+  persist  the warm-start store (persist.py) and the operator tools.
+           tools/cold_start children, each a fresh process on the card,
+           one after another, over its four-file fixture (q1's scan ->
+           filter -> aggregate through a hash exchange -> sort):
+           persistence off, an empty store, the warm store, then, once
+           this process has written the result tier (the fixture in the
+           result-tier mode, serving.sharing.enabled set), a child in
+           that mode restoring it; equal digests and rows everywhere,
+           held against the same query in this process and a pyarrow
+           reference; off, empty, warm and the writer equal in ledger
+           dispatches and K1 launches (a map batch each), compiles 0;
+           the warm child's plan_hits 1 and prepares 2; the restoring
+           child's result_hits 1, no dispatch and no K1 launch; each
+           child's wall, import and context times.  Then qualify over
+           the 51 texts of the sql and channels phases (fallback nodes
+           beyond an unrewritten scalar subquery's, as the JAX tool
+           counts them, only in q37, as their cpu_nodes);
+           api_validation's counts (nothing missing, no drift);
+           ``tools.top --once`` as a process against the ops plane
+           while a prepared q3's stream is open; tools.trace over a
+           script running the fixture; and a sweep slice of q3, q42
+           and q52 through the oracle and the connect wire subset;
   memory   the memory runtime on the card.  Spill: q93, q67_rollup and
            q72 (at its inventory cut) under memory.hbm.budgetBytes = a
            quarter of the query's unconstrained store peak and
@@ -2168,8 +2190,9 @@ def scan_host_phase(torch, pc, TorchSession, tpch, tpcds, TTB, paths,
 
 #: off / on / compressed rounds of the wire phase's walls, each round's
 #: order rotating (plain, wire, compressed), (compressed, plain, wire) ...
-#: (3 until the formats phase needed the run's time)
-WIRE_ROUNDS = 2
+#: (3 until the formats phase, 2 until the persist phase needed the
+#: run's time)
+WIRE_ROUNDS = 1
 #: the wire phase's upload paths: sql.scan.packedUpload off, on, and on
 #: with sql.wireCompression.enabled under its default codec list
 WIRE_PATHS = ("plain", "wire", "compressed")
@@ -3212,8 +3235,9 @@ def ops_phase(torch, pa, pc, kernels, TorchSession, tpch, tpcds, TTB,
 
 
 #: on / off pairs of the speculation phase, each pair's order alternating
-#: (3 until the formats phase needed the run's time)
-SPEC_PAIRS = 2
+#: (3 until the formats phase, 2 until the persist phase needed the
+#: run's time)
+SPEC_PAIRS = 1
 #: the speculation phase's forced undershoot: a capacity far below a
 #: stream batch's pairs
 SPEC_UNDER = 8
@@ -6327,8 +6351,9 @@ def sample_projection_check(pa, sample_projection, rand_uniform, ss_paths,
 
 
 #: the adaptive phase: on / off pairs a workload, in alternating order
-#: (3 until the formats phase needed the run's time)
-ADAPTIVE_PAIRS = 2
+#: (3 until the formats phase, 2 until the persist phase needed the
+#: run's time)
+ADAPTIVE_PAIRS = 1
 #: the adaptive key (execs/adaptive.py); checks of a static join shape
 #: set it off for their plan, and their sibling runs the default
 ADAPTIVE = "spark.rapids.tpu.sql.adaptive.enabled"
@@ -6749,8 +6774,9 @@ CHANNEL_SINGLE_RUN = True
 #: its reference read the first Q72_INVENTORY_ROWS rows of inventory
 #: (the text unchanged; 2^19 until the types phase took the run to
 #: 736 s, past the 717 s before it, on an H100 80GB HBM3 at 700 W,
-#: where q72 took 55 s of it)
-Q72_INVENTORY_ROWS = 1 << 18
+#: where q72 took 55 s of it; 2^18 until the persist phase took the run
+#: to 989.8 s, where q72 took 29.8 s)
+Q72_INVENTORY_ROWS = 1 << 17
 #: the exec switches the fallback phase turns off, one at a time
 FALLBACK_SWITCHES = ("Filter", "Project", "Aggregate", "Join", "Sort")
 
@@ -7905,6 +7931,221 @@ def serving_phase(torch, pa, kernels, TTB, tables) -> dict:
     return out, launches
 
 
+#: the sweep slice of the persist phase: three texts of its wire subset
+PERSIST_SWEEP = (3, 42, 52)
+
+#: the script the persist phase runs under tools.trace
+PERSIST_TRACE_SCRIPT = r"""
+import sys
+from spark_rapids_tpu_torch import TorchSession
+from spark_rapids_tpu_torch.tools import cold_start as cs
+data, device = sys.argv[1:3]
+s = TorchSession(cs.fixture_conf(None, "plan"), device=device)
+assert cs.fixture_query(s, cs.fixture_paths(data)).collect().num_rows == 4
+"""
+
+
+def fixture_reference(pa, pc, pq, paths) -> list:
+    """The cold-start fixture's query in pyarrow: rows of (l_key,
+    sum_qty, sum_price, n) by key."""
+    t = pa.concat_tables([pq.read_table(p) for p in paths])
+    t = t.filter(pc.less_equal(t["l_shipdate"], 10471))
+    g = t.group_by("l_key").aggregate([("l_quantity", "sum"),
+                                       ("l_price", "sum"),
+                                       ("l_key", "count")])
+    return sorted((r["l_key"], r["l_quantity_sum"], r["l_price_sum"],
+                   r["l_key_count"]) for r in g.to_pylist())
+
+
+def persist_phase(torch, pa, pc, pq, kernels, TorchSession, tpch, TTB,
+                  star, li_paths, orders_path, ref3, sql_records,
+                  channel_records, device="cuda") -> tuple:
+    """The warm-start store and the operator tools (the module
+    docstring's ``persist``).  Emits the phase's line; returns its
+    record and its K1 launches (this process's and the children's)."""
+    from spark_rapids_tpu_torch import obs, persist
+    from spark_rapids_tpu_torch import trace as tracer
+    from spark_rapids_tpu_torch.eventlog import table_digest
+    from spark_rapids_tpu_torch.frontends.sql import SqlSession
+    from spark_rapids_tpu_torch.tools import api_validation
+    from spark_rapids_tpu_torch.tools import cold_start as cs
+    from spark_rapids_tpu_torch.tools import qualification, sweep
+    from spark_rapids_tpu_torch.tools import trace as trace_tool
+    from spark_rapids_tpu_torch.tpcds_queries import (
+        CATALOG_WEB,
+        QUERIES,
+        STORE_CHANNEL,
+    )
+    from spark_rapids_tpu_torch.trace import ledger
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    counter = kernels.hash_columns
+    k1_before = counter.launches
+    root = os.path.join(star["dir"], "persist")
+    data, store = os.path.join(root, "data"), os.path.join(root, "store")
+    os.makedirs(data)
+    paths = cs.make_fixture(data)
+
+    # the fixture in this process, against pyarrow
+    want = fixture_reference(pa, pc, pq, paths)
+    here = cs.fixture_query(TorchSession(cs.fixture_conf(None, "plan"),
+                                         device=device), paths).collect()
+    sync()
+    if sorted(tuple(r.values()) for r in here.to_pylist()) != want:
+        raise AssertionError(f"the fixture gave {here.to_pylist()}, "
+                             f"pyarrow {want}")
+
+    # the cold processes, one after another; between the third and the
+    # fourth, this process writes the result tier (the fixture prepared
+    # with sharing on), so that the fourth restores it
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    children = {}
+    for name, where, mode in (("off", None, "plan"), ("empty", store, "plan"),
+                              ("warm", store, "plan"),
+                              ("result_restore", store, "result")):
+        if name == "result_restore":
+            written = cs.run_once(data, store, mode="result", device=device)
+            ledger.disable()
+            ledger.reset_stats()
+            persist.reset_for_tests()
+        t0 = time.perf_counter()
+        rec = cs.run_subprocess(data, where, mode=mode, device=device,
+                                timeout=300)
+        rec["process_s"] = time.perf_counter() - t0
+        children[name] = rec
+    off, empty, warm = children["off"], children["empty"], children["warm"]
+    restore = children["result_restore"]
+    runs = [*children.values(), written]
+    if {r["digest"] for r in runs} != {table_digest(here)} \
+            or {r["rows"] for r in runs} != {len(want)}:
+        raise AssertionError(f"children's results differ: {children}")
+    same = ("dispatches", "k1_dispatches", "k1_launches")
+    if not [off[k] for k in same] == [empty[k] for k in same] \
+            == [warm[k] for k in same] == [written[k] for k in same]:
+        raise AssertionError(f"children dispatch differently: {children}, "
+                             f"the result tier's writer {written}")
+    want_k1 = cs.FIXTURE_FILES if device == "cuda" else 0
+    if off["k1_launches"] != want_k1 or off["k1_dispatches"] \
+            != cs.FIXTURE_FILES:
+        raise AssertionError(f"the fixture launched {off['k1_launches']} "
+                             f"K1, {cs.FIXTURE_FILES} map batches")
+    if {r["compiles"] for r in children.values()} != {0}:
+        raise AssertionError(f"a child built a kernel: {children}")
+    if (warm["persist"]["plan_hits"], warm["prepares"]) != (1, 2) \
+            or empty["persist"]["plan_hits"] != 0:
+        raise AssertionError(f"the plan tier: empty {empty['persist']}, "
+                             f"warm {warm['persist']}")
+    if written["persist"]["result_writes"] != 1:
+        raise AssertionError(f"the result tier's writer: {written}")
+    if (restore["result_hits"], restore["persist"]["result_hits"],
+            restore["dispatches"], restore["k1_launches"],
+            restore["persist"]["errors"]) != (1, 1, 0, 0, 0):
+        raise AssertionError(f"the result tier's restore: {restore}")
+    child_k1 = sum(r["k1_launches"] for r in children.values())
+
+    # qualify over the 51 texts, held against the phases' CPU nodes
+    fe = SqlSession({TTB: Q3DS_TASK_TARGET_BYTES}, device=device)
+    for name, tpaths in star["channel_tables"].items():
+        fe.register_parquet(name, *tpaths)
+    subquery = "expression ScalarSubquery is not supported on the GPU"
+    qualified = {}
+    t0 = time.perf_counter()
+    for q in sorted(set(STORE_CHANNEL) | set(CATALOG_WEB)):
+        name = f"q{q}"
+        rep = qualification.qualify(fe.sql(QUERIES[q]))
+        beyond = sum(n for r, n in rep.reasons.items() if r != subquery)
+        rec = channel_records.get(name) or sql_records[name]
+        cpu = len(rec.get("cpu_nodes", []))
+        qualified[name] = {"ops": rep.total_ops, "fallback": rep.fallback_ops,
+                           "beyond_subquery": beyond, "cpu_nodes": cpu}
+        if beyond != cpu or (cpu and name != "q37"):
+            raise AssertionError(f"{name}: qualify {rep.reasons}, the "
+                                 f"phase's cpu_nodes {cpu}")
+    qualify_s = time.perf_counter() - t0
+    validation = api_validation.counts()
+    api_validation.assert_no_drift()
+    if validation["expressions_missing"] or validation["execs_missing"]:
+        raise AssertionError(f"api_validation: {validation}")
+
+    # top --once, a process, while a prepared q3's stream is open
+    obs.start(port=0)
+    try:
+        url = f"http://127.0.0.1:{obs.plane().port}"
+        s3 = TorchSession({TTB: TASK_TARGET_BYTES}, device=device,
+                          tenant="top")
+        stream = s3.prepare(tpch.q3_dataframe(s3, li_paths, orders_path)
+                            ).execute_stream(batch_rows=1)
+        first = next(stream)
+        frame = subprocess.run(
+            [sys.executable, "-m", "spark_rapids_tpu_torch.tools.top",
+             "--url", url, "--once"], capture_output=True, text=True,
+            timeout=60, env=dict(os.environ, PYTHONPATH=ROOT), cwd=root)
+        rows = pa.Table.from_batches([first, *stream])
+        sync()
+    finally:
+        obs.stop()
+    if frame.returncode != 0 or "in-flight queries (1):" not in frame.stdout \
+            or " top " not in frame.stdout:
+        raise AssertionError(f"top --once: {frame.stdout} {frame.stderr}")
+    top_err = compare_ranked(rows, ref3, 10, ("l_orderkey", "o_orderdate",
+                                              "o_shippriority"),
+                             "revenue", "rev_sum")
+
+    # the trace tool over a script
+    script = os.path.join(root, "traced.py")
+    with open(script, "w") as f:
+        f.write(PERSIST_TRACE_SCRIPT)
+    trace_json = os.path.join(root, "trace.json")
+    saved = sys.argv
+    try:
+        code = trace_tool.main(["-o", trace_json, script, data, device])
+    finally:
+        sys.argv = saved
+        tracer.disable()
+        tracer.clear()
+    with open(trace_json) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    if code != 0 or not {"query.plan", "query.execute"} <= names:
+        raise AssertionError(f"the trace tool: exit {code}, {len(names)} "
+                             f"names")
+
+    # the sweep slice, its wire subset included
+    t0 = time.perf_counter()
+    report = sweep.run_sweep(query_ids=list(PERSIST_SWEEP), device=device)
+    sweep_s = time.perf_counter() - t0
+    statuses = {k: v["status"] for k, v in report["queries"].items()}
+    if set(statuses.values()) != {"correct"} or sorted(report["wire"]) \
+            != sorted(statuses) or not all(
+                v["digest_match"] for v in report["wire"].values()):
+        raise AssertionError(f"the sweep slice: {statuses} "
+                             f"{report['wire']}")
+
+    in_process_k1 = counter.launches - k1_before
+    rec = {"seconds": time.perf_counter() - t_phase,
+           "children": children, "result_writer": written,
+           "child_walls_ms": {k: r["wall_ms"] for k, r in children.items()},
+           "child_import_ms": {k: r["import_ms"]
+                               for k, r in children.items()},
+           "child_context_ms": {k: r["context_ms"]
+                                for k, r in children.items()},
+           "fixture_rows": want, "qualified": qualified,
+           "qualify_s": qualify_s, "api_validation": validation,
+           "top_frame": frame.stdout.splitlines(), "top_max_rel_err": top_err,
+           "trace_events": len(names), "sweep": statuses,
+           "sweep_wire": report["wire"], "sweep_s": sweep_s,
+           "sweep_advances": report["satellite_advances"],
+           "in_process_launches": in_process_k1,
+           "child_launches": child_k1, "nvidia_smi": nvidia_smi()
+           if device == "cuda" else None}
+    emit("persist", **rec)
+    return rec, in_process_k1 + child_k1
+
+
 #: seconds after which the script prints every thread's stack and exits
 #: non-zero (the run's limit is 1200 s)
 WATCHDOG_S = 1150
@@ -8130,6 +8371,9 @@ def main() -> int:
             torch, pa, pc, pq, star, kernels, TorchSession, tpcds, TTB)
         serving, serving_k1 = serving_phase(torch, pa, kernels, TTB,
                                             store_tables)
+        _persist, persist_k1 = persist_phase(
+            torch, pa, pc, pq, kernels, TorchSession, tpch, TTB, star,
+            li_paths, orders_path, ref3, sql, channels)
         memory = memory_phase(torch, pa, pc, pq, star, kernels,
                               TorchSession, tpch, tpcds, TTB, paths)
         dd_path, star_ss, item_path = star["paths"]
@@ -8195,7 +8439,7 @@ def main() -> int:
             q["launches"]["hash_columns"]
             for q in memory["split"].values()) + python_k1
         + serving_k1["hash_columns"] + spec_k1 + wire_k1 + formats_k1
-        + ops_k1,
+        + ops_k1 + persist_k1,
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
@@ -8209,9 +8453,11 @@ def main() -> int:
                  "phase's calls, and the new_types mix at "
                  "6 x 2^20 rows; ms is the device's own time per "
                  "launch; launches include the memory phase's split runs "
-                 "and the speculation, wire, formats and ops phases' runs",
+                 "and the speculation, wire, formats, ops and persist "
+                 "phases' runs (persist: its cold-start children's too)",
         "formats_launches": formats_k1,
         "ops_launches": ops_k1,
+        "persist_launches": persist_k1,
         "concurrency_launches": conc_launches["hash_columns"],
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,
         "large_shape": large_cols,

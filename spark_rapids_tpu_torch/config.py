@@ -260,6 +260,19 @@ SLO_ADMIT_BUDGET_MS = "spark.rapids.tpu.obs.slo.admitWaitBudgetMs"
 SLO_WINDOW_S = "spark.rapids.tpu.obs.slo.windowSeconds"
 SLO_INTERVAL_MS = "spark.rapids.tpu.obs.slo.checkIntervalMs"
 
+# -- the warm-start store (``persist.py``) ------------------------------ #
+#: keep prepared-plan metadata and result-cache frames in a validated
+#: on-disk store that later processes read (off: one conf read a probe
+#: site, and nothing else)
+PERSIST_ENABLED = "spark.rapids.tpu.persist.enabled"
+#: the store's directory ("": a per-user directory under the system's
+#: temporary directory)
+PERSIST_DIR = "spark.rapids.tpu.persist.dir"
+#: bytes of entries the store keeps; past it the least recently used go
+PERSIST_MAX_BYTES = "spark.rapids.tpu.persist.maxBytes"
+#: health rule HC017's floor under the store's hit rate
+PERSIST_MIN_HIT_RATE = "spark.rapids.tpu.persist.health.minHitRate"
+
 DEFAULTS: dict[str, Any] = {
     SHUFFLE_PARTITIONS: 8,
     TASK_TARGET_BYTES: 512 << 20,
@@ -356,6 +369,10 @@ DEFAULTS: dict[str, Any] = {
     SLO_ADMIT_BUDGET_MS: 0.0,
     SLO_WINDOW_S: 60.0,
     SLO_INTERVAL_MS: 1000.0,
+    PERSIST_ENABLED: False,
+    PERSIST_DIR: "",
+    PERSIST_MAX_BYTES: 512 << 20,
+    PERSIST_MIN_HIT_RATE: 0.5,
 }
 
 #: the keys that run a query serially: every task, file and stage one
@@ -385,7 +402,7 @@ _AT_LEAST_ZERO = (SERVING_QUEUE_DEPTH, RESULT_CACHE_BUDGET,
                   BREAKER_COOLDOWN_MS, BREAKER_MAX_TRIPS,
                   SPECULATION_TEST_FORCE_CAPACITY, CONNECT_BATCH_ROWS,
                   CONNECT_SEND_BUFFER_BYTES, SLO_WALL_BUDGET_MS,
-                  SLO_ADMIT_BUDGET_MS)
+                  SLO_ADMIT_BUDGET_MS, PERSIST_MAX_BYTES)
 
 
 class TorchConf:

@@ -18,11 +18,14 @@ Counterpart of ``spark_rapids_tpu/eventlog/__init__.py``:
 The schema is ``eventlog/schema.py``, the reader ``eventlog/reader.py``,
 the analyses ``tools/history.py``.  A record has the JAX package's key
 set, so either package's tools read either's logs.  Counters of
-subsystems the port has no counterpart of are recorded as 0: the
-persisted-plan tier (``persist.*``, ``persist_cache.bytes``), device
+subsystems the port has no counterpart of are recorded as 0: device
 placement (``placement.*``), XLA compiles (``jit.compiles``: torch
 compiles nothing) and the CPU-fallback rung of the retry ladder
-(``retry.cpu_fallbacks``).  ``env_fingerprint`` records torch's and
+(``retry.cpu_fallbacks``).  The warm-start store's counters
+(``persist.*``, ``persist.py``) are its own; the program tier's among
+them (``persist.hits``, ``.misses``, ``.fallback_compiles`` and the two
+``_ms`` times) stay 0, as that tier is not ported, and
+``persist_cache.bytes`` is a gauge.  ``env_fingerprint`` records torch's and
 CUDA's versions and the card's name; ``mesh_fingerprint`` is None (one
 card).
 
@@ -79,13 +82,14 @@ MONOTONIC_COUNTERS = (
 )
 
 #: the keys with no counterpart in the port, recorded as 0
-_ABSENT = ("jit.compiles", "persist.hits", "persist.misses",
-           "persist.writes", "persist.evictions", "persist.errors",
-           "persist.plan_hits", "persist.result_hits",
-           "persist.fallback_compiles", "persist.deserialize_ms",
-           "persist.serialize_ms", "persist_cache.bytes",
-           "retry.cpu_fallbacks", "placement.host_uploads",
+_ABSENT = ("jit.compiles", "retry.cpu_fallbacks", "placement.host_uploads",
            "placement.device_born", "placement.d2d_transfers")
+
+#: the warm-start store's counters the log keeps, by their
+#: ``persist.stats()`` names
+_PERSIST = ("hits", "misses", "writes", "evictions", "errors", "plan_hits",
+            "result_hits", "fallback_compiles", "deserialize_ms",
+            "serialize_ms")
 
 
 def counters_snapshot() -> dict[str, float]:
@@ -94,6 +98,7 @@ def counters_snapshot() -> dict[str, float]:
     bytes, the result cache's bytes, the residency gauges read at a
     query's end, the longest lock hold), which a record keeps as
     read."""
+    from spark_rapids_tpu_torch import persist
     from spark_rapids_tpu_torch.execs.jit_cache import cache_stats
     from spark_rapids_tpu_torch.execs.retry import retry_stats
     from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
@@ -112,6 +117,12 @@ def counters_snapshot() -> dict[str, float]:
     jc = cache_stats()
     out["jit.hits"] = jc["hits"]
     out["jit.misses"] = jc["misses"]
+    ps = persist.stats()
+    for k in _PERSIST:
+        out["persist." + k] = ps[k]
+    # the store's bytes on disk: a gauge, 0 with no directory walk while
+    # no store was activated
+    out["persist_cache.bytes"] = persist.cache_bytes()
     rs = retry_stats()
     out["retry.splits"] = rs["splits"]
     out["retry.spill_retries"] = rs["spill_retries"]

@@ -44,6 +44,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _BUILD_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: libraries this process compiled with nvcc (a build found in
+#: ``_build/`` is not one): the cold-start harness's ``compiles``
+BUILDS: list[str] = []
 
 
 class KernelError(RuntimeError):
@@ -86,6 +89,7 @@ def build_library(name: str) -> Path:
     if proc.returncode != 0:
         raise KernelError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)
+    BUILDS.append(name)
     return out
 
 

@@ -20,8 +20,10 @@ The keys are in ``config.py`` (``spark.rapids.tpu.serving.*``).  With
 ``serving.maxConcurrent`` at its default of 0 admission is off: a
 collect reads that one key and runs unscheduled.  The tier records the
 JAX tier's trace spans and events (``serve.admit``, ``cancel.*``,
-``breaker.*``, ``serve.result_cache_hit``); its event-log record, ops
-plane, persisted plans and mesh serving are not ported.
+``breaker.*``, ``serve.result_cache_hit``).  The plan and result caches
+have a disk tier behind ``spark.rapids.tpu.persist.enabled``
+(``persist.py``); the event-log record is ``eventlog/``'s and the ops
+plane ``obs/``.  Mesh serving is not ported.
 
 This module holds the per-query serving context: the facts admission
 and the plan cache learn about the query in flight (tenant, priority,

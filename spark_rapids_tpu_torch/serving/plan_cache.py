@@ -21,8 +21,12 @@ asserts.  Operator metrics on a cached tree accumulate across
 executions.  Eviction is LRU, bounded by
 ``spark.rapids.tpu.serving.planCache.capacity``; an evicted tree is
 closed.  The hit, miss and eviction counters are process-wide
-(:func:`stats`).  The JAX cache's disk tier (``persist.py``) is not
-ported.
+(:func:`stats`).  With ``spark.rapids.tpu.persist.enabled`` the cache
+has a disk tier (``persist.py``): a miss in memory probes the store for
+the template's prepare lineage, which the insert that follows hands to
+its entry (``CacheEntry.rehydrated``) and writes back, one generation
+on, off the prepare path.  Off, each of the two sites reads that one
+key and nothing else.
 """
 
 from __future__ import annotations
@@ -266,7 +270,8 @@ class CacheEntry:
     re-drains of the shared exec tree: one template executed from two
     threads must not interleave two drains of one tree."""
 
-    __slots__ = ("exec_", "meta", "plan_hash", "df", "lock")
+    __slots__ = ("exec_", "meta", "plan_hash", "df", "lock",
+                 "rehydrated")
 
     def __init__(self, exec_, meta, plan_hash: str, df=None):
         self.exec_ = exec_
@@ -274,22 +279,42 @@ class CacheEntry:
         self.plan_hash = plan_hash
         self.df = df
         self.lock = DrainLock()
+        #: the metadata an earlier process persisted for this key
+        #: (``plan_hash``, ``prepares``), or None
+        self.rehydrated: Optional[dict] = None
 
 
 class PlanCache:
     """Per-session LRU of :class:`CacheEntry` (see module doc)."""
 
-    def __init__(self, capacity: Optional[int] = None):
+    def __init__(self, capacity: Optional[int] = None,
+                 conf: Optional[C.TorchConf] = None):
         if capacity is None:
             capacity = C.DEFAULTS[C.PLAN_CACHE_CAPACITY]
         self.capacity = max(1, int(capacity))
+        #: the owning session's conf: its persist keys reach the disk tier
+        self.conf = conf if conf is not None else C.TorchConf()
         # guard: _mu
         self._entries: "collections.OrderedDict[str, CacheEntry]" = \
             collections.OrderedDict()
+        # guard: _mu; persisted metadata restored on a miss, for the
+        # insert that follows it (a miss is always followed by one)
+        self._rehydrated: dict[str, dict] = {}
         self._mu = tracked_lock("planCache.mu")
 
+    def _store(self):
+        """The warm-start store, or None while persistence is off (one
+        conf read)."""
+        if not self.conf.get(C.PERSIST_ENABLED):
+            return None
+        from spark_rapids_tpu_torch import persist
+
+        return persist.active(self.conf)
+
     def lookup(self, key: str) -> Optional[CacheEntry]:
-        """Get-and-touch; ticks the global hit/miss counters."""
+        """Get-and-touch; ticks the global hit/miss counters.  A miss
+        probes the disk tier and keeps what it restores for the
+        insert that follows."""
         global _HITS, _MISSES
         with self._mu:
             e = self._entries.get(key)
@@ -300,6 +325,12 @@ class PlanCache:
                 _MISSES += 1
             else:
                 _HITS += 1
+        if e is None:
+            store = self._store()
+            meta = store.load_plan(key) if store is not None else None
+            if meta is not None:
+                with self._mu:
+                    self._rehydrated[key] = meta
         return e
 
     def insert(self, key: str, entry: CacheEntry) -> CacheEntry:
@@ -314,9 +345,18 @@ class PlanCache:
                 self._entries.move_to_end(key)
                 return cur
             self._entries[key] = entry
+            entry.rehydrated = self._rehydrated.pop(key, None)
             while len(self._entries) > self.capacity:
                 _k, old = self._entries.popitem(last=False)
                 evicted.append(old)
+        store = self._store()
+        if store is not None:
+            from spark_rapids_tpu_torch import persist
+
+            prev = int((entry.rehydrated or {}).get("prepares", 0))
+            store.save_plan_async(
+                key, {"plan_hash": entry.plan_hash, "prepares": prev + 1},
+                persist.max_bytes(self.conf))
         if evicted:
             with _STATS_LOCK:
                 _EVICTIONS += len(evicted)

@@ -53,6 +53,9 @@ class PreparedQuery:
         #: admission-batching group)
         self._group_memo: dict = {}
         self.last_plan_hash: Optional[str] = None
+        #: the prepare lineage an earlier process persisted for the
+        #: entry last resolved (``persist.py``), or None
+        self.last_rehydrated: Optional[dict] = None
         #: the cancel tokens of this template's executions in flight
         self._inflight = TokenSet()
 
@@ -122,6 +125,7 @@ class PreparedQuery:
                 # another thread lowered the same template first
                 _planner.close_tree(exec_)
         self.last_plan_hash = entry.plan_hash
+        self.last_rehydrated = entry.rehydrated
         return entry, hit
 
     def _facts(self, hit: bool, extra_facts: Optional[dict]) -> dict:

@@ -31,7 +31,12 @@ mechanisms are process-wide and sleep behind one conf read while
 
 Plans that are not deterministic (partition-aware expressions, Python
 functions, cached frames) and scans with runtime filters never share.
-The JAX module's persisted results are not ported.
+With ``spark.rapids.tpu.persist.enabled`` the result cache has a disk
+tier (``persist.py``): an insert writes its frame and its stat triples
+back off the query's path, and a miss in memory restores a frame whose
+triples equal the inputs' current ones (a frame whose triples differ is
+deleted).  Off, each of the two sites reads that one key and nothing
+else.
 """
 
 from __future__ import annotations
@@ -137,10 +142,12 @@ class ResultCache:
         with self._mu:
             return len(self._entries)
 
-    def lookup(self, key: str, digests: list) -> Optional[pa.Table]:
+    def lookup(self, key: str, digests: list,
+               conf: Optional[C.TorchConf] = None) -> Optional[pa.Table]:
         """Get-and-touch.  The entry's input digests are checked against
         the current ones first: a mismatch (an input file changed)
-        invalidates the entry, counted, and reads as a miss."""
+        invalidates the entry, counted, and reads as a miss.  A miss
+        restores the frame from ``conf``'s warm-start store, if any."""
         stale = None
         with self._mu:
             e = self._entries.get(key)
@@ -153,8 +160,9 @@ class ResultCache:
             tick("result_invalidations")
             self._close(stale)
         if e is None:
-            tick("result_misses")
-            return None
+            tbl = self._restore_persisted(key, digests, conf)
+            tick("result_hits" if tbl is not None else "result_misses")
+            return tbl
         try:
             arrays = e.handle.get_host()  # HOST or DISK
             try:
@@ -173,11 +181,46 @@ class ResultCache:
         tick("result_hits")
         return tbl
 
+    def _restore_persisted(self, key: str, digests: list,
+                           conf: Optional[C.TorchConf]
+                           ) -> Optional[pa.Table]:
+        """The frame of ``key`` from the warm-start store (one conf read
+        while persistence is off).  A frame whose stat triples differ
+        from ``digests`` (an input changed since it was written) is
+        deleted and counted as an invalidation; one that does not parse
+        is deleted and counted under ``persist.errors``.  A restored
+        frame re-enters the memory tier through :meth:`insert`."""
+        if conf is None or not conf.get(C.PERSIST_ENABLED):
+            return None
+        from spark_rapids_tpu_torch import persist
+
+        store = persist.active(conf)
+        rec = store.load_result(key) if store is not None else None
+        if rec is None:
+            return None
+        meta, payload = rec
+        if meta.get("digests") != [list(t) for t in digests]:
+            store.delete_result(key)
+            tick("result_invalidations")
+            return None
+        try:
+            tbl = _ipc_table(payload)
+        except Exception:
+            store.delete_result(key)
+            persist.tick("errors")
+            return None
+        persist.tick("result_hits")
+        self.insert(key, digests, tbl, int(conf.get(C.RESULT_CACHE_BUDGET)),
+                    conf)
+        return tbl
+
     def insert(self, key: str, digests: list, tbl: pa.Table,
-               budget: int) -> bool:
+               budget: int, conf: Optional[C.TorchConf] = None) -> bool:
         """Cache one result (first writer wins); False when it is over
         a quarter of ``budget``.  The IPC frame enters the process
-        store at HOST under the SHARED_RESULT priority."""
+        store at HOST under the SHARED_RESULT priority, and with
+        ``conf``'s persistence on it is written back to the warm-start
+        store (a restored frame's file is there already)."""
         from spark_rapids_tpu_torch import types as T
         from spark_rapids_tpu_torch.memory.store import (
             SpillPriorities,
@@ -219,6 +262,15 @@ class ResultCache:
         for old in evicted:
             tick("result_evictions")
             self._close(old)
+        if conf is not None and conf.get(C.PERSIST_ENABLED):
+            from spark_rapids_tpu_torch import persist
+
+            store = persist.active(conf)
+            if store is not None:
+                store.save_result_async(
+                    key, {"digests": [list(t) for t in digests],
+                          "rows": tbl.num_rows},
+                    buf, persist.max_bytes(conf))
         tick("result_inserts")
         return True
 
@@ -283,7 +335,7 @@ def lookup_result(plan, conf) -> tuple[Optional[pa.Table],
         digests = plan_source_digests(plan)
     except OSError:
         return None, None  # a source vanished: let execution raise
-    tbl = RESULT_CACHE.lookup(key, digests)
+    tbl = RESULT_CACHE.lookup(key, digests, conf)
     return tbl, ("hit" if tbl is not None else "miss")
 
 
@@ -301,7 +353,7 @@ def offer_result(plan, conf, tbl: pa.Table) -> None:
     except OSError:
         return
     RESULT_CACHE.insert(key, digests, tbl,
-                        int(conf.get(C.RESULT_CACHE_BUDGET)))
+                        int(conf.get(C.RESULT_CACHE_BUDGET)), conf)
 
 
 # ------------------------------------------------------------------ #

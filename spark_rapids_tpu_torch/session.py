@@ -593,7 +593,7 @@ class TorchSession:
                 )
 
                 self._plan_cache = PlanCache(
-                    self.conf.get(C.PLAN_CACHE_CAPACITY))
+                    self.conf.get(C.PLAN_CACHE_CAPACITY), self.conf)
             return self._plan_cache
 
     def prepare(self, df: "DataFrame"):

@@ -8,23 +8,27 @@ reads one run's event log (``eventlog/``) into an
 - ``compare`` (CompareApplications): per-query wall and per-operator
   deltas of each run against the first, queries matched across runs by
   their plan's fingerprint, regressions flagged at a threshold;
-- ``health`` (HealthCheck): the rule registry, HC001-HC016 (CPU
+- ``health`` (HealthCheck): the rule registry, HC001-HC017 (CPU
   fallbacks, retry storms, spill thrash, program-cache misses, blocking
   readbacks, starved pipelines, runtime filters that pruned nothing,
   recovered faults, admission waits over budget, dispatch-bound
   queries, rooflines and occupancy under their floors from the ledger's
   section, result-cache thrash, cancellation leaks and breaker trips,
-  long lock holds, and HC016 over the ops plane's SLO records);
+  long lock holds, HC016 over the ops plane's SLO records, and HC017,
+  a warm-start store that mostly missed while real compiles ran);
 - ``report``: one markdown document of the runs' fingerprints, the
   compare, the work-sharing rollup and each run's health;
 - ``dot`` (GenerateDot): a recorded plan as annotated graphviz.
 
 The logs of either package load here, and the JAX tool reads the
 port's.  A rule's budget is its key's value in the conf
-``health_check`` is given, else the key's default.  Left out of the
-JAX tool: HC017 (the persisted-plan tier's hit rate, which the port has
-no counterpart of yet) and the loaders of the JAX bench's and sweep's
-own round files.
+``health_check`` is given, else the key's default.  HC017 reads the
+warm-start store's program-tier counters (``persist.hits`` /
+``.misses``) beside ``jit.compiles``: the port ports no program tier and
+compiles nothing, so its own records carry 0 for all three and the
+rule fires only on a record that carries them, such as an event log
+the JAX package wrote.  Left out of the JAX tool: the loaders of the
+JAX bench's and sweep's own round files.
 
 CLI::
 
@@ -674,6 +678,31 @@ def _hc_pad_waste(q: QueryRecord) -> Optional[str]:
     return None
 
 
+def _hc_persist_low_hit(q: QueryRecord) -> Optional[str]:
+    """HC017: a cold process against a warm store that mostly missed:
+    the query's window probed the program tier (persist.hits +
+    persist.misses > 0), still paid real compiles (jit.compiles > 0),
+    and its hit rate sat under spark.rapids.tpu.persist.health.
+    minHitRate.  The entries did not match this process (a version,
+    device or conf drift) or persist.dir is wrong.  Records of a
+    process with persistence off carry no persist.* deltas."""
+    hits = q.counter("persist.hits")
+    misses = q.counter("persist.misses")
+    window = hits + misses
+    compiles = q.counter("jit.compiles")
+    if window <= 0 or compiles <= 0:
+        return None
+    floor = float(_budget(C.PERSIST_MIN_HIT_RATE))
+    rate = hits / window
+    if rate < floor:
+        return (f"warm-start cache mostly missed: persist hit rate "
+                f"{rate:.2f} (< {floor}) with {int(compiles)} real "
+                "compile(s) in this window — disk entries are stale "
+                "(jax/device/conf drift) or persist.dir is wrong "
+                "(docs/warm_start.md)")
+    return None
+
+
 for _id, _sev, _fn in (
         ("HC001", "error", _hc_cpu_fallback),
         ("HC002", "warning", _hc_retry_storm),
@@ -689,7 +718,8 @@ for _id, _sev, _fn in (
         ("HC012", "warning", _hc_result_cache_thrash),
         ("HC013", "warning", _hc_cancellation_leak),
         ("HC014", "warning", _hc_lock_hold),
-        ("HC015", "warning", _hc_pad_waste)):
+        ("HC015", "warning", _hc_pad_waste),
+        ("HC017", "warning", _hc_persist_low_hit)):
     register_health_rule(_id, _sev, _fn)
 
 

@@ -23,8 +23,9 @@ Every ``telemetry.eventLogEvery``-th sample is appended as a
 ``telemetry`` record to each attached session's event log (a session's
 ``sync_conf`` attaches its writer, held by weak reference).
 ``queries.in_flight`` is the ops plane's registry count (0 while it is
-off); ``persist_cache.bytes`` is 0, as the port has no persisted-plan
-tier.  Ownership is the tracer's: a
+off); ``persist_cache.bytes`` is the warm-start store's bytes on disk
+(``persist.py``), 0 with no directory walk while no store was activated.
+Ownership is the tracer's: a
 programmatic :func:`start` survives :func:`sync_conf`; a conf-driven
 start is owned by its conf, and only that conf's "off" stops the
 thread.  Off (the default) no thread exists.
@@ -50,6 +51,7 @@ def sample_now() -> dict:
     """One flat gauge snapshot (host-side reads; the card's allocator
     counters are host-side too)."""
     from spark_rapids_tpu_torch import obs as _obs
+    from spark_rapids_tpu_torch import persist as _persist
     from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
     from spark_rapids_tpu_torch.memory.store import peek_store
     from spark_rapids_tpu_torch.parallel.pipeline import (
@@ -88,7 +90,7 @@ def sample_now() -> dict:
         "scan.inflight": _ws.SCAN_REGISTRY.inflight(),
         "queries.in_flight": _obs.REGISTRY.count(),
         "result_cache.bytes": _ws.RESULT_CACHE.bytes_used(),
-        "persist_cache.bytes": 0,
+        "persist_cache.bytes": _persist.cache_bytes(),
         "device.allocated_bytes": torch.cuda.memory_allocated()
         if cuda else 0,
         "device.reserved_bytes": torch.cuda.memory_reserved()
@@ -110,6 +112,8 @@ _COUNTER_TRACKS = (
     ("telemetry.queries", (("in_flight", "queries.in_flight"),)),
     ("telemetry.result_cache_bytes",
      (("bytes", "result_cache.bytes"),)),
+    ("telemetry.persist_cache_bytes",
+     (("bytes", "persist_cache.bytes"),)),
     ("telemetry.device_bytes", (("allocated", "device.allocated_bytes"),
                                 ("reserved", "device.reserved_bytes"))),
 )

@@ -3,7 +3,8 @@ tests may leave behind, and the teardown that clears it.
 
 ``ops_teardown()`` stops the ops plane (its HTTP and watchdog threads,
 its socket, the registry), the telemetry sampler (zeroing its sample
-count and dropping its attached logs) and the tracer, disarms
+count and dropping its attached logs) and the tracer, drains and stops
+the warm-start store's writer (forgetting its stores), disarms
 the fault registry, resets the serving tier's scheduler, cancel, sharing
 and semaphore state, and drains and stops the query history's worker (no
 hook pending, no thread), so that a test file sharing an xdist worker
@@ -24,14 +25,14 @@ SERVERS: list = []
 def ops_threads() -> list[str]:
     """The names of the threads the port's ops layer starts."""
     prefixes = ("srt-obs-", "srt-connect-server", "srt-query-history",
-                "srt-telemetry")
+                "srt-telemetry", "srt-persist")
     return [t.name for t in threading.enumerate()
             if t.name.startswith(prefixes)]
 
 
 def ops_teardown() -> None:
     from spark_rapids_tpu_torch import config as C
-    from spark_rapids_tpu_torch import obs
+    from spark_rapids_tpu_torch import obs, persist
     from spark_rapids_tpu_torch import trace as PT
     from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
     from spark_rapids_tpu_torch.obs.slo import WATCHDOG
@@ -57,6 +58,7 @@ def ops_teardown() -> None:
     ledger.disable()
     faults.disarm()
     QueryHistory.shutdown_worker()
+    persist.reset_for_tests()
     scheduler.reset()
     cancel.reset()
     clear_serving_context()
