@@ -198,6 +198,23 @@ Phases, one JSON line each:
            record's root 10 rows), and q3 with the event log on and off
            in OPS_PAIRS alternating pairs, with nvidia-smi's name and
            power limit;
+  surface  the session's and the planner's last surface
+           (``surface_phase``): q1 through collect(), to_batches
+           (SURFACE_BATCH_ROWS) and rows(), all equal; q6's filter and
+           projection through to_device_arrays() (tensors on the card,
+           the revenue sum equal to q6's); q1 and q6 with
+           spark.rapids.tpu.sql.enabled off, collected and prepared:
+           every node a CPU fallback on purpose with the switch's reason
+           in explain(), equal to the references, no ledger dispatch and
+           no K1 launch, their walls beside the device walls; the
+           cost-based demotion on (q6 stays on the card; q1 and the
+           2000-row sandwiched island demote whole with its reason, as
+           under the JAX cost model); TPC-H q3 at
+           sql.topn.maxRows 5 (a full sort) equal to the top-n run;
+           q3ds with a Bloom-only filter (minMaxEnabled off, fpp 0.5)
+           equal to the default run, no rf# at maxBuildRows 10;
+           collect_metrics() at each sql.metrics.level; a CSV TIMESTAMP
+           in four spellings read on the card (F8);
   speculation
            the speculative output sizing (parallel/speculation.py) on
            q3 (the static partition-wise plan), q1 and q93 at the sizes
@@ -1243,17 +1260,17 @@ def reference_star(pc, star, date_cond, item_cond, keys: list,
     return rows
 
 
-def same_rows(a, b) -> float:
-    """Two runs' q3 rows: keys equal place by place, sums within REL_TOL
-    (the card's atomic adds sum in no fixed order).  Returns the largest
-    relative sum difference."""
+def same_rows(a, b, keys=("d_year", "i_brand_id", "i_brand"),
+              sum_col: str = "sum_agg") -> float:
+    """Two runs of a ranked query (q3ds's by default): keys equal place
+    by place, sums within REL_TOL (the card's atomic adds sum in no fixed
+    order).  Returns the largest relative sum difference."""
     worst = 0.0
     ra, rb = a.to_pylist(), b.to_pylist()
     if len(ra) != len(rb):
         raise AssertionError(f"{len(ra)} rows against {len(rb)}")
     for i, (x, y) in enumerate(zip(ra, rb)):
-        keys = ("d_year", "i_brand_id", "i_brand")
-        rel = abs(x["sum_agg"] - y["sum_agg"]) / abs(y["sum_agg"])
+        rel = abs(x[sum_col] - y[sum_col]) / abs(y[sum_col])
         worst = max(worst, rel)
         if [x[k] for k in keys] != [y[k] for k in keys] or rel > REL_TOL:
             raise AssertionError(f"place {i}: {x} against {y}")
@@ -3232,6 +3249,344 @@ def ops_phase(torch, pa, pc, kernels, TorchSession, tpch, tpcds, TTB,
            "hash_columns_launches": counter.launches - k1_before}
     emit("ops", **rec)
     return rec, rec["hash_columns_launches"]
+
+
+#: rows a batch the surface phase's q1 export asks ``to_batches`` for
+SURFACE_BATCH_ROWS = 1 << 16
+#: CSV spellings of one TIMESTAMP the surface phase reads on the card
+#: (F8): no zone offset, ``T``-separated, UTC and at an offset
+SURFACE_STAMPS = {"naive": "2001-02-03 04:05:06",
+                  "t_separated": "2001-02-03T04:05:06",
+                  "zulu": "2001-02-03T04:05:06Z",
+                  "offset": "2001-02-03 06:05:06+02:00"}
+
+
+def ledger_dispatches(ledger, fn) -> tuple:
+    """(``fn()``, the device ledger's dispatches during it), the ledger
+    on for the call and left as it was."""
+    was = ledger.LEDGER.enabled
+    ledger.enable()
+    try:
+        before = ledger.snapshot()
+        out = fn()
+        ledger.LEDGER.flush(timeout=5.0)
+        moved = ledger.delta(before, ledger.snapshot())
+    finally:
+        if not was:
+            ledger.disable()
+    return out, sum(p["dispatches"] for p in moved.values())
+
+
+def same_table(a, b, keys: tuple) -> float:
+    """Two results of one query in ``keys``' order: keys, counts and
+    strings equal, floats within REL_TOL; the largest relative float
+    difference."""
+    order = [(k, "ascending") for k in keys]
+    ra = (a.sort_by(order) if keys else a).to_pylist()
+    rb = (b.sort_by(order) if keys else b).to_pylist()
+    if len(ra) != len(rb):
+        raise AssertionError(f"{len(ra)} rows against {len(rb)}")
+    worst = 0.0
+    for x, y in zip(ra, rb):
+        for name, v in y.items():
+            if isinstance(v, float):
+                rel = abs(x[name] - v) / max(abs(v), 1e-300)
+                worst = max(worst, rel)
+                if rel <= REL_TOL:
+                    continue
+            elif x[name] == v:
+                continue
+            raise AssertionError(f"{x} against {y}")
+    return worst
+
+
+def surface_phase(torch, np, pa, kernels, TorchSession, tpch, tpcds, TTB,
+                  paths, ref6, ref1, star, li_paths, orders_path,
+                  ref3) -> tuple:
+    """The session's and the planner's last surface on the card: A. q1
+    (its hash exchange launching K1) through ``collect()``,
+    ``to_batches(batch_rows=SURFACE_BATCH_ROWS)`` and ``rows()``, each
+    equal to the collected table and to the q1 reference, each with its
+    planned K1 launches; B. q6's filter and projection (no sum) through
+    ``to_device_arrays()``: every tensor on the card, the valid
+    revenues' sum equal to q6's ``collect()`` within REL_TOL; C. q1 and
+    q6 with ``spark.rapids.tpu.sql.enabled`` off, collected and
+    prepared: every node a CPU fallback on purpose, the switch's reason
+    on each node of ``explain()``, each result equal to its reference
+    and to its device run of A or B within REL_TOL, the device ledger's dispatches and K1's launches 0
+    in those runs, the switch-off walls beside the device walls of A
+    and B; D. the cost-based demotion on, under the JAX cost model as it
+    is: q6 keeps every node on the card and equals B's table; q1 demotes
+    whole, as JAX's q1 does (its grouped aggregate's estimate is its
+    input's rows, so the island's exit transfer outweighs the card),
+    every node a CPU fallback with the demotion's reason, equal to its
+    reference with no dispatch and no K1 launch; and the JAX test's
+    2000-row island sandwiched between two CPU Filters demotes, equal
+    to the CPU engine; E. TPC-H q3 with ``sql.topn.maxRows`` = 5 plans a full
+    sort and equals the default (top-n) run; F. q3ds with the runtime
+    filter's ``minMaxEnabled`` off and ``fpp`` = 0.5 equals the default
+    run (a Bloom-only filter), and with ``maxBuildRows`` = 10 shows no
+    ``rf#`` in ``explain()``; G. ``collect_metrics()`` of q1's tree at
+    each ``sql.metrics.level``; H. F8's four TIMESTAMP spellings read
+    with ``read_csv`` on the card as one UTC instant.  Emits the phase's
+    line; returns its record and its K1 launches."""
+    from spark_rapids_tpu_torch import config as C
+    from spark_rapids_tpu_torch.execs import base as EB
+    from spark_rapids_tpu_torch.plan import cost
+    from spark_rapids_tpu_torch.plan.planner import (
+        EXEC_SWITCHES,
+        SWITCH_OFF_REASON,
+        collect_exec,
+    )
+    from spark_rapids_tpu_torch.plan import logical as L
+    from spark_rapids_tpu_torch.session import col, lit
+    from spark_rapids_tpu_torch.trace import ledger
+
+    t_phase = time.perf_counter()
+    counter = kernels.hash_columns
+    li8 = {TTB: TASK_TARGET_BYTES}
+    session = TorchSession(li8, device="cuda")
+    launches = 0
+    rec: dict = {}
+
+    # A. q1 exported three ways
+    def q1(s=session):
+        return tpch.q1_dataframe(s, paths)
+
+    want1, wall1, n = timed_launches(torch, counter, lambda: q1().collect())
+    compare(want1, ref1, 2)
+    batches, wall_b, n_b = timed_launches(
+        torch, counter,
+        lambda: list(q1().to_batches(batch_rows=SURFACE_BATCH_ROWS)))
+    rows_, wall_r, n_r = timed_launches(torch, counter,
+                                        lambda: list(q1().rows()))
+    if not pa.Table.from_batches(batches, schema=want1.schema).equals(want1):
+        raise AssertionError("q1's to_batches differs from its collect()")
+    if any(b.num_rows > SURFACE_BATCH_ROWS for b in batches):
+        raise AssertionError("a to_batches batch passed batch_rows")
+    if rows_ != [tuple(r.values()) for r in want1.to_pylist()]:
+        raise AssertionError("q1's rows() differs from its collect()")
+    if (n, n_b, n_r) != (len(paths),) * 3:
+        raise AssertionError(f"q1 launched {(n, n_b, n_r)}, expected "
+                             f"{len(paths)} a run")
+    launches += n + n_b + n_r
+    rec["export_q1"] = {"rows": want1.num_rows, "collect_wall_s": wall1,
+                        "to_batches_wall_s": wall_b, "rows_wall_s": wall_r,
+                        "batches": len(batches), "launches": n}
+
+    # B. q6's filter and projection as device tensors
+    q6_cond = ((col("l_shipdate") >= lit(8766))
+               & (col("l_shipdate") < lit(9131))
+               & (col("l_discount") >= lit(0.05))
+               & (col("l_discount") <= lit(0.07))
+               & (col("l_quantity") < lit(24.0)))
+    want6, wall6, n6 = timed_launches(
+        torch, counter, lambda: tpch.q6_dataframe(session, paths).collect())
+    compare(want6, ref6, 0)
+    arrays, wall_d, n_d = timed_launches(
+        torch, counter, lambda: session.read_parquet(*paths).where(
+            q6_cond).select((col("l_extendedprice") * col("l_discount"))
+                            .alias("revenue")).to_device_arrays())
+    if not arrays or any(t.device.type != "cuda" for b in arrays
+                         for k, t in b.items() if k != "__num_rows"):
+        raise AssertionError("to_device_arrays handed over a host tensor")
+    total = float(sum(torch.where(b["revenue__valid"], b["revenue"],
+                                  0.0).sum() for b in arrays).item())
+    want_rev = want6.column("revenue")[0].as_py()
+    rel6 = abs(total - want_rev) / abs(want_rev)
+    if rel6 > REL_TOL or n6 or n_d:
+        raise AssertionError(f"to_device_arrays' revenue {total} against "
+                             f"{want_rev} (rel {rel6:.3e}), K1 {n6}, {n_d}")
+    rec["device_arrays_q6"] = {
+        "batches": len(arrays), "rows": sum(b["__num_rows"] for b in arrays),
+        "collect_wall_s": wall6, "to_device_arrays_wall_s": wall_d,
+        "rel_err": rel6}
+
+    # C. the master switch off: the CPU engine on purpose, nothing on
+    # the card
+    off = TorchSession({**li8, C.SQL_ENABLED: False}, device="cuda")
+    switch_off = {}
+    for name, make, ref, keys, device_wall, device_out in (
+            ("q1", tpch.q1_dataframe, ref1, ("l_returnflag", "l_linestatus"),
+             wall1, want1),
+            ("q6", tpch.q6_dataframe, ref6, (), wall6, want6)):
+        df = make(off, paths)
+        plan, meta = df._planner().plan_with_meta(df._plan)
+        n_nodes = len(list(meta.walk()))
+        if len(fallback_nodes(plan)) != len(list(plan.walk())) or any(
+                n.device.type != "cpu" for n in fallback_nodes(plan)):
+            raise AssertionError(f"{name} with the switch off plans a "
+                                 f"device node: {plan.tree_string()}")
+        text = df.explain()
+        if text.count("because " + SWITCH_OFF_REASON) != n_nodes:
+            raise AssertionError(f"{name}'s explain() lacks the switch's "
+                                 f"reason on a node:\n{text}")
+        out = {}
+        for how, run in (("collect", lambda: make(off, paths).collect()),
+                         ("prepared", lambda: off.prepare(
+                             make(off, paths)).execute())):
+            k0 = counter.launches
+            t0 = time.perf_counter()
+            got, dispatches = ledger_dispatches(ledger, run)
+            wall = time.perf_counter() - t0
+            k = counter.launches - k0
+            err = compare(got, ref, len(keys))
+            diff = same_table(got, device_out, keys)
+            if dispatches or k:
+                raise AssertionError(f"{name} ({how}) with the switch off "
+                                     f"dispatched {dispatches}, K1 {k}")
+            out[how] = {"wall_s": wall, "dispatches": dispatches,
+                        "launches": k, "max_rel_err": err,
+                        "max_rel_diff_to_device": diff}
+        switch_off[name] = {"cpu_nodes": n_nodes,
+                            "device_wall_s": device_wall, **out}
+    rec["switch_off"] = switch_off
+
+    # D. the cost-based demotion, the JAX cost model as it is: q6's
+    # grand aggregate leaves one row and stays on the card; q1's grouped
+    # aggregate is estimated at its input's rows, so its island's exit
+    # transfer outweighs the card and it demotes, as JAX's does
+    cbo = TorchSession({**li8, C.CBO_ENABLED: True}, device="cuda")
+    q6_plan = tpch.q6_dataframe(cbo, paths).physical_plan()
+    if fallback_nodes(q6_plan):
+        raise AssertionError("the demotion moved q6 off the card: "
+                             f"{q6_plan.tree_string()}")
+    got, wall_cbo6, n = timed_launches(
+        torch, counter, lambda: tpch.q6_dataframe(cbo, paths).collect())
+    if not got.equals(want6) or n:
+        raise AssertionError(f"q6 with the demotion on differs (K1 {n})")
+    cbo_q1 = q1(cbo)
+    q1_plan = cbo_q1.physical_plan()
+    text = cbo_q1.explain()
+    if len(fallback_nodes(q1_plan)) != len(list(q1_plan.walk())) or \
+            text.count(cost.DEMOTION_REASON) != len(list(q1_plan.walk())):
+        raise AssertionError(f"q1 with the demotion on:\n{text}")
+    k0 = counter.launches
+    t0 = time.perf_counter()
+    got, dispatches = ledger_dispatches(ledger, lambda: q1(cbo).collect())
+    wall_cbo1 = time.perf_counter() - t0
+    err_cbo1 = compare(got, ref1, 2)
+    if dispatches or counter.launches != k0:
+        raise AssertionError(f"the demoted q1 dispatched {dispatches}, K1 "
+                             f"{counter.launches - k0}")
+    rng = np.random.default_rng(5)
+    island = pa.table({"a": rng.integers(0, 100, 2000),
+                       "b": rng.random(2000)})
+    sandwich = TorchSession({C.CBO_ENABLED: True,
+                             EXEC_SWITCHES[L.Filter]: False}, device="cuda")
+    sdf = (sandwich.create_dataframe(island).where(col("a") > lit(10))
+           .select((col("a") + col("a")).alias("a2"), col("b"))
+           .where(col("a2") > lit(50)))
+    splan = sdf.physical_plan()
+    stext = sdf.explain()
+    if len(fallback_nodes(splan)) != len(list(splan.walk())) \
+            or cost.DEMOTION_REASON not in stext:
+        raise AssertionError(f"the sandwiched island stayed:\n{stext}")
+    sgot = sdf.collect()
+    if not sgot.equals(sdf.collect(engine="cpu")):
+        raise AssertionError("the demoted island differs from the CPU "
+                             "engine")
+    rec["demotion"] = {"q6_on_card": True, "q6_wall_s": wall_cbo6,
+                       "q1_demoted_nodes": len(fallback_nodes(q1_plan)),
+                       "q1_wall_s": wall_cbo1, "q1_max_rel_err": err_cbo1,
+                       "island_cpu_nodes": len(fallback_nodes(splan)),
+                       "island_rows": sgot.num_rows,
+                       "reason": cost.DEMOTION_REASON}
+
+    # E. sql.topn.maxRows below q3's LIMIT: a full sort
+    q3_keys = ("l_orderkey", "o_orderdate", "o_shippriority")
+    default3, wall3, n3 = timed_launches(
+        torch, counter, lambda: tpch.q3_dataframe(
+            session, li_paths, orders_path).collect())
+    s5 = TorchSession({**li8, C.TOPN_MAX_ROWS: 5}, device="cuda")
+    plan5 = tpch.q3_dataframe(s5, li_paths, orders_path).physical_plan()
+    kinds = {type(n).__name__ for n in plan5.walk()}
+    if "TpuTopNExec" in kinds or "TpuSortExec" not in kinds:
+        raise AssertionError(f"q3 at topn.maxRows 5 plans {kinds}")
+    got5, wall5, n5 = timed_launches(torch, counter, lambda: tpch.q3_dataframe(
+        s5, li_paths, orders_path).collect())
+    launches += n3 + n5
+    compare_ranked(default3, ref3, 10, q3_keys, "revenue", "rev_sum")
+    rel3 = same_rows(got5, default3, q3_keys, "revenue")
+    if n5 != n3:
+        raise AssertionError(f"q3 launched {n5} at topn.maxRows 5, {n3} "
+                             "by default")
+    rec["topn_max_rows"] = {"default_wall_s": wall3, "sort_wall_s": wall5,
+                            "launches": n3, "max_rel_diff": rel3}
+
+    # F. the runtime filter's keys on q3ds
+    dd_path, ss_paths, item_path = star["paths"]
+    ds8 = {TTB: Q3DS_TASK_TARGET_BYTES}
+
+    def q3ds(keys=None):
+        s = TorchSession({**ds8, **(keys or {})}, device="cuda")
+        return tpcds.q3_dataframe(s, dd_path, ss_paths, item_path)
+
+    base, wall_base, n_base = timed_launches(
+        torch, counter, lambda: q3ds().collect())
+    bloom_only = {C.RF_MINMAX_ENABLED: False, C.RF_FPP: 0.5}
+    filters = [rf.describe() for n in q3ds(bloom_only).physical_plan().walk()
+               if type(n).__name__ == "TpuRuntimeFilterBuildExec"
+               for _k, rf in n.entries]
+    if not filters or any("minmax" in f or "bloom[" not in f
+                          for f in filters):
+        raise AssertionError(f"q3ds's Bloom-only filters: {filters}")
+    got_b, wall_bo, n_bo = timed_launches(
+        torch, counter, lambda: q3ds(bloom_only).collect())
+    rel_ds = same_rows(got_b, base)
+    capped = q3ds({C.RF_MAX_BUILD_ROWS: 10}).explain()
+    if "rf#" in capped or "rf#" not in q3ds().explain():
+        raise AssertionError(f"q3ds at maxBuildRows 10:\n{capped}")
+    launches += n_base + n_bo
+    rec["runtime_filter_keys"] = {
+        "default_wall_s": wall_base, "default_launches": n_base,
+        "bloom_only_wall_s": wall_bo, "bloom_only_launches": n_bo,
+        "bloom_only_filters": filters, "max_rel_diff": rel_ds}
+
+    # G. collect_metrics at each level, over one drained q1 tree
+    levels = {}
+    for level in C.METRIC_LEVELS:
+        s = TorchSession({**li8, C.METRICS_LEVEL: level}, device="cuda")
+        tree = q1(s).physical_plan()
+        k0 = counter.launches
+        collect_exec(tree, s.conf)
+        launches += counter.launches - k0
+        levels[level] = {name: sorted(keys) for name, keys
+                         in tree.collect_metrics().items()}
+    for name in levels["DEBUG"]:
+        e, m, d = (set(levels[lv].get(name, ())) for lv in C.METRIC_LEVELS)
+        if not ({"numOutputRows", "numOutputBatches", "totalTime"} <= e
+                <= m <= d) or not e <= EB.ESSENTIAL_METRICS \
+                or not m <= EB.ESSENTIAL_METRICS | EB.MODERATE_METRICS:
+            raise AssertionError(f"{name}'s metric levels: {e}, {m}, {d}")
+    if "scanTime" not in levels["MODERATE"]["ParquetScanExec"] or \
+            "scanTime" in levels["ESSENTIAL"]["ParquetScanExec"]:
+        raise AssertionError(f"the scan's metric levels: {levels}")
+    rec["metric_levels"] = levels
+
+    # H. F8: a CSV TIMESTAMP in four spellings, read on the card
+    import datetime as _datetime
+
+    csv_dir = os.path.join(star["dir"], "surface_csv")
+    os.makedirs(csv_dir)
+    instant = _datetime.datetime(2001, 2, 3, 4, 5, 6,
+                                 tzinfo=_datetime.timezone.utc)
+    read = {}
+    for kind, text in SURFACE_STAMPS.items():
+        p = os.path.join(csv_dir, f"{kind}.csv")
+        with open(p, "w") as f:
+            f.write(f"a,t\n1,{text}\n2,\n")
+        got = session.read_csv(p).collect()
+        if got.column("t").to_pylist() != [instant, None] or \
+                got.schema.field("t").type != pa.timestamp("us", tz="UTC"):
+            raise AssertionError(f"read_csv of {text!r}: {got.to_pylist()}")
+        read[kind] = text
+    rec["csv_timestamps"] = read
+
+    rec.update(launches=launches, seconds=time.perf_counter() - t_phase,
+               nvidia_smi=nvidia_smi())
+    emit("surface", **rec)
+    return rec, launches
 
 
 #: on / off pairs of the speculation phase, each pair's order alternating
@@ -8164,6 +8519,7 @@ def main() -> int:
               "script runs on an NVIDIA card only", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    import numpy as np
     import pyarrow as pa
     import pyarrow.compute as pc
     import pyarrow.parquet as pq
@@ -8336,6 +8692,9 @@ def main() -> int:
         _ops, ops_k1 = ops_phase(torch, pa, pc, kernels, TorchSession, tpch,
                                  tpcds, TTB, paths, ref6, ref1, star,
                                  li_paths, orders_path, ref3)
+        _surface, surface_k1 = surface_phase(
+            torch, np, pa, kernels, TorchSession, tpch, tpcds, TTB, paths,
+            ref6, ref1, star, li_paths, orders_path, ref3)
         _spec, spec_k1, spec_calls = speculation_phase(
             torch, pa, pc, kernels, TorchSession, tpch, tpcds, TTB, paths,
             ref1, li_paths, orders_path, ref3, star)
@@ -8439,7 +8798,7 @@ def main() -> int:
             q["launches"]["hash_columns"]
             for q in memory["split"].values()) + python_k1
         + serving_k1["hash_columns"] + spec_k1 + wire_k1 + formats_k1
-        + ops_k1 + persist_k1,
+        + ops_k1 + surface_k1 + persist_k1,
         "max_abs_err": max(r["max_abs_err"] for r in at_main + [large_cols]),
         "ms": worst["ms"], "plain_ms": worst["plain_ms"],
         "bound_ms": worst["bound_ms"], "bound_by": worst["bound_by"],
@@ -8453,10 +8812,12 @@ def main() -> int:
                  "phase's calls, and the new_types mix at "
                  "6 x 2^20 rows; ms is the device's own time per "
                  "launch; launches include the memory phase's split runs "
-                 "and the speculation, wire, formats, ops and persist "
-                 "phases' runs (persist: its cold-start children's too)",
+                 "and the speculation, wire, formats, ops, surface and "
+                 "persist phases' runs (persist: its cold-start children's "
+                 "too)",
         "formats_launches": formats_k1,
         "ops_launches": ops_k1,
+        "surface_launches": surface_k1,
         "persist_launches": persist_k1,
         "concurrency_launches": conc_launches["hash_columns"],
         "host_ms": worst["host_ms"], "main_path_shapes": at_main,

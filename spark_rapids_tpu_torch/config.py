@@ -11,6 +11,10 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
+#: the master switch (the spark.rapids.sql.enabled analog): off, every
+#: query of the session plans whole on the CPU engine
+#: (``cpu/engine.py``) and nothing runs on the device
+SQL_ENABLED = "spark.rapids.tpu.sql.enabled"
 #: reduce partitions of a hash exchange (spark.sql.shuffle.partitions)
 SHUFFLE_PARTITIONS = "spark.rapids.tpu.sql.shuffle.partitions"
 #: target total file bytes per scan task: small files coalesce into one
@@ -105,6 +109,35 @@ SPECULATION_MIN_HIT_RATE = \
 #: outcomes per tag the kill switch judges over
 SPECULATION_WINDOW = "spark.rapids.tpu.sql.speculation.adaptive.window"
 
+#: an ORDER BY under a LIMIT of at most this many rows plans a streaming
+#: top-n (``execs/sort.py::TpuTopNExec``); a larger one a full sort
+TOPN_MAX_ROWS = "spark.rapids.tpu.sql.topn.maxRows"
+#: which exec metrics ``TpuExec.collect_metrics`` reports: ``ESSENTIAL``,
+#: ``MODERATE`` or ``DEBUG`` (``execs/base.py::METRIC_LEVELS``)
+METRICS_LEVEL = "spark.rapids.tpu.sql.metrics.level"
+
+# -- the cost-based demotion (``plan/cost.py``) --------------------------- #
+#: keep a subtree on the CPU engine when its device cost, the transfers
+#: at its edges included, passes its CPU cost (off by default, as in the
+#: reference)
+CBO_ENABLED = "spark.rapids.tpu.sql.optimizer.enabled"
+#: relative per-row cost of one operator on the CPU engine ...
+CPU_ROW_COST = "spark.rapids.tpu.sql.optimizer.cpuRowCost"
+#: ... on the device ...
+TPU_ROW_COST = "spark.rapids.tpu.sql.optimizer.tpuRowCost"
+#: ... and of moving a row across the host <-> device link
+TRANSFER_ROW_COST = "spark.rapids.tpu.sql.optimizer.transferRowCost"
+
+# -- the runtime join filters' parts (``plan/runtime_filter.py``) -------- #
+#: the build keys' [min, max]: footer pruning and a host row mask
+RF_MINMAX_ENABLED = "spark.rapids.tpu.sql.runtimeFilter.minMaxEnabled"
+#: the build keys' Bloom filter, folded on the device, probed on the host
+RF_BLOOM_ENABLED = "spark.rapids.tpu.sql.runtimeFilter.bloomEnabled"
+#: no filter when the build side's estimated rows exceed this
+RF_MAX_BUILD_ROWS = "spark.rapids.tpu.sql.runtimeFilter.maxBuildRows"
+#: the Bloom's target false-positive rate, in (0, 1): sizes its bits
+RF_FPP = "spark.rapids.tpu.sql.runtimeFilter.fpp"
+
 #: ANSI SQL mode (the spark.sql.ansi.enabled analog): overflow in
 #: Add/Subtract/Multiply and invalid/overflowing casts RAISE instead of
 #: wrapping/NULLing (ref: GpuCast.scala:166 ANSI matrix; CheckOverflow)
@@ -127,6 +160,12 @@ SPILL_CODEC = "spark.rapids.tpu.memory.spill.compression.codec"
 #: host budget counts the frame's bytes; a host -> disk spill writes it
 #: as it is)
 SPILL_COMPRESS_HOST = "spark.rapids.tpu.memory.spill.compressHostTier"
+#: the card a session with no device given takes (``cuda:<ordinal>``);
+#: -1, or an ordinal past the cards there are, takes card 0
+DEVICE_ORDINAL = "spark.rapids.tpu.deviceOrdinal"
+#: most bytes of free staging buffers the host pool keeps
+#: (``memory/device_manager.py::HostBufferPool``)
+HOST_POOL_BYTES = "spark.rapids.tpu.memory.hostPool.maxBytes"
 #: attempts of a task, or of one batch at one size, before its failure
 #: propagates
 TASK_MAX_FAILURES = "spark.rapids.tpu.task.maxFailures"
@@ -274,6 +313,7 @@ PERSIST_MAX_BYTES = "spark.rapids.tpu.persist.maxBytes"
 PERSIST_MIN_HIT_RATE = "spark.rapids.tpu.persist.health.minHitRate"
 
 DEFAULTS: dict[str, Any] = {
+    SQL_ENABLED: True,
     SHUFFLE_PARTITIONS: 8,
     TASK_TARGET_BYTES: 512 << 20,
     BATCH_ROWS: 1 << 20,
@@ -298,6 +338,16 @@ DEFAULTS: dict[str, Any] = {
     CONCURRENT_TASKS: 2,
     PIPELINE_ENABLED: True,
     PIPELINE_DEPTH: 2,
+    TOPN_MAX_ROWS: 1 << 14,
+    METRICS_LEVEL: "MODERATE",
+    CBO_ENABLED: False,
+    CPU_ROW_COST: 1.0,
+    TPU_ROW_COST: 0.05,
+    TRANSFER_ROW_COST: 1.5,
+    RF_MINMAX_ENABLED: True,
+    RF_BLOOM_ENABLED: True,
+    RF_MAX_BUILD_ROWS: 1 << 22,
+    RF_FPP: 0.01,
     ANSI_ENABLED: False,
     SPECULATION_ENABLED: True,
     SPECULATION_SAFETY_FACTOR: 1.5,
@@ -311,6 +361,8 @@ DEFAULTS: dict[str, Any] = {
     MEMORY_FRACTION: 0.8,
     SPILL_CODEC: "none",
     SPILL_COMPRESS_HOST: False,
+    DEVICE_ORDINAL: -1,
+    HOST_POOL_BYTES: 256 << 20,
     TASK_MAX_FAILURES: 3,
     RETRY_BACKOFF_S: 0.2,
     SPLIT_RETRY_ENABLED: True,
@@ -402,7 +454,9 @@ _AT_LEAST_ZERO = (SERVING_QUEUE_DEPTH, RESULT_CACHE_BUDGET,
                   BREAKER_COOLDOWN_MS, BREAKER_MAX_TRIPS,
                   SPECULATION_TEST_FORCE_CAPACITY, CONNECT_BATCH_ROWS,
                   CONNECT_SEND_BUFFER_BYTES, SLO_WALL_BUDGET_MS,
-                  SLO_ADMIT_BUDGET_MS, PERSIST_MAX_BYTES)
+                  SLO_ADMIT_BUDGET_MS, PERSIST_MAX_BYTES, HOST_POOL_BYTES)
+#: the metric levels, least detail first (JAX ``TpuMetric``)
+METRIC_LEVELS = ("ESSENTIAL", "MODERATE", "DEBUG")
 
 
 class TorchConf:
@@ -443,6 +497,11 @@ class TorchConf:
             raise ValueError(f"{key} must be in [0, 65535], got {value}")
         if key == SLO_INTERVAL_MS and value < 10:
             raise ValueError(f"{key} must be >= 10, got {value}")
+        if key == METRICS_LEVEL and value not in METRIC_LEVELS:
+            raise ValueError(f"{key} is one of {METRIC_LEVELS}, got "
+                             f"{value!r}")
+        if key == RF_FPP and not 0.0 < value < 1.0:
+            raise ValueError(f"{key} must be in (0, 1), got {value}")
         self._values[key] = value
         return self
 

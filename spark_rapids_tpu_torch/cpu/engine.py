@@ -1682,12 +1682,7 @@ def _read_file(plan, path: str, columns: list) -> pa.Table:
             return f.read(columns=f.schema.names[:1]).select([])
         return f.read(columns=columns)
     if isinstance(plan, L.CsvRelation):
-        import pyarrow.csv as pacsv
-
-        types = {f.name: T.to_arrow_type(f.dtype) for f in plan.file_fields}
-        t = pacsv.read_csv(path, convert_options=pacsv.ConvertOptions(
-            column_types=types))
-        return t.select(columns)
+        return L.read_csv_file(path, plan.file_fields).select(columns)
     # the file alone: read_table would parse a key=value directory too
     return pq.ParquetFile(path).read(columns=columns)
 

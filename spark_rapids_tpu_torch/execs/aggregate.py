@@ -113,7 +113,7 @@ class TpuHashAggregateExec(TpuExec):
         self.runtime = runtime or TaskRuntime.serial()
         self.goal_rows = goal_rows
         #: speculated partials, by whether the estimate covered them
-        self.metrics = Metrics("specHits", "specOverflows")
+        self.metrics = Metrics("numMerges", "specHits", "specOverflows")
         if mode not in ("partial", "final", "complete"):
             raise ValueError(f"unknown aggregate mode {mode!r}")
         self.mode = mode
@@ -379,6 +379,7 @@ class TpuHashAggregateExec(TpuExec):
                         commit(run_with_oom_retry(
                             lambda: merge(drain()), "agg.merge",
                             policy=policy))
+                        self.metrics.add("numMerges", 1)
             except BaseException:
                 for h in pending[n0:]:
                     h.close()

@@ -32,6 +32,14 @@ counters): each ``execute`` and ``execute_partition`` a subclass defines
 is wrapped to count, once, the batches it hands its caller (a nested
 call of the same exec on the same thread, as ``super()`` makes, does
 not count them again).
+
+Each metric has the JAX level of its name (``metric_level``):
+``ESSENTIAL`` for the three every exec counts and for what a JAX exec's
+``additional_metrics`` marks so, ``MODERATE`` for the JAX execs' other
+counters, ``DEBUG`` for a counter only the port keeps.
+``TpuExec.collect_metrics`` reports a tree's metrics up to
+``spark.rapids.tpu.sql.metrics.level``; ``metric_values``, the history
+and the event log read every metric, as in JAX.
 """
 
 from __future__ import annotations
@@ -364,6 +372,28 @@ def _counting(fn: Callable) -> Callable:
     return wrapper
 
 
+#: metric names a JAX exec reports at ESSENTIAL ...
+ESSENTIAL_METRICS = frozenset({
+    "numOutputRows", "numOutputBatches", "totalTime", "adaptiveBroadcasts",
+    "skewSplits", "cacheHits", "cacheWrites", "shuffleWriteRows",
+    "rfBuildTime", "pythonBatches", "filesPruned", "rowGroupsPruned",
+    "hostFilteredRows", "rfPrunedRows", "rfRowGroupsPruned", "numFiles",
+    "numOutputBytes"})
+#: ... and at MODERATE
+MODERATE_METRICS = frozenset({
+    "coalescedPartitions", "numMerges", "specHits", "specOverflows",
+    "numInputRows", "numInputBatches", "numConcats", "concatTime",
+    "fetchWaitTime", "buildRows", "probeBatches", "mapTasks", "rfKeys",
+    "candidateRows", "sortBuckets", "oocRows", "scanTime", "writeTime"})
+
+
+def metric_level(name: str) -> str:
+    """``name``'s level: its JAX exec's, ``DEBUG`` for a port-only one."""
+    if name in ESSENTIAL_METRICS:
+        return "ESSENTIAL"
+    return "MODERATE" if name in MODERATE_METRICS else "DEBUG"
+
+
 def metric_values(node: "TpuExec") -> dict:
     """An exec's metrics as numbers: ``numOutputRows``,
     ``numOutputBatches``, ``totalTime`` (ns), then its own counters."""
@@ -508,6 +538,23 @@ class TpuExec:
         from spark_rapids_tpu_torch.execs.jit_cache import cached_program
 
         return cached_program((tag,) + tuple(key()), fn, op=self.name)
+
+    def collect_metrics(self, level: Optional[str] = None
+                        ) -> dict[str, dict]:
+        """Each exec's metrics at or under ``level`` (None: the
+        ``spark.rapids.tpu.sql.metrics.level`` of the conf that planned
+        the tree), by exec name; execs of one name merge, as in JAX.
+        Timed regions in flight settle first."""
+        REAPER.flush()
+        level = level or getattr(self, "metrics_level",
+                                 C.DEFAULTS[C.METRICS_LEVEL])
+        rank = C.METRIC_LEVELS.index(level)
+        out: dict[str, dict] = {}
+        for node in self.walk():
+            out.setdefault(node.name, {}).update(
+                (k, v) for k, v in metric_values(node).items()
+                if C.METRIC_LEVELS.index(metric_level(k)) <= rank)
+        return out
 
     def timer(self) -> MetricTimer:
         """A :class:`MetricTimer` on ``total_time``, recording an

@@ -27,8 +27,9 @@ it and commits them all at its end, so a failed attempt leaves none
 behind.  A map task runs under ``with_task_retries`` and each of its
 batches under ``with_split_retry`` (``execs/retry.py``), as in the JAX
 exchange; ``metrics`` counts the batches of committed attempts
-(``mapBatches``) and the ladder's runs over them (``mapBatchRuns``:
-one K1 launch each).
+(``mapBatches``), the ladder's runs over them (``mapBatchRuns``: one
+K1 launch each), the map tasks (``mapTasks``) and the rows their
+committed blocks hold (``shuffleWriteRows``), the last two as JAX's.
 
 A map batch's split needs its per-partition counts on the host (tag
 ``exchange.split``).  With speculative sizing on
@@ -167,7 +168,8 @@ class TpuShuffleExchangeExec(TpuExec):
         #: split, and the runs of the split ladder over them (more than
         #: the batches when the ladder re-ran or bisected one; each run
         #: launches K1 once)
-        self.metrics = Metrics("mapBatches", "mapBatchRuns")
+        self.metrics = Metrics("mapBatches", "mapBatchRuns", "mapTasks",
+                               "shuffleWriteRows")
 
     @property
     def schema(self) -> T.Schema:
@@ -199,6 +201,7 @@ class TpuShuffleExchangeExec(TpuExec):
             with_task_retries(lambda: self._map_task_attempt(shuffle_id,
                                                              child_part),
                               f"map task {child_part}", self.runtime.retry)
+        self.metrics.add("mapTasks", 1)
 
     @staticmethod
     def _split_dispatch(part, batch: ColumnarBatch, n_parts: int):
@@ -309,6 +312,7 @@ class TpuShuffleExchangeExec(TpuExec):
             while inflight:
                 finish(inflight.popleft())
             self.manager.commit_task(shuffle_id, child_part, blocks)
+            self.metrics.add("shuffleWriteRows", sum(n for *_, n in blocks))
         except BaseException:
             inflight.clear()
             for _rid, h, _n in blocks:
@@ -393,6 +397,8 @@ class TpuShuffleExchangeExec(TpuExec):
                 finally:
                     h.unpin()
                 self.manager.commit_task(shuffle_id, i, blocks)
+                self.metrics.add("shuffleWriteRows",
+                                 sum(n for *_, n in blocks))
             except BaseException:
                 for _rid, bh, _n in blocks:
                     bh.close()

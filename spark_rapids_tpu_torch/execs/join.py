@@ -442,12 +442,12 @@ class TpuRuntimeFilterBuildExec(TpuExec):
 
     def execute_partition(self, p: int) -> Iterator[ColumnarBatch]:
         dev = self.leaf_device()
-        states = [RF.device_init_state(rf.n_bits, dev)
+        states = [RF.device_init_state(rf.n_bits, dev, rf.use_bloom)
                   for _k, rf in self.entries]
         for batch in self.children[0].execute_partition(p):
             ctx = EvalContext.for_batch(batch)
             states = [RF.device_update(st, key.eval(ctx), rf.n_bits,
-                                       rf.n_hashes)
+                                       rf.n_hashes, rf.use_bloom)
                       for (key, rf), st in zip(self.entries, states)]
             yield batch
         self._merge_and_maybe_publish(p, states)

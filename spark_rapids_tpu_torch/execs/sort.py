@@ -63,9 +63,6 @@ from spark_rapids_tpu_torch.parallel.pipeline import device_read
 #: primary key types a top-n can threshold (fixed width)
 TOPN_PRIMARY_TYPES = (T.BooleanType, T.IntegralType, T.FractionalType,
                       T.DateType, T.TimestampType, T.DecimalType)
-#: LIMIT values up to this plan ORDER BY + LIMIT as a top-n (the JAX
-#: package's spark.rapids.tpu.sql.topn.maxRows default)
-TOPN_MAX_ROWS = 1 << 14
 
 
 @dataclasses.dataclass

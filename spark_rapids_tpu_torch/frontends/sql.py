@@ -1153,10 +1153,11 @@ class SqlSession:
 
     Registered tables are DataFrames (``register_parquet``,
     ``register_table``); a query's plan is then planned and run as any
-    DataFrame's, on the session's device: ``cuda`` unless the caller
-    passes ``device="cpu"``."""
+    DataFrame's, on the session's device: the card
+    ``spark.rapids.tpu.deviceOrdinal`` names unless the caller passes
+    ``device`` (``"cpu"``: the CPU)."""
 
-    def __init__(self, conf=None, device="cuda", tenant: str = "default",
+    def __init__(self, conf=None, device=None, tenant: str = "default",
                  priority=None, session=None):
         #: ``session`` given: its tables and queries run there (the
         #: other arguments are its own)

@@ -36,7 +36,7 @@ has none (ROADMAP.md section 3).
 from __future__ import annotations
 
 import json
-from typing import Union
+from typing import Optional, Union
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.execs.sort import SortKey
@@ -116,11 +116,11 @@ _JOIN_TYPES = {
 
 class SubstraitFrontend:
     """Register tables, then run Substrait plans over them on the
-    session's device (``cuda`` unless the caller asks for the CPU).
-    Made through the plugin too:
+    session's device (``TorchSession``'s: a card unless the caller asks
+    for the CPU).  Made through the plugin too:
     ``TorchPlugin.get_or_create(conf, device).session("substrait")``."""
 
-    def __init__(self, conf=None, device="cuda", session=None):
+    def __init__(self, conf=None, device=None, session=None):
         from spark_rapids_tpu_torch.session import TorchSession
 
         #: ``session`` given: the plans run there
@@ -140,9 +140,12 @@ class SubstraitFrontend:
             self._tables[name.lower()] = \
                 self.session.read_parquet(*paths)._plan
 
-    def execute_plan(self, plan: Union[str, dict]):
-        """A plan (JSON text or its dict) -> its result as a pa.Table."""
-        return self.dataframe(plan).collect()
+    def execute_plan(self, plan: Union[str, dict],
+                     engine: Optional[str] = None):
+        """A plan (JSON text or its dict) -> its result as a pa.Table;
+        ``engine`` as ``DataFrame.collect`` takes it (None: the
+        session's ``spark.rapids.tpu.sql.enabled``)."""
+        return self.dataframe(plan).collect(engine=engine)
 
     def dataframe(self, plan: Union[str, dict]):
         from spark_rapids_tpu_torch.session import DataFrame

@@ -161,7 +161,8 @@ from spark_rapids_tpu_torch.parallel.pipeline import prefetch
 from spark_rapids_tpu_torch.plan import runtime_filter as _rf
 
 #: the scan's counters, besides the host split
-SCAN_COUNTERS = ("numOutputRows", "filesPruned", "rowGroupsPruned",
+SCAN_COUNTERS = ("numOutputRows", "scanTime", "filesPruned",
+                 "rowGroupsPruned",
                  "hostFilteredRows",
                  "rfPrunedRows", "rfRowGroupsPruned", "fastDecodedFiles",
                  "standardDecodedFiles")
@@ -556,11 +557,26 @@ class ParquetScanExec(TpuExec):
         """The first half of each decoded batch's upload."""
         try:
             for rb in decoded:
-                yield stage_upload(rb, self.device, self._schema,
-                                   self.runtime.upload_stream, self.metrics,
-                                   self.runtime.wire)
+                yield self._stage(rb)
         finally:
             decoded.close()
+
+    def _stage(self, tbl: pa.Table):
+        """The first half of ``tbl``'s upload; ``scanTime`` (ns) counts
+        both halves' host time (JAX: a host unit to its device batch)."""
+        t0 = time.perf_counter_ns()
+        unit = stage_upload(tbl, self.device, self._schema,
+                            self.runtime.upload_stream, self.metrics,
+                            self.runtime.wire)
+        self.metrics.add("scanTime", time.perf_counter_ns() - t0)
+        return unit
+
+    def _finished(self, unit) -> ColumnarBatch:
+        """The second half of an upload (``_stage``)."""
+        t0 = time.perf_counter_ns()
+        batch = finish_upload(unit, self.metrics)
+        self.metrics.add("scanTime", time.perf_counter_ns() - t0)
+        return batch
 
     def task_paths(self, p: int) -> list[str]:
         """The files of scan task ``p``."""
@@ -601,7 +617,7 @@ class ParquetScanExec(TpuExec):
             decoded, depth, "scan.decode")), depth, "scan.upload")
         try:
             for unit in units:
-                yield finish_upload(unit, self.metrics)
+                yield self._finished(unit)
         finally:
             units.close()
 
@@ -655,11 +671,7 @@ class ParquetScanExec(TpuExec):
         consumed = 0
 
         def upload(tbl: pa.Table) -> ColumnarBatch:
-            return finish_upload(
-                stage_upload(tbl, self.device, self._schema,
-                             self.runtime.upload_stream, self.metrics,
-                             self.runtime.wire),
-                self.metrics)
+            return self._finished(self._stage(tbl))
 
         try:
             try:
@@ -719,7 +731,7 @@ class OrcScanExec(ParquetScanExec):
 class CsvScanExec(ParquetScanExec):
     """CSV files with a header line (JAX ``CsvScanExec``): one scan task
     a file, each read whole by pyarrow with the relation's column types
-    (``file_fields``).  Partition pruning, the host prefilter, the
+    (``file_fields``; ``plan/logical.py::read_csv_file``).  Partition pruning, the host prefilter, the
     runtime filters' probe and the upload are the Parquet exec's."""
 
     def __init__(self, paths: Sequence[str], schema: T.Schema,
@@ -729,13 +741,10 @@ class CsvScanExec(ParquetScanExec):
         self.file_fields = list(file_fields)
 
     def _decode_file(self, fi: int, rfs: list, file_schema: T.Schema):
-        import pyarrow.csv as pacsv
+        from spark_rapids_tpu_torch.plan.logical import read_csv_file
 
-        types = {f.name: T.to_arrow_type(f.dtype) for f in self.file_fields}
         names = file_schema.names
-        tbl = pacsv.read_csv(self.paths[fi], convert_options=(
-            pacsv.ConvertOptions(column_types=types,
-                                 include_columns=names or None)))
+        tbl = read_csv_file(self.paths[fi], self.file_fields, names or None)
         self.metrics.add("standardDecodedFiles", 1)
         if not names:
             return _row_counts(tbl.num_rows), False, False

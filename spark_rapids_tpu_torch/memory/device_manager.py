@@ -16,8 +16,11 @@ Counterpart of ``spark_rapids_tpu/memory/device_manager.py``
   itself: an explicit value wins, as an explicit ``batchSizeRows`` wins
   over the JAX package's automatic sizing.  On the CPU the budget is
   ``hbm.budgetBytes``;
+- ``select_device``: the card a session with no device given takes,
+  from ``spark.rapids.tpu.deviceOrdinal`` (JAX ``select_device``);
 - ``HostBufferPool``: recycled uint8 staging buffers for the disk
-  tier's serializer, pinned on a CUDA session.
+  tier's serializer, pinned on a CUDA session, keeping at most
+  ``memory.hostPool.maxBytes`` of free buffers (set by ``initialize``).
 """
 
 from __future__ import annotations
@@ -30,13 +33,18 @@ import torch
 from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.robustness import faults as _faults
 
-#: most bytes of free staging buffers the pool keeps
-HOST_POOL_BYTES = 256 << 20
-
 
 def device_alloc_checkpoint(nbytes: int) -> None:
     """The ``alloc.device`` fault seam: disarmed, one global read."""
     _faults.fault_point("alloc.device", nbytes=nbytes)
+
+
+def select_device(conf: C.TorchConf, device_count: int) -> torch.device:
+    """``cuda:<deviceOrdinal>``; -1, or an ordinal past ``device_count``
+    cards, takes ``cuda:0`` (JAX ``select_device``)."""
+    ordinal = conf.get(C.DEVICE_ORDINAL)
+    return torch.device("cuda", ordinal if 0 <= ordinal < device_count
+                        else 0)
 
 
 def device_budget(conf: C.TorchConf, device: torch.device) -> int:
@@ -53,7 +61,9 @@ def initialize(conf: C.TorchConf, device: torch.device):
     from spark_rapids_tpu_torch.memory.store import BufferStore, reset_store
 
     device = torch.device(device)
-    HostBufferPool.get().pinned = device.type == "cuda"
+    pool = HostBufferPool.get()
+    pool.pinned = device.type == "cuda"
+    pool.max_bytes = conf.get(C.HOST_POOL_BYTES)
     store = BufferStore(device_budget=device_budget(conf, device),
                         host_budget=conf.get(C.HOST_SPILL_BYTES),
                         spill_dir=conf.get(C.SPILL_DIR) or None,
@@ -70,7 +80,7 @@ class HostBufferPool:
     _instance: Optional["HostBufferPool"] = None
     _ilock = threading.Lock()
 
-    def __init__(self, max_bytes: int = HOST_POOL_BYTES,
+    def __init__(self, max_bytes: int = C.DEFAULTS[C.HOST_POOL_BYTES],
                  pinned: bool = False):
         self._free: dict[int, list[torch.Tensor]] = {}
         self._lock = threading.Lock()

@@ -308,6 +308,30 @@ class CsvRelation(FileRelation, LogicalPlan):
         return schema_from_arrow(pacsv.read_csv(path).schema)
 
 
+def read_csv_file(path: str, fields: Sequence[T.Field],
+                  columns: Optional[Sequence[str]] = None) -> pa.Table:
+    """One CSV file read with ``fields``' types (``columns``: those
+    only; None: all).  A TIMESTAMP column is read by pyarrow's inference
+    and cast to UTC microseconds, as JAX ``CsvScanExec`` casts its read:
+    pyarrow's reader refuses text with no zone offset for a zoned column
+    type, and text with one for a naive type."""
+    import pyarrow.csv as pacsv
+
+    types = {f.name: T.to_arrow_type(f.dtype) for f in fields
+             if not isinstance(f.dtype, T.TimestampType)}
+    t = pacsv.read_csv(path, convert_options=pacsv.ConvertOptions(
+        column_types=types, include_columns=list(columns)
+        if columns is not None else None))
+    stamped = {f.name for f in fields if isinstance(f.dtype, T.TimestampType)}
+    if stamped & set(t.column_names):
+        utc = pa.timestamp("us", tz="UTC")
+        t = pa.Table.from_arrays(
+            [c.cast(utc) if n in stamped else c
+             for n, c in zip(t.column_names, t.columns)],
+            names=t.column_names)
+    return t
+
+
 _DIGESTS_COMPUTED = 0
 
 

@@ -124,8 +124,15 @@ keyless outer join, a window ``check_supported`` refuses), or which
 is a source whose columns have no device layout
 (``schema_device_representable``: an array of a string, decimal or
 struct, a map of such keys or values), carries will-not-work reasons.
-A GPU node over a CPU child whose output has no device layout joins
-the CPU side too (``_demote_unrepresentable_boundaries``, as in JAX).
+With ``spark.rapids.tpu.sql.optimizer.enabled`` on, an island of GPU
+nodes whose transfers cost more than the card saves joins the CPU side
+(``plan/cost.py::optimize_costs``, after ``tag()``).  A GPU node over a
+CPU child whose output has no device layout joins the CPU side too
+(``_demote_unrepresentable_boundaries``, as in JAX).  With
+``spark.rapids.tpu.sql.enabled`` off, every node carries "disabled by
+spark.rapids.tpu.sql.enabled" and nothing else is tagged: the whole plan
+runs on the CPU engine, its output in host tensors, and a scalar
+subquery's subplan runs there too.
 The decision is made here, from the tags alone: a tagged node lowers
 to ``execs/fallback.py::CpuFallbackExec`` over its lowered children,
 and runs on ``cpu/engine.py``; every other node lowers to the GPU
@@ -147,6 +154,7 @@ from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import batches_to_arrow
 from spark_rapids_tpu_torch.columnar.transfer import WirePolicy
+from spark_rapids_tpu_torch.cpu.engine import execute_cpu
 from spark_rapids_tpu_torch.serving.cancel import check_point
 from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
 from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
@@ -178,7 +186,6 @@ from spark_rapids_tpu_torch.execs.limit import (
     TpuGlobalLimitExec,
 )
 from spark_rapids_tpu_torch.execs.sort import (
-    TOPN_MAX_ROWS,
     TOPN_PRIMARY_TYPES,
     TpuSortExec,
     TpuTopNExec,
@@ -227,6 +234,7 @@ from spark_rapids_tpu_torch.parallel.pipeline import prefetch, stage_depth
 from spark_rapids_tpu_torch.parallel.speculation import SpeculationPolicy
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan import typesig as TS
+from spark_rapids_tpu_torch.plan.cost import optimize_costs
 from spark_rapids_tpu_torch.plan.runtime_filter import inject_runtime_filters
 from spark_rapids_tpu_torch.python_worker import PYTHON_WORKERS
 from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
@@ -368,6 +376,9 @@ EXEC_SWITCHES: dict[type, str] = {
                 L.Sort, L.Limit, L.Union, L.MapInArrow, L.GroupedPandas,
                 L.CoGroupedPandas, L.Cached)
 }
+
+#: every node's reason with ``spark.rapids.tpu.sql.enabled`` off
+SWITCH_OFF_REASON = f"disabled by {C.SQL_ENABLED}"
 
 #: nodes whose output is what a Python function returns
 _PYTHON_NODES = (L.MapInArrow, L.GroupedPandas, L.CoGroupedPandas)
@@ -617,8 +628,15 @@ class Planner:
             plan = _rewrite_input_file_exprs(plan)
             plan = self._rewrite_scalar_subqueries(plan)
             meta = PlanMeta(plan, self.conf)
-            meta.tag()
-            _demote_unrepresentable_boundaries(meta)
+            if self.conf.get(C.SQL_ENABLED):
+                meta.tag()
+                optimize_costs(meta)
+                _demote_unrepresentable_boundaries(meta)
+            else:
+                # every node, where JAX tags the root alone and lowers
+                # its children to the device: nothing touches the card
+                for m in meta.walk():
+                    m.will_not_work(SWITCH_OFF_REASON)
         with _trace.span("query.lower"):
             saved, self._tags = self._tags, {id(m.plan): m
                                              for m in meta.walk()}
@@ -628,6 +646,9 @@ class Planner:
                 self._tags = saved
             inject_runtime_filters(root, self.conf)
             plan_coalesce(root, self.conf)
+            level = self.conf.get(C.METRICS_LEVEL)
+            for node in root.walk():
+                node.metrics_level = level  # collect_metrics' default
         return root, meta
 
     def _rewrite_scalar_subqueries(self, plan: L.LogicalPlan
@@ -641,9 +662,12 @@ class Planner:
 
         def rw(e: Expression) -> Expression:
             if isinstance(e, ScalarSubquery):
-                value = scalar_value(collect_exec(self.plan(e.plan),
-                                                  self.conf))
-                return Literal(value, e.dtype)
+                if self.conf.get(C.SQL_ENABLED):
+                    table = collect_exec(self.plan(e.plan), self.conf)
+                else:  # the switch off: the CPU engine (JAX subquery_value)
+                    table = execute_cpu(e.plan,
+                                        ansi=ansi_enabled(self.conf))
+                return Literal(scalar_value(table), e.dtype)
             return e
 
         out = copy.copy(plan)
@@ -662,11 +686,13 @@ class Planner:
         meta = self._tags.get(id(p))
         ansi = ansi_enabled(self.conf)
         if meta is not None and not meta.can_replace:
-            # the CPU engine reads its children's whole schemas
+            # the CPU engine reads its children's whole schemas; with the
+            # master switch off its output stays in host tensors
             return CpuFallbackExec(
                 p, meta.reasons, [self._lower(c, None) for c in p.children],
-                self.device, self.conf.get(C.BATCH_ROWS), self.runtime,
-                ansi=ansi)
+                self.device if self.conf.get(C.SQL_ENABLED)
+                else torch.device("cpu"), self.conf.get(C.BATCH_ROWS),
+                self.runtime, ansi=ansi)
         if isinstance(p, L.FileRelation):
             return self._plan_scan(p, required)
         if isinstance(p, L.InMemoryRelation):
@@ -954,11 +980,12 @@ class Planner:
                            self.conf.get(C.SORT_SAMPLES_PER_BATCH))
 
     def _maybe_topn(self, p: L.Limit, child: TpuExec) -> Optional[TpuExec]:
-        """LIMIT n over a sort with a fixed-width primary key -> a
-        streaming top-n over the sort's input before its coalesce or
-        range exchange (the top-n drains every partition)."""
+        """LIMIT n (at most ``sql.topn.maxRows``) over a sort with a
+        fixed-width primary key -> a streaming top-n over the sort's input
+        before its coalesce or range exchange (the top-n drains every
+        partition)."""
         if not (isinstance(child, TpuSortExec)
-                and 0 < p.n <= TOPN_MAX_ROWS
+                and 0 < p.n <= self.conf.get(C.TOPN_MAX_ROWS)
                 and isinstance(child.keys[0].expr.dtype,
                                TOPN_PRIMARY_TYPES)):
             return None

@@ -53,9 +53,12 @@ launches and a second read.  The host probe of a wide range hashes with
 the numpy mirrors in ``exprs/hashing.py``.
 
 ``spark.rapids.tpu.sql.runtimeFilter.enabled`` (``config.py``) turns
-the pass on and off.  The JAX package's other four keys are constants
-here, at its defaults: min/max and Bloom always on, ``FPP`` and
-``MAX_BUILD_ROWS``.
+the pass on and off, and its four other keys act as in JAX:
+``minMaxEnabled`` off keeps every row group and drops the row mask's
+range test (and the range table, which answers only inside [min, max]);
+``bloomEnabled`` off folds no Bloom (no K1 launch) and probes none; both
+off inject nothing; ``maxBuildRows`` gates the build side's estimated
+rows and ``fpp`` sizes the Bloom.
 """
 
 from __future__ import annotations
@@ -87,12 +90,6 @@ BLOOM_SEED2 = 0x9747B28C
 
 _INT64_MAX = (1 << 63) - 1
 _INT64_MIN = -(1 << 63)
-
-#: target Bloom false-positive rate; sizes the bit array (the JAX
-#: package's default)
-FPP = 0.01
-#: no filter when the build side's estimated rows exceed this
-MAX_BUILD_ROWS = 1 << 22
 
 #: a filter whose [min, max] holds at most this many values is published
 #: with a table of its Bloom's answer for every value of the range, made
@@ -168,7 +165,8 @@ class RuntimeFilter:
     ready applies nothing."""
 
     def __init__(self, key_name: str, dtype: T.DataType, join_type: str,
-                 n_bits: int, n_hashes: int, build_desc: str = ""):
+                 n_bits: int, n_hashes: int, build_desc: str = "",
+                 use_minmax: bool = True, use_bloom: bool = True):
         with _ID_LOCK:
             _NEXT_ID[0] += 1
             self.rf_id = _NEXT_ID[0]
@@ -178,6 +176,9 @@ class RuntimeFilter:
         self.n_bits = n_bits
         self.n_hashes = n_hashes
         self.build_desc = build_desc
+        #: which parts the filter applies (the runtime filter's keys)
+        self.use_minmax = use_minmax
+        self.use_bloom = use_bloom
         self.is64 = isinstance(dtype, _SUPPORTED_64)
         #: the published state, replaced as one object, so a scan that
         #: read it keeps a whole one while a reset or publish goes on
@@ -229,7 +230,7 @@ class RuntimeFilter:
             return True
         if pub.n_keys == 0:
             return False  # an empty build side matches nothing
-        if lo is None or hi is None:
+        if not self.use_minmax or lo is None or hi is None:
             return True
         return not (hi < pub.min_val or lo > pub.max_val)
 
@@ -249,9 +250,11 @@ class RuntimeFilter:
             mask = np.take(pub.range_table, values - (pub.min_val - 1),
                            mode="clip")
         else:
-            mask = (values >= pub.min_val) & (values <= pub.max_val)
-            rows = np.flatnonzero(mask)
-            mask[rows] = self._bloom_mask(values[rows], pub.bloom_words)
+            mask = (values >= pub.min_val) & (values <= pub.max_val) \
+                if self.use_minmax else np.ones(len(values), bool)
+            if self.use_bloom:
+                rows = np.flatnonzero(mask)
+                mask[rows] = self._bloom_mask(values[rows], pub.bloom_words)
         if validity is not None:
             mask &= np.asarray(validity, bool)
         return mask
@@ -283,9 +286,11 @@ class RuntimeFilter:
             state = f"pending, last drain n={self.last.n_keys}"
         else:
             state = "pending"
-        return (f"rf#{self.rf_id} key={self.key_name} (minmax+bloom"
-                f"[{self.n_bits}b x{self.n_hashes}], {self.join_type}, "
-                f"{state})")
+        parts = (["minmax"] if self.use_minmax else []) + (
+            [f"bloom[{self.n_bits}b x{self.n_hashes}]"] if self.use_bloom
+            else [])
+        return (f"rf#{self.rf_id} key={self.key_name} "
+                f"({'+'.join(parts) or 'none'}, {self.join_type}, {state})")
 
 
 # --------------------------------------------------------------------- #
@@ -304,18 +309,22 @@ def device_key_hashes(col) -> tuple[torch.Tensor, torch.Tensor]:
         for seed in (BLOOM_SEED1, BLOOM_SEED2))
 
 
-def device_init_state(n_bits: int, device) -> tuple:
-    """(bits, lo, hi, count): a byte per Bloom bit, and int64 scalars."""
+def device_init_state(n_bits: int, device, use_bloom: bool = True) -> tuple:
+    """(bits, lo, hi, count): a byte per Bloom bit (one byte without a
+    Bloom), and int64 scalars."""
     def scalar(v):
         return torch.tensor(v, dtype=torch.int64, device=device)
 
-    bits = torch.zeros(n_bits, dtype=torch.uint8, device=device)
+    bits = torch.zeros(n_bits if use_bloom else 1, dtype=torch.uint8,
+                       device=device)
     return bits, scalar(_INT64_MAX), scalar(_INT64_MIN), scalar(0)
 
 
-def device_update(state: tuple, col, n_bits: int, n_hashes: int) -> tuple:
+def device_update(state: tuple, col, n_bits: int, n_hashes: int,
+                  use_bloom: bool = True) -> tuple:
     """Fold one batch's key column into the state; NULL rows scatter 0
-    (no bit) and count nothing."""
+    (no bit) and count nothing.  Without a Bloom only the range and the
+    count fold (no K1 launch)."""
     bits, lo, hi, count = state
     if len(col) == 0:
         return state
@@ -324,6 +333,8 @@ def device_update(state: tuple, col, n_bits: int, n_hashes: int) -> tuple:
     lo = torch.minimum(lo, torch.where(contrib, v, _INT64_MAX).min())
     hi = torch.maximum(hi, torch.where(contrib, v, _INT64_MIN).max())
     count = count + contrib.sum()
+    if not use_bloom:
+        return bits, lo, hi, count
     h1, h2 = device_key_hashes(col)
     one = contrib.to(torch.uint8)
     for i in range(n_hashes):
@@ -369,7 +380,8 @@ def device_pack_bits(bits_u8: torch.Tensor) -> torch.Tensor:
 
 def finalize(rf: RuntimeFilter, state: tuple) -> None:
     """Pack the bits, read the state back in one transfer, make the range
-    table when [min, max] is narrow (a second read), and publish.
+    table when [min, max] is narrow and the filter applies both its
+    range and its Bloom (a second read), and publish.
     ``build_ms`` is this step's wall time, the synchronous cost the
     filter puts on the build's critical path."""
     from spark_rapids_tpu_torch import trace as _trace
@@ -378,13 +390,14 @@ def finalize(rf: RuntimeFilter, state: tuple) -> None:
     bits, lo, hi, count = state
     t0 = time.perf_counter()
     with _trace.span("rf.build", rf=rf.rf_id, key=rf.key_name):
+        packed = [device_pack_bits(bits)] if rf.use_bloom else []
         host = device_read(torch.cat([lo.view(1), hi.view(1),
-                                      count.view(1),
-                                      device_pack_bits(bits)]),
+                                      count.view(1), *packed]),
                            tag="rf.build")
         lo, hi, n_keys = (int(v) for v in host[:3])
         table = None
-        if n_keys and hi - lo < LUT_MAX_SPAN and lo > _INT64_MIN:
+        if n_keys and rf.use_minmax and rf.use_bloom \
+                and hi - lo < LUT_MAX_SPAN and lo > _INT64_MIN:
             table = device_range_table(bits, lo, hi, rf.dtype, rf.n_hashes)
         build_ms = (time.perf_counter() - t0) * 1e3
         rf.publish(lo, hi, n_keys, host[3:].astype(np.uint32), build_ms,
@@ -451,7 +464,9 @@ def inject_runtime_filters(root, conf: C.TorchConf) -> list[RuntimeFilter]:
     """For each eligible join of the lowered plan, wrap its build side in
     a key-collecting pass-through exec and register the filters on every
     probe-side scan they reach.  Returns the filters."""
-    if not conf.get(C.RF_ENABLED):
+    use_minmax = conf.get(C.RF_MINMAX_ENABLED)
+    use_bloom = conf.get(C.RF_BLOOM_ENABLED)
+    if not conf.get(C.RF_ENABLED) or not (use_minmax or use_bloom):
         return []
     from spark_rapids_tpu_torch.execs.adaptive import TpuAdaptiveJoinExec
     from spark_rapids_tpu_torch.execs.exchange import TpuShuffleExchangeExec
@@ -461,6 +476,8 @@ def inject_runtime_filters(root, conf: C.TorchConf) -> list[RuntimeFilter]:
     )
     from spark_rapids_tpu_torch.plan.cost import exec_estimated_rows
 
+    max_rows = conf.get(C.RF_MAX_BUILD_ROWS)
+    fpp = conf.get(C.RF_FPP)
     filters: list[RuntimeFilter] = []
     for node in list(root.walk()):
         if isinstance(node, TpuAdaptiveJoinExec):
@@ -483,16 +500,17 @@ def inject_runtime_filters(root, conf: C.TorchConf) -> list[RuntimeFilter]:
         probe_child = node.children[1 - build_idx]
         # never act on an unknown estimate
         est = exec_estimated_rows(build_child)
-        if est is None or est > MAX_BUILD_ROWS:
+        if est is None or est > max_rows:
             continue
-        n_bits, n_hashes = bloom_params(est, FPP)
+        n_bits, n_hashes = bloom_params(est, fpp)
         entries = []
         for _i, bk, probe_ord, dt in pairs:
             targets = _probe_scan_targets(probe_child, probe_ord)
             if not targets:
                 continue
             rf = RuntimeFilter(targets[0][1], dt, jt, n_bits, n_hashes,
-                               build_desc=f"{node.name}[{jt}]")
+                               build_desc=f"{node.name}[{jt}]",
+                               use_minmax=use_minmax, use_bloom=use_bloom)
             for scan, col_name in targets:
                 scan.runtime_filters.append((col_name, rf))
             entries.append((bk, rf))

@@ -43,7 +43,8 @@ _lock = threading.Lock()
 #: the keys that size the process store (``memory/device_manager.py``):
 #: read once, when the plugin comes up
 STORE_KEYS = (C.HBM_BUDGET_BYTES, C.HOST_SPILL_BYTES, C.SPILL_DIR,
-              C.SPILL_CODEC, C.SPILL_COMPRESS_HOST, C.MEMORY_FRACTION)
+              C.SPILL_CODEC, C.SPILL_COMPRESS_HOST, C.MEMORY_FRACTION,
+              C.HOST_POOL_BYTES)
 
 
 class PluginMismatch(RuntimeError):

@@ -43,8 +43,9 @@ Python in the worker pool (``python_worker``); ``udf`` and
 ``torch_udf`` are in ``udf/``, and ``explain()`` ends with each torch or
 opaque UDF's tier.
 
-A session runs on one device, ``cuda`` unless the caller asks for the
-CPU.  Asking for CUDA on a host without it raises: the CPU engine that
+A session runs on one device: the card ``spark.rapids.tpu.deviceOrdinal``
+names (``cuda:0`` for -1) unless the caller passes ``device`` (``"cpu"``:
+the CPU).  Asking for CUDA on a host without it raises: the CPU engine that
 runs the nodes the planner tags off the GPU is part of the plan, not a
 device.  It owns its shuffle manager and, on CUDA, the side stream its
 scans upload on.  The buffer store and the task semaphore are the
@@ -61,6 +62,15 @@ the store holds none of the query's batches.  A conf with
 ``collect`` runs the plan on a ``result.fetch`` stage and converts each
 batch as it comes, as the JAX package's ``stream_exec`` does.
 ``config.SERIAL`` holds the keys that run a query serially.
+
+Results leave as ``collect(engine=None)``'s Arrow table, as streamed
+``to_batches(batch_rows)`` record batches and ``rows()`` tuples, or as
+``to_device_arrays()``'s torch tensors on the card (``columnar/
+rows.py``).  ``collect(engine="cpu")``, or ``spark.rapids.tpu.sql.
+enabled`` off, runs the logical plan on the CPU engine (JAX
+``collect(engine=)``); with the key off every other path that plans
+(``prepare``, the SQL and Substrait frontends, ``explain()``) tags every
+node for the CPU engine too.
 
 The serving tier (``serving/``): ``TorchSession(conf, device, tenant=,
 priority=)`` names the admission queue its queries join and their
@@ -125,6 +135,7 @@ from spark_rapids_tpu_torch import trace as _trace
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.arrow import schema_from_arrow
 from spark_rapids_tpu_torch.config import TorchConf
+from spark_rapids_tpu_torch.cpu.engine import execute_cpu
 from spark_rapids_tpu_torch.eventlog import (
     conf_fingerprint,
     maybe_writer,
@@ -157,6 +168,7 @@ from spark_rapids_tpu_torch.exprs.base import (
     Expression,
     Literal,
     _column,
+    ansi_enabled,
     col,
     lit,
 )
@@ -188,6 +200,7 @@ from spark_rapids_tpu_torch.exprs.strings import (
 )
 from spark_rapids_tpu_torch.exprs.window import WindowExpression
 from spark_rapids_tpu_torch.execs import retry as _retry
+from spark_rapids_tpu_torch.memory.device_manager import select_device
 from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.memory.store import get_store
 from spark_rapids_tpu_torch.plan import logical as L
@@ -534,18 +547,25 @@ class _QueryRecord:
 
 class TorchSession:
     def __init__(self, conf: Optional[Union[TorchConf, dict]] = None,
-                 device: Union[str, torch.device] = "cuda",
+                 device: Union[str, torch.device, None] = None,
                  tenant: str = "default", priority: Optional[int] = None):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
+        """``device`` None: the card ``spark.rapids.tpu.deviceOrdinal``
+        names (``memory/device_manager.select_device``); a host without
+        CUDA raises unless the caller passes ``device="cpu"``."""
+        self.conf = conf if isinstance(conf, TorchConf) else TorchConf(conf)
+        if device is not None:
+            device = torch.device(device)
+        if (device is None or device.type == "cuda") \
+                and not torch.cuda.is_available():
             raise RuntimeError(
                 "TorchSession(device='cuda') needs a CUDA device and "
                 "torch.cuda.is_available() is False; pass device='cpu' "
                 "to run on the CPU")
+        if device is None:
+            device = select_device(self.conf, torch.cuda.device_count())
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device}")
         self.device = device
-        self.conf = conf if isinstance(conf, TorchConf) else TorchConf(conf)
         self.plugin = TorchPlugin.get_or_create(self.conf, device)
         self.shuffle_manager = ShuffleManager()
         self.upload_stream = torch.cuda.Stream(device) \
@@ -1081,11 +1101,56 @@ class DataFrame:
         return render_analyze(ev, trace_events, cache_stats=cs,
                               counters=counters, ledger=led)
 
-    def collect(self) -> pa.Table:
-        """Run the query on the session's device; the result as Arrow.
-        The stage and the exec tree are closed on every exit, which
+    def collect(self, engine: Optional[str] = None) -> pa.Table:
+        """Run the query; the result as Arrow.  ``engine``: ``"tpu"`` (the
+        JAX package's name for the device engine) plans it for the
+        session's device, ``"cpu"`` runs the logical plan on the CPU
+        engine (``cpu/engine.execute_cpu``), None reads
+        ``spark.rapids.tpu.sql.enabled`` (on: the device).  On the device
+        the stage and the exec tree are closed on every exit, which
         releases the query's store entries."""
+        conf = self._session.conf
+        if engine is None:
+            engine = "tpu" if conf.get(C.SQL_ENABLED) else "cpu"
+        if engine == "cpu":
+            return execute_cpu(self._plan, ansi=ansi_enabled(conf))
+        if engine != "tpu":
+            raise ValueError(f"engine {engine!r}: 'tpu' or 'cpu'")
         return self._collect()[0]
+
+    def to_batches(self, batch_rows: Optional[int] = None
+                   ) -> Iterator[pa.RecordBatch]:
+        """The result as Arrow record batches of at most ``batch_rows``
+        rows, streamed (``columnar/rows.py::columnar_export``: the
+        session's stream on the device, with its admission slot,
+        checkpoints and history record; the CPU engine with
+        ``spark.rapids.tpu.sql.enabled`` off).  Closing the iterator
+        early releases the slot and the query's store entries."""
+        from spark_rapids_tpu_torch.columnar.rows import columnar_export
+
+        return columnar_export(self, batch_rows)
+
+    def rows(self) -> Iterator[tuple]:
+        """The result's rows as tuples, streamed over ``to_batches``."""
+        for rb in self.to_batches():
+            cols = [c.to_pylist() for c in rb.columns]
+            for i in range(rb.num_rows):
+                yield tuple(c[i] for c in cols)
+
+    def to_device_arrays(self) -> list[dict]:
+        """Run the query and hand its batches over as torch tensors with
+        no device-to-host copy: one dict a batch, ``{name: values, name +
+        "__valid": bool, "__num_rows": int}``, values in the physical
+        form (a DATE's days, a TIMESTAMP's microseconds, a DECIMAL's
+        unscaled int64).  Each tensor holds the batch's live rows and is
+        a device-to-device copy the caller owns (the plan's own buffers
+        are released when it closes).  A STRING or nested column raises
+        TypeError: project it first.  Planned and admitted as a
+        ``collect`` (with ``spark.rapids.tpu.sql.enabled`` off the CPU
+        engine's output, in host tensors)."""
+        from spark_rapids_tpu_torch.columnar.rows import device_arrays
+
+        return self._collect(drain=device_arrays)[0]
 
     def _begin(self, token_sink):
         """A new query's cancel token, tracked by the session (and by
@@ -1190,20 +1255,22 @@ class DataFrame:
         return out, q.qid
 
     def _collect(self, exec_: Optional[TpuExec] = None, meta=None,
-                 drain_lock=None, serving_facts=None, token_sink=None
-                 ) -> tuple[pa.Table, int]:
+                 drain_lock=None, serving_facts=None, token_sink=None,
+                 drain=None) -> tuple[pa.Table, int]:
         """collect, or a prepared template's execution over its cached
         ``exec_`` and ``meta`` (planning skipped); the result and the
         query's id.  ``drain_lock`` (the cache entry's) is taken inside
         admission; with ``serving.sharing.enabled`` the result cache is
-        consulted inside admission, before it."""
+        consulted inside admission, before it.  ``drain(exec_)`` (None:
+        ``collect_exec``, to Arrow) runs the tree; a result that is not
+        a table is not shared."""
         from spark_rapids_tpu_torch.serving import work_share as _ws
 
         conf = self._session.conf
         tok = self._begin(token_sink)
         try:
             with self._admitted(tok, serving_facts):
-                sharing = conf.get(C.SHARING_ENABLED)
+                sharing = drain is None and conf.get(C.SHARING_ENABLED)
                 if sharing:
                     cached, verdict = _ws.lookup_result(self._plan, conf)
                     if verdict is not None:
@@ -1212,7 +1279,8 @@ class DataFrame:
                         return self._result_cache_hit(cached, meta, tok)
                 with drain_lock if drain_lock is not None \
                         else contextlib.nullcontext():
-                    out, qid = self._collect_admitted(tok, exec_, meta)
+                    out, qid = self._collect_admitted(tok, exec_, meta,
+                                                      drain)
                 if sharing:
                     _ws.offer_result(self._plan, conf, out)
                 return out, qid
@@ -1222,10 +1290,12 @@ class DataFrame:
         finally:
             self._end(tok, token_sink)
 
-    def _collect_admitted(self, tok, exec_, meta) -> tuple[pa.Table, int]:
+    def _collect_admitted(self, tok, exec_, meta, drain=None
+                          ) -> tuple[pa.Table, int]:
         """The admitted query: plan unless the tree is given (a cached
-        tree's settled metrics are the baseline of its record), run,
-        record, all under the fault scope."""
+        tree's settled metrics are the baseline of its record), run
+        (``drain``, as ``_collect`` takes it), record, all under the
+        fault scope."""
         conf = self._session.conf
         q = self._begin_query(tok)
         try:
@@ -1240,7 +1310,8 @@ class DataFrame:
                 expl = _explain_text(exec_, meta)
                 try:
                     with _trace.span("query.execute"):
-                        out = _planner.collect_exec(exec_, conf)
+                        out = drain(exec_) if drain is not None \
+                            else _planner.collect_exec(exec_, conf)
                 except _cancel.QueryCancelled as e:
                     # the unwind closed the tree: the record keeps its
                     # partial metrics
@@ -1251,9 +1322,13 @@ class DataFrame:
                              baseline=baseline)
                     e.recorded = True
                     raise
+                table = isinstance(out, pa.Table)
                 q.record(self._session, expl, exec_, "tpu",
                          plan_text=lambda: _plan_text(exec_, meta),
-                         result=out, baseline=baseline)
+                         result=out if table else None,
+                         rows=None if table else sum(
+                             d["__num_rows"] for d in out),
+                         baseline=baseline)
             return out, q.qid
         finally:
             _obs.REGISTRY.drop(q.qid)

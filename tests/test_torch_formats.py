@@ -148,6 +148,56 @@ def test_csv_with_schema(tmp_path):
     assert _multiset(got) == _multiset(t.cast(got.schema))
 
 
+#: TIMESTAMP text as CSV writers spell it: with no zone offset (space-
+#: or ``T``-separated), in UTC (``Z``) and at an offset
+_STAMP_FORMATS = {"naive": "%Y-%m-%d %H:%M:%S",
+                  "t_separated": "%Y-%m-%dT%H:%M:%S",
+                  "zulu": "%Y-%m-%dT%H:%M:%SZ",
+                  "offset": "%Y-%m-%d %H:%M:%S+02:00"}
+
+
+def _stamp_csv(tmp_path, kind: str) -> str:
+    """50 seeded instants in ``kind``'s spelling, every seventh NULL."""
+    import datetime
+
+    rng = np.random.default_rng(17)
+    lines = ["a,t"]
+    for i, s in enumerate(rng.integers(0, 2_000_000_000, 50)):
+        text = "" if i % 7 == 3 else datetime.datetime.fromtimestamp(
+            int(s), datetime.timezone.utc).strftime(_STAMP_FORMATS[kind])
+        lines.append(f"{i},{text}")
+    path = str(tmp_path / f"{kind}.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+@pytest.mark.parametrize("engine", ["scan", "cpu_engine"])
+@pytest.mark.parametrize("given", [False, True], ids=["inferred", "schema"])
+@pytest.mark.parametrize("kind", sorted(_STAMP_FORMATS))
+def test_csv_timestamp_reads_as_the_jax_package(tmp_path, kind, given,
+                                                engine):
+    """F8: a TIMESTAMP column of naive, ``T``-separated or zoned text,
+    with NULLs, inferred or given by ``schema=``, reads as the JAX
+    package's read of the same file, on the scan and on the CPU
+    engine's read."""
+    from spark_rapids_tpu import types as JT
+
+    path = _stamp_csv(tmp_path, kind)
+    schema = T.Schema([T.Field("a", T.LONG), T.Field("t", T.TIMESTAMP)]) \
+        if given else None
+    jschema = JT.Schema([JT.Field("a", JT.LONG),
+                         JT.Field("t", JT.TIMESTAMP)]) if given else None
+    df = _port().read_csv(path, schema=schema)
+    got = df.collect() if engine == "scan" else execute_cpu(df._plan)
+    jdf = TpuSession().read_csv(path, schema=jschema)
+    want = jdf.collect()
+    assert got.schema.field("t").type == pa.timestamp("us", tz="UTC")
+    assert got.to_pylist() == want.to_pylist()
+    assert jexecute_cpu(jdf._plan).to_pylist() == want.to_pylist()
+    assert got.column("t").null_count == 7
+
+
 def test_input_file_name_over_csv(tmp_path):
     p = str(tmp_path / "a.csv")
     with open(p, "w") as f:

@@ -43,6 +43,8 @@ from spark_rapids_tpu_torch.plan import runtime_filter as RF
 TTB = "spark.rapids.tpu.sql.scan.taskTargetBytes"
 BCAST = "spark.rapids.tpu.sql.autoBroadcastJoinThresholdBytes"
 RF_ON = "spark.rapids.tpu.sql.runtimeFilter.enabled"
+RF_MAX_BUILD_ROWS = "spark.rapids.tpu.sql.runtimeFilter.maxBuildRows"
+RF_FPP = "spark.rapids.tpu.sql.runtimeFilter.fpp"
 ADAPTIVE = "spark.rapids.tpu.sql.adaptive.enabled"
 #: kind -> (JAX type, port type, numpy dtype, value range)
 _I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
@@ -513,18 +515,18 @@ def test_disabled_reproduces_the_unfiltered_plan(tmp_path, bcast):
     assert [rf.ready for rf in RF.plan_runtime_filters(plan)] == [True]
 
 
-def test_unselective_build_side_gets_no_filter(tmp_path, monkeypatch):
+def test_unselective_build_side_gets_no_filter(tmp_path):
     facts, dim, lt = _fact_and_dim(tmp_path, n=1024)
     s = TorchSession(device="cpu")
     assert _scans_with_filters(_star(s, facts, dim, lt).physical_plan())
-    monkeypatch.setattr(RF, "MAX_BUILD_ROWS", 10)
-    assert not _scans_with_filters(_star(s, facts, dim, lt).physical_plan())
+    capped = TorchSession({RF_MAX_BUILD_ROWS: 10}, device="cpu")
+    assert not _scans_with_filters(
+        _star(capped, facts, dim, lt).physical_plan())
 
 
-def test_a_tiny_bloom_still_joins_exactly(tmp_path, monkeypatch):
-    monkeypatch.setattr(RF, "FPP", 0.5)
+def test_a_tiny_bloom_still_joins_exactly(tmp_path):
     facts, dim, lt = _fact_and_dim(tmp_path, n=2048)
-    s = TorchSession(device="cpu")
+    s = TorchSession({RF_FPP: 0.5}, device="cpu")
     off = TorchSession({RF_ON: False}, device="cpu")
     assert _rows(_star(s, facts, dim, lt).collect()) == \
         _rows(_star(off, facts, dim, lt).collect())
